@@ -1,0 +1,37 @@
+"""Weight bridge: numpy arrays (e.g. ``np.asarray`` of the JAX package's
+params) to torch tensors, name for name.
+
+numpy has no bfloat16 of its own; JAX hands its bf16 arrays over as the
+``ml_dtypes`` ``bfloat16`` dtype.  Those bytes are reinterpreted through a
+``uint16`` view, so the bridge needs neither jax nor ml_dtypes.
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+
+def tensor_from_numpy(a: np.ndarray, device="cpu",
+                      dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """One array to a tensor on ``device``: bf16 bit for bit, every other
+    dtype through :func:`torch.from_numpy`; ``dtype`` casts afterwards.
+    The array is copied first: arrays from JAX are read-only, and the port
+    writes its KV pools in place."""
+    a = np.array(a, copy=True, order="C")
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    t = t.to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def params_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
+                      dtype: Optional[torch.dtype] = None
+                      ) -> Dict[str, torch.Tensor]:
+    """A dict of named arrays (params keyed ``blk.0.attn.wq`` ..., or a
+    paged cache's ``k``/``v`` pools) to the same dict of tensors."""
+    return {name: tensor_from_numpy(a, device, dtype)
+            for name, a in arrays.items()}

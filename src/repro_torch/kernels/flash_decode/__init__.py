@@ -1,0 +1,5 @@
+from .ops import flash_decode_paged
+from .ref import decode_attention_ref, gather_pages, paged_decode_attention_ref
+
+__all__ = ["flash_decode_paged", "decode_attention_ref", "gather_pages",
+           "paged_decode_attention_ref"]

@@ -1,0 +1,100 @@
+"""Serving launcher of the port: asyncio streaming server over paged
+continuous batching, on the GPU unless ``--device cpu``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+
+It serves the arch's smoke config with random weights (seed 0), as the JAX
+launcher does.  Requests are submitted through
+:class:`repro_torch.serve.AsyncServeFrontend` and stream their tokens back
+concurrently.  ``--prefix-sharing`` turns on the refcounted prefix cache;
+``--slo-mix`` marks every other request TTFT-class.
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; the hand-written kernels) or "
+                         "'cpu' (their plain PyTorch versions)")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="page pool size (default: slots * 256/page_size)")
+    ap.add_argument("--prefill-chunk", type=int, default=16)
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="refcounted prefix cache with copy-on-write pages")
+    ap.add_argument("--slo-mix", action="store_true",
+                    help="submit every other request as TTFT-class (priority "
+                         "admission; the rest are throughput-class FIFO)")
+    args = ap.parse_args(argv)
+
+    from ..configs import get_config
+    from ..models import build_model
+    from ..serve import (SLO_THROUGHPUT, SLO_TTFT, AsyncServeFrontend,
+                         PagedServeEngine)
+
+    cfg = get_config(args.arch, smoke=True)
+    bundle = build_model(cfg, device=args.device)
+    params = bundle.init_params()
+    engine = PagedServeEngine(bundle, params, device=args.device,
+                              slots=args.slots, page_size=args.page_size,
+                              num_pages=args.num_pages,
+                              prefill_chunk=args.prefill_chunk,
+                              prefix_sharing=args.prefix_sharing)
+
+    # a shared prompt head (the "system prompt") + a per-request tail, so
+    # --prefix-sharing has something to dedupe
+    head_len = max(args.prompt_len // 2, 1)
+    head = list(range(2, 2 + head_len))
+
+    async def serve() -> list:
+        async with AsyncServeFrontend(engine) as front:
+            streams = []
+            for i in range(args.requests):
+                slo = (SLO_TTFT if args.slo_mix and i % 2 else
+                       SLO_THROUGHPUT)
+                tail = [100 + i] * (args.prompt_len - head_len)
+                streams.append(await front.submit(
+                    head + tail, max_new_tokens=args.max_new, slo=slo))
+            await asyncio.gather(*(s.drain() for s in streams))
+            return [s.metrics() for s in streams]
+
+    rows = asyncio.run(serve())
+
+    done = sum(1 for row in rows if row["tokens"] > 0)
+    print(f"served {done}/{args.requests} requests on {engine.device}")
+    for row in rows:
+        ttft = f"{row['ttft_s'] * 1e3:.1f}ms" if row["ttft_s"] else "-"
+        lat = f"{row['latency_s'] * 1e3:.1f}ms" if row["latency_s"] else "-"
+        print(f"  r{row['rid']:<3} slo={row['slo']:<10} "
+              f"tokens={row['tokens']:<4} ttft={ttft:<9} latency={lat:<9} "
+              f"preempt={row['preemptions']} jumped={row['queue_jumped']}")
+    m = engine.metrics
+    print(f"  ticks={m.ticks}  prefill={m.prefill_tokens} tok "
+          f"({m.prefill_tps:.1f} tok/s)  decode={m.decode_tokens} tok "
+          f"({m.decode_tps:.1f} tok/s)")
+    if m.ttfts:
+        print(f"  ttft mean={m.mean_ttft * 1e3:.1f}ms "
+              f"p50={m.p50_ttft * 1e3:.1f}ms")
+    print(f"  page utilization peak={m.peak_page_utilization:.0%} "
+          f"mean={m.mean_page_utilization:.0%}  "
+          f"preemptions={m.preemptions}")
+    if m.prefix_hit_requests or m.cow_copies:
+        print(f"  prefix cache: hits={m.prefix_hit_requests} req / "
+              f"{m.prefix_hit_tokens} tok  cow={m.cow_copies}  "
+              f"effective-KV x{m.effective_kv_multiplier:.2f} "
+              f"({m.prompt_pages_logical} logical / "
+              f"{m.prompt_pages_unique} unique pages)")
+
+
+if __name__ == "__main__":
+    main()

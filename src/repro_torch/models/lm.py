@@ -1,0 +1,130 @@
+"""Decoder-only dense LM on a paged KV cache, in PyTorch.
+
+Port of the dense-family paged-serving subset of the JAX package's
+``repro.models.lm``: the parameter layout of ``build_params``,
+``init_paged_cache`` and ``lm_decode_paged``.  Parameters keep the JAX names
+and the stacked layout -- ``blk.0.attn.wq`` is (n_layers, d, h·dh), and
+layer ``i`` uses the (K, N) slice ``[i]`` as it lies in memory.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..configs.base import ModelConfig
+from .layers import Params, attention_decode_paged, linear, mask_vocab_logits, \
+    rms_norm, swiglu
+
+#: name -> (shape, init scale); scale 0 means zeros (the norms' offsets)
+ParamSpecs = Dict[str, Tuple[Tuple[int, ...], float]]
+
+_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.num_experts:
+        raise NotImplementedError(
+            f"the port serves the dense family only so far, not "
+            f"{cfg.family!r} ({cfg.name})")
+
+
+def build_params(cfg: ModelConfig) -> ParamSpecs:
+    """Shapes and init scales of the dense LM, name for name as the JAX
+    ``build_params`` lays them out (``moe_every`` is 1, so every layer is
+    ``blk.0.*`` stacked over ``num_layers``)."""
+    _check_dense(cfg)
+    d, n, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
+    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    specs: ParamSpecs = {"embed": ((cfg.padded_vocab, d), 0.02)}
+    for name, shape in (("attn.wq", (n, d, h * dh)),
+                        ("attn.wk", (n, d, hkv * dh)),
+                        ("attn.wv", (n, d, hkv * dh)),
+                        ("attn.wo", (n, h * dh, d)),
+                        ("mlp.w_gate", (n, d, ff)),
+                        ("mlp.w_up", (n, d, ff)),
+                        ("mlp.w_down", (n, ff, d))):
+        specs[f"blk.0.{name}"] = (shape, shape[-2] ** -0.5)  # 1/sqrt(fan_in)
+    specs["blk.0.ln1"] = ((n, d), 0.0)
+    specs["blk.0.ln2"] = ((n, d), 0.0)
+    specs["final_norm"] = ((d,), 0.0)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ((d, cfg.padded_vocab), d ** -0.5)
+    return specs
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> Params:
+    """Random parameters, ``normal * scale`` drawn in fp32 and rounded to
+    bf16 (as the JAX builder does), in sorted-name order from ``generator``
+    (which must live on ``device``).  Every tensor is drawn in blocks of at
+    most 2^24 values (one layer slice at a time for the stacked weights), so
+    no fp32 copy of a whole tensor (7.5 GB for the stacked ``w_gate`` of
+    llama3-8b) is ever held."""
+    out: Params = {}
+    for name, (shape, scale) in sorted(build_params(cfg).items()):
+        t = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        if scale:
+            rows = t.reshape(-1, shape[-1])
+            step = max(1, (1 << 24) // shape[-1])
+            for r in range(0, rows.shape[0], step):
+                blk = rows[r:r + step]
+                blk.copy_(torch.randn(blk.shape, generator=generator,
+                                      dtype=torch.float32, device=device)
+                          * scale)
+        out[name] = t
+    return out
+
+
+def init_paged_cache(cfg: ModelConfig, pool_pages: int, page_size: int,
+                     kv_dtype: str = "bfloat16", device="cpu"
+                     ) -> Dict[str, torch.Tensor]:
+    """Per-layer KV page pools ``(n_layers, 1, pool_pages, page_size, Hkv,
+    Dh)`` -- the JAX shape, whose second axis is ``moe_every`` (1 here).
+    ``pool_pages`` includes the reserved null page 0."""
+    _check_dense(cfg)
+    if kv_dtype not in _KV_DTYPES:
+        raise NotImplementedError(f"kv_dtype {kv_dtype!r} is not ported "
+                                  "(bfloat16 and float32 are)")
+    shape = (cfg.num_layers, 1, pool_pages, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    dt = _KV_DTYPES[kv_dtype]
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return mask_vocab_logits(linear(x, head), cfg.vocab_size)
+
+
+def lm_decode_paged(
+    params: Params,
+    cfg: ModelConfig,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,        # (B, T) new tokens; T=1 decode, T=chunk prefill
+    lengths: torch.Tensor,       # (B,) int32 tokens already cached per slot
+    new_counts: torch.Tensor,    # (B,) int32 real new tokens this call (<= T)
+    block_tables: torch.Tensor,  # (B, P_max) int32
+) -> torch.Tensor:
+    """Multi-token decode/prefill step over the paged cache.
+
+    Returns logits ``(B, T, V)``; the caller reads row ``new_counts[b]-1``
+    of slot ``b`` and ignores padded rows.  The new K/V are written into
+    ``cache["k"]`` / ``cache["v"]`` in place (the JAX function returns a new
+    cache instead)."""
+    _check_dense(cfg)
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.num_layers):
+        lp = {name[len("blk.0."):]: w[i] for name, w in params.items()
+              if name.startswith("blk.0.")}
+        h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
+        x = x + attention_decode_paged(lp, "attn", cfg, h, cache["k"][i, 0],
+                                       cache["v"][i, 0], lengths, new_counts,
+                                       block_tables)
+        h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
+        x = x + swiglu(h, lp["mlp.w_gate"], lp["mlp.w_up"], lp["mlp.w_down"])
+    x = rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
+    return _lm_head(params, cfg, x)

@@ -1,0 +1,377 @@
+"""Paged continuous-batching serving engine, in PyTorch.
+
+Port of the JAX package's ``repro.serve.engine`` for the dense family:
+:class:`EngineMetrics` and :class:`PagedServeEngine` with chunked prefill,
+preemption and the refcounted prefix cache.  The tensor-parallel, graph,
+recurrent-state, speculative and autotune branches of the JAX engine are
+not ported yet, nor is its contiguous ``ServeEngine`` baseline.
+
+The host side (page allocator, scheduler, block tables) is the same numpy
+code as in the JAX package; the device side is the model's KV page pools,
+written in place by every forward, and COW / defrag page moves are in-place
+slice assignments on those pools.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..models.registry import ModelBundle
+from .paged_cache import OutOfPages, PagedKVCache
+from .scheduler import DECODING, DONE, PREFILLING, FifoScheduler, Request
+
+
+@dataclasses.dataclass
+class EngineMetrics:
+    """Aggregate serving metrics, accumulated per tick by the engine."""
+    ticks: int = 0
+    requests_done: int = 0
+    prefill_tokens: int = 0
+    decode_tokens: int = 0
+    preemptions: int = 0
+    prefill_calls: int = 0        # prefill-chunk forwards (B=1, T=chunk)
+    decode_calls: int = 0         # decode-tick forwards (B=slots, T=1)
+    prefill_time_s: float = 0.0   # device time inside prefill-chunk calls
+    decode_time_s: float = 0.0    # device time inside decode-tick calls
+    started_at: float = dataclasses.field(default_factory=time.perf_counter)
+    ttfts: List[float] = dataclasses.field(default_factory=list)
+    util_samples: List[float] = dataclasses.field(default_factory=list)
+    # prefix cache (prefix_sharing=True); hit/cow stay zero without it
+    prefix_hit_tokens: int = 0    # prompt tokens whose KV came from the
+                                  #   prefix cache instead of prefill
+    prefix_hit_requests: int = 0  # admissions that matched a cached prefix
+    cow_copies: int = 0           # device page copies from COW splits
+    prompt_pages_logical: int = 0  # sum over admissions of the pages each
+                                   #   prompt would cost without sharing
+    prompt_pages_unique: int = 0   # net new physical pages prefill actually
+                                   #   consumed (fresh + COW - dedup)
+
+    @property
+    def elapsed(self) -> float:
+        return time.perf_counter() - self.started_at
+
+    @property
+    def decode_tps(self) -> float:
+        """Decode tokens per second of *decode device time* (phase-local,
+        so prefill pressure and host scheduling don't dilute it)."""
+        return self.decode_tokens / max(self.decode_time_s, 1e-9)
+
+    @property
+    def prefill_tps(self) -> float:
+        """Prompt tokens per second of *prefill device time*."""
+        return self.prefill_tokens / max(self.prefill_time_s, 1e-9)
+
+    @property
+    def mean_ttft(self) -> float:
+        return float(np.mean(self.ttfts)) if self.ttfts else float("nan")
+
+    @property
+    def p50_ttft(self) -> float:
+        return float(np.median(self.ttfts)) if self.ttfts else float("nan")
+
+    @property
+    def effective_kv_multiplier(self) -> float:
+        """Logical prompt pages served per physical page consumed -- the
+        effective-KV-capacity multiplier prefix sharing buys."""
+        return self.prompt_pages_logical / max(self.prompt_pages_unique, 1)
+
+    @property
+    def peak_page_utilization(self) -> float:
+        return max(self.util_samples, default=0.0)
+
+    @property
+    def mean_page_utilization(self) -> float:
+        return float(np.mean(self.util_samples)) if self.util_samples else 0.0
+
+    def summary(self) -> Dict[str, float]:
+        out = {
+            "ticks": self.ticks,
+            "requests_done": self.requests_done,
+            "prefill_tokens": self.prefill_tokens,
+            "decode_tokens": self.decode_tokens,
+            "preemptions": self.preemptions,
+            "prefill_calls": self.prefill_calls,
+            "decode_calls": self.decode_calls,
+            "elapsed_s": self.elapsed,
+            "prefill_time_s": self.prefill_time_s,
+            "decode_time_s": self.decode_time_s,
+            "prefill_tps": self.prefill_tps,
+            "decode_tps": self.decode_tps,
+            "mean_ttft_s": self.mean_ttft if self.ttfts else None,
+            "p50_ttft_s": self.p50_ttft if self.ttfts else None,
+            "peak_page_utilization": self.peak_page_utilization,
+            "mean_page_utilization": self.mean_page_utilization,
+        }
+        if self.prefix_hit_requests or self.cow_copies:
+            out.update({
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "prefix_hit_requests": self.prefix_hit_requests,
+                "cow_copies": self.cow_copies,
+                "prompt_pages_logical": self.prompt_pages_logical,
+                "prompt_pages_unique": self.prompt_pages_unique,
+                "effective_kv_multiplier": self.effective_kv_multiplier,
+            })
+        return out
+
+
+class PagedServeEngine:
+    """Continuous batching over a paged KV cache with chunked prefill.
+
+    Device state: per-layer KV page pools (``bundle.init_paged_cache``),
+    updated in place by ``bundle.decode_paged``: a slot-batched decode tick
+    (B=slots, T=1) and a B=1 prefill-chunk step (T=``prefill_chunk``) share
+    that one cache contract.  Host state: the page allocator
+    (``PagedKVCache``) and the FIFO scheduler.
+
+    The engine runs on ``device`` (default ``"cuda"``; it raises without a
+    card unless ``device="cpu"`` is passed), which must be the bundle's.
+    Phase times are read after ``torch.cuda.synchronize()``, so they hold
+    the device's work and not only its enqueueing.
+
+    ``prefix_sharing=True`` turns on the refcounted prefix cache: at admit
+    the longest already-cached prefix of the prompt is attached read-only
+    (prefill resumes after it), pages completed by prefill are published
+    for later requests, and the first divergent write COW-splits its shared
+    boundary page (:meth:`_sync_page_copies` copies it on the device pools).
+    Greedy outputs are token-identical to a sharing-off engine.
+    """
+
+    def __init__(self, bundle: ModelBundle, params, *, device="cuda",
+                 slots: int = 4, page_size: int = 16,
+                 num_pages: Optional[int] = None,
+                 prefill_chunk: int = 16,
+                 kv_dtype: str = "bfloat16",
+                 prefix_sharing: bool = False):
+        self.device = resolve_device(device)
+        if bundle.device != self.device:
+            raise ValueError(f"engine device {self.device} differs from the "
+                             f"bundle's {bundle.device}")
+        self.bundle = bundle
+        self.params = params
+        self.slots = slots
+        self.page_size = page_size
+        if num_pages is None:
+            num_pages = slots * max(256 // page_size, 1)
+        # bound the block-table width (and with it the logical span every
+        # gather attends over) to 256 tokens per request
+        self.kv = PagedKVCache(slots=slots, num_pages=num_pages,
+                               page_size=page_size,
+                               max_pages_per_slot=min(
+                                   num_pages, max(256 // page_size, 1)),
+                               enable_sharing=prefix_sharing)
+        self.prefix_sharing = prefix_sharing
+        self.sched = FifoScheduler(prefill_chunk=prefill_chunk)
+        self.prefill_chunk = prefill_chunk
+        self.cache = bundle.init_paged_cache(self.kv.pool_pages, page_size,
+                                             kv_dtype=kv_dtype)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.last_tokens = np.zeros((slots,), np.int64)
+        self.metrics = EngineMetrics()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _to_device(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
+
+    def _forward(self, tokens, lengths, counts, tables) -> torch.Tensor:
+        return self.bundle.decode_paged(
+            self.params, self.cache, self._to_device(tokens),
+            self._to_device(lengths), self._to_device(counts),
+            self._to_device(tables))
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy physical page ``src`` onto ``dst`` in every layer's K and V
+        pool (page axis 2), in place."""
+        for pool in self.cache.values():
+            pool[:, :, dst] = pool[:, :, src]
+
+    # -- public API -------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        if not req.prompt:
+            raise ValueError(
+                f"request {req.rid}: empty prompt (generation needs at "
+                "least one conditioning token, e.g. a BOS id)")
+        need = len(req.prompt) + req.max_new_tokens
+        cap = min(self.kv.max_tokens_per_slot(),
+                  self.kv.num_pages * self.page_size)
+        if need > cap:
+            raise ValueError(
+                f"request {req.rid}: prompt+max_new = {need} tokens exceeds "
+                f"per-request capacity {cap} (pages are exhausted even with "
+                "every other request preempted)")
+        self.sched.submit(req)
+
+    def step(self) -> int:
+        """One engine tick: admit, chunked prefill (token-budgeted), one
+        batched decode for all DECODING slots.  Returns active requests."""
+        self._admit()
+        self._prefill_tick()
+        self._decode_tick()
+        self.metrics.ticks += 1
+        self.metrics.util_samples.append(self.kv.utilization())
+        return sum(r is not None for r in self.active)
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> EngineMetrics:
+        for _ in range(max_ticks):
+            n = self.step()
+            if n == 0 and not self.sched.waiting:
+                break
+        return self.metrics
+
+    # -- tick phases ------------------------------------------------------
+    def _active_requests(self) -> List[Request]:
+        return [r for r in self.active if r is not None]
+
+    def _admit(self) -> None:
+        # gate on available pages (free + lazily-evictable prefix cache) so
+        # a freshly-preempted request is not bounced straight back into the
+        # pool that just evicted it
+        if self.kv.available_pages == 0:
+            return
+        free = [i for i, r in enumerate(self.active) if r is None]
+        for slot, req in self.sched.admit(free):
+            self.active[slot] = req
+            toks = req.prefill_tokens()
+            self.metrics.prompt_pages_logical += self.kv.pages_for(len(toks))
+            if self.prefix_sharing:
+                # attach the longest cached prefix; prefill resumes after it
+                matched = self.kv.match_prefix(slot, toks)
+                if matched:
+                    req.prefill_pos = matched
+                    self.metrics.prefix_hit_tokens += matched
+                    self.metrics.prefix_hit_requests += 1
+
+    def _preempt(self, req: Request) -> None:
+        self.kv.free_slot(req.slot)
+        self.active[req.slot] = None
+        self.sched.requeue_preempted(req)
+        self.metrics.preemptions += 1
+
+    def _ensure_pages(self, req: Request, n_tokens: int) -> bool:
+        """Grow ``req``'s slot to hold ``n_tokens``, preempting the youngest
+        active request (possibly ``req`` itself) until the pool covers it.
+        Returns False if ``req`` was preempted or nothing could be freed."""
+        while True:
+            try:
+                self.kv.allocate(req.slot, n_tokens)
+                return True
+            except OutOfPages:
+                victim = self.sched.preemption_victim(self._active_requests())
+                if victim is None:
+                    return False
+                self._preempt(victim)
+                if victim is req:
+                    return False
+
+    def _sync_page_copies(self) -> None:
+        """Copy queued COW page splits on the device pools.  Must run after
+        any host-side ``allocate`` and before the next forward."""
+        for src, dst in self.kv.pop_page_copies():
+            self._copy_page(src, dst)
+            self.metrics.cow_copies += 1
+
+    def defrag(self) -> int:
+        """Compact the page pool, host tables and device pools in lockstep;
+        returns the number of device page moves."""
+        moves = self.kv.defrag()
+        for src, dst in moves:
+            self._copy_page(src, dst)
+        return len(moves)
+
+    def _net_unique_pages(self) -> int:
+        s = self.kv.stats
+        return s["fresh_pages"] + s["cow_splits"] - s["dedup_reclaimed"]
+
+    def _prefill_tick(self) -> None:
+        prefilling = [r for r in self._active_requests()
+                      if r.state == PREFILLING]
+        unique0 = self._net_unique_pages()
+        for req, n in self.sched.prefill_plan(prefilling):
+            if self.active[req.slot] is not req:
+                continue  # preempted earlier this tick by a sibling's alloc
+            toks_all = req.prefill_tokens()
+            if not self._ensure_pages(req, req.prefill_pos + n):
+                continue
+            self._sync_page_copies()
+            chunk = toks_all[req.prefill_pos:req.prefill_pos + n]
+            padded = chunk + [0] * (self.prefill_chunk - n)
+            self._sync()
+            t0 = time.perf_counter()
+            logits = self._forward([padded], [req.prefill_pos], [n],
+                                   self.kv.block_tables[[req.slot]])
+            self._sync()
+            self.metrics.prefill_time_s += time.perf_counter() - t0
+            self.metrics.prefill_calls += 1
+            req.prefill_pos += n
+            self.kv.commit(req.slot, req.prefill_pos)
+            if self.prefix_sharing:
+                # publish completed pages so siblings (and later waves) can
+                # share them
+                self.kv.register_prefix(req.slot, toks_all)
+            self.metrics.prefill_tokens += n
+            if req.prefill_pos == len(toks_all):
+                # prompt (+ recompute suffix) fully cached: the last real
+                # row of this chunk's logits is the next-token distribution
+                nxt = int(torch.argmax(logits[0, n - 1]))
+                if not req.first_token_at:
+                    req.first_token_at = time.perf_counter()
+                    self.metrics.ttfts.append(req.ttft)
+                req.output.append(nxt)
+                self.last_tokens[req.slot] = nxt
+                req.state = DECODING
+                self._maybe_finish(req, nxt)
+        self.metrics.prompt_pages_unique += (self._net_unique_pages()
+                                             - unique0)
+
+    def _decode_tick(self) -> None:
+        # oldest first, so page pressure evicts the youngest (LIFO) and the
+        # head of the FIFO line always makes progress
+        decoding = sorted(
+            (r for r in self._active_requests() if r.state == DECODING),
+            key=lambda r: r.admit_seq)
+        for req in decoding:
+            self._ensure_pages(req, self.kv.length(req.slot) + 1)
+        self._sync_page_copies()
+        decoding = [r for r in self._active_requests() if r.state == DECODING]
+        if not decoding:
+            return
+        lengths = [self.kv.length(s) for s in range(self.slots)]
+        counts = np.zeros((self.slots,), np.int32)
+        for r in decoding:
+            counts[r.slot] = 1
+        self._sync()
+        t0 = time.perf_counter()
+        logits = self._forward(self.last_tokens[:, None], lengths, counts,
+                               self.kv.block_tables)
+        self._sync()
+        self.metrics.decode_time_s += time.perf_counter() - t0
+        self.metrics.decode_calls += 1
+        next_tokens = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        for req in decoding:
+            self.kv.commit(req.slot, self.kv.length(req.slot) + 1)
+            tok = int(next_tokens[req.slot])
+            req.output.append(tok)
+            self.last_tokens[req.slot] = tok
+            self.metrics.decode_tokens += 1
+            self._maybe_finish(req, tok)
+
+    def _maybe_finish(self, req: Request, tok: int) -> None:
+        if (req.eos_id is not None and tok == req.eos_id) or \
+           len(req.output) >= req.max_new_tokens:
+            self._finish(req)
+
+    def _finish(self, req: Request) -> None:
+        # the request's KV working set flushes back to the pool in one step
+        self.kv.free_slot(req.slot)
+        self.active[req.slot] = None
+        req.state = DONE
+        req.done = True
+        req.finished_at = time.perf_counter()
+        self.metrics.requests_done += 1

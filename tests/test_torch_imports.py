@@ -1,0 +1,83 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` never
+import jax or the JAX package, the package imports with jax unavailable,
+and its entry points refuse to drop to the CPU unless asked."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.serve import PagedServeEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+            f"{path.relative_to(ROOT)} imports {mod}"
+
+
+def test_package_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_bundle_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(get_config("llama3-8b", smoke=True))
+
+
+def test_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
+    bundle = build_model(get_config("llama3-8b", smoke=True), device="cpu")
+    params = bundle.init_params()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        PagedServeEngine(bundle, params)
+
+
+def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--requests", "1"])
+
+
+def test_kernel_build_dir_is_ignored_by_git():
+    """nvcc writes the kernels' libraries beside the package; the directory
+    is listed in .gitignore so a build never dirties a checkout."""
+    from repro_torch.kernels import _build
+    assert _build.BUILD_DIR == PORT / "_build"
+    assert "src/repro_torch/_build/" in \
+        (ROOT / ".gitignore").read_text().split()
