@@ -1,4 +1,4 @@
 from .ops import apr_matmul
-from .ref import matmul_ref
+from .ref import activation_ref, matmul_fused_ref, matmul_ref
 
-__all__ = ["apr_matmul", "matmul_ref"]
+__all__ = ["activation_ref", "apr_matmul", "matmul_fused_ref", "matmul_ref"]

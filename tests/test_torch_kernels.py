@@ -18,6 +18,7 @@ from repro.kernels.flash_decode.ref import (
     gather_pages as jax_gather_pages,
     paged_decode_attention_ref as jax_paged_ref)
 from repro_torch.bridge import tensor_from_numpy
+from repro_torch.kernels.apr_conv import ops as conv_ops
 from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
 from repro_torch.kernels.apr_matmul import ops as apr_ops
 from repro_torch.kernels.flash_decode import (flash_decode_paged,
@@ -176,7 +177,7 @@ def test_flash_decode_paged_never_takes_the_plain_path_off_the_cpu():
 CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
 
-@pytest.mark.parametrize("ops", [apr_ops, fd_ops])
+@pytest.mark.parametrize("ops", [apr_ops, fd_ops, conv_ops])
 def test_cuda_sources_export_the_wrapper_signatures(ops):
     """Each ctypes signature matches an ``extern "C"`` function of its
     ``.cu`` source, argument for argument (pointers and the stream as
