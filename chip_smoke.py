@@ -6,15 +6,27 @@
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
   2. hold each kernel against its plain PyTorch version on the card, at the
-     shapes the serving path gives it and at ragged ones;
+     shapes the serving paths give it and at ragged ones: ``apr_matmul``
+     with bf16 and int8 weights (the int8 one also bit for bit against the
+     bf16 kernel on the dequantized weight), ``flash_decode_paged`` over
+     bf16 and int8 pools, ``flash_decode`` over a contiguous cache
+     (``lengths == 0`` rows included), the conv kernels;
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound;
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
      every kernel of the path was launched as often as the path demands;
-  5. run the smoke llama3-8b config through ``decode_paged`` on the card
-     (kernels) and on the CPU (plain versions) with the same weights, and
-     compare the logits;
+  4c. serve full-width llama3-8b bf16 on the slot ServeEngine (4 requests,
+     max_seq 256; ``flash_decode`` under every layer), and the same requests
+     on the PagedServeEngine for token agreement;
+  4b. quantize the weights on the card, free the bf16 ones, and serve the 6
+     requests of phase 4 with int8 weights and int8 KV pages (int8-weight
+     ``apr_matmul``, int8 ``flash_decode_paged``); it runs after 4c so that
+     its peak memory is the int8 deployment's;
+  5. run the smoke llama3-8b config on the card (kernels) and on the CPU
+     (plain versions) with the same weights, and compare the logits and
+     greedy tokens: ``decode_paged`` in bf16, ``decode_paged`` with int8
+     weights and int8 KV, ``decode_step`` on the slot cache;
   6. run the paper's CNNs (LeNet-5, ResNet-20; random fp32 weights from a
      seed) at batch 256 with every conv on ``apr_conv``, check each
      forward's launches, run ResNet-20 on the memory-resident baseline
@@ -49,9 +61,17 @@ FP32_FLOPS_PER_S = 67e12
 #: fp32 products in another order and round once to bf16, so a value on a
 #: rounding boundary may land one bf16 ulp (<= 2^-7 relative) apart
 BF16_RTOL, ATOL = 2.0 ** -7, 1e-3
+#: |int8 flash_decode_paged - plain| <= BF16_RTOL * |plain| + Q_ATOL: the
+#: plain version (as the JAX oracle) rounds every dequantized K and V value
+#: to bf16 (relative error <= 2^-8), the kernel keeps them fp32 (as the
+#: Pallas kernel does); with O(1) values and D = 128 that moves a score by
+#: at most ~0.03 and an output by ~0.01.  The kernel is also held to the
+#: fp32-dequantized plain version at the bf16 tolerance above.
+Q_ATOL = 0.03
 #: bound on |logits(card, kernels) - logits(CPU, plain)| for the smoke model,
-#: whose logits are O(1): the decode attention kernel keeps scores and
-#: weights in fp32 where the plain path rounds them to bf16
+#: whose logits are O(1): the decode attention kernels keep scores and
+#: weights (and dequantized int8 K/V) in fp32 where the plain path rounds
+#: them to bf16
 SMOKE_LOGITS_BOUND = 0.25
 #: |apr_conv - plain| <= CONV_RTOL * |plain| + CONV_RTOL * max |plain|: both
 #: sum exact fp32 products in fp32 (no TF32), in another order
@@ -105,11 +125,11 @@ def bound_ms(nbytes: float, flops: float,
                 bound_by="bytes" if t_mem >= t_ops else "operations")
 
 
-def max_err(got, ref) -> tuple:
+def max_err(got, ref, atol: float = ATOL) -> tuple:
     """(max |got - ref|, whether every element is within tolerance)."""
     g, r = got.float(), ref.float()
     diff = (g - r).abs()
-    ok = bool((diff <= BF16_RTOL * r.abs() + ATOL).all()) and \
+    ok = bool((diff <= BF16_RTOL * r.abs() + atol).all()) and \
         bool(g.isfinite().all())
     return float(diff.max()) if diff.numel() else 0.0, ok
 
@@ -124,11 +144,13 @@ def conv_err(got, ref) -> tuple:
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
-def profile_device(torch, fn, reps: int):
+def profile_device(torch, fn, reps: int, host=None):
     """Device milliseconds per call of ``fn()``, by kernel name, over
     ``reps`` calls traced by ``torch.profiler`` (device-side events only: an
     aten op's own row repeats its kernels); None where the profiler cannot
-    trace, since it is a measurement and not a phase."""
+    trace, since it is a measurement and not a phase.  A dict passed as
+    ``host`` receives the host milliseconds per call by op (self CPU
+    time) of the same trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -143,6 +165,8 @@ def profile_device(torch, fn, reps: int):
     by_kernel = {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
+            if host is not None and ev.self_cpu_time_total > 0:
+                host[ev.key] = ev.self_cpu_time_total / 1e3 / reps
             continue
         t = ev.self_device_time_total / 1e3 / reps
         if t > 0:
@@ -180,13 +204,14 @@ def main() -> int:
     from repro_torch.kernels.apr_conv import ops as conv_ops
     from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
     from repro_torch.kernels.apr_matmul import ops as apr_ops
-    from repro_torch.kernels.flash_decode import (flash_decode_paged,
-                                                  gather_pages,
-                                                  paged_decode_attention_ref)
+    from repro_torch.kernels.flash_decode import (
+        decode_attention_ref, flash_decode, flash_decode_paged, gather_pages,
+        paged_decode_attention_q_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.models import build_model
     from repro_torch.models.cnn import CNNS, conv_geometries, hbm_conv
-    from repro_torch.serve import PagedServeEngine, Request
+    from repro_torch.quant import QuantizedTensor, quantize_channelwise
+    from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -215,8 +240,9 @@ def main() -> int:
     report["build_s"] = build_s
 
     # ------------------------------------------------------------ 2 correct
-    errs = {"apr_matmul": 0.0, "flash_decode_paged": 0.0, "apr_conv": 0.0,
-            "apr_conv_hbm": 0.0}
+    errs = {"apr_matmul": 0.0, "apr_matmul_int8w": 0.0,
+            "flash_decode_paged": 0.0, "flash_decode_paged_int8": 0.0,
+            "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -240,7 +266,24 @@ def main() -> int:
             errs["apr_matmul"] = max(errs["apr_matmul"], err)
             cases.append(("apr_matmul", f"M={m} K={k} N={n} off={off} "
                           f"out={str(out_dtype)[6:]}", err, ok))
-        del x, xb, w
+        # the int8 weight of w (codes offset like x), against the plain
+        # version and, bit for bit, the bf16 kernel on its dequantized copy
+        qt = quantize_channelwise(w.float())
+        qb = torch.empty(k * n + off, dtype=torch.int8, device=dev)
+        qt.q = qb[off:].view(k, n).copy_(qt.q)
+        w_deq = qt.dequantize(torch.bfloat16)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = apr_matmul(x, qt, out_dtype=out_dtype)
+            ref = matmul_ref(x, w_deq, out_dtype)
+            same = apr_matmul(x, w_deq, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            err, ok = max_err(got, ref)
+            bits = torch.equal(got, same)
+            errs["apr_matmul_int8w"] = max(errs["apr_matmul_int8w"], err)
+            cases.append(("apr_matmul_int8w", f"M={m} K={k} N={n} off={off} "
+                          f"out={str(out_dtype)[6:]} bit-equal={bits}", err,
+                          ok and bits))
+        del x, xb, w, qt, qb, w_deq
 
     def paged_inputs(b, hq, hkv, d, ps, p_max, lengths, layers=1):
         need = [-(-n // ps) for n in lengths]
@@ -275,6 +318,45 @@ def main() -> int:
         errs["flash_decode_paged"] = max(errs["flash_decode_paged"], err)
         cases.append(("flash_decode_paged", f"B={b} Hq={hq} Hkv={hkv} D={d} "
                       f"ps={ps} P_max={p_max} lengths={lengths}", err, ok))
+        # the same pools as int8 codes with per-(slot, head) fp32 scales:
+        # against the plain version (bf16-rounded dequant, Q_ATOL) and the
+        # plain version on fp32-dequantized pools (bf16 tolerance)
+        kq, vq = (quantize_channelwise(t[0], axis=-1) for t in (kp, vp))
+        ks, vs = kq.scale[..., 0], vq.scale[..., 0]
+        got = flash_decode_paged(q, kq.q, vq.q, lens, tables, k_scales=ks,
+                                 v_scales=vs)
+        ref = paged_decode_attention_q_ref(q, kq.q, vq.q, ks, vs, lens,
+                                           tables)
+        ref32 = paged_decode_attention_ref(
+            q.float(), kq.dequantize(torch.float32),
+            vq.dequantize(torch.float32), lens, tables).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, ref, Q_ATOL)
+        err32, ok32 = max_err(got, ref32)
+        ok = ok and ok32 and all(not got[i].float().any() for i in zero_rows)
+        errs["flash_decode_paged_int8"] = max(
+            errs["flash_decode_paged_int8"], err)
+        cases.append(("flash_decode_paged_int8", f"B={b} Hq={hq} Hkv={hkv} "
+                      f"D={d} ps={ps} P_max={p_max} lengths={lengths} "
+                      f"fp32-dequant err={err32:.3g}", err, ok))
+
+    # the contiguous cache of the slot engine, rows of length 0 included:
+    # they return the mean of V over all S positions, as the JAX kernel does
+    for b, hq, hkv, d, s_len, lengths in [
+            (4, 32, 8, 128, 256, [40, 96, 150, 196]),     # serving shape
+            (4, 32, 8, 128, 256, [0, 1, 33, 256]),
+            (3, 8, 2, 64, 48, [33, 0, 7]),                # S not a chunk mult.
+            (2, 14, 2, 64, 64, [64, 0])]:                 # group of 7
+        q = randn(b, hq, d)
+        k_c, v_c = randn(b, s_len, hkv, d), randn(b, s_len, hkv, d)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        got = flash_decode(q, k_c, v_c, lens)
+        ref = decode_attention_ref(q, k_c, v_c, lens)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, ref)
+        errs["flash_decode"] = max(errs["flash_decode"], err)
+        cases.append(("flash_decode", f"B={b} Hq={hq} Hkv={hkv} D={d} "
+                      f"S={s_len} lengths={lengths}", err, ok))
 
     def conv_inputs(xs, fs, dtype=torch.float32):
         """A random NHWC input and an HWIO filter scaled by K^-1/2, so the
@@ -341,10 +423,11 @@ def main() -> int:
                 cases.append(("apr_conv", f"{conv_label(xs, fs, s, p, 0)} "
                               f"{act}, {bname}", err, ok))
     print(f"[2] kernel vs plain version on the card (tolerance "
-          f"{BF16_RTOL:.4g}*|plain| + {ATOL:g}; conv kernels "
+          f"{BF16_RTOL:.4g}*|plain| + {ATOL:g}; int8 pools "
+          f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; conv kernels "
           f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|):")
     for name, shape, err, ok in cases:
-        print(f"    {'ok  ' if ok else 'FAIL'} {name:19s} {shape:50s} "
+        print(f"    {'ok  ' if ok else 'FAIL'} {name:23s} {shape:50s} "
               f"max_abs_err={err:.3g}")
     report["correctness"] = [dict(kernel=n, case=s, max_abs_err=e, ok=o)
                              for n, s, e, o in cases]
@@ -371,8 +454,26 @@ def main() -> int:
                        plain_ms=t_p, library_ms=t_l, weight_buffers=nbuf,
                        **bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n))
             timing.append(row)
-            per_shape[(m, k, n)] = row
-            del ws, x
+            per_shape[("apr_matmul", m, k, n)] = row
+            # the same weights as int8 codes + fp32 column scales; the
+            # library yardstick multiplies by the dequantized bf16 weight
+            qts = [quantize_channelwise(w.float()) for w in ws]
+            deqs = [qt.dequantize(torch.bfloat16) for qt in qts]
+            del ws
+            t_k = cuda_ms(torch, lambda i: apr_matmul(
+                x, qts[i % nbuf], out_dtype=torch.bfloat16), iters)
+            t_p = cuda_ms(torch, lambda i: matmul_ref(
+                x, qts[i % nbuf].dequantize(torch.bfloat16), torch.bfloat16),
+                iters)
+            t_l = cuda_ms(torch, lambda i: torch.matmul(x, deqs[i % nbuf]),
+                          iters)
+            row = dict(kernel="apr_matmul_int8w", M=m, K=k, N=n, ms=t_k,
+                       plain_ms=t_p, library_ms=t_l, weight_buffers=nbuf,
+                       **bound_ms(2 * m * k + k * n + 4 * n + 2 * m * n,
+                                  2 * m * k * n))
+            timing.append(row)
+            per_shape[("apr_matmul_int8w", m, k, n)] = row
+            del qts, deqs, x
     b, hq, hkv, d, ps, p_max = 4, 32, 8, 128, 16, 16
     layers = 32
     q, kp, vp, lens, tables = paged_inputs(b, hq, hkv, d, ps, p_max,
@@ -399,16 +500,66 @@ def main() -> int:
                   plain_ms=t_p, library_ms=t_l,
                   **bound_ms(fd_bytes, 4 * tokens * hq * d))
     timing.append(fd_row)
-    del q, kp, vp
+    # the same pools as int8 codes with per-(slot, head) fp32 scales
+    kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
+    ks, vs = kq.scale[..., 0], vq.scale[..., 0]
+    del kp, vp
+
+    def library_attention_q(i):
+        lay = i % layers
+        kk, vv = ((gather_pages(c.q[lay], tables).float()
+                   * gather_pages(sc[lay], tables)[..., None]
+                   ).to(torch.bfloat16).permute(0, 2, 1, 3)
+                  for c, sc in ((kq, ks), (vq, vs)))
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kk, vv, attn_mask=live[:, None, None],
+            enable_gqa=True)
+
+    t_k = cuda_ms(torch, lambda i: flash_decode_paged(
+        q, kq.q[i % layers], vq.q[i % layers], lens, tables,
+        k_scales=ks[i % layers], v_scales=vs[i % layers]), 200)
+    t_p = cuda_ms(torch, lambda i: paged_decode_attention_q_ref(
+        q, kq.q[i % layers], vq.q[i % layers], ks[i % layers],
+        vs[i % layers], lens, tables), 50)
+    t_l = cuda_ms(torch, library_attention_q, 50)
+    fdq_bytes = (2 * b * hq * d * 2 + tokens * hkv * (d + 4) * 2
+                 + b * (p_max + 1) * 4)
+    fdq_row = dict(kernel="flash_decode_paged_int8", B=b, Hq=hq, Hkv=hkv,
+                   D=d, ps=ps, P_max=p_max, lengths=main_lengths, ms=t_k,
+                   plain_ms=t_p, library_ms=t_l,
+                   **bound_ms(fdq_bytes, 4 * tokens * hq * d))
+    timing.append(fdq_row)
+    del kq, vq, ks, vs
+    # the slot engine's contiguous cache at max_seq 256, same lengths; the
+    # bound counts the live tokens' K and V
+    s_len = 256
+    kc, vc = randn(layers, b, s_len, hkv, d), randn(layers, b, s_len, hkv, d)
+    live_c = live[:, :s_len]
+    t_k = cuda_ms(torch, lambda i: flash_decode(
+        q, kc[i % layers], vc[i % layers], lens), 200)
+    t_p = cuda_ms(torch, lambda i: decode_attention_ref(
+        q, kc[i % layers], vc[i % layers], lens), 50)
+    t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        q[:, :, None], kc[i % layers].permute(0, 2, 1, 3),
+        vc[i % layers].permute(0, 2, 1, 3), attn_mask=live_c[:, None, None],
+        enable_gqa=True), 50)
+    fdc_row = dict(kernel="flash_decode", B=b, Hq=hq, Hkv=hkv, D=d, S=s_len,
+                   lengths=main_lengths, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                   **bound_ms(2 * b * hq * d * 2 + tokens * hkv * d * 2 * 2
+                              + b * 4, 4 * tokens * hq * d))
+    timing.append(fdc_row)
+    del q, kc, vc
     torch.cuda.empty_cache()
     print("[3] kernel times (CUDA events, cold weights: buffers rotated past "
           "the 50 MB L2):")
     for r in timing:
-        shape = (f"M={r['M']:<3d} K={r['K']:<6d} N={r['N']:<7d}"
-                 if r["kernel"] == "apr_matmul" else
-                 f"B={r['B']} Hq={r['Hq']} Hkv={r['Hkv']} D={r['D']} "
-                 f"ps={r['ps']} lengths={r['lengths']}")
-        print(f"    {r['kernel']:19s} {shape:40s} kernel_ms={r['ms']:.4f} "
+        if "M" in r:
+            shape = f"M={r['M']:<3d} K={r['K']:<6d} N={r['N']:<7d}"
+        else:
+            shape = (f"B={r['B']} Hq={r['Hq']} Hkv={r['Hkv']} D={r['D']} "
+                     + (f"ps={r['ps']}" if "ps" in r else f"S={r['S']}")
+                     + f" lengths={r['lengths']}")
+        print(f"    {r['kernel']:23s} {shape:40s} kernel_ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"{r['bound_ms'] / r['ms']:.0%} of bound")
@@ -439,17 +590,30 @@ def main() -> int:
                       50)
         t_l = cuda_ms(torch, lambda i: F.conv2d(x_cl, w_cl, stride=s,
                                                 padding=p), 50)
+        # the fused epilogue (B7's conv route): bias + ReLU at the flush,
+        # against the plain version and F.conv2d with bias, then F.relu
+        bias = torch.randn(fs[3], generator=gen, device=dev)
+        t_f = cuda_ms(torch, lambda i: apr_conv2d_fused(
+            x, f, bias, activation="relu", stride=s, padding=p), 50)
+        t_fp = cuda_ms(torch, lambda i: conv2d_fused_ref(
+            x, f, bias, "relu", stride=s, padding=p), 50)
+        t_fl = cuda_ms(torch, lambda i: F.relu(F.conv2d(
+            x_cl, w_cl, bias, stride=s, padding=p)), 50)
         out_elems = CNN_BATCH * ((xs[1] + 2 * p - fs[0]) // s + 1) * \
             ((xs[2] + 2 * p - fs[1]) // s + 1) * fs[3]
         partial_bytes = (reduction_hbm_traffic(out_elems, steps, 4, "hbm")
                          - reduction_hbm_traffic(out_elems, steps, 4, "apr"))
+        fused = bound_ms(4 * (x.numel() + f.numel() + fs[3] + out_elems),
+                         2 * out_elems * (k + 1), FP32_FLOPS_PER_S)
         conv_rows[key] = dict(
             layer=g["param"], count=1, x_shape=xs, f_shape=fs, stride=s,
             padding=p, K=k, hbm_steps=steps, ms=t_k, hbm_ms=t_h,
             plain_ms=t_p, library_ms=t_l, partial_bytes=partial_bytes,
+            fused_ms=t_f, fused_plain_ms=t_fp, fused_library_ms=t_fl,
+            fused_bound_ms=fused["bound_ms"],
             **bound_ms(4 * (x.numel() + f.numel() + out_elems),
                        2 * out_elems * k, FP32_FLOPS_PER_S))
-        del x, f, x_cl, w_cl
+        del x, f, x_cl, w_cl, bias
     conv_rows = list(conv_rows.values())
     print(f"    ResNet-20 convs at batch {CNN_BATCH} (CUDA events, warm L2; "
           f"bound: fp32 FMA at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s or "
@@ -461,7 +625,10 @@ def main() -> int:
               f"+{r['partial_bytes'] / 1e6:.1f} MB partials) plain "
               f"{r['plain_ms']:.4f} F.conv2d {r['library_ms']:.4f} bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['bound_ms'] / r['ms']:.0%} of bound")
+              f"{r['bound_ms'] / r['ms']:.0%} of bound; fused bias+relu "
+              f"{r['fused_ms']:.4f} plain {r['fused_plain_ms']:.4f} "
+              f"F.conv2d+bias,relu {r['fused_library_ms']:.4f} bound "
+              f"{r['fused_bound_ms']:.4f}")
 
     def per_forward(key):
         """Sum over the 21 convs of one ResNet-20 forward at CNN_BATCH."""
@@ -470,7 +637,8 @@ def main() -> int:
     report["conv_timing"] = conv_rows
     conv_total = {key: per_forward(key) for key in (
         "ms", "hbm_ms", "plain_ms", "library_ms", "bound_ms", "t_mem_ms",
-        "t_ops_ms", "partial_bytes")}
+        "t_ops_ms", "partial_bytes", "fused_ms", "fused_plain_ms",
+        "fused_library_ms", "fused_bound_ms")}
     report["conv_per_forward"] = conv_total
     print(f"    per ResNet-20 forward: apr_conv {conv_total['ms']:.4f} ms, "
           f"apr_conv_hbm {conv_total['hbm_ms']:.4f} ms (+"
@@ -478,16 +646,40 @@ def main() -> int:
           f"through global memory, L2/HBM), plain "
           f"{conv_total['plain_ms']:.4f} ms, F.conv2d "
           f"{conv_total['library_ms']:.4f} ms, bound "
-          f"{conv_total['bound_ms']:.4f} ms")
+          f"{conv_total['bound_ms']:.4f} ms; fused bias+relu epilogue "
+          f"{conv_total['fused_ms']:.4f} ms, plain "
+          f"{conv_total['fused_plain_ms']:.4f} ms, F.conv2d+bias then relu "
+          f"{conv_total['fused_library_ms']:.4f} ms, bound "
+          f"{conv_total['fused_bound_ms']:.4f} ms")
 
-    def per_tick(key):
+    def per_tick(key, kernel="apr_matmul"):
         """Sum over one full-width decode tick (M = slots): 7 projections
         in each of 32 layers plus the lm_head."""
-        layer = sum(cnt * per_shape[(slots, k, n)][key]
+        layer = sum(cnt * per_shape[(kernel, slots, k, n)][key]
                     for (k, n), cnt in LLAMA_DECODE_SHAPES.items())
-        return 32 * layer + per_shape[(slots,) + LM_HEAD][key]
+        return 32 * layer + per_shape[(kernel, slots) + LM_HEAD][key]
 
     # -------------------------------------------------------------- 4 serve
+    def reset_counts():
+        apr_matmul.launches = 0
+        apr_matmul.int8_launches = 0
+        flash_decode_paged.launches = 0
+        flash_decode_paged.int8_launches = 0
+        flash_decode.launches = 0
+        apr_conv2d.launches = 0
+        apr_conv2d.hbm_launches = 0
+        apr_conv2d_fused.launches = 0
+
+    def llm_counts() -> dict:
+        return {"apr_matmul": apr_matmul.launches,
+                "apr_matmul_int8w": apr_matmul.int8_launches,
+                "flash_decode_paged": flash_decode_paged.launches,
+                "flash_decode_paged_int8": flash_decode_paged.int8_launches,
+                "flash_decode": flash_decode.launches}
+
+    def expected_counts(**nonzero) -> dict:
+        return {name: nonzero.get(name, 0) for name in llm_counts()}
+
     cfg = get_config("llama3-8b")
     bundle = build_model(cfg, device="cuda")
     t0 = time.perf_counter()
@@ -497,75 +689,86 @@ def main() -> int:
     init_s = time.perf_counter() - t0
     weight_gb = sum(t.numel() * t.element_size() for t in params.values()) / 1e9
     finite = []
-    forward = bundle.decode_paged
+    forward, decode_step = bundle.decode_paged, bundle.decode_step
 
-    def checked_forward(*a):
-        logits = forward(*a)
-        finite.append(bool(torch.isfinite(logits).all()))
-        return logits
+    def checked(fn):
+        """``fn`` that also records whether its logits were finite."""
+        def run(*a):
+            logits = fn(*a)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits
+        return run
 
-    bundle.decode_paged = checked_forward
+    bundle.decode_paged = checked(forward)
+    per_call = 7 * cfg.num_layers + 1
     engine_kw = dict(device="cuda", slots=slots, page_size=16,
                      prefill_chunk=16)
-    warm = PagedServeEngine(bundle, params, **engine_kw)   # first launches
-    warm.submit(Request(rid=-1, prompt=[1] * 20, max_new_tokens=2))
-    warm.run_until_drained()
-    del warm
     rng = np.random.default_rng(args.seed)
-    prompt_lens = [24, 180, 57, 133, 96, 40]
-    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size,
-                                               size=n).tolist(),
-                    max_new_tokens=16) for i, n in enumerate(prompt_lens)]
-    engine = PagedServeEngine(bundle, params, **engine_kw)
-    torch.cuda.reset_peak_memory_stats()
-    apr_matmul.launches = 0
-    flash_decode_paged.launches = 0
-    finite.clear()
-    t0 = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    engine.run_until_drained()
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {"apr_matmul": apr_matmul.launches,
-                "flash_decode_paged": flash_decode_paged.launches}
-    m = engine.metrics
-    per_call = 7 * cfg.num_layers + 1
-    expect = {"apr_matmul": per_call * (m.decode_calls + m.prefill_calls),
-              "flash_decode_paged": cfg.num_layers * m.decode_calls}
-    serve = dict(arch=cfg.name, layers=cfg.num_layers, weight_gb=weight_gb,
-                 init_s=init_s, wall_s=wall_s, **m.summary(),
-                 decode_ms_per_tick=1e3 * m.decode_time_s / m.decode_calls,
-                 prefill_ms_per_chunk=1e3 * m.prefill_time_s / m.prefill_calls,
-                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                 launches=launches, expected_launches=expect)
-    report["serve"] = serve
-    print(f"[4] served {m.requests_done}/{len(reqs)} requests of full-width "
-          f"{cfg.name} ({cfg.num_layers} layers, {weight_gb:.2f} GB bf16 "
-          f"weights, init {init_s:.2f} s) in {wall_s:.2f} s wall:")
-    print(f"    decode {m.decode_tokens} tok in {m.decode_calls} ticks: "
-          f"{m.decode_tps:.2f} tok/s, {serve['decode_ms_per_tick']:.3f} ms "
-          f"per tick; prefill {m.prefill_tokens} tok in {m.prefill_calls} "
-          f"chunks: {m.prefill_tps:.2f} tok/s, "
-          f"{serve['prefill_ms_per_chunk']:.3f} ms per chunk")
-    print(f"    TTFT mean {m.mean_ttft * 1e3:.2f} ms, p50 "
-          f"{m.p50_ttft * 1e3:.2f} ms; peak memory "
-          f"{serve['peak_mem_gb']:.2f} GB; launches {launches} "
-          f"(expected {expect})")
-    if m.requests_done != len(reqs) or not all(r.done for r in reqs):
-        fail("not every request finished")
-    if any(len(r.output) != 16 for r in reqs):
-        fail("a request produced the wrong number of tokens")
-    if not finite or not all(finite):
-        fail("non-finite logits on the serving path")
-    if launches != expect:
-        fail(f"kernel launches {launches} != expected {expect}")
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (24, 180, 57, 133, 96, 40)]
 
-    # where a decode tick's time goes: device busy time (sum of kernel
-    # times on the one stream) against the tick's wall time, at the
-    # phase-3 lengths
+    def serve_paged(prm, kv_dtype, prompts, max_new):
+        """Warm the kernels on a throwaway engine, then serve ``prompts`` on
+        a fresh one with every launch count set to 0 just before; returns
+        the engine, its requests, the wall seconds and the counts read just
+        after."""
+        warm = PagedServeEngine(bundle, prm, kv_dtype=kv_dtype, **engine_kw)
+        warm.submit(Request(rid=-1, prompt=[1] * 20, max_new_tokens=2))
+        warm.run_until_drained()
+        del warm
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
+                for i, p in enumerate(prompts)]
+        engine = PagedServeEngine(bundle, prm, kv_dtype=kv_dtype, **engine_kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        finite.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return engine, reqs, wall, llm_counts()
+
+    def check_served(tag, reqs, max_new, launches, expect):
+        if not all(r.done for r in reqs):
+            fail(f"{tag}: not every request finished")
+        if any(len(r.output) != max_new for r in reqs):
+            fail(f"{tag}: a request produced the wrong number of tokens")
+        if not finite or not all(finite):
+            fail(f"{tag}: non-finite logits on the serving path")
+        if launches != expect:
+            fail(f"{tag}: kernel launches {launches} != expected {expect}")
+
+    def paged_summary(engine, wall_s, launches, expect) -> dict:
+        m = engine.metrics
+        return dict(arch=cfg.name, layers=cfg.num_layers, wall_s=wall_s,
+                    kv_dtype=engine.kv_dtype, **m.summary(),
+                    decode_ms_per_tick=1e3 * m.decode_time_s / m.decode_calls,
+                    prefill_ms_per_chunk=1e3 * m.prefill_time_s
+                    / m.prefill_calls,
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    kv_pool_bytes=engine.kv_pool_bytes(),
+                    launches=launches, expected_launches=expect)
+
+    def print_paged(serve, m):
+        print(f"    decode {m.decode_tokens} tok in {m.decode_calls} ticks: "
+              f"{m.decode_tps:.2f} tok/s, {serve['decode_ms_per_tick']:.3f} "
+              f"ms per tick; prefill {m.prefill_tokens} tok in "
+              f"{m.prefill_calls} chunks: {m.prefill_tps:.2f} tok/s, "
+              f"{serve['prefill_ms_per_chunk']:.3f} ms per chunk")
+        print(f"    TTFT mean {m.mean_ttft * 1e3:.2f} ms, p50 "
+              f"{m.p50_ttft * 1e3:.2f} ms; peak memory "
+              f"{serve['peak_mem_gb']:.2f} GB; KV pools "
+              f"{serve['kv_pool_bytes']} bytes ({serve['kv_dtype']}); "
+              f"launches {serve['launches']} (expected "
+              f"{serve['expected_launches']})")
+
+    # one decode tick at the phase-3 lengths: 4 slots, one new token each,
+    # pages of 16 in the engine's 16-page table width
     need = [-(-(n + 1) // 16) for n in main_lengths]
-    tick_tables = np.zeros((slots, engine.kv.max_pages_per_slot), np.int32)
+    tick_tables = np.zeros((slots, 16), np.int32)
     at = 1
     for i, n in enumerate(need):
         tick_tables[i, :n] = np.arange(at, at + n)
@@ -573,80 +776,279 @@ def main() -> int:
     tick_args = [torch.from_numpy(a).to(dev) for a in (
         np.ones((slots, 1), np.int32), np.asarray(main_lengths, np.int32),
         np.ones(slots, np.int32), tick_tables)]
-    forward(params, engine.cache, *tick_args)          # warm
-    torch.cuda.synchronize()
-    ticks = 5
-    t0 = time.perf_counter()                           # wall, profiler off
-    for _ in range(ticks):
-        forward(params, engine.cache, *tick_args)
-    torch.cuda.synchronize()
-    tick_wall = (time.perf_counter() - t0) / ticks * 1e3
-    by_kernel = profile_device(
-        torch, lambda: forward(params, engine.cache, *tick_args), ticks)
-    if by_kernel:
+
+    def profile_tick(prm, engine) -> dict:
+        """Where a decode tick's time goes at the phase-3 lengths: device
+        busy time (sum of kernel times on the one stream) against the
+        tick's wall time; {} where the profiler cannot trace."""
+        forward(prm, engine.cache, *tick_args)          # warm
+        torch.cuda.synchronize()
+        ticks = 5
+        t0 = time.perf_counter()                        # wall, profiler off
+        for _ in range(ticks):
+            forward(prm, engine.cache, *tick_args)
+        torch.cuda.synchronize()
+        tick_wall = (time.perf_counter() - t0) / ticks * 1e3
+        host = {}
+        by_kernel = profile_device(
+            torch, lambda: forward(prm, engine.cache, *tick_args), ticks,
+            host)
+        if not by_kernel:
+            return {}
         busy = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-        serve["profiled_tick"] = dict(wall_ms=tick_wall, device_busy_ms=busy,
-                                      idle_share=1 - busy / tick_wall,
-                                      top_kernels_ms=dict(top))
+        top_host = sorted(host.items(), key=lambda kv: -kv[1])[:8]
         print(f"    decode tick at lengths {main_lengths}: wall "
               f"{tick_wall:.3f} ms, device busy {busy:.3f} ms (profiler), "
-              f"idle share {1 - busy / tick_wall:.1%}")
+              f"idle share {1 - busy / tick_wall:.1%}; host self time "
+              f"{sum(host.values()):.3f} ms (profiler on)")
         for name, t in top:
             print(f"      {t:8.3f} ms  {name[:90]}")
-    del params, engine, bundle
+        print("      host ops by self time:")
+        for name, t in top_host:
+            print(f"      {t:8.3f} ms  {name[:90]}")
+        return dict(wall_ms=tick_wall, device_busy_ms=busy,
+                    idle_share=1 - busy / tick_wall, top_kernels_ms=dict(top),
+                    host_self_ms=sum(host.values()),
+                    top_host_ops_ms=dict(top_host))
+
+    engine, reqs, wall_s, launches = serve_paged(params, "bfloat16", prompts,
+                                                 16)
+    m = engine.metrics
+    expect = expected_counts(
+        apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
+        flash_decode_paged=cfg.num_layers * m.decode_calls)
+    serve = dict(weight_gb=weight_gb, init_s=init_s,
+                 **paged_summary(engine, wall_s, launches, expect))
+    report["serve"] = serve
+    print(f"[4] served {m.requests_done}/{len(reqs)} requests of full-width "
+          f"{cfg.name} ({cfg.num_layers} layers, {weight_gb:.2f} GB bf16 "
+          f"weights, init {init_s:.2f} s) in {wall_s:.2f} s wall:")
+    print_paged(serve, m)
+    check_served("phase 4", reqs, 16, launches, expect)
+    bf16_outputs = [r.output for r in reqs]
+    serve["profiled_tick"] = profile_tick(params, engine)
+    del engine, reqs
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- 4c slot engine, full width
+    slot_prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+                    for n in (8, 19, 32, 13)]
+    step_ms = []
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = checked(decode_step)(*a)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return logits
+
+    bundle.decode_step = timed_step
+    warm = ServeEngine(bundle, params, device="cuda", slots=slots,
+                       max_seq=256)
+    warm.submit(Request(rid=-1, prompt=[1] * 3, max_new_tokens=2))
+    warm.run_until_drained()
+    del warm
+    slot_reqs = [Request(rid=i, prompt=p, max_new_tokens=8)
+                 for i, p in enumerate(slot_prompts)]
+    slot_engine = ServeEngine(bundle, params, device="cuda", slots=slots,
+                              max_seq=256)
+    torch.cuda.synchronize()
+    step_ms.clear()
+    finite.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    for r in slot_reqs:
+        slot_engine.submit(r)
+    slot_engine.run_until_drained()
+    torch.cuda.synchronize()
+    slot_wall = time.perf_counter() - t0
+    slot_launches = llm_counts()
+    slot_expect = expected_counts(apr_matmul=per_call * len(step_ms),
+                                  flash_decode=cfg.num_layers * len(step_ms))
+    bundle.decode_step = decode_step
+    del slot_engine
+    # the same requests on the paged engine (bf16 pools)
+    engine, paged_reqs, _, _ = serve_paged(params, "bfloat16", slot_prompts,
+                                           8)
+    del engine
+    same = sum(a == b for r, q in zip(slot_reqs, paged_reqs)
+               for a, b in zip(r.output, q.output))
+    n_tok = sum(len(r.output) for r in slot_reqs)
+    ttfts = [r.ttft for r in slot_reqs]
+    slot = dict(slots=slots, max_seq=256, prompt_lens=[len(p) for p in
+                                                       slot_prompts],
+                max_new=8, wall_s=slot_wall, forwards=len(step_ms),
+                ms_per_forward=float(np.mean(step_ms)),
+                ms_per_forward_median=float(np.median(step_ms)),
+                mean_ttft_s=float(np.mean(ttfts)), tokens_equal_paged=same,
+                tokens_total=n_tok, launches=slot_launches,
+                expected_launches=slot_expect)
+    report["serve_slot"] = slot
+    print(f"[4c] slot ServeEngine, full-width {cfg.name} bf16: "
+          f"{sum(r.done for r in slot_reqs)}/{len(slot_reqs)} requests "
+          f"(prompts {slot['prompt_lens']}, 8 new tokens, max_seq 256) in "
+          f"{slot_wall:.2f} s wall; {len(step_ms)} decode forwards (prompt "
+          f"tokens one by one, then ticks) at {slot['ms_per_forward']:.3f} ms "
+          f"mean, {slot['ms_per_forward_median']:.3f} ms median; TTFT mean "
+          f"{slot['mean_ttft_s'] * 1e3:.2f} ms; launches {slot_launches} "
+          f"(expected {slot_expect}); tokens equal to the PagedServeEngine's "
+          f"{same}/{n_tok}")
+    check_served("phase 4c", slot_reqs, 8, slot_launches, slot_expect)
+
+    # --------------------------------------- 4b int8 weights + int8 KV pages
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = bundle.quantize_params(params)      # on the card
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    # the same decode tick with bf16 and with int8 weights + KV, interleaved
+    # (bf16, int8, int8, bf16) x 3 on one host: ms until the forward returns
+    # (host enqueue) and until the device is done (wall)
+    ab_prm = {"bfloat16": params, "int8": qparams}
+    ab_cache = {kv: bundle.init_paged_cache(slots * 16 + 1, 16, kv)
+                for kv in ab_prm}
+    for kv in ab_prm:
+        forward(ab_prm[kv], ab_cache[kv], *tick_args)           # warm
+    ab = {kv: {"enqueue_ms": [], "wall_ms": []} for kv in ab_prm}
+    for _ in range(3):
+        for kv in ("bfloat16", "int8", "int8", "bfloat16"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(ab_prm[kv], ab_cache[kv], *tick_args)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            ab[kv]["enqueue_ms"].append((t1 - t0) * 1e3)
+            ab[kv]["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+    ab = {kv: {key: float(np.median(v)) for key, v in r.items()}
+          for kv, r in ab.items()}
+    report["tick_ab"] = ab
+    print(f"[4b] one decode tick at lengths {main_lengths}, interleaved "
+          f"bf16/int8 x 6 each, medians: bf16 enqueue "
+          f"{ab['bfloat16']['enqueue_ms']:.3f} ms, wall "
+          f"{ab['bfloat16']['wall_ms']:.3f} ms; int8 weights + KV enqueue "
+          f"{ab['int8']['enqueue_ms']:.3f} ms, wall "
+          f"{ab['int8']['wall_ms']:.3f} ms")
+    del params, ab_prm, ab_cache                  # the bf16 weights go
+    torch.cuda.empty_cache()
+    int8_gb = sum(w.nbytes if isinstance(w, QuantizedTensor)
+                  else w.numel() * w.element_size()
+                  for w in qparams.values()) / 1e9
+    engine, reqs, wall_s, launches = serve_paged(qparams, "int8", prompts, 16)
+    m = engine.metrics
+    expect = expected_counts(
+        apr_matmul_int8w=per_call * (m.decode_calls + m.prefill_calls),
+        flash_decode_paged_int8=cfg.num_layers * m.decode_calls)
+    serve_q = dict(weight_gb=int8_gb, quantize_s=quant_s,
+                   **paged_summary(engine, wall_s, launches, expect))
+    same = sum(a == b for r, o in zip(reqs, bf16_outputs)
+               for a, b in zip(r.output, o))
+    serve_q["tokens_equal_bf16"] = same
+    report["serve_int8"] = serve_q
+    print(f"[4b] served {m.requests_done}/{len(reqs)} requests of full-width "
+          f"{cfg.name} with int8 weights ({int8_gb:.2f} GB, quantized on the "
+          f"card in {quant_s:.2f} s) and int8 KV pages in {wall_s:.2f} s "
+          f"wall (phase 4, bf16: {serve['decode_ms_per_tick']:.3f} ms per "
+          f"tick, {serve['decode_tps']:.2f} tok/s, TTFT mean "
+          f"{serve['mean_ttft_s'] * 1e3:.2f} ms, peak "
+          f"{serve['peak_mem_gb']:.2f} GB, KV pools "
+          f"{serve['kv_pool_bytes']} bytes):")
+    print_paged(serve_q, m)
+    print(f"    greedy tokens equal to the bf16 run's: {same}/"
+          f"{sum(len(o) for o in bf16_outputs)} (information: random "
+          f"weights, int8 may flip near-ties)")
+    check_served("phase 4b", reqs, 16, launches, expect)
+    serve_q["profiled_tick"] = profile_tick(qparams, engine)
+    del qparams, engine, reqs, bundle
     torch.cuda.empty_cache()
 
     # ----------------------------------------------- 5 card vs CPU, smoke
     scfg = get_config("llama3-8b", smoke=True)
-    cpu_bundle = build_model(scfg, device="cpu")
-    gpu_bundle = build_model(scfg, device="cuda")
-    cpu_params = cpu_bundle.init_params(
+    bundles = {"cpu": build_model(scfg, device="cpu"),
+               "cuda": build_model(scfg, device="cuda")}
+    cpu_params = bundles["cpu"].init_params(
         torch.Generator().manual_seed(args.seed))
-    gpu_params = {k: v.to(dev) for k, v in cpu_params.items()}
-    caches = {"cpu": cpu_bundle.init_paged_cache(9, 8),
-              "cuda": gpu_bundle.init_paged_cache(9, 8)}
-    tables = np.array([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
-    tokens = rng.integers(1, scfg.vocab_size, (2, 8)).astype(np.int32)
-    lengths = np.zeros(2, np.int32)
-    counts = np.array([8, 5], np.int32)
-    diffs, agree, total = [], 0, 0
-    for step in range(4):        # one prefill chunk, then 3 decode ticks
-        out = {}
-        for where, bnd, prm in (("cpu", cpu_bundle, cpu_params),
-                                ("cuda", gpu_bundle, gpu_params)):
-            d_ = torch.device(where)
-            a = [torch.from_numpy(np.ascontiguousarray(t)).to(d_)
-                 for t in (tokens, lengths, counts, tables)]
-            logits = bnd.decode_paged(prm, caches[where], *a)
-            out[where] = logits[[0, 1], torch.from_numpy(counts - 1).long()
-                                .to(d_)].float().cpu()
-        diffs.append(float((out["cpu"] - out["cuda"]).abs().max()))
-        nxt = out["cpu"].argmax(-1)
-        agree += int((nxt == out["cuda"].argmax(-1)).sum())
-        total += 2
-        lengths = lengths + counts
-        counts = np.ones(2, np.int32)
-        tokens = nxt.numpy()[:, None].astype(np.int32)
-    smoke_err = max(diffs)
-    report["smoke_parity"] = dict(max_abs_logits_diff=smoke_err,
-                                  per_step=diffs, greedy_agree=agree,
-                                  greedy_total=total,
-                                  bound=SMOKE_LOGITS_BOUND)
-    print(f"[5] smoke llama3-8b, card (kernels) vs CPU (plain), same weights:"
-          f" max |logits diff| {smoke_err:.4g} (bound {SMOKE_LOGITS_BOUND}),"
-          f" per step {[round(x, 4) for x in diffs]}, greedy tokens agree "
-          f"{agree}/{total}")
-    if not math.isfinite(smoke_err) or smoke_err > SMOKE_LOGITS_BOUND:
-        fail("card and CPU logits differ beyond the bound")
+    smoke_params = {"bf16": cpu_params,
+                    "int8": bundles["cpu"].quantize_params(cpu_params)}
+    smoke_tokens = rng.integers(1, scfg.vocab_size, (2, 8)).astype(np.int32)
+
+    def on(where, arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(where)
+                for a in arrays]
+
+    def smoke_parity(kind: str) -> dict:
+        """4 steps on the card (kernels) and on the CPU (plain versions),
+        each side fed the CPU's greedy tokens.  ``paged_*``: one prefill
+        chunk (two slots, one padded) then 3 decode ticks over pools of
+        that kv dtype; ``slot``: 4 decode steps over the contiguous cache,
+        one slot starting empty."""
+        prm_key = "int8" if kind == "paged_int8" else "bf16"
+        prm = {"cpu": smoke_params[prm_key],
+               "cuda": {k: v.to(dev) for k, v in
+                        smoke_params[prm_key].items()}}
+        if kind == "slot":
+            caches = {w: b_.init_cache(2, 16) for w, b_ in bundles.items()}
+            tokens, lengths = smoke_tokens[:, :1], np.array([0, 3], np.int32)
+        else:
+            kv = "int8" if kind == "paged_int8" else "bfloat16"
+            caches = {w: b_.init_paged_cache(9, 8, kv)
+                      for w, b_ in bundles.items()}
+            tables = np.array([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
+            tokens, lengths = smoke_tokens, np.zeros(2, np.int32)
+            counts = np.array([8, 5], np.int32)
+        diffs, agree, total, flips = [], 0, 0, []
+        for step in range(4):
+            out = {}
+            for where, b_ in bundles.items():
+                if kind == "slot":
+                    logits = b_.decode_step(prm[where], caches[where],
+                                            *on(where, (tokens, lengths)))
+                    out[where] = logits[:, 0].float().cpu()
+                else:
+                    logits = b_.decode_paged(
+                        prm[where], caches[where],
+                        *on(where, (tokens, lengths, counts, tables)))
+                    out[where] = logits[[0, 1], torch.from_numpy(
+                        counts - 1).long().to(where)].float().cpu()
+            diffs.append(float((out["cpu"] - out["cuda"]).abs().max()))
+            nxt, got = out["cpu"].argmax(-1), out["cuda"].argmax(-1)
+            agree += int((nxt == got).sum())
+            total += 2
+            for row in torch.nonzero(nxt != got).flatten().tolist():
+                # how far below the CPU's best the card's pick sits on the
+                # CPU's own logits
+                flips.append(dict(step=step, row=row, cpu_gap=float(
+                    out["cpu"][row, nxt[row]] - out["cpu"][row, got[row]])))
+            tokens = nxt.numpy()[:, None].astype(np.int32)
+            if kind == "slot":
+                lengths = lengths + 1
+            else:
+                lengths = lengths + counts
+                counts = np.ones(2, np.int32)
+        return dict(max_abs_logits_diff=max(diffs), per_step=diffs,
+                    greedy_agree=agree, greedy_total=total, flips=flips,
+                    bound=SMOKE_LOGITS_BOUND)
+
+    parity = {kind: smoke_parity(kind)
+              for kind in ("paged_bf16", "paged_int8", "slot")}
+    report["smoke_parity"] = parity
+    print("[5] smoke llama3-8b, card (kernels) vs CPU (plain), same weights "
+          f"(bound {SMOKE_LOGITS_BOUND} on max |logits diff|):")
+    for kind, r in parity.items():
+        print(f"    {kind:10s} max |logits diff| "
+              f"{r['max_abs_logits_diff']:.4g}, per step "
+              f"{[round(x, 4) for x in r['per_step']]}, greedy tokens agree "
+              f"{r['greedy_agree']}/{r['greedy_total']}"
+              + "".join(f"; step {f['step']} row {f['row']}: the card's token"
+                        f" is {f['cpu_gap']:.4g} below the CPU's best on the "
+                        f"CPU's logits" for f in r["flips"]))
+    for kind, r in parity.items():
+        err = r["max_abs_logits_diff"]
+        if not math.isfinite(err) or err > SMOKE_LOGITS_BOUND:
+            fail(f"{kind}: card and CPU logits differ beyond the bound")
 
     # ---------------------------------------------------------------- 6 CNNs
-    def reset_counts():
-        apr_matmul.launches = 0
-        flash_decode_paged.launches = 0
-        apr_conv2d.launches = 0
-        apr_conv2d.hbm_launches = 0
-        apr_conv2d_fused.launches = 0
 
     def forward_ms(fn, iters: int) -> float:
         """Host milliseconds per call of ``fn()``, after a warm call,
@@ -777,27 +1179,45 @@ def main() -> int:
     del nets
 
     # ------------------------------------------------------------- 7 report
+    def tick_entry(name, source, replaces, n, kernel=None, row=None):
+        """A kernels-line entry timed per full-width decode tick: the 225
+        projections of phase 3's ``kernel`` rows, or 32 launches of
+        ``row``."""
+        if row is None:
+            t = {key: per_tick(key, kernel) for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "t_mem_ms",
+                "t_ops_ms")}
+            bound_by = "bytes" if t["t_mem_ms"] >= t["t_ops_ms"] \
+                else "operations"
+        else:
+            t = {key: cfg.num_layers * row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms")}
+            bound_by = row["bound_by"]
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=n, max_abs_err=errs[name], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                    bound_by=bound_by, library_ms=t["library_ms"])
+
+    mm_src = "src/repro_torch/csrc/apr_matmul.cu"
+    fd_src = "src/repro_torch/csrc/flash_decode.cu"
     kernels = [
-        dict(name="apr_matmul", route="cuda",
-             source="src/repro_torch/csrc/apr_matmul.cu",
-             replaces="src/repro/kernels/apr_matmul/kernel.py:139",
-             launches=launches["apr_matmul"],
-             max_abs_err=errs["apr_matmul"],
-             ms=per_tick("ms"), plain_ms=per_tick("plain_ms"),
-             bound_ms=per_tick("bound_ms"),
-             bound_by=("bytes" if per_tick("t_mem_ms") >= per_tick("t_ops_ms")
-                       else "operations"),
-             library_ms=per_tick("library_ms")),
-        dict(name="flash_decode_paged", route="cuda",
-             source="src/repro_torch/csrc/flash_decode_paged.cu",
-             replaces="src/repro/kernels/flash_decode/kernel.py:153",
-             launches=launches["flash_decode_paged"],
-             max_abs_err=errs["flash_decode_paged"],
-             ms=cfg.num_layers * fd_row["ms"],
-             plain_ms=cfg.num_layers * fd_row["plain_ms"],
-             bound_ms=cfg.num_layers * fd_row["bound_ms"],
-             bound_by=fd_row["bound_by"],
-             library_ms=cfg.num_layers * fd_row["library_ms"]),
+        tick_entry("apr_matmul", mm_src,
+                   "src/repro/kernels/apr_matmul/kernel.py:139",
+                   serve["launches"]["apr_matmul"], kernel="apr_matmul"),
+        tick_entry("apr_matmul_int8w", mm_src,
+                   "src/repro/kernels/apr_matmul/kernel.py:139",
+                   serve_q["launches"]["apr_matmul_int8w"],
+                   kernel="apr_matmul_int8w"),
+        tick_entry("flash_decode_paged", fd_src,
+                   "src/repro/kernels/flash_decode/kernel.py:153",
+                   serve["launches"]["flash_decode_paged"], row=fd_row),
+        tick_entry("flash_decode_paged_int8", fd_src,
+                   "src/repro/kernels/flash_decode/kernel.py:81",
+                   serve_q["launches"]["flash_decode_paged_int8"],
+                   row=fdq_row),
+        tick_entry("flash_decode", fd_src,
+                   "src/repro/kernels/flash_decode/kernel.py:240",
+                   slot["launches"]["flash_decode"], row=fdc_row),
     ]
     conv_bound_by = ("bytes" if conv_total["t_mem_ms"] >=
                      conv_total["t_ops_ms"] else "operations")
@@ -814,9 +1234,12 @@ def main() -> int:
             bound_by=conv_bound_by, library_ms=conv_total["library_ms"]))
     report["kernels"] = kernels
     report["kernels_note"] = (
-        "apr_matmul and flash_decode_paged: ms, plain_ms, bound_ms and "
-        "library_ms are per full-width decode tick (4 slots): 225 apr_matmul "
-        "shapes, 32 flash_decode_paged launches at the phase-3 lengths. "
+        "apr_matmul, apr_matmul_int8w, flash_decode_paged, "
+        "flash_decode_paged_int8 and flash_decode: ms, plain_ms, bound_ms and "
+        "library_ms are per full-width decode tick (4 slots): 225 projection "
+        "shapes, 32 decode-attention launches at the phase-3 lengths "
+        "(flash_decode over a max_seq-256 contiguous cache); launches are "
+        "those of phase 4 (bf16 paged), 4b (int8 paged) and 4c (slot). "
         "apr_conv and apr_conv_hbm: per ResNet-20 forward at batch "
         f"{CNN_BATCH} (21 convs; library F.conv2d, channels-last fp32 without "
         "TF32); launches are those of phase 6's main path (one LeNet-5 and "

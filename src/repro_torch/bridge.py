@@ -3,14 +3,18 @@ params) to torch tensors, name for name.
 
 numpy has no bfloat16 of its own; JAX hands its bf16 arrays over as the
 ``ml_dtypes`` ``bfloat16`` dtype.  Those bytes are reinterpreted through a
-``uint16`` view, so the bridge needs neither jax nor ml_dtypes.
+``uint16`` view, so the bridge needs neither jax nor ml_dtypes.  An int8
+weight (the JAX package's ``QuantizedTensor``) arrives as the pair of its
+arrays ``(q, scale)`` and becomes the port's :class:`QuantizedTensor`.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from .quant import QuantizedTensor
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu",
@@ -28,10 +32,20 @@ def tensor_from_numpy(a: np.ndarray, device="cpu",
     return t if dtype is None else t.to(dtype)
 
 
-def params_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu",
-                      dtype: Optional[torch.dtype] = None
-                      ) -> Dict[str, torch.Tensor]:
+def params_from_numpy(
+        arrays: Mapping[str, Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]],
+        device="cpu", dtype: Optional[torch.dtype] = None
+) -> Dict[str, Union[torch.Tensor, QuantizedTensor]]:
     """A dict of named arrays (params keyed ``blk.0.attn.wq`` ..., or a
-    paged cache's ``k``/``v`` pools) to the same dict of tensors."""
-    return {name: tensor_from_numpy(a, device, dtype)
-            for name, a in arrays.items()}
+    paged cache's pools) to the same dict of tensors.  A ``(q, scale)``
+    pair becomes a :class:`QuantizedTensor` (int8 codes and fp32 scales as
+    they are; ``dtype`` casts only the plain arrays)."""
+    out = {}
+    for name, a in arrays.items():
+        if isinstance(a, tuple):
+            q, scale = a
+            out[name] = QuantizedTensor(q=tensor_from_numpy(q, device),
+                                        scale=tensor_from_numpy(scale, device))
+        else:
+            out[name] = tensor_from_numpy(a, device, dtype)
+    return out

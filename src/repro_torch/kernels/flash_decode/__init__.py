@@ -1,5 +1,7 @@
-from .ops import flash_decode_paged
-from .ref import decode_attention_ref, gather_pages, paged_decode_attention_ref
+from .ops import flash_decode, flash_decode_paged
+from .ref import (decode_attention_ref, gather_pages,
+                  paged_decode_attention_q_ref, paged_decode_attention_ref)
 
-__all__ = ["flash_decode_paged", "decode_attention_ref", "gather_pages",
+__all__ = ["flash_decode", "flash_decode_paged", "decode_attention_ref",
+           "gather_pages", "paged_decode_attention_q_ref",
            "paged_decode_attention_ref"]

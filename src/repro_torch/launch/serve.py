@@ -1,14 +1,19 @@
 """Serving launcher of the port: asyncio streaming server over paged
-continuous batching, on the GPU unless ``--device cpu``.
+continuous batching (or the contiguous slot engine), on the GPU unless
+``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --int8-weights --kv-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine slot
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 It serves the arch's smoke config with random weights (seed 0), as the JAX
 launcher does.  Requests are submitted through
 :class:`repro_torch.serve.AsyncServeFrontend` and stream their tokens back
 concurrently.  ``--prefix-sharing`` turns on the refcounted prefix cache;
-``--slo-mix`` marks every other request TTFT-class.
+``--slo-mix`` marks every other request TTFT-class; ``--int8-weights``
+serves the int8-weight variant of the params and ``--kv-dtype int8`` int8
+KV pages (paged engine).
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import asyncio
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--engine", choices=("paged", "slot"), default="paged")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; the hand-written kernels) or "
                          "'cpu' (their plain PyTorch versions)")
@@ -35,21 +41,41 @@ def main(argv=None) -> None:
     ap.add_argument("--slo-mix", action="store_true",
                     help="submit every other request as TTFT-class (priority "
                          "admission; the rest are throughput-class FIFO)")
+    ap.add_argument("--int8-weights", action="store_true",
+                    help="serve the int8-weight variant "
+                         "(repro_torch.quant.quantize_params)")
+    ap.add_argument("--kv-dtype", choices=("bfloat16", "int8"),
+                    default="bfloat16",
+                    help="paged KV page-pool storage dtype")
     args = ap.parse_args(argv)
 
     from ..configs import get_config
     from ..models import build_model
     from ..serve import (SLO_THROUGHPUT, SLO_TTFT, AsyncServeFrontend,
-                         PagedServeEngine)
+                         PagedServeEngine, ServeEngine)
 
     cfg = get_config(args.arch, smoke=True)
     bundle = build_model(cfg, device=args.device)
     params = bundle.init_params()
-    engine = PagedServeEngine(bundle, params, device=args.device,
-                              slots=args.slots, page_size=args.page_size,
-                              num_pages=args.num_pages,
-                              prefill_chunk=args.prefill_chunk,
-                              prefix_sharing=args.prefix_sharing)
+    if args.int8_weights:
+        params = bundle.quantize_params(params)
+    if args.engine == "paged":
+        engine = PagedServeEngine(bundle, params, device=args.device,
+                                  slots=args.slots, page_size=args.page_size,
+                                  num_pages=args.num_pages,
+                                  prefill_chunk=args.prefill_chunk,
+                                  kv_dtype=args.kv_dtype,
+                                  prefix_sharing=args.prefix_sharing)
+    else:
+        if args.kv_dtype != "bfloat16":
+            print(f"note: --kv-dtype {args.kv_dtype} only applies to the "
+                  "paged engine; the slot engine keeps its bf16 cache")
+        if args.prefix_sharing:
+            print("note: --prefix-sharing only applies to the paged engine")
+        engine = ServeEngine(bundle, params, device=args.device,
+                             slots=args.slots,
+                             max_seq=max(128, args.prompt_len + args.max_new
+                                         + 2))
 
     # a shared prompt head (the "system prompt") + a per-request tail, so
     # --prefix-sharing has something to dedupe
@@ -78,6 +104,9 @@ def main(argv=None) -> None:
         print(f"  r{row['rid']:<3} slo={row['slo']:<10} "
               f"tokens={row['tokens']:<4} ttft={ttft:<9} latency={lat:<9} "
               f"preempt={row['preemptions']} jumped={row['queue_jumped']}")
+    if not isinstance(engine, PagedServeEngine):
+        return
+    print(f"  kv pool {args.kv_dtype}: {engine.kv_pool_bytes()} bytes")
     m = engine.metrics
     print(f"  ticks={m.ticks}  prefill={m.prefill_tokens} tok "
           f"({m.prefill_tps:.1f} tok/s)  decode={m.decode_tokens} tok "

@@ -1,25 +1,29 @@
 """Transformer building blocks of the dense paged-decode path, in PyTorch.
 
 Port of the subset of the JAX package's ``repro.models.layers`` that
-``lm_decode_paged`` runs.  Functions take and return tensors; parameters
-are plain dicts keyed by the JAX names.  Every 2-D weight product goes
-through the ``apr_matmul`` wrapper and the one-token decode attention
-through ``flash_decode_paged``: on CUDA tensors those launch the
+``lm_decode_paged`` and ``lm_decode_step`` run.  Functions take and return
+tensors; parameters are plain dicts keyed by the JAX names, and every
+weight may be an int8 :class:`~repro_torch.quant.QuantizedTensor`.  Every
+2-D weight product goes through the ``apr_matmul`` wrapper and the
+one-token decode attention through ``flash_decode_paged`` (paged cache) or
+``flash_decode`` (contiguous cache): on CUDA tensors those launch the
 hand-written kernels, on CPU tensors they compute the plain versions, which
 repeat the JAX layers' arithmetic (fp32 accumulation, one rounding) so the
 CPU path is the middle link of the parity chain kernel == plain == JAX.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Union
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.apr_matmul import apr_matmul, matmul_ref
-from ..kernels.flash_decode import flash_decode_paged
+from ..kernels.flash_decode import flash_decode, flash_decode_paged
+from ..quant import QuantizedTensor, quantize_channelwise
 
-Params = Dict[str, torch.Tensor]
+Weight = Union[torch.Tensor, QuantizedTensor]
+Params = Dict[str, Weight]
 
 NEG_INF = -1e30
 
@@ -59,9 +63,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([xr.to(x.dtype), xp], dim=-1)
 
 
-def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def materialize_weight(w: Weight, dtype: torch.dtype) -> torch.Tensor:
+    """A plain weight as it is, an int8 :class:`QuantizedTensor`
+    dequantized to ``dtype`` (the JAX layers' use-site dequantize).  Only
+    the plain paths call it: on the card ``apr_matmul`` dequantizes in its
+    load stage instead of materialising a copy."""
+    if isinstance(w, QuantizedTensor):
+        return w.dequantize(dtype)
+    return w
+
+
+def linear(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """``x (..., K) @ w (K, N)`` in ``x.dtype`` with an fp32 accumulator
-    (the JAX layers' ``einsum("btd,dk->btk")``), through ``apr_matmul``."""
+    (the JAX layers' ``einsum("btd,dk->btk", x, materialize_weight(w))``),
+    through ``apr_matmul``, which takes bf16 and int8 weights alike."""
     y = apr_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
@@ -86,7 +101,7 @@ def _tree_sum(parts):
     return parts[0]
 
 
-def tp_einsum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def tp_einsum(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """The JAX ``tp_einsum("btk,kd->btd", x, w)`` of ``wo`` and ``w_down``
     on one device.
 
@@ -97,6 +112,7 @@ def tp_einsum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the whole K (the same sum in another fp32 order)."""
     if x.is_cuda:
         return linear(x, w)
+    w = materialize_weight(w, x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     k = x2.shape[1]
     step = k // _tp_chunks(k)
@@ -114,8 +130,8 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+def swiglu(x: torch.Tensor, w_gate: Weight, w_up: Weight,
+           w_down: Weight) -> torch.Tensor:
     g = linear(x, w_gate)
     u = linear(x, w_up)
     return tp_einsum(silu(g) * u, w_down)
@@ -162,6 +178,8 @@ def attention_decode_paged(
     lengths: torch.Tensor,       # (B,) int32 tokens already in the cache
     new_counts: torch.Tensor,    # (B,) int32 real new tokens (<= T)
     block_tables: torch.Tensor,  # (B, P_max) int32 physical page per page
+    k_scales: Optional[torch.Tensor] = None,  # (P_pool, page_size, Hkv) fp32
+    v_scales: Optional[torch.Tensor] = None,  # when the pools are int8
 ) -> torch.Tensor:
     """Multi-token attention against, and update of, a paged KV cache.
 
@@ -174,12 +192,18 @@ def attention_decode_paged(
     garbage the caller ignores.  Token ``i`` attends to positions
     ``<= lengths + i``.
 
+    With ``k_scales``/``v_scales`` the pools are **int8**: each new (token,
+    head) vector is quantized over the head dim on write
+    (``quantize_channelwise(axis=-1)``) and its fp32 scale written to the
+    same slot of the scale pool.
+
     On CUDA the decode step (T == 1) calls the ``flash_decode_paged``
-    kernel with lengths ``lengths + new_counts``, after the new K/V are in
-    the pool; rows with ``new_counts == 0`` then hold zeros or garbage.
-    Chunked prefill, and every call on the CPU, gathers the pages and
-    attends as the JAX layer does.  Returns the attention output after the
-    ``wo`` projection, (B, T, d).
+    kernel (bf16 or int8 pools) with lengths ``lengths + new_counts``,
+    after the new K/V are in the pool; rows with ``new_counts == 0`` then
+    hold zeros or garbage.  Chunked prefill, and every call on the CPU,
+    gathers the pages (dequantizing int8 ones to ``x.dtype``) and attends
+    as the JAX layer does.  Returns the attention output after the ``wo``
+    projection, (B, T, d).
     """
     b, t, _ = x.shape
     ps = k_pages.shape[1]
@@ -192,18 +216,68 @@ def attention_decode_paged(
     bidx = torch.arange(b, device=x.device)[:, None]
     pids = torch.where(write, block_tables.long()[bidx, page_idx], 0)
     offs = torch.where(write, positions % ps, 0)
-    k_pages.index_put_((pids, offs), k_new.to(k_pages.dtype))
-    v_pages.index_put_((pids, offs), v_new.to(v_pages.dtype))
+    quantized = k_scales is not None
+    if quantized:
+        for pool, spool, new in ((k_pages, k_scales, k_new),
+                                 (v_pages, v_scales, v_new)):
+            qt = quantize_channelwise(new, axis=-1)   # per (token, head)
+            pool.index_put_((pids, offs), qt.q)
+            spool.index_put_((pids, offs), qt.scale[..., 0])
+    else:
+        k_pages.index_put_((pids, offs), k_new.to(k_pages.dtype))
+        v_pages.index_put_((pids, offs), v_new.to(v_pages.dtype))
+    scales = dict(k_scales=k_scales, v_scales=v_scales) if quantized else {}
     if x.is_cuda and t == 1:
         out = flash_decode_paged(
             q[:, 0].contiguous(), k_pages, v_pages,
             (lengths + new_counts.long()).to(torch.int32),
-            block_tables).reshape(b, 1, -1)
+            block_tables, **scales).reshape(b, 1, -1)
     else:
-        k_all = k_pages[block_tables.long()].reshape(b, -1, *k_pages.shape[2:])
-        v_all = v_pages[block_tables.long()].reshape(b, -1, *v_pages.shape[2:])
+        tables = block_tables.long()
+        k_all = k_pages[tables].reshape(b, -1, *k_pages.shape[2:])
+        v_all = v_pages[tables].reshape(b, -1, *v_pages.shape[2:])
+        if quantized:   # dequantize the gathered view before the softmax
+            ks_all = k_scales[tables].reshape(b, -1, k_scales.shape[2])
+            vs_all = v_scales[tables].reshape(b, -1, v_scales.shape[2])
+            k_all = (k_all.float() * ks_all[..., None]).to(x.dtype)
+            v_all = (v_all.float() * vs_all[..., None]).to(x.dtype)
         s = k_all.shape[1]
         mask = (torch.arange(s, device=x.device)[None, None]
                 <= positions[:, :, None])[:, None, None]
         out = gqa_scores_attend(q, k_all, v_all, mask)
+    return tp_einsum(out, p[f"{prefix}.wo"])
+
+
+def attention_decode(
+    p: Params,
+    prefix: str,
+    cfg: ModelConfig,
+    x: torch.Tensor,             # (B, 1, d)
+    k_cache: torch.Tensor,       # (B, S, Hkv, Dh) contiguous slot cache
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,       # (B,) int32 tokens already in the cache
+) -> torch.Tensor:
+    """One-token attention against, and update of, a contiguous KV cache.
+
+    The new token of row ``b`` sits at position ``lengths[b]`` and is
+    written there **in place**; it attends to positions ``<= lengths``.  On
+    CUDA the ``flash_decode`` kernel runs with lengths ``lengths + 1``,
+    after the write; on the CPU the whole cache is masked and attended as
+    the JAX layer does.  Returns the attention output after the ``wo``
+    projection, (B, 1, d).
+    """
+    b = x.shape[0]
+    s = k_cache.shape[1]
+    pos = lengths.long()
+    q, k_new, v_new = project_qkv(p, prefix, cfg, x, pos[:, None])
+    bidx = torch.arange(b, device=x.device)
+    k_cache.index_put_((bidx, pos), k_new[:, 0].to(k_cache.dtype))
+    v_cache.index_put_((bidx, pos), v_new[:, 0].to(v_cache.dtype))
+    if x.is_cuda:
+        out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache,
+                           (pos + 1).to(torch.int32)).reshape(b, 1, -1)
+    else:
+        mask = (torch.arange(s, device=x.device)[None]
+                <= pos[:, None])[:, None, None, None, :]
+        out = gqa_scores_attend(q, k_cache, v_cache, mask)
     return tp_einsum(out, p[f"{prefix}.wo"])

@@ -1,25 +1,28 @@
 """Decoder-only dense LM on a paged KV cache, in PyTorch.
 
-Port of the dense-family paged-serving subset of the JAX package's
+Port of the dense-family serving subset of the JAX package's
 ``repro.models.lm``: the parameter layout of ``build_params``,
-``init_paged_cache`` and ``lm_decode_paged``.  Parameters keep the JAX names
-and the stacked layout -- ``blk.0.attn.wq`` is (n_layers, d, h·dh), and
-layer ``i`` uses the (K, N) slice ``[i]`` as it lies in memory.
+``init_paged_cache`` / ``lm_decode_paged`` (paged KV, bf16 or int8) and
+``init_cache`` / ``lm_decode_step`` (the slot engine's contiguous cache).
+Parameters keep the JAX names and the stacked layout -- ``blk.0.attn.wq``
+is (n_layers, d, h·dh), and layer ``i`` uses the (K, N) slice ``[i]`` as it
+lies in memory; any matmul weight may be an int8 ``QuantizedTensor``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import Params, attention_decode_paged, linear, mask_vocab_logits, \
-    rms_norm, swiglu
+from .layers import Params, attention_decode, attention_decode_paged, \
+    linear, mask_vocab_logits, rms_norm, swiglu
 
 #: name -> (shape, init scale); scale 0 means zeros (the norms' offsets)
 ParamSpecs = Dict[str, Tuple[Tuple[int, ...], float]]
 
-_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+              "int8": torch.int8}
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -81,23 +84,63 @@ def init_paged_cache(cfg: ModelConfig, pool_pages: int, page_size: int,
                      ) -> Dict[str, torch.Tensor]:
     """Per-layer KV page pools ``(n_layers, 1, pool_pages, page_size, Hkv,
     Dh)`` -- the JAX shape, whose second axis is ``moe_every`` (1 here).
-    ``pool_pages`` includes the reserved null page 0."""
+    ``pool_pages`` includes the reserved null page 0.  ``kv_dtype="int8"``
+    adds the fp32 scale pools ``k_scale`` / ``v_scale`` of shape
+    ``(n_layers, 1, pool_pages, page_size, Hkv)``: one scale per (page
+    slot, kv head), as in the JAX package."""
     _check_dense(cfg)
     if kv_dtype not in _KV_DTYPES:
         raise NotImplementedError(f"kv_dtype {kv_dtype!r} is not ported "
-                                  "(bfloat16 and float32 are)")
+                                  f"(use one of {sorted(_KV_DTYPES)})")
     shape = (cfg.num_layers, 1, pool_pages, page_size, cfg.num_kv_heads,
              cfg.resolved_head_dim)
     dt = _KV_DTYPES[kv_dtype]
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    if kv_dtype == "int8":
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cpu"
+               ) -> Dict[str, torch.Tensor]:
+    """The slot engine's contiguous KV cache: ``k`` / ``v`` of shape
+    ``(n_layers, 1, batch, max_seq, Hkv, Dh)`` in bf16, the JAX shape and
+    dtype (bf16 whatever the params' dtype)."""
+    _check_dense(cfg)
+    shape = (cfg.num_layers, 1, batch, max_seq, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
 
 def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final projection; a tied head is the (full-precision) embedding, an
+    untied ``lm_head`` may be int8."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
     return mask_vocab_logits(linear(x, head), cfg.vocab_size)
+
+
+def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+             attend: Callable[[int, Params, torch.Tensor], torch.Tensor]
+             ) -> torch.Tensor:
+    """Embed, run every layer (``attend(i, layer_params, h)`` is layer
+    ``i``'s attention on the normed input), final norm and head."""
+    _check_dense(cfg)
+    x = params["embed"][tokens.long()]
+    for i in range(cfg.num_layers):
+        lp = {name[len("blk.0."):]: w[i] for name, w in params.items()
+              if name.startswith("blk.0.")}
+        h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
+        x = x + attend(i, lp, h)
+        h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
+        x = x + swiglu(h, lp["mlp.w_gate"], lp["mlp.w_up"], lp["mlp.w_down"])
+    x = rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
+    return _lm_head(params, cfg, x)
 
 
 def lm_decode_paged(
@@ -112,19 +155,32 @@ def lm_decode_paged(
     """Multi-token decode/prefill step over the paged cache.
 
     Returns logits ``(B, T, V)``; the caller reads row ``new_counts[b]-1``
-    of slot ``b`` and ignores padded rows.  The new K/V are written into
-    ``cache["k"]`` / ``cache["v"]`` in place (the JAX function returns a new
-    cache instead)."""
-    _check_dense(cfg)
-    x = params["embed"][tokens.long()]
-    for i in range(cfg.num_layers):
-        lp = {name[len("blk.0."):]: w[i] for name, w in params.items()
-              if name.startswith("blk.0.")}
-        h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
-        x = x + attention_decode_paged(lp, "attn", cfg, h, cache["k"][i, 0],
-                                       cache["v"][i, 0], lengths, new_counts,
-                                       block_tables)
-        h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
-        x = x + swiglu(h, lp["mlp.w_gate"], lp["mlp.w_up"], lp["mlp.w_down"])
-    x = rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
-    return _lm_head(params, cfg, x)
+    of slot ``b`` and ignores padded rows.  The new K/V (and, for an int8
+    cache, their scales) are written into the cache's pools in place (the
+    JAX function returns a new cache instead)."""
+    quantized = "k_scale" in cache
+
+    def attend(i, lp, h):
+        scales = (dict(k_scales=cache["k_scale"][i, 0],
+                       v_scales=cache["v_scale"][i, 0]) if quantized else {})
+        return attention_decode_paged(lp, "attn", cfg, h, cache["k"][i, 0],
+                                      cache["v"][i, 0], lengths, new_counts,
+                                      block_tables, **scales)
+
+    return _decoder(params, cfg, tokens, attend)
+
+
+def lm_decode_step(
+    params: Params,
+    cfg: ModelConfig,
+    cache: Dict[str, torch.Tensor],
+    tokens: torch.Tensor,        # (B, 1)
+    lengths: torch.Tensor,       # (B,) int32 tokens already cached per slot
+) -> torch.Tensor:
+    """One decode token for every slot over the contiguous cache.
+
+    Returns logits ``(B, 1, V)``; token ``b`` is written at position
+    ``lengths[b]`` of ``cache["k"]`` / ``cache["v"]`` in place (the JAX
+    function returns a new cache instead)."""
+    return _decoder(params, cfg, tokens, lambda i, lp, h: attention_decode(
+        lp, "attn", cfg, h, cache["k"][i, 0], cache["v"][i, 0], lengths))

@@ -1,10 +1,11 @@
 """Paged continuous-batching serving engine, in PyTorch.
 
 Port of the JAX package's ``repro.serve.engine`` for the dense family:
-:class:`EngineMetrics` and :class:`PagedServeEngine` with chunked prefill,
-preemption and the refcounted prefix cache.  The tensor-parallel, graph,
+:class:`EngineMetrics`, :class:`PagedServeEngine` with chunked prefill,
+preemption, the refcounted prefix cache and bf16 or int8 KV pools, and the
+contiguous :class:`ServeEngine` baseline.  The tensor-parallel, graph,
 recurrent-state, speculative and autotune branches of the JAX engine are
-not ported yet, nor is its contiguous ``ServeEngine`` baseline.
+not ported yet.
 
 The host side (page allocator, scheduler, block tables) is the same numpy
 code as in the JAX package; the device side is the model's KV page pools,
@@ -14,6 +15,7 @@ slice assignments on those pools.
 from __future__ import annotations
 
 import dataclasses
+import queue
 import time
 from typing import Dict, List, Optional
 
@@ -139,6 +141,10 @@ class PagedServeEngine:
     for later requests, and the first divergent write COW-splits its shared
     boundary page (:meth:`_sync_page_copies` copies it on the device pools).
     Greedy outputs are token-identical to a sharing-off engine.
+
+    ``kv_dtype="int8"`` stores the KV pages as int8 with one fp32 scale per
+    (page slot, kv head), quantized on write; with int8 weights
+    (``bundle.quantize_params``) this is the int8 serving path.
     """
 
     def __init__(self, bundle: ModelBundle, params, *, device="cuda",
@@ -167,6 +173,7 @@ class PagedServeEngine:
         self.prefix_sharing = prefix_sharing
         self.sched = FifoScheduler(prefill_chunk=prefill_chunk)
         self.prefill_chunk = prefill_chunk
+        self.kv_dtype = kv_dtype
         self.cache = bundle.init_paged_cache(self.kv.pool_pages, page_size,
                                              kv_dtype=kv_dtype)
         self.active: List[Optional[Request]] = [None] * slots
@@ -188,9 +195,14 @@ class PagedServeEngine:
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy physical page ``src`` onto ``dst`` in every layer's K and V
-        pool (page axis 2), in place."""
+        pool and scale pool (page axis 2), in place."""
         for pool in self.cache.values():
             pool[:, :, dst] = pool[:, :, src]
+
+    def kv_pool_bytes(self) -> int:
+        """Bytes held by the device cache pools: KV pages plus, for int8,
+        the scale pools -- the footprint ``kv_dtype="int8"`` shrinks."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     # -- public API -------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -375,3 +387,105 @@ class PagedServeEngine:
         req.done = True
         req.finished_at = time.perf_counter()
         self.metrics.requests_done += 1
+
+
+class ServeEngine:
+    """Contiguous slot engine: one ``slots x max_seq`` bf16 KV cache,
+    prefill-on-admit *through the decode path*, token by token.
+
+    The numerics reference the paged engine must match token for token.
+    Device state: the cache (``bundle.init_cache``), written in place by
+    ``bundle.decode_step`` (B = slots, T = 1); host state: per-slot lengths
+    and last tokens.  Runs on ``device`` (default ``"cuda"``; it raises
+    without a card unless ``device="cpu"``), which must be the bundle's.
+    """
+
+    def __init__(self, bundle: ModelBundle, params, *, device="cuda",
+                 slots: int = 4, max_seq: int = 256):
+        self.device = resolve_device(device)
+        if bundle.device != self.device:
+            raise ValueError(f"engine device {self.device} differs from the "
+                             f"bundle's {bundle.device}")
+        self.bundle = bundle
+        self.params = params
+        self.slots = slots
+        self.max_seq = max_seq
+        self.cache = bundle.init_cache(slots, max_seq)
+        self.lengths = np.zeros((slots,), np.int32)
+        self.active: List[Optional[Request]] = [None] * slots
+        self.pending: "queue.Queue[Request]" = queue.Queue()
+        self.last_tokens = np.zeros((slots, 1), np.int32)
+
+    def _decode(self, tokens: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
+        return self.bundle.decode_step(
+            self.params, self.cache,
+            torch.from_numpy(np.ascontiguousarray(tokens)).to(self.device),
+            torch.from_numpy(np.ascontiguousarray(lengths)).to(self.device))
+
+    def submit(self, req: Request) -> None:
+        if not req.prompt:
+            raise ValueError(
+                f"request {req.rid}: empty prompt (generation needs at "
+                "least one conditioning token, e.g. a BOS id)")
+        if len(req.prompt) >= self.max_seq:
+            raise ValueError(f"request {req.rid}: prompt of "
+                             f"{len(req.prompt)} tokens does not fit "
+                             f"max_seq {self.max_seq}")
+        if not req.submitted_at:
+            req.submitted_at = time.perf_counter()
+        self.pending.put(req)
+
+    def _admit(self) -> None:
+        for slot in range(self.slots):
+            if self.active[slot] is not None or self.pending.empty():
+                continue
+            req = self.pending.get()
+            # prefill by decoding the prompt token by token into this slot,
+            # over the whole slot batch; the slot's length is reset first,
+            # so a reused slot never attends over the previous request's KV
+            # (stale entries past the new length are masked and overwritten
+            # as the request grows).  The other rows rewrite their pending
+            # token at their own length, which their next tick writes again.
+            lengths = self.lengths.copy()
+            lengths[slot] = 0
+            for tok in req.prompt:
+                toks = self.last_tokens.copy()
+                toks[slot, 0] = tok
+                logits = self._decode(toks, lengths)
+                lengths[slot] += 1
+            self.lengths = lengths
+            nxt = int(torch.argmax(logits[slot, -1]))
+            if not req.first_token_at:
+                req.first_token_at = time.perf_counter()
+            req.output.append(nxt)
+            self.last_tokens[slot, 0] = nxt
+            self.active[slot] = req
+
+    def step(self) -> int:
+        """One engine tick: admit new requests, one decode for all slots.
+        Returns the number of active requests."""
+        self._admit()
+        if not any(r is not None for r in self.active):
+            return 0
+        logits = self._decode(self.last_tokens, self.lengths)
+        next_tokens = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+        for slot, req in enumerate(self.active):
+            if req is None:
+                continue
+            self.lengths[slot] += 1
+            tok = int(next_tokens[slot])
+            req.output.append(tok)
+            self.last_tokens[slot, 0] = tok
+            if (req.eos_id is not None and tok == req.eos_id) or \
+               len(req.output) >= req.max_new_tokens or \
+               int(self.lengths[slot]) >= self.max_seq - 1:
+                req.done = True
+                req.finished_at = time.perf_counter()
+                self.active[slot] = None
+        return sum(r is not None for r in self.active)
+
+    def run_until_drained(self, max_ticks: int = 10_000) -> None:
+        for _ in range(max_ticks):
+            n = self.step()
+            if n == 0 and self.pending.empty():
+                return

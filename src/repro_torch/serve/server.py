@@ -2,7 +2,8 @@
 package's ``repro.serve.server``; it is framework-free asyncio).
 
 :class:`AsyncServeFrontend` turns the tick-driven engines
-(:class:`~repro_torch.serve.engine.PagedServeEngine`) into an
+(:class:`~repro_torch.serve.engine.PagedServeEngine` or the contiguous
+:class:`~repro_torch.serve.engine.ServeEngine`) into an
 asyncio server: callers ``await submit(...)`` and receive a
 :class:`TokenStream` that yields tokens as the engine emits them, instead
 of blocking until the whole batch drains.  This replaces the batch-drain
@@ -94,7 +95,8 @@ class AsyncServeFrontend:
     """Asyncio front end driving one serving engine.
 
     Works with any engine exposing ``submit(Request)`` / ``step()`` and the
-    ``active`` / ``sched`` state of the paged engine.
+    ``active`` state plus ``sched`` (paged engine) or ``pending`` (slot
+    engine).
     Use as an async context manager, or call :meth:`start` / :meth:`stop`::
 
         async with AsyncServeFrontend(engine) as front:
@@ -169,8 +171,12 @@ class AsyncServeFrontend:
     # -- driver -----------------------------------------------------------
     def _has_work(self) -> bool:
         eng = self.engine
-        return (any(r is not None for r in eng.active)
-                or bool(eng.sched.waiting))
+        if any(r is not None for r in eng.active):
+            return True
+        sched = getattr(eng, "sched", None)
+        if sched is not None:                 # paged engine
+            return bool(sched.waiting)
+        return not eng.pending.empty()        # contiguous slot engine
 
     def _pump(self) -> None:
         """Push tokens emitted since the last tick into their streams."""

@@ -13,7 +13,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
-from repro_torch.serve import PagedServeEngine
+from repro_torch.serve import PagedServeEngine, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -44,12 +44,19 @@ def test_package_imports_without_jax():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    print(m.name)\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "ok"
+    lines = res.stdout.split()
+    assert lines[-1] == "ok"
+    # the int8 and slot-engine modules among them
+    assert {"repro_torch.quant", "repro_torch.quant.quantize",
+            "repro_torch.kernels.flash_decode.ops",
+            "repro_torch.kernels.apr_matmul.ops", "repro_torch.bridge",
+            "repro_torch.serve.engine"} <= set(lines)
 
 
 @pytest.fixture
@@ -69,9 +76,23 @@ def test_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
         PagedServeEngine(bundle, params)
 
 
+def test_slot_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
+    bundle = build_model(get_config("llama3-8b", smoke=True), device="cpu")
+    params = bundle.init_params()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(bundle, params)
+
+
 def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--requests", "1"])
+
+
+@pytest.mark.parametrize("args", [["--engine", "slot"],
+                                  ["--int8-weights", "--kv-dtype", "int8"]])
+def test_launcher_new_paths_default_to_cuda(no_cuda, args):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_serve.main(["--requests", "1"] + args)
 
 
 def test_kernel_build_dir_is_ignored_by_git():
