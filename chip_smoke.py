@@ -10,7 +10,10 @@ Phases (any failure exits non-zero before the final line):
      with bf16 and int8 weights (the int8 one also bit for bit against the
      bf16 kernel on the dequantized weight), ``flash_decode_paged`` over
      bf16 and int8 pools, ``flash_decode`` over a contiguous cache
-     (``lengths == 0`` rows included), the conv kernels;
+     (``lengths == 0`` rows included), the conv kernels, and the recurrence
+     kernels ``rwkv6_wkv`` (B9) and ``mamba2_ssd`` (B10) with their state in
+     and out, at the decode tick, at 1024- and 1000-token prefills and at the
+     smoke shapes;
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound;
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
@@ -26,13 +29,21 @@ Phases (any failure exits non-zero before the final line):
   5. run the smoke llama3-8b config on the card (kernels) and on the CPU
      (plain versions) with the same weights, and compare the logits and
      greedy tokens: ``decode_paged`` in bf16, ``decode_paged`` with int8
-     weights and int8 KV, ``decode_step`` on the slot cache;
+     weights and int8 KV, ``decode_step`` on the slot cache; the same for
+     the rwkv6 and mamba2 smoke configs (``decode_paged`` through the state
+     pools, and ``prefill``);
   6. run the paper's CNNs (LeNet-5, ResNet-20; random fp32 weights from a
      seed) at batch 256 with every conv on ``apr_conv``, check each
      forward's launches, run ResNet-20 on the memory-resident baseline
      (``apr_conv_hbm``) and on the plain path, time all of them and ResNet-20
      at batch 1, and compare card (kernels) and CPU (plain) logits;
-  7. print the kernels' line, the card's name and power limit, and as the
+  7. serve full-width rwkv6-3b and then mamba2-2.7b (random bf16 weights
+     from a seed, one model at a time) on the PagedServeEngine with its
+     StateCache and on the slot ServeEngine, the same 6 requests on 4
+     slots: greedy tokens equal, every launch count checked; then a
+     1024-token ``bundle.prefill`` on each (B9/B10 over all T) against the
+     card's plain path;
+  8. print the kernels' line, the card's name and power limit, and as the
      last line ``{"ok": true, "device": {...}}``.
 
 Everything the run measured also goes to ``chiprun_out/chip_smoke.json``.
@@ -144,13 +155,14 @@ def conv_err(got, ref) -> tuple:
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
-def profile_device(torch, fn, reps: int, host=None):
+def profile_device(torch, fn, reps: int, host=None, counts=None):
     """Device milliseconds per call of ``fn()``, by kernel name, over
     ``reps`` calls traced by ``torch.profiler`` (device-side events only: an
     aten op's own row repeats its kernels); None where the profiler cannot
     trace, since it is a measurement and not a phase.  A dict passed as
     ``host`` receives the host milliseconds per call by op (self CPU
-    time) of the same trace."""
+    time) of the same trace, one passed as ``counts`` the device events
+    (kernels, copies) per call by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
@@ -171,6 +183,8 @@ def profile_device(torch, fn, reps: int, host=None):
         t = ev.self_device_time_total / 1e3 / reps
         if t > 0:
             by_kernel[ev.key] = t
+            if counts is not None:
+                counts[ev.key] = ev.count / reps
     if not by_kernel:
         print("    profiler recorded no device time")
     return by_kernel
@@ -180,6 +194,502 @@ def rel_logits_err(got, ref) -> float:
     """max |got - ref| / max |ref|."""
     return float((got.float() - ref.float()).abs().max()) / max(
         float(ref.float().abs().max()), 1e-30)
+
+
+# ------------------------------------------- recurrent families (B9, B10)
+#: the recurrent serving path: full-width rwkv6-3b and mamba2-2.7b, 4 slots,
+#: prefill chunks of 16, 6 requests on 4 slots (two admitted mid-flight)
+RECURRENT_ARCHS = ("rwkv6-3b", "mamba2-2.7b")
+RECURRENT_PROMPTS = (24, 57, 96, 40, 33, 70)
+RECURRENT_NEW = 16
+#: apr_matmul launches per token-forward, counted from the code: rwkv6 has
+#: wr, wk, wv, wg, wo, wA, wB, ck, cv, cr in each of 32 layers plus the
+#: lm_head; mamba2 w_in and w_out in each of 64 layers plus the lm_head.
+#: Phase 7 confirms both on the card.
+APR_PER_FORWARD = {"rwkv6-3b": 10 * 32 + 1, "mamba2-2.7b": 2 * 64 + 1}
+#: the state pools of 4 slots (StateCache.pool_slots = 2 + 4 * 2 = 10),
+#: computed from the configs: rwkv6 32 x 10 x (2 bf16 rows of 2560 + 40
+#: fp32 64x64 matrices), mamba2 64 x 10 x (3 x 5376 fp32 conv rows + 80
+#: fp32 64x128 states)
+STATE_POOL_BYTES = {"rwkv6-3b": 212_992_000, "mamba2-2.7b": 1_719_009_280}
+#: the scans' fp32 state, kernel against plain version: the same fp32
+#: recurrence, the kernel with FMAs and y's sum in another order;
+#: |kernel - plain| <= STATE_RTOL * (|plain| + max |plain|)
+STATE_RTOL = 1e-4
+#: the scans' y: |kernel - plain| <= BF16_RTOL * |plain| + SCAN_ATOL_REL *
+#: max |plain| -- one bf16 ulp where both round the output to bf16, plus
+#: the fp32 sum-order difference on the scale of the largest output
+SCAN_ATOL_REL = 1e-4
+
+
+def scan_err(got, ref, rtol: float, atol_rel: float) -> tuple:
+    """(max |got - ref|, max |got - ref| / max |ref|, within tolerance)."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    scale = float(r.abs().max()) if r.numel() else 0.0
+    ok = bool((diff <= rtol * r.abs() + atol_rel * scale).all()) and \
+        bool(g.isfinite().all())
+    mx = float(diff.max()) if diff.numel() else 0.0
+    return mx, mx / max(scale, 1e-30), ok
+
+
+def rwkv_inputs(torch, gen, dev, b, t, h, d, dtype, init):
+    """r, k, v, w, u as the model makes them (w = exp(-exp(.)) in fp32,
+    down to ~1e-24), and a nonzero initial state when ``init``."""
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    r, k, v = (rn(b, t, h, d, scale=0.5).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(torch.rand((b, t, h, d), generator=gen,
+                                        device=dev) * 12 - 8))
+    u = rn(h, d, scale=0.1).to(dtype)
+    s0 = rn(b, h, d, d, scale=0.5) if init else None
+    return (r, k, v, w, u), s0
+
+
+def mamba_inputs(torch, gen, dev, b, t, h, p, n, dtype, init, strided):
+    """x, b, c, dt, a, d as the model makes them; with ``strided`` x, b and
+    c are column slices of one (B, T, H·P + 2N) tensor, as the fused
+    in-projection hands them over."""
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    if strided:
+        big = rn(b, t, h * p + 2 * n, scale=0.5).to(dtype)
+        x = big[..., :h * p].reshape(b, t, h, p)
+        bm, cm = big[..., h * p:h * p + n], big[..., h * p + n:]
+    else:
+        x, bm, cm = (rn(*s, scale=0.5).to(dtype)
+                     for s in ((b, t, h, p), (b, t, n), (b, t, n)))
+    dt = torch.nn.functional.softplus(rn(b, t, h) - 1.0)
+    a = -torch.exp(rn(h, scale=0.5))
+    d = rn(h)
+    h0 = rn(b, h, p, n, scale=0.5) if init else None
+    return (x, bm, cm, dt, a, d), h0
+
+
+def scan_correctness(torch, gen, dev) -> list:
+    """Phase 2 for B9 and B10: each kernel against its plain version, y and
+    the state out, at the decode shape (B = 4, T = 1, full-width heads, a
+    nonzero state), at prefill shapes (T = 1024 and a ragged 1000, B = 1
+    and 4, from zeros and from a nonzero state), at the smoke shapes and at
+    ragged head sizes.  Returns (kernel, case, max abs, max rel, ok) rows."""
+    from repro_torch.kernels.mamba2 import mamba2_ref, mamba2_ssd
+    from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for b, t, h, d, dtype, init in [
+            (4, 1, 40, 64, bf, True),                # decode tick
+            (1, 1024, 40, 64, bf, False), (1, 1024, 40, 64, bf, True),
+            (4, 1024, 40, 64, bf, False), (1, 1000, 40, 64, bf, False),
+            (4, 1000, 40, 64, bf, True),
+            (2, 13, 4, 16, bf, True),                # smoke heads
+            (2, 9, 3, 48, f32, True), (1, 5, 2, 128, bf, True),
+            (3, 7, 2, 80, f32, False)]:
+        args, s0 = rwkv_inputs(torch, gen, dev, b, t, h, d, dtype, init)
+        y, s = rwkv6_wkv(*args, s_init=s0, return_state=True)
+        y_only = rwkv6_wkv(*args, s_init=s0)
+        yr, sr = rwkv6_ref(*args, s_init=s0, return_state=True)
+        torch.cuda.synchronize()
+        ey, ry, oky = scan_err(y, yr, BF16_RTOL, SCAN_ATOL_REL)
+        es, rs, oks = scan_err(s, sr, STATE_RTOL, STATE_RTOL)
+        rows.append(("rwkv6_wkv", f"B={b} T={t} H={h} D={d} "
+                     f"{str(dtype)[6:]} {'state in' if init else 'zeros'} "
+                     f"y rel={ry:.2g} state abs={es:.2g} rel={rs:.2g}",
+                     ey, oky and oks and torch.equal(y, y_only)))
+    for b, t, h, p, n, dtype, init, strided in [
+            (4, 1, 80, 64, 128, f32, True, True),    # decode tick (fp32 x)
+            (1, 1024, 80, 64, 128, bf, False, True),
+            (1, 1024, 80, 64, 128, bf, True, False),
+            (4, 1024, 80, 64, 128, bf, False, True),
+            (1, 1000, 80, 64, 128, bf, False, False),
+            (4, 1000, 80, 64, 128, bf, True, True),
+            (2, 13, 8, 16, 16, bf, True, True),      # smoke heads
+            (2, 9, 3, 48, 80, bf, True, False), (3, 7, 2, 32, 112, f32,
+                                                 False, True)]:
+        args, h0 = mamba_inputs(torch, gen, dev, b, t, h, p, n, dtype, init,
+                                strided)
+        y, s = mamba2_ssd(*args, h_init=h0, return_state=True)
+        y_only = mamba2_ssd(*args, h_init=h0)
+        yr, sr = mamba2_ref(*args, h_init=h0, return_state=True)
+        torch.cuda.synchronize()
+        ey, ry, oky = scan_err(y, yr, BF16_RTOL, SCAN_ATOL_REL)
+        es, rs, oks = scan_err(s, sr, STATE_RTOL, STATE_RTOL)
+        rows.append(("mamba2_ssd", f"B={b} T={t} H={h} P={p} N={n} "
+                     f"{str(dtype)[6:]} {'state in' if init else 'zeros'}"
+                     f"{' strided' if strided else ''} y rel={ry:.2g} state "
+                     f"abs={es:.2g} rel={rs:.2g}", ey,
+                     oky and oks and torch.equal(y, y_only)))
+    return rows
+
+
+def scan_timing(torch, gen, dev) -> list:
+    """Phase 3 for B9 and B10: CUDA-event ms per launch at the decode tick
+    (B = 4, T = 1, state in and out) and at a 1024-token prefill (B = 1,
+    from zeros, state out), beside the plain version and the bound: the
+    streams, y and the state read and written once at 3.35 TB/s, or the
+    fp32 operations (~8 per state element per step for B9, ~6 for B10) at
+    the fp32 rate.  No single PyTorch call computes either recurrence, so
+    library_ms is None."""
+    from repro_torch.kernels.mamba2 import mamba2_ref, mamba2_ssd
+    from repro_torch.kernels.rwkv6 import rwkv6_ref, rwkv6_wkv
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for label, b, t, init, dtype in (("decode", 4, 1, True, bf),
+                                     ("prefill", 1, 1024, False, bf)):
+        h, d = 40, 64
+        args, s0 = rwkv_inputs(torch, gen, dev, b, t, h, d, dtype, init)
+        iters = 200 if t == 1 else 20
+        t_k = cuda_ms(torch, lambda i: rwkv6_wkv(*args, s_init=s0,
+                                                 return_state=True), iters)
+        t_p = cuda_ms(torch, lambda i: rwkv6_ref(*args, s_init=s0,
+                                                 return_state=True),
+                      20 if t == 1 else 2, warmup=1)
+        es = 2
+        nbytes = (b * t * h * d * (4 * es + 4) + h * d * es
+                  + (2 if init else 1) * b * h * d * d * 4)
+        rows.append(dict(kernel="rwkv6_wkv", shape=label, B=b, T=t, H=h,
+                         D=d, ms=t_k, plain_ms=t_p, library_ms=None,
+                         **bound_ms(nbytes, 8 * b * t * h * d * d,
+                                    FP32_FLOPS_PER_S)))
+    for label, b, t, init, dtype in (("decode", 4, 1, True, f32),
+                                     ("prefill", 1, 1024, False, bf)):
+        h, p, n = 80, 64, 128
+        args, h0 = mamba_inputs(torch, gen, dev, b, t, h, p, n, dtype, init,
+                                True)
+        iters = 200 if t == 1 else 20
+        t_k = cuda_ms(torch, lambda i: mamba2_ssd(*args, h_init=h0,
+                                                  return_state=True), iters)
+        t_p = cuda_ms(torch, lambda i: mamba2_ref(*args, h_init=h0,
+                                                  return_state=True),
+                      20 if t == 1 else 2, warmup=1)
+        es = 2 if dtype == bf else 4
+        nbytes = (b * t * (2 * h * p * es + 2 * n * es + 4 * h) + 8 * h
+                  + (2 if init else 1) * b * h * p * n * 4)
+        rows.append(dict(kernel="mamba2_ssd", shape=label, B=b, T=t, H=h,
+                         P=p, N=n, ms=t_k, plain_ms=t_p, library_ms=None,
+                         **bound_ms(nbytes, 6 * b * t * h * p * n,
+                                    FP32_FLOPS_PER_S)))
+    return rows
+
+
+def recurrent_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
+    """Phase 5 for the recurrent families: the smoke config on the card
+    (B9/B10 and apr_matmul) and on the CPU (plain versions), same weights.
+    ``paged``: one prefill chunk of 8 (two rows, one padded after 5) through
+    the state pools, then 3 decode ticks, each side fed the CPU's greedy
+    tokens; ``prefill``: ``bundle.prefill`` of the 8 tokens (B9/B10 over all
+    T on the card, the chunked formula on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    scfg = get_config(arch, smoke=True)
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    bundles = {w: build_model(scfg, device=d) for w, d in devices.items()}
+    cpu_params = bundles["cpu"].init_params(
+        torch.Generator().manual_seed(seed))
+    prm = {"cpu": cpu_params,
+           "cuda": {k: v.to(dev) for k, v in cpu_params.items()}}
+    rng = np.random.default_rng(seed)
+    first = rng.integers(1, scfg.vocab_size, (2, 8)).astype(np.int32)
+
+    def on(where, arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(devices[where])
+                for a in arrays]
+
+    def record(out, diffs, flips, step):
+        diffs.append(float((out["cpu"] - out["cuda"]).abs().max()))
+        nxt, got = out["cpu"].argmax(-1), out["cuda"].argmax(-1)
+        for row in torch.nonzero(nxt != got).flatten().tolist():
+            flips.append(dict(step=step, row=row, cpu_gap=float(
+                out["cpu"][row, nxt[row]] - out["cpu"][row, got[row]])))
+        return nxt, int((nxt == got).sum())
+
+    res = {}
+    # paged: [2 KV columns | read | T writes]; the chunk's last real token
+    # of row 0 writes slot 2, of row 1 slot 3; the rest go to trash slot 1
+    caches = {w: b_.init_paged_cache(9, 8, state_slots=6)
+              for w, b_ in bundles.items()}
+    tokens, counts = first, np.array([8, 5], np.int32)
+    lengths = np.zeros(2, np.int32)
+    writes = np.ones((2, 8), np.int32)
+    writes[0, 7], writes[1, 4] = 2, 3
+    tables = np.concatenate([np.zeros((2, 3), np.int32), writes], axis=1)
+    diffs, flips, agree = [], [], 0
+    for step in range(4):
+        out = {}
+        for where, b_ in bundles.items():
+            logits = b_.decode_paged(prm[where], caches[where],
+                                     *on(where, (tokens, lengths, counts,
+                                                 tables)))
+            out[where] = logits[[0, 1], torch.from_numpy(
+                counts - 1).long().to(devices[where])].float().cpu()
+        nxt, n_eq = record(out, diffs, flips, step)
+        agree += n_eq
+        tokens = nxt.numpy()[:, None].astype(np.int32)
+        lengths = lengths + counts
+        counts = np.ones(2, np.int32)
+        tables = np.array([[0, 0, 2, 2], [0, 0, 3, 3]], np.int32)
+    res["paged"] = dict(max_abs_logits_diff=max(diffs), per_step=diffs,
+                        greedy_agree=agree, greedy_total=8, flips=flips,
+                        bound=SMOKE_LOGITS_BOUND)
+    out = {w: b_.prefill(prm[w], *on(w, (first,)))[0][:, 0].float().cpu()
+           for w, b_ in bundles.items()}
+    diffs, flips = [], []
+    _, agree = record(out, diffs, flips, 0)
+    res["prefill"] = dict(max_abs_logits_diff=diffs[0], per_step=diffs,
+                          greedy_agree=agree, greedy_total=2, flips=flips,
+                          bound=SMOKE_LOGITS_BOUND)
+    return res
+
+
+def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
+                      reset_counts, llm_counts, check_served) -> dict:
+    """Phase 7: full-width ``arch`` (random bf16 weights from ``seed``) on
+    the PagedServeEngine with its StateCache (4 slots, prefill chunks of 16)
+    and on the slot ServeEngine, the same 6 requests; greedy tokens must be
+    equal, and every launch count must be what the path demands.  Then
+    ``bundle.prefill`` of one 1024-token prompt with B9/B10 over all T, held
+    to the card's plain path and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba2 import mamba2_ssd
+    from repro_torch.kernels.rwkv6 import rwkv6_wkv
+    from repro_torch.models import build_model
+    from repro_torch.serve import PagedServeEngine, Request, ServeEngine
+
+    cfg = get_config(arch)
+    scan_name = "rwkv6_wkv" if cfg.family == "ssm" else "mamba2_ssd"
+    bundle = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in params.values()) / 1e9
+    per_fwd = APR_PER_FORWARD[arch]
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in RECURRENT_PROMPTS]
+    forward, decode_step = bundle.decode_paged, bundle.decode_step
+    bundle.decode_paged = checked(forward)
+    kw = dict(device="cuda", slots=4, page_size=16, prefill_chunk=16)
+
+    def expect(token_forwards: int) -> dict:
+        return {**{k: 0 for k in llm_counts()},
+                "apr_matmul": per_fwd * token_forwards,
+                scan_name: cfg.num_layers * token_forwards}
+
+    # one token-forward alone, to confirm the per-forward counts
+    warm = PagedServeEngine(bundle, params, **kw)
+    warm.submit(Request(rid=-1, prompt=[1] * 20, max_new_tokens=2))
+    warm.run_until_drained()
+    reset_counts()
+    one = np.zeros((4, 16 + 2), np.int32)
+    one[:, 16:] = np.arange(2, 6)[:, None]
+    forward(params, warm.cache, *[torch.from_numpy(a).to(dev) for a in (
+        np.ones((4, 1), np.int32), np.zeros(4, np.int32),
+        np.ones(4, np.int32), one)])
+    torch.cuda.synchronize()
+    per_forward = llm_counts()
+    if per_forward != expect(1):
+        fail(f"{arch}: one decode forward launched {per_forward}, expected "
+             f"{expect(1)}")
+    del warm
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=RECURRENT_NEW)
+            for i, p in enumerate(prompts)]
+    engine = PagedServeEngine(bundle, params, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    finite.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = llm_counts()
+    m = engine.metrics
+    token_forwards = engine.prefill_chunk * m.prefill_calls + m.decode_calls
+    paged = dict(**m.summary(), wall_s=wall, token_forwards=token_forwards,
+                 decode_ms_per_tick=1e3 * m.decode_time_s / m.decode_calls,
+                 prefill_ms_per_chunk=1e3 * m.prefill_time_s
+                 / m.prefill_calls,
+                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 state_pool_bytes=engine.kv_pool_bytes(),
+                 state_pool_slots=engine.state.pool_slots,
+                 launches=launches, expected_launches=expect(token_forwards))
+    # the least a decode tick at 4 slots could take: every weight but the
+    # embedding streamed once, the 4 sequences' state read and written
+    live_state = (paged["state_pool_bytes"] * engine.slots
+                  / engine.state.pool_slots)
+    paged["tick_bound_ms"] = (weight_gb * 1e9 - params["embed"].numel()
+                              * params["embed"].element_size()
+                              + 2 * live_state) / HBM_BYTES_PER_S * 1e3
+    check_served(f"phase 7 {arch} paged", reqs, RECURRENT_NEW, launches,
+                 expect(token_forwards))
+    if paged["state_pool_bytes"] != STATE_POOL_BYTES[arch]:
+        fail(f"{arch}: state pools of {paged['state_pool_bytes']} bytes, "
+             f"expected {STATE_POOL_BYTES[arch]}")
+    paged_out = [r.output for r in reqs]
+
+    # one decode tick at the phase's prompt lengths, reading and writing
+    # state slots 2..5: wall time and the profiled device-idle share
+    tick = [torch.from_numpy(a).to(dev) for a in (
+        np.ones((4, 1), np.int32), np.asarray(RECURRENT_PROMPTS[:4],
+                                              np.int32),
+        np.ones(4, np.int32), one)]
+    forward(params, engine.cache, *tick)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        forward(params, engine.cache, *tick)
+    torch.cuda.synchronize()
+    tick_wall = (time.perf_counter() - t0) / 5 * 1e3
+    counts = {}
+    by_kernel = profile_device(torch, lambda: forward(params, engine.cache,
+                                                      *tick), 5,
+                               counts=counts)
+    if by_kernel:
+        busy = sum(by_kernel.values())
+        paged["profiled_tick"] = dict(
+            wall_ms=tick_wall, device_busy_ms=busy,
+            idle_share=1 - busy / tick_wall,
+            device_ops=sum(counts.values()), top_kernels_ms=dict(sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:8]))
+    else:
+        paged["profiled_tick"] = dict(wall_ms=tick_wall)
+    bundle.decode_paged = forward
+    del engine
+
+    # the slot engine on the same requests
+    step_ms = []
+
+    def timed_step(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = checked(decode_step)(*a)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return logits
+
+    bundle.decode_step = timed_step
+    slot_reqs = [Request(rid=i, prompt=p, max_new_tokens=RECURRENT_NEW)
+                 for i, p in enumerate(prompts)]
+    slot_engine = ServeEngine(bundle, params, device="cuda", slots=4,
+                              max_seq=256)
+    step_ms.clear()
+    finite.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    for r in slot_reqs:
+        slot_engine.submit(r)
+    slot_engine.run_until_drained()
+    torch.cuda.synchronize()
+    slot_wall = time.perf_counter() - t0
+    slot_launches = llm_counts()
+    bundle.decode_step = decode_step
+    del slot_engine
+    same = sum(a == b for r, o in zip(slot_reqs, paged_out)
+               for a, b in zip(r.output, o))
+    slot = dict(wall_s=slot_wall, forwards=len(step_ms),
+                ms_per_forward=float(np.mean(step_ms)),
+                ms_per_forward_median=float(np.median(step_ms)),
+                mean_ttft_s=float(np.mean([r.ttft for r in slot_reqs])),
+                tokens_equal_paged=same,
+                tokens_total=sum(len(o) for o in paged_out),
+                launches=slot_launches, expected_launches=expect(
+                    len(step_ms)))
+    check_served(f"phase 7 {arch} slot", slot_reqs, RECURRENT_NEW,
+                 slot_launches, expect(len(step_ms)))
+
+    # bundle.prefill of one 1024-token prompt, B9/B10 at T = 1024: every
+    # layer's scan held to its plain version (the per-step scan of
+    # ``ref.py``) on the same inputs, with phase 2's tolerances, and the
+    # logits held to the card's plain path (the chunked formulas, with the
+    # models' ``use_scan_kernel`` seam set to False) as closely as the two
+    # plain versions agree with each other:
+    # at 32 or 64 layers of random bf16 weights one-ulp roundings grow to
+    # tenths in the logits whatever the scan (``PERF.md``, PR 14)
+    from repro_torch.kernels.mamba2 import mamba2_ref
+    from repro_torch.kernels.rwkv6 import rwkv6_ref
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.models import ssm as ssm_mod
+    mod, fn = ((rwkv_mod, "wkv_chunked") if cfg.family == "ssm"
+               else (ssm_mod, "ssd_chunked"))
+    scan = getattr(mod, fn)
+    layer_errs = []
+
+    def per_step(*a, chunk, s_init=None, h_init=None, return_state=False):
+        if cfg.family == "ssm":
+            r, k, v, logw, u = a
+            return rwkv6_ref(r, k, v, torch.exp(logw.float()), u,
+                             s_init=s_init, return_state=return_state)
+        return mamba2_ref(*a, h_init=h_init, return_state=return_state)
+
+    def shadowed(*a, **kw):
+        out = scan(*a, **kw)
+        ref = per_step(*a, **kw)
+        layer_errs.append((scan_err(out[0], ref[0], BF16_RTOL, SCAN_ATOL_REL),
+                           scan_err(out[1], ref[1], STATE_RTOL, STATE_RTOL)))
+        return out
+
+    prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 1024))
+                              ).to(dev)
+    logits, times = {}, {}
+    seam = mod.use_scan_kernel
+    for impl in ("kernel", "shadow", "plain", "per-step"):
+        torch.cuda.synchronize()
+        reset_counts()
+        setattr(mod, fn, {"shadow": shadowed, "per-step": per_step}.get(
+            impl, scan))
+        if impl == "plain":
+            mod.use_scan_kernel = lambda x: False
+        t0 = time.perf_counter()
+        try:
+            out, _ = bundle.prefill(params, prompt)
+            torch.cuda.synchronize()
+        finally:
+            setattr(mod, fn, scan)
+            mod.use_scan_kernel = seam
+        times[impl] = time.perf_counter() - t0
+        logits[impl] = out[0, 0, :cfg.vocab_size].float()
+        if impl == "kernel":
+            prefill_launches = llm_counts()
+
+    def diff(a, b):
+        return float((logits[a] - logits[b]).abs().max())
+
+    err_k, err_pp = diff("kernel", "plain"), diff("per-step", "plain")
+    y_rel = max(e[0][1] for e in layer_errs)
+    s_rel = max(e[1][1] for e in layer_errs)
+    prefill = dict(tokens=1024, kernel_ms=1e3 * times["kernel"],
+                   plain_ms=1e3 * times["plain"],
+                   per_step_plain_ms=1e3 * times["per-step"],
+                   max_abs_logits_diff=err_k, plain_pair_diff=err_pp,
+                   max_abs_logit=float(logits["plain"].abs().max()),
+                   argmax_equal=bool(torch.equal(logits["kernel"].argmax(),
+                                                 logits["plain"].argmax())),
+                   layers_checked=len(layer_errs), layer_y_max_rel=y_rel,
+                   layer_state_max_rel=s_rel,
+                   layers_ok=all(e[0][2] and e[1][2] for e in layer_errs),
+                   launches=prefill_launches, expected_launches=expect(1),
+                   bound=max(SMOKE_LOGITS_BOUND, 2 * err_pp))
+    if prefill_launches != expect(1):
+        fail(f"{arch}: the 1024-token prefill launched {prefill_launches}, "
+             f"expected {expect(1)}")
+    if not prefill["layers_ok"] or len(layer_errs) != cfg.num_layers:
+        fail(f"{arch}: a layer's scan at T = 1024 disagrees with its plain "
+             f"version on the same inputs (y rel {y_rel:.3g}, state rel "
+             f"{s_rel:.3g})")
+    if not all(bool(v.isfinite().all()) for v in logits.values()) or \
+            not err_k <= prefill["bound"]:
+        fail(f"{arch}: 1024-token prefill logits {err_k} from the plain path "
+             f"(the two plain versions are {err_pp} apart)")
+    del params
+    torch.cuda.empty_cache()
+    return dict(arch=arch, layers=cfg.num_layers, weight_gb=weight_gb,
+                init_s=init_s, per_forward_launches=per_forward, paged=paged,
+                slot=slot, prefill_1024=prefill, tokens_equal=same)
 
 
 def main() -> int:
@@ -208,6 +718,10 @@ def main() -> int:
         decode_attention_ref, flash_decode, flash_decode_paged, gather_pages,
         paged_decode_attention_q_ref, paged_decode_attention_ref)
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.mamba2 import mamba2_ssd
+    from repro_torch.kernels.mamba2 import ops as mamba2_ops
+    from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
+    from repro_torch.kernels.rwkv6 import rwkv6_wkv
     from repro_torch.models import build_model
     from repro_torch.models.cnn import CNNS, conv_geometries, hbm_conv
     from repro_torch.quant import QuantizedTensor, quantize_channelwise
@@ -220,6 +734,14 @@ def main() -> int:
     report = {"device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     t_start = time.perf_counter()
+    phase_s = {}
+    t_phase = [t_start]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+        print(f"    ({name}: {phase_s[name]:.1f} s)")
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale
@@ -229,7 +751,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all({apr_ops.LIBRARY: apr_ops.SIGNATURES,
                       fd_ops.LIBRARY: fd_ops.SIGNATURES,
-                      conv_ops.LIBRARY: conv_ops.SIGNATURES})
+                      conv_ops.LIBRARY: conv_ops.SIGNATURES,
+                      rwkv6_ops.LIBRARY: rwkv6_ops.SIGNATURES,
+                      mamba2_ops.LIBRARY: mamba2_ops.SIGNATURES})
     build_s = time.perf_counter() - t0
     print(f"[1] built {sorted(_build.BUILD_SECONDS) or 'nothing (cached)'} "
           f"in {build_s:.2f} s (nvcc, sm_90a, one process per source)")
@@ -238,11 +762,13 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
     report["build_s"] = build_s
+    phase_done("phase 1")
 
     # ------------------------------------------------------------ 2 correct
     errs = {"apr_matmul": 0.0, "apr_matmul_int8w": 0.0,
             "flash_decode_paged": 0.0, "flash_decode_paged_int8": 0.0,
-            "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0}
+            "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0,
+            "rwkv6_wkv": 0.0, "mamba2_ssd": 0.0}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -422,10 +948,15 @@ def main() -> int:
                 errs["apr_conv"] = max(errs["apr_conv"], err)
                 cases.append(("apr_conv", f"{conv_label(xs, fs, s, p, 0)} "
                               f"{act}, {bname}", err, ok))
+    for name, case, err, ok in scan_correctness(torch, gen, dev):
+        errs[name] = max(errs[name], err)
+        cases.append((name, case, err, ok))
     print(f"[2] kernel vs plain version on the card (tolerance "
           f"{BF16_RTOL:.4g}*|plain| + {ATOL:g}; int8 pools "
           f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; conv kernels "
-          f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|):")
+          f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|; scans: y "
+          f"{BF16_RTOL:.4g}*|plain| + {SCAN_ATOL_REL:g}*max|plain|, fp32 "
+          f"state {STATE_RTOL:g}*(|plain| + max|plain|)):")
     for name, shape, err, ok in cases:
         print(f"    {'ok  ' if ok else 'FAIL'} {name:23s} {shape:50s} "
               f"max_abs_err={err:.3g}")
@@ -433,6 +964,7 @@ def main() -> int:
                              for n, s, e, o in cases]
     if not all(ok for *_, ok in cases):
         fail("a kernel disagrees with its plain version")
+    phase_done("phase 2")
 
     # --------------------------------------------------------------- 3 time
     slots = 4
@@ -550,6 +1082,7 @@ def main() -> int:
     timing.append(fdc_row)
     del q, kc, vc
     torch.cuda.empty_cache()
+    scan_rows = scan_timing(torch, gen, dev)
     print("[3] kernel times (CUDA events, cold weights: buffers rotated past "
           "the 50 MB L2):")
     for r in timing:
@@ -563,6 +1096,14 @@ def main() -> int:
               f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"{r['bound_ms'] / r['ms']:.0%} of bound")
+    for r in scan_rows:
+        shape = " ".join(f"{k}={r[k]}" for k in ("B", "T", "H", "D", "P", "N")
+                         if k in r)
+        print(f"    {r['kernel']:23s} {r['shape']:7s} {shape:32s} kernel_ms="
+              f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"{r['bound_ms'] / r['ms']:.0%} of bound")
+    timing.extend(scan_rows)
     report["timing"] = timing
 
     # apr_conv, apr_conv_hbm, the plain version and F.conv2d on every
@@ -659,6 +1200,8 @@ def main() -> int:
                     for (k, n), cnt in LLAMA_DECODE_SHAPES.items())
         return 32 * layer + per_shape[(kernel, slots) + LM_HEAD][key]
 
+    phase_done("phase 3")
+
     # -------------------------------------------------------------- 4 serve
     def reset_counts():
         apr_matmul.launches = 0
@@ -669,13 +1212,17 @@ def main() -> int:
         apr_conv2d.launches = 0
         apr_conv2d.hbm_launches = 0
         apr_conv2d_fused.launches = 0
+        rwkv6_wkv.launches = 0
+        mamba2_ssd.launches = 0
 
     def llm_counts() -> dict:
         return {"apr_matmul": apr_matmul.launches,
                 "apr_matmul_int8w": apr_matmul.int8_launches,
                 "flash_decode_paged": flash_decode_paged.launches,
                 "flash_decode_paged_int8": flash_decode_paged.int8_launches,
-                "flash_decode": flash_decode.launches}
+                "flash_decode": flash_decode.launches,
+                "rwkv6_wkv": rwkv6_wkv.launches,
+                "mamba2_ssd": mamba2_ssd.launches}
 
     def expected_counts(**nonzero) -> dict:
         return {name: nonzero.get(name, 0) for name in llm_counts()}
@@ -831,6 +1378,8 @@ def main() -> int:
     del engine, reqs
     torch.cuda.empty_cache()
 
+    phase_done("phase 4")
+
     # ------------------------------------------- 4c slot engine, full width
     slot_prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                     for n in (8, 19, 32, 13)]
@@ -897,6 +1446,8 @@ def main() -> int:
           f"{same}/{n_tok}")
     check_served("phase 4c", slot_reqs, 8, slot_launches, slot_expect)
 
+    phase_done("phase 4c")
+
     # --------------------------------------- 4b int8 weights + int8 KV pages
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -962,6 +1513,8 @@ def main() -> int:
     serve_q["profiled_tick"] = profile_tick(qparams, engine)
     del qparams, engine, reqs, bundle
     torch.cuda.empty_cache()
+
+    phase_done("phase 4b")
 
     # ----------------------------------------------- 5 card vs CPU, smoke
     scfg = get_config("llama3-8b", smoke=True)
@@ -1032,11 +1585,16 @@ def main() -> int:
 
     parity = {kind: smoke_parity(kind)
               for kind in ("paged_bf16", "paged_int8", "slot")}
+    for arch in RECURRENT_ARCHS:
+        for kind, r in recurrent_smoke_parity(torch, arch, args.seed,
+                                              dev).items():
+            parity[f"{arch.split('-')[0]}_{kind}"] = r
     report["smoke_parity"] = parity
-    print("[5] smoke llama3-8b, card (kernels) vs CPU (plain), same weights "
-          f"(bound {SMOKE_LOGITS_BOUND} on max |logits diff|):")
+    print("[5] smoke llama3-8b, rwkv6-3b and mamba2-2.7b, card (kernels) vs "
+          f"CPU (plain), same weights (bound {SMOKE_LOGITS_BOUND} on max "
+          "|logits diff|):")
     for kind, r in parity.items():
-        print(f"    {kind:10s} max |logits diff| "
+        print(f"    {kind:14s} max |logits diff| "
               f"{r['max_abs_logits_diff']:.4g}, per step "
               f"{[round(x, 4) for x in r['per_step']]}, greedy tokens agree "
               f"{r['greedy_agree']}/{r['greedy_total']}"
@@ -1047,6 +1605,8 @@ def main() -> int:
         err = r["max_abs_logits_diff"]
         if not math.isfinite(err) or err > SMOKE_LOGITS_BOUND:
             fail(f"{kind}: card and CPU logits differ beyond the bound")
+
+    phase_done("phase 5")
 
     # ---------------------------------------------------------------- 6 CNNs
 
@@ -1177,8 +1737,71 @@ def main() -> int:
                for v in parity.values()):
         fail("CNN logits on the card and the CPU disagree")
     del nets
+    phase_done("phase 6")
 
-    # ------------------------------------------------------------- 7 report
+    # --------------------------------- 7 recurrent serving, full width
+    recurrent = {}
+    for arch in RECURRENT_ARCHS:
+        rec = recurrent_serving(torch, arch, args.seed, dev, checked, finite,
+                                reset_counts, llm_counts, check_served)
+        recurrent[arch] = rec
+        pg, sl, pf = rec["paged"], rec["slot"], rec["prefill_1024"]
+        tick = pg["profiled_tick"]
+        print(f"[7] {arch} full width ({rec['layers']} layers, "
+              f"{rec['weight_gb']:.2f} GB bf16 weights, init "
+              f"{rec['init_s']:.2f} s); one token-forward launches "
+              f"{rec['per_forward_launches']}")
+        print(f"    PagedServeEngine + StateCache: {pg['requests_done']}/"
+              f"{len(RECURRENT_PROMPTS)} requests (prompts "
+              f"{list(RECURRENT_PROMPTS)}, {RECURRENT_NEW} new tokens, 4 "
+              f"slots, prefill chunks of 16) in {pg['wall_s']:.2f} s wall; "
+              f"decode {pg['decode_tokens']} tok in {pg['decode_calls']} "
+              f"ticks: {pg['decode_tps']:.2f} tok/s, "
+              f"{pg['decode_ms_per_tick']:.3f} ms per tick (bound "
+              f"{pg['tick_bound_ms']:.3f} ms: weights but the embedding and "
+              f"4 states read and written once); prefill "
+              f"{pg['prefill_tokens']} tok in {pg['prefill_calls']} chunks: "
+              f"{pg['prefill_ms_per_chunk']:.3f} ms per chunk; TTFT mean "
+              f"{pg['mean_ttft_s'] * 1e3:.2f} ms, p50 "
+              f"{pg['p50_ttft_s'] * 1e3:.2f} ms; peak memory "
+              f"{pg['peak_mem_gb']:.2f} GB; state pools "
+              f"{pg['state_pool_bytes']} bytes ({pg['state_pool_slots']} "
+              f"slots)")
+        print(f"    launches {pg['launches']} over {pg['token_forwards']} "
+              f"token-forwards (expected {pg['expected_launches']})")
+        print(f"    decode tick at lengths {list(RECURRENT_PROMPTS[:4])}: wall "
+              f"{tick['wall_ms']:.3f} ms"
+              + (f", device busy {tick['device_busy_ms']:.3f} ms "
+                 f"(profiler), idle share {tick['idle_share']:.1%}, "
+                 f"{tick['device_ops']:.0f} device ops (kernels and copies)"
+                 if "idle_share" in tick else ", profiler unavailable"))
+        for name, t in tick.get("top_kernels_ms", {}).items():
+            print(f"      {t:8.3f} ms  {name[:90]}")
+        print(f"    slot ServeEngine: {sl['forwards']} decode forwards in "
+              f"{sl['wall_s']:.2f} s wall, {sl['ms_per_forward']:.3f} ms mean "
+              f"({sl['ms_per_forward_median']:.3f} median), TTFT mean "
+              f"{sl['mean_ttft_s'] * 1e3:.2f} ms; launches {sl['launches']}; "
+              f"greedy tokens equal to the paged engine's "
+              f"{sl['tokens_equal_paged']}/{sl['tokens_total']}")
+        print(f"    prefill of 1024 tokens: kernels {pf['kernel_ms']:.3f} ms, "
+              f"plain path (chunked formulas) {pf['plain_ms']:.3f} ms, "
+              f"per-step plain scans {pf['per_step_plain_ms']:.3f} ms; "
+              f"every layer's scan vs its plain version on the same inputs: "
+              f"y max rel {pf['layer_y_max_rel']:.3g}, state max rel "
+              f"{pf['layer_state_max_rel']:.3g} ({pf['layers_checked']} "
+              f"layers, phase-2 tolerances); last-position logits, max |diff| "
+              f"kernel vs plain path {pf['max_abs_logits_diff']:.4g}, the "
+              f"two plain versions {pf['plain_pair_diff']:.4g} apart (bound "
+              f"{pf['bound']:.4g}; max |logit| {pf['max_abs_logit']:.4g}), "
+              f"argmax equal {pf['argmax_equal']}; launches {pf['launches']}")
+        if sl["tokens_equal_paged"] != sl["tokens_total"]:
+            fail(f"{arch}: the slot engine's greedy tokens differ from the "
+                 f"paged engine's ({sl['tokens_equal_paged']}/"
+                 f"{sl['tokens_total']})")
+    report["recurrent"] = recurrent
+    phase_done("phase 7")
+
+    # ------------------------------------------------------------- 8 report
     def tick_entry(name, source, replaces, n, kernel=None, row=None):
         """A kernels-line entry timed per full-width decode tick: the 225
         projections of phase 3's ``kernel`` rows, or 32 launches of
@@ -1232,6 +1855,23 @@ def main() -> int:
             launches=n, max_abs_err=err, ms=conv_total[key],
             plain_ms=conv_total["plain_ms"], bound_ms=conv_total["bound_ms"],
             bound_by=conv_bound_by, library_ms=conv_total["library_ms"]))
+    # B9 and B10 per full-width decode tick at 4 slots: one launch per
+    # layer at the phase-3 decode shape (32 rwkv6 layers, 64 mamba2 ones)
+    for name, arch, source, replaces in (
+            ("rwkv6_wkv", "rwkv6-3b", "src/repro_torch/csrc/rwkv6.cu",
+             "src/repro/kernels/rwkv6/kernel.py:61"),
+            ("mamba2_ssd", "mamba2-2.7b", "src/repro_torch/csrc/mamba2.cu",
+             "src/repro/kernels/mamba2/kernel.py:59")):
+        row = next(r for r in scan_rows
+                   if r["kernel"] == name and r["shape"] == "decode")
+        n_layers = recurrent[arch]["layers"]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=recurrent[arch]["paged"]["launches"][name],
+            max_abs_err=errs[name], ms=n_layers * row["ms"],
+            plain_ms=n_layers * row["plain_ms"],
+            bound_ms=n_layers * row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None))
     report["kernels"] = kernels
     report["kernels_note"] = (
         "apr_matmul, apr_matmul_int8w, flash_decode_paged, "
@@ -1243,7 +1883,11 @@ def main() -> int:
         "apr_conv and apr_conv_hbm: per ResNet-20 forward at batch "
         f"{CNN_BATCH} (21 convs; library F.conv2d, channels-last fp32 without "
         "TF32); launches are those of phase 6's main path (one LeNet-5 and "
-        "one ResNet-20 forward) and of its memory-resident ResNet-20 forward")
+        "one ResNet-20 forward) and of its memory-resident ResNet-20 forward. "
+        "rwkv6_wkv and mamba2_ssd: per full-width decode tick (4 slots, "
+        "state in and out): 32 and 64 launches at the phase-3 decode shape; "
+        "no PyTorch call computes either recurrence (library_ms null); "
+        "launches are those of phase 7's PagedServeEngine runs")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -1255,7 +1899,9 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
-    print(f"[7] wrote {out}; total {report['total_s']:.1f} s")
+    report["phase_s"] = phase_s
+    print(f"[8] wrote {out}; total {report['total_s']:.1f} s (per phase "
+          f"{ {k: round(v, 1) for k, v in phase_s.items()} })")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,6 +5,8 @@ continuous batching (or the contiguous slot engine), on the GPU unless
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 6
     PYTHONPATH=src python -m repro_torch.launch.serve --int8-weights --kv-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --engine slot
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --state-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 It serves the arch's smoke config with random weights (seed 0), as the JAX
@@ -13,7 +15,9 @@ launcher does.  Requests are submitted through
 concurrently.  ``--prefix-sharing`` turns on the refcounted prefix cache;
 ``--slo-mix`` marks every other request TTFT-class; ``--int8-weights``
 serves the int8-weight variant of the params and ``--kv-dtype int8`` int8
-KV pages (paged engine).
+KV pages (paged engine).  The recurrent archs (``rwkv6-3b``,
+``mamba2-2.7b``) serve from state pools; ``--state-dtype int8`` stores their
+large state leaves int8 (paged engine).
 """
 from __future__ import annotations
 
@@ -47,6 +51,10 @@ def main(argv=None) -> None:
     ap.add_argument("--kv-dtype", choices=("bfloat16", "int8"),
                     default="bfloat16",
                     help="paged KV page-pool storage dtype")
+    ap.add_argument("--state-dtype", choices=("float32", "int8"),
+                    default="float32",
+                    help="recurrent-state pool storage dtype (rwkv6-3b, "
+                         "mamba2-2.7b; paged engine)")
     args = ap.parse_args(argv)
 
     from ..configs import get_config
@@ -65,11 +73,15 @@ def main(argv=None) -> None:
                                   num_pages=args.num_pages,
                                   prefill_chunk=args.prefill_chunk,
                                   kv_dtype=args.kv_dtype,
+                                  state_dtype=args.state_dtype,
                                   prefix_sharing=args.prefix_sharing)
     else:
         if args.kv_dtype != "bfloat16":
             print(f"note: --kv-dtype {args.kv_dtype} only applies to the "
                   "paged engine; the slot engine keeps its bf16 cache")
+        if args.state_dtype != "float32":
+            print(f"note: --state-dtype {args.state_dtype} only applies to "
+                  "the paged engine")
         if args.prefix_sharing:
             print("note: --prefix-sharing only applies to the paged engine")
         engine = ServeEngine(bundle, params, device=args.device,
@@ -106,7 +118,11 @@ def main(argv=None) -> None:
               f"preempt={row['preemptions']} jumped={row['queue_jumped']}")
     if not isinstance(engine, PagedServeEngine):
         return
-    print(f"  kv pool {args.kv_dtype}: {engine.kv_pool_bytes()} bytes")
+    if engine.state is not None:
+        print(f"  state pools {args.state_dtype}: {engine.kv_pool_bytes()} "
+              f"bytes ({engine.state.pool_slots} state slots)")
+    else:
+        print(f"  kv pool {args.kv_dtype}: {engine.kv_pool_bytes()} bytes")
     m = engine.metrics
     print(f"  ticks={m.ticks}  prefill={m.prefill_tokens} tok "
           f"({m.prefill_tps:.1f} tok/s)  decode={m.decode_tokens} tok "

@@ -1,7 +1,9 @@
-"""Transformer building blocks of the dense paged-decode path, in PyTorch.
+"""Building blocks of the port's model paths, in PyTorch.
 
 Port of the subset of the JAX package's ``repro.models.layers`` that
-``lm_decode_paged`` and ``lm_decode_step`` run.  Functions take and return
+``lm_decode_paged`` and ``lm_decode_step`` run, plus the parameter
+initialiser and the elementwise ops the recurrent families share.
+Functions take and return
 tensors; parameters are plain dicts keyed by the JAX names, and every
 weight may be an int8 :class:`~repro_torch.quant.QuantizedTensor`.  Every
 2-D weight product goes through the ``apr_matmul`` wrapper and the
@@ -13,7 +15,7 @@ CPU path is the middle link of the parity chain kernel == plain == JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -24,8 +26,47 @@ from ..quant import QuantizedTensor, quantize_channelwise
 
 Weight = Union[torch.Tensor, QuantizedTensor]
 Params = Dict[str, Weight]
+#: name -> (shape, init scale); scale 0 means zeros (the norms' offsets)
+ParamSpecs = Dict[str, Tuple[Tuple[int, ...], float]]
 
 NEG_INF = -1e30
+
+
+def fan_in_scale(shape: Tuple[int, ...]) -> float:
+    """The JAX ``ParamBuilder``'s default init scale, ``fan_in ** -0.5``
+    with ``fan_in = shape[-2]`` (``shape[-1]`` for a vector)."""
+    return (shape[-2] if len(shape) >= 2 else shape[-1]) ** -0.5
+
+
+def init_from_specs(specs: ParamSpecs, generator: torch.Generator,
+                    device) -> Params:
+    """Random bf16 parameters, ``normal * scale`` drawn in fp32 and rounded
+    to bf16 (as the JAX builder does), in sorted-name order from
+    ``generator`` (which must live on ``device``).  Every tensor is drawn in
+    blocks of at most 2^24 values (one layer slice at a time for the
+    stacked weights), so no fp32 copy of a whole tensor (7.5 GB for the
+    stacked ``w_gate`` of llama3-8b) is ever held."""
+    out: Params = {}
+    for name, (shape, scale) in sorted(specs.items()):
+        t = torch.zeros(shape, dtype=torch.bfloat16, device=device)
+        if scale:
+            rows = t.reshape(-1, shape[-1])
+            step = max(1, (1 << 24) // shape[-1])
+            for r in range(0, rows.shape[0], step):
+                blk = rows[r:r + step]
+                blk.copy_(torch.randn(blk.shape, generator=generator,
+                                      dtype=torch.float32, device=device)
+                          * scale)
+        out[name] = t
+    return out
+
+
+def use_scan_kernel(x: torch.Tensor) -> bool:
+    """Whether a recurrence on ``x`` launches its kernel (``rwkv6_wkv``,
+    ``mamba2_ssd``) rather than its plain formula: on CUDA tensors.  The
+    one seam a caller substitutes to run the plain formulas on the card, or
+    the kernel branches on the CPU."""
+    return x.is_cuda
 
 
 def mask_vocab_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
@@ -38,11 +79,31 @@ def mask_vocab_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
                                     device=logits.device))
 
 
+#: groups of the batch-invariant mean of :func:`rms_norm` on the card
+NORM_GROUPS = 16
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMS norm that rounds to the storage dtype *before* the weight
-    multiply, as the JAX layer does."""
+    multiply, as the JAX layer does.
+
+    On CUDA tensors the mean of squares is taken per group of
+    ``d / NORM_GROUPS`` values, then over the groups: PyTorch's reduction
+    kernel picks its thread-block shape from the number of rows it
+    reduces, so one mean over d can sum a row in another order at B = 1 (a
+    paged prefill forward) than at B = 4 (a slot-engine forward), and the
+    two engines' greedy tokens then part; with at least 16 rows of groups
+    the block shape, and so every row's sum order, no longer depends on the
+    batch.  The CPU path keeps the one mean, which equals the JAX
+    layer's."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    sq = xf * xf
+    d = x.shape[-1]
+    if x.is_cuda and d % NORM_GROUPS == 0:
+        var = sq.reshape(*x.shape[:-1], NORM_GROUPS, d // NORM_GROUPS
+                         ).mean(dim=-1).mean(dim=-1, keepdim=True)
+    else:
+        var = sq.mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
@@ -77,7 +138,8 @@ def linear(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """``x (..., K) @ w (K, N)`` in ``x.dtype`` with an fp32 accumulator
     (the JAX layers' ``einsum("btd,dk->btk", x, materialize_weight(w))``),
     through ``apr_matmul``, which takes bf16 and int8 weights alike."""
-    y = apr_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=x.dtype)
+    y = apr_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
+                   out_dtype=x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
@@ -128,6 +190,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     ``torch.nn.functional.silu``'s single rounding in about a third of the
     values."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))`` with every step rounded to ``x.dtype``, the op
+    sequence of ``jax.nn.sigmoid`` on the CPU (``torch.sigmoid`` rounds once
+    and differs in bf16)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(-|x|))``, in that order of operations."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
 def swiglu(x: torch.Tensor, w_gate: Weight, w_up: Weight,

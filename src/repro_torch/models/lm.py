@@ -10,16 +10,14 @@ lies in memory; any matmul weight may be an int8 ``QuantizedTensor``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict
 
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import Params, attention_decode, attention_decode_paged, \
-    linear, mask_vocab_logits, rms_norm, swiglu
-
-#: name -> (shape, init scale); scale 0 means zeros (the norms' offsets)
-ParamSpecs = Dict[str, Tuple[Tuple[int, ...], float]]
+from .layers import ParamSpecs, Params, attention_decode, \
+    attention_decode_paged, linear, mask_vocab_logits, \
+    rms_norm, swiglu
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
               "int8": torch.int8}
@@ -54,29 +52,6 @@ def build_params(cfg: ModelConfig) -> ParamSpecs:
     if not cfg.tie_embeddings:
         specs["lm_head"] = ((d, cfg.padded_vocab), d ** -0.5)
     return specs
-
-
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device) -> Params:
-    """Random parameters, ``normal * scale`` drawn in fp32 and rounded to
-    bf16 (as the JAX builder does), in sorted-name order from ``generator``
-    (which must live on ``device``).  Every tensor is drawn in blocks of at
-    most 2^24 values (one layer slice at a time for the stacked weights), so
-    no fp32 copy of a whole tensor (7.5 GB for the stacked ``w_gate`` of
-    llama3-8b) is ever held."""
-    out: Params = {}
-    for name, (shape, scale) in sorted(build_params(cfg).items()):
-        t = torch.zeros(shape, dtype=torch.bfloat16, device=device)
-        if scale:
-            rows = t.reshape(-1, shape[-1])
-            step = max(1, (1 << 24) // shape[-1])
-            for r in range(0, rows.shape[0], step):
-                blk = rows[r:r + step]
-                blk.copy_(torch.randn(blk.shape, generator=generator,
-                                      dtype=torch.float32, device=device)
-                          * scale)
-        out[name] = t
-    return out
 
 
 def init_paged_cache(cfg: ModelConfig, pool_pages: int, page_size: int,

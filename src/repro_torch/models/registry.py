@@ -1,10 +1,11 @@
 """Model bundle: config -> params (bf16 or int8), the paged and contiguous
-caches and their decode steps.
+caches and their decode steps, and the whole-sequence entry points.
 
 Port of the JAX package's ``repro.models.registry.ModelBundle`` for the
-dense family.  A bundle is bound to one device at construction; it defaults
-to ``"cuda"`` and raises when there is no card, unless the caller passes
-``device="cpu"``.
+families ported so far: ``dense`` (``models/lm.py``), ``ssm`` (rwkv6,
+``models/rwkv_lm.py``) and ``mamba`` (mamba2, ``models/ssm.py``).  A bundle
+is bound to one device at construction; it defaults to ``"cuda"`` and
+raises when there is no card, unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -16,8 +17,26 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..quant import quantize_params
-from . import lm
-from .layers import Params
+from . import lm, rwkv_lm, ssm
+from .layers import ParamSpecs, Params, init_from_specs
+
+#: families whose decode state is a fixed-size recurrent register file,
+#: served through the paged *state* cache (``serve/state_cache.py``)
+STATE_FAMILIES = ("ssm", "mamba")
+
+
+def param_specs(cfg: ModelConfig) -> ParamSpecs:
+    """The family's parameter shapes and init scales; raises, by name, for
+    a family the port does not have yet."""
+    if cfg.family == "dense":
+        return lm.build_params(cfg)
+    if cfg.family == "ssm":
+        return rwkv_lm.build_params(cfg)
+    if cfg.family == "mamba":
+        return ssm.build_lm_params(cfg)
+    raise NotImplementedError(
+        f"the port has no {cfg.family!r} family yet ({cfg.name}); ported: "
+        f"dense, ssm (rwkv6), mamba (mamba2)")
 
 
 @dataclasses.dataclass
@@ -26,7 +45,7 @@ class ModelBundle:
     device: Union[str, torch.device] = "cuda"   # a torch.device once built
 
     def __post_init__(self):
-        lm.build_params(self.cfg)            # raises for unported families
+        param_specs(self.cfg)                # raises for unported families
         self.device = resolve_device(self.device)
 
     def init_params(self, generator: Optional[torch.Generator] = None
@@ -35,11 +54,34 @@ class ModelBundle:
         ``generator`` (seed 0 on the bundle's device when omitted)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        return lm.init_params(self.cfg, generator, self.device)
+        return init_from_specs(param_specs(self.cfg), generator, self.device)
 
+    # ---- whole-sequence entry points ------------------------------------
+    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits (B, T, V) of the whole sequence ``tokens`` (B, T)."""
+        if self.cfg.family == "ssm":
+            return rwkv_lm.rwkv_forward(params, self.cfg, tokens)
+        if self.cfg.family == "mamba":
+            return ssm.mamba_forward(params, self.cfg, tokens)
+        raise NotImplementedError(
+            f"{self.cfg.family!r} family: the port has no forward yet")
+
+    def prefill(self, params: Params, tokens: torch.Tensor):
+        """The whole prompt (B, T) at once: last-position logits (B, 1, V)
+        and the decode carry (the slot engine's cache layout) after it."""
+        if self.cfg.family == "ssm":
+            return rwkv_lm.rwkv_prefill(params, self.cfg, tokens)
+        if self.cfg.family == "mamba":
+            return ssm.mamba_prefill(params, self.cfg, tokens)
+        raise NotImplementedError(
+            f"{self.cfg.family!r} family: the port has no prefill yet")
+
+    # ---- multi-precision --------------------------------------------------
     @property
     def supports_int8_weights(self) -> bool:
-        return self.cfg.family == "dense"   # the one family ported so far
+        # the recurrent families keep their own mixer products in the JAX
+        # package too (src/repro/models/registry.py: dense/moe/vlm/audio)
+        return self.cfg.family == "dense"
 
     def quantize_params(self, params: Params) -> Params:
         """Int8-weight variant of ``params`` (symmetric per-output-channel;
@@ -50,28 +92,78 @@ class ModelBundle:
                              "path")
         return quantize_params(params)
 
+    # ---- contiguous (slot engine) cache -----------------------------------
+    def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
+        """The slot engine's cache: the contiguous bf16 KV cache (batch x
+        max_seq) of the dense family, or the recurrent families' decode
+        carry of ``batch`` rows (every leaf has the batch at axis 1)."""
+        if self.cfg.family == "ssm":
+            return rwkv_lm.init_state(self.cfg, batch, self.device)
+        if self.cfg.family == "mamba":
+            return ssm.init_lm_state(self.cfg, batch, self.device)
+        return lm.init_cache(self.cfg, batch, max_seq, self.device)
+
+    def decode_step(self, params: Params, cache: Dict[str, torch.Tensor],
+                    tokens, lengths) -> torch.Tensor:
+        """One decode token per slot; returns the logits (B, 1, V).  The
+        dense family writes the new K/V into ``cache`` in place; the
+        recurrent families replace ``cache``'s state tensors with the new
+        ones (the old tensors are not written)."""
+        if self.cfg.family in STATE_FAMILIES:
+            step = (rwkv_lm.rwkv_decode_step if self.cfg.family == "ssm"
+                    else ssm.mamba_decode_step)
+            logits, new = step(params, self.cfg, cache, tokens)
+            cache.update(new)
+            return logits
+        return lm.lm_decode_step(params, self.cfg, cache, tokens, lengths)
+
+    # ---- paged serving contract -------------------------------------------
+    @property
+    def supports_paged_kv(self) -> bool:
+        return self.cfg.family == "dense"
+
+    @property
+    def supports_paged_state(self) -> bool:
+        return self.cfg.family in STATE_FAMILIES
+
+    @property
+    def supports_paged_serving(self) -> bool:
+        return self.supports_paged_kv or self.supports_paged_state
+
     def init_paged_cache(self, pool_pages: int, page_size: int,
-                         kv_dtype: str = "bfloat16") -> Dict[str, torch.Tensor]:
-        """Paged KV pools; ``kv_dtype="int8"`` adds the fp32 scale pools."""
+                         kv_dtype: str = "bfloat16", *, state_slots: int = 0,
+                         state_dtype: str = "float32"
+                         ) -> Dict[str, torch.Tensor]:
+        """Paged pools.  Dense: KV page pools (``kv_dtype="int8"`` adds the
+        fp32 scale pools).  Recurrent families: state pools with the
+        physical state slot at axis 1, ``state_slots`` =
+        ``StateCache.pool_slots`` (reserved ids included), and
+        ``state_dtype="int8"`` storing the large state leaves int8."""
+        if self.cfg.family == "ssm":
+            return rwkv_lm.init_paged_state(self.cfg, state_slots,
+                                            state_dtype, self.device)
+        if self.cfg.family == "mamba":
+            return ssm.init_paged_state(self.cfg, state_slots, state_dtype,
+                                        self.device)
         return lm.init_paged_cache(self.cfg, pool_pages, page_size, kv_dtype,
                                    self.device)
-
-    def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
-        """The slot engine's contiguous bf16 cache (batch x max_seq)."""
-        return lm.init_cache(self.cfg, batch, max_seq, self.device)
 
     def decode_paged(self, params: Params, cache: Dict[str, torch.Tensor],
                      tokens, lengths, new_counts, block_tables) -> torch.Tensor:
         """Multi-token paged decode/prefill step (T=1 decode tick, T=chunk
-        prefill); updates ``cache`` in place and returns the logits."""
+        prefill); updates ``cache`` in place and returns the logits.  For
+        the recurrent families ``block_tables`` is the engine's combined
+        table: KV page columns, one state read column, T state write
+        columns (``paged_state.split_state_tables``)."""
+        if self.cfg.family == "ssm":
+            return rwkv_lm.rwkv_decode_paged(params, self.cfg, cache, tokens,
+                                             lengths, new_counts,
+                                             block_tables)
+        if self.cfg.family == "mamba":
+            return ssm.mamba_decode_paged(params, self.cfg, cache, tokens,
+                                          lengths, new_counts, block_tables)
         return lm.lm_decode_paged(params, self.cfg, cache, tokens, lengths,
                                   new_counts, block_tables)
-
-    def decode_step(self, params: Params, cache: Dict[str, torch.Tensor],
-                    tokens, lengths) -> torch.Tensor:
-        """One decode token per slot over the contiguous cache; updates
-        ``cache`` in place and returns the logits (B, 1, V)."""
-        return lm.lm_decode_step(params, self.cfg, cache, tokens, lengths)
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> ModelBundle:

@@ -1,16 +1,18 @@
 """Paged continuous-batching serving engine, in PyTorch.
 
-Port of the JAX package's ``repro.serve.engine`` for the dense family:
-:class:`EngineMetrics`, :class:`PagedServeEngine` with chunked prefill,
-preemption, the refcounted prefix cache and bf16 or int8 KV pools, and the
-contiguous :class:`ServeEngine` baseline.  The tensor-parallel, graph,
-recurrent-state, speculative and autotune branches of the JAX engine are
-not ported yet.
+Port of the JAX package's ``repro.serve.engine`` for the dense and the
+recurrent (rwkv6, mamba2) families: :class:`EngineMetrics`,
+:class:`PagedServeEngine` with chunked prefill, preemption, the refcounted
+prefix cache, bf16 or int8 KV pools and the recurrent-state pools behind a
+:class:`~.state_cache.StateCache`, and the contiguous :class:`ServeEngine`
+baseline.  The tensor-parallel, graph, speculative and autotune branches of
+the JAX engine are not ported yet.
 
-The host side (page allocator, scheduler, block tables) is the same numpy
-code as in the JAX package; the device side is the model's KV page pools,
-written in place by every forward, and COW / defrag page moves are in-place
-slice assignments on those pools.
+The host side (page allocator, state-slot allocator, scheduler, block
+tables) is the same Python code as in the JAX package; the device side is
+the model's KV page pools and state pools, written in place by every
+forward, and COW / defrag / state-slot moves are in-place slice assignments
+on those pools.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..models.paged_state import copy_kv_page, copy_state_slot
 from ..models.registry import ModelBundle
 from .paged_cache import OutOfPages, PagedKVCache
 from .scheduler import DECODING, DONE, PREFILLING, FifoScheduler, Request
+from .state_cache import TRASH_STATE, StateCache
 
 
 @dataclasses.dataclass
@@ -145,6 +149,19 @@ class PagedServeEngine:
     ``kv_dtype="int8"`` stores the KV pages as int8 with one fp32 scale per
     (page slot, kv head), quantized on write; with int8 weights
     (``bundle.quantize_params``) this is the int8 serving path.
+
+    Recurrent families (rwkv6, mamba2) keep each sequence's fixed-size
+    state in a pool of physical state slots (``bundle.init_paged_cache``'s
+    state pools, slot axis 1) allocated by a :class:`StateCache` with a
+    one-deep snapshot ring; the block table of every forward is extended
+    with one state-read column and T state-write columns, and only a
+    chunk's last real token writes the slot's state (the rest go to
+    ``TRASH_STATE``).  The page allocator still ledgers their tokens.
+    ``state_dtype="int8"`` stores the large state leaves int8 with
+    per-(layer, slot, head) scales: lossy across steps, so not
+    token-identity gated.  ``prefix_sharing`` is rejected for these
+    families: a state is a running summary of its whole history, so a
+    cached prefix cannot be attached mid-sequence.
     """
 
     def __init__(self, bundle: ModelBundle, params, *, device="cuda",
@@ -152,11 +169,26 @@ class PagedServeEngine:
                  num_pages: Optional[int] = None,
                  prefill_chunk: int = 16,
                  kv_dtype: str = "bfloat16",
+                 state_dtype: str = "float32",
                  prefix_sharing: bool = False):
         self.device = resolve_device(device)
         if bundle.device != self.device:
             raise ValueError(f"engine device {self.device} differs from the "
                              f"bundle's {bundle.device}")
+        if not bundle.supports_paged_serving:
+            raise ValueError(
+                f"{bundle.cfg.family!r} family has no paged KV cache or "
+                "state pool; use the contiguous ServeEngine")
+        if kv_dtype not in ("bfloat16", "float32", "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+        if state_dtype not in ("float32", "int8"):
+            raise ValueError(f"unsupported state_dtype {state_dtype!r}")
+        if prefix_sharing and bundle.supports_paged_state:
+            raise ValueError(
+                "prefix_sharing=True is unsupported for recurrent-state "
+                "families: a state slot is a lossy running summary of its "
+                "whole history, so a cached prefix's KV pages cannot be "
+                "attached mid-sequence (there is no state to resume from)")
         self.bundle = bundle
         self.params = params
         self.slots = slots
@@ -174,8 +206,16 @@ class PagedServeEngine:
         self.sched = FifoScheduler(prefill_chunk=prefill_chunk)
         self.prefill_chunk = prefill_chunk
         self.kv_dtype = kv_dtype
-        self.cache = bundle.init_paged_cache(self.kv.pool_pages, page_size,
-                                             kv_dtype=kv_dtype)
+        self.state_dtype = state_dtype
+        # recurrent-state slot pool: one current state per engine slot plus
+        # a one-deep snapshot ring for truncate rollback
+        self.state: Optional[StateCache] = (
+            StateCache(slots=slots, ring_depth=1)
+            if bundle.supports_paged_state else None)
+        self.cache = bundle.init_paged_cache(
+            self.kv.pool_pages, page_size, kv_dtype=kv_dtype,
+            state_slots=(self.state.pool_slots if self.state else 0),
+            state_dtype=state_dtype)
         self.active: List[Optional[Request]] = [None] * slots
         self.last_tokens = np.zeros((slots,), np.int64)
         self.metrics = EngineMetrics()
@@ -193,15 +233,22 @@ class PagedServeEngine:
             self._to_device(lengths), self._to_device(counts),
             self._to_device(tables))
 
-    def _copy_page(self, src: int, dst: int) -> None:
-        """Copy physical page ``src`` onto ``dst`` in every layer's K and V
-        pool and scale pool (page axis 2), in place."""
-        for pool in self.cache.values():
-            pool[:, :, dst] = pool[:, :, src]
+    def _tables(self, rows, write_ids=None) -> np.ndarray:
+        """Block-table rows for a forward over engine slots ``rows``: the KV
+        page table, extended on state engines with each row's state read id
+        and the caller-built ``(len(rows), T)`` write-id columns
+        (``TRASH_STATE`` for padded or inactive positions)."""
+        kv_rows = self.kv.block_tables[list(rows)]
+        if self.state is None:
+            return kv_rows
+        reads = np.array([[self.state.read_id(s)] for s in rows], np.int32)
+        return np.concatenate(
+            [kv_rows, reads, np.asarray(write_ids, np.int32)], axis=1)
 
     def kv_pool_bytes(self) -> int:
-        """Bytes held by the device cache pools: KV pages plus, for int8,
-        the scale pools -- the footprint ``kv_dtype="int8"`` shrinks."""
+        """Bytes held by the device cache pools: KV pages, recurrent-state
+        pools and any int8 scale pools -- the footprint ``kv_dtype="int8"``
+        and ``state_dtype="int8"`` shrink."""
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     # -- public API -------------------------------------------------------
@@ -259,9 +306,13 @@ class PagedServeEngine:
                     req.prefill_pos = matched
                     self.metrics.prefix_hit_tokens += matched
                     self.metrics.prefix_hit_requests += 1
+            if self.state is not None:
+                self.state.alloc(slot)
 
     def _preempt(self, req: Request) -> None:
         self.kv.free_slot(req.slot)
+        if self.state is not None:
+            self.state.free_slot(req.slot)
         self.active[req.slot] = None
         self.sched.requeue_preempted(req)
         self.metrics.preemptions += 1
@@ -286,16 +337,41 @@ class PagedServeEngine:
         """Copy queued COW page splits on the device pools.  Must run after
         any host-side ``allocate`` and before the next forward."""
         for src, dst in self.kv.pop_page_copies():
-            self._copy_page(src, dst)
+            copy_kv_page(self.cache, src, dst)
             self.metrics.cow_copies += 1
 
+    def _sync_state_copies(self) -> None:
+        """Mirror queued state-slot copies (truncate restores, snapshot
+        materialisations, defrag moves) onto the device state pools, in
+        queue order -- the StateCache sequences them so earlier copies see
+        the layout they were queued against."""
+        if self.state is None:
+            return
+        for src, dst in self.state.pop_state_copies():
+            copy_state_slot(self.cache, src, dst)
+
+    def _truncate_slot(self, slot: int, n_tokens: int) -> None:
+        """Roll one engine slot back (or commit it forward) to ``n_tokens``
+        across both residency domains: the KV page suffix is dropped and
+        the recurrent state restored from its ring checkpoint before any
+        later forward can read either."""
+        self.kv.truncate(slot, n_tokens)
+        if self.state is not None:
+            self.state.truncate(slot, n_tokens)
+            self._sync_state_copies()
+
     def defrag(self) -> int:
-        """Compact the page pool, host tables and device pools in lockstep;
-        returns the number of device page moves."""
+        """Compact the page pool -- and on state engines the state-slot
+        pool -- host tables and device pools in lockstep; returns the
+        number of device moves."""
         moves = self.kv.defrag()
         for src, dst in moves:
-            self._copy_page(src, dst)
-        return len(moves)
+            copy_kv_page(self.cache, src, dst)
+        n = len(moves)
+        if self.state is not None:
+            n += len(self.state.defrag())
+            self._sync_state_copies()
+        return n
 
     def _net_unique_pages(self) -> int:
         s = self.kv.stats
@@ -314,15 +390,25 @@ class PagedServeEngine:
             self._sync_page_copies()
             chunk = toks_all[req.prefill_pos:req.prefill_pos + n]
             padded = chunk + [0] * (self.prefill_chunk - n)
+            write_ids = None
+            if self.state is not None:
+                # only the chunk's last real token needs its state kept --
+                # the forward carries state across tokens itself, so the
+                # intermediate (and padded) positions write to the sink
+                write_ids = np.full((1, self.prefill_chunk), TRASH_STATE,
+                                    np.int32)
+                write_ids[0, n - 1] = self.state.cur(req.slot)
             self._sync()
             t0 = time.perf_counter()
             logits = self._forward([padded], [req.prefill_pos], [n],
-                                   self.kv.block_tables[[req.slot]])
+                                   self._tables([req.slot], write_ids))
             self._sync()
             self.metrics.prefill_time_s += time.perf_counter() - t0
             self.metrics.prefill_calls += 1
             req.prefill_pos += n
             self.kv.commit(req.slot, req.prefill_pos)
+            if self.state is not None:
+                self.state.commit(req.slot, req.prefill_pos)
             if self.prefix_sharing:
                 # publish completed pages so siblings (and later waves) can
                 # share them
@@ -358,16 +444,23 @@ class PagedServeEngine:
         counts = np.zeros((self.slots,), np.int32)
         for r in decoding:
             counts[r.slot] = 1
+        write_ids = None
+        if self.state is not None:
+            write_ids = np.full((self.slots, 1), TRASH_STATE, np.int32)
+            for r in decoding:
+                write_ids[r.slot, 0] = self.state.cur(r.slot)
         self._sync()
         t0 = time.perf_counter()
         logits = self._forward(self.last_tokens[:, None], lengths, counts,
-                               self.kv.block_tables)
+                               self._tables(range(self.slots), write_ids))
         self._sync()
         self.metrics.decode_time_s += time.perf_counter() - t0
         self.metrics.decode_calls += 1
         next_tokens = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         for req in decoding:
             self.kv.commit(req.slot, self.kv.length(req.slot) + 1)
+            if self.state is not None:
+                self.state.commit(req.slot, self.kv.length(req.slot))
             tok = int(next_tokens[req.slot])
             req.output.append(tok)
             self.last_tokens[req.slot] = tok
@@ -380,8 +473,11 @@ class PagedServeEngine:
             self._finish(req)
 
     def _finish(self, req: Request) -> None:
-        # the request's KV working set flushes back to the pool in one step
+        # the request's KV working set (and its state slot and checkpoint)
+        # flushes back to the pool in one step
         self.kv.free_slot(req.slot)
+        if self.state is not None:
+            self.state.free_slot(req.slot)
         self.active[req.slot] = None
         req.state = DONE
         req.done = True
@@ -390,11 +486,12 @@ class PagedServeEngine:
 
 
 class ServeEngine:
-    """Contiguous slot engine: one ``slots x max_seq`` bf16 KV cache,
+    """Contiguous slot engine: one ``slots x max_seq`` bf16 KV cache (or,
+    for the recurrent families, one decode carry of ``slots`` rows),
     prefill-on-admit *through the decode path*, token by token.
 
     The numerics reference the paged engine must match token for token.
-    Device state: the cache (``bundle.init_cache``), written in place by
+    Device state: the cache (``bundle.init_cache``), updated by
     ``bundle.decode_step`` (B = slots, T = 1); host state: per-slot lengths
     and last tokens.  Runs on ``device`` (default ``"cuda"``; it raises
     without a card unless ``device="cpu"``), which must be the bundle's.
@@ -446,6 +543,18 @@ class ServeEngine:
             # (stale entries past the new length are masked and overwritten
             # as the request grows).  The other rows rewrite their pending
             # token at their own length, which their next tick writes again.
+            stateful = self.bundle.supports_paged_state
+            if stateful:
+                # a recurrent state is a running summary, not masked by
+                # lengths: the slot starts from zeros, and the prompt loop
+                # below advances every row's recurrence, so the other rows
+                # are restored once at the end (rows are independent in
+                # decode, so that is exact).  decode_step replaces the
+                # cache's tensors, so ``keep`` still holds the old ones.
+                keep = dict(self.cache)
+                for k, a in keep.items():
+                    self.cache[k] = a.clone()
+                    self.cache[k][:, slot] = 0
             lengths = self.lengths.copy()
             lengths[slot] = 0
             for tok in req.prompt:
@@ -453,6 +562,10 @@ class ServeEngine:
                 toks[slot, 0] = tok
                 logits = self._decode(toks, lengths)
                 lengths[slot] += 1
+            if stateful:
+                for k, a in keep.items():
+                    a[:, slot] = self.cache[k][:, slot]
+                    self.cache[k] = a
             self.lengths = lengths
             nxt = int(torch.argmax(logits[slot, -1]))
             if not req.first_token_at:

@@ -52,11 +52,18 @@ def test_package_imports_without_jax():
     assert res.returncode == 0, res.stderr
     lines = res.stdout.split()
     assert lines[-1] == "ok"
-    # the int8 and slot-engine modules among them
+    # the int8 and slot-engine modules among them, and the recurrent ones
     assert {"repro_torch.quant", "repro_torch.quant.quantize",
             "repro_torch.kernels.flash_decode.ops",
             "repro_torch.kernels.apr_matmul.ops", "repro_torch.bridge",
             "repro_torch.serve.engine"} <= set(lines)
+    assert {"repro_torch.serve.state_cache", "repro_torch.models.paged_state",
+            "repro_torch.models.rwkv", "repro_torch.models.rwkv_lm",
+            "repro_torch.models.ssm", "repro_torch.kernels.rwkv6",
+            "repro_torch.kernels.rwkv6.ops", "repro_torch.kernels.rwkv6.ref",
+            "repro_torch.kernels.mamba2", "repro_torch.kernels.mamba2.ops",
+            "repro_torch.kernels.mamba2.ref",
+            "repro_torch.configs.rwkv6_3b"} <= set(lines)
 
 
 @pytest.fixture
@@ -76,6 +83,12 @@ def test_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
         PagedServeEngine(bundle, params)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b"])
+def test_recurrent_bundles_default_to_cuda(no_cuda, arch):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(get_config(arch, smoke=True))
+
+
 def test_slot_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
     bundle = build_model(get_config("llama3-8b", smoke=True), device="cpu")
     params = bundle.init_params()
@@ -89,7 +102,10 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
 
 
 @pytest.mark.parametrize("args", [["--engine", "slot"],
-                                  ["--int8-weights", "--kv-dtype", "int8"]])
+                                  ["--int8-weights", "--kv-dtype", "int8"],
+                                  ["--arch", "rwkv6-3b"],
+                                  ["--arch", "mamba2-2.7b", "--state-dtype",
+                                   "int8"]])
 def test_launcher_new_paths_default_to_cuda(no_cuda, args):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--requests", "1"] + args)
