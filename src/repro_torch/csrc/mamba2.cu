@@ -12,12 +12,15 @@
 // Replaces: src/repro/kernels/mamba2/kernel.py::mamba2_call (kernel body
 // _mamba2_kernel).
 //
-// What bounds it on an H100: ~4 fp32 operations per state element per step
-// against P + 2N + 1 values in per step, and the state (32 KB per head at
-// P = 64, N = 128) read and written once.  At a decode step (T = 1) the
-// state is nearly all the bytes: bound by reading and writing it, and in
-// practice by one round trip to memory per block; over a long prompt the
-// time loop is serial.
+// What bounds it on an H100: the function needs 5 fp32 operations per
+// state element per step (upd = (dt x_p) b_n, with dt x_p formed once per
+// row; h = exp(a dt) h + upd; y_p += h c_n); this kernel spends 6, forming
+// dt (x_p b_n) per element.  Against P values in and P out per head per
+// step (b and c are shared by the heads), that is far above the fp32
+// ridge, so over a long prompt the operations bound it.  At a decode step
+// (T = 1) the state (32 KB per head at P = 64, N = 128) read and written
+// once is nearly all the bytes: bound by them, and in practice by one
+// round trip to memory per block.
 //
 // Design:
 //  * one block per (b, h); thread (p, g) owns row p of h and the columns

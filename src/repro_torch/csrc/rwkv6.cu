@@ -13,11 +13,15 @@
 // _rwkv6_kernel).
 //
 // What bounds it on an H100: every input value is read once and every
-// output written once, with ~5 fp32 operations per state element per step
-// (D^2 per head per step against 4·D values in), so at D = 64 it does ~80
-// operations per byte: below the fp32 ridge, bound by the r/k/v/w streams,
-// y and the state read and written once.  The time loop is serial, so at a
-// decode step (T = 1) it is one round trip to memory per block: latency.
+// output written once.  The function needs 5 fp32 operations per state
+// element per step (kv = k_i v_j; S = w_i S + kv; y_j += r_i S_ij, with the
+// bonus taken out of the element loop as v_j sum_i r_i u_i k_i); this
+// kernel spends 7, the reference's literal form below.  That is 5·D^2 per
+// head per step against bf16 r, k, v, y and fp32 w, 768 bytes at D = 64:
+// ~27 operations per byte, just above the fp32 ridge (20), so over a long
+// prompt the operations bound it.  At a decode step (T = 1) the state read
+// and written is nearly all the bytes, and the serial time loop makes it
+// one round trip to memory per block: latency.
 //
 // Design:
 //  * one block per (b, h); thread (j, g) owns column j of S and the rows

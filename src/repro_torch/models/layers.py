@@ -79,32 +79,37 @@ def mask_vocab_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
                                     device=logits.device))
 
 
-#: groups of the batch-invariant mean of :func:`rms_norm` on the card
+#: groups of the batch-invariant mean of :func:`mean_square` on the card
 NORM_GROUPS = 16
+
+
+def mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """The fp32 mean of squares over the last axis of ``xf`` (keepdim), the
+    variance of :func:`rms_norm`.
+
+    On CUDA tensors it is taken per group of ``d / NORM_GROUPS`` values,
+    then over the groups.  PyTorch's CUDA reduction picks its thread-block
+    shape from the number of rows it reduces, so one mean over d sums a row
+    in another order at B = 1 (a paged prefill step) than inside B = 4 (a
+    slot-engine step), and the two engines' greedy tokens then part
+    (``chip_smoke.py --ablate``); with at least 16 rows of groups the block
+    shape, and so every row's sum order, no longer depends on the batch.
+    ``chip_smoke.py`` phase 2 holds both row for row: the one mean differs
+    in some rows between B = 1 and B = 4 on an H100, the grouped mean in
+    none.  The CPU path keeps the one mean, which equals the JAX layer's."""
+    sq = xf * xf
+    d = xf.shape[-1]
+    if xf.is_cuda and d % NORM_GROUPS == 0:
+        return sq.reshape(*xf.shape[:-1], NORM_GROUPS, d // NORM_GROUPS
+                          ).mean(dim=-1).mean(dim=-1, keepdim=True)
+    return sq.mean(dim=-1, keepdim=True)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMS norm that rounds to the storage dtype *before* the weight
-    multiply, as the JAX layer does.
-
-    On CUDA tensors the mean of squares is taken per group of
-    ``d / NORM_GROUPS`` values, then over the groups: PyTorch's reduction
-    kernel picks its thread-block shape from the number of rows it
-    reduces, so one mean over d can sum a row in another order at B = 1 (a
-    paged prefill forward) than at B = 4 (a slot-engine forward), and the
-    two engines' greedy tokens then part; with at least 16 rows of groups
-    the block shape, and so every row's sum order, no longer depends on the
-    batch.  The CPU path keeps the one mean, which equals the JAX
-    layer's."""
+    multiply, as the JAX layer does; the variance is :func:`mean_square`."""
     xf = x.float()
-    sq = xf * xf
-    d = x.shape[-1]
-    if x.is_cuda and d % NORM_GROUPS == 0:
-        var = sq.reshape(*x.shape[:-1], NORM_GROUPS, d // NORM_GROUPS
-                         ).mean(dim=-1).mean(dim=-1, keepdim=True)
-    else:
-        var = sq.mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+    return (xf * torch.rsqrt(mean_square(xf) + eps)).to(x.dtype) * w
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -138,8 +143,7 @@ def linear(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """``x (..., K) @ w (K, N)`` in ``x.dtype`` with an fp32 accumulator
     (the JAX layers' ``einsum("btd,dk->btk", x, materialize_weight(w))``),
     through ``apr_matmul``, which takes bf16 and int8 weights alike."""
-    y = apr_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
-                   out_dtype=x.dtype)
+    y = apr_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 

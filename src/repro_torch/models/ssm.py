@@ -163,6 +163,19 @@ def mamba2_mixer(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _conv_step(window: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The depthwise conv over one decode window (B, CONV_K, C) with taps
+    w (CONV_K, C), as the FMA chain XLA computes for the JAX layer's
+    ``einsum("bkc,kc->bc")``: bit-equal to it on the CPU, and row-major.
+    ``torch.einsum`` returns it channel-major, and the x, b and c sliced
+    from it then fail the ``mamba2_ssd`` kernel's contiguous-last-axis
+    check (``chip_smoke.py --ablate``)."""
+    conv = window[:, 0] * w[0]
+    for k in range(1, CONV_K):
+        conv = torch.addcmul(conv, window[:, k], w[k])
+    return conv
+
+
 def mamba2_decode(p: Params, prefix: str, cfg: ModelConfig,
                   x: torch.Tensor,            # (B, 1, d)
                   conv_state: torch.Tensor,   # (B, CONV_K-1, di+2N) fp32
@@ -179,14 +192,7 @@ def mamba2_decode(p: Params, prefix: str, cfg: ModelConfig,
     conv_in = torch.cat([xc, bmat, cmat], dim=-1)               # (B, ch)
     window = torch.cat([conv_state, conv_in[:, None].to(conv_state.dtype)],
                        dim=1)                                   # (B, K, ch)
-    # the depthwise conv over the window as the FMA chain XLA computes for
-    # the JAX layer's einsum("bkc,kc->bc"): bit-equal to it on the CPU,
-    # elementwise (so batch-invariant) and contiguous on the card
-    w = p[f"{prefix}.conv"].to(window.dtype)
-    conv = window[:, 0] * w[0]
-    for k in range(1, CONV_K):
-        conv = torch.addcmul(conv, window[:, k], w[k])
-    conv_out = silu(conv)
+    conv_out = silu(_conv_step(window, p[f"{prefix}.conv"].to(window.dtype)))
     new_conv_state = window[:, 1:]
     xc, bmat, cmat = torch.split(conv_out, [di, n, n], dim=-1)
 
