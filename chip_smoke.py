@@ -16,9 +16,15 @@ Phases (any failure exits non-zero before the final line):
      kernels ``rwkv6_wkv`` (B9) and ``mamba2_ssd`` (B10) with their state in
      and out, at the decode tick, at 1024- and 1000-token prefills and at the
      smoke shapes; and ``rms_norm``'s variance, row for row, at B = 1 and
-     inside batches of 4 and 16;
+     inside batches of 4 and 16; and the matmul families at every tile
+     their kernels compile, at the llama3-8b projection shapes and ragged
+     ones: ``apr_matmul`` (B1), its memory-resident baseline (B4m, equal
+     to B1 at the same tile bit for bit), ``apr_matmul_fused`` (B7m),
+     ``quant_matmul`` (B6) and ``quant_matmul_fused`` (B8) with every
+     activation, bias and none, bf16 and fp32 out;
   3. time each kernel, its plain version and a PyTorch library call at the
-     serving path's shapes with CUDA events, beside the card's bound;
+     serving path's shapes with CUDA events, beside the card's bound (B4m,
+     B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1);
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
      every kernel of the path was launched as often as the path demands;
@@ -46,8 +52,20 @@ Phases (any failure exits non-zero before the final line):
      slots: greedy tokens equal, every launch count checked; then a
      1024-token ``bundle.prefill`` on each (B9/B10 over all T), every
      layer's scan held to its plain version on the same inputs;
-  8. print the kernels' line, the card's name and power limit, and as the
+  8. the tuning path at llama3-8b full width: every registered kernel
+     family swept exhaustively (the yardstick), then
+     ``warm_cache(sweep=True, prune_top_k=3)`` in a ``scoped_cache`` over
+     a fresh cache file, at the paged engine's ``_decode_kernel_shapes()``,
+     the projection shapes and each other family's serving shape; then a
+     ``PagedServeEngine(tune_cache=...)`` serves phase 4's requests.  No
+     candidate may be rejected, the pruned winner must be the exhaustive
+     one (or a predicted tie, or within the timer spreads), and the engine
+     must launch the tuned tiles;
+  9. print the kernels' line, the card's name and power limit, and as the
      last line ``{"ok": true, "device": {...}}``.
+
+Phases 1-7 resolve every kernel's configuration from an empty cache (the
+kernels' defaults); only phase 8 scopes a tuned one.
 
 Everything the run measured also goes to ``chiprun_out/chip_smoke.json``.
 It needs nothing beyond this repository, PyTorch with CUDA, and nvcc.
@@ -59,6 +77,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -758,6 +777,461 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                 slot=slot, prefill_1024=prefill, tokens_equal=same)
 
 
+# ------------------- matmul families (B1 tiles, B4m, B6, B7m, B8) and tuning
+#: the M of the llama3-8b projections: a decode tick over 4 slots, a
+#: prefill chunk of 16
+PROJ_MS = (4, 16)
+#: ragged matmul shapes held at every tile: none a multiple of the tiles
+RAGGED_MKN = [(m, k, n) for m in (1, 4, 5, 16) for k in (96, 4096, 14336)
+              for n in (40, 1024, 14336)]
+ACTIVATIONS = ("none", "relu", "silu", "gelu")
+#: silu and gelu of the int8 kernels against the plain version: within 2
+#: fp32 ulps of max(|result|, |pre-activation|), before the final rounding
+#: (expf / tanhf may round apart; for gelu's cancellation in 1 + tanh the
+#: pre-activation's scale is what an ulp of error means)
+ACT_ULPS = 2
+#: published dense int8 tensor-core peak of one H100 SXM (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12
+#: candidates phase 8's pruned sweep times: half the matmul families' six
+#: tiles (benchmarks/bench_kernels.py:prune_top_k)
+PRUNE_TOP_K = 3
+
+
+def ulps_apart(torch, got, ref, pre) -> float:
+    """max |got - ref| in fp32 ulps of max(|ref|, |pre|)."""
+    scale = torch.maximum(ref.abs(), pre.abs())
+    ulp = torch.nextafter(scale, torch.full_like(scale, float("inf"))) - scale
+    return float(((got.float() - ref).abs() / ulp).max())
+
+
+def tile_config(tile):
+    from repro_torch.bench import BlockConfig
+    return BlockConfig.make(block_m=tile[0], block_n=tile[1],
+                            block_k=tile[2])
+
+
+def matmul_family_correctness(torch, gen, dev) -> list:
+    """Phase 2 for the matmul families, at the llama3-8b projection shapes
+    and the ragged ones, at every tile each kernel compiles: B1 against its
+    plain version (bf16 tolerance), B4m equal to B1 at the same tile bit for
+    bit, B7m (every activation, bias and none, bf16 and fp32 out) at B1's
+    tolerance, B6 and B8 with none/relu bit for bit and with silu/gelu
+    within ACT_ULPS fp32 ulps (bf16 out: one bf16 ulp).  One case per
+    (kernel, shape), its largest error over tiles and variants."""
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.kernels.apr_matmul.ref import matmul_fused_ref, matmul_ref
+    from repro_torch.kernels.quant_matmul import ops as qm
+    from repro_torch.kernels.quant_matmul.ref import (quant_matmul_fused_ref,
+                                                      quant_matmul_ref)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []
+    shapes = [(m, k, n) for m in PROJ_MS for k, n in LLAMA_DECODE_SHAPES]
+    for m, k, n in shapes + RAGGED_MKN:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+             ).to(bf16)
+        bias = torch.randn((n,), generator=gen, device=dev)
+        wq, ws = qm.quantize_weights(w.float())
+        stats = {name: [0.0, True, 0] for name in (
+            "apr_matmul", "apr_matmul_hbm", "apr_matmul_fused",
+            "quant_matmul", "quant_matmul_fused")}
+
+        def note(name, err, ok):
+            s = stats[name]
+            s[0], s[1], s[2] = max(s[0], err), s[1] and ok, s[2] + 1
+
+        for out in (bf16, f32):
+            ref = matmul_ref(x, w, out)
+            fused = {(act, bb is None): matmul_fused_ref(x, w, bb, act, out)
+                     for act in ACTIVATIONS for bb in (None, bias)}
+            for tile in mm.TILES:
+                cfg = tile_config(tile)
+                b1 = mm.apr_matmul(x, w, out_dtype=out, config=cfg)
+                b4 = mm.apr_matmul(x, w, out_dtype=out, config=cfg,
+                                   residency="hbm")
+                note("apr_matmul", *max_err(b1, ref))
+                note("apr_matmul_hbm", max_err(b4, ref)[0],
+                     torch.equal(b4, b1))
+                for (act, nobias), r in fused.items():
+                    got = mm.apr_matmul_fused(
+                        x, w, None if nobias else bias, activation=act,
+                        out_dtype=out, config=cfg)
+                    note("apr_matmul_fused", *max_err(got, r))
+            qref = quant_matmul_ref(x, wq, ws, out)
+            qfused = {}
+            for act in ACTIVATIONS:
+                for bb in (None, bias):
+                    r = quant_matmul_fused_ref(x, wq, ws, bb, act, out)
+                    pre = quant_matmul_fused_ref(x, wq, ws, bb, "none", f32)
+                    r32 = quant_matmul_fused_ref(x, wq, ws, bb, act, f32)
+                    qfused[(act, bb is None)] = (r, pre, r32)
+            for tile in qm.TILES:
+                cfg = tile_config(tile)
+                got = qm.quant_matmul(x, wq, ws, out_dtype=out, config=cfg)
+                note("quant_matmul", max_err(got, qref)[0],
+                     torch.equal(got, qref))
+                for (act, nobias), (r, pre, r32) in qfused.items():
+                    got = qm.quant_matmul_fused(
+                        x, wq, ws, None if nobias else bias, activation=act,
+                        out_dtype=out, config=cfg)
+                    err = max_err(got, r)[0]
+                    if act in ("none", "relu"):
+                        ok = torch.equal(got, r)
+                    elif out == f32:
+                        ok = ulps_apart(torch, got, r32, pre) <= ACT_ULPS
+                    else:
+                        ok = max_err(got, r)[1]
+                    note("quant_matmul_fused", err, ok)
+        torch.cuda.synchronize()
+        for name, (err, ok, n_var) in stats.items():
+            cases.append((name, f"M={m} K={k} N={n} ({n_var} tile/variant "
+                          f"runs)", err, ok))
+        del x, w, bias, wq, ws, fused, qfused
+    return cases
+
+
+def matmul_family_timing(torch, gen, dev, slots: int) -> list:
+    """Phase 3 for B4m, B7m, B6 and B8 at the llama3-8b projection shapes
+    (M = slots and 16), weights rotated past the 50 MB L2, output bf16,
+    default tiles: B4m beside B1 (the paper's comparison at matmul level),
+    B7m with bias + silu, B6, B8 with bias + silu.  The int8 rows include
+    the activations' quantization; their library yardstick is that
+    quantization, ``torch._int_mm`` and the two scale multiplies (+ bias and
+    silu for B8), at M = 32 where M <= 16 (``_int_mm`` needs M > 16)."""
+    import torch.nn.functional as F
+    from repro_torch.core.apr import reduction_hbm_traffic
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.kernels.apr_matmul.ref import matmul_fused_ref, matmul_ref
+    from repro_torch.kernels.quant_matmul import ops as qm
+    from repro_torch.kernels.quant_matmul.ref import (quant_matmul_fused_ref,
+                                                      quant_matmul_ref,
+                                                      quantize_activations)
+    bf16 = torch.bfloat16
+    rows = []
+    for m in (slots, 16):
+        for k, n in LLAMA_DECODE_SHAPES:
+            nbuf = min(32, max(1, math.ceil(200e6 / (k * n * 2))))
+            ws = [(torch.randn((k, n), generator=gen, device=dev)
+                   * k ** -0.5).to(bf16) for _ in range(nbuf)]
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            bias = torch.randn((n,), generator=gen, device=dev)
+            bias16 = bias.to(bf16)
+            steps = -(-k // mm.DEFAULT_TILE[2])
+            t_b1 = cuda_ms(torch, lambda i: mm.apr_matmul(
+                x, ws[i % nbuf], out_dtype=bf16), 60)
+            t_h = cuda_ms(torch, lambda i: mm.apr_matmul(
+                x, ws[i % nbuf], out_dtype=bf16, residency="hbm"), 20,
+                fill=2e5 * steps)
+            t_p = cuda_ms(torch, lambda i: matmul_ref(x, ws[i % nbuf], bf16),
+                          60)
+            t_l = cuda_ms(torch, lambda i: torch.matmul(x, ws[i % nbuf]), 60)
+            mm_bound = bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n)
+            partial = (reduction_hbm_traffic(m * n, steps, 2, "hbm")
+                       - reduction_hbm_traffic(m * n, steps, 2, "apr"))
+            rows.append(dict(kernel="apr_matmul_hbm", M=m, K=k, N=n, ms=t_h,
+                             apr_ms=t_b1, plain_ms=t_p, library_ms=t_l,
+                             hbm_steps=steps, partial_bytes=partial,
+                             weight_buffers=nbuf, **mm_bound))
+            t_f = cuda_ms(torch, lambda i: mm.apr_matmul_fused(
+                x, ws[i % nbuf], bias, activation="silu", out_dtype=bf16), 60)
+            t_fp = cuda_ms(torch, lambda i: matmul_fused_ref(
+                x, ws[i % nbuf], bias, "silu", bf16), 60)
+            t_fl = cuda_ms(torch, lambda i: F.silu(torch.addmm(
+                bias16, x, ws[i % nbuf])), 60)
+            rows.append(dict(kernel="apr_matmul_fused", M=m, K=k, N=n,
+                             ms=t_f, plain_ms=t_fp, library_ms=t_fl,
+                             epilogue="bias + silu", weight_buffers=nbuf,
+                             **bound_ms(2 * (m * k + k * n + m * n) + 4 * n,
+                                        2 * m * k * n + 2 * m * n)))
+            qs = [qm.quantize_weights(w.float()) for w in ws]
+            del ws
+            # cuBLASLt's int8 GEMM takes the weight column-major
+            qcol = [wq.t().contiguous().t() for wq, _ in qs]
+            m_lib = max(m, 32)
+            x_lib = torch.randn((m_lib, k), generator=gen, device=dev).to(bf16)
+
+            def lib_q(i, act=None):
+                q, s = quantize_activations(x_lib)
+                y = torch._int_mm(q, qcol[i % nbuf]) * s * qs[i % nbuf][1]
+                if act:
+                    y = F.silu(y + bias)
+                return y.to(bf16)
+
+            # ~10 PyTorch ops a call: the stream is held busy 0.5 ms per
+            # call, longer than the host takes to enqueue one
+            q_bytes = 2 * m * k + k * n + 4 * n + 2 * m * n
+            t_q = cuda_ms(torch, lambda i: qm.quant_matmul(
+                x, *qs[i % nbuf], out_dtype=bf16), 60, fill=1e6)
+            t_qp = cuda_ms(torch, lambda i: quant_matmul_ref(
+                x, *qs[i % nbuf], bf16), 20, fill=1e6)
+            t_ql = cuda_ms(torch, lib_q, 60, fill=1e6)
+            t_qa = cuda_ms(torch, lambda i: quantize_activations(x), 60,
+                           fill=1e6)
+            rows.append(dict(kernel="quant_matmul", M=m, K=k, N=n, ms=t_q,
+                             plain_ms=t_qp, library_ms=t_ql,
+                             library_m=m_lib, quantize_ms=t_qa,
+                             weight_buffers=nbuf,
+                             **bound_ms(q_bytes, 2 * m * k * n,
+                                        INT8_OPS_PER_S)))
+            t_g = cuda_ms(torch, lambda i: qm.quant_matmul_fused(
+                x, *qs[i % nbuf], bias, activation="silu", out_dtype=bf16), 60,
+                fill=1e6)
+            t_gp = cuda_ms(torch, lambda i: quant_matmul_fused_ref(
+                x, *qs[i % nbuf], bias, "silu", bf16), 20, fill=1e6)
+            t_gl = cuda_ms(torch, lambda i: lib_q(i, "silu"), 60, fill=1e6)
+            rows.append(dict(kernel="quant_matmul_fused", M=m, K=k, N=n,
+                             ms=t_g, plain_ms=t_gp, library_ms=t_gl,
+                             library_m=m_lib, quantize_ms=t_qa,
+                             epilogue="bias + silu", weight_buffers=nbuf,
+                             **bound_ms(q_bytes + 4 * n, 2 * m * k * n,
+                                        INT8_OPS_PER_S)))
+            del qs, qcol, x, x_lib
+    return rows
+
+
+def tuning_shapes(engine) -> list:
+    """Phase 8's (family, shape) list at full width: the paged engine's
+    ``_decode_kernel_shapes()``, the four matmul families (and B4m) at the
+    llama3-8b projection shapes, and every other registered family at the
+    shape its serving path gives it: the int8 engine's paged attention,
+    the slot engine's contiguous attention at max_seq 256, a ResNet-20 conv
+    at batch 256, the rwkv6-3b and mamba2-2.7b decode scans."""
+    shapes = list(engine._decode_kernel_shapes())
+    attn = dict(next(s for f, s in shapes if f == "flash_decode_paged"))
+    shapes.append(("flash_decode_paged", {**attn, "kv_int8": 1}))
+    for m in PROJ_MS:
+        for k, n in LLAMA_DECODE_SHAPES:
+            mkn = {"m": m, "k": k, "n": n}
+            shapes += [("apr_matmul", mkn), ("apr_matmul", {**mkn, "hbm": 1}),
+                       ("apr_matmul_fused", mkn), ("quant_matmul", mkn),
+                       ("quant_matmul_fused", mkn)]
+    conv = {"b": CNN_BATCH, "h": 32, "w": 32, "c": 16, "hf": 3, "wf": 3,
+            "m": 16, "stride": 1, "padding": 1}
+    shapes += [("flash_decode", {"b": attn["b"], "hq": attn["hq"],
+                                 "hkv": attn["hkv"], "d": attn["d"],
+                                 "s": 256}),
+               ("apr_conv", conv), ("apr_conv_fused", conv),
+               ("rwkv6", {"b": 4, "t": 1, "h": 40, "d": 64}),
+               ("mamba2", {"b": 4, "t": 1, "h": 80, "p": 64, "n": 128})]
+    seen, unique = set(), []
+    for fam, shape in shapes:
+        key = (fam, tuple(sorted(shape.items())))
+        if key not in seen:
+            seen.add(key)
+            unique.append((fam, shape))
+    return unique
+
+
+def exhaustive_sweep(torch, shapes, scratch_path, dev) -> dict:
+    """Phase 8's yardstick: every (family, shape) swept exhaustively into a
+    scratch cache that is never written; with each, the bound of the
+    function at that shape (its inputs read once, its output written once,
+    or its operations at the peak of their type)."""
+    from repro_torch.bench import ConfigCache, autotune, get_spec
+    scratch = ConfigCache(scratch_path, autosave=False)
+    out = {}
+    for fam, shape in shapes:
+        spec = get_spec(fam)
+        res = autotune(spec, shape, dtype="bfloat16", device=dev,
+                       cache=scratch)
+        args = spec.make_inputs(shape, "bfloat16", 0, dev)
+        y = spec.run(args, spec.default_config(shape))
+        nbytes = sum(t.numel() * t.element_size() for t in (*args, y)
+                     if isinstance(t, torch.Tensor))
+        peak = (INT8_OPS_PER_S if fam.startswith("quant") else
+                FP32_FLOPS_PER_S if fam in ("apr_conv", "apr_conv_fused",
+                                            "rwkv6", "mamba2")
+                else BF16_FLOPS_PER_S)
+        out[f"{fam}|{spec.shape_key(shape)}"] = (
+            res, bound_ms(nbytes, spec.flops(shape), peak))
+        del args, y
+    torch.cuda.synchronize()
+    return out
+
+
+def compare_sweeps(shapes, exhaustive, pruned) -> list:
+    """Per (family, shape): the pruned sweep's winner, time, spread and
+    prediction against the exhaustive one, and whether they agree by the
+    reference's rule (the same config, a predicted tie within 1 %, or times
+    within the two runs' spreads; benchmarks/bench_kernels.py:12-18)."""
+    from repro_torch.bench import get_spec
+    from repro_torch.cost import get_profile, rank_candidates
+    h100 = get_profile("h100_sxm")
+    rows = []
+    for fam, shape in shapes:
+        spec = get_spec(fam)
+        key = f"{fam}|{spec.shape_key(shape)}"
+        (ex, bound), pr = exhaustive[key], pruned[key]
+        cands = spec.candidates(shape)
+        pred = {cfg: est.predicted_us for cfg, est in rank_candidates(
+            spec, shape, cands, profile=h100, dtype="bfloat16")}
+        ok = pr.ok and ex.ok
+        tie = ok and abs(pred[pr.config] - pred[ex.config]) <= \
+            0.01 * max(pred[pr.config], pred[ex.config])
+        noise = ok and abs(pr.us - ex.us) <= pr.spread_us + ex.spread_us
+        rows.append(dict(
+            family=fam, shape=dict(shape), shape_key=spec.shape_key(shape),
+            winner=pr.config.to_dict() if pr.ok else None,
+            us=pr.us, spread_us=pr.spread_us, predicted_us=pr.predicted_us,
+            bound_us=bound["bound_ms"] * 1e3, bound_by=bound["bound_by"],
+            candidates=len(cands), timed=pr.n_timed,
+            rejected=[(c.to_dict(), why)
+                      for c, why in pr.rejected + ex.rejected],
+            exhaustive_winner=ex.config.to_dict() if ex.ok else None,
+            exhaustive_us=ex.us, exhaustive_spread_us=ex.spread_us,
+            exhaustive_timed=ex.n_timed,
+            agree=("no" if not ok else "same" if pr.config == ex.config
+                   else "predicted tie" if tie else "within spread" if noise
+                   else "no")))
+    return rows
+
+
+def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
+                bf16_outputs, checked, finite, reset_counts, llm_counts,
+                expected_counts, check_served) -> dict:
+    """Phase 8: the tuning layer's main path at llama3-8b full width -- the
+    counted window is ``warm_cache(sweep=True, prune_top_k)`` over every
+    family inside a scope over a fresh cache file, then the paged engine
+    built on that file serving phase 4's requests; the exhaustive sweep
+    before it is the pruning's yardstick, outside the window.  Fails unless
+    no candidate is rejected, every pruned winner agrees with the
+    exhaustive one, ``tuned_configs`` holds the winners, the engine
+    launches the tuned tiles and every kernel of the path launched."""
+    from repro_torch.bench import ConfigCache, scoped_cache, warm_cache
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.apr_conv import apr_conv2d, apr_conv2d_fused
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.kernels.apr_matmul import ops as apr_ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import PagedServeEngine, Request
+    cfg = get_config("llama3-8b")
+    slots = engine_kw["slots"]
+    per_call = 7 * cfg.num_layers + 1
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(
+        seed))
+    forward = bundle.decode_paged
+    bundle.decode_paged = checked(forward)
+    shapes = tuning_shapes(PagedServeEngine(bundle, params, **engine_kw))
+    t0 = time.perf_counter()
+    exhaustive = exhaustive_sweep(torch, shapes,
+                                  Path(tmpdir) / "exhaustive.json", dev)
+    exhaustive_s = time.perf_counter() - t0
+    tune_path = Path(tmpdir) / "tune_cache.json"
+    pruned = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with scoped_cache(ConfigCache(tune_path)):
+        winners = warm_cache(shapes, dtype="bfloat16", device=dev,
+                             sweep=True, prune_top_k=PRUNE_TOP_K,
+                             results=pruned)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    engine = PagedServeEngine(bundle, params, tune_cache=str(tune_path),
+                              **engine_kw)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+            for i, p in enumerate(prompts)]
+    before, tiles_before = llm_counts(), dict(apr_matmul.tile_launches)
+    finite.clear()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_drained()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    path_launches = llm_counts()          # the whole counted window
+    path_launches.update(apr_conv=apr_conv2d.launches,
+                         apr_conv_fused=apr_conv2d_fused.launches)
+    serve_launches = {k: v - before[k] for k, v in llm_counts().items()}
+    serve_tiles = {t: n - tiles_before.get(t, 0)
+                   for t, n in apr_matmul.tile_launches.items()
+                   if n - tiles_before.get(t, 0)}
+    m = engine.metrics
+    # the tile every projection of the served forwards resolves to under
+    # the engine's cache: M = slots at a decode tick, the chunk at prefill
+    expect_tiles = {}
+    with scoped_cache(engine.tune_cache):
+        for rows_m, calls in ((slots, m.decode_calls),
+                              (engine_kw["prefill_chunk"], m.prefill_calls)):
+            for (k, n), cnt in list(LLAMA_DECODE_SHAPES.items()) + [
+                    (LM_HEAD, 1 / cfg.num_layers)]:
+                tile = apr_ops.resolve_tile("apr_matmul", rows_m, k, n,
+                                            "bfloat16", dev.type)
+                expect_tiles[tile] = expect_tiles.get(tile, 0) + int(round(
+                    cnt * cfg.num_layers * calls))
+    rows = compare_sweeps(shapes, exhaustive, pruned)
+    tuned_ok = {key: cfg_ is not None and cfg_ == winners[key]
+                for key, cfg_ in engine.tuned_configs.items()}
+    same = sum(a == b for r, o in zip(reqs, bf16_outputs)
+               for a, b in zip(r.output, o))
+    tuning = dict(
+        shapes=len(shapes), exhaustive_s=exhaustive_s, sweep_s=sweep_s,
+        serve_s=serve_s, prune_top_k=PRUNE_TOP_K, rows=rows,
+        timed_pruned=sum(r["timed"] for r in rows),
+        timed_exhaustive=sum(r["exhaustive_timed"] for r in rows),
+        tuned_configs={k: v.to_dict() if v else None
+                       for k, v in engine.tuned_configs.items()},
+        launches=path_launches, serve_launches=serve_launches,
+        serve_tile_launches={str(t): n for t, n in serve_tiles.items()},
+        expected_serve_tile_launches={str(t): n for t, n in
+                                      expect_tiles.items()},
+        tokens_equal_untuned=same, decode_ms_per_tick=1e3 * m.decode_time_s
+        / m.decode_calls, decode_tps=m.decode_tps)
+    print(f"[8] tuning path, full-width {cfg.name}: {len(shapes)} (family, "
+          f"shape)s swept exhaustively in {exhaustive_s:.1f} s, then "
+          f"warm_cache(sweep=True, prune_top_k={PRUNE_TOP_K}) in a scope "
+          f"over a fresh cache file in {sweep_s:.1f} s; candidates timed "
+          f"{tuning['timed_pruned']} pruned against "
+          f"{tuning['timed_exhaustive']} exhaustive (bf16 inputs; bound: "
+          f"inputs read and output written once at "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s, or the operations at their "
+          f"peak):")
+    for r in rows:
+        shape = " ".join(f"{k}={v}" for k, v in r["shape"].items())
+        print(f"    {r['family']:19s} {shape:42s} winner "
+              f"{r['winner']} {r['us']:9.2f} us (spread "
+              f"{r['spread_us']:.2f}) bound {r['bound_us']:8.2f} us "
+              f"({r['bound_by']}) predicted "
+              + (f"{r['predicted_us']:8.2f}" if r["predicted_us"] is not None
+                 else "    none")
+              + f" us; timed {r['timed']}/{r['candidates']}, exhaustive "
+              f"{r['exhaustive_winner']} {r['exhaustive_us']:.2f} us "
+              f"({r['exhaustive_timed']} timed): {r['agree']}")
+    print(f"    PagedServeEngine(tune_cache=...): {m.requests_done}/"
+          f"{len(reqs)} requests in {serve_s:.2f} s, "
+          f"{tuning['decode_ms_per_tick']:.3f} ms per decode tick; "
+          f"tuned_configs {tuning['tuned_configs']}; apr_matmul launches by "
+          f"tile {tuning['serve_tile_launches']} (expected from the tuned "
+          f"cache {tuning['expected_serve_tile_launches']}); greedy tokens "
+          f"equal to phase 4's untuned run {same}/"
+          f"{sum(len(o) for o in bf16_outputs)} (information)")
+    print(f"    launches of the counted window (sweep + serve): "
+          f"{path_launches}")
+    bad = [r for r in rows if r["rejected"]]
+    if bad:
+        fail(f"phase 8: candidates rejected: "
+             f"{[(r['family'], r['rejected']) for r in bad]}")
+    if any(r["agree"] == "no" for r in rows):
+        fail("phase 8: a pruned sweep missed the exhaustive winner beyond "
+             "the timer spreads")
+    if not tuned_ok or not all(tuned_ok.values()):
+        fail(f"phase 8: tuned_configs {engine.tuned_configs} do not hold "
+             f"the winners")
+    if serve_tiles != expect_tiles:
+        fail(f"phase 8: served tiles {serve_tiles} != tuned {expect_tiles}")
+    check_served("phase 8", reqs, 16, serve_launches, expected_counts(
+        apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
+        flash_decode_paged=cfg.num_layers * m.decode_calls))
+    unlaunched = [k for k, v in path_launches.items()
+                  if not v and k != "apr_matmul_int8w"]
+    if unlaunched:
+        fail(f"phase 8: no launch of {unlaunched} on the tuning path")
+    bundle.decode_paged = forward
+    del engine, reqs, bundle, params, exhaustive, pruned
+    torch.cuda.empty_cache()
+    return tuning
+
+
 def identity_ablation(torch, seed: int) -> dict:
     """``--ablate``: phase 7's paged-vs-slot greedy-token comparison at full
     width, with each card-side measure the path rests on turned off in
@@ -890,13 +1364,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import torch.nn.functional as F
+    from repro_torch.bench import ConfigCache, set_default_cache
     from repro_torch.configs import get_config
     from repro_torch.core.apr import reduction_hbm_traffic
     from repro_torch.kernels import _build
     from repro_torch.kernels.apr_conv import (apr_conv2d, apr_conv2d_fused,
                                               conv2d_fused_ref, conv2d_ref)
     from repro_torch.kernels.apr_conv import ops as conv_ops
-    from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
+    from repro_torch.kernels.apr_matmul import (apr_matmul, apr_matmul_fused,
+                                                matmul_ref)
     from repro_torch.kernels.apr_matmul import ops as apr_ops
     from repro_torch.kernels.flash_decode import (
         decode_attention_ref, flash_decode, flash_decode_paged, gather_pages,
@@ -904,6 +1380,9 @@ def main() -> int:
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.mamba2 import mamba2_ssd
     from repro_torch.kernels.mamba2 import ops as mamba2_ops
+    from repro_torch.kernels.quant_matmul import ops as qmm_ops
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_fused)
     from repro_torch.kernels.rwkv6 import ops as rwkv6_ops
     from repro_torch.kernels.rwkv6 import rwkv6_wkv
     from repro_torch.models import build_model
@@ -913,6 +1392,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # tuned configurations only where phase 8 scopes them: every other
+    # phase resolves the kernels' defaults from an empty cache that is
+    # never written, and nothing reads or writes a cache in the home
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    set_default_cache(ConfigCache(Path(tmp.name) / "untuned.json",
+                                  autosave=False))
     if args.ablate:
         _build.build_all({apr_ops.LIBRARY: apr_ops.SIGNATURES,
                           rwkv6_ops.LIBRARY: rwkv6_ops.SIGNATURES,
@@ -952,6 +1437,7 @@ def main() -> int:
     _build.build_all({apr_ops.LIBRARY: apr_ops.SIGNATURES,
                       fd_ops.LIBRARY: fd_ops.SIGNATURES,
                       conv_ops.LIBRARY: conv_ops.SIGNATURES,
+                      qmm_ops.LIBRARY: qmm_ops.SIGNATURES,
                       rwkv6_ops.LIBRARY: rwkv6_ops.SIGNATURES,
                       mamba2_ops.LIBRARY: mamba2_ops.SIGNATURES})
     build_s = time.perf_counter() - t0
@@ -968,7 +1454,9 @@ def main() -> int:
     errs = {"apr_matmul": 0.0, "apr_matmul_int8w": 0.0,
             "flash_decode_paged": 0.0, "flash_decode_paged_int8": 0.0,
             "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0,
-            "rwkv6_wkv": 0.0, "mamba2_ssd": 0.0}
+            "rwkv6_wkv": 0.0, "mamba2_ssd": 0.0, "apr_matmul_hbm": 0.0,
+            "apr_matmul_fused": 0.0, "quant_matmul": 0.0,
+            "quant_matmul_fused": 0.0}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -1148,7 +1636,9 @@ def main() -> int:
                 errs["apr_conv"] = max(errs["apr_conv"], err)
                 cases.append(("apr_conv", f"{conv_label(xs, fs, s, p, 0)} "
                               f"{act}, {bname}", err, ok))
-    for name, case, err, ok in scan_correctness(torch, gen, dev):
+    for name, case, err, ok in (scan_correctness(torch, gen, dev)
+                                + matmul_family_correctness(torch, gen,
+                                                            dev)):
         errs[name] = max(errs[name], err)
         cases.append((name, case, err, ok))
     print(f"[2] kernel vs plain version on the card (tolerance "
@@ -1156,7 +1646,11 @@ def main() -> int:
           f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; conv kernels "
           f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|; scans: y "
           f"{BF16_RTOL:.4g}*|plain| + {SCAN_ATOL_REL:g}*max|plain|, fp32 "
-          f"state {STATE_RTOL:g}*(|plain| + max|plain|)):")
+          f"state {STATE_RTOL:g}*(|plain| + max|plain|); matmul families "
+          f"at every compiled tile: B4m bit-equal to B1 at the tile, B6/B8 "
+          f"none/relu bit-equal, silu/gelu within {ACT_ULPS} fp32 ulps of "
+          f"max(|plain|, |pre-activation|) or the bf16 tolerance for bf16 "
+          f"out, B7m the bf16 tolerance):")
     for name, shape, err, ok in cases:
         print(f"    {'ok  ' if ok else 'FAIL'} {name:23s} {shape:50s} "
               f"max_abs_err={err:.3g}")
@@ -1291,6 +1785,10 @@ def main() -> int:
     del q, kc, vc
     torch.cuda.empty_cache()
     scan_rows = scan_timing(torch, gen, dev)
+    mm_rows = matmul_family_timing(torch, gen, dev, slots)
+    for r in mm_rows:
+        per_shape[(r["kernel"], r["M"], r["K"], r["N"])] = r
+    timing.extend(mm_rows)
     print("[3] kernel times (CUDA events, cold weights: buffers rotated past "
           "the 50 MB L2):")
     for r in timing:
@@ -1311,6 +1809,16 @@ def main() -> int:
               f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"{r['bound_ms'] / r['ms']:.0%} of bound")
+    for r in mm_rows:
+        if r["kernel"] == "apr_matmul_hbm":
+            print(f"    B4m vs B1 (default tile) M={r['M']} K={r['K']} "
+                  f"N={r['N']}: {r['ms']:.4f} vs {r['apr_ms']:.4f} ms, "
+                  f"x{r['ms'] / r['apr_ms']:.2f} ({r['hbm_steps']} K steps, "
+                  f"+{r['partial_bytes'] / 1e6:.2f} MB of fp32 partials)")
+        elif r["kernel"] == "quant_matmul":
+            print(f"    quant_matmul M={r['M']} K={r['K']} N={r['N']}: the "
+                  f"activations' quantization alone {r['quantize_ms']:.4f} "
+                  f"ms of {r['ms']:.4f}; library at M={r['library_m']}")
     timing.extend(scan_rows)
     report["timing"] = timing
 
@@ -1401,12 +1909,13 @@ def main() -> int:
           f"{conv_total['fused_library_ms']:.4f} ms, bound "
           f"{conv_total['fused_bound_ms']:.4f} ms")
 
-    def per_tick(key, kernel="apr_matmul"):
+    def per_tick(key, kernel="apr_matmul", lm_head=True):
         """Sum over one full-width decode tick (M = slots): 7 projections
-        in each of 32 layers plus the lm_head."""
+        in each of 32 layers plus (``lm_head``) the lm_head."""
         layer = sum(cnt * per_shape[(kernel, slots, k, n)][key]
                     for (k, n), cnt in LLAMA_DECODE_SHAPES.items())
-        return 32 * layer + per_shape[(kernel, slots) + LM_HEAD][key]
+        return 32 * layer + (per_shape[(kernel, slots) + LM_HEAD][key]
+                             if lm_head else 0.0)
 
     phase_done("phase 3")
 
@@ -1422,6 +1931,11 @@ def main() -> int:
         apr_conv2d_fused.launches = 0
         rwkv6_wkv.launches = 0
         mamba2_ssd.launches = 0
+        apr_matmul.hbm_launches = 0
+        apr_matmul.tile_launches.clear()
+        apr_matmul_fused.launches = 0
+        quant_matmul.launches = 0
+        quant_matmul_fused.launches = 0
 
     def llm_counts() -> dict:
         return {"apr_matmul": apr_matmul.launches,
@@ -1430,7 +1944,11 @@ def main() -> int:
                 "flash_decode_paged_int8": flash_decode_paged.int8_launches,
                 "flash_decode": flash_decode.launches,
                 "rwkv6_wkv": rwkv6_wkv.launches,
-                "mamba2_ssd": mamba2_ssd.launches}
+                "mamba2_ssd": mamba2_ssd.launches,
+                "apr_matmul_hbm": apr_matmul.hbm_launches,
+                "apr_matmul_fused": apr_matmul_fused.launches,
+                "quant_matmul": quant_matmul.launches,
+                "quant_matmul_fused": quant_matmul_fused.launches}
 
     def expected_counts(**nonzero) -> dict:
         return {name: nonzero.get(name, 0) for name in llm_counts()}
@@ -2010,7 +2528,14 @@ def main() -> int:
     report["recurrent"] = recurrent
     phase_done("phase 7")
 
-    # ------------------------------------------------------------- 8 report
+    # ------------------------- 8 the tuning path at llama3-8b full width
+    tuning = tuning_path(torch, args.seed, dev, tmp.name, engine_kw, prompts,
+                         bf16_outputs, checked, finite, reset_counts,
+                         llm_counts, expected_counts, check_served)
+    report["tuning"] = tuning
+    phase_done("phase 8")
+
+    # ------------------------------------------------------------- 9 report
     def tick_entry(name, source, replaces, n, kernel=None, row=None):
         """A kernels-line entry timed per full-width decode tick: the 225
         projections of phase 3's ``kernel`` rows, or 32 launches of
@@ -2081,6 +2606,27 @@ def main() -> int:
             plain_ms=n_layers * row["plain_ms"],
             bound_ms=n_layers * row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None))
+    # B4m, B7m, B6 and B8 per full-width decode tick (M = slots), as if
+    # the tick's 224 projections (no lm_head) ran on them; launches are
+    # those of phase 8's counted window (the sweep and the tuned engine)
+    for name, source, replaces in (
+            ("apr_matmul_hbm", mm_src,
+             "src/repro/kernels/apr_matmul/kernel.py:124"),
+            ("apr_matmul_fused", mm_src,
+             "src/repro/kernels/apr_matmul/kernel.py:86"),
+            ("quant_matmul", "src/repro_torch/csrc/quant_matmul.cu",
+             "src/repro/kernels/quant_matmul/kernel.py:125"),
+            ("quant_matmul_fused", "src/repro_torch/csrc/quant_matmul.cu",
+             "src/repro/kernels/quant_matmul/kernel.py:81")):
+        t = {key: per_tick(key, name, lm_head=False) for key in (
+            "ms", "plain_ms", "bound_ms", "library_ms", "t_mem_ms",
+            "t_ops_ms")}
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=tuning["launches"][name], max_abs_err=errs[name],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by="bytes" if t["t_mem_ms"] >= t["t_ops_ms"]
+            else "operations", library_ms=t["library_ms"]))
     report["kernels"] = kernels
     report["kernels_note"] = (
         "apr_matmul, apr_matmul_int8w, flash_decode_paged, "
@@ -2096,7 +2642,15 @@ def main() -> int:
         "rwkv6_wkv and mamba2_ssd: per full-width decode tick (4 slots, "
         "state in and out): 32 and 64 launches at the phase-3 decode shape; "
         "no PyTorch call computes either recurrence (library_ms null); "
-        "launches are those of phase 7's PagedServeEngine runs")
+        "launches are those of phase 7's PagedServeEngine runs. "
+        "apr_matmul_hbm (B4m), apr_matmul_fused (B7m, bias + silu), "
+        "quant_matmul (B6) and quant_matmul_fused (B8, bias + silu): per "
+        "full-width decode tick's 224 projections (no lm_head) at the "
+        "default tile, bf16 out; the int8 rows include the activations' "
+        "quantization, their library (quantization, torch._int_mm, the two "
+        "scale multiplies, + bias and silu) is timed at M = 32 where "
+        "_int_mm refuses M <= 16; launches are those of phase 8's counted "
+        "window (warm_cache sweep and the tuned engine's serving)")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2109,7 +2663,7 @@ def main() -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
     report["phase_s"] = phase_s
-    print(f"[8] wrote {out}; total {report['total_s']:.1f} s (per phase "
+    print(f"[9] wrote {out}; total {report['total_s']:.1f} s (per phase "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} })")
     print(json.dumps({"kernels": kernels}))
     print(card)

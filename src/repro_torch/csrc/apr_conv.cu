@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue.cuh"
+
 namespace {
 
 constexpr int BK = 32;               // K step: one shared-memory tile
@@ -60,21 +62,6 @@ struct Geom {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-__device__ __forceinline__ float activate(float v, int act) {
-  switch (act) {
-    case 1:                                      // relu
-      return fmaxf(v, 0.0f);
-    case 2:                                      // silu = x·sigmoid(x)
-      return v / (1.0f + expf(-v));
-    case 3: {                                    // gelu, tanh approximation
-      float u = 0.7978845608028654f * (v + 0.044715f * v * v * v);
-      return 0.5f * v * (1.0f + tanhf(u));
-    }
-    default:
-      return v;
-  }
 }
 
 // The block's BP x BN tile of the product over k in [k_begin, k_end),
@@ -170,7 +157,7 @@ __global__ void __launch_bounds__(THREADS)
       int n = n0 + tx + j * Tl::TXN;
       if (n < g.M) {
         float v = acc[i][j];
-        if (bias != nullptr) v += bias[n];
+        if (bias != nullptr) v = __fadd_rn(v, bias[n]);
         out[(size_t)p * g.M + n] = activate(v, act);
       }
     }

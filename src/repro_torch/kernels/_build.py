@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` into ``_build/lib<name>-<hash>.so`` beside the package (the
-hash is of the source, so an edited kernel is rebuilt), then loaded with
+hash is of the source and the shared ``csrc/*.cuh`` headers, so an edited
+kernel is rebuilt), then loaded with
 ``ctypes``.  Nothing includes PyTorch's headers, so a build takes seconds.
 The build runs at first use; :func:`build_all` starts one ``nvcc`` per
 source at once, for callers that want every kernel ready up front.
@@ -44,9 +45,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared device code
+        digest.update(header.read_bytes())
+    digest.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

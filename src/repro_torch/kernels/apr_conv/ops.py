@@ -3,9 +3,11 @@ kernels of ``csrc/apr_conv.cu`` for CUDA tensors, the plain PyTorch versions
 (:mod:`.ref`) for CPU tensors.
 
 The signatures are the JAX package's (``repro.kernels.apr_conv.ops``)
-without its tile arguments: the tiles are fixed in the kernel.  Inputs are
-fp32 or bf16 (``x`` and ``f`` of one type); the output is fp32 either way,
-as the JAX kernel writes it.
+with ``config`` and without the ``block_*`` arguments: the kernel has one
+tile per output-channel count (:func:`compiled_config`), so each family's
+tune space has one point, and whatever resolves under the JAX package's
+shape keys must be that tile.  Inputs are fp32 or bf16 (``x`` and ``f`` of
+one type); the output is fp32 either way, as the JAX kernel writes it.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
+                             shape_key_from_dims)
 from .. import _build
 from ..apr_matmul.ref import ACTIVATIONS
 from .ref import conv2d_fused_ref, conv2d_ref
@@ -28,6 +32,47 @@ SIGNATURES = {
 #: baseline launches once per step
 K_STEP = 32
 RESIDENCIES = ("apr", "hbm")
+KERNEL_NAME = "apr_conv"
+FUSED_KERNEL_NAME = "apr_conv_fused"
+_THREADS = 256                     # threads per block, 4 x 4 outputs each
+
+
+def compiled_config(m: int) -> BlockConfig:
+    """The tile the kernel runs for ``m`` output channels, as the implicit
+    GEMM's (block_m, block_n, block_k): BN = 16, 32 or 64 channels from
+    ``m``, 4096 / BN pixels, K steps of 32."""
+    bn = 16 if m <= 16 else 32 if m <= 32 else 64
+    return BlockConfig.make(block_m=_THREADS * 16 // bn, block_n=bn,
+                            block_k=K_STEP)
+
+
+def shape_key(b, h, w, c, hf, wf, m, stride, padding,
+              residency: str = "apr") -> str:
+    # residency is part of the key, as in the JAX package
+    return shape_key_from_dims(b=b, h=h, w=w, c=c, hf=hf, wf=wf, m=m,
+                               s=stride, p=padding) + f"_res{residency}"
+
+
+def fused_shape_key(b, h, w, c, hf, wf, m, stride, padding) -> str:
+    return shape_key_from_dims(b=b, h=h, w=w, c=c, hf=hf, wf=wf, m=m,
+                               s=stride, p=padding)
+
+
+def default_config(b, h, w, c, hf, wf, m, stride, padding) -> BlockConfig:
+    return compiled_config(m)
+
+
+def _resolve(kernel: str, x: torch.Tensor, f: torch.Tensor, stride: int,
+             padding: int, residency: Optional[str],
+             config: Optional[BlockConfig]) -> None:
+    """Resolve the configuration under the JAX key (the fused family's has
+    no residency) and refuse anything but the compiled tile."""
+    dims = (*x.shape, *f.shape[:2], f.shape[3], stride, padding)
+    key = fused_shape_key
+    if residency is not None:
+        dims, key = dims + (residency,), shape_key
+    resolve_fixed(kernel, dims, dtype_name(x.dtype), "cuda", shape_key=key,
+                  compiled=compiled_config(f.shape[3]), config=config)
 
 
 def _check(x: torch.Tensor, f: torch.Tensor, what: str) -> None:
@@ -61,7 +106,8 @@ def _geometry(x: torch.Tensor, f: torch.Tensor, stride: int,
 
 
 def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
-               padding: int = 0, residency: str = "apr") -> torch.Tensor:
+               padding: int = 0, residency: str = "apr",
+               config: Optional[BlockConfig] = None) -> torch.Tensor:
     """``x (B, H, W, C) ⊛ f (Hf, Wf, C, M) -> (B, Ho, Wo, M)`` fp32.
 
     ``residency="apr"`` keeps the accumulator in registers across the whole
@@ -77,6 +123,7 @@ def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
         return conv2d_ref(x, f, stride=stride, padding=padding)
     _check(x, f, "apr_conv2d")
     args, shape = _geometry(x, f, stride, padding)
+    _resolve(KERNEL_NAME, x, f, stride, padding, residency, config)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -100,7 +147,8 @@ def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
 def apr_conv2d_fused(x: torch.Tensor, f: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, *,
                      activation: str = "relu", stride: int = 1,
-                     padding: int = 0) -> torch.Tensor:
+                     padding: int = 0,
+                     config: Optional[BlockConfig] = None) -> torch.Tensor:
     """``activation(conv2d(x, f) + bias)`` with the epilogue applied at the
     accumulator's one flush; ``bias`` is ``None``, ``(M,)`` or ``(1, M)``
     and is used in fp32.  CUDA tensors launch ``apr_conv`` or raise; CPU
@@ -123,6 +171,7 @@ def apr_conv2d_fused(x: torch.Tensor, f: torch.Tensor,
                              f"operands on {x.device}")
         bias = bias.reshape(m).float().contiguous()
     args, shape = _geometry(x, f, stride, padding)
+    _resolve(FUSED_KERNEL_NAME, x, f, stride, padding, None, config)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out

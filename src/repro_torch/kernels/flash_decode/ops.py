@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
+                             shape_key_from_dims)
 from .. import _build
 from .ref import (decode_attention_ref, paged_decode_attention_q_ref,
                   paged_decode_attention_ref)
@@ -29,6 +31,30 @@ SIGNATURES = {
         ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 MAX_GROUP, MAX_HEAD_DIM = 8, 128   # the kernel's register budget
+KERNEL_NAME = "flash_decode"
+PAGED_KERNEL_NAME = "flash_decode_paged"
+#: the one configuration the kernels are compiled for: the sequence is
+#: walked in chunks of 32 tokens (``TC`` in the source), so each family's
+#: tune space has one point
+COMPILED = BlockConfig.make(chunk=32)
+
+
+def shape_key(b, hq, hkv, d, s) -> str:
+    return shape_key_from_dims(b=b, hq=hq, hkv=hkv, d=d, s=s)
+
+
+def paged_shape_key(b, hq, hkv, d, pages, ps, kv_int8: bool = False) -> str:
+    # int8 pools tune under their own key, as in the JAX package
+    return (shape_key_from_dims(b=b, hq=hq, hkv=hkv, d=d, pages=pages, ps=ps)
+            + ("_kvint8" if kv_int8 else ""))
+
+
+def default_config(b, hq, hkv, d, s) -> BlockConfig:
+    return COMPILED
+
+
+def paged_default_config(b, hq, hkv, d, pages, ps) -> BlockConfig:
+    return COMPILED
 
 
 def _check_cuda(name, tensors, q, k, kv_dtype):
@@ -55,8 +81,8 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, lengths: torch.Tensor,
                        block_tables: torch.Tensor, *,
                        k_scales: Optional[torch.Tensor] = None,
-                       v_scales: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       v_scales: Optional[torch.Tensor] = None,
+                       config: Optional[BlockConfig] = None) -> torch.Tensor:
     """Single-token attention over a paged KV cache.
 
     q: (B, Hq, D); k/v_pages: (P_pool, page_size, Hkv, D); lengths: (B,);
@@ -64,7 +90,9 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     ``pages[block_tables[b, t // page_size], t % page_size]``; positions at
     or past ``lengths[b]`` are masked, and rows with ``lengths == 0`` return
     zeros.  With ``k_scales``/``v_scales`` (P_pool, page_size, Hkv) fp32 the
-    pools are int8 and token ``t`` of head ``h`` is ``code * scale``.
+    pools are int8 and token ``t`` of head ``h`` is ``code * scale``.  The
+    configuration resolves under the JAX package's key (``_kvint8`` for int8
+    pools) and must be :data:`COMPILED`.
 
     CUDA tensors launch the kernel (bf16 q, bf16 or int8 pools, int32
     lengths and tables) or raise; CPU tensors take the plain version.  Each
@@ -100,6 +128,10 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                              for s in (k_scales, v_scales)):
         raise ValueError(f"flash_decode_paged: scale pools must be fp32 "
                          f"{tuple(k_pages.shape[:-1])}")
+    resolve_fixed(PAGED_KERNEL_NAME,
+                  (b, q.shape[1], hkv, q.shape[2], block_tables.shape[1], ps,
+                   quantized), dtype_name(q.dtype), "cuda",
+                  shape_key=paged_shape_key, compiled=COMPILED, config=config)
     out = torch.empty_like(q)
     if b == 0:
         return out
@@ -130,15 +162,17 @@ flash_decode_paged.int8_launches = 0
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor, *,
+                 config: Optional[BlockConfig] = None) -> torch.Tensor:
     """Single-token attention over a contiguous KV cache.
 
     q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,).  Positions at or
     past ``lengths[b]`` are masked; a row with ``lengths == 0`` returns the
     mean of its S values of V, as the JAX package's kernel and oracle do.
     CUDA tensors launch the kernel (bf16 q and cache, int32 lengths) or
-    raise; CPU tensors take :func:`decode_attention_ref`.  Each launch adds
-    one to ``flash_decode.launches``."""
+    raise; CPU tensors take :func:`decode_attention_ref`.  The configuration
+    resolves under the JAX package's key and must be :data:`COMPILED`.  Each
+    launch adds one to ``flash_decode.launches``."""
     tensors = (q, k, v, lengths)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_ref(q, k, v, lengths)
@@ -151,6 +185,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, cache "
                          f"{tuple(k.shape)}/{tuple(v.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
+    resolve_fixed(KERNEL_NAME, (b, q.shape[1], k.shape[2], q.shape[2],
+                                k.shape[1]), dtype_name(q.dtype), "cuda",
+                  shape_key=shape_key, compiled=COMPILED, config=config)
     out = torch.empty_like(q)
     if b == 0:
         return out

@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
+                             shape_key_from_dims)
 from .. import _build
 from .ref import mamba2_ref
 
@@ -18,6 +20,19 @@ SIGNATURES = {"mamba2_ssd_bf16": (ctypes.c_int, _ARGS),
               "mamba2_ssd_f32": (ctypes.c_int, _ARGS)}
 #: the kernel's limits: 32 state columns a thread, 256 threads a block
 MAX_HEAD_DIM, MAX_STATE = 64, 128
+KERNEL_NAME = "mamba2"
+#: the one configuration the kernel is compiled for: inputs are staged 16
+#: time steps per round (``CH`` in the source) while the state stays in
+#: registers for all T, so the family's tune space has one point
+COMPILED = BlockConfig.make(chunk=16)
+
+
+def shape_key(b, t, h, p, n) -> str:
+    return shape_key_from_dims(b=b, t=t, h=h, p=p, n=n)
+
+
+def default_config(b, t, h, p, n) -> BlockConfig:
+    return COMPILED
 
 
 def check_kernel_args(x, b, c, dt, a, d, h_init=None):
@@ -56,7 +71,8 @@ def check_kernel_args(x, b, c, dt, a, d, h_init=None):
 def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor, *,
                h_init: Optional[torch.Tensor] = None,
-               return_state: bool = False):
+               return_state: bool = False,
+               config: Optional[BlockConfig] = None):
     """The Mamba-2 SSD recurrence over all T steps in one launch.
 
     x: (B, T, H, P); b/c: (B, T, N), indexed per batch row and shared by
@@ -69,8 +85,9 @@ def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     with neither option it is exactly the TPU kernel.
 
     CUDA tensors launch the kernel (P and N multiples of 16, P <= 64,
-    N <= 128) or raise; CPU tensors take :func:`mamba2_ref`.  Each launch
-    adds one to ``mamba2_ssd.launches``."""
+    N <= 128) or raise; CPU tensors take :func:`mamba2_ref`.  The
+    configuration (``config`` or the tune cache's, under the JAX key) must
+    be :data:`COMPILED`.  Each launch adds one to ``mamba2_ssd.launches``."""
     tensors = (x, b, c, dt, a, d) + (() if h_init is None else (h_init,))
     if all(t.device.type == "cpu" for t in tensors):
         return mamba2_ref(x, b, c, dt, a, d, h_init=h_init,
@@ -82,6 +99,9 @@ def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=x.device)
     h_out = (torch.empty((bsz, h, p, n), dtype=torch.float32,
                          device=x.device) if return_state else None)
+    resolve_fixed(KERNEL_NAME, (bsz, t, h, p, n), dtype_name(x.dtype),
+                  "cuda", shape_key=shape_key, compiled=COMPILED,
+                  config=config)
     lib = _build.load(LIBRARY, SIGNATURES)
     fn = lib.mamba2_ssd_bf16 if x.dtype == torch.bfloat16 else \
         lib.mamba2_ssd_f32

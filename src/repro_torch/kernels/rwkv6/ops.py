@@ -8,6 +8,8 @@ from typing import Optional
 
 import torch
 
+from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
+                             shape_key_from_dims)
 from .. import _build
 from .ref import rwkv6_ref
 
@@ -17,6 +19,19 @@ _ARGS = [_P] * 8 + [_I] * 4 + [_P]
 SIGNATURES = {"rwkv6_wkv_bf16": (ctypes.c_int, _ARGS),
               "rwkv6_wkv_f32": (ctypes.c_int, _ARGS)}
 MAX_HEAD_DIM = 128   # the kernel's register budget: 32 state rows a thread
+KERNEL_NAME = "rwkv6"
+#: the one configuration the kernel is compiled for: inputs are staged 16
+#: time steps per round (``CH`` in the source) while the state stays in
+#: registers for all T, so the family's tune space has one point
+COMPILED = BlockConfig.make(chunk=16)
+
+
+def shape_key(b, t, h, d) -> str:
+    return shape_key_from_dims(b=b, t=t, h=h, d=d)
+
+
+def default_config(b, t, h, d) -> BlockConfig:
+    return COMPILED
 
 
 def check_kernel_args(r, k, v, w, u, s_init=None):
@@ -50,7 +65,8 @@ def check_kernel_args(r, k, v, w, u, s_init=None):
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, *,
               s_init: Optional[torch.Tensor] = None,
-              return_state: bool = False):
+              return_state: bool = False,
+              config: Optional[BlockConfig] = None):
     """The RWKV-6 WKV recurrence over all T steps in one launch.
 
     r/k/v: (B, T, H, D) bf16 or fp32; w: the decay in (0, 1), same shape,
@@ -61,8 +77,9 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     option it is exactly the TPU kernel.
 
     CUDA tensors launch the kernel (contiguous, D a multiple of 16 up to
-    128) or raise; CPU tensors take :func:`rwkv6_ref`.  Each launch adds
-    one to ``rwkv6_wkv.launches``."""
+    128) or raise; CPU tensors take :func:`rwkv6_ref`.  The configuration
+    (``config`` or the tune cache's, under the JAX key) must be
+    :data:`COMPILED`.  Each launch adds one to ``rwkv6_wkv.launches``."""
     tensors = (r, k, v, w, u) + (() if s_init is None else (s_init,))
     if all(t.device.type == "cpu" for t in tensors):
         return rwkv6_ref(r, k, v, w, u, s_init=s_init,
@@ -74,6 +91,8 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = torch.empty_like(r)
     s_out = (torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
              if return_state else None)
+    resolve_fixed(KERNEL_NAME, (b, t, h, d), dtype_name(r.dtype), "cuda",
+                  shape_key=shape_key, compiled=COMPILED, config=config)
     lib = _build.load(LIBRARY, SIGNATURES)
     fn = lib.rwkv6_wkv_bf16 if r.dtype == torch.bfloat16 else \
         lib.rwkv6_wkv_f32

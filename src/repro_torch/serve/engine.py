@@ -25,6 +25,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..bench.autotune import warm_cache
+from ..bench.config import ConfigCache, scoped_cache
 from ..models.paged_state import copy_kv_page, copy_state_slot
 from ..models.registry import ModelBundle
 from .paged_cache import OutOfPages, PagedKVCache
@@ -170,7 +172,9 @@ class PagedServeEngine:
                  prefill_chunk: int = 16,
                  kv_dtype: str = "bfloat16",
                  state_dtype: str = "float32",
-                 prefix_sharing: bool = False):
+                 prefix_sharing: bool = False,
+                 tune_cache: Optional[str] = None,
+                 autotune_at_start: bool = False):
         self.device = resolve_device(device)
         if bundle.device != self.device:
             raise ValueError(f"engine device {self.device} differs from the "
@@ -212,6 +216,14 @@ class PagedServeEngine:
         self.state: Optional[StateCache] = (
             StateCache(slots=slots, ring_depth=1)
             if bundle.supports_paged_state else None)
+        # tuned-kernel plumbing: an explicit ``tune_cache`` is scoped to
+        # this engine (warm-up and every step()); see scoped_cache
+        self.tune_cache = (ConfigCache(tune_cache)
+                           if tune_cache is not None else None)
+        with scoped_cache(self.tune_cache):
+            self.tuned_configs = warm_cache(
+                self._decode_kernel_shapes(), dtype=bundle.cfg.dtype,
+                device=self.device, sweep=autotune_at_start)
         self.cache = bundle.init_paged_cache(
             self.kv.pool_pages, page_size, kv_dtype=kv_dtype,
             state_slots=(self.state.pool_slots if self.state else 0),
@@ -245,6 +257,26 @@ class PagedServeEngine:
         return np.concatenate(
             [kv_rows, reads, np.asarray(write_ids, np.int32)], axis=1)
 
+    def _decode_kernel_shapes(self):
+        """Kernel shapes the paged decode path runs: paged decode attention
+        over the slot batch (attention families; the ``kv_int8`` variant
+        for an int8 cache) and the slot-batch GEMM, as the JAX engine
+        lists them."""
+        cfg = self.bundle.cfg
+        shapes = []
+        if not cfg.is_attention_free:
+            attn_shape = {"b": self.slots, "hq": cfg.num_heads,
+                          "hkv": cfg.num_kv_heads,
+                          "d": cfg.resolved_head_dim,
+                          "pages": self.kv.max_pages_per_slot,
+                          "ps": self.page_size}
+            if self.kv_dtype == "int8":
+                attn_shape["kv_int8"] = 1
+            shapes.append(("flash_decode_paged", attn_shape))
+        shapes.append(("apr_matmul", {"m": self.slots, "k": cfg.d_model,
+                                      "n": cfg.d_ff or cfg.d_inner}))
+        return shapes
+
     def kv_pool_bytes(self) -> int:
         """Bytes held by the device cache pools: KV pages, recurrent-state
         pools and any int8 scale pools -- the footprint ``kv_dtype="int8"``
@@ -269,10 +301,12 @@ class PagedServeEngine:
 
     def step(self) -> int:
         """One engine tick: admit, chunked prefill (token-budgeted), one
-        batched decode for all DECODING slots.  Returns active requests."""
-        self._admit()
-        self._prefill_tick()
-        self._decode_tick()
+        batched decode for all DECODING slots, under this engine's tuned
+        configurations.  Returns active requests."""
+        with scoped_cache(self.tune_cache):
+            self._admit()
+            self._prefill_tick()
+            self._decode_tick()
         self.metrics.ticks += 1
         self.metrics.util_samples.append(self.kv.utilization())
         return sum(r is not None for r in self.active)
@@ -498,7 +532,9 @@ class ServeEngine:
     """
 
     def __init__(self, bundle: ModelBundle, params, *, device="cuda",
-                 slots: int = 4, max_seq: int = 256):
+                 slots: int = 4, max_seq: int = 256,
+                 tune_cache: Optional[str] = None,
+                 autotune_at_start: bool = False):
         self.device = resolve_device(device)
         if bundle.device != self.device:
             raise ValueError(f"engine device {self.device} differs from the "
@@ -507,11 +543,32 @@ class ServeEngine:
         self.params = params
         self.slots = slots
         self.max_seq = max_seq
+        # tuned-kernel plumbing, as in PagedServeEngine
+        self.tune_cache = (ConfigCache(tune_cache)
+                           if tune_cache is not None else None)
+        with scoped_cache(self.tune_cache):
+            self.tuned_configs = warm_cache(
+                self._decode_kernel_shapes(), dtype=bundle.cfg.dtype,
+                device=self.device, sweep=autotune_at_start)
         self.cache = bundle.init_cache(slots, max_seq)
         self.lengths = np.zeros((slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
         self.pending: "queue.Queue[Request]" = queue.Queue()
         self.last_tokens = np.zeros((slots, 1), np.int32)
+
+    def _decode_kernel_shapes(self):
+        """Kernel shapes this engine's decode path runs: batched decode
+        attention over the whole slot batch and the slot-batch GEMM, as the
+        JAX engine lists them."""
+        cfg = self.bundle.cfg
+        return [
+            ("flash_decode", {"b": self.slots, "hq": cfg.num_heads,
+                              "hkv": cfg.num_kv_heads,
+                              "d": cfg.resolved_head_dim,
+                              "s": self.max_seq}),
+            ("apr_matmul", {"m": self.slots, "k": cfg.d_model,
+                            "n": cfg.d_ff or cfg.d_inner}),
+        ]
 
     def _decode(self, tokens: np.ndarray, lengths: np.ndarray) -> torch.Tensor:
         return self.bundle.decode_step(
@@ -575,8 +632,13 @@ class ServeEngine:
             self.active[slot] = req
 
     def step(self) -> int:
-        """One engine tick: admit new requests, one decode for all slots.
-        Returns the number of active requests."""
+        """One engine tick: admit new requests, one decode for all slots,
+        under this engine's tuned configurations.  Returns the number of
+        active requests."""
+        with scoped_cache(self.tune_cache):
+            return self._step()
+
+    def _step(self) -> int:
         self._admit()
         if not any(r is not None for r in self.active):
             return 0

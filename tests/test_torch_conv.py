@@ -234,7 +234,11 @@ def test_k_step_of_the_wrapper_is_the_kernels():
 
 
 def test_activation_codes_of_the_kernel():
-    src = (CSRC / "apr_conv.cu").read_text()
+    """The activation codes of the wrappers are the epilogue's, which the
+    conv kernel includes (``csrc/epilogue.cuh``, shared with the matmul
+    kernels)."""
+    assert '#include "epilogue.cuh"' in (CSRC / "apr_conv.cu").read_text()
+    src = (CSRC / "epilogue.cuh").read_text()
     from repro_torch.kernels.apr_matmul.ref import ACTIVATIONS as codes
     for name, code in codes.items():
         if code:

@@ -64,6 +64,35 @@ def test_package_imports_without_jax():
             "repro_torch.kernels.mamba2", "repro_torch.kernels.mamba2.ops",
             "repro_torch.kernels.mamba2.ref",
             "repro_torch.configs.rwkv6_3b"} <= set(lines)
+    # the tuning layer, the cost model, the hardware profiles and the int8
+    # matmul family
+    assert {"repro_torch.bench", "repro_torch.bench.config",
+            "repro_torch.bench.registry", "repro_torch.bench.specs",
+            "repro_torch.bench.autotune", "repro_torch.cost",
+            "repro_torch.cost.model", "repro_torch.roofline",
+            "repro_torch.roofline.hw", "repro_torch.kernels.quant_matmul",
+            "repro_torch.kernels.quant_matmul.ops",
+            "repro_torch.kernels.quant_matmul.ref"} <= set(lines)
+
+
+def test_tuning_layer_works_without_jax():
+    """Every family registers and a sweep runs on the CPU in a process
+    where jax and the JAX package cannot be imported."""
+    code = (
+        "import sys, tempfile\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.bench import ConfigCache, all_specs, warm_cache\n"
+        "print(len(all_specs()))\n"
+        "c = ConfigCache(tempfile.mkdtemp() + '/t.json')\n"
+        "got = warm_cache([('quant_matmul_fused', {'m': 4, 'k': 64, "
+        "'n': 32})], device='cpu', cache=c, sweep=True, iters=1, warmup=0)\n"
+        "print(sorted(got.values())[0] is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["10", "True"]
 
 
 @pytest.fixture
@@ -109,6 +138,21 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
 def test_launcher_new_paths_default_to_cuda(no_cuda, args):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--requests", "1"] + args)
+
+
+def test_autotune_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.bench import warm_cache
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        warm_cache([("apr_matmul", {"m": 4, "k": 64, "n": 64})], sweep=True)
+
+
+def test_default_tune_cache_dir_is_ignored_by_git():
+    """The port's default tune cache lives beside the package, never in the
+    user's home, and git ignores it."""
+    from repro_torch.bench.config import DEFAULT_PATH
+    assert DEFAULT_PATH.parent == PORT / "_tune"
+    assert "src/repro_torch/_tune/" in \
+        (ROOT / ".gitignore").read_text().split()
 
 
 def test_kernel_build_dir_is_ignored_by_git():
