@@ -4,15 +4,21 @@
     python3 chip_smoke.py            # from the repository root, on a GPU host
     python3 chip_smoke.py --ablate   # only rms_norm's batch invariance and
                                      # the paged/slot token ablation
+    python3 chip_smoke.py --kernel-sweep --out sweep.json
+                                     # only B3 against its longest length
+                                     # and B1 bf16/int8 at the projections
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the serving paths give it and at ragged ones: ``apr_matmul``
-     with bf16 and int8 weights (the int8 one also bit for bit against the
-     bf16 kernel on the dequantized weight), ``flash_decode_paged`` over
-     bf16 and int8 pools, ``flash_decode`` over a contiguous cache
-     (``lengths == 0`` rows included), the conv kernels, and the recurrence
+     with bf16 and int8 weights (the int8 one at every tile it compiles,
+     also bit for bit against the bf16 kernel on the dequantized weight),
+     ``flash_decode_paged`` over bf16, int8 and fp32 pools (bf16 or fp32
+     q), ``flash_decode`` over a contiguous bf16 or fp32 cache at every
+     split count (``lengths == 0`` rows and empty splits included, S up to
+     4096, each case launched twice for equal bits), the conv kernels, and
+     the recurrence
      kernels ``rwkv6_wkv`` (B9) and ``mamba2_ssd`` (B10) with their state in
      and out, at the decode tick, at 1024- and 1000-token prefills and at the
      smoke shapes; and ``rms_norm``'s variance, row for row, at B = 1 and
@@ -24,10 +30,16 @@ Phases (any failure exits non-zero before the final line):
      activation, bias and none, bf16 and fp32 out;
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B4m,
-     B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1);
+     B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1;
+     ``flash_decode`` also at S = 4096 near full and at each split count;
+     ``flash_decode_paged`` and ``flash_decode`` over fp32 K/V at the
+     serving shape);
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
      every kernel of the path was launched as often as the path demands;
+  4f. serve phase 4's requests on ``PagedServeEngine(kv_dtype="float32")``
+     (fp32 KV pools under the bf16 model: every decode tick's attention on
+     ``flash_decode_paged`` over fp32 pools), tokens against phase 4's;
   4c. serve full-width llama3-8b bf16 on the slot ServeEngine (4 requests,
      max_seq 256; ``flash_decode`` under every layer), and the same requests
      on the PagedServeEngine for token agreement;
@@ -40,7 +52,9 @@ Phases (any failure exits non-zero before the final line):
      greedy tokens: ``decode_paged`` in bf16, ``decode_paged`` with int8
      weights and int8 KV, ``decode_step`` on the slot cache; the same for
      the rwkv6 and mamba2 smoke configs (``decode_paged`` through the state
-     pools, and ``prefill``);
+     pools, and ``prefill``); ``decode_paged`` over fp32 KV pools, and a
+     ``PagedServeEngine(kv_dtype="float32")`` serving the bf16 smoke model
+     on the fp32-pool kernel;
   6. run the paper's CNNs (LeNet-5, ResNet-20; random fp32 weights from a
      seed) at batch 256 with every conv on ``apr_conv``, check each
      forward's launches, run ResNet-20 on the memory-resident baseline
@@ -53,7 +67,8 @@ Phases (any failure exits non-zero before the final line):
      1024-token ``bundle.prefill`` on each (B9/B10 over all T), every
      layer's scan held to its plain version on the same inputs;
   8. the tuning path at llama3-8b full width: every registered kernel
-     family swept exhaustively (the yardstick), then
+     family (the int8-weight tiles and the split counts included) swept
+     exhaustively (the yardstick), then
      ``warm_cache(sweep=True, prune_top_k=3)`` in a ``scoped_cache`` over
      a fresh cache file, at the paged engine's ``_decode_kernel_shapes()``,
      the projection shapes and each other family's serving shape; then a
@@ -991,8 +1006,9 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
 
 def tuning_shapes(engine) -> list:
     """Phase 8's (family, shape) list at full width: the paged engine's
-    ``_decode_kernel_shapes()``, the four matmul families (and B4m) at the
-    llama3-8b projection shapes, and every other registered family at the
+    ``_decode_kernel_shapes()``, the four matmul families (and B4m and the
+    int8-weight kernel) at the llama3-8b projection shapes, and every other
+    registered family at the
     shape its serving path gives it: the int8 engine's paged attention,
     the slot engine's contiguous attention at max_seq 256, a ResNet-20 conv
     at batch 256, the rwkv6-3b and mamba2-2.7b decode scans."""
@@ -1003,6 +1019,7 @@ def tuning_shapes(engine) -> list:
         for k, n in LLAMA_DECODE_SHAPES:
             mkn = {"m": m, "k": k, "n": n}
             shapes += [("apr_matmul", mkn), ("apr_matmul", {**mkn, "hbm": 1}),
+                       ("apr_matmul", {**mkn, "w_int8": 1}),
                        ("apr_matmul_fused", mkn), ("quant_matmul", mkn),
                        ("quant_matmul_fused", mkn)]
     conv = {"b": CNN_BATCH, "h": 32, "w": 32, "c": 16, "hf": 3, "wf": 3,
@@ -1036,8 +1053,10 @@ def exhaustive_sweep(torch, shapes, scratch_path, dev) -> dict:
                        cache=scratch)
         args = spec.make_inputs(shape, "bfloat16", 0, dev)
         y = spec.run(args, spec.default_config(shape))
-        nbytes = sum(t.numel() * t.element_size() for t in (*args, y)
-                     if isinstance(t, torch.Tensor))
+        from repro_torch.quant import QuantizedTensor
+        nbytes = sum(t.nbytes if isinstance(t, QuantizedTensor)
+                     else t.numel() * t.element_size() for t in (*args, y)
+                     if isinstance(t, (torch.Tensor, QuantizedTensor)))
         peak = (INT8_OPS_PER_S if fam.startswith("quant") else
                 FP32_FLOPS_PER_S if fam in ("apr_conv", "apr_conv_fused",
                                             "rwkv6", "mamba2")
@@ -1223,13 +1242,185 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
         apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
         flash_decode_paged=cfg.num_layers * m.decode_calls))
     unlaunched = [k for k, v in path_launches.items()
-                  if not v and k != "apr_matmul_int8w"]
+                  if not v and k != "flash_decode_paged_f32"]
     if unlaunched:
         fail(f"phase 8: no launch of {unlaunched} on the tuning path")
     bundle.decode_paged = forward
     del engine, reqs, bundle, params, exhaustive, pruned
     torch.cuda.empty_cache()
     return tuning
+
+
+#: the llama3-8b decode-attention geometry (4 slots) and the layers whose
+#: caches phase 3 rotates, so that each launch finds its cache cold
+DECODE_GEOMETRY = dict(b=4, hq=32, hkv=8, d=128)
+DECODE_LAYERS = 32
+#: phase 3's contiguous-cache shapes (S, lengths): the slot engine's cache
+#: (max_seq 256) at the phase-4 lengths, and a long cache near full
+DECODE_TIMING = ((256, (40, 96, 150, 196)), (4096, (3968, 4000, 4032, 4095)))
+#: ``--kernel-sweep``: B3's time against its longest length
+DECODE_SWEEP = DECODE_TIMING + tuple((4096, (n,) * 4)
+                                     for n in (196, 512, 1024, 2048, 4096))
+
+
+def decode_timing(torch, gen, dev, cases, kv_dtype=None) -> list:
+    """B3 (``flash_decode``) at the llama3-8b geometry, per (S, lengths) of
+    ``cases``: ms per launch (caches rotated over 32 layers), the plain
+    version, masked SDPA on the same inputs, and the byte bound (q and the
+    output once, the live tokens' K and V once, the lengths); where the
+    kernel takes a split count, also its time at each (``split_ms``) and
+    the count the wrapper picks (``splits``).  q is bf16; the cache is
+    bf16, or ``kv_dtype`` (fp32: the rows are ``flash_decode_f32``, SDPA
+    runs in fp32 and rounds its output to bf16)."""
+    import torch.nn.functional as F
+    from repro_torch.bench import BlockConfig
+    from repro_torch.kernels.flash_decode import (decode_attention_ref,
+                                                  flash_decode)
+    from repro_torch.kernels.flash_decode import ops as fd
+    b, hq, hkv, d = (DECODE_GEOMETRY[k] for k in ("b", "hq", "hkv", "d"))
+    layers = DECODE_LAYERS
+    kv_dtype = kv_dtype or torch.bfloat16
+    name = ("flash_decode" if kv_dtype == torch.bfloat16
+            else "flash_decode_f32")
+    kv_bytes = torch.finfo(kv_dtype).bits // 8
+    rows = []
+    for s_len, lengths in cases:
+        def rnd(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        q = rnd(b, hq, d)
+        kc = rnd(layers, b, s_len, hkv, d, dtype=kv_dtype)
+        vc = rnd(layers, b, s_len, hkv, d, dtype=kv_dtype)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        live = (torch.arange(s_len, device=dev)[None] < lens[:, None].long()
+                )[:, None, None]
+        t_k = cuda_ms(torch, lambda i: flash_decode(
+            q, kc[i % layers], vc[i % layers], lens), 200)
+        t_p = cuda_ms(torch, lambda i: decode_attention_ref(
+            q, kc[i % layers], vc[i % layers], lens), 30)
+        t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            q[:, :, None].to(kv_dtype), kc[i % layers].permute(0, 2, 1, 3),
+            vc[i % layers].permute(0, 2, 1, 3), attn_mask=live,
+            enable_gqa=True).to(q.dtype), 50)
+        tokens = sum(lengths)
+        row = dict(kernel=name, B=b, Hq=hq, Hkv=hkv, D=d, S=s_len,
+                   lengths=list(lengths), ms=t_k, plain_ms=t_p,
+                   library_ms=t_l,
+                   **bound_ms(2 * b * hq * d * 2
+                              + tokens * hkv * d * 2 * kv_bytes + b * 4,
+                              4 * tokens * hq * d))
+        if hasattr(fd, "SPLITS"):
+            row["splits"] = fd.default_splits(b, hkv, s_len)
+            row["split_ms"] = {n: cuda_ms(torch, lambda i: flash_decode(
+                q, kc[i % layers], vc[i % layers], lens,
+                config=BlockConfig.make(chunk=32, splits=n)), 200)
+                for n in fd.SPLITS}
+        rows.append(row)
+        del q, kc, vc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def projection_timing(torch, gen, dev, ms) -> list:
+    """B1 (``apr_matmul``) and its int8-weight operand at the llama3-8b
+    projection shapes and the lm_head, M in ``ms``: ms per call with the
+    weights rotated past the 50 MB L2, the plain version, ``torch.matmul``
+    (on the dequantized weight for int8), and the byte bound.  The int8
+    rows name the tile the wrapper resolves (``tile``)."""
+    from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.quant import quantize_channelwise
+    bf16 = torch.bfloat16
+    rows = []
+    for m in ms:
+        for k, n in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]:
+            nbuf = min(32, max(1, math.ceil(200e6 / (k * n * 2))))
+            ws = [(torch.randn((k, n), generator=gen, device=dev)
+                   * k ** -0.5).to(bf16) for _ in range(nbuf)]
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            iters = 20 if n > 100_000 else 60
+            t_k = cuda_ms(torch, lambda i: apr_matmul(
+                x, ws[i % nbuf], out_dtype=bf16), iters)
+            t_p = cuda_ms(torch, lambda i: matmul_ref(
+                x, ws[i % nbuf], bf16), iters)
+            t_l = cuda_ms(torch, lambda i: torch.matmul(x, ws[i % nbuf]),
+                          iters)
+            rows.append(dict(kernel="apr_matmul", M=m, K=k, N=n, ms=t_k,
+                             plain_ms=t_p, library_ms=t_l,
+                             weight_buffers=nbuf,
+                             **bound_ms(2 * (m * k + k * n + m * n),
+                                        2 * m * k * n)))
+            # the same weights as int8 codes + fp32 column scales; the
+            # library yardstick multiplies by the dequantized bf16 weight
+            qts = [quantize_channelwise(w.float()) for w in ws]
+            deqs = [qt.dequantize(bf16) for qt in qts]
+            del ws
+            t_k = cuda_ms(torch, lambda i: apr_matmul(
+                x, qts[i % nbuf], out_dtype=bf16), iters)
+            t_p = cuda_ms(torch, lambda i: matmul_ref(
+                x, qts[i % nbuf].dequantize(bf16), bf16), iters)
+            t_l = cuda_ms(torch, lambda i: torch.matmul(x, deqs[i % nbuf]),
+                          iters)
+            row = dict(kernel="apr_matmul_int8w", M=m, K=k, N=n, ms=t_k,
+                       plain_ms=t_p, library_ms=t_l, weight_buffers=nbuf,
+                       **bound_ms(2 * m * k + k * n + 4 * n + 2 * m * n,
+                                  2 * m * k * n))
+            if hasattr(mm, "INT8W_TILES"):
+                row["tile"] = mm.resolve_tile("apr_matmul", m, k, n,
+                                              "bfloat16", "cuda", "apr",
+                                              None, True)
+            rows.append(row)
+            del qts, deqs, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def print_timing_row(r) -> None:
+    if "M" in r:
+        shape = f"M={r['M']:<3d} K={r['K']:<6d} N={r['N']:<7d}"
+    else:
+        shape = (f"B={r['B']} Hq={r['Hq']} Hkv={r['Hkv']} D={r['D']} "
+                 + (f"ps={r['ps']}" if "ps" in r else f"S={r['S']}")
+                 + f" lengths={r['lengths']}")
+    print(f"    {r['kernel']:23s} {shape:40s} kernel_ms={r['ms']:.4f} "
+          f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
+          f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+          f"{r['bound_ms'] / r['ms']:.0%} of bound"
+          + (f" tile={r['tile']}" if "tile" in r else "")
+          + (f" splits={r['splits']} by split count "
+             + ", ".join(f"{n}: {t:.4f}" for n, t in r["split_ms"].items())
+             if "split_ms" in r else ""))
+
+
+def kernel_sweep(torch, out: Path) -> None:
+    """``--kernel-sweep``: build ``flash_decode.cu`` and ``apr_matmul.cu``,
+    print their registers and spills, time B3 against its longest length
+    (:data:`DECODE_SWEEP`) and B1 with bf16 and int8 weights at the
+    projection shapes (M = 4 and 16); writes ``out``.  It uses only entry
+    points every version of the port has, so a copy of this script beside
+    an older tree times that tree's kernels."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.kernels.flash_decode import ops as fd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _build.build_all({fd.LIBRARY: fd.SIGNATURES, mm.LIBRARY: mm.SIGNATURES})
+    regs = [f"{name}: {line.strip()}"
+            for name, log in sorted(_build.BUILD_LOGS.items())
+            for line in log.splitlines()
+            if "Used" in line or "spill" in line or "Compiling" in line]
+    for line in regs:
+        print(f"    {line}")
+    rows = decode_timing(torch, gen, dev, DECODE_SWEEP)
+    rows += projection_timing(torch, gen, dev, PROJ_MS)
+    for r in rows:
+        print_timing_row(r)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(card=smi, ptxas=regs, timing=rows),
+                              indent=1))
 
 
 def identity_ablation(torch, seed: int) -> dict:
@@ -1355,6 +1546,12 @@ def main() -> int:
                          "card-side measure turned off in turn "
                          "(identity_ablation); writes "
                          "chiprun_out/identity_ablation.json")
+    ap.add_argument("--kernel-sweep", action="store_true",
+                    help="only build flash_decode.cu and apr_matmul.cu, "
+                         "print their registers and spills and time B3 "
+                         "against its longest length and B1 with bf16 and "
+                         "int8 weights at the projection shapes "
+                         "(kernel_sweep); writes --out")
     args = ap.parse_args()
 
     import torch
@@ -1398,6 +1595,9 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     set_default_cache(ConfigCache(Path(tmp.name) / "untuned.json",
                                   autosave=False))
+    if args.kernel_sweep:
+        kernel_sweep(torch, Path(args.out))
+        return 0
     if args.ablate:
         _build.build_all({apr_ops.LIBRARY: apr_ops.SIGNATURES,
                           rwkv6_ops.LIBRARY: rwkv6_ops.SIGNATURES,
@@ -1453,7 +1653,7 @@ def main() -> int:
     # ------------------------------------------------------------ 2 correct
     errs = {"apr_matmul": 0.0, "apr_matmul_int8w": 0.0,
             "flash_decode_paged": 0.0, "flash_decode_paged_int8": 0.0,
-            "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0,
+            "flash_decode_paged_f32": 0.0, "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0,
             "rwkv6_wkv": 0.0, "mamba2_ssd": 0.0, "apr_matmul_hbm": 0.0,
             "apr_matmul_fused": 0.0, "quant_matmul": 0.0,
             "quant_matmul_fused": 0.0}
@@ -1487,16 +1687,21 @@ def main() -> int:
         qt.q = qb[off:].view(k, n).copy_(qt.q)
         w_deq = qt.dequantize(torch.bfloat16)
         for out_dtype in (torch.bfloat16, torch.float32):
-            got = apr_matmul(x, qt, out_dtype=out_dtype)
             ref = matmul_ref(x, w_deq, out_dtype)
             same = apr_matmul(x, w_deq, out_dtype=out_dtype)
-            torch.cuda.synchronize()
-            err, ok = max_err(got, ref)
-            bits = torch.equal(got, same)
-            errs["apr_matmul_int8w"] = max(errs["apr_matmul_int8w"], err)
-            cases.append(("apr_matmul_int8w", f"M={m} K={k} N={n} off={off} "
-                          f"out={str(out_dtype)[6:]} bit-equal={bits}", err,
-                          ok and bits))
+            # the default tile, then every compiled one
+            for tile in (None,) + apr_ops.INT8W_TILES:
+                got = apr_matmul(x, qt, out_dtype=out_dtype, config=(
+                    None if tile is None else tile_config(tile)))
+                torch.cuda.synchronize()
+                err, ok = max_err(got, ref)
+                bits = torch.equal(got, same)
+                errs["apr_matmul_int8w"] = max(errs["apr_matmul_int8w"],
+                                               err)
+                cases.append(("apr_matmul_int8w", f"M={m} K={k} N={n} "
+                              f"off={off} out={str(out_dtype)[6:]} tile="
+                              f"{tile or 'default'} bit-equal={bits}", err,
+                              ok and bits))
         del x, xb, w, qt, qb, w_deq
 
     def paged_inputs(b, hq, hkv, d, ps, p_max, lengths, layers=1):
@@ -1553,24 +1758,58 @@ def main() -> int:
         cases.append(("flash_decode_paged_int8", f"B={b} Hq={hq} Hkv={hkv} "
                       f"D={d} ps={ps} P_max={p_max} lengths={lengths} "
                       f"fp32-dequant err={err32:.3g}", err, ok))
+        # the same pools in fp32 (kv_dtype="float32"), under a bf16 and an
+        # fp32 q; the output has q's dtype
+        k32, v32 = kp[0].float(), vp[0].float()
+        for qq in (q, q.float()):
+            got = flash_decode_paged(qq, k32, v32, lens, tables)
+            ref = paged_decode_attention_ref(qq, k32, v32, lens, tables)
+            torch.cuda.synchronize()
+            err, ok = max_err(got, ref)
+            ok = ok and got.dtype == qq.dtype and all(
+                not got[i].float().any() for i in zero_rows)
+            errs["flash_decode_paged_f32"] = max(
+                errs["flash_decode_paged_f32"], err)
+            cases.append(("flash_decode_paged_f32", f"B={b} Hq={hq} "
+                          f"Hkv={hkv} D={d} ps={ps} P_max={p_max} "
+                          f"lengths={lengths} {str(qq.dtype)[6:]} q", err,
+                          ok))
 
     # the contiguous cache of the slot engine, rows of length 0 included:
-    # they return the mean of V over all S positions, as the JAX kernel does
+    # they return the mean of V over all S positions, as the JAX kernel
+    # does; at the split count the wrapper picks and at every one it may
+    # be given (splits past a row's walk are empty), over bf16 and fp32
+    # caches; and twice on the same inputs, for equal bits
+    b3_det = []
     for b, hq, hkv, d, s_len, lengths in [
             (4, 32, 8, 128, 256, [40, 96, 150, 196]),     # serving shape
             (4, 32, 8, 128, 256, [0, 1, 33, 256]),
             (3, 8, 2, 64, 48, [33, 0, 7]),                # S not a chunk mult.
-            (2, 14, 2, 64, 64, [64, 0])]:                 # group of 7
+            (2, 14, 2, 64, 64, [64, 0]),                  # group of 7
+            (6, 32, 8, 128, 4096, [0, 1, 33, 1000, 4095, 4096]),
+            (2, 6, 2, 36, 40, [17, 0])]:                  # D % 4 != 0
         q = randn(b, hq, d)
         k_c, v_c = randn(b, s_len, hkv, d), randn(b, s_len, hkv, d)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        got = flash_decode(q, k_c, v_c, lens)
-        ref = decode_attention_ref(q, k_c, v_c, lens)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, ref)
-        errs["flash_decode"] = max(errs["flash_decode"], err)
-        cases.append(("flash_decode", f"B={b} Hq={hq} Hkv={hkv} D={d} "
-                      f"S={s_len} lengths={lengths}", err, ok))
+        for qq, kk, vv in ((q, k_c, v_c), (q, k_c.float(), v_c.float()),
+                           (q.float(), k_c.float(), v_c.float())):
+            ref = decode_attention_ref(qq, kk, vv, lens)
+            for n in (None,) + fd_ops.SPLITS:
+                cfg_n = (None if n is None
+                         else fd_ops.COMPILED.replace(splits=n))
+                got = flash_decode(qq, kk, vv, lens, config=cfg_n)
+                again = flash_decode(qq, kk, vv, lens, config=cfg_n)
+                torch.cuda.synchronize()
+                err, ok = max_err(got, ref)
+                b3_det.append(torch.equal(got, again))
+                ok = ok and got.dtype == qq.dtype and b3_det[-1]
+                errs["flash_decode"] = max(errs["flash_decode"], err)
+                cases.append(("flash_decode", f"B={b} Hq={hq} Hkv={hkv} "
+                              f"D={d} S={s_len} lengths={lengths} q "
+                              f"{str(qq.dtype)[6:]} cache "
+                              f"{str(kk.dtype)[6:]} splits={n or 'default'}"
+                              f" twice bit-equal={b3_det[-1]}", err, ok))
+        del q, k_c, v_c
 
     def conv_inputs(xs, fs, dtype=torch.float32):
         """A random NHWC input and an HWIO filter scaled by K^-1/2, so the
@@ -1643,7 +1882,9 @@ def main() -> int:
         cases.append((name, case, err, ok))
     print(f"[2] kernel vs plain version on the card (tolerance "
           f"{BF16_RTOL:.4g}*|plain| + {ATOL:g}; int8 pools "
-          f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; conv kernels "
+          f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; flash_decode at every "
+          f"split count, and twice on the same inputs bit-equal "
+          f"({sum(b3_det)}/{len(b3_det)}); conv kernels "
           f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|; scans: y "
           f"{BF16_RTOL:.4g}*|plain| + {SCAN_ATOL_REL:g}*max|plain|, fp32 "
           f"state {STATE_RTOL:g}*(|plain| + max|plain|); matmul families "
@@ -1670,56 +1911,20 @@ def main() -> int:
 
     # --------------------------------------------------------------- 3 time
     slots = 4
-    timing = []
-    per_shape = {}
-    for m in (slots, 16):
-        for k, n in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]:
-            nbuf = min(32, max(1, math.ceil(200e6 / (k * n * 2))))
-            ws = [randn(k, n, scale=k ** -0.5) for _ in range(nbuf)]
-            x = randn(m, k)
-            iters = 20 if n > 100_000 else 60
-            t_k = cuda_ms(torch, lambda i: apr_matmul(
-                x, ws[i % nbuf], out_dtype=torch.bfloat16), iters)
-            t_p = cuda_ms(torch, lambda i: matmul_ref(
-                x, ws[i % nbuf], torch.bfloat16), iters)
-            t_l = cuda_ms(torch, lambda i: torch.matmul(x, ws[i % nbuf]),
-                          iters)
-            row = dict(kernel="apr_matmul", M=m, K=k, N=n, ms=t_k,
-                       plain_ms=t_p, library_ms=t_l, weight_buffers=nbuf,
-                       **bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n))
-            timing.append(row)
-            per_shape[("apr_matmul", m, k, n)] = row
-            # the same weights as int8 codes + fp32 column scales; the
-            # library yardstick multiplies by the dequantized bf16 weight
-            qts = [quantize_channelwise(w.float()) for w in ws]
-            deqs = [qt.dequantize(torch.bfloat16) for qt in qts]
-            del ws
-            t_k = cuda_ms(torch, lambda i: apr_matmul(
-                x, qts[i % nbuf], out_dtype=torch.bfloat16), iters)
-            t_p = cuda_ms(torch, lambda i: matmul_ref(
-                x, qts[i % nbuf].dequantize(torch.bfloat16), torch.bfloat16),
-                iters)
-            t_l = cuda_ms(torch, lambda i: torch.matmul(x, deqs[i % nbuf]),
-                          iters)
-            row = dict(kernel="apr_matmul_int8w", M=m, K=k, N=n, ms=t_k,
-                       plain_ms=t_p, library_ms=t_l, weight_buffers=nbuf,
-                       **bound_ms(2 * m * k + k * n + 4 * n + 2 * m * n,
-                                  2 * m * k * n))
-            timing.append(row)
-            per_shape[("apr_matmul_int8w", m, k, n)] = row
-            del qts, deqs, x
+    timing = projection_timing(torch, gen, dev, (slots, 16))
+    per_shape = {(r["kernel"], r["M"], r["K"], r["N"]): r for r in timing}
     b, hq, hkv, d, ps, p_max = 4, 32, 8, 128, 16, 16
     layers = 32
     q, kp, vp, lens, tables = paged_inputs(b, hq, hkv, d, ps, p_max,
                                            main_lengths, layers=layers)
     live = torch.arange(p_max * ps, device=dev)[None] < lens[:, None].long()
 
-    def library_attention(i):
-        kk = gather_pages(kp[i % layers], tables).permute(0, 2, 1, 3)
-        vv = gather_pages(vp[i % layers], tables).permute(0, 2, 1, 3)
+    def library_attention(i, kpool=kp, vpool=vp):
+        kk = gather_pages(kpool[i % layers], tables).permute(0, 2, 1, 3)
+        vv = gather_pages(vpool[i % layers], tables).permute(0, 2, 1, 3)
         return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], kk, vv, attn_mask=live[:, None, None],
-            enable_gqa=True)
+            q[:, :, None].to(kk.dtype), kk, vv,
+            attn_mask=live[:, None, None], enable_gqa=True).to(q.dtype)
 
     t_k = cuda_ms(torch, lambda i: flash_decode_paged(
         q, kp[i % layers], vp[i % layers], lens, tables), 200)
@@ -1734,6 +1939,21 @@ def main() -> int:
                   plain_ms=t_p, library_ms=t_l,
                   **bound_ms(fd_bytes, 4 * tokens * hq * d))
     timing.append(fd_row)
+    # the same pools in fp32 (kv_dtype="float32" under a bf16 model): 4
+    # bytes a K/V value; the library runs SDPA in fp32
+    k32, v32 = kp.float(), vp.float()
+    t_k = cuda_ms(torch, lambda i: flash_decode_paged(
+        q, k32[i % layers], v32[i % layers], lens, tables), 200)
+    t_p = cuda_ms(torch, lambda i: paged_decode_attention_ref(
+        q, k32[i % layers], v32[i % layers], lens, tables), 50)
+    t_l = cuda_ms(torch, lambda i: library_attention(i, k32, v32), 50)
+    fd32_row = dict(kernel="flash_decode_paged_f32", B=b, Hq=hq, Hkv=hkv,
+                    D=d, ps=ps, P_max=p_max, lengths=main_lengths, ms=t_k,
+                    plain_ms=t_p, library_ms=t_l,
+                    **bound_ms(fd_bytes + tokens * hkv * d * 2 * 2,
+                               4 * tokens * hq * d))
+    timing.append(fd32_row)
+    del k32, v32
     # the same pools as int8 codes with per-(slot, head) fp32 scales
     kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
     ks, vs = kq.scale[..., 0], vq.scale[..., 0]
@@ -1763,26 +1983,14 @@ def main() -> int:
                    plain_ms=t_p, library_ms=t_l,
                    **bound_ms(fdq_bytes, 4 * tokens * hq * d))
     timing.append(fdq_row)
-    del kq, vq, ks, vs
-    # the slot engine's contiguous cache at max_seq 256, same lengths; the
-    # bound counts the live tokens' K and V
-    s_len = 256
-    kc, vc = randn(layers, b, s_len, hkv, d), randn(layers, b, s_len, hkv, d)
-    live_c = live[:, :s_len]
-    t_k = cuda_ms(torch, lambda i: flash_decode(
-        q, kc[i % layers], vc[i % layers], lens), 200)
-    t_p = cuda_ms(torch, lambda i: decode_attention_ref(
-        q, kc[i % layers], vc[i % layers], lens), 50)
-    t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-        q[:, :, None], kc[i % layers].permute(0, 2, 1, 3),
-        vc[i % layers].permute(0, 2, 1, 3), attn_mask=live_c[:, None, None],
-        enable_gqa=True), 50)
-    fdc_row = dict(kernel="flash_decode", B=b, Hq=hq, Hkv=hkv, D=d, S=s_len,
-                   lengths=main_lengths, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                   **bound_ms(2 * b * hq * d * 2 + tokens * hkv * d * 2 * 2
-                              + b * 4, 4 * tokens * hq * d))
-    timing.append(fdc_row)
-    del q, kc, vc
+    del kq, vq, ks, vs, q
+    # the slot engine's contiguous cache at max_seq 256, same lengths, and a
+    # 4096-token cache near full; the bound counts the live tokens' K and V
+    decode_rows = decode_timing(torch, gen, dev, DECODE_TIMING)
+    fdc_row = decode_rows[0]
+    decode_rows += decode_timing(torch, gen, dev, DECODE_TIMING[:1],
+                                 torch.float32)
+    timing.extend(decode_rows)
     torch.cuda.empty_cache()
     scan_rows = scan_timing(torch, gen, dev)
     mm_rows = matmul_family_timing(torch, gen, dev, slots)
@@ -1792,16 +2000,7 @@ def main() -> int:
     print("[3] kernel times (CUDA events, cold weights: buffers rotated past "
           "the 50 MB L2):")
     for r in timing:
-        if "M" in r:
-            shape = f"M={r['M']:<3d} K={r['K']:<6d} N={r['N']:<7d}"
-        else:
-            shape = (f"B={r['B']} Hq={r['Hq']} Hkv={r['Hkv']} D={r['D']} "
-                     + (f"ps={r['ps']}" if "ps" in r else f"S={r['S']}")
-                     + f" lengths={r['lengths']}")
-        print(f"    {r['kernel']:23s} {shape:40s} kernel_ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['bound_ms'] / r['ms']:.0%} of bound")
+        print_timing_row(r)
     for r in scan_rows:
         shape = " ".join(f"{k}={r[k]}" for k in ("B", "T", "H", "D", "P", "N")
                          if k in r)
@@ -1917,6 +2116,25 @@ def main() -> int:
         return 32 * layer + (per_shape[(kernel, slots) + LM_HEAD][key]
                              if lm_head else 0.0)
 
+    def verdict(t, lib):
+        return "at or below" if t <= lib else f"{t / lib:.2f}x"
+
+    for name in ("apr_matmul", "apr_matmul_int8w"):
+        t = {key: per_tick(key, name) for key in ("ms", "library_ms",
+                                                  "bound_ms")}
+        print(f"    {name} per full-width decode tick (225 projections at "
+              f"M={slots}): {t['ms']:.3f} ms, torch.matmul "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms: "
+              f"{verdict(t['ms'], t['library_ms'])} its library call")
+    for r in [fd_row, fd32_row] + decode_rows:
+        s_len = r["S"] if "S" in r else r["P_max"] * r["ps"]
+        print(f"    {r['kernel']} S={s_len} "
+              f"lengths={r['lengths']}: "
+              f"{r['ms'] * 1e3:.2f} us a launch, {32 * r['ms']:.3f} ms per "
+              f"32-layer tick; masked SDPA {r['library_ms'] * 1e3:.2f} us, "
+              f"bound {r['bound_ms'] * 1e3:.2f} us: "
+              f"{verdict(r['ms'], r['library_ms'])} its library call")
+
     phase_done("phase 3")
 
     # -------------------------------------------------------------- 4 serve
@@ -1925,6 +2143,7 @@ def main() -> int:
         apr_matmul.int8_launches = 0
         flash_decode_paged.launches = 0
         flash_decode_paged.int8_launches = 0
+        flash_decode_paged.f32_launches = 0
         flash_decode.launches = 0
         apr_conv2d.launches = 0
         apr_conv2d.hbm_launches = 0
@@ -1933,6 +2152,7 @@ def main() -> int:
         mamba2_ssd.launches = 0
         apr_matmul.hbm_launches = 0
         apr_matmul.tile_launches.clear()
+        apr_matmul.int8_tile_launches.clear()
         apr_matmul_fused.launches = 0
         quant_matmul.launches = 0
         quant_matmul_fused.launches = 0
@@ -1942,6 +2162,7 @@ def main() -> int:
                 "apr_matmul_int8w": apr_matmul.int8_launches,
                 "flash_decode_paged": flash_decode_paged.launches,
                 "flash_decode_paged_int8": flash_decode_paged.int8_launches,
+                "flash_decode_paged_f32": flash_decode_paged.f32_launches,
                 "flash_decode": flash_decode.launches,
                 "rwkv6_wkv": rwkv6_wkv.launches,
                 "mamba2_ssd": mamba2_ssd.launches,
@@ -2106,6 +2327,33 @@ def main() -> int:
 
     phase_done("phase 4")
 
+    # ------------------------------ 4f bf16 weights over fp32 KV pages
+    engine, reqs, wall_s, launches = serve_paged(params, "float32", prompts,
+                                                 16)
+    m = engine.metrics
+    expect = expected_counts(
+        apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
+        flash_decode_paged_f32=cfg.num_layers * m.decode_calls)
+    serve_f = paged_summary(engine, wall_s, launches, expect)
+    same = sum(a == b for r, o in zip(reqs, bf16_outputs)
+               for a, b in zip(r.output, o))
+    serve_f["tokens_equal_bf16"] = same
+    report["serve_fp32_pools"] = serve_f
+    print(f"[4f] served {m.requests_done}/{len(reqs)} requests of full-width "
+          f"{cfg.name} (bf16 weights) over fp32 KV pages "
+          f"(kv_dtype='float32') in {wall_s:.2f} s wall (phase 4, bf16 "
+          f"pages: {serve['decode_ms_per_tick']:.3f} ms per tick, KV pools "
+          f"{serve['kv_pool_bytes']} bytes):")
+    print_paged(serve_f, m)
+    print(f"    greedy tokens equal to phase 4's (bf16 pages): {same}/"
+          f"{sum(len(o) for o in bf16_outputs)} (information: the same "
+          f"K/V values, attention summed in fp32)")
+    check_served("phase 4f", reqs, 16, launches, expect)
+    del engine, reqs
+    torch.cuda.empty_cache()
+
+    phase_done("phase 4f")
+
     # ------------------------------------------- 4c slot engine, full width
     slot_prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                     for n in (8, 19, 32, 13)]
@@ -2222,6 +2470,8 @@ def main() -> int:
     same = sum(a == b for r, o in zip(reqs, bf16_outputs)
                for a, b in zip(r.output, o))
     serve_q["tokens_equal_bf16"] = same
+    serve_q["int8_tile_launches"] = {
+        str(t): n for t, n in apr_matmul.int8_tile_launches.items()}
     report["serve_int8"] = serve_q
     print(f"[4b] served {m.requests_done}/{len(reqs)} requests of full-width "
           f"{cfg.name} with int8 weights ({int8_gb:.2f} GB, quantized on the "
@@ -2234,7 +2484,8 @@ def main() -> int:
     print_paged(serve_q, m)
     print(f"    greedy tokens equal to the bf16 run's: {same}/"
           f"{sum(len(o) for o in bf16_outputs)} (information: random "
-          f"weights, int8 may flip near-ties)")
+          f"weights, int8 may flip near-ties); int8-weight launches by tile "
+          f"{serve_q['int8_tile_launches']}")
     check_served("phase 4b", reqs, 16, launches, expect)
     serve_q["profiled_tick"] = profile_tick(qparams, engine)
     del qparams, engine, reqs, bundle
@@ -2263,6 +2514,8 @@ def main() -> int:
         that kv dtype; ``slot``: 4 decode steps over the contiguous cache,
         one slot starting empty."""
         prm_key = "int8" if kind == "paged_int8" else "bf16"
+        kv = {"paged_int8": "int8", "paged_f32": "float32"}.get(
+            kind, "bfloat16")
         prm = {"cpu": smoke_params[prm_key],
                "cuda": {k: v.to(dev) for k, v in
                         smoke_params[prm_key].items()}}
@@ -2270,7 +2523,6 @@ def main() -> int:
             caches = {w: b_.init_cache(2, 16) for w, b_ in bundles.items()}
             tokens, lengths = smoke_tokens[:, :1], np.array([0, 3], np.int32)
         else:
-            kv = "int8" if kind == "paged_int8" else "bfloat16"
             caches = {w: b_.init_paged_cache(9, 8, kv)
                       for w, b_ in bundles.items()}
             tables = np.array([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
@@ -2310,7 +2562,7 @@ def main() -> int:
                     bound=SMOKE_LOGITS_BOUND)
 
     parity = {kind: smoke_parity(kind)
-              for kind in ("paged_bf16", "paged_int8", "slot")}
+              for kind in ("paged_bf16", "paged_int8", "paged_f32", "slot")}
     for arch in RECURRENT_ARCHS:
         for kind, r in recurrent_smoke_parity(torch, arch, args.seed,
                                               dev).items():
@@ -2331,6 +2583,38 @@ def main() -> int:
         err = r["max_abs_logits_diff"]
         if not math.isfinite(err) or err > SMOKE_LOGITS_BOUND:
             fail(f"{kind}: card and CPU logits differ beyond the bound")
+    # a bf16 model serving on fp32 KV pools (kv_dtype="float32"): every
+    # decode tick's attention on the fp32-pool kernel
+    fp32_eng = PagedServeEngine(bundles["cuda"], {
+        k: v.to(dev) for k, v in smoke_params["bf16"].items()},
+        device="cuda", slots=2, page_size=8, prefill_chunk=8,
+        kv_dtype="float32")
+    fp32_reqs = [Request(rid=i, prompt=smoke_tokens[i].tolist(),
+                         max_new_tokens=6) for i in range(2)]
+    finite.clear()
+    reset_counts()
+    bundles["cuda"].decode_paged = checked(bundles["cuda"].decode_paged)
+    for r in fp32_reqs:
+        fp32_eng.submit(r)
+    fp32_eng.run_until_drained()
+    torch.cuda.synchronize()
+    fm = fp32_eng.metrics
+    fp32_launches = llm_counts()
+    fp32_expect = expected_counts(
+        apr_matmul=(7 * scfg.num_layers + 1) * (fm.decode_calls
+                                                + fm.prefill_calls),
+        flash_decode_paged_f32=scfg.num_layers * fm.decode_calls)
+    report["serve_fp32_pools_smoke"] = dict(
+        kv_pool_bytes=fp32_eng.kv_pool_bytes(), launches=fp32_launches,
+        expected_launches=fp32_expect, decode_calls=fm.decode_calls,
+        outputs=[r.output for r in fp32_reqs])
+    print(f"    PagedServeEngine(kv_dtype='float32') on the bf16 smoke "
+          f"model: {fm.requests_done}/2 requests, {fm.decode_calls} decode "
+          f"ticks, KV pools {fp32_eng.kv_pool_bytes()} bytes; launches "
+          f"{fp32_launches} (expected {fp32_expect})")
+    check_served("phase 5 fp32 pools", fp32_reqs, 6, fp32_launches,
+                 fp32_expect)
+    del fp32_eng
 
     phase_done("phase 5")
 
@@ -2568,6 +2852,10 @@ def main() -> int:
         tick_entry("flash_decode_paged", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
                    serve["launches"]["flash_decode_paged"], row=fd_row),
+        tick_entry("flash_decode_paged_f32", fd_src,
+                   "src/repro/kernels/flash_decode/kernel.py:153",
+                   serve_f["launches"]["flash_decode_paged_f32"],
+                   row=fd32_row),
         tick_entry("flash_decode_paged_int8", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:81",
                    serve_q["launches"]["flash_decode_paged_int8"],
@@ -2630,11 +2918,14 @@ def main() -> int:
     report["kernels"] = kernels
     report["kernels_note"] = (
         "apr_matmul, apr_matmul_int8w, flash_decode_paged, "
-        "flash_decode_paged_int8 and flash_decode: ms, plain_ms, bound_ms and "
+        "flash_decode_paged_f32, flash_decode_paged_int8 and flash_decode: ms, plain_ms, bound_ms and "
         "library_ms are per full-width decode tick (4 slots): 225 projection "
         "shapes, 32 decode-attention launches at the phase-3 lengths "
         "(flash_decode over a max_seq-256 contiguous cache); launches are "
-        "those of phase 4 (bf16 paged), 4b (int8 paged) and 4c (slot). "
+        "those of phase 4 (bf16 paged), 4f (fp32 KV pages), 4b (int8 "
+        "paged) and 4c (slot). flash_decode_f32 (B3 over an fp32 cache) has "
+        "phase-2 cases and a phase-3 row but no entry: no serving path "
+        "launches it (the slot engine's cache is bf16). "
         "apr_conv and apr_conv_hbm: per ResNet-20 forward at batch "
         f"{CNN_BATCH} (21 convs; library F.conv2d, channels-last fp32 without "
         "TF32); launches are those of phase 6's main path (one LeNet-5 and "

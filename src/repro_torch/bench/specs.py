@@ -14,14 +14,18 @@ and at ``bfloat16`` they count what the card's kernels move.  The
 ``vmem_bytes`` models are the kernels' shared-memory footprints.
 
 Tune spaces: the four matmul families list exactly the tiles
-``apr_matmul.cu`` and ``quant_matmul.cu`` compile (six each).
-``apr_conv``, ``apr_conv_fused``, ``flash_decode``, ``flash_decode_paged``,
-``mamba2`` and ``rwkv6`` have kernels compiled for one configuration, so
-their spaces have one point (widening them is later performance work).
+``apr_matmul.cu`` and ``quant_matmul.cu`` compile (six each; five for the
+int8-weight kernel).  ``flash_decode`` lists the split counts its kernel
+takes (1, 2, 4, 8) at its one chunk.  ``apr_conv``, ``apr_conv_fused``,
+``flash_decode_paged``, ``mamba2`` and ``rwkv6`` have kernels compiled for
+one configuration, so their spaces have one point (widening them is later
+performance work).
 
 A shape of ``apr_matmul`` with ``"hbm": 1`` selects the memory-resident
-baseline (``residency="hbm"``, shape key ``_reshbm``), as ``"kv_int8": 1``
-selects the int8-pool variant of ``flash_decode_paged``.
+baseline (``residency="hbm"``, shape key ``_reshbm``), one with
+``"w_int8": 1`` the int8-weight kernel (a :class:`QuantizedTensor` weight,
+shape key ``_wint8``), as ``"kv_int8": 1`` selects the int8-pool variant
+of ``flash_decode_paged``.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from ..kernels.quant_matmul.ref import (quant_matmul_fused_ref,
                                         quant_matmul_ref)
 from ..kernels.rwkv6 import ops as rwkv_ops
 from ..kernels.rwkv6.ref import rwkv6_ref
-from ..quant import quantize_channelwise
+from ..quant import QuantizedTensor, quantize_channelwise
 from .config import shape_key_from_dims
 from .registry import KernelSpec, TuneSpace, register
 
@@ -109,23 +113,51 @@ def _matmul_inputs(shape, dtype, seed, device):
 
 
 def _matmul_vmem(shape, cfg, dtype="float32"):
-    return matmul_ops.smem_bytes(cfg["block_m"], cfg["block_n"],
-                                 cfg["block_k"])
+    smem = (matmul_ops.int8w_smem_bytes if shape.get("w_int8")
+            else matmul_ops.smem_bytes)
+    return smem(cfg["block_m"], cfg["block_n"], cfg["block_k"])
 
 
 def _matmul_traffic(shape, cfg, dtype="float32"):
+    """The JAX package's model.  The int8-weight kernel (``w_int8``, the
+    port's own) streams its weight at 1 byte per element plus the fp32
+    column scales, and is modelled by the bytes it moves from device
+    memory: the activations once (a few KB at the serving shapes, which
+    every column block re-reads from the L2), not once per column block."""
     m, k, n = shape["m"], shape["k"], shape["n"]
     isz = _itemsize(dtype)
-    x_reads = m * k * isz * _cdiv(n, cfg["block_n"])
-    y_reads = k * n * isz * _cdiv(m, cfg["block_m"])
+    if shape.get("w_int8"):
+        x_reads = m * k * isz
+        y_bytes = k * n * _I8 + n * _F32
+    else:
+        x_reads = m * k * isz * _cdiv(n, cfg["block_n"])
+        y_bytes = k * n * isz
+    y_reads = y_bytes * _cdiv(m, cfg["block_m"])
     acc = reduction_hbm_traffic(m * n, _cdiv(k, cfg["block_k"]), _F32,
                                 _residency(shape))
     return x_reads + y_reads + acc
 
 
 def _apr_matmul_inputs(shape, dtype, seed, device):
-    """The operands and the residency (``"hbm"`` for the baseline)."""
-    return _matmul_inputs(shape, dtype, seed, device) + (_residency(shape),)
+    """The operands and the residency (``"hbm"`` for the baseline); with
+    ``w_int8`` the weight is its per-column int8 quantization."""
+    x, y = _matmul_inputs(shape, dtype, seed, device)
+    if shape.get("w_int8"):
+        y = quantize_channelwise(y.float())
+    return (x, y, _residency(shape))
+
+
+def _apr_matmul_ref(args):
+    x, y = args[0], args[1]
+    if isinstance(y, QuantizedTensor):
+        y = y.dequantize(x.dtype)
+    return matmul_ref(x, y)
+
+
+def _apr_matmul_default(s):
+    if s.get("w_int8"):
+        return matmul_ops.int8w_default_config(s["m"], s["k"], s["n"])
+    return matmul_ops.default_config(s["m"], s["k"], s["n"])
 
 
 register(KernelSpec(
@@ -133,11 +165,13 @@ register(KernelSpec(
     make_inputs=_apr_matmul_inputs,
     run=lambda args, cfg: matmul_ops.apr_matmul(
         args[0], args[1], config=cfg, residency=args[2]),
-    ref=lambda args: matmul_ref(args[0], args[1]),
-    tune_space=lambda shape: _tile_space(matmul_ops.TILES),
-    default_config=lambda s: matmul_ops.default_config(s["m"], s["k"], s["n"]),
+    ref=_apr_matmul_ref,
+    tune_space=lambda shape: _tile_space(
+        matmul_ops.INT8W_TILES if shape.get("w_int8") else matmul_ops.TILES),
+    default_config=_apr_matmul_default,
     shape_key=lambda s: matmul_ops.shape_key(s["m"], s["k"], s["n"],
-                                             _residency(s)),
+                                             _residency(s),
+                                             bool(s.get("w_int8"))),
     flops=lambda s: 2 * s["m"] * s["k"] * s["n"],
     hbm_bytes=_matmul_traffic,
     vmem_bytes=_matmul_vmem,
@@ -367,7 +401,8 @@ register(KernelSpec(
     make_inputs=_decode_inputs,
     run=lambda args, cfg: decode_ops.flash_decode(*args, config=cfg),
     ref=lambda args: decode_attention_ref(*args),
-    tune_space=lambda shape: _one_point(decode_ops.COMPILED),
+    tune_space=lambda shape: TuneSpace.make(
+        chunk=(decode_ops.COMPILED["chunk"],), splits=decode_ops.SPLITS),
     default_config=lambda s: decode_ops.default_config(
         s["b"], s["hq"], s["hkv"], s["d"], s["s"]),
     shape_key=lambda s: decode_ops.shape_key(

@@ -50,17 +50,36 @@
 // int8-weight variant (apr_matmul_int8w): B is an int8 (K, N) weight with
 // fp32 per-column scales (1, N), the port's QuantizedTensor.  On the TPU
 // XLA fuses the dequantize multiply into the consuming einsum, so the
-// weight crosses memory at 1 byte per element; this is that fusion.  The
-// int8 tiles ride the same cp.async ring (16-byte copies of 16 codes when
-// N % 16 == 0), and each stage is dequantized in shared memory to
-// bf16(float(q) * scale[n]) -- the rounding of the JAX package's
-// dequantize(bf16) -- into one bf16 tile laid out as the bf16 kernel's B
-// tile; each warp converts only the 16-column strip its own WMMA reads,
-// with the strip's scales in registers, so the dequantize needs a warp
-// barrier and not a block one.  It has one tile, 16 x 64 x 64, and the bf16
-// kernel's K order and WMMA sequence there, so the result equals the bf16
-// kernel on the dequantized weight bit for bit.  Bound: half the weight
-// bytes of the bf16 kernel.
+// weight crosses memory at 1 byte per element; this is that fusion, in a
+// kernel body of its own.  Bound: half the weight bytes of the bf16 kernel.
+//  * It must equal the bf16 kernel on the dequantized weight bit for bit.
+//    So each output keeps that kernel's K order -- 16-wide steps in
+//    ascending order into one fp32 accumulator for the whole K range, no
+//    split-K -- and each step is one bf16 mma.sync.m16n8k16 per 8 columns,
+//    the instruction the bf16 kernel's 16x16x16 WMMA lowers to.  The B
+//    values are bf16(float(q) * scale[n]), the rounding of the JAX
+//    package's dequantize(bf16);
+//  * narrow column tiles, so that more SMs stream at the serving shapes:
+//    BN = 16, 32 (one 32-byte sector of each K row) or 64 columns, 4 warps,
+//    each computing warp owning max(8, BN/4) columns as n8 MMAs; the grid
+//    is N/BN blocks (128 at N = 4096 with BN = 32, against 64 for the bf16
+//    kernel's 64-column tile).  The tile is the tuning layer's choice
+//    (INT8W_TILES; every tile gives the same bits).  One accumulator chain
+//    of K/16 dependent MMAs per 8 columns is what no tile can shorten;
+//  * the dequantize runs in registers, straight into the MMA's B fragment:
+//    a thread's fragment column g is tile column J·g + j of MMA j (a column
+//    permutation, which no sum sees), so its J columns of one K row are one
+//    J-byte shared-memory load; no bf16 tile, no barrier for it.  A
+//    fragments come from the bf16 A tile by ldmatrix;
+//  * the int8 and A tiles ride a cp.async ring as deep as 48 KB of static
+//    shared memory allows (3 to 8 stages), one block barrier a stage; BK =
+//    128 halves the barriers of BK = 64 and measured faster on an H100,
+//    while deeper rings in dynamic shared memory, a warp-private ring of
+//    8-byte copies without block barriers, and producer warps that
+//    dequantize stage t+1 into a bf16 double buffer while consumer warps
+//    run the MMAs of stage t, all measured slower;
+//  * rows of A at or past M are zero-filled and their outputs dropped; the
+//    flush writes each accumulator straight from registers (masked).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -75,23 +94,18 @@ namespace {
 constexpr int THREADS = 128;                  // 4 warps
 constexpr int WARPS = THREADS / 32;
 
-// Shared-memory layout of a BM x BN x BK tile by weight type.  bf16
-// weights: [A ring | B ring]; int8 weights: [A ring | int8 B ring |
-// dequantized bf16 B tile].  The int8 tiles are half as large, so their
-// ring is one stage deeper.  The seed and the flush reuse the start for the
-// fp32 C tile.
-template <bool Q, int BM, int BN, int BK>
+// Shared-memory layout of a BM x BN x BK bf16 tile: [A ring | B ring];
+// the seed and the flush reuse the start for the fp32 C tile.
+template <int BM, int BN, int BK>
 struct Tile {
-  static constexpr int STAGES = Q ? 5 : 4;
+  static constexpr int STAGES = 4;
   static constexpr int LDA = BK + 8;          // padded shared-memory strides,
   static constexpr int LDB = BN + 8;          // multiples of 8 elements
-  static constexpr int LDQ = BN + 16;         // int8 tile stride, in bytes
   static constexpr int A_STAGE = BM * LDA;    // elements per stage
   static constexpr int B_STAGE = BK * LDB;
-  static constexpr int Q_STAGE = BK * LDQ;    // bytes per int8 stage
   static constexpr int A_BYTES = STAGES * A_STAGE * 2;
-  static constexpr int B_BYTES = Q ? STAGES * Q_STAGE : STAGES * B_STAGE * 2;
-  static constexpr int RING = A_BYTES + B_BYTES + (Q ? B_STAGE * 2 : 0);
+  static constexpr int B_BYTES = STAGES * B_STAGE * 2;
+  static constexpr int RING = A_BYTES + B_BYTES;
   static constexpr int FLUSH = BM * BN * 4;
   static constexpr int SMEM = RING > FLUSH ? RING : FLUSH;
   // a static array where it fits the 48 KB a block may declare: the
@@ -104,11 +118,6 @@ struct Tile {
   static_assert((A_STAGE * 2) % 32 == 0 && (B_STAGE * 2) % 32 == 0 &&
                     A_BYTES % 32 == 0,
                 "WMMA tile alignment");
-  // int8 dequantize: warp w converts exactly the 16 columns its WMMA reads
-  // (rows lane and lane + 32), keeping their scales in registers
-  static_assert(!Q || (BM == 16 && BN == 64 && BK == 64),
-                "one 16-column strip of 64 rows per warp");
-  static_assert(!Q || (A_BYTES + B_BYTES) % 32 == 0, "WMMA tile alignment");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -128,17 +137,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Stage the (BM x BK) tile of A and the (BK x BN) tile of B at k0.  TB is
-// the weight's element type: __nv_bfloat16 (stride LDB elements) or int8_t
-// (stride LDQ bytes, 16 codes per 16-byte copy).
-template <typename TB, int BM, int BN, int BK, bool ALIGNED>
+// Stage the (BM x BK) tile of A (row stride LDA elements) and the
+// (BK x BN) tile of B (row stride LDB elements of TB) at k0.  TB is the
+// weight's element type: __nv_bfloat16, or int8_t (16 codes per 16-byte
+// copy) for the int8-weight kernel.
+template <typename TB, int BM, int BN, int BK, int LDA, int LDB, bool ALIGNED>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* sa, TB* sb,
                                           const __nv_bfloat16* a,
                                           const TB* b, int m0, int n0, int k0,
                                           int M, int N, int K) {
-  constexpr bool Q = sizeof(TB) == 1;
-  using T = Tile<Q, BM, BN, BK>;
-  constexpr int LD = Q ? T::LDQ : T::LDB;
   constexpr int CHUNK = 16 / sizeof(TB);      // elements per 16 bytes
   const int tid = threadIdx.x;
   if (ALIGNED) {
@@ -153,7 +160,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sa, TB* sb,
         int row = idx / (BK / 8), col = (idx % (BK / 8)) * 8;
         int gm = m0 + row, gk = k0 + col;
         bool ok = gm < M && gk < K;
-        cp_async16(sa + row * T::LDA + col,
+        cp_async16(sa + row * LDA + col,
                    ok ? a + (size_t)gm * K + gk : a, ok);
       }
     }
@@ -164,7 +171,7 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sa, TB* sb,
         int row = idx / (BN / CHUNK), col = (idx % (BN / CHUNK)) * CHUNK;
         int gk = k0 + row, gn = n0 + col;
         bool ok = gk < K && gn < N;
-        cp_async16(sb + row * LD + col,
+        cp_async16(sb + row * LDB + col,
                    ok ? b + (size_t)gk * N + gn : b, ok);
       }
     }
@@ -173,17 +180,17 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sa, TB* sb,
     for (int idx = tid; idx < BM * BK; idx += THREADS) {
       int row = idx / BK, col = idx % BK;
       int gm = m0 + row, gk = k0 + col;
-      sa[row * T::LDA + col] =
+      sa[row * LDA + col] =
           (gm < M && gk < K) ? a[(size_t)gm * K + gk] : zero;
     }
     for (int idx = tid; idx < BK * BN; idx += THREADS) {
       int row = idx / BN, col = idx % BN;
       int gk = k0 + row, gn = n0 + col;
       const bool ok = gk < K && gn < N;
-      if constexpr (Q)
-        sb[row * LD + col] = ok ? b[(size_t)gk * N + gn] : int8_t(0);
+      if constexpr (sizeof(TB) == 1)
+        sb[row * LDB + col] = ok ? b[(size_t)gk * N + gn] : int8_t(0);
       else
-        sb[row * LD + col] = ok ? b[(size_t)gk * N + gn] : zero;
+        sb[row * LDB + col] = ok ? b[(size_t)gk * N + gn] : zero;
     }
   }
 }
@@ -191,38 +198,26 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sa, TB* sb,
 // K tiles [t_begin, t_end) of C (BK wide each) accumulated onto `seed` (the
 // fp32 partial, or zeros when null); the flush writes
 // act(acc + bias) to c, fp32 (out_f32) or bf16.
-template <typename TB, int BM, int BN, int BK, bool ALIGNED>
+template <int BM, int BN, int BK, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
     apr_matmul_kernel(const __nv_bfloat16* __restrict__ a,
-                      const TB* __restrict__ b,
-                      const float* __restrict__ scale,
+                      const __nv_bfloat16* __restrict__ b,
                       const float* __restrict__ bias, const float* seed,
                       void* c, int M, int N, int K, int t_begin, int t_end,
                       int out_f32, int act) {
-  constexpr bool Q = sizeof(TB) == 1;
-  using T = Tile<Q, BM, BN, BK>;
+  using T = Tile<BM, BN, BK>;
   constexpr int STAGES = T::STAGES;
-  constexpr int B_RING = Q ? T::Q_STAGE : T::B_STAGE;   // TB per stage
   __shared__ __align__(128) unsigned char smem_static[T::STATIC ? T::SMEM
                                                                 : 16];
   extern __shared__ __align__(128) unsigned char smem_dynamic[];
   unsigned char* smem = T::STATIC ? smem_static : smem_dynamic;
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
-  TB* sb = reinterpret_cast<TB*>(smem + T::A_BYTES);
-  // int8 weights only: the dequantized bf16 tile
-  __nv_bfloat16* sbq =
-      reinterpret_cast<__nv_bfloat16*>(smem + T::A_BYTES + T::B_BYTES);
+  __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(smem + T::A_BYTES);
   float* sc = reinterpret_cast<float*>(smem);   // C tile: seed and flush
 
   const int warp = threadIdx.x / 32;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int wcol = warp * T::WN;              // this warp's first column
-  float qs[Q ? 16 : 1];
-  if constexpr (Q) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      qs[j] = n0 + wcol + j < N ? scale[n0 + wcol + j] : 0.0f;
-  }
 
   // the APR: this warp's slice of the C tile, fp32, for the whole K range
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
@@ -255,9 +250,9 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (t_begin + s < t_end)
-      load_tile<TB, BM, BN, BK, ALIGNED>(sa + s * T::A_STAGE, sb + s * B_RING,
-                                         a, b, m0, n0, (t_begin + s) * BK, M,
-                                         N, K);
+      load_tile<__nv_bfloat16, BM, BN, BK, T::LDA, T::LDB, ALIGNED>(
+          sa + s * T::A_STAGE, sb + s * T::B_STAGE, a, b, m0, n0,
+          (t_begin + s) * BK, M, N, K);
     cp_async_commit();
   }
   for (int t = t_begin; t < t_end; ++t) {
@@ -267,48 +262,13 @@ __global__ void __launch_bounds__(THREADS)
     const int tn = t + STAGES - 1;            // refill the stage t-1 used
     if (tn < t_end) {
       const int sn = (tn - t_begin) % STAGES;
-      load_tile<TB, BM, BN, BK, ALIGNED>(sa + sn * T::A_STAGE,
-                                         sb + sn * B_RING, a, b, m0, n0,
-                                         tn * BK, M, N, K);
+      load_tile<__nv_bfloat16, BM, BN, BK, T::LDA, T::LDB, ALIGNED>(
+          sa + sn * T::A_STAGE, sb + sn * T::B_STAGE, a, b, m0, n0, tn * BK,
+          M, N, K);
     }
     cp_async_commit();
     const __nv_bfloat16* ta = sa + slot * T::A_STAGE;
-    const __nv_bfloat16* tb;
-    if constexpr (Q) {
-      // dequantize bf16(float(q) * scale[n]) of this warp's strip: each
-      // lane loads its two 16-code rows before any store, then writes them
-      // 8 bf16 at a time; the warp's WMMA reads only what it wrote
-      const int8_t* tq = reinterpret_cast<const int8_t*>(sb) +
-                         slot * T::Q_STAGE;
-      const int lane = threadIdx.x % 32;
-      uint4 raw[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = lane + 32 * i;
-        raw[i] = *reinterpret_cast<const uint4*>(tq + row * T::LDQ + wcol);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = lane + 32 * i;
-        const int8_t* code = reinterpret_cast<const int8_t*>(&raw[i]);
-        uint32_t packed[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          __nv_bfloat162 h =
-              __floats2bfloat162_rn((float)code[2 * j] * qs[2 * j],
-                                    (float)code[2 * j + 1] * qs[2 * j + 1]);
-          packed[j] = *reinterpret_cast<uint32_t*>(&h);
-        }
-        uint4* dst = reinterpret_cast<uint4*>(sbq + row * T::LDB + wcol);
-        dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-        dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-      }
-      __syncwarp();
-      tb = sbq + wcol;
-    } else {
-      tb = reinterpret_cast<const __nv_bfloat16*>(sb) + slot * T::B_STAGE +
-           wcol;
-    }
+    const __nv_bfloat16* tb = sb + slot * T::B_STAGE + wcol;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
 #pragma unroll
@@ -352,19 +312,19 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename TB, int BM, int BN, int BK>
-int launch(const void* a, const void* b, const void* scale, const void* bias,
-           const void* seed, void* c, int m, int n, int k, int t_begin,
-           int t_end, int out_f32, int act, cudaStream_t s) {
-  using T = Tile<sizeof(TB) == 1, BM, BN, BK>;
+template <int BM, int BN, int BK>
+int launch(const void* a, const void* b, const void* bias, const void* seed,
+           void* c, int m, int n, int k, int t_begin, int t_end, int out_f32,
+           int act, cudaStream_t s) {
+  using T = Tile<BM, BN, BK>;
   if ((m + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  const bool aligned = k % 8 == 0 && n % (16 / sizeof(TB)) == 0 &&
+  const bool aligned = k % 8 == 0 && n % 8 == 0 &&
                        reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  void (*kernel)(const __nv_bfloat16*, const TB*, const float*, const float*,
+  void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, const float*,
                  const float*, void*, int, int, int, int, int, int, int) =
-      aligned ? apr_matmul_kernel<TB, BM, BN, BK, true>
-              : apr_matmul_kernel<TB, BM, BN, BK, false>;
+      aligned ? apr_matmul_kernel<BM, BN, BK, true>
+              : apr_matmul_kernel<BM, BN, BK, false>;
   const int dynamic = T::STATIC ? 0 : T::SMEM;
   if (dynamic > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -373,10 +333,190 @@ int launch(const void* a, const void* b, const void* scale, const void* bias,
   }
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   kernel<<<grid, THREADS, dynamic, s>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const TB*>(b),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<const float*>(bias),
       static_cast<const float*>(seed), c, m, n, k, t_begin, t_end, out_f32,
       act);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ the int8-weight kernel
+// Shared-memory layout of a 16 x BN x BK int8-weight tile, in bytes: a ring
+// of [A stage | int8 B stage] pairs, as deep as 48 KB of static shared
+// memory allows (at most 8 stages).  A 16-column tile computes on two warps
+// and loads on all four.
+template <int BN, int BK>
+struct QTile {
+  static constexpr int BM = 16;
+  static constexpr int J = BN >= 32 ? BN / 32 : 1;  // n8 MMAs per warp/step
+  static constexpr int WN = 8 * J;            // columns per warp
+  static constexpr int CW = BN / WN;          // warps that compute
+  static constexpr int LDA = BK + 8;          // A row stride, elements
+  static constexpr int LDQ = BN + 16 > 48 ? BN + 16 : 48;  // int8, bytes
+  static constexpr int A_STAGE = BM * LDA;    // elements
+  static constexpr int Q_STAGE = BK * LDQ;    // bytes
+  static constexpr int STAGE = A_STAGE * 2 + Q_STAGE;
+  static constexpr int FIT = 48 * 1024 / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(BN % WN == 0 && CW <= WARPS && BK % 16 == 0,
+                "whole n8k16 fragments per warp");
+  static_assert(STAGES >= 3, "a ring of at least three stages");
+  // 16-byte cp.async destinations and ldmatrix rows; rows 2t of the int8
+  // tile (t = lane % 4) fall in distinct banks
+  static_assert((LDA * 2) % 16 == 0 && LDQ % 16 == 0 && STAGE % 16 == 0,
+                "aligned stages");
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The J codes of one K row at p (J adjacent bytes), as one shared load.
+template <int J>
+__device__ __forceinline__ uint32_t lds_codes(const int8_t* p) {
+  if constexpr (J == 1) return *reinterpret_cast<const uint8_t*>(p);
+  else if constexpr (J == 2) return *reinterpret_cast<const uint16_t*>(p);
+  else return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// bf16(float(code j of w) * s), as a 16-bit pattern
+__device__ __forceinline__ uint32_t dequant(uint32_t w, int j, float s) {
+  const float x = (float)(int8_t)((w >> (8 * j)) & 0xffu);
+  return __bfloat16_as_ushort(__float2bfloat16(__fmul_rn(x, s)));
+}
+
+template <int BN, int BK, bool ALIGNED>
+__global__ void __launch_bounds__(THREADS)
+    int8w_kernel(const __nv_bfloat16* __restrict__ a,
+                 const int8_t* __restrict__ b,
+                 const float* __restrict__ scale, void* c, int M, int N,
+                 int K, int out_f32) {
+  using T = QTile<BN, BK>;
+  constexpr int STAGES = T::STAGES, J = T::J;
+  __shared__ __align__(128) unsigned char smem[T::SMEM];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;       // the MMA's group, thread
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * T::BM;
+  const int wcol = warp * T::WN;              // this warp's first column
+  const bool computes = warp < T::CW;         // every warp loads
+  auto sa = [&](int slot) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + slot * T::STAGE);
+  };
+  auto sq = [&](int slot) {
+    return reinterpret_cast<int8_t*>(smem + slot * T::STAGE +
+                                     T::A_STAGE * 2);
+  };
+
+  // this thread's columns: wcol + J*g + j is fragment column g of MMA j
+  float qs[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int col = n0 + wcol + J * g + j;
+    qs[j] = col < N ? scale[col] : 0.0f;
+  }
+  // the APR: fp32 accumulators of rows g, g + 8 for the whole K range
+  float acc[J][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  // this lane's ldmatrix row: matrix lane / 8 of the 16 x 16 A fragment
+  const int mi = lane / 8;
+  const int a_off = ((lane % 8) + (mi % 2) * 8) * T::LDA + (mi / 2) * 8;
+  const int q_off = 2 * t * T::LDQ + wcol + J * g;
+
+  const int ktiles = (K + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles)
+      load_tile<int8_t, T::BM, BN, BK, T::LDA, T::LDQ, ALIGNED>(
+          sa(s), sq(s), a, b, m0, n0, s * BK, M, N, K);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();              // tile kt has landed
+    __syncthreads();                          // ... and kt-1 is consumed
+    const int kn = kt + STAGES - 1;           // refill the stage kt-1 used
+    if (kn < ktiles)
+      load_tile<int8_t, T::BM, BN, BK, T::LDA, T::LDQ, ALIGNED>(
+          sa(kn % STAGES), sq(kn % STAGES), a, b, m0, n0, kn * BK, M, N, K);
+    cp_async_commit();
+    if (!computes) continue;
+    const __nv_bfloat16* ta = sa(kt % STAGES) + a_off;
+    const int8_t* tq = sq(kt % STAGES) + q_off;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[4];
+      ldmatrix_x4(af, ta + kk);
+      // rows kk + 2t, +1, +8, +9 of this thread's J columns
+      const uint32_t w0 = lds_codes<J>(tq + kk * T::LDQ);
+      const uint32_t w1 = lds_codes<J>(tq + (kk + 1) * T::LDQ);
+      const uint32_t w2 = lds_codes<J>(tq + (kk + 8) * T::LDQ);
+      const uint32_t w3 = lds_codes<J>(tq + (kk + 9) * T::LDQ);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const uint32_t b0 = dequant(w0, j, qs[j]) |
+                            (dequant(w1, j, qs[j]) << 16);
+        const uint32_t b1 = dequant(w2, j, qs[j]) |
+                            (dequant(w3, j, qs[j]) << 16);
+        mma_bf16(acc[j], af, b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!computes) return;
+
+  // flush straight from registers: acc[j][2h + e] is row g + 8h, fragment
+  // column 2t + e, i.e. tile column wcol + J*(2t + e) + j
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int gm = m0 + g + 8 * h;
+        const int gn = n0 + wcol + J * (2 * t + e) + j;
+        if (gm < M && gn < N) {
+          const size_t o = (size_t)gm * N + gn;
+          if (out_f32)
+            static_cast<float*>(c)[o] = acc[j][2 * h + e];
+          else
+            static_cast<__nv_bfloat16*>(c)[o] =
+                __float2bfloat16(acc[j][2 * h + e]);
+        }
+      }
+}
+
+template <int BN, int BK>
+int launch_int8w(const void* a, const void* b, const void* scale, void* c,
+                 int m, int n, int k, int out_f32, cudaStream_t s) {
+  if ((m + 15) / 16 > 65535) return (int)cudaErrorInvalidValue;
+  const bool aligned = k % 8 == 0 && n % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  void (*kernel)(const __nv_bfloat16*, const int8_t*, const float*, void*,
+                 int, int, int, int) =
+      aligned ? int8w_kernel<BN, BK, true> : int8w_kernel<BN, BK, false>;
+  dim3 grid((n + BN - 1) / BN, (m + 15) / 16);
+  kernel<<<grid, THREADS, 0, s>>>(static_cast<const __nv_bfloat16*>(a),
+                                  static_cast<const int8_t*>(b),
+                                  static_cast<const float*>(scale), c, m, n,
+                                  k, out_f32);
   return (int)cudaGetLastError();
 }
 
@@ -385,6 +525,9 @@ int launch(const void* a, const void* b, const void* scale, const void* bias,
 #define APR_MATMUL_TILES(X) \
   X(16, 64, 32) X(16, 64, 64) X(16, 64, 128) X(32, 64, 32) X(32, 64, 64) \
   X(32, 64, 128)
+// The int8-weight tiles (16, BN, BK) compiled; kernels/apr_matmul/ops.py's
+// INT8W_TILES lists the same
+#define INT8W_TILES(X) X(16, 128) X(32, 64) X(64, 64) X(32, 128) X(64, 128)
 
 }  // namespace
 
@@ -407,24 +550,29 @@ extern "C" int apr_matmul_bf16(const void* a, const void* b, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define APR_MATMUL_DISPATCH(BM_, BN_, BK_)                                  \
   if (bm == BM_ && bn == BN_ && bk == BK_)                                  \
-    return launch<__nv_bfloat16, BM_, BN_, BK_>(a, b, nullptr, bias, seed, \
-                                                c, m, n, k, t_begin, t_end, \
-                                                out_f32, act, s);
+    return launch<BM_, BN_, BK_>(a, b, bias, seed, c, m, n, k, t_begin,     \
+                                 t_end, out_f32, act, s);
   APR_MATMUL_TILES(APR_MATMUL_DISPATCH)
 #undef APR_MATMUL_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 
-// The int8-weight variant (one 16 x 64 x 64 tile): B int8 (K, N) with its
-// fp32 column scales (N,), dequantized to bf16(float(q) * scale[n]) in the
-// load stage.
+// The int8-weight variant at a (16, bn, bk) tile: B int8 (K, N) with its
+// fp32 column scales (N,), dequantized to bf16(float(q) * scale[n]) into
+// the MMA's B fragments; equal to apr_matmul_bf16 on the dequantized weight
+// bit for bit, at every tile of either.
 extern "C" int apr_matmul_int8w(const void* a, const void* b,
                                 const void* scale, void* c, int m, int n,
-                                int k, int out_f32, void* stream) {
+                                int k, int bn, int bk, int out_f32,
+                                void* stream) {
   if (m <= 0 || n <= 0 || k < 0) return (int)cudaErrorInvalidValue;
-  return launch<int8_t, 16, 64, 64>(a, b, scale, nullptr, nullptr, c, m, n, k,
-                                    0, (k + 63) / 64, out_f32, 0,
-                                    static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define INT8W_DISPATCH(BN_, BK_) \
+  if (bn == BN_ && bk == BK_)    \
+    return launch_int8w<BN_, BK_>(a, b, scale, c, m, n, k, out_f32, s);
+  INT8W_TILES(INT8W_DISPATCH)
+#undef INT8W_DISPATCH
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

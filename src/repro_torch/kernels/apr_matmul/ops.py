@@ -15,8 +15,10 @@ this (shape, dtype, backend) > :func:`default_config`, under the JAX
 package's shape keys.  On the card
 the tile must be one the kernel is compiled for (:data:`TILES`), or the
 wrapper raises :class:`~repro_torch.bench.TileError` before any launch.
-The int8-weight operand has one compiled tile (:data:`INT8W_TILE`) and no
-family in the tuning layer: the JAX package has no such kernel.
+The int8-weight operand has a kernel and tiles of its own
+(:data:`INT8W_TILES`); it tunes within the ``apr_matmul`` family under the
+shape key's ``_wint8`` suffix (the JAX package has no such kernel, so no
+JAX key carries it).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ from ...bench.config import (BlockConfig, TileError, dtype_name,
                              shape_key_from_dims)
 from ...core.apr import reduction_hbm_traffic
 from ...quant import QuantizedTensor
+from ...roofline.hw import get_profile
 from .. import _build
 from .ref import ACTIVATIONS, matmul_fused_ref, matmul_ref
 
@@ -39,22 +42,28 @@ FUSED_KERNEL_NAME = "apr_matmul_fused"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "apr_matmul_bf16": (ctypes.c_int, [_P] * 5 + [_I] * 10 + [_P]),
-    "apr_matmul_int8w": (ctypes.c_int, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "apr_matmul_int8w": (ctypes.c_int, [_P] * 4 + [_I] * 6 + [_P]),
 }
 #: the (block_m, block_n, block_k) tiles ``apr_matmul.cu`` compiles
 #: (``APR_MATMUL_TILES``) for the bf16 APR, memory-resident and fused kernels
 TILES = ((16, 64, 32), (16, 64, 64), (16, 64, 128),
          (32, 64, 32), (32, 64, 64), (32, 64, 128))
-#: the untuned tile, and the one tile of the int8-weight kernel
-DEFAULT_TILE = INT8W_TILE = (16, 64, 64)
+#: the untuned tile
+DEFAULT_TILE = (16, 64, 64)
+#: the (block_m, block_n, block_k) tiles of the int8-weight kernel
+#: (``INT8W_TILES`` in ``apr_matmul.cu``); every one gives the same bits
+INT8W_TILES = ((16, 16, 128), (16, 32, 64), (16, 64, 64), (16, 32, 128),
+               (16, 64, 128))
 RESIDENCIES = ("apr", "hbm")
 _STAGES = 4                                   # the bf16 cp.async ring
 
 
-def shape_key(m: int, k: int, n: int, residency: str = "apr") -> str:
+def shape_key(m: int, k: int, n: int, residency: str = "apr",
+              w_int8: bool = False) -> str:
     # residency is part of the key: tiles tuned for the APR kernel never
-    # apply to the memory-resident baseline
-    return shape_key_from_dims(m=m, k=k, n=n) + f"_res{residency}"
+    # apply to the memory-resident baseline, nor to the int8-weight kernel
+    return (shape_key_from_dims(m=m, k=k, n=n) + f"_res{residency}"
+            + ("_wint8" if w_int8 else ""))
 
 
 def default_config(m: int, k: int, n: int) -> BlockConfig:
@@ -64,8 +73,31 @@ def default_config(m: int, k: int, n: int) -> BlockConfig:
     return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk)
 
 
+def int8w_default_config(m: int, k: int, n: int) -> BlockConfig:
+    """Untuned int8-weight tile, 128 rows of K a stage (half the barriers
+    of 64): 64 columns where N / 64 blocks cover every one of the
+    ``h100_sxm`` profile's SMs, 32 where N / 32 cover half of them, else
+    16.  At llama3-8b's widths that is 64 at N = 14336, 32 at 4096 and 16
+    at 1024, the exhaustive winners there on an H100."""
+    sms = get_profile("h100_sxm").sms
+    if -(-n // 64) >= sms:
+        bn = 64
+    elif -(-n // 32) >= sms // 2:
+        bn = 32
+    else:
+        bn = 16
+    return BlockConfig.make(block_m=16, block_n=bn, block_k=128)
+
+
+def int8w_smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
+    """Shared memory an int8-weight tile takes (``QTile::SMEM``): a ring of
+    (A, int8 B) stage pairs as deep as 48 KB allows, at most 8."""
+    stage = block_m * (block_k + 8) * 2 + block_k * max(block_n + 16, 48)
+    return min(8, 48 * 1024 // stage) * stage
+
+
 def smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
-    """Shared memory a bf16 tile takes (``Tile<false, ...>::SMEM``): the
+    """Shared memory a bf16 tile takes (``Tile<...>::SMEM``): the
     4-stage ring of padded A and B tiles, or the fp32 C tile of the flush
     if larger."""
     ring = _STAGES * (block_m * (block_k + 8) + block_k * (block_n + 8)) * 2
@@ -80,41 +112,49 @@ def accumulator_traffic_bytes(m: int, n: int, k: int, block_k: int,
     return reduction_hbm_traffic(m * n, n_steps, out_bytes, residency)
 
 
-def _tile(cfg: BlockConfig) -> tuple:
+def _tile(cfg: BlockConfig, w_int8: bool = False) -> tuple:
     tile = (cfg["block_m"], cfg["block_n"], cfg["block_k"])
-    if tile not in TILES:
-        raise TileError(f"apr_matmul: tile {tile} is not compiled; "
-                        f"compiled tiles {TILES}")
+    tiles = INT8W_TILES if w_int8 else TILES
+    if tile not in tiles:
+        raise TileError(f"apr_matmul: {'int8-weight ' if w_int8 else ''}"
+                        f"tile {tile} is not compiled; compiled tiles "
+                        f"{tiles}")
     return tile
 
 
 _SHAPE_KEYS = {
-    KERNEL_NAME: lambda m, k, n, residency: shape_key(m, k, n, residency),
-    FUSED_KERNEL_NAME: lambda m, k, n, residency: shape_key_from_dims(
-        m=m, k=k, n=n),
+    KERNEL_NAME: lambda m, k, n, residency, w_int8=False: shape_key(
+        m, k, n, residency, w_int8),
+    FUSED_KERNEL_NAME: lambda m, k, n, residency, w_int8=False:
+        shape_key_from_dims(m=m, k=k, n=n),
 }
 
 
-def _default(m: int, k: int, n: int, residency: str) -> BlockConfig:
+def _default(m: int, k: int, n: int, residency: str,
+             w_int8: bool = False) -> BlockConfig:
+    if w_int8:
+        return int8w_default_config(m, k, n)
     return default_config(m, k, n)
 
 
 def resolve_tile(kernel: str, m: int, k: int, n: int, dtype: str,
                  backend: str, residency: str = "apr",
-                 config: Optional[BlockConfig] = None) -> tuple:
+                 config: Optional[BlockConfig] = None,
+                 w_int8: bool = False) -> tuple:
     """The ``(block_m, block_n, block_k)`` a launch of ``kernel``
     (``apr_matmul`` or ``apr_matmul_fused``) uses, checked against
-    :data:`TILES`.  Without a caller's ``config`` the resolution is
-    memoized in the active cache."""
+    :data:`TILES` (:data:`INT8W_TILES` for the int8-weight kernel,
+    ``w_int8``).  Without a caller's ``config`` the resolution is memoized
+    in the active cache."""
     shape_key_of = _SHAPE_KEYS[kernel]
+    dims = (m, k, n, residency, w_int8)
     if config is None:
-        cfg = resolve_cached(kernel, (m, k, n, residency), dtype, backend,
+        cfg = resolve_cached(kernel, dims, dtype, backend,
                              shape_key=shape_key_of, default=_default)
     else:
-        cfg = resolve_config(kernel, shape_key_of(m, k, n, residency), dtype,
-                             backend, default=default_config(m, k, n),
-                             override=config)
-    return _tile(cfg)
+        cfg = resolve_config(kernel, shape_key_of(*dims), dtype, backend,
+                             default=_default(*dims), override=config)
+    return _tile(cfg, w_int8)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, wdtype: torch.dtype,
@@ -144,12 +184,13 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
     partial goes through global memory on every K step (one launch per
     step; bf16 weights only), equal to the APR kernel at the same tile bit
     for bit.  ``y`` is a bf16 tensor or an int8 :class:`QuantizedTensor`
-    with (1, N) fp32 scales.  CUDA tensors launch the kernel (bf16 ``x``,
-    ``out_dtype`` bf16 or fp32) or raise; CPU tensors take
+    with (1, N) fp32 scales; the int8-weight kernel equals the bf16 one on
+    the dequantized weight bit for bit.  CUDA tensors launch the kernel
+    (bf16 ``x``, ``out_dtype`` bf16 or fp32) or raise; CPU tensors take
     :func:`matmul_ref`.  Each launch adds one to ``apr_matmul.launches``
     (and to ``apr_matmul.tile_launches[tile]``), ``apr_matmul.hbm_launches``
     (one per K step of the baseline) or ``apr_matmul.int8_launches`` (int8
-    weight)."""
+    weight; and ``apr_matmul.int8_tile_launches[tile]``)."""
     if residency not in RESIDENCIES:
         raise ValueError(f"unknown residency {residency!r}")
     quantized = isinstance(y, QuantizedTensor)
@@ -165,20 +206,15 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
            "apr_matmul")
     m, k = x.shape
     n = w.shape[1]
-    if quantized:
-        if config is not None and _tile(
-                default_config(m, k, n).replace(**config.to_dict())) \
-                != INT8W_TILE:
-            raise TileError(f"apr_matmul: the int8-weight kernel has one "
-                            f"tile, {INT8W_TILE}")
-        if (y.scale.shape != (1, n) or y.scale.dtype != torch.float32
-                or y.scale.device != w.device or not y.scale.is_contiguous()):
-            raise ValueError(f"apr_matmul: int8 weight {tuple(w.shape)} needs "
-                             f"contiguous fp32 (1, {n}) scales on {w.device}, "
-                             f"got {y.scale.dtype} {tuple(y.scale.shape)}")
-    else:
-        bm, bn, bk = resolve_tile(KERNEL_NAME, m, k, n, dtype_name(x.dtype),
-                                  "cuda", residency, config)
+    if quantized and (y.scale.shape != (1, n)
+                      or y.scale.dtype != torch.float32
+                      or y.scale.device != w.device
+                      or not y.scale.is_contiguous()):
+        raise ValueError(f"apr_matmul: int8 weight {tuple(w.shape)} needs "
+                         f"contiguous fp32 (1, {n}) scales on {w.device}, "
+                         f"got {y.scale.dtype} {tuple(y.scale.shape)}")
+    bm, bn, bk = resolve_tile(KERNEL_NAME, m, k, n, dtype_name(x.dtype),
+                              "cuda", residency, config, quantized)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
@@ -188,9 +224,11 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
     if quantized:
         err = lib.apr_matmul_int8w(x.data_ptr(), w.data_ptr(),
                                    y.scale.data_ptr(), out.data_ptr(), m, n,
-                                   k, out_f32, stream)
+                                   k, bn, bk, out_f32, stream)
         _build.check(lib, err, "apr_matmul")
         apr_matmul.int8_launches += 1
+        tiles = apr_matmul.int8_tile_launches
+        tiles[(bm, bn, bk)] = tiles.get((bm, bn, bk), 0) + 1
         return out
     ktiles = -(-k // bk)
     if residency == "apr":
@@ -225,6 +263,7 @@ apr_matmul.launches = 0
 apr_matmul.hbm_launches = 0
 apr_matmul.int8_launches = 0
 apr_matmul.tile_launches = {}
+apr_matmul.int8_tile_launches = {}
 
 
 def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,

@@ -3,8 +3,12 @@
 (:mod:`.ref`) for CPU tensors.
 
 * :func:`flash_decode_paged`: one-token attention over a paged KV pool,
-  bf16 pools, or int8 pools with their fp32 scale pools;
-* :func:`flash_decode`: the same over a contiguous (B, S, Hkv, D) cache.
+  bf16 or fp32 pools, or int8 pools with their fp32 scale pools;
+* :func:`flash_decode`: the same over a contiguous (B, S, Hkv, D) cache,
+  its sequence split over the blocks of a thread-block cluster.
+
+The CUDA kernels take the (q, K/V) dtype pairs of :data:`KERNEL_DTYPES`;
+the output has the dtype of q, as in the JAX kernels.
 """
 from __future__ import annotations
 
@@ -13,8 +17,10 @@ from typing import Optional
 
 import torch
 
-from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
+from ...bench.config import (BlockConfig, TileError, dtype_name,
+                             resolve_cached, resolve_config, resolve_fixed,
                              shape_key_from_dims)
+from ...roofline.hw import get_profile
 from .. import _build
 from .ref import (decode_attention_ref, paged_decode_attention_q_ref,
                   paged_decode_attention_ref)
@@ -27,16 +33,36 @@ SIGNATURES = {
     "flash_decode_paged_int8": (
         ctypes.c_int,
         [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_decode_paged_f32": (
+        ctypes.c_int,
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode_bf16": (
-        ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_decode_f32": (
+        ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 MAX_GROUP, MAX_HEAD_DIM = 8, 128   # the kernel's register budget
 KERNEL_NAME = "flash_decode"
 PAGED_KERNEL_NAME = "flash_decode_paged"
-#: the one configuration the kernels are compiled for: the sequence is
-#: walked in chunks of 32 tokens (``TC`` in the source), so each family's
-#: tune space has one point
+#: (q dtype, K/V dtype) pairs each kernel family is compiled for
+KERNEL_DTYPES = {
+    PAGED_KERNEL_NAME: frozenset({
+        (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+        (torch.bfloat16, torch.float32), (torch.float32, torch.float32)}),
+    KERNEL_NAME: frozenset({
+        (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+        (torch.float32, torch.float32)}),
+}
+#: the paged kernels' one configuration: the sequence is walked in chunks
+#: of 32 tokens (``TC`` in the source), so that family's tune space has one
+#: point
 COMPILED = BlockConfig.make(chunk=32)
+#: the split counts the contiguous kernel takes (one cluster of at most 8
+#: blocks per (row, kv head)); it walks 32-token steps (``STEP``)
+SPLITS = (1, 2, 4, 8)
+#: the SM count :func:`default_splits` assumes, on every card (the
+#: ``h100_sxm`` profile's), so the tune spec and the wrapper agree
+SMS = get_profile("h100_sxm").sms
 
 
 def shape_key(b, hq, hkv, d, s) -> str:
@@ -49,23 +75,51 @@ def paged_shape_key(b, hq, hkv, d, pages, ps, kv_int8: bool = False) -> str:
             + ("_kvint8" if kv_int8 else ""))
 
 
+def default_splits(b, hkv, s) -> int:
+    """The split count of the contiguous kernel, from the geometry alone
+    (the lengths live on the device): the largest of :data:`SPLITS` for
+    which the B·Hkv·splits blocks fit two to each of the :data:`SMS` SMs
+    (a block's walk is latency-bound, so two a SM stream more), and no more
+    splits than the cache has 32-token steps."""
+    cap = min(max(1, 2 * SMS // max(1, b * hkv)), -(-s // COMPILED["chunk"]))
+    return max(n for n in SPLITS if n <= cap)
+
+
 def default_config(b, hq, hkv, d, s) -> BlockConfig:
-    return COMPILED
+    return COMPILED.replace(splits=default_splits(b, hkv, s))
+
+
+def compiled_configs() -> tuple:
+    """Every configuration the contiguous kernel takes."""
+    return tuple(COMPILED.replace(splits=n) for n in SPLITS)
 
 
 def paged_default_config(b, hq, hkv, d, pages, ps) -> BlockConfig:
     return COMPILED
 
 
-def _check_cuda(name, tensors, q, k, kv_dtype):
+def check_dtypes(name: str, q_dtype: torch.dtype,
+                 kv_dtype: torch.dtype) -> None:
+    """Raise ``TypeError`` unless kernel family ``name``
+    (``flash_decode`` or ``flash_decode_paged``) is compiled for a q of
+    ``q_dtype`` over K/V of ``kv_dtype`` (:data:`KERNEL_DTYPES`)."""
+    pairs = KERNEL_DTYPES[name]
+    if (q_dtype, kv_dtype) not in pairs:
+        raise TypeError(
+            f"{name} kernel takes (q, K/V) dtypes "
+            f"{sorted((str(a)[6:], str(b)[6:]) for a, b in pairs)}, got "
+            f"{q_dtype} and {kv_dtype}")
+
+
+def _check_cuda(name, tensors, q, k, v):
     """Device, dtype, GQA-geometry and layout checks shared by the CUDA
     paths; raises on anything the kernel does not take."""
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError(f"{name}: tensors on "
                          f"{[str(t.device) for t in tensors]}")
-    if q.dtype != torch.bfloat16 or k.dtype != kv_dtype:
-        raise TypeError(f"{name} kernel takes a bf16 q and {kv_dtype} K/V, "
-                        f"got {q.dtype} and {k.dtype}")
+    check_dtypes(name, q.dtype, k.dtype)
+    if v.dtype != k.dtype:
+        raise TypeError(f"{name}: K {k.dtype} and V {v.dtype}")
     b, hq, d = q.shape
     hkv = k.shape[-2]
     if (k.shape[-1] != d or hq % hkv or hq // hkv > MAX_GROUP
@@ -94,10 +148,12 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     configuration resolves under the JAX package's key (``_kvint8`` for int8
     pools) and must be :data:`COMPILED`.
 
-    CUDA tensors launch the kernel (bf16 q, bf16 or int8 pools, int32
-    lengths and tables) or raise; CPU tensors take the plain version.  Each
-    launch adds one to ``flash_decode_paged.launches`` (bf16 pools) or
-    ``flash_decode_paged.int8_launches`` (int8 pools)."""
+    CUDA tensors launch the kernel (a bf16 q over bf16, int8 or fp32 pools,
+    or an fp32 q over fp32 pools; int32 lengths and tables) or raise; CPU
+    tensors take the plain version.  The output has the dtype of q.  Each
+    launch adds one to ``flash_decode_paged.launches`` (bf16 pools),
+    ``flash_decode_paged.int8_launches`` (int8 pools) or
+    ``flash_decode_paged.f32_launches`` (fp32 pools)."""
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("flash_decode_paged: pass both scale pools or none")
@@ -110,8 +166,10 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                                 block_tables)
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths,
                                           block_tables)
-    _check_cuda("flash_decode_paged", tensors, q, k_pages,
-                torch.int8 if quantized else torch.bfloat16)
+    _check_cuda(PAGED_KERNEL_NAME, tensors, q, k_pages, v_pages)
+    if quantized != (k_pages.dtype == torch.int8):
+        raise TypeError("flash_decode_paged: int8 pools go with their "
+                        "scale pools, float pools without")
     if lengths.dtype != torch.int32 or block_tables.dtype != torch.int32:
         raise TypeError("flash_decode_paged kernel takes int32 lengths and "
                         "block tables")
@@ -139,19 +197,22 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     dims = (b, q.shape[1], hkv, q.shape[2], ps, p_pool, block_tables.shape[1],
             stream)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
+    tail = (lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr())
     if quantized:
         err = lib.flash_decode_paged_int8(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scales.data_ptr(), v_scales.data_ptr(), lengths.data_ptr(),
-            block_tables.data_ptr(), out.data_ptr(), *dims)
+            *ptrs, k_scales.data_ptr(), v_scales.data_ptr(), *tail, *dims)
+    elif k_pages.dtype == torch.float32:
+        err = lib.flash_decode_paged_f32(*ptrs, *tail, *dims[:-1],
+                                         int(q.dtype == torch.float32),
+                                         stream)
     else:
-        err = lib.flash_decode_paged_bf16(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
-            *dims)
+        err = lib.flash_decode_paged_bf16(*ptrs, *tail, *dims)
     _build.check(lib, err, "flash_decode_paged")
     if quantized:
         flash_decode_paged.int8_launches += 1
+    elif k_pages.dtype == torch.float32:
+        flash_decode_paged.f32_launches += 1
     else:
         flash_decode_paged.launches += 1
     return out
@@ -159,6 +220,27 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
 
 flash_decode_paged.launches = 0
 flash_decode_paged.int8_launches = 0
+flash_decode_paged.f32_launches = 0
+
+
+def resolve_splits(b, hq, hkv, d, s, dtype: str, backend: str,
+                   config: Optional[BlockConfig] = None) -> int:
+    """The split count a launch of the contiguous kernel uses: ``config``
+    > the tuned entry of the active cache > :func:`default_config`, under
+    the JAX package's key.  Raises :class:`~repro_torch.bench.TileError`
+    for a configuration the kernel does not take."""
+    dims = (b, hq, hkv, d, s)
+    if config is None:
+        cfg = resolve_cached(KERNEL_NAME, dims, dtype, backend,
+                             shape_key=shape_key, default=default_config)
+    else:
+        cfg = resolve_config(KERNEL_NAME, shape_key(*dims), dtype, backend,
+                             default=default_config(*dims),
+                             override=config)
+    if cfg not in compiled_configs():
+        raise TileError(f"{KERNEL_NAME}: {cfg} is not compiled; the kernel "
+                        f"takes {list(compiled_configs())}")
+    return cfg["splits"]
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,14 +251,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,).  Positions at or
     past ``lengths[b]`` are masked; a row with ``lengths == 0`` returns the
     mean of its S values of V, as the JAX package's kernel and oracle do.
-    CUDA tensors launch the kernel (bf16 q and cache, int32 lengths) or
-    raise; CPU tensors take :func:`decode_attention_ref`.  The configuration
-    resolves under the JAX package's key and must be :data:`COMPILED`.  Each
-    launch adds one to ``flash_decode.launches``."""
+    CUDA tensors launch the kernel (a bf16 q over a bf16 or fp32 cache, or
+    an fp32 q over an fp32 one; int32 lengths) or raise; CPU tensors take
+    :func:`decode_attention_ref`.  The output has the dtype of q.  The
+    kernel splits each row's sequence over ``splits`` blocks of one cluster
+    (:func:`resolve_splits`: by default from the geometry and the H100's
+    SM count; a ``config`` or a tuned entry may pick any of :data:`SPLITS`).
+    Each launch adds one to ``flash_decode.launches``."""
     tensors = (q, k, v, lengths)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_ref(q, k, v, lengths)
-    _check_cuda("flash_decode", tensors, q, k, torch.bfloat16)
+    _check_cuda(KERNEL_NAME, tensors, q, k, v)
     if lengths.dtype != torch.int32:
         raise TypeError("flash_decode kernel takes int32 lengths")
     b = q.shape[0]
@@ -185,18 +270,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_decode: q {tuple(q.shape)}, cache "
                          f"{tuple(k.shape)}/{tuple(v.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    resolve_fixed(KERNEL_NAME, (b, q.shape[1], k.shape[2], q.shape[2],
-                                k.shape[1]), dtype_name(q.dtype), "cuda",
-                  shape_key=shape_key, compiled=COMPILED, config=config)
+    splits = resolve_splits(b, q.shape[1], k.shape[2], q.shape[2],
+                            k.shape[1], dtype_name(q.dtype), "cuda", config)
     out = torch.empty_like(q)
     if b == 0:
         return out
     lib = _build.load(LIBRARY, SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_decode_bf16(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                lengths.data_ptr(), out.data_ptr(), b,
-                                q.shape[1], k.shape[2], q.shape[2],
-                                k.shape[1], stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), b, q.shape[1], k.shape[2], q.shape[2], k.shape[1],
+            splits)
+    if k.dtype == torch.float32:
+        err = lib.flash_decode_f32(*args, int(q.dtype == torch.float32),
+                                   stream)
+    else:
+        err = lib.flash_decode_bf16(*args, stream)
     _build.check(lib, err, "flash_decode")
     flash_decode.launches += 1
     return out

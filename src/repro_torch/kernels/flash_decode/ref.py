@@ -3,7 +3,12 @@
 as it is: a row with ``lengths == 0`` returns the mean of V over all S
 positions, as the JAX contiguous kernel does.  The paged versions differ
 from the JAX oracle in one deliberate place: rows with ``lengths == 0``
-return zeros, as the paged kernels (JAX's and the port's) do."""
+return zeros, as the paged kernels (JAX's and the port's) do.
+
+:func:`decode_attention_split_ref` is the contiguous CUDA kernel's split
+form written out: per-split online-softmax states, combined in split
+order; it equals :func:`decode_attention_ref` up to the fp32 order of the
+sums."""
 import torch
 
 NEG_INF = -1e30
@@ -75,3 +80,68 @@ def paged_decode_attention_q_ref(q, k_pages, v_pages, k_scales, v_scales,
     v = (gather_pages(v_pages, block_tables).float()
          * gather_pages(v_scales, block_tables)[..., None])
     return _attend(q, k.to(q.dtype), v.to(q.dtype), lengths, zero_dead=True)
+
+
+def split_range(s: int, splits: int, step: int = 32) -> int:
+    """Positions per split of the contiguous kernel: whole ``step``-token
+    steps, ``ceil(ceil(S / step) / splits) * step``; the last splits may be
+    short or empty."""
+    return -(-(-(-s // step)) // splits) * step
+
+
+def decode_split_states(q, k, v, lengths, splits: int, step: int = 32):
+    """The per-split states of the contiguous kernel's split form.
+
+    Row ``b`` walks its first ``lengths[b]`` positions, or all S when
+    ``lengths[b] == 0``; split ``i`` takes the walked positions in
+    ``[i * range, (i + 1) * range)`` (:func:`split_range`).  A position at
+    or past the length scores -1e30.  Returns one ``(m, l, acc)`` per split,
+    fp32 (B, Hkv, G, 1), (B, Hkv, G, 1), (B, Hkv, G, D): the max score, the
+    sum of ``exp(score - m)`` and the weighted sum of V over the split's
+    positions; a split with no position keeps m = -1e30, l = 0, acc = 0."""
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d).float() * (1.0 / d ** 0.5)
+    kt = k.permute(0, 2, 1, 3).float()                  # (B,Hkv,S,D)
+    vt = v.permute(0, 2, 1, 3).float()
+    scores = torch.einsum("bhgd,bhsd->bhgs", qg, kt)
+    pos = torch.arange(s, device=q.device)
+    lens = lengths.to(q.device).long().clamp(0, s)
+    walk = torch.where(lens > 0, lens, s)
+    scores = torch.where(pos[None, None, None] < lens[:, None, None, None],
+                         scores, NEG_INF)
+    rng = split_range(s, splits, step)
+    states = []
+    for i in range(splits):
+        member = ((pos[None] < walk[:, None]) & (pos[None] // rng == i)
+                  )[:, None, None]                      # (B,1,1,S)
+        m = torch.where(member, scores, NEG_INF).amax(-1, keepdim=True)
+        p = torch.where(member, torch.exp(scores - m), 0.0)
+        states.append((m, p.sum(-1, keepdim=True),
+                       torch.einsum("bhgs,bhsd->bhgd", p, vt)))
+    return states
+
+
+def combine_split_states(states):
+    """The kernel's combine: ``M = max m_i``, then in split order
+    ``L = sum exp(m_i - M) l_i``, ``A = sum exp(m_i - M) acc_i``; returns
+    ``A / max(L, 1e-30)``, fp32 (B, Hkv, G, D)."""
+    mx = torch.stack([m for m, _, _ in states]).amax(0)
+    lsum, asum = 0.0, 0.0
+    for m, l, acc in states:
+        c = torch.exp(m - mx)
+        lsum = lsum + c * l
+        asum = asum + c * acc
+    return asum / torch.clamp(lsum, min=1e-30)
+
+
+def decode_attention_split_ref(q, k, v, lengths, splits: int,
+                               step: int = 32):
+    """q: (B,Hq,D); k/v: (B,S,Hkv,D); lengths: (B,) -> (B,Hq,D), rounded
+    once to ``q.dtype``: :func:`decode_attention_ref` computed as the CUDA
+    kernel splits it (``splits`` states, combined in split order); a row of
+    length 0 is the mean of V."""
+    out = combine_split_states(decode_split_states(q, k, v, lengths, splits,
+                                                   step))
+    return out.reshape(q.shape).to(q.dtype)

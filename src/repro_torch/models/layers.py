@@ -277,11 +277,13 @@ def attention_decode_paged(
     same slot of the scale pool.
 
     On CUDA the decode step (T == 1) calls the ``flash_decode_paged``
-    kernel (bf16 or int8 pools) with lengths ``lengths + new_counts``,
+    kernel (bf16, fp32 or int8 pools) with lengths ``lengths + new_counts``,
     after the new K/V are in the pool; rows with ``new_counts == 0`` then
     hold zeros or garbage.  Chunked prefill, and every call on the CPU,
     gathers the pages (dequantizing int8 ones to ``x.dtype``) and attends
-    as the JAX layer does.  Returns the attention output after the ``wo``
+    as the JAX layer does.  The attention output has q's dtype on both
+    paths; the JAX layer differs only for fp32 pools under a bf16 model,
+    where it keeps fp32.  Returns the attention output after the ``wo``
     projection, (B, T, d).
     """
     b, t, _ = x.shape
@@ -323,7 +325,11 @@ def attention_decode_paged(
         s = k_all.shape[1]
         mask = (torch.arange(s, device=x.device)[None, None]
                 <= positions[:, :, None])[:, None, None]
-        out = gqa_scores_attend(q, k_all, v_all, mask)
+        # q's dtype on every device, as the decode kernel (and the JAX
+        # kernels) return it: fp32 pools under a bf16 model keep the bf16
+        # activations the card's apr_matmul takes (the JAX layer promotes
+        # them to fp32 here)
+        out = gqa_scores_attend(q, k_all, v_all, mask).to(q.dtype)
     return tp_einsum(out, p[f"{prefix}.wo"])
 
 

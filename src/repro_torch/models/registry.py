@@ -63,6 +63,30 @@ def family(cfg: ModelConfig) -> Family:
     return FAMILIES[cfg.family]
 
 
+def check_param_dtype(dtype, device_type: str) -> None:
+    """Refuse, with a ``ValueError``, float parameters of ``dtype`` (a
+    torch dtype or its name) on a ``device_type`` whose kernels cannot take
+    them: on ``"cuda"`` the hand-written ``apr_matmul`` kernels take bf16
+    activations only, so a model with fp32 (or fp16) parameters would fail
+    at its first projection.  Such a model runs on ``device="cpu"``."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    if device_type == "cuda" and dtype != torch.bfloat16:
+        raise ValueError(
+            f"{dtype} parameters cannot run on the card: its apr_matmul "
+            "kernels take bf16 activations (fp32 operands run on "
+            "device='cpu')")
+
+
+def check_params(params, device_type: str) -> None:
+    """:func:`check_param_dtype` for every float tensor of ``params`` (an
+    int8 weight's fp32 scales are not parameters of their own); ``None``
+    passes."""
+    for dtype in {t.dtype for t in (params or {}).values()
+                  if isinstance(t, torch.Tensor) and t.is_floating_point()}:
+        check_param_dtype(dtype, device_type)
+
+
 def param_specs(cfg: ModelConfig) -> ParamSpecs:
     """The family's parameter shapes and init scales."""
     return family(cfg).build_params(cfg)
@@ -77,6 +101,7 @@ class ModelBundle:
         param_specs(self.cfg)     # raises for unported families and options
         self.family = FAMILIES[self.cfg.family]
         self.device = resolve_device(self.device)
+        check_param_dtype(self.cfg.dtype, self.device.type)
 
     def init_params(self, generator: Optional[torch.Generator] = None
                     ) -> Params:

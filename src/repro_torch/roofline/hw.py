@@ -8,7 +8,8 @@ two targets instead of its TPU ones:
   the tensor cores, 3.35 TB/s of HBM3, 80 GB of it, 228 KB of shared
   memory per SM in the ``vmem_bytes`` slot (the on-chip scratch a tile
   lives in), 18 NVLink 4 links at 25 GB/s each way (900 GB/s both ways in
-  all).  The rates assume the card's full 700 W power limit.
+  all), 132 SMs (the count the kernels' untuned defaults assume).  The
+  rates assume the card's full 700 W power limit.
 * ``cpu`` -- the plain PyTorch path on the CPU.  Its numbers are a small
   proxy (the plain path is not a hardware target): only the *order* of
   candidates means anything, which is all the pruner needs there.
@@ -45,6 +46,7 @@ class HardwareProfile:
     hbm_bytes: int               # main-memory capacity
     ici_bw_per_link: float = 0.0  # bytes/s per interconnect link
     links_per_chip: int = 0
+    sms: int = 0                 # streaming multiprocessors (0: not a GPU)
     description: str = ""
 
     @property
@@ -96,6 +98,7 @@ register_profile(HardwareProfile(
     hbm_bytes=80 * 1024**3,
     ici_bw_per_link=25e9,
     links_per_chip=18,
+    sms=132,
     description="one NVIDIA H100 SXM5 (dense bf16 tensor-core peak, HBM3, "
                 "shared memory per SM, NVLink 4)",
 ))

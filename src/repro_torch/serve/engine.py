@@ -28,7 +28,7 @@ from .._device import resolve_device
 from ..bench.autotune import warm_cache
 from ..bench.config import ConfigCache, scoped_cache
 from ..models.paged_state import copy_kv_page, copy_state_slot
-from ..models.registry import ModelBundle
+from ..models.registry import ModelBundle, check_params
 from .paged_cache import OutOfPages, PagedKVCache
 from .scheduler import DECODING, DONE, PREFILLING, FifoScheduler, Request
 from .state_cache import TRASH_STATE, StateCache
@@ -193,6 +193,7 @@ class PagedServeEngine:
                 "families: a state slot is a lossy running summary of its "
                 "whole history, so a cached prefix's KV pages cannot be "
                 "attached mid-sequence (there is no state to resume from)")
+        check_params(params, self.device.type)
         self.bundle = bundle
         self.params = params
         self.slots = slots
@@ -539,6 +540,7 @@ class ServeEngine:
         if bundle.device != self.device:
             raise ValueError(f"engine device {self.device} differs from the "
                              f"bundle's {bundle.device}")
+        check_params(params, self.device.type)
         self.bundle = bundle
         self.params = params
         self.slots = slots

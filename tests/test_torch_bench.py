@@ -466,5 +466,10 @@ def test_one_point_families_compile_one_configuration():
         cands = spec.candidates(shape)
         if name.startswith(("apr_matmul", "quant_matmul")):
             assert len(cands) == 6
+        elif name == "flash_decode":
+            # the contiguous kernel takes a split count at its one chunk
+            assert sorted(c["splits"] for c in cands) == \
+                list(decode_ops.SPLITS), name
+            assert spec.default_config(shape) in cands
         else:
             assert cands == [spec.default_config(shape)], name
