@@ -5,8 +5,9 @@
     python3 chip_smoke.py --ablate   # only rms_norm's batch invariance and
                                      # the paged/slot token ablation
     python3 chip_smoke.py --kernel-sweep --out sweep.json
-                                     # only B3 against its longest length
-                                     # and B1 bf16/int8 at the projections
+                                     # only B2/B2q at the serving shape, B3
+                                     # against its longest length and B1
+                                     # bf16/int8/fp32 at the projections
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -15,10 +16,12 @@ Phases (any failure exits non-zero before the final line):
      with bf16 and int8 weights (the int8 one at every tile it compiles,
      also bit for bit against the bf16 kernel on the dequantized weight),
      ``flash_decode_paged`` over bf16, int8 and fp32 pools (bf16 or fp32
-     q), ``flash_decode`` over a contiguous bf16 or fp32 cache at every
-     split count (``lengths == 0`` rows and empty splits included, S up to
-     4096, each case launched twice for equal bits), the conv kernels, and
-     the recurrence
+     q) and ``flash_decode`` over a contiguous bf16 or fp32 cache, both at
+     every split count (``lengths == 0`` rows and empty splits included,
+     pages of 4, 5, 8 and 16 shuffled across the pool, out-of-pool table
+     padding, S up to 4096, each case launched twice for equal bits),
+     ``apr_matmul`` and ``apr_matmul_fused`` on fp32 operands, the conv
+     kernels, and the recurrence
      kernels ``rwkv6_wkv`` (B9) and ``mamba2_ssd`` (B10) with their state in
      and out, at the decode tick, at 1024- and 1000-token prefills and at the
      smoke shapes; and ``rms_norm``'s variance, row for row, at B = 1 and
@@ -31,9 +34,9 @@ Phases (any failure exits non-zero before the final line):
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B4m,
      B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1;
-     ``flash_decode`` also at S = 4096 near full and at each split count;
-     ``flash_decode_paged`` and ``flash_decode`` over fp32 K/V at the
-     serving shape);
+     ``flash_decode`` also at S = 4096 near full; ``flash_decode_paged``
+     over bf16, fp32 and int8 pools and ``flash_decode`` over a bf16 and
+     an fp32 cache at each split count; B1 on fp32 operands);
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
      every kernel of the path was launched as often as the path demands;
@@ -54,7 +57,10 @@ Phases (any failure exits non-zero before the final line):
      the rwkv6 and mamba2 smoke configs (``decode_paged`` through the state
      pools, and ``prefill``); ``decode_paged`` over fp32 KV pools, and a
      ``PagedServeEngine(kv_dtype="float32")`` serving the bf16 smoke model
-     on the fp32-pool kernel;
+     on the fp32-pool kernel; then the smoke model with fp32 parameters
+     served on fp32 pools by the engine on the card (``apr_matmul_f32``)
+     and on the CPU: every forward's logits within 1e-3, greedy tokens
+     equal;
   6. run the paper's CNNs (LeNet-5, ResNet-20; random fp32 weights from a
      seed) at batch 256 with every conv on ``apr_conv``, check each
      forward's launches, run ResNet-20 on the memory-resident baseline
@@ -67,8 +73,8 @@ Phases (any failure exits non-zero before the final line):
      1024-token ``bundle.prefill`` on each (B9/B10 over all T), every
      layer's scan held to its plain version on the same inputs;
   8. the tuning path at llama3-8b full width: every registered kernel
-     family (the int8-weight tiles and the split counts included) swept
-     exhaustively (the yardstick), then
+     family (the int8-weight tiles and both decode kernels' split counts
+     included) swept exhaustively (the yardstick), then
      ``warm_cache(sweep=True, prune_top_k=3)`` in a ``scoped_cache`` over
      a fresh cache file, at the paged engine's ``_decode_kernel_shapes()``,
      the projection shapes and each other family's serving shape; then a
@@ -121,6 +127,12 @@ Q_ATOL = 0.03
 #: weights (and dequantized int8 K/V) in fp32 where the plain path rounds
 #: them to bf16
 SMOKE_LOGITS_BOUND = 0.25
+#: bound on |logits(card) - logits(CPU)| for the smoke model with fp32
+#: parameters on fp32 KV pools: both compute in fp32 throughout and differ
+#: only in the order of their sums (one accumulator over K on the card, the
+#: canonical split-K on the CPU; the attention's online softmax), a few
+#: fp32 ulps of O(1) logits per layer
+F32_SMOKE_LOGITS_BOUND = 1e-3
 #: |apr_conv - plain| <= CONV_RTOL * |plain| + CONV_RTOL * max |plain|: both
 #: sum exact fp32 products in fp32 (no TF32), in another order
 CONV_RTOL = 2e-4
@@ -1241,8 +1253,10 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
     check_served("phase 8", reqs, 16, serve_launches, expected_counts(
         apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
         flash_decode_paged=cfg.num_layers * m.decode_calls))
-    unlaunched = [k for k, v in path_launches.items()
-                  if not v and k != "flash_decode_paged_f32"]
+    # the fp32 operands' kernels serve no bf16 path: phases 2 and 5 hold
+    # them
+    unlaunched = [k for k, v in path_launches.items() if not v and k not in (
+        "flash_decode_paged_f32", "apr_matmul_f32", "apr_matmul_fused_f32")]
     if unlaunched:
         fail(f"phase 8: no launch of {unlaunched} on the tuning path")
     bundle.decode_paged = forward
@@ -1309,7 +1323,10 @@ def decode_timing(torch, gen, dev, cases, kv_dtype=None) -> list:
                               + tokens * hkv * d * 2 * kv_bytes + b * 4,
                               4 * tokens * hq * d))
         if hasattr(fd, "SPLITS"):
-            row["splits"] = fd.default_splits(b, hkv, s_len)
+            try:
+                row["splits"] = fd.default_splits(b, hkv, s_len, kv_bytes)
+            except TypeError:         # an older tree: one default for all
+                row["splits"] = fd.default_splits(b, hkv, s_len)
             row["split_ms"] = {n: cuda_ms(torch, lambda i: flash_decode(
                 q, kc[i % layers], vc[i % layers], lens,
                 config=BlockConfig.make(chunk=32, splits=n)), 200)
@@ -1320,12 +1337,327 @@ def decode_timing(torch, gen, dev, cases, kv_dtype=None) -> list:
     return rows
 
 
+#: phase 2's paged cases (B, Hq, Hkv, D, ps, P_max, lengths): lengths 0, 1,
+#: ps - 1, ps, ps + 1 and full, pages shuffled across the pool
+PAGED_CASES = [(4, 32, 8, 128, 16, 16, [40, 96, 150, 196]),  # serving shape
+               (4, 32, 8, 128, 16, 16, [0, 1, 16, 17]),
+               (6, 32, 8, 128, 16, 16, [0, 1, 15, 16, 17, 256]),
+               (3, 8, 2, 64, 8, 5, [33, 0, 7]),
+               (2, 14, 2, 64, 16, 4, [64, 5]),                # group of 7
+               (3, 8, 2, 64, 5, 10, [50, 0, 23]),             # pages of 5
+               (2, 6, 2, 34, 4, 6, [17, 0])]                  # D % 4 != 0
+#: the lengths of phase 3's paged rows and of the profiled decode tick
+MAIN_LENGTHS = [40, 96, 150, 196]
+
+
+def paged_inputs(torch, gen, dev, b, hq, hkv, d, ps, p_max, lengths,
+                 layers=1):
+    """bf16 q (B, Hq, D) and ``layers`` pools (P, ps, Hkv, D) with each
+    row's pages shuffled across the pool, int32 lengths, the block tables
+    padded with the null page 0 as the engine pads them, and the same
+    tables with that padding outside the pool (-1 and P + 99 in turn)."""
+    need = [-(-n // ps) for n in lengths]
+    p_pool = 1 + max(sum(need), 1) + 1
+    rng = np.random.default_rng(sum(lengths) + b)
+    perm = rng.permutation(np.arange(1, p_pool))
+    tables = np.zeros((b, p_max), np.int32)
+    dead = np.zeros((b, p_max), np.int32)
+    at = 0
+    for i, n in enumerate(need):
+        tables[i, :n] = dead[i, :n] = perm[at:at + n]
+        dead[i, n:] = [-1 if j % 2 else p_pool + 99
+                       for j in range(p_max - n)]
+        at += n
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    return (rnd(b, hq, d), rnd(layers, p_pool, ps, hkv, d),
+            rnd(layers, p_pool, ps, hkv, d),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.from_numpy(tables).to(dev), torch.from_numpy(dead).to(dev))
+
+
+def paged_correctness(torch, gen, dev) -> tuple:
+    """Phase 2 for B2 and B2q: every case of :data:`PAGED_CASES` over bf16
+    pools, int8 pools with per-(slot, head) fp32 scales, and fp32 pools
+    under a bf16 and an fp32 q, at the split count the wrapper picks and
+    at each one it takes, each launched twice on the same inputs (equal
+    bits); rows of length 0 exactly zero; and the same result, bit for
+    bit, with the tables' padding outside the pool.  B2 and fp32 pools are
+    held to the plain version at the bf16 tolerance; B2q to the plain
+    version (bf16-rounded dequantize) within BF16_RTOL*|plain| + Q_ATOL and
+    to the plain version on the fp32-dequantized pools at the bf16
+    tolerance.  Returns (cases, twice-bit-equal flags)."""
+    from repro_torch.kernels.flash_decode import (flash_decode_paged,
+                                                  paged_decode_attention_q_ref,
+                                                  paged_decode_attention_ref)
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.quant import quantize_channelwise
+    cases, det = [], []
+    for b, hq, hkv, d, ps, p_max, lengths in PAGED_CASES:
+        q, kp, vp, lens, tables, dead = paged_inputs(
+            torch, gen, dev, b, hq, hkv, d, ps, p_max, lengths)
+        kp, vp = kp[0], vp[0]
+        zero_rows = [i for i, n in enumerate(lengths) if n == 0]
+        kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
+        ks, vs = kq.scale[..., 0], vq.scale[..., 0]
+        kinds = [("flash_decode_paged", q, kp, vp, {}),
+                 ("flash_decode_paged_int8", q, kq.q, vq.q,
+                  dict(k_scales=ks, v_scales=vs)),
+                 ("flash_decode_paged_f32", q, kp.float(), vp.float(), {}),
+                 ("flash_decode_paged_f32", q.float(), kp.float(),
+                  vp.float(), {})]
+        for name, qq, kk, vv, sc in kinds:
+            if sc:
+                ref = paged_decode_attention_q_ref(qq, kk, vv, ks, vs, lens,
+                                                   tables)
+                ref32 = paged_decode_attention_ref(
+                    qq.float(), kq.dequantize(torch.float32),
+                    vq.dequantize(torch.float32), lens, tables).to(qq.dtype)
+            else:
+                ref = paged_decode_attention_ref(qq, kk, vv, lens, tables)
+            for n in (None,) + fd.SPLITS:
+                cfg = None if n is None else fd.COMPILED.replace(splits=n)
+                got = flash_decode_paged(qq, kk, vv, lens, tables, config=cfg,
+                                         **sc)
+                again = flash_decode_paged(qq, kk, vv, lens, tables,
+                                           config=cfg, **sc)
+                padded = flash_decode_paged(qq, kk, vv, lens, dead,
+                                            config=cfg, **sc)
+                torch.cuda.synchronize()
+                det.append(torch.equal(got, again))
+                err, ok = max_err(got, ref, Q_ATOL if sc else ATOL)
+                extra = ""
+                if sc:
+                    err32, ok32 = max_err(got, ref32)
+                    ok = ok and ok32
+                    extra = f" fp32-dequant err={err32:.3g}"
+                ok = (ok and det[-1] and got.dtype == qq.dtype
+                      and torch.equal(padded, got)
+                      and all(not got[i].float().any() for i in zero_rows))
+                cases.append((name, f"B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} "
+                              f"P_max={p_max} lengths={lengths} q "
+                              f"{str(qq.dtype)[6:]} splits={n or 'default'}"
+                              f" twice bit-equal={det[-1]}{extra}", err, ok))
+        del q, kp, vp, kq, vq, ks, vs
+    return cases, det
+
+
+#: |apr_matmul_f32 - plain| <= F32_MM_SLACK * K * 2^-24 * (|x| @ |w| +
+#: |bias|) + F32_MM_ULPS * 2^-24 * |plain| (+ BF16_RTOL * |plain| for bf16
+#: out): the two sum the same K fp32 products in other orders, each within
+#: K * 2^-24 * sum |x * w| of the exact sum; the activations' slope is at
+#: most ~1.13 and expf / tanhf round apart by a few ulps
+F32_MM_SLACK, F32_MM_ULPS = 2.5, 8
+
+
+def f32_err(got, ref, bound) -> tuple:
+    """(max |got - ref|, whether every element is within ``bound`` and
+    finite)."""
+    diff = (got.float() - ref.float()).abs()
+    ok = bool((diff <= bound).all()) and bool(got.isfinite().all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
+def matmul_f32_correctness(torch, gen, dev) -> list:
+    """Phase 2 for ``apr_matmul_f32`` (B1 and B7m on fp32 operands): at the
+    llama3-8b projection shapes (M = 4 and 16) and ragged ones, fp32 and
+    bf16 out, plain and fused with every activation, bias and none, against
+    the plain versions within the F32_MM_SLACK bound; each launched twice
+    for equal bits.  One case per (kernel, shape)."""
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.kernels.apr_matmul.ref import matmul_fused_ref, matmul_ref
+    f32 = torch.float32
+    shapes = [(m, k, n) for m in PROJ_MS for k, n in LLAMA_DECODE_SHAPES]
+    shapes += [(3, 100, 1000), (17, 96, 77), (5, 4096, 40), (1, 8, 8),
+               (16, 0, 64)]
+    cases = []
+    for m, k, n in shapes:
+        x = torch.randn((m, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * max(k, 1) ** -0.5
+        bias = torch.randn((n,), generator=gen, device=dev)
+        sums = torch.matmul(x.abs(), w.abs())
+        stats = {name: [0.0, True, 0] for name in ("apr_matmul_f32",
+                                                   "apr_matmul_fused_f32")}
+        for out in (f32, torch.bfloat16):
+            rel = F32_MM_ULPS * 2.0 ** -24 + (BF16_RTOL if out != f32 else 0)
+            got = mm.apr_matmul(x, w, out_dtype=out)
+            again = mm.apr_matmul(x, w, out_dtype=out)
+            ref = matmul_ref(x, w, out)
+            err, ok = f32_err(got, ref, F32_MM_SLACK * k * 2.0 ** -24
+                              * sums + rel * ref.float().abs())
+            st = stats["apr_matmul_f32"]
+            st[:] = [max(st[0], err), st[1] and ok and torch.equal(got, again)
+                     and got.dtype == out, st[2] + 1]
+            for act in ACTIVATIONS:
+                for bb in (None, bias):
+                    got = mm.apr_matmul_fused(x, w, bb, activation=act,
+                                              out_dtype=out)
+                    ref = matmul_fused_ref(x, w, bb, act, out)
+                    slack = sums if bb is None else sums + bb.abs()
+                    err, ok = f32_err(got, ref, F32_MM_SLACK * k
+                                      * 2.0 ** -24 * slack
+                                      + rel * ref.float().abs())
+                    st = stats["apr_matmul_fused_f32"]
+                    st[:] = [max(st[0], err), st[1] and ok, st[2] + 1]
+        torch.cuda.synchronize()
+        for name, (err, ok, runs) in stats.items():
+            cases.append((name, f"M={m} K={k} N={n} ({runs} runs, fp32/bf16 "
+                          f"out)", err, ok))
+        del x, w, bias, sums
+    return cases
+
+
+def paged_timing(torch, gen, dev, lengths=None) -> list:
+    """B2 (``flash_decode_paged``) over bf16 pools, fp32 pools and int8
+    pools (B2q) at the llama3-8b geometry, pages of 16 in a 16-page table,
+    at ``lengths`` (:data:`MAIN_LENGTHS`): ms per launch (pools rotated
+    over 32 layers, bf16 q), the plain version, gather + SDPA on the same
+    pools (fp32 SDPA for fp32 pools, the dequantized pools in bf16 for
+    int8), and the byte bound (q and the output once, the live tokens' K
+    and V (and scales) once, the lengths and tables); where the wrapper
+    takes a split count, its time at each (``split_ms``) and the count it
+    picks (``splits``).  It uses only what every version of the port has,
+    so a copy of this script times an older tree's kernels."""
+    import torch.nn.functional as F
+    from repro_torch.bench import BlockConfig
+    from repro_torch.kernels.flash_decode import (flash_decode_paged,
+                                                  gather_pages,
+                                                  paged_decode_attention_q_ref,
+                                                  paged_decode_attention_ref)
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.quant import quantize_channelwise
+    lengths = lengths or MAIN_LENGTHS
+    b, hq, hkv, d = (DECODE_GEOMETRY[k] for k in ("b", "hq", "hkv", "d"))
+    ps, p_max, layers = 16, 16, DECODE_LAYERS
+    q, kp, vp, lens, tables, _ = paged_inputs(torch, gen, dev, b, hq, hkv, d,
+                                              ps, p_max, lengths, layers)
+    live = torch.arange(p_max * ps, device=dev)[None] < lens[:, None].long()
+    tokens = sum(lengths)
+    base = 2 * b * hq * d * 2 + b * (p_max + 1) * 4      # q, out, tables
+    splits = getattr(fd, "resolve_paged_splits", None)
+
+    def sdpa(kk, vv):
+        return F.scaled_dot_product_attention(
+            q[:, :, None].to(kk.dtype), kk.permute(0, 2, 1, 3),
+            vv.permute(0, 2, 1, 3), attn_mask=live[:, None, None],
+            enable_gqa=True).to(q.dtype)
+
+    def row(name, kpool, vpool, ref, library, kv_bytes, sc=None):
+        def kernel(i, cfg=None):
+            kw = {} if sc is None else dict(k_scales=sc[0][i % layers],
+                                            v_scales=sc[1][i % layers])
+            if cfg is not None:
+                kw["config"] = cfg
+            return flash_decode_paged(q, kpool[i % layers], vpool[i % layers],
+                                      lens, tables, **kw)
+        r = dict(kernel=name, B=b, Hq=hq, Hkv=hkv, D=d, ps=ps, P_max=p_max,
+                 lengths=list(lengths), ms=cuda_ms(torch, kernel, 200),
+                 plain_ms=cuda_ms(torch, ref, 50),
+                 library_ms=cuda_ms(torch, library, 50),
+                 **bound_ms(base + kv_bytes, 4 * tokens * hq * d))
+        if splits is not None:
+            r["splits"] = splits(b, hq, hkv, d, p_max, ps, sc is not None,
+                                 "bfloat16", "cuda",
+                                 kv_bytes=kpool.element_size())
+            r["split_ms"] = {n: cuda_ms(torch, lambda i: kernel(
+                i, BlockConfig.make(chunk=32, splits=n)), 200)
+                for n in fd.SPLITS}
+        return r
+
+    rows = [row("flash_decode_paged", kp, vp,
+                lambda i: paged_decode_attention_ref(
+                    q, kp[i % layers], vp[i % layers], lens, tables),
+                lambda i: sdpa(gather_pages(kp[i % layers], tables),
+                               gather_pages(vp[i % layers], tables)),
+                tokens * hkv * d * 2 * 2)]
+    k32, v32 = kp.float(), vp.float()
+    rows.append(row("flash_decode_paged_f32", k32, v32,
+                    lambda i: paged_decode_attention_ref(
+                        q, k32[i % layers], v32[i % layers], lens, tables),
+                    lambda i: sdpa(gather_pages(k32[i % layers], tables),
+                                   gather_pages(v32[i % layers], tables)),
+                    tokens * hkv * d * 2 * 4))
+    del k32, v32
+    kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
+    ks, vs = kq.scale[..., 0], vq.scale[..., 0]
+    del kp, vp
+
+    def library_q(i):
+        lay = i % layers
+        kk, vv = ((gather_pages(c.q[lay], tables).float()
+                   * gather_pages(sc[lay], tables)[..., None]
+                   ).to(torch.bfloat16) for c, sc in ((kq, ks), (vq, vs)))
+        return sdpa(kk, vv)
+
+    rows.append(row("flash_decode_paged_int8", kq.q, vq.q,
+                    lambda i: paged_decode_attention_q_ref(
+                        q, kq.q[i % layers], vq.q[i % layers], ks[i % layers],
+                        vs[i % layers], lens, tables),
+                    library_q, tokens * hkv * (d + 4) * 2, sc=(ks, vs)))
+    del kq, vq, ks, vs, q
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: ``--kernel-sweep``: B2 at each split count over these (B, P_max,
+#: lengths), pages of 16 and the llama3-8b heads: one to 16 slots, short
+#: rows to a 4096-token table
+PAGED_SWEEP = [(1, 16, [196]), (2, 16, [96, 196]), (4, 16, MAIN_LENGTHS),
+               (8, 16, MAIN_LENGTHS * 2), (16, 16, [150] * 16),
+               (4, 64, [1000, 700, 300, 1024]),
+               (4, 256, [4000, 3000, 2000, 4096]), (1, 256, [4096])]
+
+
+def paged_split_sweep(torch, gen, dev) -> list:
+    """B2 over bf16, fp32 and int8 pools at each :data:`PAGED_SWEEP`
+    geometry: µs per launch at each split count (pools rotated over 8
+    layers), and the count the wrapper picks.  Empty for a tree whose
+    paged kernel takes no split count."""
+    from repro_torch.bench import BlockConfig
+    from repro_torch.kernels.flash_decode import flash_decode_paged
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.quant import quantize_channelwise
+    if not hasattr(fd, "resolve_paged_splits"):
+        return []
+    hq, hkv, d, ps, layers = 32, 8, 128, 16, 8
+    rows = []
+    for b, p_max, lengths in PAGED_SWEEP:
+        q, kp, vp, lens, tables, _ = paged_inputs(
+            torch, gen, dev, b, hq, hkv, d, ps, p_max, lengths, layers)
+        kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
+        kinds = [("flash_decode_paged", kp, vp, None),
+                 ("flash_decode_paged_f32", kp.float(), vp.float(), None),
+                 ("flash_decode_paged_int8", kq.q, vq.q,
+                  (kq.scale[..., 0], vq.scale[..., 0]))]
+        for name, kk, vv, sc in kinds:
+            def kernel(i, cfg):
+                kw = {} if sc is None else dict(k_scales=sc[0][i % layers],
+                                                v_scales=sc[1][i % layers])
+                return flash_decode_paged(q, kk[i % layers], vv[i % layers],
+                                          lens, tables, config=cfg, **kw)
+            rows.append(dict(
+                kernel=name, B=b, P_max=p_max, lengths=list(lengths),
+                splits=fd.resolve_paged_splits(
+                    b, hq, hkv, d, p_max, ps, sc is not None, "bfloat16",
+                    "cuda", kv_bytes=kk.element_size()),
+                split_us={n: 1e3 * cuda_ms(torch, lambda i: kernel(
+                    i, BlockConfig.make(chunk=32, splits=n)), 200)
+                    for n in fd.SPLITS}))
+        del q, kp, vp, kq, vq, kinds
+        torch.cuda.empty_cache()
+    return rows
+
+
 def projection_timing(torch, gen, dev, ms) -> list:
-    """B1 (``apr_matmul``) and its int8-weight operand at the llama3-8b
-    projection shapes and the lm_head, M in ``ms``: ms per call with the
-    weights rotated past the 50 MB L2, the plain version, ``torch.matmul``
-    (on the dequantized weight for int8), and the byte bound.  The int8
-    rows name the tile the wrapper resolves (``tile``)."""
+    """B1 (``apr_matmul``), its int8-weight operand and its fp32 operands
+    at the llama3-8b projection shapes and the lm_head, M in ``ms``: ms per
+    call with the weights rotated past the 50 MB L2, the plain version,
+    ``torch.matmul`` (on the dequantized weight for int8; in fp32 without
+    TF32 for fp32), and the bound (bytes, or the operations at the bf16 or
+    fp32 peak).  The int8 rows name the tile the wrapper resolves
+    (``tile``); the fp32 rows run where the tree has the fp32 kernel."""
     from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.quant import quantize_channelwise
@@ -1369,7 +1701,26 @@ def projection_timing(torch, gen, dev, ms) -> list:
                                               "bfloat16", "cuda", "apr",
                                               None, True)
             rows.append(row)
-            del qts, deqs, x
+            del qts, deqs
+            if hasattr(mm, "F32_CONFIG"):
+                nb32 = min(32, max(1, math.ceil(200e6 / (k * n * 4))))
+                w32 = [torch.randn((k, n), generator=gen, device=dev)
+                       * k ** -0.5 for _ in range(nb32)]
+                x32 = x.float()
+                t_k = cuda_ms(torch, lambda i: apr_matmul(
+                    x32, w32[i % nb32], out_dtype=torch.float32), iters)
+                t_p = cuda_ms(torch, lambda i: matmul_ref(
+                    x32, w32[i % nb32], torch.float32), iters)
+                t_l = cuda_ms(torch, lambda i: torch.matmul(
+                    x32, w32[i % nb32]), iters)
+                rows.append(dict(kernel="apr_matmul_f32", M=m, K=k, N=n,
+                                 ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                 weight_buffers=nb32,
+                                 **bound_ms(4 * (m * k + k * n + m * n),
+                                            2 * m * k * n,
+                                            FP32_FLOPS_PER_S)))
+                del w32, x32
+            del x
     torch.cuda.empty_cache()
     return rows
 
@@ -1393,11 +1744,14 @@ def print_timing_row(r) -> None:
 
 def kernel_sweep(torch, out: Path) -> None:
     """``--kernel-sweep``: build ``flash_decode.cu`` and ``apr_matmul.cu``,
-    print their registers and spills, time B3 against its longest length
-    (:data:`DECODE_SWEEP`) and B1 with bf16 and int8 weights at the
-    projection shapes (M = 4 and 16); writes ``out``.  It uses only entry
-    points every version of the port has, so a copy of this script beside
-    an older tree times that tree's kernels."""
+    print their registers and spills, time B2 over bf16, fp32 and int8
+    pools (B2q) at the serving shape (at each split count where the tree
+    takes one) and at each split count over :data:`PAGED_SWEEP`, B3
+    against its longest length (:data:`DECODE_SWEEP`) and over an fp32
+    cache (:data:`DECODE_TIMING`), and B1 with bf16, int8 and fp32 weights
+    at the projection shapes (M = 4 and 16); writes ``out``.  It uses only entry points every version of the
+    port has, so a copy of this script beside an older tree times that
+    tree's kernels."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.kernels.flash_decode import ops as fd
@@ -1410,17 +1764,25 @@ def kernel_sweep(torch, out: Path) -> None:
             if "Used" in line or "spill" in line or "Compiling" in line]
     for line in regs:
         print(f"    {line}")
-    rows = decode_timing(torch, gen, dev, DECODE_SWEEP)
+    rows = paged_timing(torch, gen, dev)
+    rows += decode_timing(torch, gen, dev, DECODE_SWEEP)
+    rows += decode_timing(torch, gen, dev, DECODE_TIMING, torch.float32)
     rows += projection_timing(torch, gen, dev, PROJ_MS)
     for r in rows:
         print_timing_row(r)
+    splits = paged_split_sweep(torch, gen, dev)
+    for r in splits:
+        print(f"    {r['kernel']:23s} B={r['B']:<2d} P_max={r['P_max']:<3d} "
+              f"lengths={r['lengths'][:4]} default splits={r['splits']}: "
+              + ", ".join(f"{n}: {t:.2f}" for n, t in r["split_us"].items())
+              + " us")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(dict(card=smi, ptxas=regs, timing=rows),
-                              indent=1))
+    out.write_text(json.dumps(dict(card=smi, ptxas=regs, timing=rows,
+                                   paged_splits=splits), indent=1))
 
 
 def identity_ablation(torch, seed: int) -> dict:
@@ -1548,9 +1910,10 @@ def main() -> int:
                          "chiprun_out/identity_ablation.json")
     ap.add_argument("--kernel-sweep", action="store_true",
                     help="only build flash_decode.cu and apr_matmul.cu, "
-                         "print their registers and spills and time B3 "
-                         "against its longest length and B1 with bf16 and "
-                         "int8 weights at the projection shapes "
+                         "print their registers and spills and time B2/B2q "
+                         "(at each split count over PAGED_SWEEP too), B3 "
+                         "against its longest length and B1 with bf16, "
+                         "int8 and fp32 weights at the projection shapes "
                          "(kernel_sweep); writes --out")
     args = ap.parse_args()
 
@@ -1571,9 +1934,9 @@ def main() -> int:
     from repro_torch.kernels.apr_matmul import (apr_matmul, apr_matmul_fused,
                                                 matmul_ref)
     from repro_torch.kernels.apr_matmul import ops as apr_ops
-    from repro_torch.kernels.flash_decode import (
-        decode_attention_ref, flash_decode, flash_decode_paged, gather_pages,
-        paged_decode_attention_q_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_decode import (decode_attention_ref,
+                                                  flash_decode,
+                                                  flash_decode_paged)
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.mamba2 import mamba2_ssd
     from repro_torch.kernels.mamba2 import ops as mamba2_ops
@@ -1656,7 +2019,8 @@ def main() -> int:
             "flash_decode_paged_f32": 0.0, "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0,
             "rwkv6_wkv": 0.0, "mamba2_ssd": 0.0, "apr_matmul_hbm": 0.0,
             "apr_matmul_fused": 0.0, "quant_matmul": 0.0,
-            "quant_matmul_fused": 0.0}
+            "quant_matmul_fused": 0.0, "apr_matmul_f32": 0.0,
+            "apr_matmul_fused_f32": 0.0}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -1704,76 +2068,12 @@ def main() -> int:
                               ok and bits))
         del x, xb, w, qt, qb, w_deq
 
-    def paged_inputs(b, hq, hkv, d, ps, p_max, lengths, layers=1):
-        need = [-(-n // ps) for n in lengths]
-        p_pool = 1 + max(sum(need), 1) + 1
-        rng = np.random.default_rng(sum(lengths) + b)
-        perm = rng.permutation(np.arange(1, p_pool))
-        tables = np.zeros((b, p_max), np.int32)   # padding -> null page 0
-        at = 0
-        for i, n in enumerate(need):
-            tables[i, :n] = perm[at:at + n]
-            at += n
-        q = randn(b, hq, d)
-        kp = randn(layers, p_pool, ps, hkv, d)
-        vp = randn(layers, p_pool, ps, hkv, d)
-        return (q, kp, vp, torch.tensor(lengths, dtype=torch.int32, device=dev),
-                torch.from_numpy(tables).to(dev))
-
-    main_lengths = [40, 96, 150, 196]
-    fd_cases = [(4, 32, 8, 128, 16, 16, main_lengths),     # serving shape
-                (4, 32, 8, 128, 16, 16, [0, 1, 16, 17]),   # 0, 1, ps, ps+1
-                (3, 8, 2, 64, 8, 5, [33, 0, 7]),
-                (2, 14, 2, 64, 16, 4, [64, 5])]            # group of 7
-    for b, hq, hkv, d, ps, p_max, lengths in fd_cases:
-        q, kp, vp, lens, tables = paged_inputs(b, hq, hkv, d, ps, p_max,
-                                               lengths)
-        got = flash_decode_paged(q, kp[0], vp[0], lens, tables)
-        ref = paged_decode_attention_ref(q, kp[0], vp[0], lens, tables)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, ref)
-        zero_rows = [i for i, n in enumerate(lengths) if n == 0]
-        ok = ok and all(not got[i].float().any() for i in zero_rows)
-        errs["flash_decode_paged"] = max(errs["flash_decode_paged"], err)
-        cases.append(("flash_decode_paged", f"B={b} Hq={hq} Hkv={hkv} D={d} "
-                      f"ps={ps} P_max={p_max} lengths={lengths}", err, ok))
-        # the same pools as int8 codes with per-(slot, head) fp32 scales:
-        # against the plain version (bf16-rounded dequant, Q_ATOL) and the
-        # plain version on fp32-dequantized pools (bf16 tolerance)
-        kq, vq = (quantize_channelwise(t[0], axis=-1) for t in (kp, vp))
-        ks, vs = kq.scale[..., 0], vq.scale[..., 0]
-        got = flash_decode_paged(q, kq.q, vq.q, lens, tables, k_scales=ks,
-                                 v_scales=vs)
-        ref = paged_decode_attention_q_ref(q, kq.q, vq.q, ks, vs, lens,
-                                           tables)
-        ref32 = paged_decode_attention_ref(
-            q.float(), kq.dequantize(torch.float32),
-            vq.dequantize(torch.float32), lens, tables).to(torch.bfloat16)
-        torch.cuda.synchronize()
-        err, ok = max_err(got, ref, Q_ATOL)
-        err32, ok32 = max_err(got, ref32)
-        ok = ok and ok32 and all(not got[i].float().any() for i in zero_rows)
-        errs["flash_decode_paged_int8"] = max(
-            errs["flash_decode_paged_int8"], err)
-        cases.append(("flash_decode_paged_int8", f"B={b} Hq={hq} Hkv={hkv} "
-                      f"D={d} ps={ps} P_max={p_max} lengths={lengths} "
-                      f"fp32-dequant err={err32:.3g}", err, ok))
-        # the same pools in fp32 (kv_dtype="float32"), under a bf16 and an
-        # fp32 q; the output has q's dtype
-        k32, v32 = kp[0].float(), vp[0].float()
-        for qq in (q, q.float()):
-            got = flash_decode_paged(qq, k32, v32, lens, tables)
-            ref = paged_decode_attention_ref(qq, k32, v32, lens, tables)
-            torch.cuda.synchronize()
-            err, ok = max_err(got, ref)
-            ok = ok and got.dtype == qq.dtype and all(
-                not got[i].float().any() for i in zero_rows)
-            errs["flash_decode_paged_f32"] = max(
-                errs["flash_decode_paged_f32"], err)
-            cases.append(("flash_decode_paged_f32", f"B={b} Hq={hq} "
-                          f"Hkv={hkv} D={d} ps={ps} P_max={p_max} "
-                          f"lengths={lengths} {str(qq.dtype)[6:]} q", err,
-                          ok))
+    # the paged kernels (B2, B2q, fp32 pools) at every split count, each
+    # case twice for equal bits and with out-of-pool table padding
+    paged_cases, b2_det = paged_correctness(torch, gen, dev)
+    for name, case, err, ok in paged_cases:
+        errs[name] = max(errs[name], err)
+        cases.append((name, case, err, ok))
 
     # the contiguous cache of the slot engine, rows of length 0 included:
     # they return the mean of V over all S positions, as the JAX kernel
@@ -1876,15 +2176,19 @@ def main() -> int:
                 cases.append(("apr_conv", f"{conv_label(xs, fs, s, p, 0)} "
                               f"{act}, {bname}", err, ok))
     for name, case, err, ok in (scan_correctness(torch, gen, dev)
-                                + matmul_family_correctness(torch, gen,
-                                                            dev)):
+                                + matmul_family_correctness(torch, gen, dev)
+                                + matmul_f32_correctness(torch, gen, dev)):
         errs[name] = max(errs[name], err)
         cases.append((name, case, err, ok))
     print(f"[2] kernel vs plain version on the card (tolerance "
           f"{BF16_RTOL:.4g}*|plain| + {ATOL:g}; int8 pools "
-          f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; flash_decode at every "
-          f"split count, and twice on the same inputs bit-equal "
-          f"({sum(b3_det)}/{len(b3_det)}); conv kernels "
+          f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; flash_decode and "
+          f"flash_decode_paged at every split count, and twice on the same "
+          f"inputs bit-equal ({sum(b3_det)}/{len(b3_det)}, "
+          f"{sum(b2_det)}/{len(b2_det)}); apr_matmul_f32 and its fused form "
+          f"{F32_MM_SLACK:g}*K*2^-24*(|x|@|w| + |bias|) + "
+          f"{F32_MM_ULPS}*2^-24*|plain| (+ {BF16_RTOL:.4g}*|plain| for bf16 "
+          f"out); conv kernels "
           f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|; scans: y "
           f"{BF16_RTOL:.4g}*|plain| + {SCAN_ATOL_REL:g}*max|plain|, fp32 "
           f"state {STATE_RTOL:g}*(|plain| + max|plain|); matmul families "
@@ -1913,77 +2217,9 @@ def main() -> int:
     slots = 4
     timing = projection_timing(torch, gen, dev, (slots, 16))
     per_shape = {(r["kernel"], r["M"], r["K"], r["N"]): r for r in timing}
-    b, hq, hkv, d, ps, p_max = 4, 32, 8, 128, 16, 16
-    layers = 32
-    q, kp, vp, lens, tables = paged_inputs(b, hq, hkv, d, ps, p_max,
-                                           main_lengths, layers=layers)
-    live = torch.arange(p_max * ps, device=dev)[None] < lens[:, None].long()
-
-    def library_attention(i, kpool=kp, vpool=vp):
-        kk = gather_pages(kpool[i % layers], tables).permute(0, 2, 1, 3)
-        vv = gather_pages(vpool[i % layers], tables).permute(0, 2, 1, 3)
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None].to(kk.dtype), kk, vv,
-            attn_mask=live[:, None, None], enable_gqa=True).to(q.dtype)
-
-    t_k = cuda_ms(torch, lambda i: flash_decode_paged(
-        q, kp[i % layers], vp[i % layers], lens, tables), 200)
-    t_p = cuda_ms(torch, lambda i: paged_decode_attention_ref(
-        q, kp[i % layers], vp[i % layers], lens, tables), 50)
-    t_l = cuda_ms(torch, library_attention, 50)
-    tokens = sum(main_lengths)
-    fd_bytes = (2 * b * hq * d * 2 + tokens * hkv * d * 2 * 2
-                + b * (p_max + 1) * 4)
-    fd_row = dict(kernel="flash_decode_paged", B=b, Hq=hq, Hkv=hkv, D=d,
-                  ps=ps, P_max=p_max, lengths=main_lengths, ms=t_k,
-                  plain_ms=t_p, library_ms=t_l,
-                  **bound_ms(fd_bytes, 4 * tokens * hq * d))
-    timing.append(fd_row)
-    # the same pools in fp32 (kv_dtype="float32" under a bf16 model): 4
-    # bytes a K/V value; the library runs SDPA in fp32
-    k32, v32 = kp.float(), vp.float()
-    t_k = cuda_ms(torch, lambda i: flash_decode_paged(
-        q, k32[i % layers], v32[i % layers], lens, tables), 200)
-    t_p = cuda_ms(torch, lambda i: paged_decode_attention_ref(
-        q, k32[i % layers], v32[i % layers], lens, tables), 50)
-    t_l = cuda_ms(torch, lambda i: library_attention(i, k32, v32), 50)
-    fd32_row = dict(kernel="flash_decode_paged_f32", B=b, Hq=hq, Hkv=hkv,
-                    D=d, ps=ps, P_max=p_max, lengths=main_lengths, ms=t_k,
-                    plain_ms=t_p, library_ms=t_l,
-                    **bound_ms(fd_bytes + tokens * hkv * d * 2 * 2,
-                               4 * tokens * hq * d))
-    timing.append(fd32_row)
-    del k32, v32
-    # the same pools as int8 codes with per-(slot, head) fp32 scales
-    kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
-    ks, vs = kq.scale[..., 0], vq.scale[..., 0]
-    del kp, vp
-
-    def library_attention_q(i):
-        lay = i % layers
-        kk, vv = ((gather_pages(c.q[lay], tables).float()
-                   * gather_pages(sc[lay], tables)[..., None]
-                   ).to(torch.bfloat16).permute(0, 2, 1, 3)
-                  for c, sc in ((kq, ks), (vq, vs)))
-        return torch.nn.functional.scaled_dot_product_attention(
-            q[:, :, None], kk, vv, attn_mask=live[:, None, None],
-            enable_gqa=True)
-
-    t_k = cuda_ms(torch, lambda i: flash_decode_paged(
-        q, kq.q[i % layers], vq.q[i % layers], lens, tables,
-        k_scales=ks[i % layers], v_scales=vs[i % layers]), 200)
-    t_p = cuda_ms(torch, lambda i: paged_decode_attention_q_ref(
-        q, kq.q[i % layers], vq.q[i % layers], ks[i % layers],
-        vs[i % layers], lens, tables), 50)
-    t_l = cuda_ms(torch, library_attention_q, 50)
-    fdq_bytes = (2 * b * hq * d * 2 + tokens * hkv * (d + 4) * 2
-                 + b * (p_max + 1) * 4)
-    fdq_row = dict(kernel="flash_decode_paged_int8", B=b, Hq=hq, Hkv=hkv,
-                   D=d, ps=ps, P_max=p_max, lengths=main_lengths, ms=t_k,
-                   plain_ms=t_p, library_ms=t_l,
-                   **bound_ms(fdq_bytes, 4 * tokens * hq * d))
-    timing.append(fdq_row)
-    del kq, vq, ks, vs, q
+    # B2 over bf16, fp32 and int8 pools at the phase-4 lengths
+    fd_row, fd32_row, fdq_row = paged_timing(torch, gen, dev)
+    timing += [fd_row, fd32_row, fdq_row]
     # the slot engine's contiguous cache at max_seq 256, same lengths, and a
     # 4096-token cache near full; the bound counts the live tokens' K and V
     decode_rows = decode_timing(torch, gen, dev, DECODE_TIMING)
@@ -2119,21 +2355,24 @@ def main() -> int:
     def verdict(t, lib):
         return "at or below" if t <= lib else f"{t / lib:.2f}x"
 
-    for name in ("apr_matmul", "apr_matmul_int8w"):
+    for name in ("apr_matmul", "apr_matmul_int8w", "apr_matmul_f32"):
         t = {key: per_tick(key, name) for key in ("ms", "library_ms",
                                                   "bound_ms")}
         print(f"    {name} per full-width decode tick (225 projections at "
               f"M={slots}): {t['ms']:.3f} ms, torch.matmul "
               f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms: "
               f"{verdict(t['ms'], t['library_ms'])} its library call")
-    for r in [fd_row, fd32_row] + decode_rows:
+    for r in [fd_row, fd32_row, fdq_row] + decode_rows:
         s_len = r["S"] if "S" in r else r["P_max"] * r["ps"]
         print(f"    {r['kernel']} S={s_len} "
               f"lengths={r['lengths']}: "
               f"{r['ms'] * 1e3:.2f} us a launch, {32 * r['ms']:.3f} ms per "
               f"32-layer tick; masked SDPA {r['library_ms'] * 1e3:.2f} us, "
               f"bound {r['bound_ms'] * 1e3:.2f} us: "
-              f"{verdict(r['ms'], r['library_ms'])} its library call")
+              f"{verdict(r['ms'], r['library_ms'])} its library call"
+              + (f"; at its best split count "
+                 f"{min(r['split_ms'].values()) * 1e3:.2f} us"
+                 if "split_ms" in r else ""))
 
     phase_done("phase 3")
 
@@ -2154,6 +2393,8 @@ def main() -> int:
         apr_matmul.tile_launches.clear()
         apr_matmul.int8_tile_launches.clear()
         apr_matmul_fused.launches = 0
+        apr_matmul.f32_launches = 0
+        apr_matmul_fused.f32_launches = 0
         quant_matmul.launches = 0
         quant_matmul_fused.launches = 0
 
@@ -2168,6 +2409,8 @@ def main() -> int:
                 "mamba2_ssd": mamba2_ssd.launches,
                 "apr_matmul_hbm": apr_matmul.hbm_launches,
                 "apr_matmul_fused": apr_matmul_fused.launches,
+                "apr_matmul_f32": apr_matmul.f32_launches,
+                "apr_matmul_fused_f32": apr_matmul_fused.f32_launches,
                 "quant_matmul": quant_matmul.launches,
                 "quant_matmul_fused": quant_matmul_fused.launches}
 
@@ -2261,6 +2504,7 @@ def main() -> int:
 
     # one decode tick at the phase-3 lengths: 4 slots, one new token each,
     # pages of 16 in the engine's 16-page table width
+    main_lengths = MAIN_LENGTHS
     need = [-(-(n + 1) // 16) for n in main_lengths]
     tick_tables = np.zeros((slots, 16), np.int32)
     at = 1
@@ -2615,6 +2859,67 @@ def main() -> int:
     check_served("phase 5 fp32 pools", fp32_reqs, 6, fp32_launches,
                  fp32_expect)
     del fp32_eng
+    # a model with fp32 parameters (the smoke weights in fp32) on fp32 KV
+    # pools, served by the PagedServeEngine on the card (apr_matmul_f32
+    # under every projection, B2 over fp32 pools at every decode tick) and
+    # on the CPU (plain versions): every forward's live logits within
+    # F32_SMOKE_LOGITS_BOUND, greedy tokens equal
+    f32_prm = {k: v.float() for k, v in smoke_params["bf16"].items()}
+    f32_logits, f32_reqs = {}, {}
+    for side, where in (("cpu", "cpu"), ("card", "cuda")):
+        b_ = bundles[where]
+        inner, store = b_.decode_paged, []
+        f32_logits[side] = store
+
+        def recorded(*a, inner=inner, store=store):
+            logits = inner(*a)
+            counts = a[4].long().cpu()
+            live = torch.arange(logits.shape[1])[None] < counts[:, None]
+            store.append(logits.float().cpu()[live])
+            return logits
+
+        b_.decode_paged = recorded
+        eng = PagedServeEngine(b_, {k: v.to(where) for k, v in
+                                    f32_prm.items()}, device=where, slots=2,
+                               page_size=8, prefill_chunk=8,
+                               kv_dtype="float32")
+        f32_reqs[side] = [Request(rid=i, prompt=smoke_tokens[i].tolist(),
+                                  max_new_tokens=6) for i in range(2)]
+        finite.clear()
+        reset_counts()
+        for r in f32_reqs[side]:
+            eng.submit(r)
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        b_.decode_paged = inner
+        if side == "card":
+            fm = eng.metrics
+            f32p_launches = llm_counts()
+            f32p_expect = expected_counts(
+                apr_matmul_f32=(7 * scfg.num_layers + 1) * (
+                    fm.decode_calls + fm.prefill_calls),
+                flash_decode_paged_f32=scfg.num_layers * fm.decode_calls)
+        del eng
+    diffs = [float((c - g).abs().max()) for c, g in
+             zip(f32_logits["cpu"], f32_logits["card"])]
+    tokens = {w: [r.output for r in rs] for w, rs in f32_reqs.items()}
+    report["serve_fp32_params_smoke"] = dict(
+        forwards=len(diffs), max_abs_logits_diff=max(diffs),
+        per_forward=diffs, bound=F32_SMOKE_LOGITS_BOUND, tokens=tokens,
+        launches=f32p_launches, expected_launches=f32p_expect)
+    print(f"    PagedServeEngine on the smoke model with fp32 parameters and "
+          f"fp32 KV pools: {len(diffs)} forwards, max |logits diff| card vs "
+          f"CPU {max(diffs):.3g} (bound {F32_SMOKE_LOGITS_BOUND:g}), greedy "
+          f"tokens card {tokens['card']} CPU {tokens['cpu']}; launches "
+          f"{f32p_launches} (expected {f32p_expect})")
+    check_served("phase 5 fp32 params", f32_reqs["card"], 6, f32p_launches,
+                 f32p_expect)
+    if len(f32_logits["cpu"]) != len(f32_logits["card"]) or not all(
+            math.isfinite(x) and x <= F32_SMOKE_LOGITS_BOUND for x in diffs):
+        fail("phase 5 fp32 params: card and CPU logits differ beyond the "
+             "bound")
+    if tokens["card"] != tokens["cpu"]:
+        fail("phase 5 fp32 params: greedy tokens differ between card and CPU")
 
     phase_done("phase 5")
 
@@ -2849,6 +3154,10 @@ def main() -> int:
                    "src/repro/kernels/apr_matmul/kernel.py:139",
                    serve_q["launches"]["apr_matmul_int8w"],
                    kernel="apr_matmul_int8w"),
+        tick_entry("apr_matmul_f32", mm_src,
+                   "src/repro/kernels/apr_matmul/kernel.py:139",
+                   report["serve_fp32_params_smoke"]["launches"][
+                       "apr_matmul_f32"], kernel="apr_matmul_f32"),
         tick_entry("flash_decode_paged", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
                    serve["launches"]["flash_decode_paged"], row=fd_row),
@@ -2917,13 +3226,16 @@ def main() -> int:
             else "operations", library_ms=t["library_ms"]))
     report["kernels"] = kernels
     report["kernels_note"] = (
-        "apr_matmul, apr_matmul_int8w, flash_decode_paged, "
-        "flash_decode_paged_f32, flash_decode_paged_int8 and flash_decode: ms, plain_ms, bound_ms and "
-        "library_ms are per full-width decode tick (4 slots): 225 projection "
-        "shapes, 32 decode-attention launches at the phase-3 lengths "
-        "(flash_decode over a max_seq-256 contiguous cache); launches are "
-        "those of phase 4 (bf16 paged), 4f (fp32 KV pages), 4b (int8 "
-        "paged) and 4c (slot). flash_decode_f32 (B3 over an fp32 cache) has "
+        "apr_matmul, apr_matmul_int8w, apr_matmul_f32, flash_decode_paged, "
+        "flash_decode_paged_f32, flash_decode_paged_int8 and flash_decode: "
+        "ms, plain_ms, bound_ms and library_ms are per full-width decode "
+        "tick (4 slots): 225 projection shapes (apr_matmul_f32 on fp32 "
+        "weights, library torch.matmul in fp32 without TF32), 32 "
+        "decode-attention launches at the phase-3 lengths (flash_decode "
+        "over a max_seq-256 contiguous cache); launches are those of phase "
+        "4 (bf16 paged), 4f (fp32 KV pages), 4b (int8 paged), 4c (slot) and "
+        "5 (apr_matmul_f32: the fp32-param smoke model served on fp32 "
+        "pools). flash_decode_f32 (B3 over an fp32 cache) has "
         "phase-2 cases and a phase-3 row but no entry: no serving path "
         "launches it (the slot engine's cache is bf16). "
         "apr_conv and apr_conv_hbm: per ResNet-20 forward at batch "

@@ -38,7 +38,7 @@ import json
 import os
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 SCHEMA_VERSION = 1
 _ENV_VAR = "REPRO_TORCH_TUNE_CACHE"
@@ -169,6 +169,14 @@ class ConfigCache:
         if self.autosave:
             self.save()
 
+    def entries(self) -> Dict[str, dict]:
+        with self._lock:
+            return dict(self._entries)
+
+    def keys_for_kernel(self, kernel: str) -> Iterable[str]:
+        prefix = kernel + "|"
+        return [k for k in self.entries() if k.startswith(prefix)]
+
     def __len__(self) -> int:
         return len(self._entries)
 
@@ -258,6 +266,18 @@ def resolve_config(
         if pinned:
             base = base.replace(**pinned)
     return base
+
+
+def pin_config(config: Optional[BlockConfig],
+               **explicit: Optional[int]) -> Optional[BlockConfig]:
+    """``config`` with the per-parameter kwargs a wrapper's caller pinned
+    (the non-None ``explicit`` values, e.g. ``block_m`` or ``chunk``) laid
+    over it, as :func:`resolve_config` lays ``explicit`` over ``override``;
+    ``config`` itself when nothing is pinned."""
+    pinned = {k: v for k, v in explicit.items() if v is not None}
+    if not pinned:
+        return config
+    return (config or BlockConfig()).replace(**pinned)
 
 
 def resolve_cached(kernel: str, dims: tuple, dtype: str, backend: str, *,

@@ -15,11 +15,11 @@ and at ``bfloat16`` they count what the card's kernels move.  The
 
 Tune spaces: the four matmul families list exactly the tiles
 ``apr_matmul.cu`` and ``quant_matmul.cu`` compile (six each; five for the
-int8-weight kernel).  ``flash_decode`` lists the split counts its kernel
-takes (1, 2, 4, 8) at its one chunk.  ``apr_conv``, ``apr_conv_fused``,
-``flash_decode_paged``, ``mamba2`` and ``rwkv6`` have kernels compiled for
-one configuration, so their spaces have one point (widening them is later
-performance work).
+int8-weight kernel).  ``flash_decode`` and ``flash_decode_paged`` list the
+split counts their kernels take (1, 2, 4, 8) at their one chunk.
+``apr_conv``, ``apr_conv_fused``, ``mamba2`` and ``rwkv6`` have kernels
+compiled for one configuration, so their spaces have one point (widening
+them is later performance work).
 
 A shape of ``apr_matmul`` with ``"hbm": 1`` selects the memory-resident
 baseline (``residency="hbm"``, shape key ``_reshbm``), one with
@@ -470,7 +470,8 @@ register(KernelSpec(
     make_inputs=_paged_decode_inputs,
     run=_paged_decode_run,
     ref=_paged_decode_ref,
-    tune_space=lambda shape: _one_point(decode_ops.COMPILED),
+    tune_space=lambda shape: TuneSpace.make(
+        chunk=(decode_ops.COMPILED["chunk"],), splits=decode_ops.SPLITS),
     default_config=lambda s: decode_ops.paged_default_config(
         s["b"], s["hq"], s["hkv"], s["d"], s["pages"], s["ps"]),
     shape_key=lambda s: decode_ops.paged_shape_key(

@@ -80,6 +80,22 @@
 //    run the MMAs of stage t, all measured slower;
 //  * rows of A at or past M are zero-filled and their outputs dropped; the
 //    flush writes each accumulator straight from registers (masked).
+//
+// fp32 variant (apr_matmul_f32, B1 and B7m for fp32 operands): A and B
+// fp32, every product and sum an fp32 FMA (no TF32: the plain version on
+// the card is torch.matmul in full fp32, and the JAX kernel multiplies fp32
+// operands in fp32).  Bound: 4 bytes a weight element, twice the bf16
+// kernel's bytes.  One tile, a simple kernel that is right first:
+//  * a block owns 16 rows x 32 columns of C; its 8 warps cut K into 8
+//    contiguous slices, and lane l of every warp owns column n0 + l: 16
+//    fp32 accumulators in registers across the warp's whole K slice (the
+//    APR), no partial sum in memory;
+//  * B rows are read 8 at a time, 8 independent coalesced 128-byte loads
+//    a warp in flight; A values are warp-wide broadcasts (float4 when K %
+//    4 == 0 and A is 16-byte aligned), read through the L1;
+//  * the flush adds the 8 slices in warp order through shared memory (a
+//    fixed order, so the same inputs give the same bits) and applies bias
+//    and activation (epilogue.cuh) before the single write, bf16 or fp32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -520,6 +536,86 @@ int launch_int8w(const void* a, const void* b, const void* scale, void* c,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------ the fp32 kernel
+constexpr int F32_BM = 16, F32_BN = 32, F32_KU = 8;  // rows, cols, K unroll
+constexpr int F32_WARPS = 8, F32_THREADS = 32 * F32_WARPS;
+
+template <bool VEC>
+__global__ void __launch_bounds__(F32_THREADS)
+    f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+               const float* __restrict__ bias, void* c, int M, int N, int K,
+               int out_f32, int act) {
+  __shared__ float red_s[F32_WARPS][F32_BM][F32_BN + 1];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n0 = blockIdx.x * F32_BN, m0 = blockIdx.y * F32_BM;
+  const int n = n0 + lane, rows = min(F32_BM, M - m0);
+  // this warp's K slice: a multiple of F32_KU wide, so float4 loads align
+  const int slice =
+      (K + F32_WARPS * F32_KU - 1) / (F32_WARPS * F32_KU) * F32_KU;
+  const int k0 = min(K, warp * slice), k1 = min(K, k0 + slice);
+  const bool col = n < N;
+  const float* bp = b + (col ? n : 0);
+  const float* ap = a + (size_t)m0 * K;
+
+  float acc[F32_BM];
+#pragma unroll
+  for (int m = 0; m < F32_BM; ++m) acc[m] = 0.0f;
+  int k = k0;
+  for (; k + F32_KU <= k1; k += F32_KU) {
+    float w[F32_KU];
+#pragma unroll
+    for (int i = 0; i < F32_KU; ++i)
+      w[i] = col ? __ldg(bp + (size_t)(k + i) * N) : 0.0f;
+#pragma unroll
+    for (int m = 0; m < F32_BM; ++m) {
+      if (m < rows) {
+        const float* xr = ap + (size_t)m * K + k;
+        float x[F32_KU];
+        if (VEC) {
+#pragma unroll
+          for (int i = 0; i < F32_KU; i += 4) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(xr + i));
+            x[i] = v.x;
+            x[i + 1] = v.y;
+            x[i + 2] = v.z;
+            x[i + 3] = v.w;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < F32_KU; ++i) x[i] = __ldg(xr + i);
+        }
+#pragma unroll
+        for (int i = 0; i < F32_KU; ++i) acc[m] = fmaf(x[i], w[i], acc[m]);
+      }
+    }
+  }
+  for (; k < k1; ++k) {
+    const float w = col ? __ldg(bp + (size_t)k * N) : 0.0f;
+#pragma unroll
+    for (int m = 0; m < F32_BM; ++m)
+      if (m < rows) acc[m] = fmaf(__ldg(ap + (size_t)m * K + k), w, acc[m]);
+  }
+#pragma unroll
+  for (int m = 0; m < F32_BM; ++m) red_s[warp][m][lane] = acc[m];
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < F32_BM * F32_BN; idx += F32_THREADS) {
+    const int r = idx / F32_BN, cl = idx % F32_BN;
+    const int gm = m0 + r, gn = n0 + cl;
+    if (gm < M && gn < N) {
+      float v = red_s[0][r][cl];
+#pragma unroll
+      for (int w = 1; w < F32_WARPS; ++w) v += red_s[w][r][cl];
+      if (bias != nullptr) v = __fadd_rn(v, bias[gn]);
+      v = activate(v, act);
+      const size_t o = (size_t)gm * N + gn;
+      if (out_f32)
+        static_cast<float*>(c)[o] = v;
+      else
+        static_cast<__nv_bfloat16*>(c)[o] = __float2bfloat16(v);
+    }
+  }
+}
+
 // The bf16 tiles (BM, BN, BK) compiled; bench/specs.py's apr_matmul space
 // lists the same
 #define APR_MATMUL_TILES(X) \
@@ -573,6 +669,27 @@ extern "C" int apr_matmul_int8w(const void* a, const void* b,
   INT8W_TILES(INT8W_DISPATCH)
 #undef INT8W_DISPATCH
   return (int)cudaErrorInvalidValue;
+}
+
+// C (M, N) = act(A (M, K) · B (K, N) + bias) with fp32 A and B, row-major
+// and contiguous, fp32 FMAs throughout; bias fp32 (N,) or null; act as in
+// epilogue.cuh; C bf16 (out_f32 == 0) or fp32.  One compiled tile (16 rows
+// x 32 columns, K cut over 8 warps, 8 K rows a load step).  Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int apr_matmul_f32(const void* a, const void* b, const void* bias,
+                              void* c, int m, int n, int k, int out_f32,
+                              int act, void* stream) {
+  if (m <= 0 || n <= 0 || k < 0 || act < 0 || act > 3 ||
+      (m + F32_BM - 1) / F32_BM > 65535)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  void (*kernel)(const float*, const float*, const float*, void*, int, int,
+                 int, int, int) = vec ? f32_kernel<true> : f32_kernel<false>;
+  dim3 grid((n + F32_BN - 1) / F32_BN, (m + F32_BM - 1) / F32_BM);
+  kernel<<<grid, F32_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const float*>(bias), c, m, n, k, out_f32, act);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

@@ -18,7 +18,9 @@ wrapper raises :class:`~repro_torch.bench.TileError` before any launch.
 The int8-weight operand has a kernel and tiles of its own
 (:data:`INT8W_TILES`); it tunes within the ``apr_matmul`` family under the
 shape key's ``_wint8`` suffix (the JAX package has no such kernel, so no
-JAX key carries it).
+JAX key carries it).  fp32 operands (an fp32 ``x`` with an fp32 weight)
+have a kernel of their own compiled for one tile (:data:`F32_CONFIG`),
+resolved under the JAX package's keys at dtype ``float32``.
 """
 from __future__ import annotations
 
@@ -28,8 +30,8 @@ from typing import Optional, Union
 import torch
 
 from ...bench.config import (BlockConfig, TileError, dtype_name,
-                             resolve_cached, resolve_config,
-                             shape_key_from_dims)
+                             pin_config, resolve_cached, resolve_config,
+                             resolve_fixed, shape_key_from_dims)
 from ...core.apr import reduction_hbm_traffic
 from ...quant import QuantizedTensor
 from ...roofline.hw import get_profile
@@ -43,6 +45,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "apr_matmul_bf16": (ctypes.c_int, [_P] * 5 + [_I] * 10 + [_P]),
     "apr_matmul_int8w": (ctypes.c_int, [_P] * 4 + [_I] * 6 + [_P]),
+    "apr_matmul_f32": (ctypes.c_int, [_P] * 4 + [_I] * 5 + [_P]),
+}
+#: (x dtype, weight dtype) pairs each kernel family is compiled for; int8
+#: is a :class:`QuantizedTensor`'s codes (with its fp32 scales)
+KERNEL_DTYPES = {
+    KERNEL_NAME: frozenset({(torch.bfloat16, torch.bfloat16),
+                            (torch.bfloat16, torch.int8),
+                            (torch.float32, torch.float32)}),
+    FUSED_KERNEL_NAME: frozenset({(torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.float32)}),
 }
 #: the (block_m, block_n, block_k) tiles ``apr_matmul.cu`` compiles
 #: (``APR_MATMUL_TILES``) for the bf16 APR, memory-resident and fused kernels
@@ -54,6 +66,9 @@ DEFAULT_TILE = (16, 64, 64)
 #: (``INT8W_TILES`` in ``apr_matmul.cu``); every one gives the same bits
 INT8W_TILES = ((16, 16, 128), (16, 32, 64), (16, 64, 64), (16, 32, 128),
                (16, 64, 128))
+#: the one tile of the fp32 kernel (``F32_BM``, ``F32_BN``, ``F32_KU`` in
+#: ``apr_matmul.cu``: 16 rows x 32 columns a block, 8 K rows a load step)
+F32_CONFIG = BlockConfig.make(block_m=16, block_n=32, block_k=8)
 RESIDENCIES = ("apr", "hbm")
 _STAGES = 4                                   # the bf16 cp.async ring
 
@@ -157,13 +172,59 @@ def resolve_tile(kernel: str, m: int, k: int, n: int, dtype: str,
     return _tile(cfg, w_int8)
 
 
-def _check(x: torch.Tensor, w: torch.Tensor, wdtype: torch.dtype,
-           out_dtype: torch.dtype, what: str) -> None:
+def resolve_f32(kernel: str, m: int, k: int, n: int,
+                config: Optional[BlockConfig] = None) -> BlockConfig:
+    """The fp32 kernel's configuration for a launch of ``kernel``: whatever
+    resolves under the family's key at dtype ``float32`` must be
+    :data:`F32_CONFIG`, or :class:`~repro_torch.bench.TileError` is
+    raised."""
+    return resolve_fixed(kernel, (m, k, n, "apr"), "float32", "cuda",
+                         shape_key=_SHAPE_KEYS[kernel], compiled=F32_CONFIG,
+                         config=config)
+
+
+def _launch_f32(x: torch.Tensor, w: torch.Tensor,
+                bias: Optional[torch.Tensor], activation: str,
+                out_dtype: torch.dtype, kernel: str,
+                config: Optional[BlockConfig], wrapper) -> torch.Tensor:
+    """``activation(x @ w + bias)`` on fp32 operands by ``apr_matmul_f32``
+    for family ``kernel``, whose configuration must resolve to
+    :data:`F32_CONFIG`; ``bias`` fp32 (N,) or None.  A launch adds one to
+    ``wrapper.f32_launches``."""
+    (m, k), n = x.shape, w.shape[1]
+    resolve_f32(kernel, m, k, n, config)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    lib = _build.load(LIBRARY, SIGNATURES)
+    err = lib.apr_matmul_f32(
+        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), m, n, k, int(out_dtype == torch.float32),
+        ACTIVATIONS[activation],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, kernel)
+    wrapper.f32_launches += 1
+    return out
+
+
+def check_dtypes(name: str, x_dtype: torch.dtype,
+                 w_dtype: torch.dtype) -> None:
+    """Raise ``TypeError`` unless kernel family ``name`` (``apr_matmul``
+    or ``apr_matmul_fused``) is compiled for an ``x`` of ``x_dtype`` and a
+    weight of ``w_dtype`` (:data:`KERNEL_DTYPES`)."""
+    pairs = KERNEL_DTYPES[name]
+    if (x_dtype, w_dtype) not in pairs:
+        raise TypeError(
+            f"{name} kernel takes (x, weight) dtypes "
+            f"{sorted((str(a)[6:], str(b)[6:]) for a, b in pairs)}, got "
+            f"{x_dtype} and {w_dtype}")
+
+
+def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
+           what: str) -> None:
     if not (x.is_cuda and w.is_cuda and x.device == w.device):
         raise ValueError(f"{what}: operands on {x.device} and {w.device}")
-    if x.dtype != torch.bfloat16 or w.dtype != wdtype:
-        raise TypeError(f"{what} kernel takes a bf16 x and a {wdtype} weight, "
-                        f"got {x.dtype} and {w.dtype}")
+    check_dtypes(what, x.dtype, w.dtype)
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{what} kernel writes bf16 or fp32, not {out_dtype}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:
@@ -173,6 +234,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, wdtype: torch.dtype,
 
 
 def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
+               block_m: Optional[int] = None, block_n: Optional[int] = None,
+               block_k: Optional[int] = None,
                out_dtype: torch.dtype = torch.float32,
                residency: str = "apr",
                config: Optional[BlockConfig] = None) -> torch.Tensor:
@@ -182,28 +245,36 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
     ``residency="apr"`` keeps the accumulator in registers across the whole
     K loop (one launch); ``"hbm"`` is the paper's baseline, whose fp32
     partial goes through global memory on every K step (one launch per
-    step; bf16 weights only), equal to the APR kernel at the same tile bit
+    step; bf16 operands only), equal to the APR kernel at the same tile bit
     for bit.  ``y`` is a bf16 tensor or an int8 :class:`QuantizedTensor`
-    with (1, N) fp32 scales; the int8-weight kernel equals the bf16 one on
-    the dequantized weight bit for bit.  CUDA tensors launch the kernel
-    (bf16 ``x``, ``out_dtype`` bf16 or fp32) or raise; CPU tensors take
-    :func:`matmul_ref`.  Each launch adds one to ``apr_matmul.launches``
-    (and to ``apr_matmul.tile_launches[tile]``), ``apr_matmul.hbm_launches``
-    (one per K step of the baseline) or ``apr_matmul.int8_launches`` (int8
-    weight; and ``apr_matmul.int8_tile_launches[tile]``)."""
+    with (1, N) fp32 scales under a bf16 ``x``, or an fp32 tensor under an
+    fp32 ``x`` (:data:`KERNEL_DTYPES`); the int8-weight kernel equals the
+    bf16 one on the dequantized weight bit for bit.  ``block_m``,
+    ``block_n`` and ``block_k`` pin the tile over ``config``, as the JAX
+    wrapper's kwargs do.  CUDA tensors launch the kernel (``out_dtype``
+    bf16 or fp32) or raise; CPU tensors take :func:`matmul_ref`.  Each
+    launch adds one to ``apr_matmul.launches`` (and to
+    ``apr_matmul.tile_launches[tile]``), ``apr_matmul.hbm_launches`` (one
+    per K step of the baseline), ``apr_matmul.int8_launches`` (int8 weight;
+    and ``apr_matmul.int8_tile_launches[tile]``) or
+    ``apr_matmul.f32_launches`` (fp32 operands)."""
     if residency not in RESIDENCIES:
         raise ValueError(f"unknown residency {residency!r}")
+    config = pin_config(config, block_m=block_m, block_n=block_n,
+                        block_k=block_k)
     quantized = isinstance(y, QuantizedTensor)
     w = y.q if quantized else y
     if x.device.type == "cpu" and w.device.type == "cpu":
         if quantized:
             w = y.dequantize(x.dtype)
         return matmul_ref(x, w, out_dtype)
-    if quantized and residency != "apr":
-        raise ValueError("apr_matmul: the memory-resident baseline takes a "
-                         "bf16 weight")
-    _check(x, w, torch.int8 if quantized else torch.bfloat16, out_dtype,
-           "apr_matmul")
+    _check(x, w, out_dtype, KERNEL_NAME)
+    if residency != "apr" and (quantized or x.dtype != torch.bfloat16):
+        raise ValueError("apr_matmul: the memory-resident baseline takes "
+                         "bf16 operands")
+    if x.dtype == torch.float32:
+        return _launch_f32(x, w, None, "none", out_dtype, KERNEL_NAME,
+                           config, apr_matmul)
     m, k = x.shape
     n = w.shape[1]
     if quantized and (y.scale.shape != (1, n)
@@ -262,21 +333,26 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
 apr_matmul.launches = 0
 apr_matmul.hbm_launches = 0
 apr_matmul.int8_launches = 0
+apr_matmul.f32_launches = 0
 apr_matmul.tile_launches = {}
 apr_matmul.int8_tile_launches = {}
 
 
 def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, *,
+                     block_m: Optional[int] = None,
+                     block_n: Optional[int] = None,
+                     block_k: Optional[int] = None,
                      activation: str = "relu",
                      out_dtype: torch.dtype = torch.float32,
                      config: Optional[BlockConfig] = None) -> torch.Tensor:
     """``activation(x @ y + bias)`` in one kernel: bias (``None``, ``(N,)``
     or ``(1, N)``, used in fp32) and the activation are applied to the fp32
     accumulator at its one flush, before the single write.  Tuned under its
-    own family name.  CUDA tensors launch the kernel (bf16 ``x`` and ``y``)
-    or raise; CPU tensors take :func:`matmul_fused_ref`.  Each launch adds
-    one to ``apr_matmul_fused.launches``."""
+    own family name; ``block_m``/``block_n``/``block_k`` pin the tile.
+    CUDA tensors launch the kernel (bf16 ``x`` and ``y``, or fp32 both) or
+    raise; CPU tensors take :func:`matmul_fused_ref`.  Each launch adds one
+    to ``apr_matmul_fused.launches`` (``.f32_launches`` for fp32)."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}; "
                          f"expected one of {tuple(ACTIVATIONS)}")
@@ -285,14 +361,19 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
         raise ValueError(f"apr_matmul_fused: bias {tuple(bias.shape)} for "
                          f"{n} output columns")
     tensors = (x, y) if bias is None else (x, y, bias)
+    config = pin_config(config, block_m=block_m, block_n=block_n,
+                        block_k=block_k)
     if all(t.device.type == "cpu" for t in tensors):
         return matmul_fused_ref(x, y, bias, activation, out_dtype)
-    _check(x, y, torch.bfloat16, out_dtype, "apr_matmul_fused")
+    _check(x, y, out_dtype, FUSED_KERNEL_NAME)
     if bias is not None:
         if bias.device != x.device:
             raise ValueError(f"apr_matmul_fused: bias on {bias.device}, "
                              f"operands on {x.device}")
         bias = bias.reshape(n).float().contiguous()
+    if x.dtype == torch.float32:
+        return _launch_f32(x, y, bias, activation, out_dtype,
+                           FUSED_KERNEL_NAME, config, apr_matmul_fused)
     m, k = x.shape
     bm, bn, bk = resolve_tile(FUSED_KERNEL_NAME, m, k, n, dtype_name(x.dtype),
                               "cuda", "apr", config)
@@ -312,3 +393,4 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
 
 
 apr_matmul_fused.launches = 0
+apr_matmul_fused.f32_launches = 0

@@ -4,8 +4,10 @@
 
 * :func:`flash_decode_paged`: one-token attention over a paged KV pool,
   bf16 or fp32 pools, or int8 pools with their fp32 scale pools;
-* :func:`flash_decode`: the same over a contiguous (B, S, Hkv, D) cache,
-  its sequence split over the blocks of a thread-block cluster.
+* :func:`flash_decode`: the same over a contiguous (B, S, Hkv, D) cache.
+
+Both kernels split each row's walk over the blocks of a thread-block
+cluster (``splits``, tunable).
 
 The CUDA kernels take the (q, K/V) dtype pairs of :data:`KERNEL_DTYPES`;
 the output has the dtype of q, as in the JAX kernels.
@@ -18,7 +20,7 @@ from typing import Optional
 import torch
 
 from ...bench.config import (BlockConfig, TileError, dtype_name,
-                             resolve_cached, resolve_config, resolve_fixed,
+                             pin_config, resolve_cached, resolve_config,
                              shape_key_from_dims)
 from ...roofline.hw import get_profile
 from .. import _build
@@ -28,14 +30,9 @@ from .ref import (decode_attention_ref, paged_decode_attention_q_ref,
 LIBRARY = "flash_decode"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "flash_decode_paged_bf16": (
-        ctypes.c_int, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "flash_decode_paged_int8": (
-        ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "flash_decode_paged_f32": (
-        ctypes.c_int,
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_decode_paged_bf16": (ctypes.c_int, [_P] * 6 + [_I] * 8 + [_P]),
+    "flash_decode_paged_int8": (ctypes.c_int, [_P] * 8 + [_I] * 8 + [_P]),
+    "flash_decode_paged_f32": (ctypes.c_int, [_P] * 6 + [_I] * 9 + [_P]),
     "flash_decode_bf16": (
         ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "flash_decode_f32": (
@@ -53,16 +50,21 @@ KERNEL_DTYPES = {
         (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
         (torch.float32, torch.float32)}),
 }
-#: the paged kernels' one configuration: the sequence is walked in chunks
-#: of 32 tokens (``TC`` in the source), so that family's tune space has one
-#: point
+#: the kernels walk 32-token steps (``STEP`` in the source): their one chunk
 COMPILED = BlockConfig.make(chunk=32)
-#: the split counts the contiguous kernel takes (one cluster of at most 8
-#: blocks per (row, kv head)); it walks 32-token steps (``STEP``)
+#: the split counts both kernels take (one cluster of at most 8 blocks per
+#: (row, kv head))
 SPLITS = (1, 2, 4, 8)
 #: the SM count :func:`default_splits` assumes, on every card (the
 #: ``h100_sxm`` profile's), so the tune spec and the wrapper agree
 SMS = get_profile("h100_sxm").sms
+#: the blocks :func:`default_splits` aims to run at once, by bytes of a
+#: cached K/V value: two a SM for bf16 and int8 caches (4 warps a block;
+#: a block's walk is latency-bound, so a second one streams alongside it),
+#: but one to every two SMs for fp32 caches, whose 8-warp blocks of ~230
+#: registers fill an SM's register file and measured slower as soon as
+#: their clusters outnumbered half the SMs on an H100 (PERF.md §7)
+BLOCK_BUDGET = {1: 2 * SMS, 2: 2 * SMS, 4: SMS // 2}
 
 
 def shape_key(b, hq, hkv, d, s) -> str:
@@ -75,27 +77,30 @@ def paged_shape_key(b, hq, hkv, d, pages, ps, kv_int8: bool = False) -> str:
             + ("_kvint8" if kv_int8 else ""))
 
 
-def default_splits(b, hkv, s) -> int:
-    """The split count of the contiguous kernel, from the geometry alone
-    (the lengths live on the device): the largest of :data:`SPLITS` for
-    which the B·Hkv·splits blocks fit two to each of the :data:`SMS` SMs
-    (a block's walk is latency-bound, so two a SM stream more), and no more
-    splits than the cache has 32-token steps."""
-    cap = min(max(1, 2 * SMS // max(1, b * hkv)), -(-s // COMPILED["chunk"]))
+def default_splits(b, hkv, s, kv_bytes: int = 2) -> int:
+    """The split count of either kernel, from the geometry and the cache's
+    bytes a value alone (the lengths live on the device; ``s`` is S or the
+    table width ``P_max * ps``): the largest of :data:`SPLITS` for which
+    the B·Hkv·splits blocks stay within :data:`BLOCK_BUDGET`, and no more
+    splits than the row has 32-token steps."""
+    cap = min(max(1, BLOCK_BUDGET[kv_bytes] // max(1, b * hkv)),
+              -(-s // COMPILED["chunk"]))
     return max(n for n in SPLITS if n <= cap)
 
 
-def default_config(b, hq, hkv, d, s) -> BlockConfig:
-    return COMPILED.replace(splits=default_splits(b, hkv, s))
+def default_config(b, hq, hkv, d, s, kv_bytes: int = 2) -> BlockConfig:
+    return COMPILED.replace(splits=default_splits(b, hkv, s, kv_bytes))
 
 
 def compiled_configs() -> tuple:
-    """Every configuration the contiguous kernel takes."""
+    """Every configuration either kernel takes."""
     return tuple(COMPILED.replace(splits=n) for n in SPLITS)
 
 
-def paged_default_config(b, hq, hkv, d, pages, ps) -> BlockConfig:
-    return COMPILED
+def paged_default_config(b, hq, hkv, d, pages, ps, kv_int8: bool = False,
+                         kv_bytes: int = 2) -> BlockConfig:
+    return COMPILED.replace(splits=default_splits(
+        b, hkv, pages * ps, 1 if kv_int8 else kv_bytes))
 
 
 def check_dtypes(name: str, q_dtype: torch.dtype,
@@ -131,11 +136,44 @@ def _check_cuda(name, tensors, q, k, v):
         raise ValueError(f"{name} kernel takes contiguous tensors")
 
 
+def _resolve_splits(kernel: str, dims: tuple, shape_key_of, default_of,
+                    dtype: str, backend: str,
+                    config: Optional[BlockConfig]) -> int:
+    """The split count a launch of ``kernel`` uses: ``config`` > the tuned
+    entry of the active cache > the default, under the JAX package's key.
+    Raises :class:`~repro_torch.bench.TileError` for a configuration the
+    kernel does not take."""
+    if config is None:
+        cfg = resolve_cached(kernel, dims, dtype, backend,
+                             shape_key=shape_key_of, default=default_of)
+    else:
+        cfg = resolve_config(kernel, shape_key_of(*dims), dtype, backend,
+                             default=default_of(*dims), override=config)
+    if cfg not in compiled_configs():
+        raise TileError(f"{kernel}: {cfg} is not compiled; the kernel "
+                        f"takes {list(compiled_configs())}")
+    return cfg["splits"]
+
+
+def resolve_paged_splits(b, hq, hkv, d, pages, ps, kv_int8: bool,
+                         dtype: str, backend: str,
+                         config: Optional[BlockConfig] = None,
+                         kv_bytes: int = 2) -> int:
+    """The split count a launch of the paged kernel uses (the shape key of
+    :func:`paged_shape_key`, ``_kvint8`` for int8 pools; the default of
+    :func:`paged_default_config` for pools of ``kv_bytes`` a value)."""
+    return _resolve_splits(
+        PAGED_KERNEL_NAME, (b, hq, hkv, d, pages, ps, kv_int8, kv_bytes),
+        lambda *dims: paged_shape_key(*dims[:7]), paged_default_config,
+        dtype, backend, config)
+
+
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, lengths: torch.Tensor,
                        block_tables: torch.Tensor, *,
                        k_scales: Optional[torch.Tensor] = None,
                        v_scales: Optional[torch.Tensor] = None,
+                       chunk: Optional[int] = None,
                        config: Optional[BlockConfig] = None) -> torch.Tensor:
     """Single-token attention over a paged KV cache.
 
@@ -145,8 +183,12 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     or past ``lengths[b]`` are masked, and rows with ``lengths == 0`` return
     zeros.  With ``k_scales``/``v_scales`` (P_pool, page_size, Hkv) fp32 the
     pools are int8 and token ``t`` of head ``h`` is ``code * scale``.  The
-    configuration resolves under the JAX package's key (``_kvint8`` for int8
-    pools) and must be :data:`COMPILED`.
+    kernel splits each row's walk over ``splits`` blocks of one cluster
+    (:func:`resolve_paged_splits`: ``chunk`` > ``config`` > the tuned entry
+    under the JAX package's key, ``_kvint8`` for int8 pools > the
+    geometry's default); a chunk other than 32 or a split count outside
+    :data:`SPLITS` raises :class:`~repro_torch.bench.TileError`.  A
+    block-table entry outside the pool is a dead position (weight 0).
 
     CUDA tensors launch the kernel (a bf16 q over bf16, int8 or fp32 pools,
     or an fp32 q over fp32 pools; int32 lengths and tables) or raise; CPU
@@ -159,6 +201,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("flash_decode_paged: pass both scale pools or none")
     tensors = (q, k_pages, v_pages, lengths, block_tables) + (
         (k_scales, v_scales) if quantized else ())
+    config = pin_config(config, chunk=chunk)
     if all(t.device.type == "cpu" for t in tensors):
         if quantized:
             return paged_decode_attention_q_ref(q, k_pages, v_pages, k_scales,
@@ -173,7 +216,7 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if lengths.dtype != torch.int32 or block_tables.dtype != torch.int32:
         raise TypeError("flash_decode_paged kernel takes int32 lengths and "
                         "block tables")
-    b = q.shape[0]
+    b, hq, d = q.shape
     p_pool, ps, hkv, _ = k_pages.shape
     if (v_pages.shape != k_pages.shape or lengths.shape != (b,)
             or block_tables.dim() != 2 or block_tables.shape[0] != b):
@@ -186,28 +229,28 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                              for s in (k_scales, v_scales)):
         raise ValueError(f"flash_decode_paged: scale pools must be fp32 "
                          f"{tuple(k_pages.shape[:-1])}")
-    resolve_fixed(PAGED_KERNEL_NAME,
-                  (b, q.shape[1], hkv, q.shape[2], block_tables.shape[1], ps,
-                   quantized), dtype_name(q.dtype), "cuda",
-                  shape_key=paged_shape_key, compiled=COMPILED, config=config)
+    splits = resolve_paged_splits(b, hq, hkv, d, block_tables.shape[1], ps,
+                                  quantized, dtype_name(q.dtype), "cuda",
+                                  config, k_pages.element_size())
     out = torch.empty_like(q)
     if b == 0:
         return out
     lib = _build.load(LIBRARY, SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    dims = (b, q.shape[1], hkv, q.shape[2], ps, p_pool, block_tables.shape[1],
-            stream)
+    dims = (b, hq, hkv, d, ps, p_pool, block_tables.shape[1])
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
     tail = (lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr())
     if quantized:
         err = lib.flash_decode_paged_int8(
-            *ptrs, k_scales.data_ptr(), v_scales.data_ptr(), *tail, *dims)
+            *ptrs, k_scales.data_ptr(), v_scales.data_ptr(), *tail, *dims,
+            splits, stream)
     elif k_pages.dtype == torch.float32:
-        err = lib.flash_decode_paged_f32(*ptrs, *tail, *dims[:-1],
+        err = lib.flash_decode_paged_f32(*ptrs, *tail, *dims,
                                          int(q.dtype == torch.float32),
-                                         stream)
+                                         splits, stream)
     else:
-        err = lib.flash_decode_paged_bf16(*ptrs, *tail, *dims)
+        err = lib.flash_decode_paged_bf16(*ptrs, *tail, *dims, splits,
+                                          stream)
     _build.check(lib, err, "flash_decode_paged")
     if quantized:
         flash_decode_paged.int8_launches += 1
@@ -224,27 +267,18 @@ flash_decode_paged.f32_launches = 0
 
 
 def resolve_splits(b, hq, hkv, d, s, dtype: str, backend: str,
-                   config: Optional[BlockConfig] = None) -> int:
-    """The split count a launch of the contiguous kernel uses: ``config``
-    > the tuned entry of the active cache > :func:`default_config`, under
-    the JAX package's key.  Raises :class:`~repro_torch.bench.TileError`
-    for a configuration the kernel does not take."""
-    dims = (b, hq, hkv, d, s)
-    if config is None:
-        cfg = resolve_cached(KERNEL_NAME, dims, dtype, backend,
-                             shape_key=shape_key, default=default_config)
-    else:
-        cfg = resolve_config(KERNEL_NAME, shape_key(*dims), dtype, backend,
-                             default=default_config(*dims),
-                             override=config)
-    if cfg not in compiled_configs():
-        raise TileError(f"{KERNEL_NAME}: {cfg} is not compiled; the kernel "
-                        f"takes {list(compiled_configs())}")
-    return cfg["splits"]
+                   config: Optional[BlockConfig] = None,
+                   kv_bytes: int = 2) -> int:
+    """The split count a launch of the contiguous kernel uses (the shape
+    key of :func:`shape_key`, the default of :func:`default_config` for a
+    cache of ``kv_bytes`` a value)."""
+    return _resolve_splits(KERNEL_NAME, (b, hq, hkv, d, s, kv_bytes),
+                           lambda *dims: shape_key(*dims[:5]),
+                           default_config, dtype, backend, config)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, *,
+                 lengths: torch.Tensor, *, chunk: Optional[int] = None,
                  config: Optional[BlockConfig] = None) -> torch.Tensor:
     """Single-token attention over a contiguous KV cache.
 
@@ -256,9 +290,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`decode_attention_ref`.  The output has the dtype of q.  The
     kernel splits each row's sequence over ``splits`` blocks of one cluster
     (:func:`resolve_splits`: by default from the geometry and the H100's
-    SM count; a ``config`` or a tuned entry may pick any of :data:`SPLITS`).
-    Each launch adds one to ``flash_decode.launches``."""
+    SM count; a ``config`` or a tuned entry may pick any of :data:`SPLITS`;
+    ``chunk`` pins the chunk, which must be 32).  Each launch adds one to
+    ``flash_decode.launches``."""
     tensors = (q, k, v, lengths)
+    config = pin_config(config, chunk=chunk)
     if all(t.device.type == "cpu" for t in tensors):
         return decode_attention_ref(q, k, v, lengths)
     _check_cuda(KERNEL_NAME, tensors, q, k, v)
@@ -271,7 +307,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}/{tuple(v.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
     splits = resolve_splits(b, q.shape[1], k.shape[2], q.shape[2],
-                            k.shape[1], dtype_name(q.dtype), "cuda", config)
+                            k.shape[1], dtype_name(q.dtype), "cuda", config,
+                            k.element_size())
     out = torch.empty_like(q)
     if b == 0:
         return out

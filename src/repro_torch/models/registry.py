@@ -67,15 +67,16 @@ def check_param_dtype(dtype, device_type: str) -> None:
     """Refuse, with a ``ValueError``, float parameters of ``dtype`` (a
     torch dtype or its name) on a ``device_type`` whose kernels cannot take
     them: on ``"cuda"`` the hand-written ``apr_matmul`` kernels take bf16
-    activations only, so a model with fp32 (or fp16) parameters would fail
-    at its first projection.  Such a model runs on ``device="cpu"``."""
+    and fp32 activations, so a model with fp16 parameters would fail at its
+    first projection.  Such a model runs on ``device="cpu"``."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
-    if device_type == "cuda" and dtype != torch.bfloat16:
+    if device_type == "cuda" and dtype not in (torch.bfloat16,
+                                               torch.float32):
         raise ValueError(
-            f"{dtype} parameters cannot run on the card: its apr_matmul "
-            "kernels take bf16 activations (fp32 operands run on "
-            "device='cpu')")
+            f"{dtype} parameters cannot run on the card: no apr_matmul "
+            "kernel takes them (bf16 and fp32 activations only; other "
+            "dtypes run on device='cpu')")
 
 
 def check_params(params, device_type: str) -> None:

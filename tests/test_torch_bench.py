@@ -466,8 +466,8 @@ def test_one_point_families_compile_one_configuration():
         cands = spec.candidates(shape)
         if name.startswith(("apr_matmul", "quant_matmul")):
             assert len(cands) == 6
-        elif name == "flash_decode":
-            # the contiguous kernel takes a split count at its one chunk
+        elif name in ("flash_decode", "flash_decode_paged"):
+            # both decode kernels take a split count at their one chunk
             assert sorted(c["splits"] for c in cands) == \
                 list(decode_ops.SPLITS), name
             assert spec.default_config(shape) in cands

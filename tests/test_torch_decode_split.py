@@ -4,9 +4,9 @@ operands of the decode kernels: the plain split-then-combine version
 ``flash_decode`` and the port's ``decode_attention_ref`` at every split
 count the kernel takes; the paged plain version over fp32 pools under a
 bf16 q against the JAX oracle; a bf16 model over fp32 pools, layer and
-engine, against the JAX package; the (q, K/V) dtype table of the CUDA
-kernels; the refusal of fp32 parameters on the card; and the tune spaces
-of the split count and of the int8-weight tiles.  The CUDA kernels are
+engine, against the JAX package; the (q, K/V) and (x, weight) dtype tables
+of the CUDA kernels; which parameter dtypes the card takes; and the tune
+spaces of the split count and of the int8-weight tiles.  The CUDA kernels are
 held to these plain versions on the card by ``chip_smoke.py``."""
 import itertools
 import re
@@ -246,42 +246,56 @@ def test_engine_bf16_model_fp32_pools(bf16_smoke):
 
 
 # ------------------------------------------------ the kernels' dtype table
-#: the (q, K/V) dtypes each CUDA entry point of flash_decode.cu takes
+BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
+#: per kernel family: its wrapper module, its CUDA source, and the (first,
+#: second operand) dtypes -- (q, K/V) or (x, weight) -- each entry point of
+#: the source takes for it
 COMPILED_PAIRS = {
-    "flash_decode_paged": {
-        "flash_decode_paged_bf16": [(torch.bfloat16, torch.bfloat16)],
-        "flash_decode_paged_int8": [(torch.bfloat16, torch.int8)],
-        "flash_decode_paged_f32": [(torch.bfloat16, torch.float32),
-                                   (torch.float32, torch.float32)]},
-    "flash_decode": {
-        "flash_decode_bf16": [(torch.bfloat16, torch.bfloat16)],
-        "flash_decode_f32": [(torch.bfloat16, torch.float32),
-                             (torch.float32, torch.float32)]},
+    "flash_decode_paged": (fd_ops, "flash_decode.cu", {
+        "flash_decode_paged_bf16": [(BF16, BF16)],
+        "flash_decode_paged_int8": [(BF16, I8)],
+        "flash_decode_paged_f32": [(BF16, F32), (F32, F32)]}),
+    "flash_decode": (fd_ops, "flash_decode.cu", {
+        "flash_decode_bf16": [(BF16, BF16)],
+        "flash_decode_f32": [(BF16, F32), (F32, F32)]}),
+    "apr_matmul": (apr_ops, "apr_matmul.cu", {
+        "apr_matmul_bf16": [(BF16, BF16)],
+        "apr_matmul_int8w": [(BF16, I8)],
+        "apr_matmul_f32": [(F32, F32)]}),
+    "apr_matmul_fused": (apr_ops, "apr_matmul.cu", {
+        "apr_matmul_bf16": [(BF16, BF16)],
+        "apr_matmul_f32": [(F32, F32)]}),
 }
 DTYPES = [torch.bfloat16, torch.float16, torch.float32, torch.int8]
 
 
 @pytest.mark.parametrize("name", sorted(COMPILED_PAIRS))
 def test_dtype_table_accepts_exactly_the_compiled_pairs(name):
-    entries = COMPILED_PAIRS[name]
-    src = (CSRC / "flash_decode.cu").read_text()
+    ops, source, entries = COMPILED_PAIRS[name]
+    src = (CSRC / source).read_text()
     for fn in entries:                    # each entry point exists and binds
         assert re.search(r'extern "C" int ' + fn + r"\(", src), fn
-        assert fn in fd_ops.SIGNATURES
+        assert fn in ops.SIGNATURES
     compiled = {p for pairs in entries.values() for p in pairs}
-    assert fd_ops.KERNEL_DTYPES[name] == compiled
+    assert ops.KERNEL_DTYPES[name] == compiled
     for pair in itertools.product(DTYPES, DTYPES):
         if pair in compiled:
-            fd_ops.check_dtypes(name, *pair)
+            ops.check_dtypes(name, *pair)
         else:
-            with pytest.raises(TypeError):
-                fd_ops.check_dtypes(name, *pair)
+            with pytest.raises(TypeError, match=str(pair[1])):
+                ops.check_dtypes(name, *pair)
 
 
 # ------------------------------------------------ fp32 params on the card
 @pytest.mark.parametrize("dtype", ["float32", torch.float32, torch.float16])
 def test_fp32_params_are_refused_on_the_card(dtype):
-    with pytest.raises(ValueError, match="bf16 activations"):
+    """fp32 parameters run on the card (``apr_matmul_f32``); fp16 ones,
+    which no kernel takes, are still refused there.  Both run on the
+    CPU."""
+    if dtype == torch.float16:
+        with pytest.raises(ValueError, match="no apr_matmul kernel"):
+            check_param_dtype(dtype, "cuda")
+    else:
         check_param_dtype(dtype, "cuda")
     check_param_dtype(dtype, "cpu")       # the CPU path takes them
     check_param_dtype("bfloat16", "cuda")
@@ -294,8 +308,10 @@ def test_engines_check_every_float_param():
               "pos": torch.zeros(3, dtype=torch.int32)}
     check_params(params, "cuda")
     params["norm"] = torch.zeros(2, dtype=torch.float32)
+    check_params(params, "cuda")
+    params["half"] = torch.zeros(2, dtype=torch.float16)
     check_params(params, "cpu")
-    with pytest.raises(ValueError, match="bf16 activations"):
+    with pytest.raises(ValueError, match="no apr_matmul kernel"):
         check_params(params, "cuda")
 
 
