@@ -5,9 +5,11 @@
     python3 chip_smoke.py --ablate   # only rms_norm's batch invariance and
                                      # the paged/slot token ablation
     python3 chip_smoke.py --kernel-sweep --out sweep.json
-                                     # only B2/B2q at the serving shape, B3
-                                     # against its longest length and B1
-                                     # bf16/int8/fp32 at the projections
+                                     # only B2/B2q at the serving shape
+                                     # (bf16 and fp32 q), B3 against its
+                                     # longest length and B1 bf16/int8/fp32
+                                     # (and fp32 x int8) at the projections,
+                                     # at each split count
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -30,13 +32,21 @@ Phases (any failure exits non-zero before the final line):
      ones: ``apr_matmul`` (B1), its memory-resident baseline (B4m, equal
      to B1 at the same tile bit for bit), ``apr_matmul_fused`` (B7m),
      ``quant_matmul`` (B6) and ``quant_matmul_fused`` (B8) with every
-     activation, bias and none, bf16 and fp32 out;
+     activation, bias and none, bf16 and fp32 out; B1 and B7m at every
+     tile x split count (split-K over a thread-block cluster) against the
+     split plain version, twice bit-equal and bit-equal across tiles at one
+     split count (B4m and the int8-weight kernel bit-equal to B1 at one
+     split); the fp32 body likewise, and over int8 weights bit-equal to the
+     fp32 body on the dequantized weight; the decode kernels under an fp32
+     q over bf16 and int8 pools and a bf16 cache at every split count;
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B4m,
      B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1;
      ``flash_decode`` also at S = 4096 near full; ``flash_decode_paged``
      over bf16, fp32 and int8 pools and ``flash_decode`` over a bf16 and
-     an fp32 cache at each split count; B1 on fp32 operands);
+     an fp32 cache at each split count, and under an fp32 q over bf16 and
+     int8 pools and a bf16 cache; B1, B7m and the fp32 body (fp32 and int8
+     weights) at each split count, with per-tick totals);
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
      every kernel of the path was launched as often as the path demands;
@@ -58,9 +68,11 @@ Phases (any failure exits non-zero before the final line):
      pools, and ``prefill``); ``decode_paged`` over fp32 KV pools, and a
      ``PagedServeEngine(kv_dtype="float32")`` serving the bf16 smoke model
      on the fp32-pool kernel; then the smoke model with fp32 parameters
-     served on fp32 pools by the engine on the card (``apr_matmul_f32``)
-     and on the CPU: every forward's logits within 1e-3, greedy tokens
-     equal;
+     served by the engines on the card (the fp32 body; the decode kernels
+     with an fp32 q) and on the CPU -- the PagedServeEngine on fp32, bf16
+     and int8 pools, with int8 weights on fp32 pools, and the slot
+     ServeEngine: every forward's logits within 1e-3, greedy tokens equal,
+     the launches exactly those of the path;
   6. run the paper's CNNs (LeNet-5, ResNet-20; random fp32 weights from a
      seed) at batch 256 with every conv on ``apr_conv``, check each
      forward's launches, run ResNet-20 on the memory-resident baseline
@@ -128,11 +140,21 @@ Q_ATOL = 0.03
 #: them to bf16
 SMOKE_LOGITS_BOUND = 0.25
 #: bound on |logits(card) - logits(CPU)| for the smoke model with fp32
-#: parameters on fp32 KV pools: both compute in fp32 throughout and differ
-#: only in the order of their sums (one accumulator over K on the card, the
-#: canonical split-K on the CPU; the attention's online softmax), a few
-#: fp32 ulps of O(1) logits per layer
+#: parameters (on fp32, bf16 or int8 KV pools, with fp32 or int8 weights,
+#: on either engine): both compute in fp32 throughout and differ only in
+#: the order of their sums (split ranges and 8 interleaved chains over K on
+#: the card, the canonical split-K on the CPU; the attention's online
+#: softmax), a few fp32 ulps of O(1) logits per layer; a K/V value that
+#: lands on the other side of a bf16 rounding or an int8 code moves the
+#: logits by ~1e-5 more (the CPU tests' JAX-vs-port gap on such pools)
 F32_SMOKE_LOGITS_BOUND = 1e-3
+#: the same over int8 KV pools when the card's and the CPU's pools differ
+#: in some code: a K or V value within an fp32 ulp of a rounding boundary
+#: takes the neighbouring int8 code on one side (one code is amax/127 of
+#: its (token, head) vector, ~1e-2 of O(1) values), which moves O(1) logits
+#: by up to ~5e-3 (5.2e-3 on an H100); with no code apart the int8-pool
+#: run is held to F32_SMOKE_LOGITS_BOUND
+F32_INT8_CODE_LOGITS_BOUND = 2e-2
 #: |apr_conv - plain| <= CONV_RTOL * |plain| + CONV_RTOL * max |plain|: both
 #: sum exact fp32 products in fp32 (no TF32), in another order
 CONV_RTOL = 2e-4
@@ -811,6 +833,10 @@ PROJ_MS = (4, 16)
 #: ragged matmul shapes held at every tile: none a multiple of the tiles
 RAGGED_MKN = [(m, k, n) for m in (1, 4, 5, 16) for k in (96, 4096, 14336)
               for n in (40, 1024, 14336)]
+#: ragged shapes for the split counts: K not a multiple of 128 (nor of 8),
+#: K shorter than splits x 128 (empty ranges), M past one 16-row block
+SPLIT_RAGGED_MKN = [(5, 300, 1000), (3, 1000, 77), (17, 520, 200),
+                    (1, 130, 64), (4, 4100, 1000)]
 ACTIVATIONS = ("none", "relu", "silu", "gelu")
 #: silu and gelu of the int8 kernels against the plain version: within 2
 #: fp32 ulps of max(|result|, |pre-activation|), before the final rounding
@@ -831,34 +857,39 @@ def ulps_apart(torch, got, ref, pre) -> float:
     return float(((got.float() - ref).abs() / ulp).max())
 
 
-def tile_config(tile):
+def tile_config(tile, splits=None):
     from repro_torch.bench import BlockConfig
-    return BlockConfig.make(block_m=tile[0], block_n=tile[1],
-                            block_k=tile[2])
+    cfg = BlockConfig.make(block_m=tile[0], block_n=tile[1], block_k=tile[2])
+    return cfg if splits is None else cfg.replace(splits=splits)
 
 
 def matmul_family_correctness(torch, gen, dev) -> list:
     """Phase 2 for the matmul families, at the llama3-8b projection shapes
-    and the ragged ones, at every tile each kernel compiles: B1 against its
-    plain version (bf16 tolerance), B4m equal to B1 at the same tile bit for
-    bit, B7m (every activation, bias and none, bf16 and fp32 out) at B1's
-    tolerance, B6 and B8 with none/relu bit for bit and with silu/gelu
+    and the ragged ones, at every tile each kernel compiles: B1 and B7m
+    (every activation, bias and none, bf16 and fp32 out) at every tile x
+    split count against the split plain version at the bf16 tolerance,
+    each launched twice for equal bits and equal bits across the tiles at
+    one split count; B4m equal to B1 at one split and the same tile bit
+    for bit; B6 and B8 with none/relu bit for bit and with silu/gelu
     within ACT_ULPS fp32 ulps (bf16 out: one bf16 ulp).  One case per
-    (kernel, shape), its largest error over tiles and variants."""
+    (kernel, shape), its largest error over tiles, split counts and
+    variants."""
     from repro_torch.kernels.apr_matmul import ops as mm
-    from repro_torch.kernels.apr_matmul.ref import matmul_fused_ref, matmul_ref
+    from repro_torch.kernels.apr_matmul.ref import (matmul_fused_split_ref,
+                                                    matmul_split_ref)
     from repro_torch.kernels.quant_matmul import ops as qm
     from repro_torch.kernels.quant_matmul.ref import (quant_matmul_fused_ref,
                                                       quant_matmul_ref)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []
     shapes = [(m, k, n) for m in PROJ_MS for k, n in LLAMA_DECODE_SHAPES]
-    for m, k, n in shapes + RAGGED_MKN:
+    for m, k, n in shapes + RAGGED_MKN + SPLIT_RAGGED_MKN:
         x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
         w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
              ).to(bf16)
         bias = torch.randn((n,), generator=gen, device=dev)
-        wq, ws = qm.quantize_weights(w.float())
+        xf, wf = x.float(), w.float()     # the plain versions widen alike
+        wq, ws = qm.quantize_weights(wf)
         stats = {name: [0.0, True, 0] for name in (
             "apr_matmul", "apr_matmul_hbm", "apr_matmul_fused",
             "quant_matmul", "quant_matmul_fused")}
@@ -867,23 +898,45 @@ def matmul_family_correctness(torch, gen, dev) -> list:
             s = stats[name]
             s[0], s[1], s[2] = max(s[0], err), s[1] and ok, s[2] + 1
 
+        def held(name, got, again, ref, first):
+            """The bf16 tolerance, twice bit-equal, and bit-equal to the
+            first tile's result at this split count."""
+            err, ok = max_err(got, ref)
+            note(name, err, ok and torch.equal(got, again)
+                 and (first is None or torch.equal(got, first)))
+
         for out in (bf16, f32):
-            ref = matmul_ref(x, w, out)
-            fused = {(act, bb is None): matmul_fused_ref(x, w, bb, act, out)
-                     for act in ACTIVATIONS for bb in (None, bias)}
-            for tile in mm.TILES:
-                cfg = tile_config(tile)
-                b1 = mm.apr_matmul(x, w, out_dtype=out, config=cfg)
-                b4 = mm.apr_matmul(x, w, out_dtype=out, config=cfg,
-                                   residency="hbm")
-                note("apr_matmul", *max_err(b1, ref))
-                note("apr_matmul_hbm", max_err(b4, ref)[0],
-                     torch.equal(b4, b1))
-                for (act, nobias), r in fused.items():
-                    got = mm.apr_matmul_fused(
-                        x, w, None if nobias else bias, activation=act,
-                        out_dtype=out, config=cfg)
-                    note("apr_matmul_fused", *max_err(got, r))
+            for n_split in mm.SPLITS:
+                ref = matmul_split_ref(xf, wf, n_split, out)
+                fused = {(act, bb is None): matmul_fused_split_ref(
+                    xf, wf, n_split, bb, act, out)
+                    for act in ACTIVATIONS for bb in (None, bias)}
+                first, first_fused = None, {}
+                for tile in mm.TILES:
+                    cfg = tile_config(tile, n_split)
+                    b1 = mm.apr_matmul(x, w, out_dtype=out, config=cfg)
+                    held("apr_matmul", b1,
+                         mm.apr_matmul(x, w, out_dtype=out, config=cfg), ref,
+                         first)
+                    first = b1 if first is None else first
+                    if n_split == 1:
+                        # the baseline keeps B1's one-chain order
+                        b4 = mm.apr_matmul(x, w, out_dtype=out, config=cfg,
+                                           residency="hbm")
+                        note("apr_matmul_hbm", max_err(b4, ref)[0],
+                             torch.equal(b4, b1))
+                    for key, r in fused.items():
+                        act, nobias = key
+                        bb = None if nobias else bias
+
+                        def run():
+                            return mm.apr_matmul_fused(
+                                x, w, bb, activation=act, out_dtype=out,
+                                config=cfg)
+                        got = run()
+                        held("apr_matmul_fused", got, run(), r,
+                             first_fused.get(key))
+                        first_fused.setdefault(key, got)
             qref = quant_matmul_ref(x, wq, ws, out)
             qfused = {}
             for act in ACTIVATIONS:
@@ -911,9 +964,9 @@ def matmul_family_correctness(torch, gen, dev) -> list:
                     note("quant_matmul_fused", err, ok)
         torch.cuda.synchronize()
         for name, (err, ok, n_var) in stats.items():
-            cases.append((name, f"M={m} K={k} N={n} ({n_var} tile/variant "
-                          f"runs)", err, ok))
-        del x, w, bias, wq, ws, fused, qfused
+            cases.append((name, f"M={m} K={k} N={n} ({n_var} tile/split/"
+                          f"variant runs)", err, ok))
+        del x, w, xf, wf, bias, wq, ws, fused, qfused
     return cases
 
 
@@ -921,7 +974,8 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
     """Phase 3 for B4m, B7m, B6 and B8 at the llama3-8b projection shapes
     (M = slots and 16), weights rotated past the 50 MB L2, output bf16,
     default tiles: B4m beside B1 (the paper's comparison at matmul level),
-    B7m with bias + silu, B6, B8 with bias + silu.  The int8 rows include
+    B7m with bias + silu (also at each split count), B6, B8 with bias +
+    silu.  The int8 rows include
     the activations' quantization; their library yardstick is that
     quantization, ``torch._int_mm`` and the two scale multiplies (+ bias and
     silu for B8), at M = 32 where M <= 16 (``_int_mm`` needs M > 16)."""
@@ -965,11 +1019,17 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
                 x, ws[i % nbuf], bias, "silu", bf16), 60)
             t_fl = cuda_ms(torch, lambda i: F.silu(torch.addmm(
                 bias16, x, ws[i % nbuf])), 60)
-            rows.append(dict(kernel="apr_matmul_fused", M=m, K=k, N=n,
-                             ms=t_f, plain_ms=t_fp, library_ms=t_fl,
-                             epilogue="bias + silu", weight_buffers=nbuf,
-                             **bound_ms(2 * (m * k + k * n + m * n) + 4 * n,
-                                        2 * m * k * n + 2 * m * n)))
+            rows.append(dict(
+                kernel="apr_matmul_fused", M=m, K=k, N=n, ms=t_f,
+                plain_ms=t_fp, library_ms=t_fl, epilogue="bias + silu",
+                weight_buffers=nbuf,
+                splits=mm.resolve_launch("apr_matmul_fused", m, k, n,
+                                         "bfloat16", "cuda")[1],
+                split_ms={s: cuda_ms(torch, lambda i: mm.apr_matmul_fused(
+                    x, ws[i % nbuf], bias, activation="silu",
+                    out_dtype=bf16, splits=s), 60) for s in mm.SPLITS},
+                **bound_ms(2 * (m * k + k * n + m * n) + 4 * n,
+                           2 * m * k * n + 2 * m * n)))
             qs = [qm.quantize_weights(w.float()) for w in ws]
             del ws
             # cuBLASLt's int8 GEMM takes the weight column-major
@@ -1163,6 +1223,7 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
     reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
             for i, p in enumerate(prompts)]
     before, tiles_before = llm_counts(), dict(apr_matmul.tile_launches)
+    splits_before = dict(apr_matmul.split_launches)
     finite.clear()
     t0 = time.perf_counter()
     for r in reqs:
@@ -1177,19 +1238,25 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
     serve_tiles = {t: n - tiles_before.get(t, 0)
                    for t, n in apr_matmul.tile_launches.items()
                    if n - tiles_before.get(t, 0)}
+    serve_splits = {s: n - splits_before.get(s, 0)
+                    for s, n in apr_matmul.split_launches.items()
+                    if n - splits_before.get(s, 0)}
     m = engine.metrics
-    # the tile every projection of the served forwards resolves to under
-    # the engine's cache: M = slots at a decode tick, the chunk at prefill
-    expect_tiles = {}
+    # the tile and split count every projection of the served forwards
+    # resolves to under the engine's cache: M = slots at a decode tick, the
+    # chunk at prefill
+    expect_tiles, expect_splits = {}, {}
     with scoped_cache(engine.tune_cache):
         for rows_m, calls in ((slots, m.decode_calls),
                               (engine_kw["prefill_chunk"], m.prefill_calls)):
             for (k, n), cnt in list(LLAMA_DECODE_SHAPES.items()) + [
                     (LM_HEAD, 1 / cfg.num_layers)]:
-                tile = apr_ops.resolve_tile("apr_matmul", rows_m, k, n,
-                                            "bfloat16", dev.type)
-                expect_tiles[tile] = expect_tiles.get(tile, 0) + int(round(
-                    cnt * cfg.num_layers * calls))
+                tile, n_split = apr_ops.resolve_launch(
+                    "apr_matmul", rows_m, k, n, "bfloat16", dev.type)
+                launches = int(round(cnt * cfg.num_layers * calls))
+                expect_tiles[tile] = expect_tiles.get(tile, 0) + launches
+                expect_splits[n_split] = (expect_splits.get(n_split, 0)
+                                          + launches)
     rows = compare_sweeps(shapes, exhaustive, pruned)
     tuned_ok = {key: cfg_ is not None and cfg_ == winners[key]
                 for key, cfg_ in engine.tuned_configs.items()}
@@ -1206,6 +1273,8 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
         serve_tile_launches={str(t): n for t, n in serve_tiles.items()},
         expected_serve_tile_launches={str(t): n for t, n in
                                       expect_tiles.items()},
+        serve_split_launches=serve_splits,
+        expected_serve_split_launches=expect_splits,
         tokens_equal_untuned=same, decode_ms_per_tick=1e3 * m.decode_time_s
         / m.decode_calls, decode_tps=m.decode_tps)
     print(f"[8] tuning path, full-width {cfg.name}: {len(shapes)} (family, "
@@ -1233,7 +1302,8 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
           f"{tuning['decode_ms_per_tick']:.3f} ms per decode tick; "
           f"tuned_configs {tuning['tuned_configs']}; apr_matmul launches by "
           f"tile {tuning['serve_tile_launches']} (expected from the tuned "
-          f"cache {tuning['expected_serve_tile_launches']}); greedy tokens "
+          f"cache {tuning['expected_serve_tile_launches']}), by split count "
+          f"{serve_splits} (expected {expect_splits}); greedy tokens "
           f"equal to phase 4's untuned run {same}/"
           f"{sum(len(o) for o in bf16_outputs)} (information)")
     print(f"    launches of the counted window (sweep + serve): "
@@ -1250,13 +1320,18 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
              f"the winners")
     if serve_tiles != expect_tiles:
         fail(f"phase 8: served tiles {serve_tiles} != tuned {expect_tiles}")
+    if serve_splits != expect_splits:
+        fail(f"phase 8: served split counts {serve_splits} != tuned "
+             f"{expect_splits}")
     check_served("phase 8", reqs, 16, serve_launches, expected_counts(
         apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
         flash_decode_paged=cfg.num_layers * m.decode_calls))
-    # the fp32 operands' kernels serve no bf16 path: phases 2 and 5 hold
-    # them
+    # the fp32 operands' kernels (and an fp32 q's) serve no bf16 path:
+    # phases 2 and 5 hold them
     unlaunched = [k for k, v in path_launches.items() if not v and k not in (
-        "flash_decode_paged_f32", "apr_matmul_f32", "apr_matmul_fused_f32")]
+        "flash_decode_paged_f32", "apr_matmul_f32", "apr_matmul_fused_f32",
+        "apr_matmul_f32_int8w", "flash_decode_paged_f32q",
+        "flash_decode_paged_int8_f32q", "flash_decode_f32q")]
     if unlaunched:
         fail(f"phase 8: no launch of {unlaunched} on the tuning path")
     bundle.decode_paged = forward
@@ -1277,15 +1352,18 @@ DECODE_SWEEP = DECODE_TIMING + tuple((4096, (n,) * 4)
                                      for n in (196, 512, 1024, 2048, 4096))
 
 
-def decode_timing(torch, gen, dev, cases, kv_dtype=None) -> list:
+def decode_timing(torch, gen, dev, cases, kv_dtype=None,
+                  q_dtype=None) -> list:
     """B3 (``flash_decode``) at the llama3-8b geometry, per (S, lengths) of
     ``cases``: ms per launch (caches rotated over 32 layers), the plain
     version, masked SDPA on the same inputs, and the byte bound (q and the
     output once, the live tokens' K and V once, the lengths); where the
     kernel takes a split count, also its time at each (``split_ms``) and
-    the count the wrapper picks (``splits``).  q is bf16; the cache is
-    bf16, or ``kv_dtype`` (fp32: the rows are ``flash_decode_f32``, SDPA
-    runs in fp32 and rounds its output to bf16)."""
+    the count the wrapper picks (``splits``).  q is bf16, or ``q_dtype``
+    (fp32 over the bf16 cache: the rows are ``flash_decode_f32q``, SDPA
+    runs in fp32); the cache is bf16, or ``kv_dtype`` (fp32: the rows are
+    ``flash_decode_f32``, SDPA runs in fp32 and rounds its output to
+    bf16)."""
     import torch.nn.functional as F
     from repro_torch.bench import BlockConfig
     from repro_torch.kernels.flash_decode import (decode_attention_ref,
@@ -1294,14 +1372,17 @@ def decode_timing(torch, gen, dev, cases, kv_dtype=None) -> list:
     b, hq, hkv, d = (DECODE_GEOMETRY[k] for k in ("b", "hq", "hkv", "d"))
     layers = DECODE_LAYERS
     kv_dtype = kv_dtype or torch.bfloat16
-    name = ("flash_decode" if kv_dtype == torch.bfloat16
-            else "flash_decode_f32")
+    q_dtype = q_dtype or torch.bfloat16
+    name = ("flash_decode_f32" if kv_dtype == torch.float32
+            else "flash_decode_f32q" if q_dtype == torch.float32
+            else "flash_decode")
     kv_bytes = torch.finfo(kv_dtype).bits // 8
+    q_bytes = torch.finfo(q_dtype).bits // 8
     rows = []
     for s_len, lengths in cases:
         def rnd(*shape, dtype=torch.bfloat16):
             return torch.randn(shape, generator=gen, device=dev).to(dtype)
-        q = rnd(b, hq, d)
+        q = rnd(b, hq, d, dtype=q_dtype)
         kc = rnd(layers, b, s_len, hkv, d, dtype=kv_dtype)
         vc = rnd(layers, b, s_len, hkv, d, dtype=kv_dtype)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -1311,15 +1392,18 @@ def decode_timing(torch, gen, dev, cases, kv_dtype=None) -> list:
             q, kc[i % layers], vc[i % layers], lens), 200)
         t_p = cuda_ms(torch, lambda i: decode_attention_ref(
             q, kc[i % layers], vc[i % layers], lens), 30)
+        # SDPA in the wider of the two types
+        wide = q_dtype if q_bytes > kv_bytes else kv_dtype
         t_l = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            q[:, :, None].to(kv_dtype), kc[i % layers].permute(0, 2, 1, 3),
-            vc[i % layers].permute(0, 2, 1, 3), attn_mask=live,
+            q[:, :, None].to(wide),
+            kc[i % layers].permute(0, 2, 1, 3).to(wide),
+            vc[i % layers].permute(0, 2, 1, 3).to(wide), attn_mask=live,
             enable_gqa=True).to(q.dtype), 50)
         tokens = sum(lengths)
         row = dict(kernel=name, B=b, Hq=hq, Hkv=hkv, D=d, S=s_len,
                    lengths=list(lengths), ms=t_k, plain_ms=t_p,
                    library_ms=t_l,
-                   **bound_ms(2 * b * hq * d * 2
+                   **bound_ms(2 * b * hq * d * q_bytes
                               + tokens * hkv * d * 2 * kv_bytes + b * 4,
                               4 * tokens * hq * d))
         if hasattr(fd, "SPLITS"):
@@ -1378,20 +1462,41 @@ def paged_inputs(torch, gen, dev, b, hq, hkv, d, ps, p_max, lengths,
             torch.from_numpy(tables).to(dev), torch.from_numpy(dead).to(dev))
 
 
+#: |decode kernel - plain| <= F32Q_RTOL * (|plain| + max |plain|) for an
+#: fp32 q (an fp32-param model) over bf16 or int8 K/V: both widen (or
+#: dequantize, code * scale) the cache values to fp32 exactly and work in
+#: fp32 throughout, so they differ only in the order of the softmax sums
+#: and in expf's last bits (about 1e-7 relative at these lengths)
+F32Q_RTOL = 1e-5
+
+
+def f32q_err(got, ref) -> tuple:
+    """(max |got - ref|, whether every element is within the fp32-q
+    tolerance and finite)."""
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    scale = float(r.abs().max()) if r.numel() else 0.0
+    ok = bool((diff <= F32Q_RTOL * (r.abs() + scale)).all()) and \
+        bool(g.isfinite().all())
+    return float(diff.max()) if diff.numel() else 0.0, ok
+
+
 def paged_correctness(torch, gen, dev) -> tuple:
     """Phase 2 for B2 and B2q: every case of :data:`PAGED_CASES` over bf16
     pools, int8 pools with per-(slot, head) fp32 scales, and fp32 pools
-    under a bf16 and an fp32 q, at the split count the wrapper picks and
-    at each one it takes, each launched twice on the same inputs (equal
-    bits); rows of length 0 exactly zero; and the same result, bit for
-    bit, with the tables' padding outside the pool.  B2 and fp32 pools are
-    held to the plain version at the bf16 tolerance; B2q to the plain
-    version (bf16-rounded dequantize) within BF16_RTOL*|plain| + Q_ATOL and
-    to the plain version on the fp32-dequantized pools at the bf16
-    tolerance.  Returns (cases, twice-bit-equal flags)."""
-    from repro_torch.kernels.flash_decode import (flash_decode_paged,
-                                                  paged_decode_attention_q_ref,
-                                                  paged_decode_attention_ref)
+    under a bf16 and an fp32 q, and bf16 and int8 pools under an fp32 q,
+    at the split count the wrapper picks and at each one it takes, each
+    launched twice on the same inputs (equal bits); rows of length 0
+    exactly zero; and the same result, bit for bit, with the tables'
+    padding outside the pool.  B2 and fp32 pools are held to the plain
+    version at the bf16 tolerance; B2q to the plain version (bf16-rounded
+    dequantize) within BF16_RTOL*|plain| + Q_ATOL and to the plain version
+    on the fp32-dequantized pools at the bf16 tolerance; an fp32 q to the
+    split plain version at its split count within the fp32 tolerance
+    (F32Q_RTOL).  Returns (cases, twice-bit-equal flags)."""
+    from repro_torch.kernels.flash_decode import (
+        flash_decode_paged, paged_decode_attention_q_ref,
+        paged_decode_attention_ref, paged_decode_attention_split_ref)
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.quant import quantize_channelwise
     cases, det = [], []
@@ -1402,20 +1507,25 @@ def paged_correctness(torch, gen, dev) -> tuple:
         zero_rows = [i for i, n in enumerate(lengths) if n == 0]
         kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
         ks, vs = kq.scale[..., 0], vq.scale[..., 0]
+        int8 = dict(k_scales=ks, v_scales=vs)
         kinds = [("flash_decode_paged", q, kp, vp, {}),
-                 ("flash_decode_paged_int8", q, kq.q, vq.q,
-                  dict(k_scales=ks, v_scales=vs)),
+                 ("flash_decode_paged_int8", q, kq.q, vq.q, int8),
                  ("flash_decode_paged_f32", q, kp.float(), vp.float(), {}),
                  ("flash_decode_paged_f32", q.float(), kp.float(),
-                  vp.float(), {})]
+                  vp.float(), {}),
+                 ("flash_decode_paged_f32q", q.float(), kp, vp, {}),
+                 ("flash_decode_paged_int8_f32q", q.float(), kq.q, vq.q,
+                  int8)]
         for name, qq, kk, vv, sc in kinds:
-            if sc:
+            # an fp32 q is held to the split plain version (below)
+            f32q = name.endswith("_f32q")
+            if sc and not f32q:
                 ref = paged_decode_attention_q_ref(qq, kk, vv, ks, vs, lens,
                                                    tables)
                 ref32 = paged_decode_attention_ref(
                     qq.float(), kq.dequantize(torch.float32),
                     vq.dequantize(torch.float32), lens, tables).to(qq.dtype)
-            else:
+            elif not f32q:
                 ref = paged_decode_attention_ref(qq, kk, vv, lens, tables)
             for n in (None,) + fd.SPLITS:
                 cfg = None if n is None else fd.COMPILED.replace(splits=n)
@@ -1427,9 +1537,17 @@ def paged_correctness(torch, gen, dev) -> tuple:
                                             config=cfg, **sc)
                 torch.cuda.synchronize()
                 det.append(torch.equal(got, again))
-                err, ok = max_err(got, ref, Q_ATOL if sc else ATOL)
                 extra = ""
-                if sc:
+                if f32q:
+                    n_split = n or fd.resolve_paged_splits(
+                        b, hq, hkv, d, p_max, ps, bool(sc), "float32",
+                        "cuda", kv_bytes=kk.element_size())
+                    err, ok = f32q_err(got, paged_decode_attention_split_ref(
+                        qq, kk, vv, lens, tables, n_split, **sc))
+                    extra = f" fp32 tolerance at {n_split} splits"
+                else:
+                    err, ok = max_err(got, ref, Q_ATOL if sc else ATOL)
+                if sc and not f32q:
                     err32, ok32 = max_err(got, ref32)
                     ok = ok and ok32
                     extra = f" fp32-dequant err={err32:.3g}"
@@ -1461,51 +1579,86 @@ def f32_err(got, ref, bound) -> tuple:
 
 
 def matmul_f32_correctness(torch, gen, dev) -> list:
-    """Phase 2 for ``apr_matmul_f32`` (B1 and B7m on fp32 operands): at the
-    llama3-8b projection shapes (M = 4 and 16) and ragged ones, fp32 and
-    bf16 out, plain and fused with every activation, bias and none, against
-    the plain versions within the F32_MM_SLACK bound; each launched twice
-    for equal bits.  One case per (kernel, shape)."""
+    """Phase 2 for the fp32 body (B1 and B7m on fp32 operands, and fp32
+    activations over an int8 weight): at the llama3-8b projection shapes
+    (M = 4 and 16), the ragged ones and a K of 0, fp32 and bf16 out, plain
+    and fused with every activation, bias and none, at every fp32 tile x
+    split count, against the split plain versions within the F32_MM_SLACK
+    bound, each launched twice for equal bits and equal bits across the
+    tiles at one split count; over the int8 weight bit for bit equal to the
+    fp32 body on its fp32 dequantization at every tile and split count.
+    One case per (kernel, shape)."""
     from repro_torch.kernels.apr_matmul import ops as mm
-    from repro_torch.kernels.apr_matmul.ref import matmul_fused_ref, matmul_ref
+    from repro_torch.kernels.apr_matmul.ref import (matmul_fused_split_ref,
+                                                    matmul_split_ref)
+    from repro_torch.quant import quantize_channelwise
     f32 = torch.float32
     shapes = [(m, k, n) for m in PROJ_MS for k, n in LLAMA_DECODE_SHAPES]
-    shapes += [(3, 100, 1000), (17, 96, 77), (5, 4096, 40), (1, 8, 8),
-               (16, 0, 64)]
+    shapes += RAGGED_MKN + SPLIT_RAGGED_MKN + [(1, 8, 8), (16, 0, 64)]
     cases = []
     for m, k, n in shapes:
         x = torch.randn((m, k), generator=gen, device=dev)
         w = torch.randn((k, n), generator=gen, device=dev) * max(k, 1) ** -0.5
         bias = torch.randn((n,), generator=gen, device=dev)
         sums = torch.matmul(x.abs(), w.abs())
-        stats = {name: [0.0, True, 0] for name in ("apr_matmul_f32",
-                                                   "apr_matmul_fused_f32")}
+        qt = quantize_channelwise(w) if k else None
+        deq = qt.dequantize(f32) if k else None
+        names = ("apr_matmul_f32", "apr_matmul_fused_f32",
+                 "apr_matmul_f32_int8w")
+        stats = {name: [0.0, True, 0] for name in names}
+
+        def note(name, err, ok):
+            st = stats[name]
+            st[:] = [max(st[0], err), st[1] and ok, st[2] + 1]
+
         for out in (f32, torch.bfloat16):
             rel = F32_MM_ULPS * 2.0 ** -24 + (BF16_RTOL if out != f32 else 0)
-            got = mm.apr_matmul(x, w, out_dtype=out)
-            again = mm.apr_matmul(x, w, out_dtype=out)
-            ref = matmul_ref(x, w, out)
-            err, ok = f32_err(got, ref, F32_MM_SLACK * k * 2.0 ** -24
-                              * sums + rel * ref.float().abs())
-            st = stats["apr_matmul_f32"]
-            st[:] = [max(st[0], err), st[1] and ok and torch.equal(got, again)
-                     and got.dtype == out, st[2] + 1]
-            for act in ACTIVATIONS:
-                for bb in (None, bias):
-                    got = mm.apr_matmul_fused(x, w, bb, activation=act,
-                                              out_dtype=out)
-                    ref = matmul_fused_ref(x, w, bb, act, out)
-                    slack = sums if bb is None else sums + bb.abs()
-                    err, ok = f32_err(got, ref, F32_MM_SLACK * k
-                                      * 2.0 ** -24 * slack
-                                      + rel * ref.float().abs())
-                    st = stats["apr_matmul_fused_f32"]
-                    st[:] = [max(st[0], err), st[1] and ok, st[2] + 1]
+            for n_split in mm.SPLITS:
+                ref = matmul_split_ref(x, w, n_split, out)
+                fused = {(act, bb is None): matmul_fused_split_ref(
+                    x, w, n_split, bb, act, out)
+                    for act in ACTIVATIONS for bb in (None, bias)}
+                first, first_fused = None, {}
+                for tile in mm.F32_TILES:
+                    cfg = tile_config(tile, n_split)
+                    got = mm.apr_matmul(x, w, out_dtype=out, config=cfg)
+                    again = mm.apr_matmul(x, w, out_dtype=out, config=cfg)
+                    err, ok = f32_err(got, ref, F32_MM_SLACK * k * 2.0 ** -24
+                                      * sums + rel * ref.float().abs())
+                    note("apr_matmul_f32", err, ok and got.dtype == out
+                         and torch.equal(got, again)
+                         and (first is None or torch.equal(got, first)))
+                    first = got if first is None else first
+                    if qt is not None:
+                        # the int8 weight: the fp32 body's bits on the fp32
+                        # dequantized weight
+                        q8 = mm.apr_matmul(x, qt, out_dtype=out, config=cfg)
+                        on_deq = mm.apr_matmul(x, deq, out_dtype=out,
+                                               config=cfg)
+                        note("apr_matmul_f32_int8w", max_err(q8, on_deq)[0],
+                             torch.equal(q8, on_deq) and q8.dtype == out)
+                    for key, r in fused.items():
+                        act, nobias = key
+                        bb = None if nobias else bias
+                        slack = sums if bb is None else sums + bb.abs()
+                        got = mm.apr_matmul_fused(x, w, bb, activation=act,
+                                                  out_dtype=out, config=cfg)
+                        again = mm.apr_matmul_fused(x, w, bb, activation=act,
+                                                    out_dtype=out, config=cfg)
+                        err, ok = f32_err(got, r, F32_MM_SLACK * k
+                                          * 2.0 ** -24 * slack
+                                          + rel * r.float().abs())
+                        note("apr_matmul_fused_f32", err, ok
+                             and torch.equal(got, again)
+                             and (key not in first_fused
+                                  or torch.equal(got, first_fused[key])))
+                        first_fused.setdefault(key, got)
         torch.cuda.synchronize()
         for name, (err, ok, runs) in stats.items():
-            cases.append((name, f"M={m} K={k} N={n} ({runs} runs, fp32/bf16 "
-                          f"out)", err, ok))
-        del x, w, bias, sums
+            if runs:
+                cases.append((name, f"M={m} K={k} N={n} ({runs} tile/split/"
+                              f"variant runs, fp32/bf16 out)", err, ok))
+        del x, w, bias, sums, qt, deq
     return cases
 
 
@@ -1518,8 +1671,10 @@ def paged_timing(torch, gen, dev, lengths=None) -> list:
     int8), and the byte bound (q and the output once, the live tokens' K
     and V (and scales) once, the lengths and tables); where the wrapper
     takes a split count, its time at each (``split_ms``) and the count it
-    picks (``splits``).  It uses only what every version of the port has,
-    so a copy of this script times an older tree's kernels."""
+    picks (``splits``); where the tree takes an fp32 q over bf16 and int8
+    pools (an fp32-param model), those two too, beside fp32 SDPA on the
+    gathered (dequantized) pools.  It uses only what every version of the
+    port has, so a copy of this script times an older tree's kernels."""
     import torch.nn.functional as F
     from repro_torch.bench import BlockConfig
     from repro_torch.kernels.flash_decode import (flash_decode_paged,
@@ -1538,28 +1693,30 @@ def paged_timing(torch, gen, dev, lengths=None) -> list:
     base = 2 * b * hq * d * 2 + b * (p_max + 1) * 4      # q, out, tables
     splits = getattr(fd, "resolve_paged_splits", None)
 
-    def sdpa(kk, vv):
+    def sdpa(kk, vv, qq=q):
         return F.scaled_dot_product_attention(
-            q[:, :, None].to(kk.dtype), kk.permute(0, 2, 1, 3),
+            qq[:, :, None].to(kk.dtype), kk.permute(0, 2, 1, 3),
             vv.permute(0, 2, 1, 3), attn_mask=live[:, None, None],
-            enable_gqa=True).to(q.dtype)
+            enable_gqa=True).to(qq.dtype)
 
-    def row(name, kpool, vpool, ref, library, kv_bytes, sc=None):
+    def row(name, kpool, vpool, ref, library, kv_bytes, sc=None, qq=q):
         def kernel(i, cfg=None):
             kw = {} if sc is None else dict(k_scales=sc[0][i % layers],
                                             v_scales=sc[1][i % layers])
             if cfg is not None:
                 kw["config"] = cfg
-            return flash_decode_paged(q, kpool[i % layers], vpool[i % layers],
-                                      lens, tables, **kw)
+            return flash_decode_paged(qq, kpool[i % layers],
+                                      vpool[i % layers], lens, tables, **kw)
+        # q and the output in q's type
+        q_bytes = 2 * b * hq * d * (qq.element_size() - 2)
         r = dict(kernel=name, B=b, Hq=hq, Hkv=hkv, D=d, ps=ps, P_max=p_max,
                  lengths=list(lengths), ms=cuda_ms(torch, kernel, 200),
                  plain_ms=cuda_ms(torch, ref, 50),
                  library_ms=cuda_ms(torch, library, 50),
-                 **bound_ms(base + kv_bytes, 4 * tokens * hq * d))
+                 **bound_ms(base + q_bytes + kv_bytes, 4 * tokens * hq * d))
         if splits is not None:
             r["splits"] = splits(b, hq, hkv, d, p_max, ps, sc is not None,
-                                 "bfloat16", "cuda",
+                                 str(qq.dtype)[6:], "cuda",
                                  kv_bytes=kpool.element_size())
             r["split_ms"] = {n: cuda_ms(torch, lambda i: kernel(
                 i, BlockConfig.make(chunk=32, splits=n)), 200)
@@ -1572,6 +1729,19 @@ def paged_timing(torch, gen, dev, lengths=None) -> list:
                 lambda i: sdpa(gather_pages(kp[i % layers], tables),
                                gather_pages(vp[i % layers], tables)),
                 tokens * hkv * d * 2 * 2)]
+    q32 = q.float()
+    f32q = (torch.float32, torch.bfloat16) in fd.KERNEL_DTYPES[
+        fd.PAGED_KERNEL_NAME]
+    if f32q:
+        rows.append(row("flash_decode_paged_f32q", kp, vp,
+                        lambda i: paged_decode_attention_ref(
+                            q32, kp[i % layers], vp[i % layers], lens,
+                            tables),
+                        lambda i: sdpa(
+                            gather_pages(kp[i % layers], tables).float(),
+                            gather_pages(vp[i % layers], tables).float(),
+                            q32),
+                        tokens * hkv * d * 2 * 2, qq=q32))
     k32, v32 = kp.float(), vp.float()
     rows.append(row("flash_decode_paged_f32", k32, v32,
                     lambda i: paged_decode_attention_ref(
@@ -1596,7 +1766,21 @@ def paged_timing(torch, gen, dev, lengths=None) -> list:
                         q, kq.q[i % layers], vq.q[i % layers], ks[i % layers],
                         vs[i % layers], lens, tables),
                     library_q, tokens * hkv * (d + 4) * 2, sc=(ks, vs)))
-    del kq, vq, ks, vs, q
+    if f32q:
+        def library_q32(i):
+            lay = i % layers
+            kk, vv = (gather_pages(c.q[lay], tables).float()
+                      * gather_pages(sc[lay], tables)[..., None]
+                      for c, sc in ((kq, ks), (vq, vs)))
+            return sdpa(kk, vv, q32)
+
+        rows.append(row("flash_decode_paged_int8_f32q", kq.q, vq.q,
+                        lambda i: paged_decode_attention_q_ref(
+                            q32, kq.q[i % layers], vq.q[i % layers],
+                            ks[i % layers], vs[i % layers], lens, tables),
+                        library_q32, tokens * hkv * (d + 4) * 2,
+                        sc=(ks, vs), qq=q32))
+    del kq, vq, ks, vs, q, q32
     torch.cuda.empty_cache()
     return rows
 
@@ -1652,17 +1836,32 @@ def paged_split_sweep(torch, gen, dev) -> list:
 
 def projection_timing(torch, gen, dev, ms) -> list:
     """B1 (``apr_matmul``), its int8-weight operand and its fp32 operands
-    at the llama3-8b projection shapes and the lm_head, M in ``ms``: ms per
-    call with the weights rotated past the 50 MB L2, the plain version,
-    ``torch.matmul`` (on the dequantized weight for int8; in fp32 without
-    TF32 for fp32), and the bound (bytes, or the operations at the bf16 or
-    fp32 peak).  The int8 rows name the tile the wrapper resolves
-    (``tile``); the fp32 rows run where the tree has the fp32 kernel."""
+    (the fp32 body, over fp32 weights and, where the tree has it, over int8
+    weights) at the llama3-8b projection shapes and the lm_head, M in
+    ``ms``: ms per call with the weights rotated past the 50 MB L2 at the
+    configuration the wrapper resolves, and where the kernel takes a split
+    count its time at each (``split_ms``) and the count it resolves
+    (``splits``); the plain version, ``torch.matmul`` (on the dequantized
+    weight for int8, in fp32 for the fp32 body; TF32 off), and the bound
+    (bytes, or the operations at the bf16 or fp32 peak).  The int8 rows
+    name the tile the wrapper resolves (``tile``).  It uses only what
+    every version of the port has where it times the default, so a copy of
+    this script times an older tree's kernels."""
     from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.quant import quantize_channelwise
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
+    splits = getattr(mm, "SPLITS", None)
+    f32_int8 = (f32, torch.int8) in mm.KERNEL_DTYPES["apr_matmul"]
     rows = []
+
+    def by_split(row, fn, iters):
+        """The row's time at each split count and the count resolved."""
+        if splits is not None:
+            row["split_ms"] = {n: cuda_ms(torch, lambda i: fn(i, n), iters)
+                               for n in splits}
+        return row
+
     for m in ms:
         for k, n in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]:
             nbuf = min(32, max(1, math.ceil(200e6 / (k * n * 2))))
@@ -1676,11 +1875,14 @@ def projection_timing(torch, gen, dev, ms) -> list:
                 x, ws[i % nbuf], bf16), iters)
             t_l = cuda_ms(torch, lambda i: torch.matmul(x, ws[i % nbuf]),
                           iters)
-            rows.append(dict(kernel="apr_matmul", M=m, K=k, N=n, ms=t_k,
-                             plain_ms=t_p, library_ms=t_l,
-                             weight_buffers=nbuf,
-                             **bound_ms(2 * (m * k + k * n + m * n),
-                                        2 * m * k * n)))
+            row = dict(kernel="apr_matmul", M=m, K=k, N=n, ms=t_k,
+                       plain_ms=t_p, library_ms=t_l, weight_buffers=nbuf,
+                       **bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n))
+            if splits is not None:
+                row["splits"] = mm.resolve_launch("apr_matmul", m, k, n,
+                                                  "bfloat16", "cuda")[1]
+            rows.append(by_split(row, lambda i, s: apr_matmul(
+                x, ws[i % nbuf], out_dtype=bf16, splits=s), iters))
             # the same weights as int8 codes + fp32 column scales; the
             # library yardstick multiplies by the dequantized bf16 weight
             qts = [quantize_channelwise(w.float()) for w in ws]
@@ -1702,24 +1904,52 @@ def projection_timing(torch, gen, dev, ms) -> list:
                                               None, True)
             rows.append(row)
             del qts, deqs
-            if hasattr(mm, "F32_CONFIG"):
+            if hasattr(mm, "F32_CONFIG") or hasattr(mm, "F32_TILES"):
                 nb32 = min(32, max(1, math.ceil(200e6 / (k * n * 4))))
                 w32 = [torch.randn((k, n), generator=gen, device=dev)
                        * k ** -0.5 for _ in range(nb32)]
                 x32 = x.float()
                 t_k = cuda_ms(torch, lambda i: apr_matmul(
-                    x32, w32[i % nb32], out_dtype=torch.float32), iters)
+                    x32, w32[i % nb32], out_dtype=f32), iters)
                 t_p = cuda_ms(torch, lambda i: matmul_ref(
-                    x32, w32[i % nb32], torch.float32), iters)
+                    x32, w32[i % nb32], f32), iters)
                 t_l = cuda_ms(torch, lambda i: torch.matmul(
                     x32, w32[i % nb32]), iters)
-                rows.append(dict(kernel="apr_matmul_f32", M=m, K=k, N=n,
-                                 ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                 weight_buffers=nb32,
-                                 **bound_ms(4 * (m * k + k * n + m * n),
-                                            2 * m * k * n,
-                                            FP32_FLOPS_PER_S)))
-                del w32, x32
+                row = dict(kernel="apr_matmul_f32", M=m, K=k, N=n, ms=t_k,
+                           plain_ms=t_p, library_ms=t_l, weight_buffers=nb32,
+                           **bound_ms(4 * (m * k + k * n + m * n),
+                                      2 * m * k * n, FP32_FLOPS_PER_S))
+                if splits is not None:
+                    row["splits"] = mm.resolve_f32("apr_matmul", m, k,
+                                                   n)["splits"]
+                rows.append(by_split(row, lambda i, s: apr_matmul(
+                    x32, w32[i % nb32], out_dtype=f32, splits=s), iters))
+                if f32_int8:
+                    # fp32 activations over int8 codes; the library
+                    # multiplies by the weight dequantized to fp32 ahead
+                    q32 = [quantize_channelwise(w) for w in w32]
+                    deq32 = [qt.dequantize(f32) for qt in q32]
+                    del w32
+                    t_k = cuda_ms(torch, lambda i: apr_matmul(
+                        x32, q32[i % nb32], out_dtype=f32), iters)
+                    t_p = cuda_ms(torch, lambda i: matmul_ref(
+                        x32, q32[i % nb32].dequantize(f32), f32), iters)
+                    t_l = cuda_ms(torch, lambda i: torch.matmul(
+                        x32, deq32[i % nb32]), iters)
+                    row = dict(kernel="apr_matmul_f32_int8w", M=m, K=k, N=n,
+                               ms=t_k, plain_ms=t_p, library_ms=t_l,
+                               weight_buffers=nb32,
+                               splits=mm.resolve_f32("apr_matmul", m, k, n,
+                                                     w_int8=True)["splits"],
+                               **bound_ms(4 * m * k + k * n + 4 * n
+                                          + 4 * m * n, 2 * m * k * n,
+                                          FP32_FLOPS_PER_S))
+                    rows.append(by_split(row, lambda i, s: apr_matmul(
+                        x32, q32[i % nb32], out_dtype=f32, splits=s), iters))
+                    del q32, deq32
+                else:
+                    del w32
+                del x32
             del x
     torch.cuda.empty_cache()
     return rows
@@ -1746,10 +1976,12 @@ def kernel_sweep(torch, out: Path) -> None:
     """``--kernel-sweep``: build ``flash_decode.cu`` and ``apr_matmul.cu``,
     print their registers and spills, time B2 over bf16, fp32 and int8
     pools (B2q) at the serving shape (at each split count where the tree
-    takes one) and at each split count over :data:`PAGED_SWEEP`, B3
-    against its longest length (:data:`DECODE_SWEEP`) and over an fp32
-    cache (:data:`DECODE_TIMING`), and B1 with bf16, int8 and fp32 weights
-    at the projection shapes (M = 4 and 16); writes ``out``.  It uses only entry points every version of the
+    takes one; under an fp32 q too where it takes one) and at each split
+    count over :data:`PAGED_SWEEP`, B3 against its longest length
+    (:data:`DECODE_SWEEP`), over an fp32 cache and under an fp32 q
+    (:data:`DECODE_TIMING`), and B1 with bf16, int8 and fp32 weights and
+    fp32 activations over int8 weights at the projection shapes (M = 4 and
+    16; at each split count where the tree takes one); writes ``out``.  It uses only entry points every version of the
     port has, so a copy of this script beside an older tree times that
     tree's kernels."""
     from repro_torch.kernels import _build
@@ -1767,6 +1999,9 @@ def kernel_sweep(torch, out: Path) -> None:
     rows = paged_timing(torch, gen, dev)
     rows += decode_timing(torch, gen, dev, DECODE_SWEEP)
     rows += decode_timing(torch, gen, dev, DECODE_TIMING, torch.float32)
+    if (torch.float32, torch.bfloat16) in fd.KERNEL_DTYPES[fd.KERNEL_NAME]:
+        rows += decode_timing(torch, gen, dev, DECODE_TIMING[:1],
+                              q_dtype=torch.float32)
     rows += projection_timing(torch, gen, dev, PROJ_MS)
     for r in rows:
         print_timing_row(r)
@@ -1911,9 +2146,10 @@ def main() -> int:
     ap.add_argument("--kernel-sweep", action="store_true",
                     help="only build flash_decode.cu and apr_matmul.cu, "
                          "print their registers and spills and time B2/B2q "
-                         "(at each split count over PAGED_SWEEP too), B3 "
-                         "against its longest length and B1 with bf16, "
-                         "int8 and fp32 weights at the projection shapes "
+                         "(at each split count over PAGED_SWEEP too; under "
+                         "an fp32 q), B3 against its longest length and B1 "
+                         "with bf16, int8 and fp32 weights and fp32 x int8 "
+                         "at the projection shapes, at each split count "
                          "(kernel_sweep); writes --out")
     args = ap.parse_args()
 
@@ -1935,6 +2171,7 @@ def main() -> int:
                                                 matmul_ref)
     from repro_torch.kernels.apr_matmul import ops as apr_ops
     from repro_torch.kernels.flash_decode import (decode_attention_ref,
+                                                  decode_attention_split_ref,
                                                   flash_decode,
                                                   flash_decode_paged)
     from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -2014,13 +2251,14 @@ def main() -> int:
     phase_done("phase 1")
 
     # ------------------------------------------------------------ 2 correct
-    errs = {"apr_matmul": 0.0, "apr_matmul_int8w": 0.0,
-            "flash_decode_paged": 0.0, "flash_decode_paged_int8": 0.0,
-            "flash_decode_paged_f32": 0.0, "flash_decode": 0.0, "apr_conv": 0.0, "apr_conv_hbm": 0.0,
-            "rwkv6_wkv": 0.0, "mamba2_ssd": 0.0, "apr_matmul_hbm": 0.0,
-            "apr_matmul_fused": 0.0, "quant_matmul": 0.0,
-            "quant_matmul_fused": 0.0, "apr_matmul_f32": 0.0,
-            "apr_matmul_fused_f32": 0.0}
+    errs = {name: 0.0 for name in (
+        "apr_matmul", "apr_matmul_int8w", "flash_decode_paged",
+        "flash_decode_paged_int8", "flash_decode_paged_f32",
+        "flash_decode_paged_f32q", "flash_decode_paged_int8_f32q",
+        "flash_decode", "flash_decode_f32q", "apr_conv", "apr_conv_hbm",
+        "rwkv6_wkv", "mamba2_ssd", "apr_matmul_hbm", "apr_matmul_fused",
+        "quant_matmul", "quant_matmul_fused", "apr_matmul_f32",
+        "apr_matmul_fused_f32", "apr_matmul_f32_int8w")}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -2045,14 +2283,15 @@ def main() -> int:
             cases.append(("apr_matmul", f"M={m} K={k} N={n} off={off} "
                           f"out={str(out_dtype)[6:]}", err, ok))
         # the int8 weight of w (codes offset like x), against the plain
-        # version and, bit for bit, the bf16 kernel on its dequantized copy
+        # version and, bit for bit, the bf16 kernel at one split (the K
+        # order the int8-weight kernel shares) on its dequantized copy
         qt = quantize_channelwise(w.float())
         qb = torch.empty(k * n + off, dtype=torch.int8, device=dev)
         qt.q = qb[off:].view(k, n).copy_(qt.q)
         w_deq = qt.dequantize(torch.bfloat16)
         for out_dtype in (torch.bfloat16, torch.float32):
             ref = matmul_ref(x, w_deq, out_dtype)
-            same = apr_matmul(x, w_deq, out_dtype=out_dtype)
+            same = apr_matmul(x, w_deq, out_dtype=out_dtype, splits=1)
             # the default tile, then every compiled one
             for tile in (None,) + apr_ops.INT8W_TILES:
                 got = apr_matmul(x, qt, out_dtype=out_dtype, config=(
@@ -2079,7 +2318,9 @@ def main() -> int:
     # they return the mean of V over all S positions, as the JAX kernel
     # does; at the split count the wrapper picks and at every one it may
     # be given (splits past a row's walk are empty), over bf16 and fp32
-    # caches; and twice on the same inputs, for equal bits
+    # caches, and under an fp32 q over the bf16 cache (an fp32-param model
+    # on the slot engine; fp32 tolerance against the split plain version);
+    # and twice on the same inputs, for equal bits
     b3_det = []
     for b, hq, hkv, d, s_len, lengths in [
             (4, 32, 8, 128, 256, [40, 96, 150, 196]),     # serving shape
@@ -2092,19 +2333,28 @@ def main() -> int:
         k_c, v_c = randn(b, s_len, hkv, d), randn(b, s_len, hkv, d)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         for qq, kk, vv in ((q, k_c, v_c), (q, k_c.float(), v_c.float()),
-                           (q.float(), k_c.float(), v_c.float())):
+                           (q.float(), k_c.float(), v_c.float()),
+                           (q.float(), k_c, v_c)):
             ref = decode_attention_ref(qq, kk, vv, lens)
+            f32q = qq.dtype == torch.float32 and kk.dtype == torch.bfloat16
+            name = "flash_decode_f32q" if f32q else "flash_decode"
             for n in (None,) + fd_ops.SPLITS:
                 cfg_n = (None if n is None
                          else fd_ops.COMPILED.replace(splits=n))
                 got = flash_decode(qq, kk, vv, lens, config=cfg_n)
                 again = flash_decode(qq, kk, vv, lens, config=cfg_n)
                 torch.cuda.synchronize()
-                err, ok = max_err(got, ref)
+                if f32q:
+                    err, ok = f32q_err(got, decode_attention_split_ref(
+                        qq, kk, vv, lens, n or fd_ops.resolve_splits(
+                            b, hq, hkv, d, s_len, "float32", "cuda",
+                            kv_bytes=2)))
+                else:
+                    err, ok = max_err(got, ref)
                 b3_det.append(torch.equal(got, again))
                 ok = ok and got.dtype == qq.dtype and b3_det[-1]
-                errs["flash_decode"] = max(errs["flash_decode"], err)
-                cases.append(("flash_decode", f"B={b} Hq={hq} Hkv={hkv} "
+                errs[name] = max(errs[name], err)
+                cases.append((name, f"B={b} Hq={hq} Hkv={hkv} "
                               f"D={d} S={s_len} lengths={lengths} q "
                               f"{str(qq.dtype)[6:]} cache "
                               f"{str(kk.dtype)[6:]} splits={n or 'default'}"
@@ -2182,17 +2432,26 @@ def main() -> int:
         cases.append((name, case, err, ok))
     print(f"[2] kernel vs plain version on the card (tolerance "
           f"{BF16_RTOL:.4g}*|plain| + {ATOL:g}; int8 pools "
-          f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; flash_decode and "
+          f"{BF16_RTOL:.4g}*|plain| + {Q_ATOL:g}; an fp32 q over bf16 or "
+          f"int8 K/V {F32Q_RTOL:g}*(|plain| + max|plain|) against the split "
+          f"plain version; flash_decode and "
           f"flash_decode_paged at every split count, and twice on the same "
           f"inputs bit-equal ({sum(b3_det)}/{len(b3_det)}, "
           f"{sum(b2_det)}/{len(b2_det)}); apr_matmul_f32 and its fused form "
           f"{F32_MM_SLACK:g}*K*2^-24*(|x|@|w| + |bias|) + "
           f"{F32_MM_ULPS}*2^-24*|plain| (+ {BF16_RTOL:.4g}*|plain| for bf16 "
-          f"out); conv kernels "
+          f"out), every fp32 tile x split count against the split plain "
+          f"version, equal bits across tiles at one split count and over "
+          f"int8 weights equal bits to the fp32 weight they dequantize to; "
+          f"conv kernels "
           f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|; scans: y "
           f"{BF16_RTOL:.4g}*|plain| + {SCAN_ATOL_REL:g}*max|plain|, fp32 "
           f"state {STATE_RTOL:g}*(|plain| + max|plain|); matmul families "
-          f"at every compiled tile: B4m bit-equal to B1 at the tile, B6/B8 "
+          f"at every compiled tile (B1 and B7m at every split count, "
+          f"against the split plain version, twice bit-equal and bit-equal "
+          f"across tiles at one split count): B4m bit-equal to B1 at one "
+          f"split and the tile, the int8-weight kernel bit-equal to B1 at "
+          f"one split, B6/B8 "
           f"none/relu bit-equal, silu/gelu within {ACT_ULPS} fp32 ulps of "
           f"max(|plain|, |pre-activation|) or the bf16 tolerance for bf16 "
           f"out, B7m the bf16 tolerance):")
@@ -2217,15 +2476,20 @@ def main() -> int:
     slots = 4
     timing = projection_timing(torch, gen, dev, (slots, 16))
     per_shape = {(r["kernel"], r["M"], r["K"], r["N"]): r for r in timing}
-    # B2 over bf16, fp32 and int8 pools at the phase-4 lengths
-    fd_row, fd32_row, fdq_row = paged_timing(torch, gen, dev)
-    timing += [fd_row, fd32_row, fdq_row]
+    # B2 over bf16, fp32 and int8 pools at the phase-4 lengths, bf16 and
+    # int8 ones under an fp32 q too
+    paged_rows = {r["kernel"]: r for r in paged_timing(torch, gen, dev)}
+    timing += list(paged_rows.values())
     # the slot engine's contiguous cache at max_seq 256, same lengths, and a
-    # 4096-token cache near full; the bound counts the live tokens' K and V
+    # 4096-token cache near full; the bound counts the live tokens' K and V;
+    # at max_seq 256 an fp32 cache, and an fp32 q over the bf16 one
     decode_rows = decode_timing(torch, gen, dev, DECODE_TIMING)
     fdc_row = decode_rows[0]
     decode_rows += decode_timing(torch, gen, dev, DECODE_TIMING[:1],
                                  torch.float32)
+    fdc32q_row = decode_timing(torch, gen, dev, DECODE_TIMING[:1],
+                               q_dtype=torch.float32)[0]
+    decode_rows.append(fdc32q_row)
     timing.extend(decode_rows)
     torch.cuda.empty_cache()
     scan_rows = scan_timing(torch, gen, dev)
@@ -2344,25 +2608,39 @@ def main() -> int:
           f"{conv_total['fused_library_ms']:.4f} ms, bound "
           f"{conv_total['fused_bound_ms']:.4f} ms")
 
-    def per_tick(key, kernel="apr_matmul", lm_head=True):
+    def per_tick(key, kernel="apr_matmul", lm_head=True, m=slots):
         """Sum over one full-width decode tick (M = slots): 7 projections
-        in each of 32 layers plus (``lm_head``) the lm_head."""
-        layer = sum(cnt * per_shape[(kernel, slots, k, n)][key]
+        in each of 32 layers plus (``lm_head``) the lm_head; ``key`` names
+        a row's field, or is a function of the row."""
+        value = key if callable(key) else (lambda r: r[key])
+        layer = sum(cnt * value(per_shape[(kernel, m, k, n)])
                     for (k, n), cnt in LLAMA_DECODE_SHAPES.items())
-        return 32 * layer + (per_shape[(kernel, slots) + LM_HEAD][key]
+        return 32 * layer + (value(per_shape[(kernel, m) + LM_HEAD])
                              if lm_head else 0.0)
 
     def verdict(t, lib):
         return "at or below" if t <= lib else f"{t / lib:.2f}x"
 
-    for name in ("apr_matmul", "apr_matmul_int8w", "apr_matmul_f32"):
-        t = {key: per_tick(key, name) for key in ("ms", "library_ms",
-                                                  "bound_ms")}
-        print(f"    {name} per full-width decode tick (225 projections at "
-              f"M={slots}): {t['ms']:.3f} ms, torch.matmul "
-              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms: "
-              f"{verdict(t['ms'], t['library_ms'])} its library call")
-    for r in [fd_row, fd32_row, fdq_row] + decode_rows:
+    for name in ("apr_matmul", "apr_matmul_int8w", "apr_matmul_f32",
+                 "apr_matmul_f32_int8w"):
+        for m_ in (slots, 16):
+            t = {key: per_tick(key, name, m=m_) for key in (
+                "ms", "library_ms", "bound_ms")}
+            split = ""
+            if "split_ms" in per_shape[(name, m_) + LM_HEAD]:
+                by_n = {n: per_tick(lambda r: r["split_ms"][n], name, m=m_)
+                        for n in per_shape[(name, m_) + LM_HEAD]["split_ms"]}
+                best = per_tick(lambda r: min(r["split_ms"].values()), name,
+                                m=m_)
+                split = ("; every projection at one split count " + ", ".join(
+                    f"{n}: {v:.3f}" for n, v in by_n.items())
+                    + f" ms, each at its best {best:.3f} ms")
+            print(f"    {name} per full-width decode tick (225 projections "
+                  f"at M={m_}): {t['ms']:.3f} ms, torch.matmul "
+                  f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms: "
+                  f"{verdict(t['ms'], t['library_ms'])} its library call"
+                  + split)
+    for r in list(paged_rows.values()) + decode_rows:
         s_len = r["S"] if "S" in r else r["P_max"] * r["ps"]
         print(f"    {r['kernel']} S={s_len} "
               f"lengths={r['lengths']}: "
@@ -2383,7 +2661,10 @@ def main() -> int:
         flash_decode_paged.launches = 0
         flash_decode_paged.int8_launches = 0
         flash_decode_paged.f32_launches = 0
+        flash_decode_paged.f32q_launches = 0
+        flash_decode_paged.int8_f32q_launches = 0
         flash_decode.launches = 0
+        flash_decode.f32q_launches = 0
         apr_conv2d.launches = 0
         apr_conv2d.hbm_launches = 0
         apr_conv2d_fused.launches = 0
@@ -2391,9 +2672,11 @@ def main() -> int:
         mamba2_ssd.launches = 0
         apr_matmul.hbm_launches = 0
         apr_matmul.tile_launches.clear()
+        apr_matmul.split_launches.clear()
         apr_matmul.int8_tile_launches.clear()
         apr_matmul_fused.launches = 0
         apr_matmul.f32_launches = 0
+        apr_matmul.f32_int8_launches = 0
         apr_matmul_fused.f32_launches = 0
         quant_matmul.launches = 0
         quant_matmul_fused.launches = 0
@@ -2404,12 +2687,17 @@ def main() -> int:
                 "flash_decode_paged": flash_decode_paged.launches,
                 "flash_decode_paged_int8": flash_decode_paged.int8_launches,
                 "flash_decode_paged_f32": flash_decode_paged.f32_launches,
+                "flash_decode_paged_f32q": flash_decode_paged.f32q_launches,
+                "flash_decode_paged_int8_f32q":
+                    flash_decode_paged.int8_f32q_launches,
                 "flash_decode": flash_decode.launches,
+                "flash_decode_f32q": flash_decode.f32q_launches,
                 "rwkv6_wkv": rwkv6_wkv.launches,
                 "mamba2_ssd": mamba2_ssd.launches,
                 "apr_matmul_hbm": apr_matmul.hbm_launches,
                 "apr_matmul_fused": apr_matmul_fused.launches,
                 "apr_matmul_f32": apr_matmul.f32_launches,
+                "apr_matmul_f32_int8w": apr_matmul.f32_int8_launches,
                 "apr_matmul_fused_f32": apr_matmul_fused.f32_launches,
                 "quant_matmul": quant_matmul.launches,
                 "quant_matmul_fused": quant_matmul_fused.launches}
@@ -2859,67 +3147,139 @@ def main() -> int:
     check_served("phase 5 fp32 pools", fp32_reqs, 6, fp32_launches,
                  fp32_expect)
     del fp32_eng
-    # a model with fp32 parameters (the smoke weights in fp32) on fp32 KV
-    # pools, served by the PagedServeEngine on the card (apr_matmul_f32
-    # under every projection, B2 over fp32 pools at every decode tick) and
-    # on the CPU (plain versions): every forward's live logits within
-    # F32_SMOKE_LOGITS_BOUND, greedy tokens equal
+    # a model with fp32 parameters (the smoke weights in fp32) served on
+    # the card (the fp32 body under every projection, the decode kernels
+    # with an fp32 q) and on the CPU (plain versions): on fp32, bf16 and
+    # int8 KV pools by the PagedServeEngine, with int8 weights
+    # (quantize_params) on fp32 pools, and on the slot ServeEngine (bf16
+    # cache); every forward's live logits within F32_SMOKE_LOGITS_BOUND,
+    # greedy tokens equal, the launches exactly those of the path
     f32_prm = {k: v.float() for k, v in smoke_params["bf16"].items()}
-    f32_logits, f32_reqs = {}, {}
-    for side, where in (("cpu", "cpu"), ("card", "cuda")):
-        b_ = bundles[where]
-        inner, store = b_.decode_paged, []
-        f32_logits[side] = store
+    f32_int8_prm = bundles["cpu"].quantize_params(f32_prm)
+    per_call_s = 7 * scfg.num_layers + 1
 
-        def recorded(*a, inner=inner, store=store):
-            logits = inner(*a)
-            counts = a[4].long().cpu()
-            live = torch.arange(logits.shape[1])[None] < counts[:, None]
-            store.append(logits.float().cpu()[live])
-            return logits
+    def serve_f32_smoke(prm, kv_dtype):
+        """Serve the two smoke prompts on the CPU and on the card: the
+        PagedServeEngine over ``kv_dtype`` pools, or (``kv_dtype`` None)
+        the slot ServeEngine; returns each side's live logits by forward
+        and requests, the card's engine metrics and launches, and (int8
+        pools) the number of K/V codes in which the two sides' pools
+        differ outside the null page."""
+        logits, reqs, card, pools = {}, {}, {}, {}
+        for side, where in (("cpu", "cpu"), ("card", "cuda")):
+            b_, store = bundles[where], []
+            logits[side] = store
+            dprm = {k: v.to(where) for k, v in prm.items()}
+            if kv_dtype is None:
+                eng = ServeEngine(b_, dprm, device=where, slots=2,
+                                  max_seq=32)
+                inner = eng._decode
 
-        b_.decode_paged = recorded
-        eng = PagedServeEngine(b_, {k: v.to(where) for k, v in
-                                    f32_prm.items()}, device=where, slots=2,
-                               page_size=8, prefill_chunk=8,
-                               kv_dtype="float32")
-        f32_reqs[side] = [Request(rid=i, prompt=smoke_tokens[i].tolist(),
+                def slot_recorded(*a, inner=inner, eng=eng, store=store):
+                    out = inner(*a)
+                    finite.append(bool(torch.isfinite(out).all()))
+                    active = torch.tensor([r is not None for r in eng.active])
+                    store.append(out.float().cpu()[active, 0])
+                    return out
+
+                eng._decode = slot_recorded
+                restore = None
+            else:
+                inner = b_.decode_paged
+
+                def recorded(*a, inner=inner, store=store):
+                    out = inner(*a)
+                    counts = a[4].long().cpu()
+                    live = torch.arange(out.shape[1])[None] < counts[:, None]
+                    store.append(out.float().cpu()[live])
+                    return out
+
+                b_.decode_paged = recorded
+                restore = (b_, inner)
+                eng = PagedServeEngine(b_, dprm, device=where, slots=2,
+                                       page_size=8, prefill_chunk=8,
+                                       kv_dtype=kv_dtype)
+            reqs[side] = [Request(rid=i, prompt=smoke_tokens[i].tolist(),
                                   max_new_tokens=6) for i in range(2)]
-        finite.clear()
-        reset_counts()
-        for r in f32_reqs[side]:
-            eng.submit(r)
-        eng.run_until_drained()
-        torch.cuda.synchronize()
-        b_.decode_paged = inner
-        if side == "card":
-            fm = eng.metrics
-            f32p_launches = llm_counts()
-            f32p_expect = expected_counts(
-                apr_matmul_f32=(7 * scfg.num_layers + 1) * (
-                    fm.decode_calls + fm.prefill_calls),
-                flash_decode_paged_f32=scfg.num_layers * fm.decode_calls)
-        del eng
-    diffs = [float((c - g).abs().max()) for c, g in
-             zip(f32_logits["cpu"], f32_logits["card"])]
-    tokens = {w: [r.output for r in rs] for w, rs in f32_reqs.items()}
-    report["serve_fp32_params_smoke"] = dict(
-        forwards=len(diffs), max_abs_logits_diff=max(diffs),
-        per_forward=diffs, bound=F32_SMOKE_LOGITS_BOUND, tokens=tokens,
-        launches=f32p_launches, expected_launches=f32p_expect)
-    print(f"    PagedServeEngine on the smoke model with fp32 parameters and "
-          f"fp32 KV pools: {len(diffs)} forwards, max |logits diff| card vs "
-          f"CPU {max(diffs):.3g} (bound {F32_SMOKE_LOGITS_BOUND:g}), greedy "
-          f"tokens card {tokens['card']} CPU {tokens['cpu']}; launches "
-          f"{f32p_launches} (expected {f32p_expect})")
-    check_served("phase 5 fp32 params", f32_reqs["card"], 6, f32p_launches,
-                 f32p_expect)
-    if len(f32_logits["cpu"]) != len(f32_logits["card"]) or not all(
-            math.isfinite(x) and x <= F32_SMOKE_LOGITS_BOUND for x in diffs):
-        fail("phase 5 fp32 params: card and CPU logits differ beyond the "
-             "bound")
-    if tokens["card"] != tokens["cpu"]:
-        fail("phase 5 fp32 params: greedy tokens differ between card and CPU")
+            finite.clear()
+            reset_counts()
+            for r in reqs[side]:
+                eng.submit(r)
+            eng.run_until_drained()
+            torch.cuda.synchronize()
+            if restore is not None:
+                restore[0].decode_paged = restore[1]
+            if kv_dtype == "int8":        # past the null page 0, whose
+                # padded writes collide in index_put_ in no fixed order
+                pools[side] = [eng.cache[k][:, :, 1:].cpu()
+                               for k in ("k", "v")]
+            if side == "card":
+                card = dict(metrics=getattr(eng, "metrics", None),
+                            launches=llm_counts(), forwards=len(store))
+            del eng
+        if pools:
+            card["codes_differ"] = sum(int((a != b).sum()) for a, b in zip(
+                pools["cpu"], pools["card"]))
+        return logits, reqs, card
+
+    f32_runs = {}
+    for label, prm, kv_dtype in (
+            ("fp32 pools", f32_prm, "float32"),
+            ("bf16 pools", f32_prm, "bfloat16"),
+            ("int8 pools", f32_prm, "int8"),
+            ("int8 weights, fp32 pools", f32_int8_prm, "float32"),
+            ("slot engine", f32_prm, None)):
+        logits, reqs, card = serve_f32_smoke(prm, kv_dtype)
+        fm = card["metrics"]
+        if kv_dtype is None:
+            forwards = card["forwards"]
+            expect = expected_counts(apr_matmul_f32=per_call_s * forwards,
+                                     flash_decode_f32q=scfg.num_layers
+                                     * forwards)
+        else:
+            forwards = fm.decode_calls + fm.prefill_calls
+            weights = ("apr_matmul_f32_int8w" if prm is f32_int8_prm
+                       else "apr_matmul_f32")
+            attention = {"float32": "flash_decode_paged_f32",
+                         "bfloat16": "flash_decode_paged_f32q",
+                         "int8": "flash_decode_paged_int8_f32q"}[kv_dtype]
+            expect = expected_counts(**{
+                weights: per_call_s * forwards,
+                attention: scfg.num_layers * fm.decode_calls})
+        diffs = [float((c - g).abs().max()) for c, g in
+                 zip(logits["cpu"], logits["card"]) if c.numel()]
+        tokens = {w: [r.output for r in rs] for w, rs in reqs.items()}
+        bound = (F32_INT8_CODE_LOGITS_BOUND if card.get("codes_differ")
+                 else F32_SMOKE_LOGITS_BOUND)
+        run = dict(forwards=len(logits["card"]),
+                   cpu_forwards=len(logits["cpu"]),
+                   max_abs_logits_diff=max(diffs), per_forward=diffs,
+                   bound=bound, tokens=tokens, launches=card["launches"],
+                   expected_launches=expect)
+        if "codes_differ" in card:
+            run["kv_codes_differ"] = card["codes_differ"]
+        f32_runs[label] = run
+        print(f"    fp32 parameters, {label} ("
+              + ("ServeEngine" if kv_dtype is None else "PagedServeEngine")
+              + f"): {len(diffs)} forwards, max |logits diff| card vs CPU "
+              f"{max(diffs):.3g} (bound {bound:g}"
+              + (f"; K/V codes apart in the two sides' pools: "
+                 f"{card['codes_differ']}" if "codes_differ" in card else "")
+              + f"), greedy tokens card {tokens['card']} CPU "
+              f"{tokens['cpu']}; launches {card['launches']} (expected "
+              f"{expect})")
+        check_served(f"phase 5 fp32 params, {label}", reqs["card"], 6,
+                     card["launches"], expect)
+        if run["forwards"] != run["cpu_forwards"] or not all(
+                math.isfinite(x) and x <= bound for x in diffs):
+            fail(f"phase 5 fp32 params, {label}: card and CPU logits differ "
+                 f"beyond the bound")
+        if tokens["card"] != tokens["cpu"]:
+            fail(f"phase 5 fp32 params, {label}: greedy tokens differ "
+                 f"between card and CPU")
+    report["serve_fp32_params_smoke"] = f32_runs["fp32 pools"]
+    report["serve_fp32_params_smoke_more"] = {
+        k: v for k, v in f32_runs.items() if k != "fp32 pools"}
 
     phase_done("phase 5")
 
@@ -3156,22 +3516,42 @@ def main() -> int:
                    kernel="apr_matmul_int8w"),
         tick_entry("apr_matmul_f32", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
-                   report["serve_fp32_params_smoke"]["launches"][
-                       "apr_matmul_f32"], kernel="apr_matmul_f32"),
+                   f32_runs["fp32 pools"]["launches"]["apr_matmul_f32"],
+                   kernel="apr_matmul_f32"),
+        tick_entry("apr_matmul_f32_int8w", mm_src,
+                   "src/repro/kernels/apr_matmul/kernel.py:139",
+                   f32_runs["int8 weights, fp32 pools"]["launches"][
+                       "apr_matmul_f32_int8w"],
+                   kernel="apr_matmul_f32_int8w"),
         tick_entry("flash_decode_paged", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
-                   serve["launches"]["flash_decode_paged"], row=fd_row),
+                   serve["launches"]["flash_decode_paged"],
+                   row=paged_rows["flash_decode_paged"]),
         tick_entry("flash_decode_paged_f32", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
                    serve_f["launches"]["flash_decode_paged_f32"],
-                   row=fd32_row),
+                   row=paged_rows["flash_decode_paged_f32"]),
+        tick_entry("flash_decode_paged_f32q", fd_src,
+                   "src/repro/kernels/flash_decode/kernel.py:153",
+                   f32_runs["bf16 pools"]["launches"][
+                       "flash_decode_paged_f32q"],
+                   row=paged_rows["flash_decode_paged_f32q"]),
         tick_entry("flash_decode_paged_int8", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:81",
                    serve_q["launches"]["flash_decode_paged_int8"],
-                   row=fdq_row),
+                   row=paged_rows["flash_decode_paged_int8"]),
+        tick_entry("flash_decode_paged_int8_f32q", fd_src,
+                   "src/repro/kernels/flash_decode/kernel.py:81",
+                   f32_runs["int8 pools"]["launches"][
+                       "flash_decode_paged_int8_f32q"],
+                   row=paged_rows["flash_decode_paged_int8_f32q"]),
         tick_entry("flash_decode", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:240",
                    slot["launches"]["flash_decode"], row=fdc_row),
+        tick_entry("flash_decode_f32q", fd_src,
+                   "src/repro/kernels/flash_decode/kernel.py:240",
+                   f32_runs["slot engine"]["launches"]["flash_decode_f32q"],
+                   row=fdc32q_row),
     ]
     conv_bound_by = ("bytes" if conv_total["t_mem_ms"] >=
                      conv_total["t_ops_ms"] else "operations")
@@ -3226,18 +3606,25 @@ def main() -> int:
             else "operations", library_ms=t["library_ms"]))
     report["kernels"] = kernels
     report["kernels_note"] = (
-        "apr_matmul, apr_matmul_int8w, apr_matmul_f32, flash_decode_paged, "
-        "flash_decode_paged_f32, flash_decode_paged_int8 and flash_decode: "
+        "apr_matmul, apr_matmul_int8w, apr_matmul_f32, "
+        "apr_matmul_f32_int8w, flash_decode_paged, flash_decode_paged_f32, "
+        "flash_decode_paged_f32q, flash_decode_paged_int8, "
+        "flash_decode_paged_int8_f32q, flash_decode and flash_decode_f32q: "
         "ms, plain_ms, bound_ms and library_ms are per full-width decode "
-        "tick (4 slots): 225 projection shapes (apr_matmul_f32 on fp32 "
-        "weights, library torch.matmul in fp32 without TF32), 32 "
+        "tick (4 slots): 225 projection shapes at the resolved split count "
+        "(apr_matmul_f32 on fp32 weights, apr_matmul_f32_int8w fp32 "
+        "activations over int8 weights, library torch.matmul in fp32 "
+        "without TF32, on the fp32 dequantized weight for int8), 32 "
         "decode-attention launches at the phase-3 lengths (flash_decode "
-        "over a max_seq-256 contiguous cache); launches are those of phase "
-        "4 (bf16 paged), 4f (fp32 KV pages), 4b (int8 paged), 4c (slot) and "
-        "5 (apr_matmul_f32: the fp32-param smoke model served on fp32 "
-        "pools). flash_decode_f32 (B3 over an fp32 cache) has "
-        "phase-2 cases and a phase-3 row but no entry: no serving path "
-        "launches it (the slot engine's cache is bf16). "
+        "over a max_seq-256 contiguous cache; the _f32q entries an fp32 q "
+        "over bf16 or int8 K/V, library SDPA in fp32); launches are those "
+        "of phase 4 (bf16 paged), 4f (fp32 KV pages), 4b (int8 paged), 4c "
+        "(slot) and 5 (the fp32-param smoke model: apr_matmul_f32 on fp32 "
+        "pools, apr_matmul_f32_int8w with int8 weights, "
+        "flash_decode_paged_f32q / _int8_f32q on bf16 / int8 pools, "
+        "flash_decode_f32q on the slot engine). flash_decode_f32 (B3 over "
+        "an fp32 cache) has phase-2 cases and a phase-3 row but no entry: "
+        "no serving path launches it (the slot engine's cache is bf16). "
         "apr_conv and apr_conv_hbm: per ResNet-20 forward at batch "
         f"{CNN_BATCH} (21 convs; library F.conv2d, channels-last fp32 without "
         "TF32); launches are those of phase 6's main path (one LeNet-5 and "

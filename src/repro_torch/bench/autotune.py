@@ -197,7 +197,7 @@ def autotune(
     args = spec.make_inputs(shape, dtype, seed, dev)
     ref = spec.ref(args) if validate else None
 
-    candidates = spec.candidates(shape)
+    candidates = spec.candidates(shape, dtype)
     if max_candidates is not None:
         candidates = candidates[:max_candidates]
 

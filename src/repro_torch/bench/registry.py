@@ -13,7 +13,9 @@ generically:
 * ``ref(args)`` -- the plain PyTorch version from the family's ``ref.py``
   (the correctness gate compares against it);
 * ``tune_space(shape)`` -- the configurations the family's CUDA kernel is
-  compiled for (one point where it has one);
+  compiled for (one point where it has one); ``tune_space(shape, dtype)``
+  for a family whose kernels differ by the operands' dtype
+  (``dtype_space``);
 * ``default_config(shape)`` -- what resolves when nothing is tuned;
 * ``flops(shape)`` / ``hbm_bytes(shape, config, dtype)`` -- analytic work
   and memory traffic, the operands' item size taken from ``dtype``;
@@ -71,9 +73,16 @@ class KernelSpec:
     vmem_bytes: Optional[Callable[..., int]] = None
     rtol: float = 2e-3
     atol: float = 2e-3
+    #: ``tune_space`` takes the operands' dtype name after the shape
+    dtype_space: bool = False
 
-    def candidates(self, shape: Shape) -> List[BlockConfig]:
-        return self.tune_space(shape).candidates(shape)
+    def candidates(self, shape: Shape,
+                   dtype: str = "bfloat16") -> List[BlockConfig]:
+        """The configurations swept at ``shape`` for operands of ``dtype``
+        (the autotuner's default, bf16, unless given)."""
+        space = (self.tune_space(shape, dtype) if self.dtype_space
+                 else self.tune_space(shape))
+        return space.candidates(shape)
 
 
 _REGISTRY: Dict[str, KernelSpec] = {}

@@ -15,8 +15,13 @@ and at ``bfloat16`` they count what the card's kernels move.  The
 
 Tune spaces: the four matmul families list exactly the tiles
 ``apr_matmul.cu`` and ``quant_matmul.cu`` compile (six each; five for the
-int8-weight kernel).  ``flash_decode`` and ``flash_decode_paged`` list the
-split counts their kernels take (1, 2, 4, 8) at their one chunk.
+int8-weight kernel), ``apr_matmul`` and ``apr_matmul_fused`` each at the
+split counts their kernels take (at most one per 128-row range of K; the
+memory-resident baseline and the int8-weight kernel under bf16 operands
+run one split).  Those two spaces depend on the operands' dtype: at
+``float32`` they are the fp32 body's tiles (for an fp32 or an int8 weight)
+at the same split counts.  ``flash_decode`` and ``flash_decode_paged``
+list the split counts their kernels take (1, 2, 4, 8) at their one chunk.
 ``apr_conv``, ``apr_conv_fused``, ``mamba2`` and ``rwkv6`` have kernels
 compiled for one configuration, so their spaces have one point (widening
 them is later performance work).
@@ -85,14 +90,23 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _tile_space(tiles) -> TuneSpace:
-    """The (block_m, block_n, block_k) tiles a matmul kernel compiles."""
+def _tile_space(tiles, splits=None) -> TuneSpace:
+    """The (block_m, block_n, block_k) tiles a matmul kernel compiles, and
+    with ``splits`` the split counts it takes at each."""
+    extra = {} if splits is None else {"splits": splits}
     return TuneSpace.make(
         block_m=sorted({t[0] for t in tiles}),
         block_n=sorted({t[1] for t in tiles}),
         block_k=sorted({t[2] for t in tiles}),
         constraint=lambda cfg, s: (cfg["block_m"], cfg["block_n"],
-                                   cfg["block_k"]) in tiles)
+                                   cfg["block_k"]) in tiles, **extra)
+
+
+def _split_counts(shape) -> tuple:
+    """The split counts swept at ``shape``: those that give every split a
+    128-row range of K (one at least)."""
+    ranges = max(1, _cdiv(shape["k"], matmul_ops.K_RANGE))
+    return tuple(n for n in matmul_ops.SPLITS if n <= ranges)
 
 
 def _one_point(cfg):
@@ -113,8 +127,12 @@ def _matmul_inputs(shape, dtype, seed, device):
 
 
 def _matmul_vmem(shape, cfg, dtype="float32"):
-    smem = (matmul_ops.int8w_smem_bytes if shape.get("w_int8")
-            else matmul_ops.smem_bytes)
+    if dtype == "float32":
+        smem = matmul_ops.f32_smem_bytes
+    elif shape.get("w_int8"):
+        smem = matmul_ops.int8w_smem_bytes
+    else:
+        smem = matmul_ops.smem_bytes
     return smem(cfg["block_m"], cfg["block_n"], cfg["block_k"])
 
 
@@ -157,7 +175,28 @@ def _apr_matmul_ref(args):
 def _apr_matmul_default(s):
     if s.get("w_int8"):
         return matmul_ops.int8w_default_config(s["m"], s["k"], s["n"])
+    if s.get("hbm"):
+        return matmul_ops.default_config(s["m"], s["k"], s["n"]).replace(
+            splits=1)
     return matmul_ops.default_config(s["m"], s["k"], s["n"])
+
+
+def _apr_matmul_space(shape, dtype="bfloat16") -> TuneSpace:
+    """bf16 operands: the bf16 tiles at each split count (one for the
+    memory-resident baseline), or the int8-weight tiles; fp32 ``x``: the
+    fp32 body's tiles at each split count, over either weight."""
+    if shape.get("hbm"):
+        return _tile_space(matmul_ops.TILES, (1,))
+    if dtype == "float32":
+        return _tile_space(matmul_ops.F32_TILES, _split_counts(shape))
+    if shape.get("w_int8"):
+        return _tile_space(matmul_ops.INT8W_TILES)
+    return _tile_space(matmul_ops.TILES, _split_counts(shape))
+
+
+def _fused_matmul_space(shape, dtype="bfloat16") -> TuneSpace:
+    return _tile_space(matmul_ops.F32_TILES if dtype == "float32"
+                       else matmul_ops.TILES, _split_counts(shape))
 
 
 register(KernelSpec(
@@ -166,8 +205,8 @@ register(KernelSpec(
     run=lambda args, cfg: matmul_ops.apr_matmul(
         args[0], args[1], config=cfg, residency=args[2]),
     ref=_apr_matmul_ref,
-    tune_space=lambda shape: _tile_space(
-        matmul_ops.INT8W_TILES if shape.get("w_int8") else matmul_ops.TILES),
+    tune_space=_apr_matmul_space,
+    dtype_space=True,
     default_config=_apr_matmul_default,
     shape_key=lambda s: matmul_ops.shape_key(s["m"], s["k"], s["n"],
                                              _residency(s),
@@ -240,7 +279,8 @@ register(KernelSpec(
     run=lambda args, cfg: matmul_ops.apr_matmul_fused(
         args[0], args[1], bias=args[2], activation="relu", config=cfg),
     ref=lambda args: matmul_fused_ref(args[0], args[1], args[2], "relu"),
-    tune_space=lambda shape: _tile_space(matmul_ops.TILES),
+    tune_space=_fused_matmul_space,
+    dtype_space=True,
     default_config=lambda s: matmul_ops.default_config(s["m"], s["k"], s["n"]),
     shape_key=lambda s: shape_key_from_dims(m=s["m"], k=s["k"], n=s["n"]),
     flops=lambda s: 2 * s["m"] * s["k"] * s["n"] + 2 * s["m"] * s["n"],

@@ -1,6 +1,6 @@
-// apr_matmul: C = A·B with the fp32 accumulator resident on chip across the
-// whole K loop -- the paper's architectural pipeline register (APR) -- and
-// C written to device memory once, rounded once; with an optional epilogue
+// apr_matmul: C = A·B with fp32 accumulators resident on chip across the
+// K loop -- the paper's architectural pipeline register (APR) -- and C
+// written to device memory once, rounded once; with an optional epilogue
 // activation(acc + bias) at that flush, and the paper's memory-resident
 // baseline on the same tiles.
 //
@@ -10,21 +10,36 @@
 //
 // What bounds it on an H100: the serving path calls it with M = 4 (a decode
 // tick over 4 slots) or M = 16 (one prefill chunk), so a product does 2·M·K·N
-// operations on 2·K·N bytes of weight -- M operations per byte, far under the
-// ~295 per byte at which the bf16 tensor cores become the limit.  The time
-// is the time to stream B from memory once.
+// operations on 2·K·N bytes of weight (4·K·N in fp32) -- M operations per
+// byte, far under the ~295 per byte at which the bf16 tensor cores become
+// the limit.  The time is the time to stream B from memory once, which
+// needs many blocks with many bytes in flight: at N = 1024 a 64-column tile
+// gives 16 blocks for 132 SMs.
 //
-// Design:
+// Split-K over a thread-block cluster (the bf16 and fp32 bodies): the K
+// range of each column tile is cut into `splits` (1, 2, 4 or 8) contiguous
+// ranges of whole multiples of 128 rows (the largest compiled BK; the last
+// range cut at K, ranges past K empty), one block each; the blocks of one
+// tile form one cluster (grid (splits, N/BN, M/BM), cluster (splits, 1, 1)).
+// Each block keeps its fp32 partial in registers across its range (the
+// APR); after cluster.sync() the cluster's blocks add the partials in split
+// order, reading them through distributed shared memory
+// (cluster.map_shared_rank), apply bias and activation and write C once.
+// No partial sum reaches global memory, the order of every sum is fixed by
+// the split count alone (so every tile gives the same bits at one split
+// count), and at one split the kernel is the one-chain kernel it was.  The
+// wrapper picks the split count from the geometry (enough tiles x splits to
+// put about one block on each SM) or takes a tuned or pinned one.
+//
+// bf16 body (apr_matmul_bf16):
 //  * one template over the tile (BM x BN x BK), instantiated for the tiles
 //    the tuning layer may choose (TILES below; the family's TuneSpace in
 //    bench/specs.py lists exactly these); 4 warps, warp w owning columns
 //    [w·BN/4, (w+1)·BN/4) of all BM rows as (BM/16) x (BN/64) WMMA
 //    fragments;
-//  * one block per BM x BN tile of C; the block walks its K range, so the
-//    fp32 accumulators never leave registers until the single write at the
-//    end (no split-K, no partial sums in memory).  Each output element sums
-//    its K in 16-wide steps in ascending order whatever the tile, so every
-//    tile gives the same bits;
+//  * each block walks its split's K range; each output element sums its
+//    range in 16-wide steps in ascending order into one accumulator
+//    whatever the tile, so every tile gives the same bits;
 //  * A and B tiles are staged through shared memory by a 4-stage cp.async
 //    ring (a static array up to 48 KB, dynamic shared memory above, after
 //    cudaFuncSetAttribute);
@@ -33,31 +48,32 @@
 //    transpose; ragged M, N and K edges are masked inside the kernel:
 //    zero-filled 16-byte copies when K and N are multiples of 8 and both
 //    operands are 16-byte aligned, element loads with masks otherwise;
-//  * the flush goes through shared memory once, so the global write is
-//    coalesced and masked; it applies bias (fp32, may be null) and the
-//    activation of epilogue.cuh (B7m, apr_matmul_fused), each step rounded
-//    on its own as the plain version rounds it.
+//  * the flush goes through shared memory once (the split partial each
+//    block of a cluster reads), so the global write is coalesced and
+//    masked; it applies bias (fp32, may be null) and the activation of
+//    epilogue.cuh (B7m, apr_matmul_fused), each step rounded on its own as
+//    the plain version rounds it.
 //
 // Memory residency (apr_matmul(residency="hbm"), B4m, the paper's baseline):
-// the wrapper launches one grid per K step [t_begin, t_end) = [s, s + 1).
-// Step s > 0 seeds the accumulator fragments from the fp32 (M, N) partial
-// (through shared memory, an exact fp32 copy), runs the same WMMA sequence
-// as the APR kernel over its BK slice, and writes the partial back; the last
-// step writes C in its output type.  So the baseline equals the APR kernel
-// at the same tile bit for bit and differs from it only in the partial's
-// 8·M·N bytes of traffic per step.
+// one split; the wrapper launches one grid per K step [t_begin, t_end) =
+// [s, s + 1).  Step s > 0 seeds the accumulator fragments from the fp32
+// (M, N) partial (through shared memory, an exact fp32 copy), runs the same
+// WMMA sequence as the APR kernel over its BK slice, and writes the partial
+// back; the last step writes C in its output type.  So the baseline equals
+// the APR kernel at one split and the same tile bit for bit and differs
+// from it only in the partial's 8·M·N bytes of traffic per step.
 //
 // int8-weight variant (apr_matmul_int8w): B is an int8 (K, N) weight with
 // fp32 per-column scales (1, N), the port's QuantizedTensor.  On the TPU
 // XLA fuses the dequantize multiply into the consuming einsum, so the
 // weight crosses memory at 1 byte per element; this is that fusion, in a
 // kernel body of its own.  Bound: half the weight bytes of the bf16 kernel.
-//  * It must equal the bf16 kernel on the dequantized weight bit for bit.
-//    So each output keeps that kernel's K order -- 16-wide steps in
-//    ascending order into one fp32 accumulator for the whole K range, no
-//    split-K -- and each step is one bf16 mma.sync.m16n8k16 per 8 columns,
-//    the instruction the bf16 kernel's 16x16x16 WMMA lowers to.  The B
-//    values are bf16(float(q) * scale[n]), the rounding of the JAX
+//  * It must equal the bf16 kernel at one split on the dequantized weight
+//    bit for bit.  So each output keeps that kernel's K order -- 16-wide
+//    steps in ascending order into one fp32 accumulator for the whole K
+//    range, no split-K -- and each step is one bf16 mma.sync.m16n8k16 per 8
+//    columns, the instruction the bf16 kernel's 16x16x16 WMMA lowers to.
+//    The B values are bf16(float(q) * scale[n]), the rounding of the JAX
 //    package's dequantize(bf16);
 //  * narrow column tiles, so that more SMs stream at the serving shapes:
 //    BN = 16, 32 (one 32-byte sector of each K row) or 64 columns, 4 warps,
@@ -81,21 +97,33 @@
 //  * rows of A at or past M are zero-filled and their outputs dropped; the
 //    flush writes each accumulator straight from registers (masked).
 //
-// fp32 variant (apr_matmul_f32, B1 and B7m for fp32 operands): A and B
-// fp32, every product and sum an fp32 FMA (no TF32: the plain version on
-// the card is torch.matmul in full fp32, and the JAX kernel multiplies fp32
-// operands in fp32).  Bound: 4 bytes a weight element, twice the bf16
-// kernel's bytes.  One tile, a simple kernel that is right first:
-//  * a block owns 16 rows x 32 columns of C; its 8 warps cut K into 8
-//    contiguous slices, and lane l of every warp owns column n0 + l: 16
-//    fp32 accumulators in registers across the warp's whole K slice (the
-//    APR), no partial sum in memory;
-//  * B rows are read 8 at a time, 8 independent coalesced 128-byte loads
-//    a warp in flight; A values are warp-wide broadcasts (float4 when K %
-//    4 == 0 and A is 16-byte aligned), read through the L1;
-//  * the flush adds the 8 slices in warp order through shared memory (a
-//    fixed order, so the same inputs give the same bits) and applies bias
-//    and activation (epilogue.cuh) before the single write, bf16 or fp32.
+// fp32 body (apr_matmul_f32, B1 and B7m for fp32 operands; apr_matmul_f32_
+// int8w, an fp32 A over an int8 weight): every product and sum an fp32 FMA
+// (no TF32: the plain version on the card is torch.matmul in full fp32, and
+// the JAX kernel multiplies fp32 operands in fp32).  Bound: 4 bytes a
+// weight element (1 for int8 codes, plus the scales).
+//  * a block owns up to 16 rows x 64 columns of one split range (the
+//    body takes BN = 4·CL for any CL; 64 is compiled); 8·BN/4 = 128
+//    threads, thread (g, c) holding columns 4c..4c+3 of all
+//    the block's rows (MR = 4, 8 or 16 rows, from M: 4·MR fp32
+//    accumulators in registers across the range, the APR);
+//  * each output sums its split range in 8 interleaved chains: chain g
+//    takes the 4-row units u of the range with u % 8 == g, in ascending
+//    order, one fmaf a row; the block adds its chains in chain order
+//    through shared memory, then the cluster adds the splits in split
+//    order.  That order depends on the split count alone (BK is a multiple
+//    of 32 rows and the ranges of 128), so every tile gives the same bits;
+//  * A's (MR x BK) slice and the weight's (BK x BN) slice ride a cp.async
+//    ring of 16-byte copies in dynamic shared memory (about 64 KB: 3 to 8
+//    stages, so a block keeps 30-50 KB of weight in flight); a thread reads
+//    a unit's 4 weight rows as 4 16-byte vectors (4 columns each) and A as
+//    one 16-byte broadcast vector per row, so a row costs 4·MR FMAs for
+//    MR/4 + 1 shared loads;
+//  * the int8 weight: its codes ride the ring at 1 byte each, and a value
+//    is __fmul_rn(float(q), scale[n]), the one fp32 rounding of
+//    QuantizedTensor.dequantize(float32); the products and sums are then
+//    exactly the fp32 body's, so the two give the same bits.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -104,6 +132,7 @@
 #include "epilogue.cuh"
 
 using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -211,16 +240,92 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* sa, TB* sb,
   }
 }
 
-// K tiles [t_begin, t_end) of C (BK wide each) accumulated onto `seed` (the
-// fp32 partial, or zeros when null); the flush writes
-// act(acc + bias) to c, fp32 (out_f32) or bf16.
+constexpr int K_RANGE = 128;                  // split ranges: multiples of
+constexpr int MAX_SPLITS = 8;                 // 128 rows; portable clusters
+
+// act(v + bias[gn]) rounded once into C at o: an output's one write
+__device__ __forceinline__ void store_out(void* c, size_t o, float v,
+                                          const float* bias, int gn, int act,
+                                          int out_f32) {
+  if (bias != nullptr) v = __fadd_rn(v, bias[gn]);
+  v = activate(v, act);
+  if (out_f32)
+    static_cast<float*>(c)[o] = v;
+  else
+    static_cast<__nv_bfloat16*>(c)[o] = __float2bfloat16(v);
+}
+
+// The cluster's split partials -- each block's fp32 (rows x cols) tile
+// `part` of C at (m0, n0), in its shared memory -- added in split order and
+// flushed; block r of the cluster writes elements r·NT + tid,
+// (r + splits)·NT + tid, ...  Every thread of every block calls it.
+template <int NT>
+__device__ __forceinline__ void combine_splits(float* part, int rows,
+                                               int cols, int m0, int n0,
+                                               int M, int N, void* c,
+                                               const float* bias, int act,
+                                               int out_f32) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                             // every split's partial is in
+  const int nsplit = (int)gridDim.x, rank = (int)cluster.block_rank();
+  for (int idx = rank * NT + (int)threadIdx.x; idx < rows * cols;
+       idx += nsplit * NT) {
+    const int gm = m0 + idx / cols, gn = n0 + idx % cols;
+    if (gm < M && gn < N) {
+      float v = cluster.map_shared_rank(part, 0)[idx];
+#pragma unroll
+      for (int r = 1; r < MAX_SPLITS; ++r)
+        if (r < nsplit) v = __fadd_rn(v, cluster.map_shared_rank(part, r)[idx]);
+      store_out(c, (size_t)gm * N + gn, v, bias, gn, act, out_f32);
+    }
+  }
+  cluster.sync();                             // keep the partials until read
+}
+
+// Launch `kernel` on grid (splits, ...) with the splits of one tile as one
+// cluster (splits, 1, 1); returns the launch's error, then
+// cudaGetLastError().
+template <typename... Params, typename... Args>
+int launch_split(void (*kernel)(Params...), dim3 grid, int threads,
+                 int dynamic, cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = dynamic;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.x > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The split geometry a launch may take: 1, 2, 4 or 8 splits; above one, K
+// ranges of krange rows, a multiple of K_RANGE, that cover K.
+inline bool valid_splits(int k, int splits, int krange) {
+  if (splits != 1 && splits != 2 && splits != 4 && splits != 8) return false;
+  return splits == 1 || (krange >= 0 && krange % K_RANGE == 0 &&
+                         (long long)krange * splits >= k);
+}
+
+// C = act(A·B + bias) over the K tiles (BK wide each) of this block's
+// split: with one split (gridDim.x == 1) the tiles [t_begin, t_end),
+// accumulated onto `seed` (the fp32 partial of the memory-resident
+// baseline, or zeros when null); with more, split blockIdx.x's krange rows
+// (t_end = the last K tile), partials combined over the cluster.  The
+// flush writes act(acc + bias) to c, fp32 (out_f32) or bf16.
 template <int BM, int BN, int BK, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
     apr_matmul_kernel(const __nv_bfloat16* __restrict__ a,
                       const __nv_bfloat16* __restrict__ b,
                       const float* __restrict__ bias, const float* seed,
                       void* c, int M, int N, int K, int t_begin, int t_end,
-                      int out_f32, int act) {
+                      int krange, int out_f32, int act) {
   using T = Tile<BM, BN, BK>;
   constexpr int STAGES = T::STAGES;
   __shared__ __align__(128) unsigned char smem_static[T::STATIC ? T::SMEM
@@ -232,8 +337,13 @@ __global__ void __launch_bounds__(THREADS)
   float* sc = reinterpret_cast<float*>(smem);   // C tile: seed and flush
 
   const int warp = threadIdx.x / 32;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int nsplit = gridDim.x;
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
   const int wcol = warp * T::WN;              // this warp's first column
+  if (nsplit > 1) {                           // this split's K tiles
+    t_begin = blockIdx.x * (krange / BK);
+    t_end = min(t_end, t_begin + krange / BK);
+  }
 
   // the APR: this warp's slice of the C tile, fp32, for the whole K range
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
@@ -304,56 +414,53 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
 
   // flush: the tile goes through shared memory once, so the global write
-  // is coalesced and masked at the ragged M/N edges
+  // is coalesced and masked at the ragged M/N edges (and the cluster's
+  // blocks read each split's partial there)
 #pragma unroll
   for (int i = 0; i < T::FM; ++i)
 #pragma unroll
     for (int j = 0; j < T::FN; ++j)
       wmma::store_matrix_sync(sc + i * 16 * BN + wcol + j * 16, acc[i][j],
                               BN, wmma::mem_row_major);
+  if (nsplit > 1) {
+    combine_splits<THREADS>(sc, BM, BN, m0, n0, M, N, c, bias, act,
+                            out_f32);
+    return;
+  }
   __syncthreads();
   for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-    int r = idx / BN, col = idx % BN;
-    int gm = m0 + r, gn = n0 + col;
-    if (gm < M && gn < N) {
-      size_t o = (size_t)gm * N + gn;
-      float v = sc[idx];
-      if (bias != nullptr) v = __fadd_rn(v, bias[gn]);
-      v = activate(v, act);
-      if (out_f32)
-        static_cast<float*>(c)[o] = v;
-      else
-        static_cast<__nv_bfloat16*>(c)[o] = __float2bfloat16(v);
-    }
+    int gm = m0 + idx / BN, gn = n0 + idx % BN;
+    if (gm < M && gn < N)
+      store_out(c, (size_t)gm * N + gn, sc[idx], bias, gn, act, out_f32);
   }
 }
 
 template <int BM, int BN, int BK>
 int launch(const void* a, const void* b, const void* bias, const void* seed,
-           void* c, int m, int n, int k, int t_begin, int t_end, int out_f32,
-           int act, cudaStream_t s) {
+           void* c, int m, int n, int k, int t_begin, int t_end, int splits,
+           int krange, int out_f32, int act, cudaStream_t s) {
   using T = Tile<BM, BN, BK>;
-  if ((m + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  if ((m + BM - 1) / BM > 65535 || (n + BN - 1) / BN > 65535)
+    return (int)cudaErrorInvalidValue;
   const bool aligned = k % 8 == 0 && n % 8 == 0 &&
                        reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(b) % 16 == 0;
   void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, const float*,
-                 const float*, void*, int, int, int, int, int, int, int) =
-      aligned ? apr_matmul_kernel<BM, BN, BK, true>
-              : apr_matmul_kernel<BM, BN, BK, false>;
+                 const float*, void*, int, int, int, int, int, int, int,
+                 int) = aligned ? apr_matmul_kernel<BM, BN, BK, true>
+                                : apr_matmul_kernel<BM, BN, BK, false>;
   const int dynamic = T::STATIC ? 0 : T::SMEM;
   if (dynamic > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, THREADS, dynamic, s>>>(
-      static_cast<const __nv_bfloat16*>(a),
+  return launch_split(
+      kernel, dim3(splits, (n + BN - 1) / BN, (m + BM - 1) / BM), THREADS,
+      dynamic, s, static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), static_cast<const float*>(bias),
-      static_cast<const float*>(seed), c, m, n, k, t_begin, t_end, out_f32,
-      act);
-  return (int)cudaGetLastError();
+      static_cast<const float*>(seed), c, m, n, k, t_begin, t_end, krange,
+      out_f32, act);
 }
 
 // ------------------------------------------------ the int8-weight kernel
@@ -536,84 +643,254 @@ int launch_int8w(const void* a, const void* b, const void* scale, void* c,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------ the fp32 kernel
-constexpr int F32_BM = 16, F32_BN = 32, F32_KU = 8;  // rows, cols, K unroll
-constexpr int F32_WARPS = 8, F32_THREADS = 32 * F32_WARPS;
+// ------------------------------------------------------ the fp32 body
+constexpr int F32_BM = 16;                    // rows of a block, at most
+constexpr int F32_CHAINS = 8;                 // interleaved sums an output
+constexpr int F32_UNIT = 4;                   // K rows a chain takes at once
 
-template <bool VEC>
-__global__ void __launch_bounds__(F32_THREADS)
-    f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
+// A block of the fp32 body over a TB weight (float, or int8_t codes): BN
+// columns, BK K rows a stage, MR rows of A computed; shared memory is a
+// ring of [A (MR x BK fp32) | W (BK x LDW of TB)] stages, reused after the
+// K loop for the chains' partials and the block's.
+template <typename TB, int BN, int BK, int MR>
+struct FTile {
+  static constexpr int CL = BN / 4;           // threads across the columns
+  static constexpr int THREADS = F32_CHAINS * CL;
+  // int8 rows padded so that the two chains of a warp read distinct banks
+  static constexpr int LDW = sizeof(TB) == 4 ? BN : BN + 16;
+  static constexpr int A_STAGE = MR * BK * 4;                   // bytes
+  static constexpr int W_STAGE = BK * LDW * (int)sizeof(TB);
+  static constexpr int STAGE = A_STAGE + W_STAGE;
+  static constexpr int FIT = 64 * 1024 / STAGE;
+  static constexpr int STAGES = FIT < 3 ? 3 : (FIT > 8 ? 8 : FIT);
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int RED = (F32_CHAINS + 1) * MR * BN * 4;
+  static constexpr int SMEM = RING > RED ? RING : RED;
+  static_assert(BK % (F32_CHAINS * F32_UNIT) == 0 && K_RANGE % BK == 0,
+                "whole units of every chain in a stage; stages in a range");
+  static_assert(A_STAGE % 16 == 0 && STAGE % 16 == 0 &&
+                    (LDW * (int)sizeof(TB)) % 16 == 0,
+                "16-byte cp.async destinations");
+};
+
+// Stage A's (MR x BK) slice at (m0, k0) (row stride BK) and the weight's
+// (BK x BN) slice at (k0, n0) (row stride LDW); zeros past M, N and K.
+template <typename TB, int BN, int BK, int MR, bool ALIGNED>
+__device__ __forceinline__ void f32_load_stage(float* sa, TB* sw,
+                                               const float* a, const TB* b,
+                                               int m0, int n0, int k0, int M,
+                                               int N, int K) {
+  using T = FTile<TB, BN, BK, MR>;
+  constexpr int NT = T::THREADS;
+  const int tid = threadIdx.x;
+  if (ALIGNED) {
+    // K % 4 == 0 and N % (16 / sizeof(TB)) == 0: every 16-byte chunk lies
+    // wholly inside or wholly outside its matrix
+    constexpr int A_CH = MR * BK / 4;
+#pragma unroll
+    for (int i = 0; i < (A_CH + NT - 1) / NT; ++i) {
+      const int idx = tid + i * NT;
+      if (A_CH % NT == 0 || idx < A_CH) {
+        const int row = idx / (BK / 4), col = (idx % (BK / 4)) * 4;
+        const int gm = m0 + row, gk = k0 + col;
+        const bool ok = gm < M && gk < K;
+        cp_async16(sa + row * BK + col, ok ? a + (size_t)gm * K + gk : a, ok);
+      }
+    }
+    constexpr int CH = 16 / (int)sizeof(TB);  // elements per 16 bytes
+    constexpr int W_CH = BK * BN / CH;
+#pragma unroll
+    for (int i = 0; i < (W_CH + NT - 1) / NT; ++i) {
+      const int idx = tid + i * NT;
+      if (W_CH % NT == 0 || idx < W_CH) {
+        const int row = idx / (BN / CH), col = (idx % (BN / CH)) * CH;
+        const int gk = k0 + row, gn = n0 + col;
+        const bool ok = gk < K && gn < N;
+        cp_async16(sw + row * T::LDW + col,
+                   ok ? b + (size_t)gk * N + gn : b, ok);
+      }
+    }
+  } else {
+    for (int idx = tid; idx < MR * BK; idx += NT) {
+      const int row = idx / BK, col = idx % BK;
+      const int gm = m0 + row, gk = k0 + col;
+      sa[idx] = gm < M && gk < K ? a[(size_t)gm * K + gk] : 0.0f;
+    }
+    for (int idx = tid; idx < BK * BN; idx += NT) {
+      const int row = idx / BN, col = idx % BN;
+      const int gk = k0 + row, gn = n0 + col;
+      sw[row * T::LDW + col] = gk < K && gn < N ? b[(size_t)gk * N + gn]
+                                                : TB(0);
+    }
+  }
+}
+
+// C = act(A·B + bias) on fp32 A (M, K) and a (K, N) weight of TB (int8
+// codes with fp32 column scales `scale`, dequantized to
+// __fmul_rn(float(q), scale[n])), over split blockIdx.x's krange rows of K
+// (all of K at one split).
+template <typename TB, int BN, int BK, int MR, bool ALIGNED>
+__global__ void __launch_bounds__(FTile<TB, BN, BK, MR>::THREADS)
+    f32_kernel(const float* __restrict__ a, const TB* __restrict__ b,
+               const float* __restrict__ scale,
                const float* __restrict__ bias, void* c, int M, int N, int K,
-               int out_f32, int act) {
-  __shared__ float red_s[F32_WARPS][F32_BM][F32_BN + 1];
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n0 = blockIdx.x * F32_BN, m0 = blockIdx.y * F32_BM;
-  const int n = n0 + lane, rows = min(F32_BM, M - m0);
-  // this warp's K slice: a multiple of F32_KU wide, so float4 loads align
-  const int slice =
-      (K + F32_WARPS * F32_KU - 1) / (F32_WARPS * F32_KU) * F32_KU;
-  const int k0 = min(K, warp * slice), k1 = min(K, k0 + slice);
-  const bool col = n < N;
-  const float* bp = b + (col ? n : 0);
-  const float* ap = a + (size_t)m0 * K;
+               int krange, int out_f32, int act) {
+  using T = FTile<TB, BN, BK, MR>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, g = tid / T::CL, cl = tid % T::CL;
+  const int nsplit = gridDim.x;
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * F32_BM;
+  auto sa = [&](int slot) {
+    return reinterpret_cast<float*>(smem + slot * T::STAGE);
+  };
+  auto sw = [&](int slot) {
+    return reinterpret_cast<TB*>(smem + slot * T::STAGE + T::A_STAGE);
+  };
+  float qs[4];                                // this thread's column scales
+  if constexpr (sizeof(TB) == 1) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = n0 + 4 * cl + e;
+      qs[e] = col < N ? scale[col] : 0.0f;
+    }
+  }
+  // the APR: rows 0..MR-1 of columns 4cl..4cl+3, chain g, the whole range
+  float acc[MR][4];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
 
-  float acc[F32_BM];
+  const int ktiles = (K + BK - 1) / BK;
+  int t_begin = 0, t_end = ktiles;
+  if (nsplit > 1) {
+    t_begin = blockIdx.x * (krange / BK);
+    t_end = min(ktiles, t_begin + krange / BK);
+  }
 #pragma unroll
-  for (int m = 0; m < F32_BM; ++m) acc[m] = 0.0f;
-  int k = k0;
-  for (; k + F32_KU <= k1; k += F32_KU) {
-    float w[F32_KU];
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (t_begin + s < t_end)
+      f32_load_stage<TB, BN, BK, MR, ALIGNED>(sa(s), sw(s), a, b, m0, n0,
+                                              (t_begin + s) * BK, M, N, K);
+    cp_async_commit();
+  }
+  for (int t = t_begin; t < t_end; ++t) {
+    const int slot = (t - t_begin) % STAGES;
+    cp_async_wait<STAGES - 2>();              // stage t has landed
+    __syncthreads();                          // ... and t-1 is consumed
+    const int tn = t + STAGES - 1;            // refill the stage t-1 used
+    if (tn < t_end) {
+      const int sn = (tn - t_begin) % STAGES;
+      f32_load_stage<TB, BN, BK, MR, ALIGNED>(sa(sn), sw(sn), a, b, m0, n0,
+                                              tn * BK, M, N, K);
+    }
+    cp_async_commit();
+    const float* ta = sa(slot);
+    const TB* tw = sw(slot) + 4 * cl;
 #pragma unroll
-    for (int i = 0; i < F32_KU; ++i)
-      w[i] = col ? __ldg(bp + (size_t)(k + i) * N) : 0.0f;
+    for (int j = 0; j < BK / (F32_CHAINS * F32_UNIT); ++j) {
+      const int r = F32_UNIT * (g + F32_CHAINS * j);  // this unit's rows
+      float w[F32_UNIT][4];
 #pragma unroll
-    for (int m = 0; m < F32_BM; ++m) {
-      if (m < rows) {
-        const float* xr = ap + (size_t)m * K + k;
-        float x[F32_KU];
-        if (VEC) {
-#pragma unroll
-          for (int i = 0; i < F32_KU; i += 4) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(xr + i));
-            x[i] = v.x;
-            x[i + 1] = v.y;
-            x[i + 2] = v.z;
-            x[i + 3] = v.w;
-          }
+      for (int i = 0; i < F32_UNIT; ++i) {
+        if constexpr (sizeof(TB) == 4) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(tw + (r + i) * T::LDW);
+          w[i][0] = v.x;
+          w[i][1] = v.y;
+          w[i][2] = v.z;
+          w[i][3] = v.w;
         } else {
+          const uint32_t v =
+              *reinterpret_cast<const uint32_t*>(tw + (r + i) * T::LDW);
 #pragma unroll
-          for (int i = 0; i < F32_KU; ++i) x[i] = __ldg(xr + i);
+          for (int e = 0; e < 4; ++e)
+            w[i][e] =
+                __fmul_rn((float)(int8_t)((v >> (8 * e)) & 0xffu), qs[e]);
         }
+      }
 #pragma unroll
-        for (int i = 0; i < F32_KU; ++i) acc[m] = fmaf(x[i], w[i], acc[m]);
+      for (int m = 0; m < MR; ++m) {
+        const float4 x = *reinterpret_cast<const float4*>(ta + m * BK + r);
+        const float xs[F32_UNIT] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < F32_UNIT; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[m][e] = fmaf(xs[i], w[i][e], acc[m][e]);
       }
     }
   }
-  for (; k < k1; ++k) {
-    const float w = col ? __ldg(bp + (size_t)k * N) : 0.0f;
-#pragma unroll
-    for (int m = 0; m < F32_BM; ++m)
-      if (m < rows) acc[m] = fmaf(__ldg(ap + (size_t)m * K + k), w, acc[m]);
-  }
-#pragma unroll
-  for (int m = 0; m < F32_BM; ++m) red_s[warp][m][lane] = acc[m];
+  cp_async_wait<0>();
   __syncthreads();
-  for (int idx = threadIdx.x; idx < F32_BM * F32_BN; idx += F32_THREADS) {
-    const int r = idx / F32_BN, cl = idx % F32_BN;
-    const int gm = m0 + r, gn = n0 + cl;
-    if (gm < M && gn < N) {
-      float v = red_s[0][r][cl];
+
+  // the block's chains, added in chain order through shared memory
+  float* red = reinterpret_cast<float*>(smem);          // [chain][MR][BN]
+  float* part = red + F32_CHAINS * MR * BN;             // [MR][BN]
 #pragma unroll
-      for (int w = 1; w < F32_WARPS; ++w) v += red_s[w][r][cl];
-      if (bias != nullptr) v = __fadd_rn(v, bias[gn]);
-      v = activate(v, act);
-      const size_t o = (size_t)gm * N + gn;
-      if (out_f32)
-        static_cast<float*>(c)[o] = v;
-      else
-        static_cast<__nv_bfloat16*>(c)[o] = __float2bfloat16(v);
+  for (int m = 0; m < MR; ++m)
+    *reinterpret_cast<float4*>(red + (g * MR + m) * BN + 4 * cl) =
+        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+  __syncthreads();
+  for (int idx = tid; idx < MR * BN; idx += T::THREADS) {
+    float v = red[idx];
+#pragma unroll
+    for (int ch = 1; ch < F32_CHAINS; ++ch)
+      v = __fadd_rn(v, red[ch * MR * BN + idx]);
+    if (nsplit > 1) {
+      part[idx] = v;
+    } else {
+      const int gm = m0 + idx / BN, gn = n0 + idx % BN;
+      if (gm < M && gn < N)
+        store_out(c, (size_t)gm * N + gn, v, bias, gn, act, out_f32);
     }
   }
+  if (nsplit > 1)
+    combine_splits<T::THREADS>(part, MR, BN, m0, n0, M, N, c, bias, act,
+                               out_f32);
+}
+
+template <typename TB, int BN, int BK, int MR>
+int launch_f32_rows(const void* a, const void* b, const void* scale,
+                    const void* bias, void* c, int m, int n, int k,
+                    int splits, int krange, int out_f32, int act,
+                    cudaStream_t s) {
+  using T = FTile<TB, BN, BK, MR>;
+  const bool aligned = k % 4 == 0 && n % (16 / (int)sizeof(TB)) == 0 &&
+                       reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  void (*kernel)(const float*, const TB*, const float*, const float*, void*,
+                 int, int, int, int, int, int) =
+      aligned ? f32_kernel<TB, BN, BK, MR, true>
+              : f32_kernel<TB, BN, BK, MR, false>;
+  if (T::SMEM > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return launch_split(
+      kernel, dim3(splits, (n + BN - 1) / BN, (m + F32_BM - 1) / F32_BM),
+      T::THREADS, T::SMEM, s, static_cast<const float*>(a),
+      static_cast<const TB*>(b), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), c, m, n, k, krange, out_f32, act);
+}
+
+// The rows a block computes: 4, 8 or 16, the fewest that hold M's rows
+template <typename TB, int BN, int BK>
+int launch_f32(const void* a, const void* b, const void* scale,
+               const void* bias, void* c, int m, int n, int k, int splits,
+               int krange, int out_f32, int act, cudaStream_t s) {
+  if ((m + F32_BM - 1) / F32_BM > 65535 || (n + BN - 1) / BN > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (m <= 4)
+    return launch_f32_rows<TB, BN, BK, 4>(a, b, scale, bias, c, m, n, k,
+                                          splits, krange, out_f32, act, s);
+  if (m <= 8)
+    return launch_f32_rows<TB, BN, BK, 8>(a, b, scale, bias, c, m, n, k,
+                                          splits, krange, out_f32, act, s);
+  return launch_f32_rows<TB, BN, BK, 16>(a, b, scale, bias, c, m, n, k,
+                                         splits, krange, out_f32, act, s);
 }
 
 // The bf16 tiles (BM, BN, BK) compiled; bench/specs.py's apr_matmul space
@@ -624,30 +901,38 @@ __global__ void __launch_bounds__(F32_THREADS)
 // The int8-weight tiles (16, BN, BK) compiled; kernels/apr_matmul/ops.py's
 // INT8W_TILES lists the same
 #define INT8W_TILES(X) X(16, 128) X(32, 64) X(64, 64) X(32, 128) X(64, 128)
+// The fp32-body tiles (16, BN, BK) compiled; kernels/apr_matmul/ops.py's
+// F32_TILES lists the same
+#define F32_TILES(X) X(64, 32) X(64, 64)
 
 }  // namespace
 
-// C (M, N) = act(A (M, K) · B (K, N) + bias) over the K tiles
-// [t_begin, t_end) of a (bm, bn, bk) tile, added onto `seed` (an fp32 (M, N)
-// partial, or null for zeros).  A and B bf16, row-major and contiguous;
-// bias fp32 (N,) or null; act as in epilogue.cuh; C bf16 (out_f32 == 0) or
-// fp32, and may be `seed` itself.  The APR kernel is one launch over
-// [0, ceil(K / bk)); the memory-resident baseline one launch per K tile.
-// Launches on `stream` and returns cudaGetLastError() (0 on success;
-// cudaErrorInvalidValue for a tile that is not compiled).
+// C (M, N) = act(A (M, K) · B (K, N) + bias) at a (bm, bn, bk) tile.  A and
+// B bf16, row-major and contiguous; bias fp32 (N,) or null; act as in
+// epilogue.cuh; C bf16 (out_f32 == 0) or fp32, and may be `seed` itself.
+// One split: the K tiles [t_begin, t_end) added onto `seed` (an fp32
+// (M, N) partial, or null for zeros) -- the APR kernel is one launch over
+// [0, ceil(K / bk)), the memory-resident baseline one launch per K tile.
+// splits 2, 4 or 8: K cut into ranges of krange rows (a multiple of 128
+// that covers K in `splits` ranges), one block each, combined over a
+// cluster; seed null and [t_begin, t_end) = [0, ceil(K / bk)).  Launches on
+// `stream` and returns cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for a tile that is not compiled or a bad split).
 extern "C" int apr_matmul_bf16(const void* a, const void* b, const void* bias,
                                const void* seed, void* c, int m, int n,
                                int k, int bm, int bn, int bk, int t_begin,
-                               int t_end, int out_f32, int act,
-                               void* stream) {
+                               int t_end, int splits, int krange,
+                               int out_f32, int act, void* stream) {
   if (m <= 0 || n <= 0 || k < 0 || t_begin < 0 || t_end < t_begin ||
-      act < 0 || act > 3)
+      act < 0 || act > 3 || !valid_splits(k, splits, krange) ||
+      (splits > 1 &&
+       (seed != nullptr || t_begin != 0 || t_end != (k + bk - 1) / bk)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define APR_MATMUL_DISPATCH(BM_, BN_, BK_)                                  \
   if (bm == BM_ && bn == BN_ && bk == BK_)                                  \
     return launch<BM_, BN_, BK_>(a, b, bias, seed, c, m, n, k, t_begin,     \
-                                 t_end, out_f32, act, s);
+                                 t_end, splits, krange, out_f32, act, s);
   APR_MATMUL_TILES(APR_MATMUL_DISPATCH)
 #undef APR_MATMUL_DISPATCH
   return (int)cudaErrorInvalidValue;
@@ -655,8 +940,8 @@ extern "C" int apr_matmul_bf16(const void* a, const void* b, const void* bias,
 
 // The int8-weight variant at a (16, bn, bk) tile: B int8 (K, N) with its
 // fp32 column scales (N,), dequantized to bf16(float(q) * scale[n]) into
-// the MMA's B fragments; equal to apr_matmul_bf16 on the dequantized weight
-// bit for bit, at every tile of either.
+// the MMA's B fragments; equal to apr_matmul_bf16 at one split on the
+// dequantized weight bit for bit, at every tile of either.
 extern "C" int apr_matmul_int8w(const void* a, const void* b,
                                 const void* scale, void* c, int m, int n,
                                 int k, int bn, int bk, int out_f32,
@@ -672,24 +957,46 @@ extern "C" int apr_matmul_int8w(const void* a, const void* b,
 }
 
 // C (M, N) = act(A (M, K) · B (K, N) + bias) with fp32 A and B, row-major
-// and contiguous, fp32 FMAs throughout; bias fp32 (N,) or null; act as in
-// epilogue.cuh; C bf16 (out_f32 == 0) or fp32.  One compiled tile (16 rows
-// x 32 columns, K cut over 8 warps, 8 K rows a load step).  Launches on
-// `stream` and returns cudaGetLastError().
+// and contiguous, fp32 FMAs throughout, at a (16, bn, bk) tile of the fp32
+// body; bias fp32 (N,) or null; act as in epilogue.cuh; C bf16 (out_f32 ==
+// 0) or fp32; splits and krange as for apr_matmul_bf16.  Every tile gives
+// the same bits at one split count.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int apr_matmul_f32(const void* a, const void* b, const void* bias,
-                              void* c, int m, int n, int k, int out_f32,
-                              int act, void* stream) {
+                              void* c, int m, int n, int k, int bn, int bk,
+                              int splits, int krange, int out_f32, int act,
+                              void* stream) {
   if (m <= 0 || n <= 0 || k < 0 || act < 0 || act > 3 ||
-      (m + F32_BM - 1) / F32_BM > 65535)
+      !valid_splits(k, splits, krange))
     return (int)cudaErrorInvalidValue;
-  const bool vec = k % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
-  void (*kernel)(const float*, const float*, const float*, void*, int, int,
-                 int, int, int) = vec ? f32_kernel<true> : f32_kernel<false>;
-  dim3 grid((n + F32_BN - 1) / F32_BN, (m + F32_BM - 1) / F32_BM);
-  kernel<<<grid, F32_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(bias), c, m, n, k, out_f32, act);
-  return (int)cudaGetLastError();
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define F32_DISPATCH(BN_, BK_)                                               \
+  if (bn == BN_ && bk == BK_)                                                \
+    return launch_f32<float, BN_, BK_>(a, b, nullptr, bias, c, m, n, k,     \
+                                       splits, krange, out_f32, act, s);
+  F32_TILES(F32_DISPATCH)
+#undef F32_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same with an int8 (K, N) weight and its fp32 column scales (N,):
+// each value __fmul_rn(float(q), scale[n]), so at each tile and split count
+// it equals apr_matmul_f32 on QuantizedTensor.dequantize(float32) bit for
+// bit.
+extern "C" int apr_matmul_f32_int8w(const void* a, const void* b,
+                                    const void* scale, void* c, int m, int n,
+                                    int k, int bn, int bk, int splits,
+                                    int krange, int out_f32, void* stream) {
+  if (m <= 0 || n <= 0 || k < 0 || !valid_splits(k, splits, krange))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define F32_INT8W_DISPATCH(BN_, BK_)                                        \
+  if (bn == BN_ && bk == BK_)                                               \
+    return launch_f32<int8_t, BN_, BK_>(a, b, scale, nullptr, c, m, n, k,  \
+                                        splits, krange, out_f32, 0, s);
+  F32_TILES(F32_INT8W_DISPATCH)
+#undef F32_INT8W_DISPATCH
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

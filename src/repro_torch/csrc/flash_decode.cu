@@ -5,14 +5,18 @@
 // loaders (a contiguous cache, paged pools), five entry points:
 //
 //   paged loader (B2, B2q)
-//     flash_decode_paged_bf16  paged bf16 pools, bf16 q
-//     flash_decode_paged_int8  paged int8 pools + fp32 (P, ps, Hkv) scales
+//     flash_decode_paged_bf16  paged bf16 pools, bf16 or fp32 q
+//     flash_decode_paged_int8  paged int8 pools + fp32 (P, ps, Hkv) scales,
+//                              bf16 or fp32 q
 //     flash_decode_paged_f32   paged fp32 pools, bf16 or fp32 q
 //   contiguous loader (B3)
-//     flash_decode_bf16        contiguous bf16 cache (B, S, Hkv, D)
+//     flash_decode_bf16        contiguous bf16 cache (B, S, Hkv, D), bf16
+//                              or fp32 q
 //     flash_decode_f32         contiguous fp32 cache, bf16 or fp32 q
 //
-// The output has the type of q, as the TPU kernels' out_shape does.
+// The output has the type of q, as the TPU kernels' out_shape does.  q is
+// widened to fp32 as it is loaded, so an fp32 q over a bf16 or int8 cache
+// runs the same body (the K/V loads and the walk do not change).
 //
 // Replaces: src/repro/kernels/flash_decode/kernel.py::paged_flash_decode_call
 // (kernel body _paged_decode_kernel, quantized=False and quantized=True) and
@@ -670,16 +674,21 @@ int launch_contig(const void* q, const void* k, const void* v,
 }  // namespace
 
 // out (B, Hq, D) = attention of q (B, Hq, D) over the paged pools k/v
-// (P, ps, Hkv, D), all bf16 and contiguous; lengths (B,) and block tables
-// (B, P_max) int32; each row's walk split over `splits` blocks of one
-// cluster (1, 2, 4 or 8).  A row of length 0 returns zeros.  Launches on
-// `stream` and returns cudaGetLastError().
+// (P, ps, Hkv, D), bf16 and contiguous; q and out bf16 (q_f32 == 0) or
+// fp32; lengths (B,) and block tables (B, P_max) int32; each row's walk
+// split over `splits` blocks of one cluster (1, 2, 4 or 8).  A row of
+// length 0 returns zeros.  Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int flash_decode_paged_bf16(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        const void* tables, void* out, int b,
                                        int hq, int hkv, int d, int ps,
-                                       int p_pool, int p_max, int splits,
-                                       void* stream) {
+                                       int p_pool, int p_max, int q_f32,
+                                       int splits, void* stream) {
+  if (q_f32)
+    return launch_paged<float, __nv_bfloat16>(
+        q, k, v, nullptr, nullptr, lengths, tables, out, b, hq, hkv, d, ps,
+        p_pool, p_max, splits, stream);
   return launch_paged<__nv_bfloat16, __nv_bfloat16>(
       q, k, v, nullptr, nullptr, lengths, tables, out, b, hq, hkv, d, ps,
       p_pool, p_max, splits, stream);
@@ -693,8 +702,12 @@ extern "C" int flash_decode_paged_int8(const void* q, const void* k,
                                        const void* lengths,
                                        const void* tables, void* out, int b,
                                        int hq, int hkv, int d, int ps,
-                                       int p_pool, int p_max, int splits,
-                                       void* stream) {
+                                       int p_pool, int p_max, int q_f32,
+                                       int splits, void* stream) {
+  if (q_f32)
+    return launch_paged<float, int8_t>(q, k, v, k_scale, v_scale, lengths,
+                                       tables, out, b, hq, hkv, d, ps,
+                                       p_pool, p_max, splits, stream);
   return launch_paged<__nv_bfloat16, int8_t>(
       q, k, v, k_scale, v_scale, lengths, tables, out, b, hq, hkv, d, ps,
       p_pool, p_max, splits, stream);
@@ -718,13 +731,17 @@ extern "C" int flash_decode_paged_f32(const void* q, const void* k,
 }
 
 // out (B, Hq, D) = attention of q (B, Hq, D) over the contiguous cache k/v
-// (B, S, Hkv, D), bf16 and contiguous; lengths (B,) int32; the sequence
-// split over `splits` blocks of one cluster (1, 2, 4 or 8).  A row of
-// length 0 returns the mean of its S values of V.
+// (B, S, Hkv, D), bf16 and contiguous; q and out bf16 (q_f32 == 0) or
+// fp32; lengths (B,) int32; the sequence split over `splits` blocks of one
+// cluster (1, 2, 4 or 8).  A row of length 0 returns the mean of its S
+// values of V.
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* lengths, void* out, int b, int hq,
-                                 int hkv, int d, int s, int splits,
+                                 int hkv, int d, int s, int splits, int q_f32,
                                  void* stream) {
+  if (q_f32)
+    return launch_contig<float, __nv_bfloat16>(q, k, v, lengths, out, b, hq,
+                                               hkv, d, s, splits, stream);
   return launch_contig<__nv_bfloat16, __nv_bfloat16>(
       q, k, v, lengths, out, b, hq, hkv, d, s, splits, stream);
 }

@@ -1,5 +1,9 @@
 from .ops import accumulator_traffic_bytes, apr_matmul, apr_matmul_fused
-from .ref import activation_ref, matmul_fused_ref, matmul_ref
+from .ref import (K_RANGE, activation_ref, matmul_fused_ref,
+                  matmul_fused_split_ref, matmul_ref, matmul_split_ref,
+                  split_range)
 
-__all__ = ["accumulator_traffic_bytes", "activation_ref", "apr_matmul",
-           "apr_matmul_fused", "matmul_fused_ref", "matmul_ref"]
+__all__ = ["K_RANGE", "accumulator_traffic_bytes", "activation_ref",
+           "apr_matmul", "apr_matmul_fused", "matmul_fused_ref",
+           "matmul_fused_split_ref", "matmul_ref", "matmul_split_ref",
+           "split_range"]

@@ -9,18 +9,22 @@ The weight of :func:`apr_matmul` may be an int8
 dequantizes it in its load stage, and the plain version dequantizes it
 first (to ``x.dtype``, as the JAX layers' ``materialize_weight`` does).
 
-Tiles resolve as in the JAX package's ``ops.py``: an explicit ``config`` >
-the tuned entry of the active :class:`~repro_torch.bench.ConfigCache` for
-this (shape, dtype, backend) > :func:`default_config`, under the JAX
-package's shape keys.  On the card
-the tile must be one the kernel is compiled for (:data:`TILES`), or the
-wrapper raises :class:`~repro_torch.bench.TileError` before any launch.
-The int8-weight operand has a kernel and tiles of its own
-(:data:`INT8W_TILES`); it tunes within the ``apr_matmul`` family under the
-shape key's ``_wint8`` suffix (the JAX package has no such kernel, so no
-JAX key carries it).  fp32 operands (an fp32 ``x`` with an fp32 weight)
-have a kernel of their own compiled for one tile (:data:`F32_CONFIG`),
-resolved under the JAX package's keys at dtype ``float32``.
+Configurations resolve as in the JAX package's ``ops.py``: an explicit
+``config`` (and the ``block_m/n/k``, ``splits`` kwargs laid over it) > the
+tuned entry of the active :class:`~repro_torch.bench.ConfigCache` for this
+(shape, dtype, backend) > the default, under the JAX package's shape keys.
+A configuration is a tile and, for the bf16 and fp32 bodies, a split
+count: the K range of each column tile cut into ``splits`` ranges
+(:func:`~.ref.split_range`) combined over a thread-block cluster
+(:data:`SPLITS`; the default from the geometry, :func:`default_splits`).
+On the card the configuration must be one the kernel is compiled for, or
+the wrapper raises :class:`~repro_torch.bench.TileError` before any
+launch: :data:`TILES` for bf16 operands, :data:`F32_TILES` for an fp32
+``x`` (with an fp32 or an int8 weight), :data:`INT8W_TILES` (one split)
+for an int8 weight under a bf16 ``x``.  The int8-weight operands tune
+within the ``apr_matmul`` family under the shape key's ``_wint8`` suffix
+(the JAX package has no such kernel, so no JAX key carries it); fp32
+operands resolve under the JAX package's keys at dtype ``float32``.
 """
 from __future__ import annotations
 
@@ -31,28 +35,31 @@ import torch
 
 from ...bench.config import (BlockConfig, TileError, dtype_name,
                              pin_config, resolve_cached, resolve_config,
-                             resolve_fixed, shape_key_from_dims)
+                             shape_key_from_dims)
 from ...core.apr import reduction_hbm_traffic
 from ...quant import QuantizedTensor
 from ...roofline.hw import get_profile
 from .. import _build
-from .ref import ACTIVATIONS, matmul_fused_ref, matmul_ref
+from .ref import (ACTIVATIONS, K_RANGE, matmul_fused_ref, matmul_ref,
+                  split_range)
 
 LIBRARY = "apr_matmul"
 KERNEL_NAME = "apr_matmul"
 FUSED_KERNEL_NAME = "apr_matmul_fused"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "apr_matmul_bf16": (ctypes.c_int, [_P] * 5 + [_I] * 10 + [_P]),
+    "apr_matmul_bf16": (ctypes.c_int, [_P] * 5 + [_I] * 12 + [_P]),
     "apr_matmul_int8w": (ctypes.c_int, [_P] * 4 + [_I] * 6 + [_P]),
-    "apr_matmul_f32": (ctypes.c_int, [_P] * 4 + [_I] * 5 + [_P]),
+    "apr_matmul_f32": (ctypes.c_int, [_P] * 4 + [_I] * 9 + [_P]),
+    "apr_matmul_f32_int8w": (ctypes.c_int, [_P] * 4 + [_I] * 8 + [_P]),
 }
 #: (x dtype, weight dtype) pairs each kernel family is compiled for; int8
 #: is a :class:`QuantizedTensor`'s codes (with its fp32 scales)
 KERNEL_DTYPES = {
     KERNEL_NAME: frozenset({(torch.bfloat16, torch.bfloat16),
                             (torch.bfloat16, torch.int8),
-                            (torch.float32, torch.float32)}),
+                            (torch.float32, torch.float32),
+                            (torch.float32, torch.int8)}),
     FUSED_KERNEL_NAME: frozenset({(torch.bfloat16, torch.bfloat16),
                                   (torch.float32, torch.float32)}),
 }
@@ -66,9 +73,26 @@ DEFAULT_TILE = (16, 64, 64)
 #: (``INT8W_TILES`` in ``apr_matmul.cu``); every one gives the same bits
 INT8W_TILES = ((16, 16, 128), (16, 32, 64), (16, 64, 64), (16, 32, 128),
                (16, 64, 128))
-#: the one tile of the fp32 kernel (``F32_BM``, ``F32_BN``, ``F32_KU`` in
-#: ``apr_matmul.cu``: 16 rows x 32 columns a block, 8 K rows a load step)
-F32_CONFIG = BlockConfig.make(block_m=16, block_n=32, block_k=8)
+#: the tiles of the fp32 body (``F32_TILES`` in ``apr_matmul.cu``: up to 16
+#: rows x 64 columns a block, 32 or 64 K rows a stage), for fp32 and int8
+#: weights under an fp32 ``x``; every one gives the same bits at one split
+#: count
+F32_TILES = ((16, 64, 32), (16, 64, 64))
+#: the fp32 body's untuned tile
+F32_DEFAULT_TILE = (16, 64, 64)
+#: the split counts of the bf16 and fp32 bodies (one cluster of at most 8
+#: blocks per column tile); the memory-resident baseline and the
+#: int8-weight kernel under a bf16 ``x`` run one split
+SPLITS = (1, 2, 4, 8)
+#: the SM count :func:`default_splits` assumes, on every card (the
+#: ``h100_sxm`` profile's), so the tune spec and the wrapper agree
+SMS = get_profile("h100_sxm").sms
+#: the blocks :func:`default_splits` aims to run at once, by bytes of a
+#: weight element: about one on each SM for bf16 and fp32 weights (more
+#: splits measured slower at N = 4096 on an H100: each block's range gets
+#: too short for its fixed start and combine), about four for int8 codes,
+#: whose ranges stream a quarter of the fp32 bytes (PERF.md §6)
+SPLIT_BLOCK_BUDGET = {1: 4 * SMS, 2: SMS, 4: SMS}
 RESIDENCIES = ("apr", "hbm")
 _STAGES = 4                                   # the bf16 cp.async ring
 
@@ -81,11 +105,38 @@ def shape_key(m: int, k: int, n: int, residency: str = "apr",
             + ("_wint8" if w_int8 else ""))
 
 
+def default_splits(m: int, k: int, n: int, block_m: int, block_n: int,
+                   w_bytes: int = 2) -> int:
+    """The split count from the geometry and the weight's bytes an element
+    alone: the largest of :data:`SPLITS` for which the column tiles x row
+    tiles x splits stay within :data:`SPLIT_BLOCK_BUDGET` blocks, and no
+    more splits than K has 128-row ranges (at least one).  At llama3-8b's
+    decode shapes (M = 4 or 16, 64-column tiles), bf16 or fp32 weights: 8
+    at N = 1024, 2 at N = 4096, 1 at N = 14336 and at the lm_head; int8
+    codes under an fp32 ``x``: 8 at N = 1024 and 4096, 2 at N = 14336."""
+    tiles = -(-n // block_n) * -(-m // block_m)
+    cap = min(max(1, SPLIT_BLOCK_BUDGET[w_bytes] // max(1, tiles)),
+              max(1, -(-k // K_RANGE)))
+    return max(s for s in SPLITS if s <= cap)
+
+
 def default_config(m: int, k: int, n: int) -> BlockConfig:
-    """Untuned tile: 16 x 64 x 64, one 16x16 WMMA fragment per warp, the
-    tile the serving path has run since the port's first slice."""
+    """Untuned bf16 configuration: the 16 x 64 x 64 tile, one 16x16 WMMA
+    fragment per warp (the tile the serving path has run since the port's
+    first slice), at :func:`default_splits`."""
     bm, bn, bk = DEFAULT_TILE
-    return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk)
+    return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk,
+                            splits=default_splits(m, k, n, bm, bn))
+
+
+def f32_default_config(m: int, k: int, n: int,
+                       w_int8: bool = False) -> BlockConfig:
+    """Untuned fp32-body configuration: :data:`F32_DEFAULT_TILE` at
+    :func:`default_splits` for fp32 weights, or int8 codes (``w_int8``)."""
+    bm, bn, bk = F32_DEFAULT_TILE
+    return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk,
+                            splits=default_splits(m, k, n, bm, bn,
+                                                  1 if w_int8 else 4))
 
 
 def int8w_default_config(m: int, k: int, n: int) -> BlockConfig:
@@ -119,6 +170,16 @@ def smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
     return max(ring, block_m * block_n * 4)
 
 
+def f32_smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
+    """Shared memory an fp32-body tile takes (``FTile::SMEM`` at 16 rows):
+    a ring of [A (16 x block_k) | weight (block_k x block_n)] fp32 stages of
+    about 64 KB (3 to 8 stages), or the 8 chains' and the block's partials
+    after the K loop if larger."""
+    stage = (16 * block_k + block_k * block_n) * 4
+    stages = min(8, max(3, 64 * 1024 // stage))
+    return max(stages * stage, 9 * 16 * block_n * 4)
+
+
 def accumulator_traffic_bytes(m: int, n: int, k: int, block_k: int,
                               residency: str, out_bytes: int = 2) -> int:
     """Analytic memory traffic attributable to the accumulator (Table-III
@@ -137,6 +198,14 @@ def _tile(cfg: BlockConfig, w_int8: bool = False) -> tuple:
     return tile
 
 
+def _splits(cfg: BlockConfig, allowed=SPLITS) -> int:
+    splits = cfg.get("splits", 1)
+    if splits not in allowed:
+        raise TileError(f"apr_matmul: {splits} splits; this kernel takes "
+                        f"{allowed}")
+    return splits
+
+
 _SHAPE_KEYS = {
     KERNEL_NAME: lambda m, k, n, residency, w_int8=False: shape_key(
         m, k, n, residency, w_int8),
@@ -149,18 +218,21 @@ def _default(m: int, k: int, n: int, residency: str,
              w_int8: bool = False) -> BlockConfig:
     if w_int8:
         return int8w_default_config(m, k, n)
+    if residency == "hbm":               # the paper's one-chain baseline
+        return default_config(m, k, n).replace(splits=1)
     return default_config(m, k, n)
 
 
-def resolve_tile(kernel: str, m: int, k: int, n: int, dtype: str,
-                 backend: str, residency: str = "apr",
-                 config: Optional[BlockConfig] = None,
-                 w_int8: bool = False) -> tuple:
-    """The ``(block_m, block_n, block_k)`` a launch of ``kernel``
-    (``apr_matmul`` or ``apr_matmul_fused``) uses, checked against
-    :data:`TILES` (:data:`INT8W_TILES` for the int8-weight kernel,
-    ``w_int8``).  Without a caller's ``config`` the resolution is memoized
-    in the active cache."""
+def resolve_launch(kernel: str, m: int, k: int, n: int, dtype: str,
+                   backend: str, residency: str = "apr",
+                   config: Optional[BlockConfig] = None,
+                   w_int8: bool = False) -> tuple:
+    """``((block_m, block_n, block_k), splits)`` of a launch of ``kernel``
+    (``apr_matmul`` or ``apr_matmul_fused``) on bf16 ``x``: the tile
+    checked against :data:`TILES` (:data:`INT8W_TILES` for the int8-weight
+    kernel, ``w_int8``, which runs one split), the split count against
+    :data:`SPLITS`.  Without a caller's ``config`` the resolution is
+    memoized in the active cache."""
     shape_key_of = _SHAPE_KEYS[kernel]
     dims = (m, k, n, residency, w_int8)
     if config is None:
@@ -169,41 +241,75 @@ def resolve_tile(kernel: str, m: int, k: int, n: int, dtype: str,
     else:
         cfg = resolve_config(kernel, shape_key_of(*dims), dtype, backend,
                              default=_default(*dims), override=config)
-    return _tile(cfg, w_int8)
+    tile = _tile(cfg, w_int8)
+    return tile, _splits(cfg, (1,) if w_int8 else SPLITS)
+
+
+def resolve_tile(kernel: str, m: int, k: int, n: int, dtype: str,
+                 backend: str, residency: str = "apr",
+                 config: Optional[BlockConfig] = None,
+                 w_int8: bool = False) -> tuple:
+    """The ``(block_m, block_n, block_k)`` of :func:`resolve_launch`."""
+    return resolve_launch(kernel, m, k, n, dtype, backend, residency, config,
+                          w_int8)[0]
 
 
 def resolve_f32(kernel: str, m: int, k: int, n: int,
-                config: Optional[BlockConfig] = None) -> BlockConfig:
-    """The fp32 kernel's configuration for a launch of ``kernel``: whatever
-    resolves under the family's key at dtype ``float32`` must be
-    :data:`F32_CONFIG`, or :class:`~repro_torch.bench.TileError` is
-    raised."""
-    return resolve_fixed(kernel, (m, k, n, "apr"), "float32", "cuda",
-                         shape_key=_SHAPE_KEYS[kernel], compiled=F32_CONFIG,
-                         config=config)
+                config: Optional[BlockConfig] = None,
+                w_int8: bool = False) -> BlockConfig:
+    """The fp32 body's configuration for a launch of ``kernel`` (an fp32
+    ``x`` over an fp32 weight, or an int8 one with ``w_int8``): whatever
+    resolves under the family's key at dtype ``float32`` (``_wint8`` for
+    the int8 weight; default :func:`f32_default_config`) must be one of
+    :data:`F32_TILES` at one of :data:`SPLITS`, or
+    :class:`~repro_torch.bench.TileError` is raised."""
+    shape_key_of = _SHAPE_KEYS[kernel]
+    dims = (m, k, n, "apr", w_int8)
+    default = lambda m, k, n, _, q: f32_default_config(m, k, n, q)  # noqa
+    if config is None:
+        cfg = resolve_cached(kernel, dims, "float32", "cuda",
+                             shape_key=shape_key_of, default=default)
+    else:
+        cfg = resolve_config(kernel, shape_key_of(*dims), "float32", "cuda",
+                             default=default(*dims), override=config)
+    tile = (cfg["block_m"], cfg["block_n"], cfg["block_k"])
+    if tile not in F32_TILES:
+        raise TileError(f"{kernel}: fp32 tile {tile} is not compiled; "
+                        f"compiled tiles {F32_TILES}")
+    _splits(cfg)
+    return cfg
 
 
 def _launch_f32(x: torch.Tensor, w: torch.Tensor,
+                scale: Optional[torch.Tensor],
                 bias: Optional[torch.Tensor], activation: str,
                 out_dtype: torch.dtype, kernel: str,
-                config: Optional[BlockConfig], wrapper) -> torch.Tensor:
-    """``activation(x @ w + bias)`` on fp32 operands by ``apr_matmul_f32``
-    for family ``kernel``, whose configuration must resolve to
-    :data:`F32_CONFIG`; ``bias`` fp32 (N,) or None.  A launch adds one to
-    ``wrapper.f32_launches``."""
+                config: Optional[BlockConfig]) -> torch.Tensor:
+    """``activation(x @ w + bias)`` on an fp32 ``x`` by the fp32 body for
+    family ``kernel``: ``apr_matmul_f32`` over an fp32 weight, or
+    ``apr_matmul_f32_int8w`` over int8 codes with their fp32 (1, N)
+    ``scale`` (no bias, no activation); the configuration from
+    :func:`resolve_f32`; ``bias`` fp32 (N,) or None."""
     (m, k), n = x.shape, w.shape[1]
-    resolve_f32(kernel, m, k, n, config)
+    cfg = resolve_f32(kernel, m, k, n, config, scale is not None)
+    splits = cfg["splits"]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     lib = _build.load(LIBRARY, SIGNATURES)
-    err = lib.apr_matmul_f32(
-        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), m, n, k, int(out_dtype == torch.float32),
-        ACTIVATIONS[activation],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    geometry = (m, n, k, cfg["block_n"], cfg["block_k"], splits,
+                split_range(k, splits), int(out_dtype == torch.float32))
+    if scale is None:
+        err = lib.apr_matmul_f32(
+            x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            *geometry, ACTIVATIONS[activation], stream)
+    else:
+        err = lib.apr_matmul_f32_int8w(x.data_ptr(), w.data_ptr(),
+                                       scale.data_ptr(), out.data_ptr(),
+                                       *geometry, stream)
     _build.check(lib, err, kernel)
-    wrapper.f32_launches += 1
     return out
 
 
@@ -233,35 +339,48 @@ def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
         raise ValueError(f"{what} kernel takes contiguous row-major operands")
 
 
+def _count(counts: dict, key) -> None:
+    counts[key] = counts.get(key, 0) + 1
+
+
 def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                block_m: Optional[int] = None, block_n: Optional[int] = None,
-               block_k: Optional[int] = None,
+               block_k: Optional[int] = None, splits: Optional[int] = None,
                out_dtype: torch.dtype = torch.float32,
                residency: str = "apr",
                config: Optional[BlockConfig] = None) -> torch.Tensor:
     """``x (M, K) @ y (K, N)`` with an fp32 accumulator, rounded once to
     ``out_dtype``.
 
-    ``residency="apr"`` keeps the accumulator in registers across the whole
-    K loop (one launch); ``"hbm"`` is the paper's baseline, whose fp32
-    partial goes through global memory on every K step (one launch per
-    step; bf16 operands only), equal to the APR kernel at the same tile bit
-    for bit.  ``y`` is a bf16 tensor or an int8 :class:`QuantizedTensor`
-    with (1, N) fp32 scales under a bf16 ``x``, or an fp32 tensor under an
-    fp32 ``x`` (:data:`KERNEL_DTYPES`); the int8-weight kernel equals the
-    bf16 one on the dequantized weight bit for bit.  ``block_m``,
-    ``block_n`` and ``block_k`` pin the tile over ``config``, as the JAX
-    wrapper's kwargs do.  CUDA tensors launch the kernel (``out_dtype``
-    bf16 or fp32) or raise; CPU tensors take :func:`matmul_ref`.  Each
-    launch adds one to ``apr_matmul.launches`` (and to
-    ``apr_matmul.tile_launches[tile]``), ``apr_matmul.hbm_launches`` (one
-    per K step of the baseline), ``apr_matmul.int8_launches`` (int8 weight;
-    and ``apr_matmul.int8_tile_launches[tile]``) or
-    ``apr_matmul.f32_launches`` (fp32 operands)."""
+    ``residency="apr"`` keeps the accumulators in registers across each
+    split's K range and combines the splits on chip (one launch); ``"hbm"``
+    is the paper's baseline, whose fp32 partial goes through global memory
+    on every K step (one launch per step; bf16 operands, one split), equal
+    to the APR kernel at one split and the same tile bit for bit.  ``y`` is
+    a bf16 tensor or an int8 :class:`QuantizedTensor` with (1, N) fp32
+    scales under a bf16 ``x`` (the int8-weight kernel, one split, equal to
+    the bf16 kernel at one split on the dequantized weight bit for bit), or
+    an fp32 tensor or an int8 :class:`QuantizedTensor` under an fp32 ``x``
+    (the fp32 body; over the int8 weight it equals the fp32 body on
+    ``y.dequantize(torch.float32)`` bit for bit) (:data:`KERNEL_DTYPES`).
+    ``block_m``, ``block_n``, ``block_k`` and ``splits`` pin the
+    configuration over ``config``, as the JAX wrapper's kwargs do; a pinned
+    split count above one with ``residency="hbm"`` raises.  CUDA tensors
+    launch the kernel (``out_dtype`` bf16 or fp32) or raise; CPU tensors
+    take :func:`matmul_ref`.  Each launch adds one to
+    ``apr_matmul.launches`` (and to ``apr_matmul.tile_launches[tile]`` and
+    ``apr_matmul.split_launches[splits]``), ``apr_matmul.hbm_launches``
+    (one per K step of the baseline), ``apr_matmul.int8_launches`` (int8
+    weight, bf16 ``x``; and ``apr_matmul.int8_tile_launches[tile]``),
+    ``apr_matmul.f32_launches`` (fp32 operands) or
+    ``apr_matmul.f32_int8_launches`` (fp32 ``x``, int8 weight)."""
     if residency not in RESIDENCIES:
         raise ValueError(f"unknown residency {residency!r}")
+    if residency == "hbm" and splits not in (None, 1):
+        raise ValueError("apr_matmul: the memory-resident baseline runs one "
+                         f"split, not {splits}")
     config = pin_config(config, block_m=block_m, block_n=block_n,
-                        block_k=block_k)
+                        block_k=block_k, splits=splits)
     quantized = isinstance(y, QuantizedTensor)
     w = y.q if quantized else y
     if x.device.type == "cpu" and w.device.type == "cpu":
@@ -272,9 +391,6 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
     if residency != "apr" and (quantized or x.dtype != torch.bfloat16):
         raise ValueError("apr_matmul: the memory-resident baseline takes "
                          "bf16 operands")
-    if x.dtype == torch.float32:
-        return _launch_f32(x, w, None, "none", out_dtype, KERNEL_NAME,
-                           config, apr_matmul)
     m, k = x.shape
     n = w.shape[1]
     if quantized and (y.scale.shape != (1, n)
@@ -284,8 +400,21 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
         raise ValueError(f"apr_matmul: int8 weight {tuple(w.shape)} needs "
                          f"contiguous fp32 (1, {n}) scales on {w.device}, "
                          f"got {y.scale.dtype} {tuple(y.scale.shape)}")
-    bm, bn, bk = resolve_tile(KERNEL_NAME, m, k, n, dtype_name(x.dtype),
-                              "cuda", residency, config, quantized)
+    if x.dtype == torch.float32:
+        out = _launch_f32(x, w, y.scale if quantized else None, None, "none",
+                          out_dtype, KERNEL_NAME, config)
+        if quantized:
+            apr_matmul.f32_int8_launches += 1
+        else:
+            apr_matmul.f32_launches += 1
+        return out
+    tile, n_splits = resolve_launch(KERNEL_NAME, m, k, n,
+                                    dtype_name(x.dtype), "cuda", residency,
+                                    config, quantized)
+    if residency == "hbm" and n_splits != 1:
+        raise ValueError(f"apr_matmul: the memory-resident baseline runs one "
+                         f"split, not {n_splits}")
+    bm, bn, bk = tile
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
@@ -298,19 +427,18 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                                    k, bn, bk, out_f32, stream)
         _build.check(lib, err, "apr_matmul")
         apr_matmul.int8_launches += 1
-        tiles = apr_matmul.int8_tile_launches
-        tiles[(bm, bn, bk)] = tiles.get((bm, bn, bk), 0) + 1
+        _count(apr_matmul.int8_tile_launches, tile)
         return out
     ktiles = -(-k // bk)
     if residency == "apr":
         err = lib.apr_matmul_bf16(x.data_ptr(), w.data_ptr(), None, None,
                                   out.data_ptr(), m, n, k, bm, bn, bk, 0,
-                                  ktiles, out_f32, ACTIVATIONS["none"],
-                                  stream)
+                                  ktiles, n_splits, split_range(k, n_splits),
+                                  out_f32, ACTIVATIONS["none"], stream)
         _build.check(lib, err, "apr_matmul")
         apr_matmul.launches += 1
-        tiles = apr_matmul.tile_launches
-        tiles[(bm, bn, bk)] = tiles.get((bm, bn, bk), 0) + 1
+        _count(apr_matmul.tile_launches, tile)
+        _count(apr_matmul.split_launches, n_splits)
         return out
     # the baseline: the fp32 partial (the output itself when it is fp32)
     # is read and written by every K step; the last step rounds
@@ -323,8 +451,8 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
             x.data_ptr(), w.data_ptr(), None,
             partial.data_ptr() if s else None,
             (out if last else partial).data_ptr(), m, n, k, bm, bn, bk, s,
-            min(s + 1, ktiles), out_f32 if last else 1, ACTIVATIONS["none"],
-            stream)
+            min(s + 1, ktiles), 1, 0, out_f32 if last else 1,
+            ACTIVATIONS["none"], stream)
         _build.check(lib, err, "apr_matmul (residency='hbm')")
         apr_matmul.hbm_launches += 1
     return out
@@ -334,7 +462,9 @@ apr_matmul.launches = 0
 apr_matmul.hbm_launches = 0
 apr_matmul.int8_launches = 0
 apr_matmul.f32_launches = 0
+apr_matmul.f32_int8_launches = 0
 apr_matmul.tile_launches = {}
+apr_matmul.split_launches = {}
 apr_matmul.int8_tile_launches = {}
 
 
@@ -343,13 +473,15 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
                      block_m: Optional[int] = None,
                      block_n: Optional[int] = None,
                      block_k: Optional[int] = None,
+                     splits: Optional[int] = None,
                      activation: str = "relu",
                      out_dtype: torch.dtype = torch.float32,
                      config: Optional[BlockConfig] = None) -> torch.Tensor:
     """``activation(x @ y + bias)`` in one kernel: bias (``None``, ``(N,)``
     or ``(1, N)``, used in fp32) and the activation are applied to the fp32
-    accumulator at its one flush, before the single write.  Tuned under its
-    own family name; ``block_m``/``block_n``/``block_k`` pin the tile.
+    accumulator at its one flush, after the split partials are combined,
+    before the single write.  Tuned under its own family name;
+    ``block_m``/``block_n``/``block_k``/``splits`` pin the configuration.
     CUDA tensors launch the kernel (bf16 ``x`` and ``y``, or fp32 both) or
     raise; CPU tensors take :func:`matmul_fused_ref`.  Each launch adds one
     to ``apr_matmul_fused.launches`` (``.f32_launches`` for fp32)."""
@@ -362,7 +494,7 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
                          f"{n} output columns")
     tensors = (x, y) if bias is None else (x, y, bias)
     config = pin_config(config, block_m=block_m, block_n=block_n,
-                        block_k=block_k)
+                        block_k=block_k, splits=splits)
     if all(t.device.type == "cpu" for t in tensors):
         return matmul_fused_ref(x, y, bias, activation, out_dtype)
     _check(x, y, out_dtype, FUSED_KERNEL_NAME)
@@ -372,11 +504,14 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
                              f"operands on {x.device}")
         bias = bias.reshape(n).float().contiguous()
     if x.dtype == torch.float32:
-        return _launch_f32(x, y, bias, activation, out_dtype,
-                           FUSED_KERNEL_NAME, config, apr_matmul_fused)
+        out = _launch_f32(x, y, None, bias, activation, out_dtype,
+                          FUSED_KERNEL_NAME, config)
+        apr_matmul_fused.f32_launches += 1
+        return out
     m, k = x.shape
-    bm, bn, bk = resolve_tile(FUSED_KERNEL_NAME, m, k, n, dtype_name(x.dtype),
-                              "cuda", "apr", config)
+    (bm, bn, bk), n_splits = resolve_launch(
+        FUSED_KERNEL_NAME, m, k, n, dtype_name(x.dtype), "cuda", "apr",
+        config)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
@@ -385,7 +520,9 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
     err = lib.apr_matmul_bf16(x.data_ptr(), y.data_ptr(),
                               None if bias is None else bias.data_ptr(), None,
                               out.data_ptr(), m, n, k, bm, bn, bk, 0,
-                              -(-k // bk), int(out_dtype == torch.float32),
+                              -(-k // bk), n_splits,
+                              split_range(k, n_splits),
+                              int(out_dtype == torch.float32),
                               ACTIVATIONS[activation], stream)
     _build.check(lib, err, "apr_matmul_fused")
     apr_matmul_fused.launches += 1

@@ -1,5 +1,9 @@
 """Plain PyTorch versions of ``apr_matmul`` and its fused-epilogue variant
-(mirror of the JAX ``ref.py``)."""
+(mirror of the JAX ``ref.py``), and their split-K forms: the CUDA kernels
+cut K into ``splits`` ranges of whole multiples of :data:`K_RANGE` rows
+(:func:`split_range`), keep one fp32 partial per range and add the
+partials in split order (:func:`matmul_split_ref`,
+:func:`matmul_fused_split_ref`)."""
 import torch
 import torch.nn.functional as F
 
@@ -39,6 +43,53 @@ def matmul_fused_ref(x: torch.Tensor, y: torch.Tensor,
     """``activation(x @ y + bias)``: fp32 accumulator, bias first, then the
     activation, rounded once to ``out_dtype``."""
     acc = torch.matmul(x.float(), y.float())
+    if bias is not None:
+        acc = acc + bias.reshape(1, -1).float()
+    return activation_ref(acc, activation).to(out_dtype)
+
+
+#: split-K ranges are whole multiples of this many K rows (the largest
+#: block_k the kernels compile), so every tile cuts K alike
+K_RANGE = 128
+
+
+def split_range(k: int, splits: int) -> int:
+    """K rows per split range: ``ceil(ceil(K / 128) / splits) * 128``.
+    Split ``s`` takes rows ``[s * range, min(K, (s + 1) * range))``; the
+    last ones may be short or empty."""
+    return -(-(-(-k // K_RANGE)) // splits) * K_RANGE
+
+
+def _split_partials(x: torch.Tensor, y: torch.Tensor, splits: int
+                    ) -> torch.Tensor:
+    """fp32 ``x @ y``: one fp32 partial per split range (an empty range
+    adds exactly 0), added in split order."""
+    k = x.shape[1]
+    rng = split_range(k, splits)
+    acc = None
+    for s in range(splits):
+        lo, hi = min(k, s * rng), min(k, (s + 1) * rng)
+        part = torch.matmul(x[:, lo:hi].float(), y[lo:hi].float())
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def matmul_split_ref(x: torch.Tensor, y: torch.Tensor, splits: int,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``x @ y`` as the split-K kernels sum it: the fp32 partials of the
+    ``splits`` ranges of :func:`split_range`, added in split order, rounded
+    once to ``out_dtype``.  At one split it is :func:`matmul_ref`."""
+    return _split_partials(x, y, splits).to(out_dtype)
+
+
+def matmul_fused_split_ref(x: torch.Tensor, y: torch.Tensor, splits: int,
+                           bias=None, activation: str = "relu",
+                           out_dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """``activation(x @ y + bias)`` with the product of
+    :func:`matmul_split_ref`: the split partials added in split order, then
+    the bias, then the activation, rounded once to ``out_dtype``."""
+    acc = _split_partials(x, y, splits)
     if bias is not None:
         acc = acc + bias.reshape(1, -1).float()
     return activation_ref(acc, activation).to(out_dtype)

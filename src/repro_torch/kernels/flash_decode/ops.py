@@ -30,25 +30,25 @@ from .ref import (decode_attention_ref, paged_decode_attention_q_ref,
 LIBRARY = "flash_decode"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "flash_decode_paged_bf16": (ctypes.c_int, [_P] * 6 + [_I] * 8 + [_P]),
-    "flash_decode_paged_int8": (ctypes.c_int, [_P] * 8 + [_I] * 8 + [_P]),
+    "flash_decode_paged_bf16": (ctypes.c_int, [_P] * 6 + [_I] * 9 + [_P]),
+    "flash_decode_paged_int8": (ctypes.c_int, [_P] * 8 + [_I] * 9 + [_P]),
     "flash_decode_paged_f32": (ctypes.c_int, [_P] * 6 + [_I] * 9 + [_P]),
-    "flash_decode_bf16": (
-        ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "flash_decode_f32": (
-        ctypes.c_int, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flash_decode_bf16": (ctypes.c_int, [_P] * 5 + [_I] * 7 + [_P]),
+    "flash_decode_f32": (ctypes.c_int, [_P] * 5 + [_I] * 7 + [_P]),
 }
 MAX_GROUP, MAX_HEAD_DIM = 8, 128   # the kernel's register budget
 KERNEL_NAME = "flash_decode"
 PAGED_KERNEL_NAME = "flash_decode_paged"
-#: (q dtype, K/V dtype) pairs each kernel family is compiled for
+#: (q dtype, K/V dtype) pairs each kernel family is compiled for: a bf16
+#: or an fp32 q over every cache type
 KERNEL_DTYPES = {
     PAGED_KERNEL_NAME: frozenset({
         (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
-        (torch.bfloat16, torch.float32), (torch.float32, torch.float32)}),
+        (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+        (torch.float32, torch.int8), (torch.float32, torch.float32)}),
     KERNEL_NAME: frozenset({
         (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
-        (torch.float32, torch.float32)}),
+        (torch.float32, torch.bfloat16), (torch.float32, torch.float32)}),
 }
 #: the kernels walk 32-token steps (``STEP`` in the source): their one chunk
 COMPILED = BlockConfig.make(chunk=32)
@@ -190,12 +190,14 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     :data:`SPLITS` raises :class:`~repro_torch.bench.TileError`.  A
     block-table entry outside the pool is a dead position (weight 0).
 
-    CUDA tensors launch the kernel (a bf16 q over bf16, int8 or fp32 pools,
-    or an fp32 q over fp32 pools; int32 lengths and tables) or raise; CPU
-    tensors take the plain version.  The output has the dtype of q.  Each
-    launch adds one to ``flash_decode_paged.launches`` (bf16 pools),
-    ``flash_decode_paged.int8_launches`` (int8 pools) or
-    ``flash_decode_paged.f32_launches`` (fp32 pools)."""
+    CUDA tensors launch the kernel (a bf16 or fp32 q over bf16, int8 or
+    fp32 pools; int32 lengths and tables) or raise; CPU tensors take the
+    plain version.  The output has the dtype of q.  Each launch adds one to
+    ``flash_decode_paged.launches`` (bf16 q, bf16 pools),
+    ``flash_decode_paged.int8_launches`` (bf16 q, int8 pools),
+    ``flash_decode_paged.f32_launches`` (fp32 pools, either q),
+    ``flash_decode_paged.f32q_launches`` (fp32 q, bf16 pools) or
+    ``flash_decode_paged.int8_f32q_launches`` (fp32 q, int8 pools)."""
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("flash_decode_paged: pass both scale pools or none")
@@ -237,25 +239,28 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
         return out
     lib = _build.load(LIBRARY, SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    dims = (b, hq, hkv, d, ps, p_pool, block_tables.shape[1])
+    q_f32 = q.dtype == torch.float32
+    dims = (b, hq, hkv, d, ps, p_pool, block_tables.shape[1], int(q_f32),
+            splits)
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr())
     tail = (lengths.data_ptr(), block_tables.data_ptr(), out.data_ptr())
     if quantized:
         err = lib.flash_decode_paged_int8(
             *ptrs, k_scales.data_ptr(), v_scales.data_ptr(), *tail, *dims,
-            splits, stream)
+            stream)
     elif k_pages.dtype == torch.float32:
-        err = lib.flash_decode_paged_f32(*ptrs, *tail, *dims,
-                                         int(q.dtype == torch.float32),
-                                         splits, stream)
+        err = lib.flash_decode_paged_f32(*ptrs, *tail, *dims, stream)
     else:
-        err = lib.flash_decode_paged_bf16(*ptrs, *tail, *dims, splits,
-                                          stream)
+        err = lib.flash_decode_paged_bf16(*ptrs, *tail, *dims, stream)
     _build.check(lib, err, "flash_decode_paged")
-    if quantized:
-        flash_decode_paged.int8_launches += 1
-    elif k_pages.dtype == torch.float32:
+    if k_pages.dtype == torch.float32:
         flash_decode_paged.f32_launches += 1
+    elif quantized and q_f32:
+        flash_decode_paged.int8_f32q_launches += 1
+    elif quantized:
+        flash_decode_paged.int8_launches += 1
+    elif q_f32:
+        flash_decode_paged.f32q_launches += 1
     else:
         flash_decode_paged.launches += 1
     return out
@@ -264,6 +269,8 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
 flash_decode_paged.launches = 0
 flash_decode_paged.int8_launches = 0
 flash_decode_paged.f32_launches = 0
+flash_decode_paged.f32q_launches = 0
+flash_decode_paged.int8_f32q_launches = 0
 
 
 def resolve_splits(b, hq, hkv, d, s, dtype: str, backend: str,
@@ -285,14 +292,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,).  Positions at or
     past ``lengths[b]`` are masked; a row with ``lengths == 0`` returns the
     mean of its S values of V, as the JAX package's kernel and oracle do.
-    CUDA tensors launch the kernel (a bf16 q over a bf16 or fp32 cache, or
-    an fp32 q over an fp32 one; int32 lengths) or raise; CPU tensors take
+    CUDA tensors launch the kernel (a bf16 or fp32 q over a bf16 or fp32
+    cache; int32 lengths) or raise; CPU tensors take
     :func:`decode_attention_ref`.  The output has the dtype of q.  The
     kernel splits each row's sequence over ``splits`` blocks of one cluster
     (:func:`resolve_splits`: by default from the geometry and the H100's
     SM count; a ``config`` or a tuned entry may pick any of :data:`SPLITS`;
     ``chunk`` pins the chunk, which must be 32).  Each launch adds one to
-    ``flash_decode.launches``."""
+    ``flash_decode.launches`` (``flash_decode.f32q_launches`` for an fp32 q
+    over a bf16 cache)."""
     tensors = (q, k, v, lengths)
     config = pin_config(config, chunk=chunk)
     if all(t.device.type == "cpu" for t in tensors):
@@ -314,17 +322,21 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     lib = _build.load(LIBRARY, SIGNATURES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    q_f32 = q.dtype == torch.float32
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), b, q.shape[1], k.shape[2], q.shape[2], k.shape[1],
-            splits)
+            splits, int(q_f32), stream)
     if k.dtype == torch.float32:
-        err = lib.flash_decode_f32(*args, int(q.dtype == torch.float32),
-                                   stream)
+        err = lib.flash_decode_f32(*args)
     else:
-        err = lib.flash_decode_bf16(*args, stream)
+        err = lib.flash_decode_bf16(*args)
     _build.check(lib, err, "flash_decode")
-    flash_decode.launches += 1
+    if q_f32 and k.dtype == torch.bfloat16:
+        flash_decode.f32q_launches += 1
+    else:
+        flash_decode.launches += 1
     return out
 
 
 flash_decode.launches = 0
+flash_decode.f32q_launches = 0

@@ -199,10 +199,12 @@ class TestPruningParity:
     @pytest.mark.parametrize("kernel", sorted(QUICK_SHAPES))
     def test_pruned_matches_exhaustive(self, kernel, cache):
         """The pruned sweep selects the exhaustive winner, a config the
-        model prices within 1%, or one within the runs' timer spread."""
+        model prices within 1%, or one within the runs' timer spread.  The
+        sweeps run at float32, so the candidates are those of that dtype
+        (the matmul families' fp32 body has tiles of its own)."""
         spec = get_spec(kernel)
         shape = QUICK_SHAPES[kernel]
-        cands = spec.candidates(shape)[:4]
+        cands = spec.candidates(shape, "float32")[:4]
         k = max(1, len(cands) // 2)
         kw = dict(dtype="float32", device="cpu", cache=cache,
                   max_candidates=4)

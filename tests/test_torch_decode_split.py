@@ -2,8 +2,9 @@
 operands of the decode kernels: the plain split-then-combine version
 (``decode_attention_split_ref``) against the JAX oracle of
 ``flash_decode`` and the port's ``decode_attention_ref`` at every split
-count the kernel takes; the paged plain version over fp32 pools under a
-bf16 q against the JAX oracle; a bf16 model over fp32 pools, layer and
+count the kernel takes, an fp32 q over a bf16 cache included; the paged
+plain version over fp32 pools under a bf16 q against the JAX oracle; an
+fp32-param model on the slot engine (bf16 cache) beside the JAX one; a bf16 model over fp32 pools, layer and
 engine, against the JAX package; the (q, K/V) and (x, weight) dtype tables
 of the CUDA kernels; which parameter dtypes the card takes; and the tune
 spaces of the split count and of the int8-weight tiles.  The CUDA kernels are
@@ -28,6 +29,7 @@ from repro.models import layers as jax_layers
 from repro.parallel import ParallelContext
 from repro.serve import PagedServeEngine as JaxEngine
 from repro.serve import Request as JaxRequest
+from repro.serve import ServeEngine as JaxServeEngine
 from repro_torch.bench.registry import get_spec
 from repro_torch.bridge import params_from_numpy, tensor_from_numpy
 from repro_torch.configs import get_config
@@ -43,7 +45,7 @@ from repro_torch.kernels.flash_decode.ref import (NEG_INF,
 from repro_torch.models import build_model
 from repro_torch.models import layers as torch_layers
 from repro_torch.models.registry import check_param_dtype, check_params
-from repro_torch.serve import PagedServeEngine, Request
+from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
 ARCH = "llama3-8b"
 BF16_EPS = 2.0 ** -7   # one bf16 ulp, relative
@@ -103,6 +105,24 @@ def test_split_ref_matches_jax_oracle(case, splits, dtype):
     empty = np.asarray(lengths) == 0
     v_mean = np.repeat(_np(targs[2]).mean(axis=1), hq // hkv, axis=1)
     np.testing.assert_allclose(got[empty], v_mean[empty], **tol)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"g{c[1] // c[2]}_s{c[4]}" for c in SPLIT_CASES])
+@pytest.mark.parametrize("splits", fd_ops.SPLITS)
+def test_split_ref_fp32_q_bf16_cache_matches_jax_oracle(case, splits):
+    """An fp32 q over a bf16 cache, the pair an fp32-param model gives the
+    slot engine's kernel (its cache is bf16 in both packages): the split
+    form in fp32 against the JAX oracle, which widens K and V to fp32, at
+    fp32 tolerance; the output is fp32, q's dtype."""
+    jargs, targs = _contig(*case, seed=splits, q_dtype="float32",
+                           kv_dtype="bfloat16")
+    got = decode_attention_split_ref(*targs, splits)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_np(got), _np(jax_decode_ref(*jargs)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_np(got), _np(decode_attention_ref(*targs)),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_split_states_of_empty_splits_and_empty_rows():
@@ -245,6 +265,63 @@ def test_engine_bf16_model_fp32_pools(bf16_smoke):
           f"bf16 pools {same}/{sum(map(len, ref))}")
 
 
+# ------------------------------------- an fp32-param model, slot engine
+#: |port logits - JAX logits| of the fp32-param smoke model on the bf16
+#: slot cache (tests/test_torch_slot.py's bound: a K/V value ~1e-7 apart
+#: can round to a neighbouring bf16 value in the cache)
+F32_SLOT_LOGITS_BOUND = 1e-2
+
+
+def test_fp32_param_slot_engine_matches_jax_engine():
+    """An fp32-param model on the slot engine, the configuration the card
+    now serves through ``flash_decode`` with an fp32 q over the bf16 cache:
+    3 ragged requests on 2 slots (the third reuses a slot), greedy tokens
+    equal to the JAX slot engine's, the active slots' logits of every
+    forward within F32_SLOT_LOGITS_BOUND."""
+    cfg = jax_get_config(ARCH, smoke=True)
+    jbundle = jax_build_model(cfg)
+    jparams = jax.tree.map(lambda a: a.astype(jnp.float32),
+                           jbundle.init_params(jax.random.PRNGKey(0)))
+    tparams = params_from_numpy({k: np.asarray(v)
+                                 for k, v in jparams.items()})
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 256, size=n).tolist() for n in (5, 12, 9)]
+    logits = {"jax": [], "port": []}
+
+    def recorded(fn, engine, store):
+        def run(*a):
+            out = fn(*a)
+            logits = out[0] if isinstance(out, tuple) else out
+            active = np.array([r is not None for r in engine.active])
+            store.append(_np(logits)[active, 0])
+            return out
+        return run
+
+    def serve(engine, request_cls):
+        reqs = [request_cls(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        assert all(r.done for r in reqs)
+        return [r.output for r in reqs]
+
+    jeng = JaxServeEngine(jbundle, jparams, ParallelContext(None), slots=2,
+                          max_seq=32)
+    jeng._decode = recorded(jeng._decode, jeng, logits["jax"])
+    ref = serve(jeng, JaxRequest)
+    eng = ServeEngine(build_model(get_config(ARCH, smoke=True),
+                                  device="cpu"), tparams, device="cpu",
+                      slots=2, max_seq=32)
+    assert eng.cache["k"].dtype == torch.bfloat16
+    eng._decode = recorded(eng._decode, eng, logits["port"])
+    assert serve(eng, Request) == ref
+    assert len(logits["port"]) == len(logits["jax"]) > 6
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(logits["port"], logits["jax"]) if a.size)
+    assert diff <= F32_SLOT_LOGITS_BOUND, diff
+
+
 # ------------------------------------------------ the kernels' dtype table
 BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 #: per kernel family: its wrapper module, its CUDA source, and the (first,
@@ -252,16 +329,17 @@ BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
 #: the source takes for it
 COMPILED_PAIRS = {
     "flash_decode_paged": (fd_ops, "flash_decode.cu", {
-        "flash_decode_paged_bf16": [(BF16, BF16)],
-        "flash_decode_paged_int8": [(BF16, I8)],
+        "flash_decode_paged_bf16": [(BF16, BF16), (F32, BF16)],
+        "flash_decode_paged_int8": [(BF16, I8), (F32, I8)],
         "flash_decode_paged_f32": [(BF16, F32), (F32, F32)]}),
     "flash_decode": (fd_ops, "flash_decode.cu", {
-        "flash_decode_bf16": [(BF16, BF16)],
+        "flash_decode_bf16": [(BF16, BF16), (F32, BF16)],
         "flash_decode_f32": [(BF16, F32), (F32, F32)]}),
     "apr_matmul": (apr_ops, "apr_matmul.cu", {
         "apr_matmul_bf16": [(BF16, BF16)],
         "apr_matmul_int8w": [(BF16, I8)],
-        "apr_matmul_f32": [(F32, F32)]}),
+        "apr_matmul_f32": [(F32, F32)],
+        "apr_matmul_f32_int8w": [(F32, I8)]}),
     "apr_matmul_fused": (apr_ops, "apr_matmul.cu", {
         "apr_matmul_bf16": [(BF16, BF16)],
         "apr_matmul_f32": [(F32, F32)]}),

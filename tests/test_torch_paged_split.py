@@ -3,28 +3,40 @@ per-parameter kwargs: the plain split-then-combine version of the paged
 kernels (``paged_decode_attention_split_ref``) at every split count
 against the JAX package's Pallas paged kernel (interpret mode) and the
 port's unsplit ``paged_decode_attention_ref``, over bf16, fp32 and int8
-pools and fp32 pools under a bf16 q, with lengths {0, 1, ps-1, ps, ps+1,
-full}, shuffled tables and out-of-pool entries past the length; its split
-states; the paged tune space of split counts; the ``block_m/n/k`` and
-``chunk`` kwargs; and ``ConfigCache.entries()``/``keys_for_kernel()``
-against the JAX package's.  The CUDA kernels are held to these plain
-versions on the card by ``chip_smoke.py``."""
+pools, fp32 pools under a bf16 q and bf16 and int8 pools under an fp32 q,
+with lengths {0, 1, ps-1, ps, ps+1, full}, shuffled tables and
+out-of-pool entries past the length; its split states; an fp32-param
+model served by the paged engine on bf16 and int8 pools, and with int8
+weights on fp32 pools, beside the JAX engine; the paged tune space of
+split counts; the ``block_m/n/k`` and ``chunk`` kwargs; and
+``ConfigCache.entries()``/``keys_for_kernel()`` against the JAX
+package's.  The CUDA kernels are held to these plain versions on the card
+by ``chip_smoke.py``."""
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.bench import all_specs as jax_all_specs
+from repro.configs import get_config as jax_get_config
 from repro.bench.config import BlockConfig as JaxBlockConfig
 from repro.bench.config import ConfigCache as JaxConfigCache
 from repro.kernels.apr_matmul import apr_matmul as jax_apr_matmul
 from repro.kernels.flash_decode import flash_decode_paged as jax_flash_paged
+from repro.models import build_model as jax_build_model
+from repro.parallel import ParallelContext
+from repro.quant import QuantizedTensor as JaxQT
+from repro.quant import quantize_params as jax_quantize_params
+from repro.serve import PagedServeEngine as JaxEngine
+from repro.serve import Request as JaxRequest
 from repro_torch.bench import BlockConfig, ConfigCache, TileError
 from repro_torch.bench.config import pin_config
 from repro_torch.bench.registry import get_spec
-from repro_torch.bridge import tensor_from_numpy
+from repro_torch.bridge import params_from_numpy, tensor_from_numpy
+from repro_torch.configs import get_config
 from repro_torch.kernels.apr_matmul import apr_matmul, apr_matmul_fused
 from repro_torch.kernels.apr_matmul import matmul_fused_ref, matmul_ref
 from repro_torch.kernels.apr_matmul import ops as apr_ops
@@ -34,6 +46,8 @@ from repro_torch.kernels.flash_decode import (flash_decode,
                                               paged_decode_attention_ref,
                                               paged_decode_attention_split_ref)
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.models import build_model
+from repro_torch.serve import PagedServeEngine, Request
 from repro_torch.kernels.flash_decode.ref import (NEG_INF,
                                                   combine_split_states,
                                                   paged_decode_split_states,
@@ -65,9 +79,13 @@ PAGED_CASES = [
     (2, 32, 8, 64, 16, 8, [128, 70]),      # llama3's group, pages of 16
 ]
 #: (q dtype, pool dtype): bf16 pools, fp32 pools under an fp32 and a bf16
-#: q, int8 pools with fp32 scales
+#: q, int8 pools with fp32 scales, and an fp32 q (an fp32-param model) over
+#: bf16 and int8 pools
 KINDS = [("bfloat16", "bfloat16"), ("float32", "float32"),
-         ("bfloat16", "float32"), ("bfloat16", "int8")]
+         ("bfloat16", "float32"), ("bfloat16", "int8"),
+         ("float32", "bfloat16"), ("float32", "int8")]
+KIND_IDS = ["bf16", "fp32", "fp32pools_bf16q", "int8", "bf16pools_fp32q",
+            "int8_fp32q"]
 DEAD = 99   # added to the pool size: an entry outside the pool
 
 
@@ -142,8 +160,7 @@ def _tol(c):
 
 
 @pytest.mark.parametrize("splits", fd_ops.SPLITS)
-@pytest.mark.parametrize("kind", range(len(KINDS)),
-                         ids=["bf16", "fp32", "fp32pools_bf16q", "int8"])
+@pytest.mark.parametrize("kind", range(len(KINDS)), ids=KIND_IDS)
 @pytest.mark.parametrize("ci", range(len(PAGED_CASES)),
                          ids=[f"g{c[1] // c[2]}_ps{c[4]}"
                               for c in PAGED_CASES])
@@ -217,6 +234,87 @@ def test_paged_split_states_of_dead_splits_and_empty_rows():
         _np(paged_decode_attention_split_ref(q, k, v, lens, dead, 2)),
         _np(paged_decode_attention_ref(q, k, v, lens56, packed)),
         rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------- an fp32-param model, paged engine
+#: |port logits - JAX logits| of the fp32-param smoke model on bf16 or int8
+#: pools: both compute in fp32, but a K/V value written ~1e-7 apart can
+#: round to a neighbouring bf16 value (or int8 code) in the pools, one in
+#: a few thousand, which moves O(1) logits by up to ~1e-3 (the slot
+#: cache's bound in tests/test_torch_slot.py)
+F32_PARAM_LOGITS_BOUND = 1e-2
+
+
+@pytest.fixture(scope="module")
+def fp32_params():
+    """The JAX smoke bundle with its PRNGKey(0) params in fp32, plain and
+    int8-quantized (``quantize_params``), and both bridged to torch."""
+    cfg = jax_get_config("llama3-8b", smoke=True)
+    bundle = jax_build_model(cfg)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32),
+                          bundle.init_params(jax.random.PRNGKey(0)))
+    qparams = jax_quantize_params(params)
+    bridged = {name: params_from_numpy({
+        k: (np.asarray(v.q), np.asarray(v.scale)) if isinstance(v, JaxQT)
+        else np.asarray(v) for k, v in p.items()})
+        for name, p in (("fp32", params), ("int8", qparams))}
+    return bundle, {"fp32": params, "int8": qparams}, bridged
+
+
+def _decode_logits(store):
+    """A recorder of the live rows' logits of every decode tick (T = 1) of
+    a ``decode_paged``-shaped call (params, cache, tokens, lengths,
+    counts, tables)."""
+    def record(fn):
+        def run(*a):
+            out = fn(*a)
+            logits = out[0] if isinstance(out, tuple) else out
+            if logits.shape[1] == 1:
+                live = np.asarray(a[4]) > 0
+                store.append(_np(logits)[live, 0])
+            return out
+        return run
+    return record
+
+
+@pytest.mark.parametrize("weights,kv_dtype", [("fp32", "bfloat16"),
+                                              ("fp32", "int8"),
+                                              ("int8", "float32")])
+def test_fp32_param_engine_matches_jax_engine(fp32_params, weights,
+                                              kv_dtype):
+    """The configurations an fp32-param model serves in on the card: 3
+    ragged requests on 2 slots through the port's ``PagedServeEngine`` and
+    the JAX one, fp32 activations over bf16 or int8 pools, or over int8
+    weights (fp32 pools): greedy tokens equal, every decode tick's live
+    logits within F32_PARAM_LOGITS_BOUND."""
+    jbundle, jparams, tparams = fp32_params
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 256, size=n).tolist() for n in (5, 12, 9)]
+    kw = dict(slots=2, page_size=8, prefill_chunk=8, kv_dtype=kv_dtype)
+    logits = {"jax": [], "port": []}
+
+    def serve(engine, request_cls):
+        reqs = [request_cls(rid=i, prompt=p, max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        assert all(r.done for r in reqs)
+        return [r.output for r in reqs]
+
+    jeng = JaxEngine(jbundle, jparams[weights], ParallelContext(None), **kw)
+    jeng._decode_step = _decode_logits(logits["jax"])(jeng._decode_step)
+    ref = serve(jeng, JaxRequest)
+    bundle = build_model(get_config("llama3-8b", smoke=True), device="cpu")
+    bundle.decode_paged = _decode_logits(logits["port"])(bundle.decode_paged)
+    eng = PagedServeEngine(bundle, tparams[weights], device="cpu", **kw)
+    assert eng.cache["k"].dtype == getattr(torch, kv_dtype)
+    got = serve(eng, Request)
+    assert got == ref
+    assert len(logits["port"]) == len(logits["jax"]) >= 5
+    diff = max(float(np.abs(a - b).max())
+               for a, b in zip(logits["port"], logits["jax"]))
+    assert diff <= F32_PARAM_LOGITS_BOUND, diff
 
 
 # ------------------------------------------------------------ tune space
@@ -305,10 +403,17 @@ def test_kwargs_pin_the_config():
                                 "bfloat16", "cuda", config=pin_config(
                                     None, block_m=32)) == (32, 64, 64)
     assert apr_ops.resolve_f32("apr_matmul_fused", 4, 96, 40, pin_config(
-        None, block_m=16, block_n=32, block_k=8)) == apr_ops.F32_CONFIG
+        None, block_m=16, block_n=64, block_k=64)) == BlockConfig.make(
+            block_m=16, block_n=64, block_k=64, splits=1)
+    assert apr_ops.resolve_f32("apr_matmul", 4, 4096, 1024, pin_config(
+        None, splits=2, block_k=32)) == BlockConfig.make(
+            block_m=16, block_n=64, block_k=32, splits=2)
+    with pytest.raises(TileError):          # not an fp32-body tile
+        apr_ops.resolve_f32("apr_matmul", 4, 96, 40,
+                            pin_config(None, block_n=32, block_k=8))
     with pytest.raises(TileError):
         apr_ops.resolve_f32("apr_matmul", 4, 96, 40,
-                            pin_config(None, block_n=64))
+                            pin_config(None, splits=3))
     two = fd_ops.COMPILED.replace(splits=2)
     assert fd_ops.resolve_splits(4, 32, 8, 128, 256, "bfloat16", "cuda",
                                  pin_config(two, chunk=32)) == 2
