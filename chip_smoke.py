@@ -4,6 +4,11 @@
     python3 chip_smoke.py            # from the repository root, on a GPU host
     python3 chip_smoke.py --ablate   # only rms_norm's batch invariance and
                                      # the paged/slot token ablation
+    python3 chip_smoke.py --baseline --out baseline.json
+                                     # only the memory-resident baselines
+                                     # B4m and B4c beside B1 and B5, the
+                                     # phase-2 conv outputs' digests and
+                                     # the baselines' SASS
     python3 chip_smoke.py --kernel-sweep --out sweep.json
                                      # only B2/B2q at the serving shape
                                      # (bf16 and fp32 q), B3 against its
@@ -29,8 +34,9 @@ Phases (any failure exits non-zero before the final line):
      smoke shapes; and ``rms_norm``'s variance, row for row, at B = 1 and
      inside batches of 4 and 16; and the matmul families at every tile
      their kernels compile, at the llama3-8b projection shapes and ragged
-     ones: ``apr_matmul`` (B1), its memory-resident baseline (B4m, equal
-     to B1 at the same tile bit for bit), ``apr_matmul_fused`` (B7m),
+     ones: ``apr_matmul`` (B1), its memory-resident baseline (B4m, one
+     launch a call, equal to B1 at the same tile bit for bit; on fp32
+     operands within the fp32 bound), ``apr_matmul_fused`` (B7m),
      ``quant_matmul`` (B6) and ``quant_matmul_fused`` (B8) with every
      activation, bias and none, bf16 and fp32 out; B1 and B7m at every
      tile x split count (split-K over a thread-block cluster) against the
@@ -76,8 +82,9 @@ Phases (any failure exits non-zero before the final line):
   6. run the paper's CNNs (LeNet-5, ResNet-20; random fp32 weights from a
      seed) at batch 256 with every conv on ``apr_conv``, check each
      forward's launches, run ResNet-20 on the memory-resident baseline
-     (``apr_conv_hbm``) and on the plain path, time all of them and ResNet-20
-     at batch 1, and compare card (kernels) and CPU (plain) logits;
+     (``apr_conv_hbm``, one launch a conv) and on the plain path, time all
+     of them and ResNet-20 at batch 1, and compare card (kernels) and CPU
+     (plain) logits;
   7. serve full-width rwkv6-3b and then mamba2-2.7b (random bf16 weights
      from a seed, one model at a time) on the PagedServeEngine with its
      StateCache and on the slot ServeEngine, the same 6 requests on 4
@@ -870,10 +877,10 @@ def matmul_family_correctness(torch, gen, dev) -> list:
     split count against the split plain version at the bf16 tolerance,
     each launched twice for equal bits and equal bits across the tiles at
     one split count; B4m equal to B1 at one split and the same tile bit
-    for bit; B6 and B8 with none/relu bit for bit and with silu/gelu
-    within ACT_ULPS fp32 ulps (bf16 out: one bf16 ulp).  One case per
-    (kernel, shape), its largest error over tiles, split counts and
-    variants."""
+    for bit, in one launch a call; B6 and B8 with none/relu bit for bit
+    and with silu/gelu within ACT_ULPS fp32 ulps (bf16 out: one bf16 ulp).
+    One case per (kernel, shape), its largest error over tiles, split
+    counts and variants."""
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.kernels.apr_matmul.ref import (matmul_fused_split_ref,
                                                     matmul_split_ref)
@@ -920,11 +927,14 @@ def matmul_family_correctness(torch, gen, dev) -> list:
                          first)
                     first = b1 if first is None else first
                     if n_split == 1:
-                        # the baseline keeps B1's one-chain order
+                        # the baseline keeps B1's one-chain order, in one
+                        # launch
+                        before = mm.apr_matmul.hbm_launches
                         b4 = mm.apr_matmul(x, w, out_dtype=out, config=cfg,
                                            residency="hbm")
                         note("apr_matmul_hbm", max_err(b4, ref)[0],
-                             torch.equal(b4, b1))
+                             torch.equal(b4, b1)
+                             and mm.apr_matmul.hbm_launches - before == 1)
                     for key, r in fused.items():
                         act, nobias = key
                         bb = None if nobias else bias
@@ -1001,8 +1011,7 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
             t_b1 = cuda_ms(torch, lambda i: mm.apr_matmul(
                 x, ws[i % nbuf], out_dtype=bf16), 60)
             t_h = cuda_ms(torch, lambda i: mm.apr_matmul(
-                x, ws[i % nbuf], out_dtype=bf16, residency="hbm"), 20,
-                fill=2e5 * steps)
+                x, ws[i % nbuf], out_dtype=bf16, residency="hbm"), 20)
             t_p = cuda_ms(torch, lambda i: matmul_ref(x, ws[i % nbuf], bf16),
                           60)
             t_l = cuda_ms(torch, lambda i: torch.matmul(x, ws[i % nbuf]), 60)
@@ -1327,9 +1336,10 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
         apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
         flash_decode_paged=cfg.num_layers * m.decode_calls))
     # the fp32 operands' kernels (and an fp32 q's) serve no bf16 path:
-    # phases 2 and 5 hold them
+    # phases 2 and 5 hold them (the fp32 baseline, phase 2 alone)
     unlaunched = [k for k, v in path_launches.items() if not v and k not in (
         "flash_decode_paged_f32", "apr_matmul_f32", "apr_matmul_fused_f32",
+        "apr_matmul_hbm_f32",
         "apr_matmul_f32_int8w", "flash_decode_paged_f32q",
         "flash_decode_paged_int8_f32q", "flash_decode_f32q")]
     if unlaunched:
@@ -1586,10 +1596,13 @@ def matmul_f32_correctness(torch, gen, dev) -> list:
     split count, against the split plain versions within the F32_MM_SLACK
     bound, each launched twice for equal bits and equal bits across the
     tiles at one split count; over the int8 weight bit for bit equal to the
-    fp32 body on its fp32 dequantization at every tile and split count.
-    One case per (kernel, shape)."""
+    fp32 body on its fp32 dequantization at every tile and split count; the
+    memory-resident baseline on fp32 operands (``residency="hbm"``) at
+    every fp32 tile against :func:`matmul_ref` within the same bound, in
+    one launch a call.  One case per (kernel, shape)."""
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.kernels.apr_matmul.ref import (matmul_fused_split_ref,
+                                                    matmul_ref,
                                                     matmul_split_ref)
     from repro_torch.quant import quantize_channelwise
     f32 = torch.float32
@@ -1604,7 +1617,7 @@ def matmul_f32_correctness(torch, gen, dev) -> list:
         qt = quantize_channelwise(w) if k else None
         deq = qt.dequantize(f32) if k else None
         names = ("apr_matmul_f32", "apr_matmul_fused_f32",
-                 "apr_matmul_f32_int8w")
+                 "apr_matmul_f32_int8w", "apr_matmul_hbm_f32")
         stats = {name: [0.0, True, 0] for name in names}
 
         def note(name, err, ok):
@@ -1613,6 +1626,15 @@ def matmul_f32_correctness(torch, gen, dev) -> list:
 
         for out in (f32, torch.bfloat16):
             rel = F32_MM_ULPS * 2.0 ** -24 + (BF16_RTOL if out != f32 else 0)
+            ref = matmul_ref(x, w, out)
+            for tile in mm.F32_TILES:
+                before = mm.apr_matmul.hbm_f32_launches
+                got = mm.apr_matmul(x, w, out_dtype=out, residency="hbm",
+                                    config=tile_config(tile, 1))
+                err, ok = f32_err(got, ref, F32_MM_SLACK * k * 2.0 ** -24
+                                  * sums + rel * ref.float().abs())
+                note("apr_matmul_hbm_f32", err, ok and got.dtype == out
+                     and mm.apr_matmul.hbm_f32_launches - before == 1)
             for n_split in mm.SPLITS:
                 ref = matmul_split_ref(x, w, n_split, out)
                 fused = {(act, bb is None): matmul_fused_split_ref(
@@ -2020,6 +2042,266 @@ def kernel_sweep(torch, out: Path) -> None:
                                    paged_splits=splits), indent=1))
 
 
+# ------------------------------------- conv kernels (B5, B7 conv, B4c)
+def conv_inputs(torch, gen, dev, xs, fs, dtype=None):
+    """A random NHWC input and an HWIO filter scaled by K^-1/2 (fp32, or
+    ``dtype``), so the outputs are O(1) and the activations meet both of
+    their sides."""
+    dtype = dtype or torch.float32
+    x = torch.randn(xs, generator=gen, device=dev).to(dtype)
+    k = fs[0] * fs[1] * fs[2]
+    f = (torch.randn(fs, generator=gen, device=dev) * k ** -0.5).to(dtype)
+    return x, f
+
+
+def conv_label(xs, fs, s, p, bf16=False) -> str:
+    return (f"x={'x'.join(map(str, xs))} f={'x'.join(map(str, fs))} "
+            f"s={s} p={p}{' bf16' if bf16 else ''}")
+
+
+def conv_correctness(torch, gen, dev) -> tuple:
+    """Phase 2 for the conv kernels: every conv geometry of LeNet-5 and
+    ResNet-20 at batch 1 and CNN_BATCH, the JAX tests' geometries
+    (tests/test_kernels_conv.py) and ragged ones, on ``apr_conv`` and on
+    the memory-resident ``apr_conv_hbm`` (one launch a call) against the
+    plain version, then the fused epilogue with every activation, bias and
+    none.  Returns ``(cases, digests)``: the cases as ``(kernel, case,
+    max_abs_err, ok)`` and the sha256 of each case's output bytes, by
+    kernel and case, so that two trees' runs show whether their kernels
+    give the same bits."""
+    import hashlib
+    from repro_torch.kernels.apr_conv import (apr_conv2d, apr_conv2d_fused,
+                                              conv2d_fused_ref, conv2d_ref)
+    from repro_torch.models.cnn import CNNS, conv_geometries
+    bf16 = torch.bfloat16
+    geoms = {}
+    for net in CNNS:
+        for batch in (1, CNN_BATCH):
+            for g in conv_geometries(net, batch):
+                geoms[(g["x_shape"], g["f_shape"], g["stride"],
+                       g["padding"], torch.float32)] = None
+    for b, h, w, c, hf, wf, m, s, p in [
+            (1, 32, 32, 1, 5, 5, 6, 1, 0), (1, 14, 14, 6, 5, 5, 16, 1, 0),
+            (1, 16, 16, 16, 3, 3, 32, 2, 1), (1, 8, 8, 64, 1, 1, 64, 1, 0),
+            (2, 10, 10, 8, 3, 3, 12, 1, 1),
+            (3, 9, 11, 1, 3, 3, 5, 2, 1),       # C = 1, stride 2, odd H, W
+            (2, 15, 13, 3, 3, 3, 10, 2, 1),     # K = 27, odd H, M = 10
+            (2, 7, 7, 24, 3, 3, 40, 1, 1),      # M = 40 in a 64-wide tile
+            (1, 9, 9, 8, 3, 3, 70, 1, 0),       # two channel tiles, 64 + 6
+            (1, 4, 4, 8, 3, 3, 16, 1, 0),       # 2 x 2 output pixels
+            (4, 17, 17, 5, 5, 5, 33, 3, 2)]:    # K = 125, stride 3
+        geoms[((b, h, w, c), (hf, wf, c, m), s, p, torch.float32)] = None
+    for key in [((1, 8, 8, 4), (3, 3, 4, 8), 1, 1),          # the JAX test
+                ((2, 32, 32, 3), (3, 3, 3, 16), 1, 1),
+                ((2, 15, 13, 16), (3, 3, 16, 32), 2, 1)]:
+        geoms[key + (bf16,)] = None
+    cases, digests = [], {}
+
+    def record(name, label, got, ref, ok=True):
+        err, within = conv_err(got, ref)
+        cases.append((name, label, err, within and ok))
+        digests[f"{name} {label}"] = hashlib.sha256(
+            got.cpu().numpy().tobytes()).hexdigest()
+
+    for xs, fs, s, p, dtype in geoms:
+        x, f = conv_inputs(torch, gen, dev, xs, fs, dtype)
+        ref = conv2d_ref(x, f, stride=s, padding=p)
+        label = conv_label(xs, fs, s, p, dtype == bf16)
+        got = apr_conv2d(x, f, stride=s, padding=p)
+        before = apr_conv2d.hbm_launches
+        hbm = apr_conv2d(x, f, stride=s, padding=p, residency="hbm")
+        torch.cuda.synchronize()
+        record("apr_conv", label, got, ref)
+        record("apr_conv_hbm", label, hbm, ref,
+               apr_conv2d.hbm_launches - before == 1)
+        del x, f, ref, got, hbm
+    for xs, fs, s, p in [((3, 32, 32, 1), (5, 5, 1, 6), 1, 0),
+                         ((8, 32, 32, 16), (3, 3, 16, 32), 2, 1),
+                         ((2, 8, 8, 64), (3, 3, 64, 64), 1, 1)]:
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
+        bias = torch.randn(fs[3], generator=gen, device=dev)
+        for act in ("none", "relu", "silu", "gelu"):
+            for bname, bb in (("no bias", None), ("bias (M,)", bias),
+                              ("bias (1,M)", bias[None])):
+                got = apr_conv2d_fused(x, f, bb, activation=act, stride=s,
+                                       padding=p)
+                ref = conv2d_fused_ref(x, f, bb, act, stride=s, padding=p)
+                torch.cuda.synchronize()
+                record("apr_conv", f"{conv_label(xs, fs, s, p)} {act}, "
+                       f"{bname}", got, ref)
+    return cases, digests
+
+
+#: the baseline kernels whose SASS ``--baseline`` keeps (mangled-name
+#: fragments): B4m at the default tile and on the fp32 body (M <= 4), both
+#: on aligned operands, and B4c on fp32 inputs at 16 channels
+BASELINE_SASS = ("apr_matmul_kernelILi16ELi64ELi64ELb1ELb1E",
+                 "f32_kernelIfLi64ELi64ELi4ELb1ELb1E",
+                 "conv_kernelIfLi16ELb1E", "apr_conv_hbm_kernelIfLi16E")
+
+
+def baseline_sass(lib: Path, path: Path) -> dict:
+    """``cuobjdump -sass`` of ``lib``, cut to the functions that
+    :data:`BASELINE_SASS` names, into ``path``; returns each kept
+    function's count of global loads and stores by opcode."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    res = subprocess.run([str(tool if tool.exists() else "cuobjdump"),
+                          "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    kept, counts = [], {}
+    for section in res.stdout.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if not any(frag in name for frag in BASELINE_SASS):
+            continue
+        kept.append("Function : " + section)
+        ops = {}
+        for line in section.splitlines():
+            words = line.split("*/")
+            tokens = words[1].split() if len(words) > 1 else []
+            if tokens and tokens[0].startswith("@"):    # a predicate
+                tokens = tokens[1:]
+            if tokens:
+                op = tokens[0]
+                if op.startswith(("LDG", "STG")):
+                    ops[op] = ops.get(op, 0) + 1
+        counts[name] = ops
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(kept) + res.stderr)
+    return counts
+
+
+def baseline_sweep(torch, out: Path) -> None:
+    """``--baseline``: the paper's comparison on this tree's kernels -- the
+    memory-resident baselines against their APR kernels.  B4m against B1
+    (default tile; B1 at its default split count and at one split) at the
+    llama3-8b projection shapes, M = 4, weights rotated past the L2, per
+    call and per tick; B4c against B5 at every distinct ResNet-20 conv at
+    batch CNN_BATCH, per forward; the launches a call of each baseline
+    makes (the stream's pre-fill scales with them, so that a tree whose
+    baseline launches once per K step is timed as fairly); the digest of
+    every phase-2 conv case's output (:func:`conv_correctness`); and the
+    SASS of the baseline kernels (cuobjdump, into ``out``'s directory).  It
+    uses only entry points every version of the port has, so a copy of
+    this script beside an older tree times and digests that tree's
+    kernels.  Writes ``out``."""
+    from repro_torch.core.apr import reduction_hbm_traffic
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apr_conv import apr_conv2d
+    from repro_torch.kernels.apr_conv import ops as conv_ops
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.models.cnn import conv_geometries
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all({mm.LIBRARY: mm.SIGNATURES,
+                      conv_ops.LIBRARY: conv_ops.SIGNATURES})
+    bf16 = torch.bfloat16
+    rows = []
+
+    def launches_per_call(counter, fn):
+        before = counter()
+        fn(0)
+        torch.cuda.synchronize()
+        return counter() - before
+
+    for k, n in LLAMA_DECODE_SHAPES:
+        m = 4
+        nbuf = min(32, max(1, math.ceil(200e6 / (k * n * 2))))
+        ws = [(torch.randn((k, n), generator=gen, device=dev)
+               * k ** -0.5).to(bf16) for _ in range(nbuf)]
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        calls = launches_per_call(lambda: mm.apr_matmul.hbm_launches,
+                                  lambda i: mm.apr_matmul(
+                                      x, ws[0], residency="hbm"))
+        t_h = cuda_ms(torch, lambda i: mm.apr_matmul(
+            x, ws[i % nbuf], out_dtype=bf16, residency="hbm"), 20,
+            fill=2e5 * calls)
+        t_b1 = cuda_ms(torch, lambda i: mm.apr_matmul(
+            x, ws[i % nbuf], out_dtype=bf16), 60)
+        t_b1s = cuda_ms(torch, lambda i: mm.apr_matmul(
+            x, ws[i % nbuf], out_dtype=bf16, splits=1), 60)
+        steps = -(-k // mm.DEFAULT_TILE[2])
+        rows.append(dict(
+            kernel="apr_matmul_hbm", M=m, K=k, N=n,
+            per_tick=32 * LLAMA_DECODE_SHAPES[(k, n)],
+            launches_per_call=calls, ms=t_h, apr_ms=t_b1,
+            apr_one_split_ms=t_b1s, hbm_steps=steps, partial_bytes=(
+                reduction_hbm_traffic(m * n, steps, 2, "hbm")
+                - reduction_hbm_traffic(m * n, steps, 2, "apr"))))
+        del ws, x
+    for g in conv_geometries("resnet20", CNN_BATCH):
+        key = (g["x_shape"], g["f_shape"], g["stride"], g["padding"])
+        row = next((r for r in rows if r.get("key") == key), None)
+        if row is not None:
+            row["per_forward"] += 1
+            continue
+        xs, fs, s, p = key
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
+        calls = launches_per_call(lambda: apr_conv2d.hbm_launches,
+                                  lambda i: apr_conv2d(
+                                      x, f, stride=s, padding=p,
+                                      residency="hbm"))
+        t_h = cuda_ms(torch, lambda i: apr_conv2d(
+            x, f, stride=s, padding=p, residency="hbm"), 20,
+            fill=2e5 * calls)
+        t_k = cuda_ms(torch, lambda i: apr_conv2d(x, f, stride=s, padding=p),
+                      50)
+        k = fs[0] * fs[1] * fs[2]
+        steps = -(-k // conv_ops.K_STEP)
+        out_elems = CNN_BATCH * fs[3] * ((xs[1] + 2 * p - fs[0]) // s + 1) \
+            * ((xs[2] + 2 * p - fs[1]) // s + 1)
+        rows.append(dict(
+            kernel="apr_conv_hbm", key=key, layer=g["param"], per_forward=1,
+            launches_per_call=calls, ms=t_h, apr_ms=t_k, hbm_steps=steps,
+            partial_bytes=(reduction_hbm_traffic(out_elems, steps, 4, "hbm")
+                           - reduction_hbm_traffic(out_elems, steps, 4,
+                                                   "apr"))))
+        del x, f
+    totals = {}
+    for r in rows:
+        weight = r.get("per_tick", r.get("per_forward"))
+        t = totals.setdefault(r["kernel"], {})
+        for key in ("ms", "apr_ms", "apr_one_split_ms", "partial_bytes",
+                    "launches_per_call"):
+            if key in r:
+                t[key] = t.get(key, 0) + weight * r[key]
+        r.pop("key", None)
+    for r in rows:
+        shape = (f"M={r['M']} K={r['K']} N={r['N']}" if "M" in r
+                 else f"{r['layer']} x{r['per_forward']}")
+        print(f"    {r['kernel']:15s} {shape:28s} {r['ms']:.4f} ms "
+              f"({r['launches_per_call']} launches a call, "
+              f"{r['hbm_steps']} K steps, +{r['partial_bytes'] / 1e6:.3f} "
+              f"MB of partials); APR {r['apr_ms']:.4f} ms: "
+              f"x{r['ms'] / r['apr_ms']:.2f}")
+    for name, t in totals.items():
+        unit = "tick (224 projections)" if name == "apr_matmul_hbm" \
+            else "ResNet-20 forward (21 convs)"
+        print(f"    {name} per {unit}: {t['ms']:.3f} ms, APR "
+              f"{t['apr_ms']:.3f} ms (x{t['ms'] / t['apr_ms']:.2f})"
+              + (f", B1 at one split {t['apr_one_split_ms']:.3f} ms"
+                 if "apr_one_split_ms" in t else "")
+              + f", {t['launches_per_call']:.0f} launches, "
+              f"{t['partial_bytes'] / 1e9:.3f} GB of partials")
+    conv_cases, digests = conv_correctness(torch, gen, dev)
+    print(f"    phase-2 conv cases: {len(conv_cases)}, failing (tolerance, "
+          f"or not one launch a call) {sum(not ok for *_, ok in conv_cases)}")
+    sass = {lib: baseline_sass(_build._target(lib),
+                               out.parent / f"{out.stem}_sass_{lib}.txt")
+            for lib in (mm.LIBRARY, conv_ops.LIBRARY)}
+    for lib, funcs in sass.items():
+        for name, ops in funcs.items():
+            print(f"    SASS {lib} {name[:70]}: {ops}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(
+        card=smi, timing=rows, totals=totals, conv_digests=digests,
+        conv_cases=conv_cases, sass=sass), indent=1))
+
+
 def identity_ablation(torch, seed: int) -> dict:
     """``--ablate``: phase 7's paged-vs-slot greedy-token comparison at full
     width, with each card-side measure the path rests on turned off in
@@ -2143,6 +2425,12 @@ def main() -> int:
                          "card-side measure turned off in turn "
                          "(identity_ablation); writes "
                          "chiprun_out/identity_ablation.json")
+    ap.add_argument("--baseline", action="store_true",
+                    help="only build apr_matmul.cu and apr_conv.cu, time "
+                         "the memory-resident baselines B4m and B4c beside "
+                         "B1 and B5, digest the phase-2 conv cases' outputs "
+                         "and dump the libraries' SASS (baseline_sweep); "
+                         "writes --out")
     ap.add_argument("--kernel-sweep", action="store_true",
                     help="only build flash_decode.cu and apr_matmul.cu, "
                          "print their registers and spills and time B2/B2q "
@@ -2197,6 +2485,9 @@ def main() -> int:
                                   autosave=False))
     if args.kernel_sweep:
         kernel_sweep(torch, Path(args.out))
+        return 0
+    if args.baseline:
+        baseline_sweep(torch, Path(args.out))
         return 0
     if args.ablate:
         _build.build_all({apr_ops.LIBRARY: apr_ops.SIGNATURES,
@@ -2258,7 +2549,8 @@ def main() -> int:
         "flash_decode", "flash_decode_f32q", "apr_conv", "apr_conv_hbm",
         "rwkv6_wkv", "mamba2_ssd", "apr_matmul_hbm", "apr_matmul_fused",
         "quant_matmul", "quant_matmul_fused", "apr_matmul_f32",
-        "apr_matmul_fused_f32", "apr_matmul_f32_int8w")}
+        "apr_matmul_fused_f32", "apr_matmul_f32_int8w",
+        "apr_matmul_hbm_f32")}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -2361,71 +2653,10 @@ def main() -> int:
                               f" twice bit-equal={b3_det[-1]}", err, ok))
         del q, k_c, v_c
 
-    def conv_inputs(xs, fs, dtype=torch.float32):
-        """A random NHWC input and an HWIO filter scaled by K^-1/2, so the
-        outputs are O(1) and the activations meet both of their sides."""
-        x = torch.randn(xs, generator=gen, device=dev).to(dtype)
-        k = fs[0] * fs[1] * fs[2]
-        f = (torch.randn(fs, generator=gen, device=dev) * k ** -0.5
-             ).to(dtype)
-        return x, f
-
-    def conv_label(xs, fs, s, p, dtype):
-        return (f"x={'x'.join(map(str, xs))} f={'x'.join(map(str, fs))} "
-                f"s={s} p={p}{' bf16' if dtype == torch.bfloat16 else ''}")
-
-    # every conv geometry of both nets at batch 1 and CNN_BATCH, the JAX
-    # tests' geometries (tests/test_kernels_conv.py), and ragged ones
-    conv_cases = {}
-    for net in CNNS:
-        for batch in (1, CNN_BATCH):
-            for g in conv_geometries(net, batch):
-                conv_cases[(g["x_shape"], g["f_shape"], g["stride"],
-                            g["padding"], torch.float32)] = None
-    for b, h, w, c, hf, wf, m, s, p in [
-            (1, 32, 32, 1, 5, 5, 6, 1, 0), (1, 14, 14, 6, 5, 5, 16, 1, 0),
-            (1, 16, 16, 16, 3, 3, 32, 2, 1), (1, 8, 8, 64, 1, 1, 64, 1, 0),
-            (2, 10, 10, 8, 3, 3, 12, 1, 1),
-            (3, 9, 11, 1, 3, 3, 5, 2, 1),       # C = 1, stride 2, odd H, W
-            (2, 15, 13, 3, 3, 3, 10, 2, 1),     # K = 27, odd H, M = 10
-            (2, 7, 7, 24, 3, 3, 40, 1, 1),      # M = 40 in a 64-wide tile
-            (1, 9, 9, 8, 3, 3, 70, 1, 0),       # two channel tiles, 64 + 6
-            (1, 4, 4, 8, 3, 3, 16, 1, 0),       # 2 x 2 output pixels
-            (4, 17, 17, 5, 5, 5, 33, 3, 2)]:    # K = 125, stride 3
-        conv_cases[((b, h, w, c), (hf, wf, c, m), s, p, torch.float32)] = None
-    for key in [((1, 8, 8, 4), (3, 3, 4, 8), 1, 1),          # the JAX test
-                ((2, 32, 32, 3), (3, 3, 3, 16), 1, 1),
-                ((2, 15, 13, 16), (3, 3, 16, 32), 2, 1)]:
-        conv_cases[key + (torch.bfloat16,)] = None
-    for xs, fs, s, p, dtype in conv_cases:
-        x, f = conv_inputs(xs, fs, dtype)
-        ref = conv2d_ref(x, f, stride=s, padding=p)
-        for res in ("apr", "hbm"):
-            got = apr_conv2d(x, f, stride=s, padding=p, residency=res)
-            torch.cuda.synchronize()
-            err, ok = conv_err(got, ref)
-            kname = "apr_conv" if res == "apr" else "apr_conv_hbm"
-            errs[kname] = max(errs[kname], err)
-            cases.append((kname, conv_label(xs, fs, s, p, dtype), err, ok))
-        del x, f, ref, got
-    # the fused epilogue: every activation, with and without bias
-    for xs, fs, s, p in [((3, 32, 32, 1), (5, 5, 1, 6), 1, 0),
-                         ((8, 32, 32, 16), (3, 3, 16, 32), 2, 1),
-                         ((2, 8, 8, 64), (3, 3, 64, 64), 1, 1)]:
-        x, f = conv_inputs(xs, fs)
-        bias = torch.randn(fs[3], generator=gen, device=dev)
-        for act in ("none", "relu", "silu", "gelu"):
-            for bname, bb in (("no bias", None), ("bias (M,)", bias),
-                              ("bias (1,M)", bias[None])):
-                got = apr_conv2d_fused(x, f, bb, activation=act, stride=s,
-                                       padding=p)
-                ref = conv2d_fused_ref(x, f, bb, act, stride=s, padding=p)
-                torch.cuda.synchronize()
-                err, ok = conv_err(got, ref)
-                errs["apr_conv"] = max(errs["apr_conv"], err)
-                cases.append(("apr_conv", f"{conv_label(xs, fs, s, p, 0)} "
-                              f"{act}, {bname}", err, ok))
-    for name, case, err, ok in (scan_correctness(torch, gen, dev)
+    # the conv kernels: every geometry of both nets, the JAX tests' and
+    # ragged ones on both residencies, and the fused epilogue
+    for name, case, err, ok in (conv_correctness(torch, gen, dev)[0]
+                                + scan_correctness(torch, gen, dev)
                                 + matmul_family_correctness(torch, gen, dev)
                                 + matmul_f32_correctness(torch, gen, dev)):
         errs[name] = max(errs[name], err)
@@ -2444,14 +2675,16 @@ def main() -> int:
           f"version, equal bits across tiles at one split count and over "
           f"int8 weights equal bits to the fp32 weight they dequantize to; "
           f"conv kernels "
-          f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain|; scans: y "
+          f"{CONV_RTOL:g}*|plain| + {CONV_RTOL:g}*max|plain| (apr_conv_hbm "
+          f"in one launch a call); scans: y "
           f"{BF16_RTOL:.4g}*|plain| + {SCAN_ATOL_REL:g}*max|plain|, fp32 "
           f"state {STATE_RTOL:g}*(|plain| + max|plain|); matmul families "
           f"at every compiled tile (B1 and B7m at every split count, "
           f"against the split plain version, twice bit-equal and bit-equal "
           f"across tiles at one split count): B4m bit-equal to B1 at one "
-          f"split and the tile, the int8-weight kernel bit-equal to B1 at "
-          f"one split, B6/B8 "
+          f"split and the tile in one launch a call (its fp32 form in one "
+          f"launch within the fp32 bound of the unsplit plain version), the "
+          f"int8-weight kernel bit-equal to B1 at one split, B6/B8 "
           f"none/relu bit-equal, silu/gelu within {ACT_ULPS} fp32 ulps of "
           f"max(|plain|, |pre-activation|) or the bf16 tolerance for bf16 "
           f"out, B7m the bf16 tolerance):")
@@ -2531,7 +2764,7 @@ def main() -> int:
             conv_rows[key]["count"] += 1
             continue
         xs, fs, s, p = key
-        x, f = conv_inputs(xs, fs)
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
         x_cl = x.permute(0, 3, 1, 2)          # NHWC memory: channels-last
         w_cl = f.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
@@ -2540,8 +2773,7 @@ def main() -> int:
         t_k = cuda_ms(torch, lambda i: apr_conv2d(x, f, stride=s, padding=p),
                       50)
         t_h = cuda_ms(torch, lambda i: apr_conv2d(
-            x, f, stride=s, padding=p, residency="hbm"), 20,
-            fill=2e5 * steps)
+            x, f, stride=s, padding=p, residency="hbm"), 20)
         t_p = cuda_ms(torch, lambda i: conv2d_ref(x, f, stride=s, padding=p),
                       50)
         t_l = cuda_ms(torch, lambda i: F.conv2d(x_cl, w_cl, stride=s,
@@ -2671,6 +2903,7 @@ def main() -> int:
         rwkv6_wkv.launches = 0
         mamba2_ssd.launches = 0
         apr_matmul.hbm_launches = 0
+        apr_matmul.hbm_f32_launches = 0
         apr_matmul.tile_launches.clear()
         apr_matmul.split_launches.clear()
         apr_matmul.int8_tile_launches.clear()
@@ -2695,6 +2928,7 @@ def main() -> int:
                 "rwkv6_wkv": rwkv6_wkv.launches,
                 "mamba2_ssd": mamba2_ssd.launches,
                 "apr_matmul_hbm": apr_matmul.hbm_launches,
+                "apr_matmul_hbm_f32": apr_matmul.hbm_f32_launches,
                 "apr_matmul_fused": apr_matmul_fused.launches,
                 "apr_matmul_f32": apr_matmul.f32_launches,
                 "apr_matmul_f32_int8w": apr_matmul.f32_int8_launches,
@@ -3324,8 +3558,7 @@ def main() -> int:
     logits_hbm = fwd(params, x, conv=hbm_conv)
     torch.cuda.synchronize()
     hbm_launches = apr_conv2d.hbm_launches
-    expect_hbm = sum(-(-math.prod(g["f_shape"][:3]) // conv_ops.K_STEP)
-                     for g in conv_geometries("resnet20"))
+    expect_hbm = len(conv_geometries("resnet20"))     # one a conv
     hbm_rel = rel_logits_err(logits_hbm, logits["resnet20"])
     logits_plain = fwd(params, x, conv=conv2d_ref)
     plain_rel = rel_logits_err(logits["resnet20"], logits_plain)
@@ -3624,11 +3857,14 @@ def main() -> int:
         "flash_decode_paged_f32q / _int8_f32q on bf16 / int8 pools, "
         "flash_decode_f32q on the slot engine). flash_decode_f32 (B3 over "
         "an fp32 cache) has phase-2 cases and a phase-3 row but no entry: "
-        "no serving path launches it (the slot engine's cache is bf16). "
+        "no serving path launches it (the slot engine's cache is bf16); "
+        "nor has the memory-resident baseline on fp32 operands "
+        "(apr_matmul_hbm_f32), which phase 2 alone holds. "
         "apr_conv and apr_conv_hbm: per ResNet-20 forward at batch "
         f"{CNN_BATCH} (21 convs; library F.conv2d, channels-last fp32 without "
         "TF32); launches are those of phase 6's main path (one LeNet-5 and "
-        "one ResNet-20 forward) and of its memory-resident ResNet-20 forward. "
+        "one ResNet-20 forward) and of its memory-resident ResNet-20 forward "
+        "(one apr_conv_hbm launch a conv). "
         "rwkv6_wkv and mamba2_ssd: per full-width decode tick (4 slots, "
         "state in and out): 32 and 64 launches at the phase-3 decode shape; "
         "no PyTorch call computes either recurrence (library_ms null); "
@@ -3636,7 +3872,8 @@ def main() -> int:
         "apr_matmul_hbm (B4m), apr_matmul_fused (B7m, bias + silu), "
         "quant_matmul (B6) and quant_matmul_fused (B8, bias + silu): per "
         "full-width decode tick's 224 projections (no lm_head) at the "
-        "default tile, bf16 out; the int8 rows include the activations' "
+        "default tile, bf16 out (apr_matmul_hbm one launch a call); the "
+        "int8 rows include the activations' "
         "quantization, their library (quantization, torch._int_mm, the two "
         "scale multiplies, + bias and silu) is timed at M = 32 where "
         "_int_mm refuses M <= 16; launches are those of phase 8's counted "

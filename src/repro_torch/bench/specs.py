@@ -19,9 +19,10 @@ int8-weight kernel), ``apr_matmul`` and ``apr_matmul_fused`` each at the
 split counts their kernels take (at most one per 128-row range of K; the
 memory-resident baseline and the int8-weight kernel under bf16 operands
 run one split).  Those two spaces depend on the operands' dtype: at
-``float32`` they are the fp32 body's tiles (for an fp32 or an int8 weight)
-at the same split counts.  ``flash_decode`` and ``flash_decode_paged``
-list the split counts their kernels take (1, 2, 4, 8) at their one chunk.
+``float32`` they are the fp32 body's tiles (for an fp32 or an int8 weight,
+and for the baseline at one split) at the same split counts.
+``flash_decode`` and ``flash_decode_paged`` list the split counts their
+kernels take (1, 2, 4, 8) at their one chunk.
 ``apr_conv``, ``apr_conv_fused``, ``mamba2`` and ``rwkv6`` have kernels
 compiled for one configuration, so their spaces have one point (widening
 them is later performance work).
@@ -184,9 +185,11 @@ def _apr_matmul_default(s):
 def _apr_matmul_space(shape, dtype="bfloat16") -> TuneSpace:
     """bf16 operands: the bf16 tiles at each split count (one for the
     memory-resident baseline), or the int8-weight tiles; fp32 ``x``: the
-    fp32 body's tiles at each split count, over either weight."""
+    fp32 body's tiles at each split count (one for the baseline), over
+    either weight."""
     if shape.get("hbm"):
-        return _tile_space(matmul_ops.TILES, (1,))
+        return _tile_space(matmul_ops.F32_TILES if dtype == "float32"
+                           else matmul_ops.TILES, (1,))
     if dtype == "float32":
         return _tile_space(matmul_ops.F32_TILES, _split_counts(shape))
     if shape.get("w_int8"):

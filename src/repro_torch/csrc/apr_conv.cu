@@ -3,7 +3,7 @@
 // architectural pipeline register (APR) -- and is written to device memory
 // once, with an optional epilogue activation(acc + bias) applied at that
 // flush.  apr_conv_hbm is the paper's baseline on the same tiles: the fp32
-// partial goes through global memory on every K step.
+// partial goes through global memory on every K step, in one launch.
 //
 // Replaces: src/repro/kernels/apr_conv/kernel.py::conv2d_call and
 // conv2d_fused_call (im2col, then apr_matmul_call with residency="apr",
@@ -32,11 +32,32 @@
 //    are conflict-free and the NHWC store is contiguous across channels);
 //  * bf16 inputs are widened to fp32 at the load, so every product is exact
 //    and the sum is fp32, as in the JAX kernel; the output is fp32.
+//
+// Memory residency (apr_conv_hbm, B4c): one launch per conv, the same grid
+// and tiles.  Each block walks all K steps of BK = 32 rows itself; a step
+// is a fresh fp32 FMA chain over its 32 rows (the same loads and FMAs as
+// the APR kernel's step), then partial = ld.global.cg(out) + step sum,
+// st.global.cg(out); the first step writes without reading.  The partial's
+// load is issued before the step's FMAs, which do not depend on it, so the
+// round trip overlaps the arithmetic without changing the order of any sum:
+// its bits are those of one launch per K step.  The loads and stores are
+// partial.cuh's (volatile asm with a memory clobber), so neither the
+// compiler nor L1 keeps the partial on chip; the partial (up to 16.8 MB
+// for a ResNet-20 conv at batch 256) fits the H100's 50 MB L2, so on this
+// card it travels to L2 and back, not necessarily to device memory.  The
+// order of the sums is the JAX kernel's (im2col, then partial +
+// dot(x_tile, y_tile) per K tile) at a K tile of 32.
+// SASS (cuobjdump -sass of the built library, sm_90a, kept by chip_smoke.py
+// --baseline): in the K-step loop of the fp32 baseline at 16 channels every
+// step issues 16 LDG.E.STRONG.GPU (the partial's loads, before the step's
+// FMAs) and 16 STG.E.STRONG.GPU (after them), one of each per output of a
+// thread's 4 x 4 micro-tile.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "partial.cuh"
 
 namespace {
 
@@ -64,14 +85,17 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// The block's BP x BN tile of the product over k in [k_begin, k_end),
-// accumulated into acc in steps of BK.
-template <typename T, int BN>
-__device__ __forceinline__ void conv_tile(const T* __restrict__ x,
-                                          const T* __restrict__ f,
-                                          const Geom& g, int p0, int n0,
-                                          int k_begin, int k_end,
-                                          float (&acc)[TP][TN]) {
+// The conv over the block's BP x BN output tile, K in steps of BK.  APR
+// residency (HBM false): one accumulator for the whole reduction, one
+// flush with the epilogue (act 0 none, 1 relu, 2 silu, 3 gelu-tanh; bias
+// may be null).  Memory residency (HBM): a fresh accumulator each step,
+// added to the fp32 partial in `out` of the steps before it (the first
+// step writes without reading).
+template <typename T, int BN, bool HBM>
+__global__ void __launch_bounds__(THREADS)
+    conv_kernel(const T* __restrict__ x, const T* __restrict__ f,
+                const float* __restrict__ bias, float* __restrict__ out,
+                Geom g, int act) {
   using Tl = Tile<BN>;
   __shared__ float As[BK][Tl::LDA];              // patch tile, k-major
   __shared__ float Bs[BK][BN];                   // filter tile
@@ -79,6 +103,7 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x,
 
   const int tid = threadIdx.x;
   const int tx = tid % Tl::TXN, ty = tid / Tl::TXN;
+  const int p0 = blockIdx.x * Tl::BP, n0 = blockIdx.y * BN;
 
   // each output pixel's top-left input corner, once per block
   for (int i = tid; i < Tl::BP; i += THREADS) {
@@ -97,11 +122,23 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x,
     }
   }
 
+  float acc[TP][TN] = {};
   const int kk = tid % BK;                       // this thread's k in a tile
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
+  for (int k0 = 0; k0 < g.K; k0 += BK) {
+    float prev[HBM ? TP : 1][TN];    // HBM: the partial of the steps < k0
+    if constexpr (HBM) {
+#pragma unroll
+      for (int i = 0; i < TP; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int p = p0 + ty + i * Tl::TYP, n = n0 + tx + j * Tl::TXN;
+          prev[i][j] = k0 > 0 && p < g.P && n < g.M
+                           ? ld_cg(out + (size_t)p * g.M + n) : 0.0f;
+        }
+    }
     __syncthreads();             // tables written / previous tile consumed
     int k = k0 + kk, di = FAR, dj = 0, koff = 0;
-    if (k < k_end) {
+    if (k < g.K) {
       int c = k % g.C, t = k / g.C;
       dj = t % g.Wf;
       di = t / g.Wf;
@@ -117,7 +154,7 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x,
     for (int idx = tid; idx < BK * BN; idx += THREADS) {
       int r = idx / BN, col = idx % BN;
       int kr = k0 + r, n = n0 + col;
-      Bs[r][col] = (kr < k_end && n < g.M)
+      Bs[r][col] = (kr < g.K && n < g.M)
                        ? to_float(f[(size_t)kr * g.M + n]) : 0.0f;
     }
     __syncthreads();
@@ -133,61 +170,32 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x,
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
-  }
-}
-
-// APR residency: the whole reduction in registers, one flush with the
-// epilogue (act 0 none, 1 relu, 2 silu, 3 gelu-tanh; bias may be null).
-template <typename T, int BN>
-__global__ void __launch_bounds__(THREADS)
-    apr_conv_kernel(const T* __restrict__ x, const T* __restrict__ f,
-                    const float* __restrict__ bias, float* __restrict__ out,
-                    Geom g, int act) {
-  using Tl = Tile<BN>;
-  const int p0 = blockIdx.x * Tl::BP, n0 = blockIdx.y * BN;
-  float acc[TP][TN] = {};
-  conv_tile<T, BN>(x, f, g, p0, n0, 0, g.K, acc);
-  const int tx = threadIdx.x % Tl::TXN, ty = threadIdx.x / Tl::TXN;
+    if constexpr (HBM) {
 #pragma unroll
-  for (int i = 0; i < TP; ++i) {
-    int p = p0 + ty + i * Tl::TYP;
-    if (p >= g.P) continue;
+      for (int i = 0; i < TP; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int n = n0 + tx + j * Tl::TXN;
-      if (n < g.M) {
-        float v = acc[i][j];
-        if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-        out[(size_t)p * g.M + n] = activate(v, act);
-      }
+        for (int j = 0; j < TN; ++j) {
+          const int p = p0 + ty + i * Tl::TYP, n = n0 + tx + j * Tl::TXN;
+          if (p < g.P && n < g.M)
+            st_cg(out + (size_t)p * g.M + n,
+                  k0 > 0 ? __fadd_rn(prev[i][j], acc[i][j]) : acc[i][j]);
+          acc[i][j] = 0.0f;
+        }
     }
   }
-}
-
-// Memory residency (the baseline): one launch per K step; each reads the
-// fp32 partial of the steps before it, adds its own product and writes the
-// partial back (the first step writes without reading).
-template <typename T, int BN>
-__global__ void __launch_bounds__(THREADS)
-    apr_conv_hbm_kernel(const T* __restrict__ x, const T* __restrict__ f,
-                        float* __restrict__ out, Geom g, int step) {
-  using Tl = Tile<BN>;
-  const int p0 = blockIdx.x * Tl::BP, n0 = blockIdx.y * BN;
-  const int k_begin = step * BK;
-  const int k_end = min(g.K, k_begin + BK);
-  float acc[TP][TN] = {};
-  conv_tile<T, BN>(x, f, g, p0, n0, k_begin, k_end, acc);
-  const int tx = threadIdx.x % Tl::TXN, ty = threadIdx.x / Tl::TXN;
+  if constexpr (!HBM) {
 #pragma unroll
-  for (int i = 0; i < TP; ++i) {
-    int p = p0 + ty + i * Tl::TYP;
-    if (p >= g.P) continue;
+    for (int i = 0; i < TP; ++i) {
+      int p = p0 + ty + i * Tl::TYP;
+      if (p >= g.P) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int n = n0 + tx + j * Tl::TXN;
-      if (n < g.M) {
-        size_t o = (size_t)p * g.M + n;
-        out[o] = step == 0 ? acc[i][j] : out[o] + acc[i][j];
+      for (int j = 0; j < TN; ++j) {
+        int n = n0 + tx + j * Tl::TXN;
+        if (n < g.M) {
+          float v = acc[i][j];
+          if (bias != nullptr) v = __fadd_rn(v, bias[n]);
+          out[(size_t)p * g.M + n] = activate(v, act);
+        }
       }
     }
   }
@@ -195,27 +203,27 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T, int BN>
 int launch(const void* x, const void* f, const float* bias, float* out,
-           const Geom& g, int act, int step, bool hbm, cudaStream_t s) {
+           const Geom& g, int act, bool hbm, cudaStream_t s) {
   using Tl = Tile<BN>;
   dim3 grid((g.P + Tl::BP - 1) / Tl::BP, (g.M + BN - 1) / BN);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   const T* px = static_cast<const T*>(x);
   const T* pf = static_cast<const T*>(f);
   if (hbm)
-    apr_conv_hbm_kernel<T, BN><<<grid, THREADS, 0, s>>>(px, pf, out, g, step);
+    conv_kernel<T, BN, true><<<grid, THREADS, 0, s>>>(px, pf, nullptr, out, g,
+                                                      0);
   else
-    apr_conv_kernel<T, BN><<<grid, THREADS, 0, s>>>(px, pf, bias, out, g, act);
+    conv_kernel<T, BN, false><<<grid, THREADS, 0, s>>>(px, pf, bias, out, g,
+                                                       act);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_any(const void* x, const void* f, const float* bias, float* out,
-               const Geom& g, int act, int step, bool hbm, cudaStream_t s) {
-  if (g.M <= 16)
-    return launch<T, 16>(x, f, bias, out, g, act, step, hbm, s);
-  if (g.M <= 32)
-    return launch<T, 32>(x, f, bias, out, g, act, step, hbm, s);
-  return launch<T, 64>(x, f, bias, out, g, act, step, hbm, s);
+               const Geom& g, int act, bool hbm, cudaStream_t s) {
+  if (g.M <= 16) return launch<T, 16>(x, f, bias, out, g, act, hbm, s);
+  if (g.M <= 32) return launch<T, 32>(x, f, bias, out, g, act, hbm, s);
+  return launch<T, 64>(x, f, bias, out, g, act, hbm, s);
 }
 
 // The geometry, or false when it is not one the kernels take.
@@ -237,17 +245,16 @@ bool make_geom(int b, int h, int w, int c, int hf, int wf, int m, int stride,
 
 int run(const void* x, const void* f, const void* bias, void* out, int b,
         int h, int w, int c, int hf, int wf, int m, int stride, int pad,
-        int bf16, int act, int step, bool hbm, void* stream) {
+        int bf16, int act, bool hbm, void* stream) {
   Geom g;
   if (!make_geom(b, h, w, c, hf, wf, m, stride, pad, &g) || act < 0 ||
-      act > 3 || step < 0 || step * BK >= g.K)
+      act > 3)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* pb = static_cast<const float*>(bias);
   float* po = static_cast<float*>(out);
-  if (bf16)
-    return launch_any<__nv_bfloat16>(x, f, pb, po, g, act, step, hbm, s);
-  return launch_any<float>(x, f, pb, po, g, act, step, hbm, s);
+  if (bf16) return launch_any<__nv_bfloat16>(x, f, pb, po, g, act, hbm, s);
+  return launch_any<float>(x, f, pb, po, g, act, hbm, s);
 }
 
 }  // namespace
@@ -261,18 +268,17 @@ extern "C" int apr_conv(const void* x, const void* f, const void* bias,
                         int m, int stride, int pad, int bf16, int act,
                         void* stream) {
   return run(x, f, bias, out, b, h, w, c, hf, wf, m, stride, pad, bf16, act,
-             0, false, stream);
+             false, stream);
 }
 
-// Step `step` of the memory-resident baseline: out += the product over
-// k in [32·step, 32·step + 32) (out = it, for step 0).  The caller launches
-// steps 0, 1, ... ceil(Hf·Wf·C / 32) - 1 in order on one stream.
+// The memory-resident baseline, out = x ⊛ f as for apr_conv (no bias, no
+// activation) in one launch: out is the fp32 partial, read and written at
+// every K step of 32 rows of Hf·Wf·C (the first step only writes).
 extern "C" int apr_conv_hbm(const void* x, const void* f, void* out, int b,
                             int h, int w, int c, int hf, int wf, int m,
-                            int stride, int pad, int bf16, int step,
-                            void* stream) {
+                            int stride, int pad, int bf16, void* stream) {
   return run(x, f, nullptr, out, b, h, w, c, hf, wf, m, stride, pad, bf16, 0,
-             step, true, stream);
+             true, stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

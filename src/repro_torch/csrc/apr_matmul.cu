@@ -54,14 +54,44 @@
 //    epilogue.cuh (B7m, apr_matmul_fused), each step rounded on its own as
 //    the plain version rounds it.
 //
-// Memory residency (apr_matmul(residency="hbm"), B4m, the paper's baseline):
-// one split; the wrapper launches one grid per K step [t_begin, t_end) =
-// [s, s + 1).  Step s > 0 seeds the accumulator fragments from the fp32
-// (M, N) partial (through shared memory, an exact fp32 copy), runs the same
-// WMMA sequence as the APR kernel over its BK slice, and writes the partial
-// back; the last step writes C in its output type.  So the baseline equals
-// the APR kernel at one split and the same tile bit for bit and differs
-// from it only in the partial's 8·M·N bytes of traffic per step.
+// Memory residency (apr_matmul(residency="hbm"), B4m, the paper's baseline,
+// the F-extension's fmac.s through memory of its Fig. 1(b)): one launch per
+// call, grid (N/BN, M/BM), one split.  Each block walks its K tiles in
+// ascending order through the same cp.async ring and the same WMMA
+// sequence as the APR kernel, but its accumulators leave the chip at every
+// K tile: after a tile's MMAs each thread writes its fragment elements to
+// the fp32 (M, N) partial with st.global.cg, and before the next tile's
+// MMAs reads them back with ld.global.cg (partial.cuh: volatile asm with a
+// memory clobber, so neither the compiler nor L1 keeps the partial on chip).
+// The first tile reads nothing; the last tile's sum is flushed as the APR
+// kernel flushes it, to C in its output type (C is the partial itself when
+// it is fp32).  Where each fragment element lies in the 16 x 16 tile is
+// read from the fragment layout itself (a load_matrix_sync of the indices
+// 0..255), so no layout is assumed; elements past M or N, the tile's zero
+// padding, have no place in the partial and stay in registers.  The fp32
+// copy is exact, so the baseline equals the APR kernel at one split and the
+// same tile bit for bit, and differs from it only in the round trip: 8·M·N
+// bytes per K tile, which the ring's prefetch of the next A/B tiles
+// overlaps but nothing hides.  At the serving shapes the partial (16-230 KB
+// a call at M = 4) fits the H100's 50 MB L2, so on this card it travels to
+// L2 and back, not necessarily to device memory.
+// SASS (cuobjdump -sass of the built library, sm_90a, kept by chip_smoke.py
+// --baseline): in the K loop of the bf16 baseline at the 16 x 64 x 64 tile
+// every iteration issues 8 LDG.E.STRONG.GPU (the reload, before the tile's
+// HMMAs) and 8 STG.E.STRONG.GPU (after them), one of each per accumulator
+// element a thread holds; in the fp32 baseline's (4 rows, BN = BK = 64) 2
+// and 2, one of each per output a thread adds.
+//
+// The fp32 baseline (apr_matmul_hbm_f32, fp32 operands) is the same round
+// trip on the fp32 body: at each K tile the block adds its 8 chains in
+// chain order (through shared memory beside the ring), adds that tile's
+// sum to the partial read back with ld.global.cg (the first tile reads
+// nothing) and writes it with st.global.cg, or at the last tile to C; the
+// partial's load is issued before the tile's FMAs, which do not depend on
+// it.  It is the per-tile round trip on the fp32 body rather than the 1x1
+// case of apr_conv.cu's baseline because it keeps the matmul family's
+// tiles (F32_TILES), its vectorised weight stream and its tune space; the
+// order of its sums is the JAX kernel's, partial + dot(x_tile, y_tile).
 //
 // int8-weight variant (apr_matmul_int8w): B is an int8 (K, N) weight with
 // fp32 per-column scales (1, N), the port's QuantizedTensor.  On the TPU
@@ -130,6 +160,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "partial.cuh"
 
 using namespace nvcuda;
 namespace cg = cooperative_groups;
@@ -140,7 +171,7 @@ constexpr int THREADS = 128;                  // 4 warps
 constexpr int WARPS = THREADS / 32;
 
 // Shared-memory layout of a BM x BN x BK bf16 tile: [A ring | B ring];
-// the seed and the flush reuse the start for the fp32 C tile.
+// the baseline's layout probe and the flush's fp32 C tile reuse the start.
 template <int BM, int BN, int BK>
 struct Tile {
   static constexpr int STAGES = 4;
@@ -313,19 +344,51 @@ inline bool valid_splits(int k, int splits, int krange) {
                          (long long)krange * splits >= k);
 }
 
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+// The memory-resident baseline's round trip of this warp's accumulators:
+// element e of fragment (i, j) is C's (m0 + 16i + where[e] / 16,
+// wcol0 + 16j + where[e] % 16), with wcol0 the warp's first column of C;
+// elements past M or N (the tile's zero padding) have no place in the
+// partial and are left alone.  STORE writes them, else reads them back.
+constexpr int ACC_ELEMS = Acc::num_elements;
+
+template <bool STORE, int FM, int FN>
+__device__ __forceinline__ void partial_trip(Acc (&acc)[FM][FN],
+                                             float* partial,
+                                             const int (&where)[ACC_ELEMS],
+                                             int m0, int wcol0, int M,
+                                             int N) {
+#pragma unroll
+  for (int i = 0; i < FM; ++i)
+#pragma unroll
+    for (int j = 0; j < FN; ++j)
+#pragma unroll
+      for (int e = 0; e < ACC_ELEMS; ++e) {
+        const int gm = m0 + i * 16 + where[e] / 16;
+        const int gn = wcol0 + j * 16 + where[e] % 16;
+        if (gm < M && gn < N) {
+          float* p = partial + (size_t)gm * N + gn;
+          if (STORE)
+            st_cg(p, acc[i][j].x[e]);
+          else
+            acc[i][j].x[e] = ld_cg(p);
+        }
+      }
+}
+
 // C = act(A·B + bias) over the K tiles (BK wide each) of this block's
-// split: with one split (gridDim.x == 1) the tiles [t_begin, t_end),
-// accumulated onto `seed` (the fp32 partial of the memory-resident
-// baseline, or zeros when null); with more, split blockIdx.x's krange rows
-// (t_end = the last K tile), partials combined over the cluster.  The
-// flush writes act(acc + bias) to c, fp32 (out_f32) or bf16.
-template <int BM, int BN, int BK, bool ALIGNED>
+// split: with one split (gridDim.x == 1) all of K; with more, split
+// blockIdx.x's krange rows, partials combined over the cluster.  The flush
+// writes act(acc + bias) to c, fp32 (out_f32) or bf16.  HBM (one split, no
+// bias or activation) is the memory-resident baseline: the accumulators
+// round-trip through the fp32 partial at every K tile but the last.
+template <int BM, int BN, int BK, bool ALIGNED, bool HBM>
 __global__ void __launch_bounds__(THREADS)
     apr_matmul_kernel(const __nv_bfloat16* __restrict__ a,
                       const __nv_bfloat16* __restrict__ b,
-                      const float* __restrict__ bias, const float* seed,
-                      void* c, int M, int N, int K, int t_begin, int t_end,
-                      int krange, int out_f32, int act) {
+                      const float* __restrict__ bias, float* partial, void* c,
+                      int M, int N, int K, int krange, int out_f32, int act) {
   using T = Tile<BM, BN, BK>;
   constexpr int STAGES = T::STAGES;
   __shared__ __align__(128) unsigned char smem_static[T::STATIC ? T::SMEM
@@ -334,39 +397,35 @@ __global__ void __launch_bounds__(THREADS)
   unsigned char* smem = T::STATIC ? smem_static : smem_dynamic;
   __nv_bfloat16* sa = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sb = reinterpret_cast<__nv_bfloat16*>(smem + T::A_BYTES);
-  float* sc = reinterpret_cast<float*>(smem);   // C tile: seed and flush
+  float* sc = reinterpret_cast<float*>(smem);   // C tile of the flush
 
   const int warp = threadIdx.x / 32;
   const int nsplit = gridDim.x;
   const int n0 = blockIdx.y * BN, m0 = blockIdx.z * BM;
   const int wcol = warp * T::WN;              // this warp's first column
+  int t_begin = 0, t_end = (K + BK - 1) / BK;
   if (nsplit > 1) {                           // this split's K tiles
     t_begin = blockIdx.x * (krange / BK);
     t_end = min(t_end, t_begin + krange / BK);
   }
 
   // the APR: this warp's slice of the C tile, fp32, for the whole K range
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-  if (seed != nullptr) {
-    // the partial of the K steps before this one, zeros past the edges
-    for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
-      int r = idx / BN, col = idx % BN;
-      int gm = m0 + r, gn = n0 + col;
-      sc[idx] = gm < M && gn < N ? seed[(size_t)gm * N + gn] : 0.0f;
-    }
+  Acc acc[T::FM][T::FN];
+#pragma unroll
+  for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  int where[ACC_ELEMS];                       // HBM: each element's place
+  if constexpr (HBM) {
+    float* probe = reinterpret_cast<float*>(smem);
+    for (int idx = threadIdx.x; idx < 256; idx += THREADS)
+      probe[idx] = (float)idx;
     __syncthreads();
+    Acc at;
+    wmma::load_matrix_sync(at, probe, 16, wmma::mem_row_major);
 #pragma unroll
-    for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::load_matrix_sync(acc[i][j], sc + i * 16 * BN + wcol + j * 16,
-                               BN, wmma::mem_row_major);
-    __syncthreads();                          // before the ring reuses sc
-  } else {
-#pragma unroll
-    for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int e = 0; e < ACC_ELEMS; ++e) where[e] = (int)at.x[e];
+    __syncthreads();                          // before the ring reuses it
   }
   wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
       fa[T::FM];
@@ -393,6 +452,9 @@ __global__ void __launch_bounds__(THREADS)
           M, N, K);
     }
     cp_async_commit();
+    if constexpr (HBM)                        // the partial of tiles < t
+      if (t > t_begin)
+        partial_trip<false>(acc, partial, where, m0, n0 + wcol, M, N);
     const __nv_bfloat16* ta = sa + slot * T::A_STAGE;
     const __nv_bfloat16* tb = sb + slot * T::B_STAGE + wcol;
 #pragma unroll
@@ -409,6 +471,9 @@ __global__ void __launch_bounds__(THREADS)
         for (int j = 0; j < T::FN; ++j)
           wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
+    if constexpr (HBM)                        // ... and of tiles <= t
+      if (t + 1 < t_end)
+        partial_trip<true>(acc, partial, where, m0, n0 + wcol, M, N);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -435,10 +500,10 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <int BM, int BN, int BK>
-int launch(const void* a, const void* b, const void* bias, const void* seed,
-           void* c, int m, int n, int k, int t_begin, int t_end, int splits,
-           int krange, int out_f32, int act, cudaStream_t s) {
+template <int BM, int BN, int BK, bool HBM>
+int launch(const void* a, const void* b, const void* bias, void* partial,
+           void* c, int m, int n, int k, int splits, int krange, int out_f32,
+           int act, cudaStream_t s) {
   using T = Tile<BM, BN, BK>;
   if ((m + BM - 1) / BM > 65535 || (n + BN - 1) / BN > 65535)
     return (int)cudaErrorInvalidValue;
@@ -446,9 +511,9 @@ int launch(const void* a, const void* b, const void* bias, const void* seed,
                        reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(b) % 16 == 0;
   void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, const float*,
-                 const float*, void*, int, int, int, int, int, int, int,
-                 int) = aligned ? apr_matmul_kernel<BM, BN, BK, true>
-                                : apr_matmul_kernel<BM, BN, BK, false>;
+                 float*, void*, int, int, int, int, int, int) =
+      aligned ? apr_matmul_kernel<BM, BN, BK, true, HBM>
+              : apr_matmul_kernel<BM, BN, BK, false, HBM>;
   const int dynamic = T::STATIC ? 0 : T::SMEM;
   if (dynamic > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -459,8 +524,7 @@ int launch(const void* a, const void* b, const void* bias, const void* seed,
       kernel, dim3(splits, (n + BN - 1) / BN, (m + BM - 1) / BM), THREADS,
       dynamic, s, static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), static_cast<const float*>(bias),
-      static_cast<const float*>(seed), c, m, n, k, t_begin, t_end, krange,
-      out_f32, act);
+      static_cast<float*>(partial), c, m, n, k, krange, out_f32, act);
 }
 
 // ------------------------------------------------ the int8-weight kernel
@@ -651,7 +715,8 @@ constexpr int F32_UNIT = 4;                   // K rows a chain takes at once
 // A block of the fp32 body over a TB weight (float, or int8_t codes): BN
 // columns, BK K rows a stage, MR rows of A computed; shared memory is a
 // ring of [A (MR x BK fp32) | W (BK x LDW of TB)] stages, reused after the
-// K loop for the chains' partials and the block's.
+// K loop for the chains' partials and the block's; the memory-resident
+// baseline adds its chains at every stage, beside the ring (SMEM_HBM).
 template <typename TB, int BN, int BK, int MR>
 struct FTile {
   static constexpr int CL = BN / 4;           // threads across the columns
@@ -666,6 +731,7 @@ struct FTile {
   static constexpr int RING = STAGES * STAGE;
   static constexpr int RED = (F32_CHAINS + 1) * MR * BN * 4;
   static constexpr int SMEM = RING > RED ? RING : RED;
+  static constexpr int SMEM_HBM = RING + F32_CHAINS * MR * BN * 4;
   static_assert(BK % (F32_CHAINS * F32_UNIT) == 0 && K_RANGE % BK == 0,
                 "whole units of every chain in a stage; stages in a range");
   static_assert(A_STAGE % 16 == 0 && STAGE % 16 == 0 &&
@@ -728,15 +794,19 @@ __device__ __forceinline__ void f32_load_stage(float* sa, TB* sw,
 // C = act(A·B + bias) on fp32 A (M, K) and a (K, N) weight of TB (int8
 // codes with fp32 column scales `scale`, dequantized to
 // __fmul_rn(float(q), scale[n])), over split blockIdx.x's krange rows of K
-// (all of K at one split).
-template <typename TB, int BN, int BK, int MR, bool ALIGNED>
+// (all of K at one split).  HBM (float weights, one split, no bias or
+// activation) is the memory-resident baseline: at every K tile the block's
+// chains, added in chain order, are added to the fp32 partial of the tiles
+// before it (none for the first) and written back, or at the last to C.
+template <typename TB, int BN, int BK, int MR, bool ALIGNED, bool HBM>
 __global__ void __launch_bounds__(FTile<TB, BN, BK, MR>::THREADS)
     f32_kernel(const float* __restrict__ a, const TB* __restrict__ b,
                const float* __restrict__ scale,
-               const float* __restrict__ bias, void* c, int M, int N, int K,
-               int krange, int out_f32, int act) {
+               const float* __restrict__ bias, float* partial, void* c,
+               int M, int N, int K, int krange, int out_f32, int act) {
   using T = FTile<TB, BN, BK, MR>;
   constexpr int STAGES = T::STAGES;
+  constexpr int PER = MR * BN / T::THREADS;   // outputs a thread adds (HBM)
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, g = tid / T::CL, cl = tid % T::CL;
   const int nsplit = gridDim.x;
@@ -756,6 +826,7 @@ __global__ void __launch_bounds__(FTile<TB, BN, BK, MR>::THREADS)
     }
   }
   // the APR: rows 0..MR-1 of columns 4cl..4cl+3, chain g, the whole range
+  // (HBM: one K tile)
   float acc[MR][4];
 #pragma unroll
   for (int m = 0; m < MR; ++m)
@@ -786,6 +857,16 @@ __global__ void __launch_bounds__(FTile<TB, BN, BK, MR>::THREADS)
                                               tn * BK, M, N, K);
     }
     cp_async_commit();
+    float prev[HBM ? PER : 1];                // HBM: the partial of tiles < t
+    if constexpr (HBM) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int idx = tid + i * T::THREADS;
+        const int gm = m0 + idx / BN, gn = n0 + idx % BN;
+        prev[i] = t > t_begin && gm < M && gn < N
+                      ? ld_cg(partial + (size_t)gm * N + gn) : 0.0f;
+      }
+    }
     const float* ta = sa(slot);
     const TB* tw = sw(slot) + 4 * cl;
 #pragma unroll
@@ -821,8 +902,48 @@ __global__ void __launch_bounds__(FTile<TB, BN, BK, MR>::THREADS)
             acc[m][e] = fmaf(xs[i], w[i][e], acc[m][e]);
       }
     }
+    if constexpr (HBM) {
+      // this tile's sum, its chains added in chain order beside the ring
+      // (read before the next tile's barrier, written after it), onto the
+      // partial, then back to memory (C at the last tile)
+      float* red = reinterpret_cast<float*>(smem + T::RING);
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        *reinterpret_cast<float4*>(red + (g * MR + m) * BN + 4 * cl) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][e] = 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const int idx = tid + i * T::THREADS;
+        float v = red[idx];
+#pragma unroll
+        for (int ch = 1; ch < F32_CHAINS; ++ch)
+          v = __fadd_rn(v, red[ch * MR * BN + idx]);
+        const int gm = m0 + idx / BN, gn = n0 + idx % BN;
+        if (gm < M && gn < N) {
+          const size_t o = (size_t)gm * N + gn;
+          if (t > t_begin) v = __fadd_rn(prev[i], v);
+          if (t + 1 < t_end)
+            st_cg(partial + o, v);
+          else
+            store_out(c, o, v, nullptr, gn, 0, out_f32);
+        }
+      }
+    }
   }
   cp_async_wait<0>();
+  if constexpr (HBM) {
+    if (t_begin == t_end)                     // K = 0: C is zeros
+      for (int idx = tid; idx < MR * BN; idx += T::THREADS) {
+        const int gm = m0 + idx / BN, gn = n0 + idx % BN;
+        if (gm < M && gn < N)
+          store_out(c, (size_t)gm * N + gn, 0.0f, nullptr, gn, 0, out_f32);
+      }
+    return;
+  }
   __syncthreads();
 
   // the block's chains, added in chain order through shared memory
@@ -851,46 +972,51 @@ __global__ void __launch_bounds__(FTile<TB, BN, BK, MR>::THREADS)
                                out_f32);
 }
 
-template <typename TB, int BN, int BK, int MR>
+template <typename TB, int BN, int BK, int MR, bool HBM>
 int launch_f32_rows(const void* a, const void* b, const void* scale,
-                    const void* bias, void* c, int m, int n, int k,
-                    int splits, int krange, int out_f32, int act,
+                    const void* bias, void* partial, void* c, int m, int n,
+                    int k, int splits, int krange, int out_f32, int act,
                     cudaStream_t s) {
   using T = FTile<TB, BN, BK, MR>;
+  constexpr int SMEM = HBM ? T::SMEM_HBM : T::SMEM;
   const bool aligned = k % 4 == 0 && n % (16 / (int)sizeof(TB)) == 0 &&
                        reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(b) % 16 == 0;
-  void (*kernel)(const float*, const TB*, const float*, const float*, void*,
-                 int, int, int, int, int, int) =
-      aligned ? f32_kernel<TB, BN, BK, MR, true>
-              : f32_kernel<TB, BN, BK, MR, false>;
-  if (T::SMEM > 48 * 1024) {
+  void (*kernel)(const float*, const TB*, const float*, const float*, float*,
+                 void*, int, int, int, int, int, int) =
+      aligned ? f32_kernel<TB, BN, BK, MR, true, HBM>
+              : f32_kernel<TB, BN, BK, MR, false, HBM>;
+  if (SMEM > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e != cudaSuccess) return (int)e;
   }
   return launch_split(
       kernel, dim3(splits, (n + BN - 1) / BN, (m + F32_BM - 1) / F32_BM),
-      T::THREADS, T::SMEM, s, static_cast<const float*>(a),
+      T::THREADS, SMEM, s, static_cast<const float*>(a),
       static_cast<const TB*>(b), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), c, m, n, k, krange, out_f32, act);
+      static_cast<const float*>(bias), static_cast<float*>(partial), c, m, n,
+      k, krange, out_f32, act);
 }
 
 // The rows a block computes: 4, 8 or 16, the fewest that hold M's rows
-template <typename TB, int BN, int BK>
+template <typename TB, int BN, int BK, bool HBM = false>
 int launch_f32(const void* a, const void* b, const void* scale,
-               const void* bias, void* c, int m, int n, int k, int splits,
-               int krange, int out_f32, int act, cudaStream_t s) {
+               const void* bias, void* partial, void* c, int m, int n, int k,
+               int splits, int krange, int out_f32, int act, cudaStream_t s) {
   if ((m + F32_BM - 1) / F32_BM > 65535 || (n + BN - 1) / BN > 65535)
     return (int)cudaErrorInvalidValue;
   if (m <= 4)
-    return launch_f32_rows<TB, BN, BK, 4>(a, b, scale, bias, c, m, n, k,
-                                          splits, krange, out_f32, act, s);
+    return launch_f32_rows<TB, BN, BK, 4, HBM>(
+        a, b, scale, bias, partial, c, m, n, k, splits, krange, out_f32, act,
+        s);
   if (m <= 8)
-    return launch_f32_rows<TB, BN, BK, 8>(a, b, scale, bias, c, m, n, k,
-                                          splits, krange, out_f32, act, s);
-  return launch_f32_rows<TB, BN, BK, 16>(a, b, scale, bias, c, m, n, k,
-                                         splits, krange, out_f32, act, s);
+    return launch_f32_rows<TB, BN, BK, 8, HBM>(
+        a, b, scale, bias, partial, c, m, n, k, splits, krange, out_f32, act,
+        s);
+  return launch_f32_rows<TB, BN, BK, 16, HBM>(
+      a, b, scale, bias, partial, c, m, n, k, splits, krange, out_f32, act,
+      s);
 }
 
 // The bf16 tiles (BM, BN, BK) compiled; bench/specs.py's apr_matmul space
@@ -909,32 +1035,48 @@ int launch_f32(const void* a, const void* b, const void* scale,
 
 // C (M, N) = act(A (M, K) · B (K, N) + bias) at a (bm, bn, bk) tile.  A and
 // B bf16, row-major and contiguous; bias fp32 (N,) or null; act as in
-// epilogue.cuh; C bf16 (out_f32 == 0) or fp32, and may be `seed` itself.
-// One split: the K tiles [t_begin, t_end) added onto `seed` (an fp32
-// (M, N) partial, or null for zeros) -- the APR kernel is one launch over
-// [0, ceil(K / bk)), the memory-resident baseline one launch per K tile.
-// splits 2, 4 or 8: K cut into ranges of krange rows (a multiple of 128
-// that covers K in `splits` ranges), one block each, combined over a
-// cluster; seed null and [t_begin, t_end) = [0, ceil(K / bk)).  Launches on
-// `stream` and returns cudaGetLastError() (0 on success;
-// cudaErrorInvalidValue for a tile that is not compiled or a bad split).
+// epilogue.cuh; C bf16 (out_f32 == 0) or fp32.  splits 1 (one chain over
+// all of K), or 2, 4 or 8: K cut into ranges of krange rows (a multiple of
+// 128 that covers K in `splits` ranges), one block each, combined over a
+// cluster.  Launches on `stream` and returns cudaGetLastError() (0 on
+// success; cudaErrorInvalidValue for a tile that is not compiled or a bad
+// split).
 extern "C" int apr_matmul_bf16(const void* a, const void* b, const void* bias,
-                               const void* seed, void* c, int m, int n,
-                               int k, int bm, int bn, int bk, int t_begin,
-                               int t_end, int splits, int krange,
-                               int out_f32, int act, void* stream) {
-  if (m <= 0 || n <= 0 || k < 0 || t_begin < 0 || t_end < t_begin ||
-      act < 0 || act > 3 || !valid_splits(k, splits, krange) ||
-      (splits > 1 &&
-       (seed != nullptr || t_begin != 0 || t_end != (k + bk - 1) / bk)))
+                               void* c, int m, int n, int k, int bm, int bn,
+                               int bk, int splits, int krange, int out_f32,
+                               int act, void* stream) {
+  if (m <= 0 || n <= 0 || k < 0 || act < 0 || act > 3 ||
+      !valid_splits(k, splits, krange))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define APR_MATMUL_DISPATCH(BM_, BN_, BK_)                                  \
   if (bm == BM_ && bn == BN_ && bk == BK_)                                  \
-    return launch<BM_, BN_, BK_>(a, b, bias, seed, c, m, n, k, t_begin,     \
-                                 t_end, splits, krange, out_f32, act, s);
+    return launch<BM_, BN_, BK_, false>(a, b, bias, nullptr, c, m, n, k,    \
+                                        splits, krange, out_f32, act, s);
   APR_MATMUL_TILES(APR_MATMUL_DISPATCH)
 #undef APR_MATMUL_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The memory-resident baseline, C (M, N) = A (M, K) · B (K, N) in one
+// launch at a (bm, bn, bk) tile of the bf16 body, one split: every K tile
+// but the last sends the accumulators to the fp32 (M, N) `partial` and back;
+// C bf16 (out_f32 == 0) or fp32, and then may be `partial` itself.  Equal to
+// apr_matmul_bf16 at one split and the same tile bit for bit.  Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int apr_matmul_hbm_bf16(const void* a, const void* b,
+                                   void* partial, void* c, int m, int n,
+                                   int k, int bm, int bn, int bk, int out_f32,
+                                   void* stream) {
+  if (m <= 0 || n <= 0 || k < 0 || partial == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define HBM_DISPATCH(BM_, BN_, BK_)                                         \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                  \
+    return launch<BM_, BN_, BK_, true>(a, b, nullptr, partial, c, m, n, k,  \
+                                       1, 0, out_f32, 0, s);
+  APR_MATMUL_TILES(HBM_DISPATCH)
+#undef HBM_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 
@@ -972,8 +1114,9 @@ extern "C" int apr_matmul_f32(const void* a, const void* b, const void* bias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define F32_DISPATCH(BN_, BK_)                                               \
   if (bn == BN_ && bk == BK_)                                                \
-    return launch_f32<float, BN_, BK_>(a, b, nullptr, bias, c, m, n, k,     \
-                                       splits, krange, out_f32, act, s);
+    return launch_f32<float, BN_, BK_>(a, b, nullptr, bias, nullptr, c, m,  \
+                                       n, k, splits, krange, out_f32, act,  \
+                                       s);
   F32_TILES(F32_DISPATCH)
 #undef F32_DISPATCH
   return (int)cudaErrorInvalidValue;
@@ -992,10 +1135,33 @@ extern "C" int apr_matmul_f32_int8w(const void* a, const void* b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define F32_INT8W_DISPATCH(BN_, BK_)                                        \
   if (bn == BN_ && bk == BK_)                                               \
-    return launch_f32<int8_t, BN_, BK_>(a, b, scale, nullptr, c, m, n, k,  \
-                                        splits, krange, out_f32, 0, s);
+    return launch_f32<int8_t, BN_, BK_>(a, b, scale, nullptr, nullptr, c,  \
+                                        m, n, k, splits, krange, out_f32, 0,\
+                                        s);
   F32_TILES(F32_INT8W_DISPATCH)
 #undef F32_INT8W_DISPATCH
+  return (int)cudaErrorInvalidValue;
+}
+
+// The memory-resident baseline on fp32 operands, C (M, N) = A (M, K) ·
+// B (K, N) in one launch at a (16, bn, bk) tile of the fp32 body, one
+// split: each K tile's sum is added to the fp32 (M, N) `partial` of the
+// tiles before it and sent back to memory (to C at the last); C bf16
+// (out_f32 == 0) or fp32, and then may be `partial` itself.  Launches on
+// `stream` and returns cudaGetLastError().
+extern "C" int apr_matmul_hbm_f32(const void* a, const void* b,
+                                  void* partial, void* c, int m, int n, int k,
+                                  int bn, int bk, int out_f32, void* stream) {
+  if (m <= 0 || n <= 0 || k < 0 || partial == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define F32_HBM_DISPATCH(BN_, BK_)                                          \
+  if (bn == BN_ && bk == BK_)                                               \
+    return launch_f32<float, BN_, BK_, true>(a, b, nullptr, nullptr,        \
+                                             partial, c, m, n, k, 1, 0,     \
+                                             out_f32, 0, s);
+  F32_TILES(F32_HBM_DISPATCH)
+#undef F32_HBM_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 

@@ -26,10 +26,10 @@ LIBRARY = "apr_conv"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "apr_conv": (ctypes.c_int, [_P, _P, _P, _P] + [_I] * 11 + [_P]),
-    "apr_conv_hbm": (ctypes.c_int, [_P, _P, _P] + [_I] * 11 + [_P]),
+    "apr_conv_hbm": (ctypes.c_int, [_P, _P, _P] + [_I] * 10 + [_P]),
 }
 #: the K step of both kernels (``BK`` in the source): the memory-resident
-#: baseline launches once per step
+#: baseline's partial goes through global memory once per step
 K_STEP = 32
 RESIDENCIES = ("apr", "hbm")
 KERNEL_NAME = "apr_conv"
@@ -113,10 +113,11 @@ def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
     ``residency="apr"`` keeps the accumulator in registers across the whole
     reduction (one launch of ``apr_conv``); ``"hbm"`` is the paper's
     baseline, whose fp32 partial goes through global memory on every K step
-    (``ceil(Hf·Wf·C / 32)`` launches of ``apr_conv_hbm``).  CUDA tensors
-    launch the kernel or raise; CPU tensors take :func:`conv2d_ref`.  Each
-    launch adds one to ``apr_conv2d.launches`` (``apr_conv``) or
-    ``apr_conv2d.hbm_launches`` (``apr_conv_hbm``)."""
+    of :data:`K_STEP` rows (one launch of ``apr_conv_hbm``, its blocks
+    walking the steps).  CUDA tensors launch the kernel or raise; CPU
+    tensors take :func:`conv2d_ref`.  Each launch adds one to
+    ``apr_conv2d.launches`` (``apr_conv``) or ``apr_conv2d.hbm_launches``
+    (``apr_conv_hbm``): one per call either way."""
     if residency not in RESIDENCIES:
         raise ValueError(f"unknown residency {residency!r}")
     if x.device.type == "cpu" and f.device.type == "cpu":
@@ -135,12 +136,10 @@ def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
         _build.check(lib, err, "apr_conv")
         apr_conv2d.launches += 1
         return out
-    steps = -(-(f.shape[0] * f.shape[1] * f.shape[2]) // K_STEP)
-    for step in range(steps):
-        err = lib.apr_conv_hbm(x.data_ptr(), f.data_ptr(), out.data_ptr(),
-                               *args, step, stream)
-        _build.check(lib, err, "apr_conv_hbm")
-        apr_conv2d.hbm_launches += 1
+    err = lib.apr_conv_hbm(x.data_ptr(), f.data_ptr(), out.data_ptr(), *args,
+                           stream)
+    _build.check(lib, err, "apr_conv_hbm")
+    apr_conv2d.hbm_launches += 1
     return out
 
 

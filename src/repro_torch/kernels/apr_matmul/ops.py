@@ -48,7 +48,9 @@ KERNEL_NAME = "apr_matmul"
 FUSED_KERNEL_NAME = "apr_matmul_fused"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "apr_matmul_bf16": (ctypes.c_int, [_P] * 5 + [_I] * 12 + [_P]),
+    "apr_matmul_bf16": (ctypes.c_int, [_P] * 4 + [_I] * 10 + [_P]),
+    "apr_matmul_hbm_bf16": (ctypes.c_int, [_P] * 4 + [_I] * 7 + [_P]),
+    "apr_matmul_hbm_f32": (ctypes.c_int, [_P] * 4 + [_I] * 6 + [_P]),
     "apr_matmul_int8w": (ctypes.c_int, [_P] * 4 + [_I] * 6 + [_P]),
     "apr_matmul_f32": (ctypes.c_int, [_P] * 4 + [_I] * 9 + [_P]),
     "apr_matmul_f32_int8w": (ctypes.c_int, [_P] * 4 + [_I] * 8 + [_P]),
@@ -81,8 +83,8 @@ F32_TILES = ((16, 64, 32), (16, 64, 64))
 #: the fp32 body's untuned tile
 F32_DEFAULT_TILE = (16, 64, 64)
 #: the split counts of the bf16 and fp32 bodies (one cluster of at most 8
-#: blocks per column tile); the memory-resident baseline and the
-#: int8-weight kernel under a bf16 ``x`` run one split
+#: blocks per column tile); the memory-resident baseline (on either body)
+#: and the int8-weight kernel under a bf16 ``x`` run one split
 SPLITS = (1, 2, 4, 8)
 #: the SM count :func:`default_splits` assumes, on every card (the
 #: ``h100_sxm`` profile's), so the tune spec and the wrapper agree
@@ -256,16 +258,21 @@ def resolve_tile(kernel: str, m: int, k: int, n: int, dtype: str,
 
 def resolve_f32(kernel: str, m: int, k: int, n: int,
                 config: Optional[BlockConfig] = None,
-                w_int8: bool = False) -> BlockConfig:
+                w_int8: bool = False, residency: str = "apr") -> BlockConfig:
     """The fp32 body's configuration for a launch of ``kernel`` (an fp32
-    ``x`` over an fp32 weight, or an int8 one with ``w_int8``): whatever
-    resolves under the family's key at dtype ``float32`` (``_wint8`` for
-    the int8 weight; default :func:`f32_default_config`) must be one of
+    ``x`` over an fp32 weight, or an int8 one with ``w_int8``; the
+    memory-resident baseline with ``residency="hbm"``): whatever resolves
+    under the family's key at dtype ``float32`` (``_wint8`` for the int8
+    weight, ``_reshbm`` for the baseline; default
+    :func:`f32_default_config`, one split for the baseline) must be one of
     :data:`F32_TILES` at one of :data:`SPLITS`, or
     :class:`~repro_torch.bench.TileError` is raised."""
     shape_key_of = _SHAPE_KEYS[kernel]
-    dims = (m, k, n, "apr", w_int8)
-    default = lambda m, k, n, _, q: f32_default_config(m, k, n, q)  # noqa
+    dims = (m, k, n, residency, w_int8)
+
+    def default(m, k, n, res, q):
+        cfg = f32_default_config(m, k, n, q)
+        return cfg.replace(splits=1) if res == "hbm" else cfg
     if config is None:
         cfg = resolve_cached(kernel, dims, "float32", "cuda",
                              shape_key=shape_key_of, default=default)
@@ -284,20 +291,32 @@ def _launch_f32(x: torch.Tensor, w: torch.Tensor,
                 scale: Optional[torch.Tensor],
                 bias: Optional[torch.Tensor], activation: str,
                 out_dtype: torch.dtype, kernel: str,
-                config: Optional[BlockConfig]) -> torch.Tensor:
+                config: Optional[BlockConfig],
+                residency: str = "apr") -> torch.Tensor:
     """``activation(x @ w + bias)`` on an fp32 ``x`` by the fp32 body for
-    family ``kernel``: ``apr_matmul_f32`` over an fp32 weight, or
+    family ``kernel``: ``apr_matmul_f32`` over an fp32 weight,
     ``apr_matmul_f32_int8w`` over int8 codes with their fp32 (1, N)
-    ``scale`` (no bias, no activation); the configuration from
-    :func:`resolve_f32`; ``bias`` fp32 (N,) or None."""
+    ``scale`` (no bias, no activation), or with ``residency="hbm"``
+    ``apr_matmul_hbm_f32`` (fp32 weight, no bias, no activation); the
+    configuration from :func:`resolve_f32`; ``bias`` fp32 (N,) or None."""
     (m, k), n = x.shape, w.shape[1]
-    cfg = resolve_f32(kernel, m, k, n, config, scale is not None)
+    cfg = resolve_f32(kernel, m, k, n, config, scale is not None, residency)
     splits = cfg["splits"]
+    if residency == "hbm" and splits != 1:
+        raise ValueError(f"apr_matmul: the memory-resident baseline runs one "
+                         f"split, not {splits}")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     lib = _build.load(LIBRARY, SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    if residency == "hbm":
+        err = lib.apr_matmul_hbm_f32(
+            x.data_ptr(), w.data_ptr(), _partial(out).data_ptr(),
+            out.data_ptr(), m, n, k, cfg["block_n"], cfg["block_k"],
+            int(out_dtype == torch.float32), stream)
+        _build.check(lib, err, "apr_matmul (residency='hbm')")
+        return out
     geometry = (m, n, k, cfg["block_n"], cfg["block_k"], splits,
                 split_range(k, splits), int(out_dtype == torch.float32))
     if scale is None:
@@ -343,6 +362,14 @@ def _count(counts: dict, key) -> None:
     counts[key] = counts.get(key, 0) + 1
 
 
+def _partial(out: torch.Tensor) -> torch.Tensor:
+    """The memory-resident baseline's fp32 partial: ``out`` itself when it
+    is fp32, else scratch of its shape."""
+    if out.dtype == torch.float32:
+        return out
+    return torch.empty(out.shape, dtype=torch.float32, device=out.device)
+
+
 def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                block_m: Optional[int] = None, block_n: Optional[int] = None,
                block_k: Optional[int] = None, splits: Optional[int] = None,
@@ -355,14 +382,16 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
     ``residency="apr"`` keeps the accumulators in registers across each
     split's K range and combines the splits on chip (one launch); ``"hbm"``
     is the paper's baseline, whose fp32 partial goes through global memory
-    on every K step (one launch per step; bf16 operands, one split), equal
-    to the APR kernel at one split and the same tile bit for bit.  ``y`` is
-    a bf16 tensor or an int8 :class:`QuantizedTensor` with (1, N) fp32
-    scales under a bf16 ``x`` (the int8-weight kernel, one split, equal to
-    the bf16 kernel at one split on the dequantized weight bit for bit), or
-    an fp32 tensor or an int8 :class:`QuantizedTensor` under an fp32 ``x``
-    (the fp32 body; over the int8 weight it equals the fp32 body on
-    ``y.dequantize(torch.float32)`` bit for bit) (:data:`KERNEL_DTYPES`).
+    on every K tile (one launch, one split; bf16 operands, equal to the APR
+    kernel at one split and the same tile bit for bit, or fp32 operands on
+    the fp32 body; an int8 weight is refused, as the JAX kernel takes
+    none).  ``y`` is a bf16 tensor or an int8 :class:`QuantizedTensor`
+    with (1, N) fp32 scales under a bf16 ``x`` (the int8-weight kernel, one
+    split, equal to the bf16 kernel at one split on the dequantized weight
+    bit for bit), or an fp32 tensor or an int8 :class:`QuantizedTensor`
+    under an fp32 ``x`` (the fp32 body; over the int8 weight it equals the
+    fp32 body on ``y.dequantize(torch.float32)`` bit for bit)
+    (:data:`KERNEL_DTYPES`).
     ``block_m``, ``block_n``, ``block_k`` and ``splits`` pin the
     configuration over ``config``, as the JAX wrapper's kwargs do; a pinned
     split count above one with ``residency="hbm"`` raises.  CUDA tensors
@@ -370,10 +399,11 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
     take :func:`matmul_ref`.  Each launch adds one to
     ``apr_matmul.launches`` (and to ``apr_matmul.tile_launches[tile]`` and
     ``apr_matmul.split_launches[splits]``), ``apr_matmul.hbm_launches``
-    (one per K step of the baseline), ``apr_matmul.int8_launches`` (int8
-    weight, bf16 ``x``; and ``apr_matmul.int8_tile_launches[tile]``),
-    ``apr_matmul.f32_launches`` (fp32 operands) or
-    ``apr_matmul.f32_int8_launches`` (fp32 ``x``, int8 weight)."""
+    (the baseline on bf16 operands; ``apr_matmul.hbm_f32_launches`` on
+    fp32 ones), ``apr_matmul.int8_launches`` (int8 weight, bf16 ``x``; and
+    ``apr_matmul.int8_tile_launches[tile]``), ``apr_matmul.f32_launches``
+    (fp32 operands) or ``apr_matmul.f32_int8_launches`` (fp32 ``x``, int8
+    weight): one per call."""
     if residency not in RESIDENCIES:
         raise ValueError(f"unknown residency {residency!r}")
     if residency == "hbm" and splits not in (None, 1):
@@ -388,9 +418,9 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
             w = y.dequantize(x.dtype)
         return matmul_ref(x, w, out_dtype)
     _check(x, w, out_dtype, KERNEL_NAME)
-    if residency != "apr" and (quantized or x.dtype != torch.bfloat16):
+    if residency == "hbm" and quantized:
         raise ValueError("apr_matmul: the memory-resident baseline takes "
-                         "bf16 operands")
+                         "bf16 or fp32 operands, not an int8 weight")
     m, k = x.shape
     n = w.shape[1]
     if quantized and (y.scale.shape != (1, n)
@@ -402,8 +432,10 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                          f"got {y.scale.dtype} {tuple(y.scale.shape)}")
     if x.dtype == torch.float32:
         out = _launch_f32(x, w, y.scale if quantized else None, None, "none",
-                          out_dtype, KERNEL_NAME, config)
-        if quantized:
+                          out_dtype, KERNEL_NAME, config, residency)
+        if residency == "hbm":
+            apr_matmul.hbm_f32_launches += 1
+        elif quantized:
             apr_matmul.f32_int8_launches += 1
         else:
             apr_matmul.f32_launches += 1
@@ -429,37 +461,28 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
         apr_matmul.int8_launches += 1
         _count(apr_matmul.int8_tile_launches, tile)
         return out
-    ktiles = -(-k // bk)
-    if residency == "apr":
-        err = lib.apr_matmul_bf16(x.data_ptr(), w.data_ptr(), None, None,
-                                  out.data_ptr(), m, n, k, bm, bn, bk, 0,
-                                  ktiles, n_splits, split_range(k, n_splits),
-                                  out_f32, ACTIVATIONS["none"], stream)
-        _build.check(lib, err, "apr_matmul")
-        apr_matmul.launches += 1
-        _count(apr_matmul.tile_launches, tile)
-        _count(apr_matmul.split_launches, n_splits)
-        return out
-    # the baseline: the fp32 partial (the output itself when it is fp32)
-    # is read and written by every K step; the last step rounds
-    partial = out if out_f32 else torch.empty((m, n), dtype=torch.float32,
-                                              device=x.device)
-    steps = max(1, ktiles)
-    for s in range(steps):
-        last = s == steps - 1
-        err = lib.apr_matmul_bf16(
-            x.data_ptr(), w.data_ptr(), None,
-            partial.data_ptr() if s else None,
-            (out if last else partial).data_ptr(), m, n, k, bm, bn, bk, s,
-            min(s + 1, ktiles), 1, 0, out_f32 if last else 1,
-            ACTIVATIONS["none"], stream)
+    if residency == "hbm":
+        err = lib.apr_matmul_hbm_bf16(x.data_ptr(), w.data_ptr(),
+                                      _partial(out).data_ptr(),
+                                      out.data_ptr(), m, n, k, bm, bn, bk,
+                                      out_f32, stream)
         _build.check(lib, err, "apr_matmul (residency='hbm')")
         apr_matmul.hbm_launches += 1
+        return out
+    err = lib.apr_matmul_bf16(x.data_ptr(), w.data_ptr(), None,
+                              out.data_ptr(), m, n, k, bm, bn, bk, n_splits,
+                              split_range(k, n_splits), out_f32,
+                              ACTIVATIONS["none"], stream)
+    _build.check(lib, err, "apr_matmul")
+    apr_matmul.launches += 1
+    _count(apr_matmul.tile_launches, tile)
+    _count(apr_matmul.split_launches, n_splits)
     return out
 
 
 apr_matmul.launches = 0
 apr_matmul.hbm_launches = 0
+apr_matmul.hbm_f32_launches = 0
 apr_matmul.int8_launches = 0
 apr_matmul.f32_launches = 0
 apr_matmul.f32_int8_launches = 0
@@ -518,9 +541,8 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
     lib = _build.load(LIBRARY, SIGNATURES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.apr_matmul_bf16(x.data_ptr(), y.data_ptr(),
-                              None if bias is None else bias.data_ptr(), None,
-                              out.data_ptr(), m, n, k, bm, bn, bk, 0,
-                              -(-k // bk), n_splits,
+                              None if bias is None else bias.data_ptr(),
+                              out.data_ptr(), m, n, k, bm, bn, bk, n_splits,
                               split_range(k, n_splits),
                               int(out_dtype == torch.float32),
                               ACTIVATIONS[activation], stream)

@@ -226,8 +226,9 @@ CSRC = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
 
 
 def test_k_step_of_the_wrapper_is_the_kernels():
-    """The memory-resident baseline launches once per K step; the wrapper's
-    step count must be the kernel's tile depth."""
+    """The memory-resident baseline sends its partial through memory once
+    per K step; the wrapper's step count (the partial's traffic) must be
+    the kernel's tile depth."""
     src = (CSRC / "apr_conv.cu").read_text()
     assert re.search(r"constexpr int BK = (\d+);", src).group(1) == \
         str(conv_ops.K_STEP)
