@@ -9,12 +9,17 @@
                                      # B4m and B4c beside B1 and B5, the
                                      # phase-2 conv outputs' digests and
                                      # the baselines' SASS
+    python3 chip_smoke.py --qmm-ablation --out qmm.json
+                                     # only B6 and variants of its source:
+                                     # other exact forms of the codes, 8
+                                     # warps, and timing-only ablations
     python3 chip_smoke.py --kernel-sweep --out sweep.json
                                      # only B2/B2q at the serving shape
                                      # (bf16 and fp32 q), B3 against its
-                                     # longest length and B1 bf16/int8/fp32
-                                     # (and fp32 x int8) at the projections,
-                                     # at each split count
+                                     # longest length, B1 bf16/int8/fp32
+                                     # (and fp32 x int8) and B6/B8 at the
+                                     # projections, at each split count,
+                                     # and B6's K loop from its SASS
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -38,7 +43,10 @@ Phases (any failure exits non-zero before the final line):
      launch a call, equal to B1 at the same tile bit for bit; on fp32
      operands within the fp32 bound), ``apr_matmul_fused`` (B7m),
      ``quant_matmul`` (B6) and ``quant_matmul_fused`` (B8) with every
-     activation, bias and none, bf16 and fp32 out; B1 and B7m at every
+     activation, bias and none, bf16 and fp32 out, over bf16 and fp32 x at
+     every tile x split count (none/relu bit-equal to the plain version,
+     the same bits across tiles and split counts, twice bit-equal, rows of
+     .5 ties, one device kernel a call by the profiler); B1 and B7m at every
      tile x split count (split-K over a thread-block cluster) against the
      split plain version, twice bit-equal and bit-equal across tiles at one
      split count (B4m and the int8-weight kernel bit-equal to B1 at one
@@ -47,7 +55,8 @@ Phases (any failure exits non-zero before the final line):
      q over bf16 and int8 pools and a bf16 cache at every split count;
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B4m,
-     B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1;
+     B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1, B6
+     at each split count beside the plain quantization's time;
      ``flash_decode`` also at S = 4096 near full; ``flash_decode_paged``
      over bf16, fp32 and int8 pools and ``flash_decode`` over a bf16 and
      an fp32 cache at each split count, and under an fp32 q over bf16 and
@@ -870,6 +879,116 @@ def tile_config(tile, splits=None):
     return cfg if splits is None else cfg.replace(splits=splits)
 
 
+def qmm_family_checks(torch, qm, x, wq, ws, bias, out, note) -> None:
+    """B6 and B8 on one (x, weight, out dtype) at every tile x split
+    count, through ``note(name, err, ok)``: B6 and B8 none/relu (bias and
+    none) bit-equal to the plain version, silu/gelu within ACT_ULPS fp32
+    ulps of max(|plain|, |pre-activation|) (bf16 out: the bf16 tolerance)
+    and bit-equal across tiles and split counts; each configuration
+    launched twice for equal bits."""
+    from repro_torch.kernels.quant_matmul.ref import (quant_matmul_fused_ref,
+                                                      quant_matmul_ref)
+    f32 = torch.float32
+    qref = quant_matmul_ref(x, wq, ws, out)
+    qfused = {}
+    for act in ACTIVATIONS:
+        for bb in (None, bias):
+            qfused[(act, bb is None)] = (
+                quant_matmul_fused_ref(x, wq, ws, bb, act, out),
+                quant_matmul_fused_ref(x, wq, ws, bb, "none", f32),
+                quant_matmul_fused_ref(x, wq, ws, bb, act, f32))
+    first = {}
+    for tile in qm.TILES:
+        for n_split in qm.SPLITS:
+            cfg = tile_config(tile, n_split)
+            got = qm.quant_matmul(x, wq, ws, out_dtype=out, config=cfg)
+            again = qm.quant_matmul(x, wq, ws, out_dtype=out, config=cfg)
+            note("quant_matmul", max_err(got, qref)[0],
+                 torch.equal(got, qref) and torch.equal(got, again))
+            for key, (r, pre, r32) in qfused.items():
+                act, nobias = key
+                got = qm.quant_matmul_fused(
+                    x, wq, ws, None if nobias else bias, activation=act,
+                    out_dtype=out, config=cfg)
+                err = max_err(got, r)[0]
+                if act in ("none", "relu"):
+                    ok = torch.equal(got, r)
+                elif out == f32:
+                    ok = ulps_apart(torch, got, r32, pre) <= ACT_ULPS
+                else:
+                    ok = max_err(got, r)[1]
+                ok = ok and torch.equal(got, first.setdefault(key, got))
+                note("quant_matmul_fused", err, ok)
+
+
+def qmm_tie_and_launch_checks(torch, gen, dev) -> list:
+    """B6 and B8 cases beyond the shapes: rows whose codes land on .5 ties
+    (tests/test_torch_qmm.py's, bf16 and fp32) through an identity weight
+    at every tile x split count, bit-equal to the plain version (every
+    output is code x scale); and exactly one device kernel a call (the
+    profiler's device events, and one count on the wrapper's counter) at
+    the llama3-8b projection shapes and a ragged one, bf16 and fp32 x."""
+    from repro_torch.kernels.quant_matmul import ops as qm
+    from repro_torch.kernels.quant_matmul.ref import (quant_matmul_fused_ref,
+                                                      quant_matmul_ref)
+    cases = []
+    rows = torch.zeros((6, 16))
+    rows[0, :8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5,
+                                126.5])
+    rows[1, :8] = torch.tensor([254.0, 1.0, 3.0, 5.0, -1.0, -3.0, -5.0,
+                                253.0])
+    rows[2, :8] = torch.tensor([-127.0, 63.5, -63.5, 64.5, -64.5, 0.5, 0.0,
+                                -0.0])
+    rows[4] = torch.linspace(0.0, 1.0, 16)
+    rows[5] = -torch.linspace(0.25, 3.0, 16)
+    eye = torch.eye(16, dtype=torch.int8, device=dev)
+    one = torch.ones((1, 16), device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rows.to(dev).to(dtype)
+        ref = quant_matmul_ref(x, eye, one, torch.float32)
+        ok = True
+        for tile in qm.TILES:
+            for n_split in qm.SPLITS:
+                got = qm.quant_matmul(x, eye, one,
+                                      config=tile_config(tile, n_split))
+                ok = ok and torch.equal(got, ref)
+        cases.append(("quant_matmul", f"tie rows {str(dtype)[6:]} x, identity "
+                      f"weight, every tile x split count", 0.0, ok))
+    for m, k, n in [(4, kk, nn) for kk, nn in LLAMA_DECODE_SHAPES] + [
+            (5, 300, 1000)]:
+        wq, ws = qm.quantize_weights(torch.randn((k, n), generator=gen,
+                                                 device=dev))
+        bias = torch.randn((n,), generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+            for name, fn, ref in (
+                    ("quant_matmul",
+                     lambda: qm.quant_matmul(x, wq, ws,
+                                             out_dtype=torch.bfloat16),
+                     lambda: quant_matmul_ref(x, wq, ws, torch.bfloat16)),
+                    ("quant_matmul_fused",
+                     lambda: qm.quant_matmul_fused(
+                         x, wq, ws, bias, out_dtype=torch.bfloat16),
+                     lambda: quant_matmul_fused_ref(
+                         x, wq, ws, bias, "relu", torch.bfloat16))):
+                counter = getattr(qm, name)
+                before = counter.launches
+                got = fn()
+                torch.cuda.synchronize()
+                launched = counter.launches - before
+                events = {}
+                traced = profile_device(torch, fn, 5, counts=events)
+                kernels = sum(events.values())
+                ok = (traced is not None and kernels == 1 and launched == 1
+                      and all("quant_matmul_kernel" in key for key in events)
+                      and torch.equal(got, ref()))
+                cases.append((name, f"M={m} K={k} N={n} {str(dtype)[6:]} x: "
+                              f"{kernels:g} device kernel(s) a call "
+                              f"(profiler), {launched} launch(es) counted",
+                              0.0, ok))
+    return cases
+
+
 def matmul_family_correctness(torch, gen, dev) -> list:
     """Phase 2 for the matmul families, at the llama3-8b projection shapes
     and the ragged ones, at every tile each kernel compiles: B1 and B7m
@@ -877,16 +996,16 @@ def matmul_family_correctness(torch, gen, dev) -> list:
     split count against the split plain version at the bf16 tolerance,
     each launched twice for equal bits and equal bits across the tiles at
     one split count; B4m equal to B1 at one split and the same tile bit
-    for bit, in one launch a call; B6 and B8 with none/relu bit for bit
-    and with silu/gelu within ACT_ULPS fp32 ulps (bf16 out: one bf16 ulp).
-    One case per (kernel, shape), its largest error over tiles, split
-    counts and variants."""
+    for bit, in one launch a call; B6 and B8 (:func:`qmm_family_checks`)
+    on a bf16 and an fp32 x at every tile x split count, none/relu bit for
+    bit, silu/gelu within ACT_ULPS fp32 ulps (bf16 out: one bf16 ulp), the
+    same bits across tiles and split counts and twice launched.  One case
+    per (kernel, shape), its largest error over tiles, split counts and
+    variants."""
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.kernels.apr_matmul.ref import (matmul_fused_split_ref,
                                                     matmul_split_ref)
     from repro_torch.kernels.quant_matmul import ops as qm
-    from repro_torch.kernels.quant_matmul.ref import (quant_matmul_fused_ref,
-                                                      quant_matmul_ref)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []
     shapes = [(m, k, n) for m in PROJ_MS for k, n in LLAMA_DECODE_SHAPES]
@@ -897,6 +1016,8 @@ def matmul_family_correctness(torch, gen, dev) -> list:
         bias = torch.randn((n,), generator=gen, device=dev)
         xf, wf = x.float(), w.float()     # the plain versions widen alike
         wq, ws = qm.quantize_weights(wf)
+        # B6/B8 also over an fp32 x of its own (not bf16-valued)
+        x32 = torch.randn((m, k), generator=gen, device=dev) * 3
         stats = {name: [0.0, True, 0] for name in (
             "apr_matmul", "apr_matmul_hbm", "apr_matmul_fused",
             "quant_matmul", "quant_matmul_fused")}
@@ -947,36 +1068,13 @@ def matmul_family_correctness(torch, gen, dev) -> list:
                         held("apr_matmul_fused", got, run(), r,
                              first_fused.get(key))
                         first_fused.setdefault(key, got)
-            qref = quant_matmul_ref(x, wq, ws, out)
-            qfused = {}
-            for act in ACTIVATIONS:
-                for bb in (None, bias):
-                    r = quant_matmul_fused_ref(x, wq, ws, bb, act, out)
-                    pre = quant_matmul_fused_ref(x, wq, ws, bb, "none", f32)
-                    r32 = quant_matmul_fused_ref(x, wq, ws, bb, act, f32)
-                    qfused[(act, bb is None)] = (r, pre, r32)
-            for tile in qm.TILES:
-                cfg = tile_config(tile)
-                got = qm.quant_matmul(x, wq, ws, out_dtype=out, config=cfg)
-                note("quant_matmul", max_err(got, qref)[0],
-                     torch.equal(got, qref))
-                for (act, nobias), (r, pre, r32) in qfused.items():
-                    got = qm.quant_matmul_fused(
-                        x, wq, ws, None if nobias else bias, activation=act,
-                        out_dtype=out, config=cfg)
-                    err = max_err(got, r)[0]
-                    if act in ("none", "relu"):
-                        ok = torch.equal(got, r)
-                    elif out == f32:
-                        ok = ulps_apart(torch, got, r32, pre) <= ACT_ULPS
-                    else:
-                        ok = max_err(got, r)[1]
-                    note("quant_matmul_fused", err, ok)
+            for xq in (x, x32):
+                qmm_family_checks(torch, qm, xq, wq, ws, bias, out, note)
         torch.cuda.synchronize()
         for name, (err, ok, n_var) in stats.items():
             cases.append((name, f"M={m} K={k} N={n} ({n_var} tile/split/"
                           f"variant runs)", err, ok))
-        del x, w, xf, wf, bias, wq, ws, fused, qfused
+        del x, x32, w, xf, wf, bias, wq, ws, fused
     return cases
 
 
@@ -986,7 +1084,10 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
     default tiles: B4m beside B1 (the paper's comparison at matmul level),
     B7m with bias + silu (also at each split count), B6, B8 with bias +
     silu.  The int8 rows include
-    the activations' quantization; their library yardstick is that
+    the activations' quantization (inside the kernel's launch; the plain
+    ``quantize_activations`` is timed alone beside them, ``quantize_ms``),
+    the split count the wrapper resolves and B6's time at each
+    (``split_ms``); their library yardstick is that
     quantization, ``torch._int_mm`` and the two scale multiplies (+ bias and
     silu for B8), at M = 32 where M <= 16 (``_int_mm`` needs M > 16)."""
     import torch.nn.functional as F
@@ -1053,8 +1154,9 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
                     y = F.silu(y + bias)
                 return y.to(bf16)
 
-            # ~10 PyTorch ops a call: the stream is held busy 0.5 ms per
-            # call, longer than the host takes to enqueue one
+            # the plain and library rows run ~10 PyTorch ops a call: the
+            # stream is held busy 0.5 ms per call, longer than the host
+            # takes to enqueue one
             q_bytes = 2 * m * k + k * n + 4 * n + 2 * m * n
             t_q = cuda_ms(torch, lambda i: qm.quant_matmul(
                 x, *qs[i % nbuf], out_dtype=bf16), 60, fill=1e6)
@@ -1067,6 +1169,13 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
                              plain_ms=t_qp, library_ms=t_ql,
                              library_m=m_lib, quantize_ms=t_qa,
                              weight_buffers=nbuf,
+                             splits=qm.resolve_launch(
+                                 "quant_matmul", m, k, n, "bfloat16",
+                                 "cuda")[1],
+                             split_ms={s: cuda_ms(
+                                 torch, lambda i: qm.quant_matmul(
+                                     x, *qs[i % nbuf], out_dtype=bf16,
+                                     splits=s), 60) for s in qm.SPLITS},
                              **bound_ms(q_bytes, 2 * m * k * n,
                                         INT8_OPS_PER_S)))
             t_g = cuda_ms(torch, lambda i: qm.quant_matmul_fused(
@@ -1079,6 +1188,9 @@ def matmul_family_timing(torch, gen, dev, slots: int) -> list:
                              ms=t_g, plain_ms=t_gp, library_ms=t_gl,
                              library_m=m_lib, quantize_ms=t_qa,
                              epilogue="bias + silu", weight_buffers=nbuf,
+                             splits=qm.resolve_launch(
+                                 "quant_matmul_fused", m, k, n, "bfloat16",
+                                 "cuda")[1],
                              **bound_ms(q_bytes + 4 * n, 2 * m * k * n,
                                         INT8_OPS_PER_S)))
             del qs, qcol, x, x_lib
@@ -1994,24 +2106,127 @@ def print_timing_row(r) -> None:
              if "split_ms" in r else ""))
 
 
+def qmm_timing(torch, gen, dev, ms) -> list:
+    """B6 (``quant_matmul``) and B8 (``quant_matmul_fused``, bias + silu)
+    at the llama3-8b projection shapes, M in ``ms``, bf16 x and out, int8
+    weights rotated past the 50 MB L2: ms per call at the configuration
+    the wrapper resolves and, where the tree's kernel takes a split count,
+    at each (``split_ms``) and the count it resolves (``splits``); the
+    bound (x, the weight and its scales read once, C written once, or the
+    operations at the int8 peak).  It calls only ``quant_matmul(x, wq, ws,
+    out_dtype=...)`` and ``quant_matmul_fused(x, wq, ws, bias,
+    activation=..., out_dtype=...)``, which every version of the port has,
+    so a copy of this script times an older tree's kernels."""
+    from repro_torch.kernels.quant_matmul import ops as qm
+    bf16 = torch.bfloat16
+    splits = getattr(qm, "SPLITS", None)
+    rows = []
+    for m in ms:
+        for k, n in LLAMA_DECODE_SHAPES:
+            nbuf = min(32, max(1, math.ceil(200e6 / (k * n))))
+            qs = [qm.quantize_weights(torch.randn((k, n), generator=gen,
+                                                  device=dev))
+                  for _ in range(nbuf)]
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            bias = torch.randn((n,), generator=gen, device=dev)
+            q_bytes = 2 * m * k + k * n + 4 * n + 2 * m * n
+            for name, fn, nbytes in (
+                    ("quant_matmul", lambda i, **kw: qm.quant_matmul(
+                        x, *qs[i % nbuf], out_dtype=bf16, **kw), q_bytes),
+                    ("quant_matmul_fused",
+                     lambda i, **kw: qm.quant_matmul_fused(
+                         x, *qs[i % nbuf], bias, activation="silu",
+                         out_dtype=bf16, **kw), q_bytes + 4 * n)):
+                row = dict(kernel=name, M=m, K=k, N=n,
+                           ms=cuda_ms(torch, fn, 60), weight_buffers=nbuf,
+                           **bound_ms(nbytes, 2 * m * k * n, INT8_OPS_PER_S))
+                if splits is not None:
+                    row["splits"] = qm.resolve_launch(name, m, k, n,
+                                                      "bfloat16", "cuda")[1]
+                    row["split_ms"] = {s: cuda_ms(
+                        torch, lambda i: fn(i, splits=s), 60)
+                        for s in splits}
+                rows.append(row)
+            del qs, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sass_loop_ops(section: str) -> dict:
+    """Opcode counts of the innermost loop of one ``cuobjdump -sass``
+    function that holds an integer MMA (IMMA): the body between a backward
+    branch and its target, the shortest such body."""
+    import re
+    ins = []
+    for line in section.splitlines():
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m:
+            tokens = m.group(2).split()
+            if tokens and tokens[0].startswith("@"):        # a predicate
+                tokens = tokens[1:]
+            if tokens:
+                ins.append((int(m.group(1), 16), tokens))
+    best = None
+    for addr, tokens in ins:
+        target = re.search(r"0x([0-9a-f]+)", " ".join(tokens[1:])) \
+            if tokens[0] == "BRA" else None
+        if target and int(target.group(1), 16) < addr:
+            body = [t[0] for a, t in ins
+                    if int(target.group(1), 16) <= a <= addr]
+            if any(op.startswith("IMMA") for op in body) and (
+                    best is None or len(body) < len(best)):
+                best = body
+    ops = {}
+    for op in best or []:
+        ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def qmm_sass(lib: Path, path: Path, tile) -> dict:
+    """``cuobjdump -sass`` of ``lib``'s quant_matmul kernels at ``tile``
+    (aligned operands; over a bf16 x where the tree has the x type as a
+    template argument) into ``path``; returns each kept function's K-loop
+    opcode counts (:func:`sass_loop_ops`)."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    res = subprocess.run([str(tool if tool.exists() else "cuobjdump"),
+                          "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    frag = "quant_matmul_kernelILi{}ELi{}ELi{}E".format(*tile)
+    kept, counts = [], {}
+    for sec in res.stdout.split("Function : ")[1:]:
+        name = sec.split(None, 1)[0]
+        # the aligned kernel (ALIGNED true); not the fp32-x one ("f")
+        if frag in name and "Lb1E" in name and "EfLb1E" not in name:
+            kept.append("Function : " + sec)
+            counts[name] = sass_loop_ops(sec)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(kept) + res.stderr)
+    return counts
+
+
 def kernel_sweep(torch, out: Path) -> None:
-    """``--kernel-sweep``: build ``flash_decode.cu`` and ``apr_matmul.cu``,
-    print their registers and spills, time B2 over bf16, fp32 and int8
-    pools (B2q) at the serving shape (at each split count where the tree
-    takes one; under an fp32 q too where it takes one) and at each split
-    count over :data:`PAGED_SWEEP`, B3 against its longest length
-    (:data:`DECODE_SWEEP`), over an fp32 cache and under an fp32 q
-    (:data:`DECODE_TIMING`), and B1 with bf16, int8 and fp32 weights and
-    fp32 activations over int8 weights at the projection shapes (M = 4 and
-    16; at each split count where the tree takes one); writes ``out``.  It uses only entry points every version of the
-    port has, so a copy of this script beside an older tree times that
-    tree's kernels."""
+    """``--kernel-sweep``: build ``flash_decode.cu``, ``apr_matmul.cu`` and
+    ``quant_matmul.cu``, print their registers and spills, time B2 over
+    bf16, fp32 and int8 pools (B2q) at the serving shape (at each split
+    count where the tree takes one; under an fp32 q too where it takes one)
+    and at each split count over :data:`PAGED_SWEEP`, B3 against its
+    longest length (:data:`DECODE_SWEEP`), over an fp32 cache and under an
+    fp32 q (:data:`DECODE_TIMING`), B1 with bf16, int8 and fp32 weights
+    and fp32 activations over int8 weights, and B6 / B8 (:func:`qmm_timing`)
+    at the projection shapes (M = 4 and 16; at each split count where the
+    tree takes one); print each kernel's time per llama3-8b decode tick
+    (the 224 projections at M = 4), and the K loop of quant_matmul's
+    default tile from its SASS (:func:`qmm_sass`, beside ``out``); writes
+    ``out``.  It uses only entry points every version of the port has, so
+    a copy of this script beside an older tree times that tree's kernels."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.quant_matmul import ops as qm
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    _build.build_all({fd.LIBRARY: fd.SIGNATURES, mm.LIBRARY: mm.SIGNATURES})
+    _build.build_all({fd.LIBRARY: fd.SIGNATURES, mm.LIBRARY: mm.SIGNATURES,
+                      qm.LIBRARY: qm.SIGNATURES})
     regs = [f"{name}: {line.strip()}"
             for name, log in sorted(_build.BUILD_LOGS.items())
             for line in log.splitlines()
@@ -2025,21 +2240,232 @@ def kernel_sweep(torch, out: Path) -> None:
         rows += decode_timing(torch, gen, dev, DECODE_TIMING[:1],
                               q_dtype=torch.float32)
     rows += projection_timing(torch, gen, dev, PROJ_MS)
+    rows += qmm_timing(torch, gen, dev, PROJ_MS)
     for r in rows:
-        print_timing_row(r)
+        if "plain_ms" in r:
+            print_timing_row(r)
+        else:
+            print(f"    {r['kernel']:23s} M={r['M']:<3d} K={r['K']:<6d} "
+                  f"N={r['N']:<7d} kernel_ms={r['ms']:.4f} bound_ms="
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})"
+                  + (f" splits={r['splits']} by split count " + ", ".join(
+                      f"{n}: {t:.4f}" for n, t in r["split_ms"].items())
+                     if "split_ms" in r else ""))
+    ticks = {}
+    for r in rows:
+        if r.get("M") == PROJ_MS[0] and (r["K"], r["N"]) in \
+                LLAMA_DECODE_SHAPES:
+            ticks[r["kernel"]] = ticks.get(r["kernel"], 0.0) + 32 * \
+                LLAMA_DECODE_SHAPES[(r["K"], r["N"])] * r["ms"]
+    print(f"    per llama3-8b decode tick (224 projections at M = "
+          f"{PROJ_MS[0]}), ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ticks.items()))
     splits = paged_split_sweep(torch, gen, dev)
     for r in splits:
         print(f"    {r['kernel']:23s} B={r['B']:<2d} P_max={r['P_max']:<3d} "
               f"lengths={r['lengths'][:4]} default splits={r['splits']}: "
               + ", ".join(f"{n}: {t:.2f}" for n, t in r["split_us"].items())
               + " us")
+    sass = qmm_sass(_build._target(qm.LIBRARY),
+                    out.parent / f"{out.stem}_sass_quant_matmul.txt",
+                    qm.DEFAULT_TILE)
+    for name, ops in sass.items():
+        print(f"    SASS K loop of {name[:80]}: {sum(ops.values())} "
+              f"instructions; " + ", ".join(
+                  f"{op} {n}" for op, n in sorted(ops.items())
+                  if op.startswith(("BAR", "STS", "LDS", "PRMT", "IMMA",
+                                    "LDGSTS", "F2F", "DMUL", "MUFU"))))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=smi, ptxas=regs, timing=rows,
-                                   paged_splits=splits), indent=1))
+                                   per_tick_ms=ticks, paged_splits=splits,
+                                   qmm_sass_k_loop=sass), indent=1))
+
+
+#: ``--qmm-ablation``: variants of ``csrc/quant_matmul.cu`` made by text
+#: substitution, each (bit-exact, [(text, replacement), ...]).  The exact
+#: ones compute the same function another way and are held bit for bit
+#: to the plain version; the others drop a piece of the kernel to time
+#: what it costs, and compute something else.
+QMM_CODE = """using Divisor = double;
+__device__ __forceinline__ Divisor divisor(float scale) {
+  return __drcp_rn((double)scale);
+}
+__device__ __forceinline__ int code(float x, Divisor inv) {
+  const float q = __double2float_rn(__dmul_rn((double)x, inv));
+  return min(max(__float2int_rn(q), -127), 127);
+}"""
+QMM_AMAX = """  row_absmax<T::WARPS, XT, ALIGNED>(x, m0, rv, t_begin * BK,
+                                    min(K, t_end * BK), K, smax);"""
+QMM_SYNC = """  if (nsplit > 1)
+    cg::this_cluster().sync();                // every split's maxima are in
+  else
+    __syncthreads();"""
+QMM_REMOTE = ("    unsigned m = nsplit > 1 ? 0u : smax[threadIdx.x];\n"
+              "    for (int r = 0; r < nsplit && nsplit > 1; ++r)\n")
+QMM_LOOP = "  for (int t = t_begin; t < t_end; ++t) {"
+QMM_VARIANTS = {
+    # a per-element IEEE division, __fdiv_rn
+    "fdiv": (True, [(QMM_CODE, """using Divisor = float;
+__device__ __forceinline__ Divisor divisor(float scale) { return scale; }
+__device__ __forceinline__ int code(float x, Divisor scale) {
+  return min(max(__float2int_rn(__fdiv_rn(x, scale)), -127), 127);
+}""")]),
+    # the quotient by two FMA Newton steps on fl32(1/scale) (Markstein),
+    # rounded and clamped in fp32: the code is the low byte of q + 1.5 2^23
+    "fma": (True, [(QMM_CODE, """using Divisor = float2;
+__device__ __forceinline__ Divisor divisor(float scale) {
+  return make_float2(scale, __frcp_rn(scale));
+}
+__device__ __forceinline__ int code(float x, Divisor d) {
+  float q = __fmul_rn(x, d.y);
+  float r = __fmaf_rn(-d.x, q, x);
+  q = __fmaf_rn(r, d.y, q);
+  r = __fmaf_rn(-d.x, q, x);
+  q = __fmaf_rn(r, d.y, q);
+  q = fminf(fmaxf(q, -127.0f), 127.0f);
+  return __float_as_int(__fadd_rn(q, 12582912.0f));
+}""")]),
+    # 8 warps a block where BK >= 128 (two a scheduler)
+    "w8": (True, [("static constexpr int WARPS = 4, THREADS",
+                   "static constexpr int WARPS = BK >= 128 ? 8 : 4, "
+                   "THREADS")]),
+    # timing only: no amax pass (every scale 1/127)
+    "no_amax": (False, [(QMM_AMAX, "  if ((int)threadIdx.x < rv) "
+                                   "smax[threadIdx.x] = 0x3f800000u;")]),
+    # timing only: no cluster barrier or remote read before the K loop
+    "no_amax_sync": (False, [(QMM_SYNC, "  __syncthreads();"), (
+        QMM_REMOTE, "    unsigned m = smax[threadIdx.x];\n"
+                    "    for (int r = 0; r < 0; ++r)\n")]),
+    # timing only: no K loop (the ring's first stages still land)
+    "no_loop": (False, [(QMM_LOOP, "  for (int t = t_begin; t < t_begin; "
+                                   "++t) {")]),
+}
+
+
+def qmm_ablation(torch, out: Path) -> None:
+    """``--qmm-ablation``: build ``quant_matmul.cu`` and each of
+    :data:`QMM_VARIANTS` (one nvcc each, all at once), hold every exact
+    variant bit for bit to the plain version (random x, and rows whose
+    codes sit at and next to .5 ties, through an identity weight; bf16 and
+    fp32 x), and time each through the ``quant_matmul`` wrapper at the
+    llama3-8b projection shapes (M = 4 and 16, bf16 x and out, weights
+    rotated past the L2) at the default configuration, with per-tick
+    totals at M = 4; writes ``out``."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.quant_matmul import ops as qm
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    src = (_build.CSRC / "quant_matmul.cu").read_text()
+    vdir = _build.BUILD_DIR / "qmm_ablation"
+    vdir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (_, subs) in QMM_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                fail(f"qmm ablation {name}: the kernel no longer has "
+                     f"{old.splitlines()[0]!r}")
+            text = text.replace(old, new)
+        (vdir / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
+             str(_build.CSRC), "-o", str(vdir / f"lib{name}.so"),
+             str(vdir / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {"kernel": _build.load(qm.LIBRARY, qm.SIGNATURES)}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"qmm ablation {name} did not build:\n{log[-3000:]}")
+        lib = ctypes.CDLL(str(vdir / f"lib{name}.so"))
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        for fn, (restype, argtypes) in qm.SIGNATURES.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        libs[name] = lib
+
+    def run_on(name, fn):
+        _build._LIBS[qm.LIBRARY] = libs[name]
+        try:
+            return fn()
+        finally:
+            _build._LIBS[qm.LIBRARY] = libs["kernel"]
+
+    # exactness: random rows and rows at and next to .5 ties (every tile x
+    # split count for the random ones), through an identity weight
+    k = 4096
+    eye = torch.eye(k, dtype=torch.int8, device=dev)
+    one = torch.ones((1, k), device=dev)
+    checks = []
+    for _ in range(6):
+        amax = torch.exp(torch.empty((16, 1), device=dev).uniform_(
+            -25, 25, generator=gen))
+        ties = (torch.randint(-127, 127, (16, k), generator=gen,
+                              device=dev) + 0.5) * (amax * (1 / 127))
+        side = torch.randint(0, 3, (16, k), generator=gen, device=dev)
+        ties = torch.where(side == 1, torch.nextafter(
+            ties, torch.full_like(ties, float("inf"))), ties)
+        ties = torch.where(side == 2, torch.nextafter(
+            ties, torch.full_like(ties, -float("inf"))), ties)
+        ties[:, 0] = amax[:, 0]
+        rand = torch.randn((16, k), generator=gen, device=dev) * amax
+        for x in (ties, ties.to(bf16), rand, rand.to(bf16)):
+            checks.append((x, quant_matmul_ref(x, eye, one, f32)))
+    exact = {}
+    for name, lib in libs.items():
+        if name != "kernel" and not QMM_VARIANTS[name][0]:
+            continue
+        differ = 0
+        for x, ref in checks:
+            for tile in (qm.DEFAULT_TILE, qm.TILES[0]):
+                got = run_on(name, lambda: qm.quant_matmul(
+                    x, eye, one, config=tile_config(tile)))
+                differ += int((got != ref).sum())
+        exact[name] = differ
+        print(f"    {name:13s} elements differing from the plain version: "
+              f"{differ} of {2 * sum(x.numel() for x, _ in checks)}")
+    rows, ticks = [], {}
+    for m in PROJ_MS:
+        for kk, n in LLAMA_DECODE_SHAPES:
+            nbuf = min(32, max(1, math.ceil(200e6 / (kk * n))))
+            qs = [qm.quantize_weights(torch.randn((kk, n), generator=gen,
+                                                  device=dev))
+                  for _ in range(nbuf)]
+            x = torch.randn((m, kk), generator=gen, device=dev).to(bf16)
+            row = dict(M=m, K=kk, N=n, splits=qm.resolve_launch(
+                "quant_matmul", m, kk, n, "bfloat16", "cuda")[1], us={})
+            for name in libs:
+                row["us"][name] = 1e3 * run_on(name, lambda: cuda_ms(
+                    torch, lambda i: qm.quant_matmul(
+                        x, *qs[i % nbuf], out_dtype=bf16), 60))
+                if m == PROJ_MS[0]:
+                    ticks[name] = ticks.get(name, 0.0) + 32 * \
+                        LLAMA_DECODE_SHAPES[(kk, n)] * row["us"][name] / 1e3
+            rows.append(row)
+            print(f"    M={m:<3d} K={kk:<6d} N={n:<6d} splits={row['splits']}"
+                  f" us: " + ", ".join(f"{k_}={v:.2f}"
+                                       for k_, v in row["us"].items()))
+            del qs, x
+    print("    per llama3-8b decode tick (224 projections at M = "
+          f"{PROJ_MS[0]}), ms: " + ", ".join(f"{k_} {v:.3f}"
+                                            for k_, v in ticks.items()))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(card=smi, exact=exact, timing=rows,
+                                   per_tick_ms=ticks), indent=1))
+    if any(exact.values()):
+        fail(f"an exact quant_matmul variant differs: {exact}")
 
 
 # ------------------------------------- conv kernels (B5, B7 conv, B4c)
@@ -2431,13 +2857,22 @@ def main() -> int:
                          "B1 and B5, digest the phase-2 conv cases' outputs "
                          "and dump the libraries' SASS (baseline_sweep); "
                          "writes --out")
+    ap.add_argument("--qmm-ablation", action="store_true",
+                    help="only build quant_matmul.cu and variants of it "
+                         "(QMM_VARIANTS: other exact forms of the codes, 8 "
+                         "warps, and timing-only ablations), hold the exact "
+                         "ones to the plain version bit for bit and time "
+                         "all at the projection shapes (qmm_ablation); "
+                         "writes --out")
     ap.add_argument("--kernel-sweep", action="store_true",
-                    help="only build flash_decode.cu and apr_matmul.cu, "
-                         "print their registers and spills and time B2/B2q "
-                         "(at each split count over PAGED_SWEEP too; under "
-                         "an fp32 q), B3 against its longest length and B1 "
-                         "with bf16, int8 and fp32 weights and fp32 x int8 "
-                         "at the projection shapes, at each split count "
+                    help="only build flash_decode.cu, apr_matmul.cu and "
+                         "quant_matmul.cu, print their registers and spills "
+                         "and time B2/B2q (at each split count over "
+                         "PAGED_SWEEP too; under an fp32 q), B3 against its "
+                         "longest length, B1 with bf16, int8 and fp32 "
+                         "weights and fp32 x int8, and B6/B8 at the "
+                         "projection shapes, at each split count, and count "
+                         "B6's K-loop instructions from its SASS "
                          "(kernel_sweep); writes --out")
     args = ap.parse_args()
 
@@ -2483,6 +2918,9 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     set_default_cache(ConfigCache(Path(tmp.name) / "untuned.json",
                                   autosave=False))
+    if args.qmm_ablation:
+        qmm_ablation(torch, Path(args.out))
+        return 0
     if args.kernel_sweep:
         kernel_sweep(torch, Path(args.out))
         return 0
@@ -2658,6 +3096,7 @@ def main() -> int:
     for name, case, err, ok in (conv_correctness(torch, gen, dev)[0]
                                 + scan_correctness(torch, gen, dev)
                                 + matmul_family_correctness(torch, gen, dev)
+                                + qmm_tie_and_launch_checks(torch, gen, dev)
                                 + matmul_f32_correctness(torch, gen, dev)):
         errs[name] = max(errs[name], err)
         cases.append((name, case, err, ok))
@@ -2684,10 +3123,13 @@ def main() -> int:
           f"across tiles at one split count): B4m bit-equal to B1 at one "
           f"split and the tile in one launch a call (its fp32 form in one "
           f"launch within the fp32 bound of the unsplit plain version), the "
-          f"int8-weight kernel bit-equal to B1 at one split, B6/B8 "
-          f"none/relu bit-equal, silu/gelu within {ACT_ULPS} fp32 ulps of "
+          f"int8-weight kernel bit-equal to B1 at one split, B6/B8 over "
+          f"bf16 and fp32 x at every tile x split count: none/relu "
+          f"bit-equal, silu/gelu within {ACT_ULPS} fp32 ulps of "
           f"max(|plain|, |pre-activation|) or the bf16 tolerance for bf16 "
-          f"out, B7m the bf16 tolerance):")
+          f"out, the same bits across tiles and split counts, twice "
+          f"bit-equal, tie rows bit-equal, one device kernel a call; B7m "
+          f"the bf16 tolerance):")
     for name, shape, err, ok in cases:
         print(f"    {'ok  ' if ok else 'FAIL'} {name:23s} {shape:50s} "
               f"max_abs_err={err:.3g}")
@@ -2748,9 +3190,11 @@ def main() -> int:
                   f"x{r['ms'] / r['apr_ms']:.2f} ({r['hbm_steps']} K steps, "
                   f"+{r['partial_bytes'] / 1e6:.2f} MB of fp32 partials)")
         elif r["kernel"] == "quant_matmul":
-            print(f"    quant_matmul M={r['M']} K={r['K']} N={r['N']}: the "
-                  f"activations' quantization alone {r['quantize_ms']:.4f} "
-                  f"ms of {r['ms']:.4f}; library at M={r['library_m']}")
+            print(f"    quant_matmul M={r['M']} K={r['K']} N={r['N']}: "
+                  f"{r['ms']:.4f} ms at {r['splits']} splits, quantizing "
+                  f"in the launch (the plain quantize_activations alone "
+                  f"{r['quantize_ms']:.4f} ms); library at "
+                  f"M={r['library_m']}")
     timing.extend(scan_rows)
     report["timing"] = timing
 
@@ -3872,9 +4316,9 @@ def main() -> int:
         "apr_matmul_hbm (B4m), apr_matmul_fused (B7m, bias + silu), "
         "quant_matmul (B6) and quant_matmul_fused (B8, bias + silu): per "
         "full-width decode tick's 224 projections (no lm_head) at the "
-        "default tile, bf16 out (apr_matmul_hbm one launch a call); the "
-        "int8 rows include the activations' "
-        "quantization, their library (quantization, torch._int_mm, the two "
+        "default configuration, bf16 out (apr_matmul_hbm one launch a "
+        "call); the int8 kernels quantize the activations inside their one "
+        "launch, their library (quantization, torch._int_mm, the two "
         "scale multiplies, + bias and silu) is timed at M = 32 where "
         "_int_mm refuses M <= 16; launches are those of phase 8's counted "
         "window (warm_cache sweep and the tuned engine's serving)")

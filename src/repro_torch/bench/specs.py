@@ -15,8 +15,8 @@ and at ``bfloat16`` they count what the card's kernels move.  The
 
 Tune spaces: the four matmul families list exactly the tiles
 ``apr_matmul.cu`` and ``quant_matmul.cu`` compile (six each; five for the
-int8-weight kernel), ``apr_matmul`` and ``apr_matmul_fused`` each at the
-split counts their kernels take (at most one per 128-row range of K; the
+int8-weight kernel), each at the split counts their kernels take (at most
+one per 128-row range of K, 256-row for the quant families; the
 memory-resident baseline and the int8-weight kernel under bf16 operands
 run one split).  Those two spaces depend on the operands' dtype: at
 ``float32`` they are the fp32 body's tiles (for an fp32 or an int8 weight,
@@ -233,20 +233,42 @@ def _qmm_inputs(shape, dtype, seed, device):
 
 
 def _qmm_traffic(shape, cfg, dtype="float32"):
-    """apr_matmul's streaming pattern at int8 width: both operands move 1
-    byte/element plus their fp32 scales, whatever ``dtype`` the float
-    activations had before quantization."""
+    """apr_matmul's streaming pattern with an int8 weight: the kernel
+    quantizes the activations inside its launch, so ``x`` moves at its
+    float width (``dtype``), read once per column tile (its blocks find the
+    rows' maxima and then stage the same rows, from the L2), and no int8
+    ``x`` or activation scale is written or read; the weight moves 1
+    byte/element plus its fp32 column scales, once per row tile."""
     m, k, n = shape["m"], shape["k"], shape["n"]
     n_pass_x = _cdiv(n, cfg["block_n"])
     n_pass_y = _cdiv(m, cfg["block_m"])
-    x_reads = (m * k * _I8 + m * _F32) * n_pass_x
+    x_reads = m * k * _itemsize(dtype) * n_pass_x
     y_reads = (k * n * _I8 + n * _F32) * n_pass_y
     acc = reduction_hbm_traffic(m * n, _cdiv(k, cfg["block_k"]), _F32, "apr")
     return x_reads + y_reads + acc
 
 
 def _qmm_vmem(shape, cfg, dtype="float32"):
-    return qmm_ops.smem_bytes(cfg["block_m"], cfg["block_n"], cfg["block_k"])
+    return qmm_ops.smem_bytes(cfg["block_m"], cfg["block_n"], cfg["block_k"],
+                              _itemsize(dtype))
+
+
+def _qmm_space(shape) -> TuneSpace:
+    """The compiled tiles at each split count that gives every split a
+    256-row range of K (one at least).  The deepest K step is listed
+    first: the cost model prices these candidates alike (bytes, not the
+    per-step work), so a pruned sweep times the first ones, and the
+    256-row step measured fastest at every llama3-8b projection shape on
+    an H100 (PERF.md, PR 20)."""
+    ranges = max(1, _cdiv(shape["k"], qmm_ops.K_RANGE))
+    tiles = qmm_ops.TILES
+    return TuneSpace.make(
+        block_m=sorted({t[0] for t in tiles}),
+        block_n=sorted({t[1] for t in tiles}),
+        block_k=sorted({t[2] for t in tiles}, reverse=True),
+        splits=tuple(n for n in qmm_ops.SPLITS if n <= ranges),
+        constraint=lambda cfg, s: (cfg["block_m"], cfg["block_n"],
+                                   cfg["block_k"]) in tiles)
 
 
 register(KernelSpec(
@@ -254,7 +276,7 @@ register(KernelSpec(
     make_inputs=_qmm_inputs,
     run=lambda args, cfg: qmm_ops.quant_matmul(*args, config=cfg),
     ref=lambda args: quant_matmul_ref(*args),
-    tune_space=lambda shape: _tile_space(qmm_ops.TILES),
+    tune_space=_qmm_space,
     default_config=lambda s: qmm_ops.default_config(s["m"], s["k"], s["n"]),
     shape_key=lambda s: qmm_ops.shape_key(s["m"], s["k"], s["n"]),
     flops=lambda s: 2 * s["m"] * s["k"] * s["n"],
@@ -307,7 +329,7 @@ register(KernelSpec(
         config=cfg),
     ref=lambda args: quant_matmul_fused_ref(args[0], args[1], args[2],
                                             args[3], "relu"),
-    tune_space=lambda shape: _tile_space(qmm_ops.TILES),
+    tune_space=_qmm_space,
     default_config=lambda s: qmm_ops.default_config(s["m"], s["k"], s["n"]),
     shape_key=lambda s: qmm_ops.shape_key(s["m"], s["k"], s["n"]),
     flops=lambda s: 2 * s["m"] * s["k"] * s["n"] + 2 * s["m"] * s["n"],

@@ -2,12 +2,15 @@
 kernels of ``csrc/apr_conv.cu`` for CUDA tensors, the plain PyTorch versions
 (:mod:`.ref`) for CPU tensors.
 
-The signatures are the JAX package's (``repro.kernels.apr_conv.ops``)
-with ``config`` and without the ``block_*`` arguments: the kernel has one
-tile per output-channel count (:func:`compiled_config`), so each family's
-tune space has one point, and whatever resolves under the JAX package's
-shape keys must be that tile.  Inputs are fp32 or bf16 (``x`` and ``f`` of
-one type); the output is fp32 either way, as the JAX kernel writes it.
+The signatures are the JAX package's (``repro.kernels.apr_conv.ops``),
+``block_m``, ``block_n``, ``block_k`` and ``config`` included: the kernel
+has one tile per output-channel count (:func:`compiled_config`), so each
+family's tune space has one point, and whatever resolves under the JAX
+package's shape keys (the pinned ``block_*`` kwargs laid over ``config``,
+as the JAX wrappers lay them) must be that tile, or
+:class:`~repro_torch.bench.TileError` is raised before any launch.  Inputs
+are fp32 or bf16 (``x`` and ``f`` of one type); the output is fp32 either
+way, as the JAX kernel writes it.
 """
 from __future__ import annotations
 
@@ -16,8 +19,8 @@ from typing import Optional
 
 import torch
 
-from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
-                             shape_key_from_dims)
+from ...bench.config import (BlockConfig, dtype_name, pin_config,
+                             resolve_fixed, shape_key_from_dims)
 from .. import _build
 from ..apr_matmul.ref import ACTIVATIONS
 from .ref import conv2d_fused_ref, conv2d_ref
@@ -62,17 +65,20 @@ def default_config(b, h, w, c, hf, wf, m, stride, padding) -> BlockConfig:
     return compiled_config(m)
 
 
-def _resolve(kernel: str, x: torch.Tensor, f: torch.Tensor, stride: int,
-             padding: int, residency: Optional[str],
-             config: Optional[BlockConfig]) -> None:
-    """Resolve the configuration under the JAX key (the fused family's has
-    no residency) and refuse anything but the compiled tile."""
+def resolve_launch(kernel: str, x: torch.Tensor, f: torch.Tensor,
+                   stride: int, padding: int, residency: Optional[str],
+                   config: Optional[BlockConfig]) -> BlockConfig:
+    """The configuration of a launch of ``kernel`` (``apr_conv``, or
+    ``apr_conv_fused`` with ``residency`` None: its key has none), resolved
+    under the JAX key; anything but the compiled tile raises
+    :class:`~repro_torch.bench.TileError`."""
     dims = (*x.shape, *f.shape[:2], f.shape[3], stride, padding)
     key = fused_shape_key
     if residency is not None:
         dims, key = dims + (residency,), shape_key
-    resolve_fixed(kernel, dims, dtype_name(x.dtype), "cuda", shape_key=key,
-                  compiled=compiled_config(f.shape[3]), config=config)
+    return resolve_fixed(kernel, dims, dtype_name(x.dtype), "cuda",
+                         shape_key=key, compiled=compiled_config(f.shape[3]),
+                         config=config)
 
 
 def _check(x: torch.Tensor, f: torch.Tensor, what: str) -> None:
@@ -106,7 +112,9 @@ def _geometry(x: torch.Tensor, f: torch.Tensor, stride: int,
 
 
 def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
-               padding: int = 0, residency: str = "apr",
+               padding: int = 0, block_m: Optional[int] = None,
+               block_n: Optional[int] = None, block_k: Optional[int] = None,
+               residency: str = "apr",
                config: Optional[BlockConfig] = None) -> torch.Tensor:
     """``x (B, H, W, C) ⊛ f (Hf, Wf, C, M) -> (B, Ho, Wo, M)`` fp32.
 
@@ -117,14 +125,17 @@ def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
     walking the steps).  CUDA tensors launch the kernel or raise; CPU
     tensors take :func:`conv2d_ref`.  Each launch adds one to
     ``apr_conv2d.launches`` (``apr_conv``) or ``apr_conv2d.hbm_launches``
-    (``apr_conv_hbm``): one per call either way."""
+    (``apr_conv_hbm``): one per call either way.  ``block_m``,
+    ``block_n`` and ``block_k`` pin the configuration over ``config``."""
     if residency not in RESIDENCIES:
         raise ValueError(f"unknown residency {residency!r}")
     if x.device.type == "cpu" and f.device.type == "cpu":
         return conv2d_ref(x, f, stride=stride, padding=padding)
     _check(x, f, "apr_conv2d")
     args, shape = _geometry(x, f, stride, padding)
-    _resolve(KERNEL_NAME, x, f, stride, padding, residency, config)
+    resolve_launch(KERNEL_NAME, x, f, stride, padding, residency,
+                   pin_config(config, block_m=block_m, block_n=block_n,
+                              block_k=block_k))
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
@@ -146,12 +157,15 @@ def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
 def apr_conv2d_fused(x: torch.Tensor, f: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, *,
                      activation: str = "relu", stride: int = 1,
-                     padding: int = 0,
+                     padding: int = 0, block_m: Optional[int] = None,
+                     block_n: Optional[int] = None,
+                     block_k: Optional[int] = None,
                      config: Optional[BlockConfig] = None) -> torch.Tensor:
     """``activation(conv2d(x, f) + bias)`` with the epilogue applied at the
     accumulator's one flush; ``bias`` is ``None``, ``(M,)`` or ``(1, M)``
     and is used in fp32.  CUDA tensors launch ``apr_conv`` or raise; CPU
-    tensors take :func:`conv2d_fused_ref`.  Each launch adds one to
+    tensors take :func:`conv2d_fused_ref`.  ``block_*`` pin the
+    configuration as in :func:`apr_conv2d`.  Each launch adds one to
     ``apr_conv2d_fused.launches``."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
@@ -170,7 +184,9 @@ def apr_conv2d_fused(x: torch.Tensor, f: torch.Tensor,
                              f"operands on {x.device}")
         bias = bias.reshape(m).float().contiguous()
     args, shape = _geometry(x, f, stride, padding)
-    _resolve(FUSED_KERNEL_NAME, x, f, stride, padding, None, config)
+    resolve_launch(FUSED_KERNEL_NAME, x, f, stride, padding, None,
+                   pin_config(config, block_m=block_m, block_n=block_n,
+                              block_k=block_k))
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out

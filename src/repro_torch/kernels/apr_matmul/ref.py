@@ -53,11 +53,12 @@ def matmul_fused_ref(x: torch.Tensor, y: torch.Tensor,
 K_RANGE = 128
 
 
-def split_range(k: int, splits: int) -> int:
-    """K rows per split range: ``ceil(ceil(K / 128) / splits) * 128``.
-    Split ``s`` takes rows ``[s * range, min(K, (s + 1) * range))``; the
-    last ones may be short or empty."""
-    return -(-(-(-k // K_RANGE)) // splits) * K_RANGE
+def split_range(k: int, splits: int, unit: int = K_RANGE) -> int:
+    """K rows per split range: ``ceil(ceil(K / unit) / splits) * unit``
+    (``unit`` 128 here, 256 for ``quant_matmul``: the largest block_k each
+    family compiles).  Split ``s`` takes rows ``[s * range, min(K, (s + 1)
+    * range))``; the last ones may be short or empty."""
+    return -(-(-(-k // unit)) // splits) * unit
 
 
 def _split_partials(x: torch.Tensor, y: torch.Tensor, splits: int

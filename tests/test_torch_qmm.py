@@ -277,7 +277,9 @@ def test_quant_wrappers_never_take_the_plain_path_off_the_cpu():
 
 def test_uncompiled_tiles_are_refused():
     """resolve_tile refuses a tile the CUDA kernel is not compiled for
-    with TileError (the autotuner's rejection), before any launch."""
+    with TileError (the autotuner's rejection), before any launch; the
+    quant kernels also refuse a split count they do not take, and resolve
+    each compiled tile at each split count they do."""
     from repro_torch.bench import BlockConfig
     from repro_torch.kernels.apr_matmul import ops as apr_ops
     bad = BlockConfig.make(block_m=128, block_n=128, block_k=128)
@@ -294,7 +296,24 @@ def test_uncompiled_tiles_are_refused():
             assert ops.resolve_tile(kernel, 4, 64, 64, "bfloat16", "cuda",
                                     config=cfg) == tile
         assert ops.resolve_tile(kernel, 4, 64, 64, "bfloat16", "cuda") \
-            == ops.DEFAULT_TILE == (16, 64, 64)
+            == ops.DEFAULT_TILE
+    assert apr_ops.DEFAULT_TILE == (16, 64, 64)
+    assert qmm_ops.DEFAULT_TILE == (16, 64, 256)
+    assert qmm_ops.SPLITS == (1, 2, 4, 8)
+    for kernel in ("quant_matmul", "quant_matmul_fused"):
+        for tile in qmm_ops.TILES:
+            for splits in qmm_ops.SPLITS:
+                cfg = BlockConfig.make(block_m=tile[0], block_n=tile[1],
+                                       block_k=tile[2], splits=splits)
+                assert qmm_ops.resolve_launch(
+                    kernel, 4, 4096, 1024, "float32", "cuda",
+                    config=cfg) == (tile, splits)
+        for splits in (0, 3, 16):
+            with pytest.raises(TileError):
+                qmm_ops.resolve_launch(
+                    kernel, 4, 4096, 1024, "bfloat16", "cuda",
+                    config=qmm_ops.default_config(4, 4096, 1024).replace(
+                        splits=splits))
 
 
 def test_bias_of_the_wrong_size_raises():
@@ -327,6 +346,25 @@ def test_quant_source_exports_the_wrapper_signature():
     tiles = re.search(r"#define QMM_TILES\(X\)(.*?)\n\n", src, re.S).group(1)
     assert tuple(tuple(int(v) for v in t) for t in re.findall(
         r"X\((\d+), (\d+), (\d+)\)", tiles)) == qmm_ops.TILES
+    # one entry: x as it is (bf16 or fp32, quantized in the launch), the
+    # split count and its K range; 256-row ranges, at most 8 splits
+    assert 'extern "C" int quant_matmul_i8(const void* x, const void* b' \
+        in src
+    for name in ("x_bf16", "splits", "krange"):
+        assert re.search(r"int " + name + r"[,)]", src), name
+    assert "constexpr int K_RANGE = 256;" in src
+    assert "constexpr int MAX_SPLITS = 8;" in src
+    from repro_torch.kernels.quant_matmul.ref import K_RANGE
+    assert K_RANGE == 256 and max(qmm_ops.SPLITS) == 8
+    assert max(t[2] for t in qmm_ops.TILES) == K_RANGE
+    # the activations' codes: fp32(1/127), the IEEE fp32 quotient (formed
+    # exactly in fp64: test_torch_qmm_split.py), no fast math
+    assert "INV_INT8_MAX = 0x1.020408p-7f;" in src
+    assert float.fromhex("0x1.020408p-7") == float(np.float32(1 / 127))
+    from repro_torch.kernels import _build
+    assert "__drcp_rn((double)scale)" in src
+    assert "__double2float_rn(__dmul_rn((double)x, inv))" in src
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
 
 
 def test_matmul_source_compiles_the_wrapper_tiles():
