@@ -19,7 +19,13 @@
                                      # longest length, B1 bf16/int8/fp32
                                      # (and fp32 x int8) and B6/B8 at the
                                      # projections, at each split count,
-                                     # and B6's K loop from its SASS
+                                     # B6's K loop from its SASS, and B9 /
+                                     # B10 at the decode tick and a
+                                     # 1024-token prefill (each compiled
+                                     # configuration too)
+    python3 chip_smoke.py --scan-ablation --out scan_ablation.json
+                                     # only B9 / B10 beside variants of
+                                     # their source that drop one piece
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -36,7 +42,11 @@ Phases (any failure exits non-zero before the final line):
      kernels, and the recurrence
      kernels ``rwkv6_wkv`` (B9) and ``mamba2_ssd`` (B10) with their state in
      and out, at the decode tick, at 1024- and 1000-token prefills and at the
-     smoke shapes; and ``rms_norm``'s variance, row for row, at B = 1 and
+     smoke shapes, and bit for bit against themselves: across every
+     compiled configuration (staging depth x tile x lanes), a batch row
+     alone against it inside B = 4, one T = 37 call against 37 calls at
+     T = 1 with the state carried, and one device kernel a call; and
+     ``rms_norm``'s variance, row for row, at B = 1 and
      inside batches of 4 and 16; and the matmul families at every tile
      their kernels compile, at the llama3-8b projection shapes and ragged
      ones: ``apr_matmul`` (B1), its memory-resident baseline (B4m, one
@@ -99,7 +109,8 @@ Phases (any failure exits non-zero before the final line):
      StateCache and on the slot ServeEngine, the same 6 requests on 4
      slots: greedy tokens equal, every launch count checked; then a
      1024-token ``bundle.prefill`` on each (B9/B10 over all T), every
-     layer's scan held to its plain version on the same inputs;
+     layer's scan held to its plain version on the same inputs, its ms
+     and the scans' share of it (CUDA events);
   8. the tuning path at llama3-8b full width: every registered kernel
      family (the int8-weight tiles and both decode kernels' split counts
      included) swept exhaustively (the yardstick), then
@@ -242,22 +253,35 @@ def conv_err(got, ref) -> tuple:
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
-def profile_device(torch, fn, reps: int, host=None, counts=None):
+#: the host calls by which a kernel, a copy or a fill reaches the card, as
+#: the profiler names them (runtime and driver API)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+def profile_device(torch, fn, reps: int, host=None, counts=None,
+                   launches=None, trace=None, pad_s: float = 0.0):
     """Device milliseconds per call of ``fn()``, by kernel name, over
     ``reps`` calls traced by ``torch.profiler`` (device-side events only: an
     aten op's own row repeats its kernels); None where the profiler cannot
-    trace, since it is a measurement and not a phase.  A dict passed as
-    ``host`` receives the host milliseconds per call by op (self CPU
-    time) of the same trace, one passed as ``counts`` the device events
-    (kernels, copies) per call by name."""
+    trace, since it is a measurement and not a phase.  The card is
+    synchronized when the window opens, and the calls run ``pad_s`` seconds
+    after that and end ``pad_s`` before it closes.  A dict passed as ``host`` receives the host milliseconds per
+    call by op (self CPU time) of the same trace, one passed as ``counts``
+    the device events (kernels, copies) per call by name, one passed as
+    ``launches`` the host calls of :data:`LAUNCH_CALLS` per call by name,
+    one passed as ``trace`` the start of the first device event and of the
+    first launch call, in µs from the trace's start."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(pad_s)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(pad_s)
     except RuntimeError as e:
         print(f"    profiler unavailable on this machine: {e}")
         return None
@@ -266,15 +290,53 @@ def profile_device(torch, fn, reps: int, host=None, counts=None):
         if ev.device_type != DeviceType.CUDA:
             if host is not None and ev.self_cpu_time_total > 0:
                 host[ev.key] = ev.self_cpu_time_total / 1e3 / reps
+            if launches is not None and ev.key in LAUNCH_CALLS:
+                launches[ev.key] = ev.count / reps
             continue
         t = ev.self_device_time_total / 1e3 / reps
         if t > 0:
             by_kernel[ev.key] = t
             if counts is not None:
                 counts[ev.key] = ev.count / reps
+    if trace is not None:
+        starts = {"device": [], "launch": []}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                starts["device"].append(ev.time_range.start)
+            elif ev.name in LAUNCH_CALLS:
+                starts["launch"].append(ev.time_range.start)
+        trace.update({f"first_{k}_us": min(v, default=None)
+                      for k, v in starts.items()})
     if not by_kernel:
         print("    profiler recorded no device time")
     return by_kernel
+
+
+def one_kernel_a_call(torch, fn, kernel: str, reps: int = 5,
+                      tries: int = 3):
+    """``(ok, text)``: whether each call of ``fn()`` runs exactly one
+    device kernel, the one whose name holds ``kernel``, by
+    :func:`profile_device`, and the profiler's account.  The host side of
+    the trace counts every launch, copy and fill (:data:`LAUNCH_CALLS`):
+    it must be one a call.  The device side names what ran: only
+    ``kernel``, at most one a call, and at least one event in the trace.
+    A device side with fewer events than launch calls lost records (the
+    profiler can drop device records, see :func:`profiler_probe`), so the
+    session is profiled again, up to ``tries`` in all; where every session
+    lost some, the launch calls are the count and the text says so."""
+    for session in range(1, tries + 1):
+        events, calls = {}, {}
+        if profile_device(torch, fn, reps, counts=events,
+                          launches=calls) is None:
+            return False, "profiler unavailable"
+        kernels, issued = sum(events.values()), sum(calls.values())
+        if kernels >= issued:
+            break
+    ok = (issued == 1 and 0 < kernels <= 1
+          and all(kernel in key for key in events))
+    lost = "" if kernels >= issued else ", device records lost"
+    return ok, (f"{issued:g} launch call(s) and {kernels:g} device "
+                f"kernel(s) a call ({session} profiler session(s){lost})")
 
 
 def rel_logits_err(got, ref) -> float:
@@ -439,6 +501,119 @@ def scan_correctness(torch, gen, dev) -> list:
     return rows
 
 
+def scan_bit_checks(torch, gen, dev) -> list:
+    """Phase 2's bit checks of B9 and B10 (one y reduction order a row or
+    column, whatever the launch): y and the state out equal bit for bit
+    across every compiled configuration (``compiled_configs()``: staging
+    depth x rows or columns a block x lanes) at the decode tick, at T = 37
+    and at a ragged head size; each batch row computed alone equal to the
+    same row inside B = 4; one T = 37 call equal to 37 calls at T = 1 with
+    the state carried; and exactly one device kernel a call (the
+    profiler's device events, and one count on the wrapper's counter).
+    Returns (kernel, case, 0.0, ok) rows."""
+    from repro_torch.kernels.mamba2 import ops as m2
+    from repro_torch.kernels.rwkv6 import ops as r6
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    rwkv_cases = [(4, 1, 40, 64, bf), (2, 37, 40, 64, bf), (3, 19, 2, 48, f32)]
+    mamba_cases = [(4, 1, 80, 64, 128, f32), (2, 37, 80, 64, 128, bf),
+                   (3, 19, 2, 48, 80, bf)]     # 32-row tiles span heads
+    for kernel, ops, cases in (("rwkv6_wkv", r6, rwkv_cases),
+                               ("mamba2_ssd", m2, mamba_cases)):
+        fn = r6.rwkv6_wkv if kernel == "rwkv6_wkv" else m2.mamba2_ssd
+        state_kw = "s_init" if kernel == "rwkv6_wkv" else "h_init"
+        for dims in cases:
+            *shape, dtype = dims
+            if kernel == "rwkv6_wkv":
+                args, s0 = rwkv_inputs(torch, gen, dev, *shape, dtype, True)
+            else:
+                args, s0 = mamba_inputs(torch, gen, dev, *shape, dtype, True,
+                                        True)
+            configs = sorted(ops.compiled_configs())
+            outs = [fn(*args, **{state_kw: s0}, return_state=True,
+                       config=cfg) for cfg in configs]
+            torch.cuda.synchronize()
+            differ = [c.to_dict() for c, o in zip(configs, outs)
+                      if not same(o, outs[0])]
+            rows.append((kernel, f"{shape} {str(dtype)[6:]}: "
+                         f"{len(configs) - len(differ)}/{len(configs)} "
+                         f"compiled configurations bit-equal"
+                         + (f" (differ: {differ[:3]})" if differ else ""),
+                         0.0, not differ))
+        # a row alone against the same row inside B = 4, T = 1 and T = 37
+        for t in (1, 37):
+            shape = ((4, t, 40, 64) if kernel == "rwkv6_wkv"
+                     else (4, t, 80, 64, 128))
+            if kernel == "rwkv6_wkv":
+                args, s0 = rwkv_inputs(torch, gen, dev, *shape, bf, True)
+                batched = args
+                alone = [([a[i:i + 1].contiguous() for a in args[:4]]
+                          + [args[4]], s0[i:i + 1].contiguous())
+                         for i in range(4)]
+            else:
+                args, s0 = mamba_inputs(torch, gen, dev, *shape, bf, True,
+                                        True)
+                batched = args
+                alone = [([a[i:i + 1] for a in args[:4]] + list(args[4:]),
+                          s0[i:i + 1].contiguous()) for i in range(4)]
+            y, s = fn(*batched, **{state_kw: s0}, return_state=True)
+            ok = True
+            for i, (a, si) in enumerate(alone):
+                yi, ss = fn(*a, **{state_kw: si}, return_state=True)
+                ok = ok and torch.equal(yi, y[i:i + 1]) and \
+                    torch.equal(ss, s[i:i + 1])
+            torch.cuda.synchronize()
+            rows.append((kernel, f"B=4 T={t}: each row alone bit-equal to "
+                         f"it inside the batch", 0.0, ok))
+        # one T = 37 call against 37 calls at T = 1, the state carried
+        shape = (2, 37, 40, 64) if kernel == "rwkv6_wkv" else \
+            (2, 37, 80, 64, 128)
+        if kernel == "rwkv6_wkv":
+            args, s0 = rwkv_inputs(torch, gen, dev, *shape, bf, True)
+            steps = [[a[:, i:i + 1].contiguous() for a in args[:4]]
+                     + [args[4]] for i in range(37)]
+        else:
+            args, s0 = mamba_inputs(torch, gen, dev, *shape, bf, True, True)
+            steps = [[a[:, i:i + 1] for a in args[:3]]
+                     + [args[3][:, i:i + 1].contiguous()] + list(args[4:])
+                     for i in range(37)]
+        y, s = fn(*args, **{state_kw: s0}, return_state=True)
+        carried, ys = s0, []
+        for a in steps:
+            yi, carried = fn(*a, **{state_kw: carried}, return_state=True)
+            ys.append(yi)
+        torch.cuda.synchronize()
+        ok = torch.equal(torch.cat(ys, dim=1), y) and torch.equal(carried, s)
+        rows.append((kernel, "T=37 in one call bit-equal to 37 calls at "
+                     "T=1 with the state carried", 0.0, ok))
+        # one device kernel a call, at the decode tick and at T = 37
+        for t in (1, 37):
+            if kernel == "rwkv6_wkv":
+                args, s0 = rwkv_inputs(torch, gen, dev, 4, t, 40, 64, bf,
+                                       True)
+            else:
+                args, s0 = mamba_inputs(torch, gen, dev, 4, t, 80, 64, 128,
+                                        f32 if t == 1 else bf, True, True)
+
+            def call():
+                return fn(*args, **{state_kw: s0}, return_state=True)
+
+            before = fn.launches
+            call()
+            torch.cuda.synchronize()
+            launched = fn.launches - before
+            one, text = one_kernel_a_call(
+                torch, call, "wkv_kernel" if kernel == "rwkv6_wkv"
+                else "ssd_kernel")
+            rows.append((kernel, f"B=4 T={t}: {text}, {launched} "
+                         f"launch(es) counted", 0.0, one and launched == 1))
+    return rows
+
+
 #: fp32 operations per state element per step that each recurrence needs
 #: (the count behind its operation bound; see :func:`scan_timing`)
 RWKV6_OPS_PER_ELEMENT = 5
@@ -522,6 +697,69 @@ def scan_timing(torch, gen, dev) -> list:
         del sets
     torch.cuda.empty_cache()
     return rows
+
+
+def print_scan_row(r) -> None:
+    shape = " ".join(f"{k}={r[k]}" for k in ("B", "T", "H", "D", "P", "N")
+                     if k in r)
+    print(f"    {r['kernel']:23s} {r['shape']:7s} {shape:32s} kernel_ms="
+          f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
+          f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+          f"{r['bound_ms'] / r['ms']:.0%} of bound")
+
+
+#: the scans' shapes that ``scan_config_sweep`` times at every compiled
+#: configuration: phase 3's decode tick and 1024-token prefill
+SCAN_SWEEP = {"rwkv6_wkv": ((4, 1, 40, 64, "bfloat16", True),
+                            (1, 1024, 40, 64, "bfloat16", False)),
+              "mamba2_ssd": ((4, 1, 80, 64, 128, "float32", True),
+                             (1, 1024, 80, 64, 128, "bfloat16", False))}
+
+
+def scan_config_sweep(torch, gen, dev) -> list:
+    """CUDA-event ms per launch of B9 and B10 at every configuration their
+    kernels compile (``compiled_configs()``), at the shapes of
+    :data:`SCAN_SWEEP`, inputs rotated past the L2 as in phase 3; empty on
+    a tree whose wrappers take one configuration."""
+    from repro_torch.kernels.mamba2 import ops as m2
+    from repro_torch.kernels.rwkv6 import ops as r6
+    out = []
+    for kernel, ops in (("rwkv6_wkv", r6), ("mamba2_ssd", m2)):
+        if not hasattr(ops, "compiled_configs"):
+            continue
+        fn = r6.rwkv6_wkv if kernel == "rwkv6_wkv" else m2.mamba2_ssd
+        kw = "s_init" if kernel == "rwkv6_wkv" else "h_init"
+        for *shape, dtype, init in SCAN_SWEEP[kernel]:
+            dt = getattr(torch, dtype)
+            if kernel == "rwkv6_wkv":
+                sets = rotated(lambda: rwkv_inputs(torch, gen, dev, *shape,
+                                                   dt, init))
+            else:
+                sets = rotated(lambda: mamba_inputs(torch, gen, dev, *shape,
+                                                    dt, init, True))
+            default = ops.resolve_launch(*shape, dtype)
+            times = {}
+            for cfg in sorted(ops.compiled_configs()):
+                times[cfg] = cuda_ms(torch, lambda i: fn(
+                    *sets[i % len(sets)][0], **{kw: sets[i % len(sets)][1]},
+                    return_state=True, config=cfg),
+                    100 if shape[1] == 1 else 10, warmup=2)
+            best = min(times, key=times.get)
+            out.append(dict(kernel=kernel, shape=shape, dtype=dtype,
+                            default=default.to_dict(),
+                            default_ms=times[default],
+                            best=best.to_dict(), best_ms=times[best],
+                            ms={str(sorted(c.to_dict().items())): t
+                                for c, t in sorted(times.items(),
+                                                   key=lambda kv: kv[1])}))
+            print(f"    {kernel} {shape} {dtype}: default {default.to_dict()} "
+                  f"{times[default]:.4f} ms, best {best.to_dict()} "
+                  f"{times[best]:.4f} ms; fastest five: " + ", ".join(
+                      f"{c.to_dict()} {t:.4f}" for c, t in sorted(
+                          times.items(), key=lambda kv: kv[1])[:5]))
+            del sets
+    torch.cuda.empty_cache()
+    return out
 
 
 def recurrent_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
@@ -786,6 +1024,16 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                            scan_err(out[1], ref[1], STATE_RTOL, STATE_RTOL)))
         return out
 
+    scan_events = []
+
+    def timed(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = scan(*a, **kw)
+        end.record()
+        scan_events.append((start, end))
+        return out
+
     prompt = torch.from_numpy(rng.integers(1, cfg.vocab_size, (1, 1024))
                               ).to(dev)
     logits, times = {}, {}
@@ -793,8 +1041,9 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     for impl in ("kernel", "shadow", "plain", "per-step"):
         torch.cuda.synchronize()
         reset_counts()
-        setattr(mod, fn, {"shadow": shadowed, "per-step": per_step}.get(
-            impl, scan))
+        setattr(mod, fn, {"shadow": shadowed, "per-step": per_step,
+                          "kernel": timed}[impl] if impl != "plain"
+                else scan)
         if impl == "plain":
             mod.use_scan_kernel = lambda x: False
         t0 = time.perf_counter()
@@ -815,7 +1064,10 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     err_k, err_pp = diff("kernel", "plain"), diff("per-step", "plain")
     y_rel = max(e[0][1] for e in layer_errs)
     s_rel = max(e[1][1] for e in layer_errs)
+    scan_ms = sum(a.elapsed_time(b) for a, b in scan_events)
     prefill = dict(tokens=1024, kernel_ms=1e3 * times["kernel"],
+                   scan_ms=scan_ms, scan_share=scan_ms / 1e3
+                   / times["kernel"], scan_launches=len(scan_events),
                    plain_ms=1e3 * times["plain"],
                    per_step_plain_ms=1e3 * times["per-step"],
                    max_abs_logits_diff=err_k, plain_pair_diff=err_pp,
@@ -976,16 +1228,12 @@ def qmm_tie_and_launch_checks(torch, gen, dev) -> list:
                 got = fn()
                 torch.cuda.synchronize()
                 launched = counter.launches - before
-                events = {}
-                traced = profile_device(torch, fn, 5, counts=events)
-                kernels = sum(events.values())
-                ok = (traced is not None and kernels == 1 and launched == 1
-                      and all("quant_matmul_kernel" in key for key in events)
-                      and torch.equal(got, ref()))
+                one, text = one_kernel_a_call(torch, fn,
+                                              "quant_matmul_kernel")
+                ok = one and launched == 1 and torch.equal(got, ref())
                 cases.append((name, f"M={m} K={k} N={n} {str(dtype)[6:]} x: "
-                              f"{kernels:g} device kernel(s) a call "
-                              f"(profiler), {launched} launch(es) counted",
-                              0.0, ok))
+                              f"{text}, {launched} launch(es) counted", 0.0,
+                              ok))
     return cases
 
 
@@ -2205,8 +2453,11 @@ def qmm_sass(lib: Path, path: Path, tile) -> dict:
 
 
 def kernel_sweep(torch, out: Path) -> None:
-    """``--kernel-sweep``: build ``flash_decode.cu``, ``apr_matmul.cu`` and
-    ``quant_matmul.cu``, print their registers and spills, time B2 over
+    """``--kernel-sweep``: build ``flash_decode.cu``, ``apr_matmul.cu``,
+    ``quant_matmul.cu``, ``rwkv6.cu`` and ``mamba2.cu``, print their
+    registers and spills, time B9 and B10 at the decode tick and a
+    1024-token prefill (:func:`scan_timing`; every compiled configuration
+    too, :func:`scan_config_sweep`), B2 over
     bf16, fp32 and int8 pools (B2q) at the serving shape (at each split
     count where the tree takes one; under an fp32 q too where it takes one)
     and at each split count over :data:`PAGED_SWEEP`, B3 against its
@@ -2223,10 +2474,13 @@ def kernel_sweep(torch, out: Path) -> None:
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.quant_matmul import ops as qm
+    from repro_torch.kernels.mamba2 import ops as m2
+    from repro_torch.kernels.rwkv6 import ops as r6
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     _build.build_all({fd.LIBRARY: fd.SIGNATURES, mm.LIBRARY: mm.SIGNATURES,
-                      qm.LIBRARY: qm.SIGNATURES})
+                      qm.LIBRARY: qm.SIGNATURES, r6.LIBRARY: r6.SIGNATURES,
+                      m2.LIBRARY: m2.SIGNATURES})
     regs = [f"{name}: {line.strip()}"
             for name, log in sorted(_build.BUILD_LOGS.items())
             for line in log.splitlines()
@@ -2241,6 +2495,10 @@ def kernel_sweep(torch, out: Path) -> None:
                               q_dtype=torch.float32)
     rows += projection_timing(torch, gen, dev, PROJ_MS)
     rows += qmm_timing(torch, gen, dev, PROJ_MS)
+    scan_rows = scan_timing(torch, gen, dev)
+    for r in scan_rows:
+        print_scan_row(r)
+    scan_configs = scan_config_sweep(torch, gen, dev)
     for r in rows:
         if "plain_ms" in r:
             print_timing_row(r)
@@ -2282,7 +2540,8 @@ def kernel_sweep(torch, out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(card=smi, ptxas=regs, timing=rows,
                                    per_tick_ms=ticks, paged_splits=splits,
-                                   qmm_sass_k_loop=sass), indent=1))
+                                   qmm_sass_k_loop=sass, scans=scan_rows,
+                                   scan_configs=scan_configs), indent=1))
 
 
 #: ``--qmm-ablation``: variants of ``csrc/quant_matmul.cu`` made by text
@@ -2344,6 +2603,239 @@ __device__ __forceinline__ int code(float x, Divisor d) {
     "no_loop": (False, [(QMM_LOOP, "  for (int t = t_begin; t < t_begin; "
                                    "++t) {")]),
 }
+
+
+#: ``--scan-ablation``: timing-only variants of ``csrc/rwkv6.cu`` and
+#: ``csrc/mamba2.cu`` made by text substitution, each dropping one piece of
+#: the staged path (they compute something else): the lanes' y reduction,
+#: the staging of every round after the first, B9's per-step bonus, the
+#: per-element step itself; and B10's guarded body (for N < 128) run at
+#: the ablation's N = 128, which prices the guards the full-N body drops
+SCAN_VARIANTS = {
+    "rwkv6": {
+        "no_reduce": [(
+            "const int first = scan::reduce_slots<K, LI, LJ, false>(part, "
+            "lane,\n                                                      "
+            "         owner);", "const int first = 0;\n        owner = "
+            "lane < 1;")],
+        "no_restage": [("      if (c0 + ch < tlen) issue(c0 + ch, (kk + 1) "
+                        "& 1);", "")],
+        "no_bonus": [(
+            "        bonus_steps(beta, rr + t0 * IP, IP, min(BONUS_STEPS, n - "
+            "t0), su,\n                    rk + t0 * IP, d, lane);",
+            "        beta[0] = 0.f;")],
+        "no_step": [(
+            "            wkv_step<IR, G>(st, ri, ki, wi, vj, part + 4 * s);",
+            "            part[4 * s] = ri[0] + vj.x;\n            "
+            "part[4 * s + 1] = ki[0] + vj.y;\n            part[4 * s + 2] = "
+            "wi[0] + vj.z;\n            part[4 * s + 3] = vj.w;")],
+    },
+    "mamba2": {
+        # the guarded body (clamped vector index, selected partial) at
+        # N = 128 too, where the kernel runs the one with every vector live
+        "guarded": [("  if (n == MAX_N) {", "  if (false) {")],
+        "no_reduce": [(
+            "const int base = scan::reduce_slots<K, LPR, 1, true>(part, "
+            "lane,\n                                                       "
+            "      owner);", "const int base = 0;\n        owner = lane < "
+            "1;")],
+        "no_restage": [("      if (c0 + ch < tlen) issue(c0 + ch, (k + 1) "
+                        "& 1);", "")],
+        "no_step": [(
+            "            ssd_step<RT, VPL, LPR, FULL>(hs, bv, cv, xp,\n"
+            "                                         rdt[tt * MAX_HEADS + "
+            "hh],\n                                         sdec[tt * "
+            "MAX_HEADS + hh], q, nv,\n"
+            "                                         part + s * RT);",
+            "            for (int r = 0; r < RT; ++r) part[s * RT + r] = "
+            "xp[r] + bv[0].x + cv[0].y;")],
+    },
+}
+
+
+#: profiled sessions of :func:`profiler_probe` at each padding, and the
+#: padding (seconds of host idle at both ends of a window) it tries
+PROBE_SESSIONS = 60
+PROBE_PAD_S = 0.005
+#: unprofiled launches :func:`profiler_probe` makes between its stages
+PROBE_BACKLOG = 20000
+
+
+def profiler_probe(torch, out: Path) -> None:
+    """``--profiler-probe``: why a one-kernel-a-call check can count fewer
+    device kernels than calls.  Builds ``quant_matmul.cu``,
+    ``apr_matmul.cu``, ``rwkv6.cu`` and ``mamba2.cu`` and profiles 5 calls
+    of ``quant_matmul`` at M = 5, K = 300, N = 1000 (a 3-µs kernel
+    launched as a cluster) in stages: right after :func:`scan_bit_checks`
+    (phase 2's profiled scan checks), :data:`PROBE_SESSIONS` sessions with
+    no idle time at the window's ends and as many with
+    :data:`PROBE_PAD_S` of it, in turn; then 10 sessions after each of
+    :data:`PROBE_BACKLOG` unprofiled launches of a one-block elementwise
+    kernel, of as many unprofiled ``quant_matmul`` calls, and of phase 2's
+    :func:`matmul_family_correctness` (there also with :data:`PROBE_PAD_S`
+    and 50 ms of idle ends, in turn); last :func:`one_kernel_a_call` as
+    :func:`qmm_tie_and_launch_checks` makes it.  Records per session the
+    device events and launch calls a call and the first device event's and
+    first launch call's start in µs from the trace's start.  Writes
+    ``out``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.kernels.mamba2 import ops as m2
+    from repro_torch.kernels.quant_matmul import ops as qm
+    from repro_torch.kernels.rwkv6 import ops as r6
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _build.build_all({qm.LIBRARY: qm.SIGNATURES, mm.LIBRARY: mm.SIGNATURES,
+                      r6.LIBRARY: r6.SIGNATURES, m2.LIBRARY: m2.SIGNATURES})
+    scan_rows = scan_bit_checks(torch, gen, dev)
+    for kernel, case, _, ok in scan_rows:
+        print(f"    {'ok  ' if ok else 'FAIL'} {kernel} {case}", flush=True)
+    wq, ws = qm.quantize_weights(torch.randn((300, 1000), generator=gen,
+                                             device=dev))
+    x = torch.randn((5, 300), generator=gen, device=dev).to(torch.bfloat16)
+
+    def call():
+        return qm.quant_matmul(x, wq, ws, out_dtype=torch.bfloat16)
+
+    call()
+    sessions = []
+
+    def stage(name, count, pads):
+        for i in range(count):
+            for pad in pads:
+                events, calls, trace = {}, {}, {}
+                profile_device(torch, call, 5, counts=events,
+                               launches=calls, trace=trace, pad_s=pad)
+                sessions.append(dict(stage=name, session=i, pad_s=pad,
+                                     kernels=sum(events.values()),
+                                     launch_calls=sum(calls.values()),
+                                     events=events, calls=calls, **trace))
+
+    stage("after the scan checks", PROBE_SESSIONS, (0.0, PROBE_PAD_S))
+    y = torch.zeros(256, device=dev)
+    for _ in range(PROBE_BACKLOG):
+        y.add_(1.0)
+    torch.cuda.synchronize()
+    stage("after elementwise launches", 10, (0.0,))
+    for _ in range(PROBE_BACKLOG):
+        call()
+    torch.cuda.synchronize()
+    stage("after quant_matmul launches", 10, (0.0,))
+    family = matmul_family_correctness(torch, gen, dev)
+    stage("after matmul_family_correctness", 10, (0.0, PROBE_PAD_S, 0.05))
+    summary = {}
+    for key in dict.fromkeys((r["stage"], r["pad_s"]) for r in sessions):
+        rows = [r for r in sessions if (r["stage"], r["pad_s"]) == key]
+        dev_us = sorted(r["first_device_us"] for r in rows
+                        if r["first_device_us"] is not None)
+        host_us = sorted(r["first_launch_us"] for r in rows
+                         if r["first_launch_us"] is not None)
+        summary[f"{key[0]}, pad {key[1]:g} s"] = dict(
+            sessions=len(rows),
+            short=sum(r["kernels"] < 1 for r in rows),
+            fewer_events_than_launch_calls=sum(
+                r["kernels"] < r["launch_calls"] for r in rows),
+            kernels_a_call=sorted({r["kernels"] for r in rows}),
+            launch_calls_a_call=sorted({r["launch_calls"] for r in rows}),
+            first_device_us_min=dev_us[0] if dev_us else None,
+            first_device_us_median=dev_us[len(dev_us) // 2]
+            if dev_us else None,
+            first_launch_us_median=host_us[len(host_us) // 2]
+            if host_us else None)
+    for key, row in summary.items():
+        print(f"    {key}: {row}", flush=True)
+    one = one_kernel_a_call(torch, call, "quant_matmul_kernel")
+    print(f"    one_kernel_a_call: {one}", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(
+        card=smi, summary=summary, sessions=sessions,
+        one_kernel_a_call=one,
+        scan_checks=[[k, c, ok] for k, c, _, ok in scan_rows],
+        family_failed=[[k, c] for k, c, _, ok in family if not ok]),
+        indent=1))
+
+
+def scan_ablation(torch, out: Path) -> None:
+    """``--scan-ablation``: build ``rwkv6.cu``, ``mamba2.cu`` and each of
+    :data:`SCAN_VARIANTS` (one nvcc each, all at once) and time each
+    through its wrapper at the 1024-token prefill of phase 3 (B = 1, bf16,
+    the default configuration, inputs rotated past the L2), in the order
+    kernel, variants, kernel; writes ``out``.  A variant's time against the
+    kernel's says what that piece costs."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba2 import ops as m2
+    from repro_torch.kernels.rwkv6 import ops as r6
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vdir = _build.BUILD_DIR / "scan_ablation"
+    vdir.mkdir(parents=True, exist_ok=True)
+    texts = {}
+    for lib, variants in SCAN_VARIANTS.items():
+        src = (_build.CSRC / f"{lib}.cu").read_text()
+        for name, subs in variants.items():
+            text = src
+            for old, new in subs:
+                if old not in text:
+                    fail(f"scan ablation {lib} {name}: the kernel no longer "
+                         f"has {old.splitlines()[0]!r}")
+                text = text.replace(old, new)
+            texts[lib, name] = text
+    procs = {}
+    for (lib, name), text in texts.items():
+        (vdir / f"{lib}_{name}.cu").write_text(text)
+        procs[lib, name] = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
+             str(_build.CSRC), "-o", str(vdir / f"lib{lib}_{name}.so"),
+             str(vdir / f"{lib}_{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    kernels = {r6.LIBRARY: _build.load(r6.LIBRARY, r6.SIGNATURES),
+               m2.LIBRARY: _build.load(m2.LIBRARY, m2.SIGNATURES)}
+    libs = {}
+    for (lib, name), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"scan ablation {lib} {name} did not build:\n{log[-3000:]}")
+        handle = ctypes.CDLL(str(vdir / f"lib{lib}_{name}.so"))
+        handle.repro_cuda_error_string.restype = ctypes.c_char_p
+        handle.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        ops = r6 if lib == "rwkv6" else m2
+        for fn, (restype, argtypes) in ops.SIGNATURES.items():
+            getattr(handle, fn).restype = restype
+            getattr(handle, fn).argtypes = argtypes
+        libs[lib, name] = handle
+    times = {}
+    for lib, *shape in (("rwkv6", 1, 1024, 40, 64),
+                        ("mamba2", 1, 1024, 80, 64, 128)):
+        if lib == "rwkv6":
+            fn, kw = r6.rwkv6_wkv, "s_init"
+            sets = rotated(lambda: rwkv_inputs(torch, gen, dev, *shape,
+                                               torch.bfloat16, False))
+        else:
+            fn, kw = m2.mamba2_ssd, "h_init"
+            sets = rotated(lambda: mamba_inputs(torch, gen, dev, *shape,
+                                                torch.bfloat16, False, True))
+        for name in ["kernel", *SCAN_VARIANTS[lib], "kernel again"]:
+            _build._LIBS[lib] = libs.get((lib, name), kernels[lib])
+            try:
+                t = cuda_ms(torch, lambda i: fn(
+                    *sets[i % len(sets)][0], **{kw: sets[i % len(sets)][1]},
+                    return_state=True), 10, warmup=2)
+            finally:
+                _build._LIBS[lib] = kernels[lib]
+            times[f"{lib} {name}"] = t
+            print(f"    {lib} T=1024 {name}: {t:.4f} ms", flush=True)
+        del sets
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(card=smi, ms=times), indent=1))
 
 
 def qmm_ablation(torch, out: Path) -> None:
@@ -2865,15 +3357,32 @@ def main() -> int:
                          "all at the projection shapes (qmm_ablation); "
                          "writes --out")
     ap.add_argument("--kernel-sweep", action="store_true",
-                    help="only build flash_decode.cu, apr_matmul.cu and "
-                         "quant_matmul.cu, print their registers and spills "
+                    help="only build flash_decode.cu, apr_matmul.cu, "
+                         "quant_matmul.cu, rwkv6.cu and mamba2.cu, print "
+                         "their registers and spills "
                          "and time B2/B2q (at each split count over "
                          "PAGED_SWEEP too; under an fp32 q), B3 against its "
                          "longest length, B1 with bf16, int8 and fp32 "
                          "weights and fp32 x int8, and B6/B8 at the "
-                         "projection shapes, at each split count, and count "
-                         "B6's K-loop instructions from its SASS "
-                         "(kernel_sweep); writes --out")
+                         "projection shapes, at each split count, count "
+                         "B6's K-loop instructions from its SASS, and time "
+                         "B9/B10 at the decode tick and a 1024-token "
+                         "prefill (kernel_sweep); writes --out")
+    ap.add_argument("--scan-ablation", action="store_true",
+                    help="only build rwkv6.cu, mamba2.cu and variants of "
+                         "them (SCAN_VARIANTS: the y reduction, the "
+                         "restaging, B9's bonus or the step dropped, B10's "
+                         "guarded body at N = 128) and "
+                         "time each at a 1024-token prefill (scan_ablation); "
+                         "writes --out")
+    ap.add_argument("--profiler-probe", action="store_true",
+                    help="only build quant_matmul.cu, apr_matmul.cu, "
+                         "rwkv6.cu and mamba2.cu and count, over many short "
+                         "profiler sessions after the scan checks (with and "
+                         "without idle ends) and after streams of unprofiled "
+                         "launches, the device events and launch calls of "
+                         "one quant_matmul call (profiler_probe); writes "
+                         "--out")
     args = ap.parse_args()
 
     import torch
@@ -2923,6 +3432,12 @@ def main() -> int:
         return 0
     if args.kernel_sweep:
         kernel_sweep(torch, Path(args.out))
+        return 0
+    if args.scan_ablation:
+        scan_ablation(torch, Path(args.out))
+        return 0
+    if args.profiler_probe:
+        profiler_probe(torch, Path(args.out))
         return 0
     if args.baseline:
         baseline_sweep(torch, Path(args.out))
@@ -3095,6 +3610,7 @@ def main() -> int:
     # ragged ones on both residencies, and the fused epilogue
     for name, case, err, ok in (conv_correctness(torch, gen, dev)[0]
                                 + scan_correctness(torch, gen, dev)
+                                + scan_bit_checks(torch, gen, dev)
                                 + matmul_family_correctness(torch, gen, dev)
                                 + qmm_tie_and_launch_checks(torch, gen, dev)
                                 + matmul_f32_correctness(torch, gen, dev)):
@@ -3177,12 +3693,7 @@ def main() -> int:
     for r in timing:
         print_timing_row(r)
     for r in scan_rows:
-        shape = " ".join(f"{k}={r[k]}" for k in ("B", "T", "H", "D", "P", "N")
-                         if k in r)
-        print(f"    {r['kernel']:23s} {r['shape']:7s} {shape:32s} kernel_ms="
-              f"{r['ms']:.4f} plain_ms={r['plain_ms']:.4f} library_ms=none "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['bound_ms'] / r['ms']:.0%} of bound")
+        print_scan_row(r)
     for r in mm_rows:
         if r["kernel"] == "apr_matmul_hbm":
             print(f"    B4m vs B1 (default tile) M={r['M']} K={r['K']} "
@@ -4135,7 +4646,10 @@ def main() -> int:
               f"{sl['mean_ttft_s'] * 1e3:.2f} ms; launches {sl['launches']}; "
               f"greedy tokens equal to the paged engine's "
               f"{sl['tokens_equal_paged']}/{sl['tokens_total']}")
-        print(f"    prefill of 1024 tokens: kernels {pf['kernel_ms']:.3f} ms, "
+        print(f"    prefill of 1024 tokens: kernels {pf['kernel_ms']:.3f} ms "
+              f"(host clock), of it the {pf['scan_launches']} scans "
+              f"{pf['scan_ms']:.3f} ms (CUDA events, "
+              f"{pf['scan_share']:.1%}), "
               f"plain path (chunked formulas) {pf['plain_ms']:.3f} ms, "
               f"per-step plain scans {pf['per_step_plain_ms']:.3f} ms; "
               f"every layer's scan vs its plain version on the same inputs: "

@@ -33,7 +33,7 @@ from .config import (  # noqa: F401
     default_cache,
     resolve_cached,
     resolve_config,
-    resolve_fixed,
+    resolve_among,
     scoped_cache,
     set_default_cache,
     shape_key_from_dims,

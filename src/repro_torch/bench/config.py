@@ -296,20 +296,23 @@ def resolve_cached(kernel: str, dims: tuple, dtype: str, backend: str, *,
     return cfg
 
 
-def resolve_fixed(kernel: str, dims: tuple, dtype: str, backend: str, *,
-                  shape_key: Callable[..., str], compiled: BlockConfig,
+def resolve_among(kernel: str, dims: tuple, dtype: str, backend: str, *,
+                  shape_key: Callable[..., str],
+                  default: Callable[..., BlockConfig], compiled,
                   config: Optional[BlockConfig] = None) -> BlockConfig:
-    """Resolution for a kernel compiled for one configuration: whatever
-    resolves (``config``, a tuned entry or the default, ``compiled``) must
-    be ``compiled``, or :class:`TileError` is raised before any launch."""
+    """Resolution for a kernel compiled for the configurations in
+    ``compiled``: ``config`` (the caller's pins laid over it, see
+    :func:`pin_config`) > the tuned entry > ``default(*dims)``, as
+    :func:`resolve_config`; a result outside ``compiled`` raises
+    :class:`TileError` before any launch."""
     if config is None:
         cfg = resolve_cached(kernel, dims, dtype, backend,
-                             shape_key=shape_key,
-                             default=lambda *_: compiled)
+                             shape_key=shape_key, default=default)
     else:
         cfg = resolve_config(kernel, shape_key(*dims), dtype, backend,
-                             default=compiled, override=config)
-    if cfg != compiled:
-        raise TileError(f"{kernel}: {cfg} is not compiled; the kernel has "
-                        f"one configuration, {compiled}")
+                             default=default(*dims), override=config)
+    if cfg not in compiled:
+        raise TileError(f"{kernel}: {cfg} is not compiled; the kernel takes "
+                        f"{len(compiled)} configurations, e.g. "
+                        f"{default(*dims)}")
     return cfg

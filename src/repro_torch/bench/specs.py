@@ -110,9 +110,13 @@ def _split_counts(shape) -> tuple:
     return tuple(n for n in matmul_ops.SPLITS if n <= ranges)
 
 
-def _one_point(cfg):
-    """The space of a kernel compiled for one configuration."""
-    return TuneSpace.make(**{k: (v,) for k, v in cfg.to_dict().items()})
+def _among(compiled):
+    """The space of a kernel compiled for the configurations in
+    ``compiled``: exactly those."""
+    keys = {k for cfg in compiled for k in cfg.to_dict()}
+    return TuneSpace.make(
+        constraint=lambda cfg, _: cfg in compiled,
+        **{k: sorted({cfg[k] for cfg in compiled}) for k in keys})
 
 
 # ---------------------------------------------------------------- apr_matmul
@@ -387,7 +391,7 @@ def _conv_flops(s):
 
 
 def _conv_space(shape):
-    return _one_point(conv_ops.compiled_config(shape["m"]))
+    return _among({conv_ops.compiled_config(shape["m"])})
 
 
 register(KernelSpec(
@@ -579,7 +583,7 @@ register(KernelSpec(
     make_inputs=_mamba_inputs,
     run=lambda args, cfg: mamba_ops.mamba2_ssd(*args, config=cfg),
     ref=lambda args: mamba2_ref(*args),
-    tune_space=lambda shape: _one_point(mamba_ops.COMPILED),
+    tune_space=lambda shape: _among(mamba_ops.compiled_configs()),
     default_config=lambda s: mamba_ops.default_config(
         s["b"], s["t"], s["h"], s["p"], s["n"]),
     shape_key=lambda s: mamba_ops.shape_key(
@@ -618,7 +622,7 @@ register(KernelSpec(
     make_inputs=_rwkv_inputs,
     run=lambda args, cfg: rwkv_ops.rwkv6_wkv(*args, config=cfg),
     ref=lambda args: rwkv6_ref(*args),
-    tune_space=lambda shape: _one_point(rwkv_ops.COMPILED),
+    tune_space=lambda shape: _among(rwkv_ops.compiled_configs()),
     default_config=lambda s: rwkv_ops.default_config(
         s["b"], s["t"], s["h"], s["d"]),
     shape_key=lambda s: rwkv_ops.shape_key(s["b"], s["t"], s["h"], s["d"]),

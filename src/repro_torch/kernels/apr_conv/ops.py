@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from ...bench.config import (BlockConfig, dtype_name, pin_config,
-                             resolve_fixed, shape_key_from_dims)
+                             resolve_among, shape_key_from_dims)
 from .. import _build
 from ..apr_matmul.ref import ACTIVATIONS
 from .ref import conv2d_fused_ref, conv2d_ref
@@ -76,9 +76,10 @@ def resolve_launch(kernel: str, x: torch.Tensor, f: torch.Tensor,
     key = fused_shape_key
     if residency is not None:
         dims, key = dims + (residency,), shape_key
-    return resolve_fixed(kernel, dims, dtype_name(x.dtype), "cuda",
-                         shape_key=key, compiled=compiled_config(f.shape[3]),
-                         config=config)
+    cfg = compiled_config(f.shape[3])
+    return resolve_among(kernel, dims, dtype_name(x.dtype), "cuda",
+                         shape_key=key, default=lambda *_: cfg,
+                         compiled={cfg}, config=config)
 
 
 def _check(x: torch.Tensor, f: torch.Tensor, what: str) -> None:

@@ -1,38 +1,132 @@
 """``mamba2_ssd`` wrapper: the hand-written CUDA kernel of
 ``csrc/mamba2.cu`` for CUDA tensors, the plain PyTorch version
-(:func:`.ref.mamba2_ref`) for CPU tensors."""
+(:func:`.ref.mamba2_ref`) for CPU tensors.
+
+A launch's configuration has three keys: ``chunk``, the time steps staged
+a round (the JAX wrapper's ``chunk``, which ``mamba2_ssd(chunk=)`` pins as
+the JAX wrapper's ``explicit={"chunk": chunk}`` does); ``rows``, the state
+rows of a batch row a block owns (a tile may span heads); ``lanes``, the
+lanes that share a row.
+Every combination of :data:`CHUNKS`, :data:`ROWS` and :data:`LANES` is
+compiled (:func:`compiled_configs`), and all of them give the same bits.
+"""
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 from typing import Optional
 
 import torch
 
-from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
-                             shape_key_from_dims)
+from ...bench.config import (BlockConfig, dtype_name, pin_config,
+                             resolve_among, shape_key_from_dims)
+from ...roofline.hw import get_profile
 from .. import _build
 from .ref import mamba2_ref
 
 LIBRARY = "mamba2"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGS = [_P] * 9 + [_I] * 5 + [_L] * 7 + [_P]
+_ARGS = [_P] * 9 + [_I] * 8 + [_L] * 7 + [_P]
 SIGNATURES = {"mamba2_ssd_bf16": (ctypes.c_int, _ARGS),
               "mamba2_ssd_f32": (ctypes.c_int, _ARGS)}
-#: the kernel's limits: 32 state columns a thread, 256 threads a block
+#: the kernel's limits: a lane keeps its state vectors of rows up to
+#: N = 128 values in registers
 MAX_HEAD_DIM, MAX_STATE = 64, 128
 KERNEL_NAME = "mamba2"
-#: the one configuration the kernel is compiled for: inputs are staged 16
-#: time steps per round (``CH`` in the source) while the state stays in
-#: registers for all T, so the family's tune space has one point
-COMPILED = BlockConfig.make(chunk=16)
+#: time steps staged a round (``chunk``); 64 is the JAX wrapper's default
+CHUNKS = (8, 16, 32, 64)
+#: state rows a block owns (``rows``), 4 or 8 a warp, cut from the H·P rows
+#: of a batch row (flattened as h·P + p, so a tile may span heads); where the
+#: configured count does not divide H·P the largest multiple of 8 below it
+#: that does is run
+ROWS = (8, 16, 24, 32, 40, 48, 56, 64)
+#: lanes that share a row (``lanes``); see :func:`rows_per_lane`
+LANES = (4, 8, 16)
+#: heads a tile of rows may touch (``MAX_HEADS`` in the source)
+MAX_HEADS = max(ROWS) // 16 + 1
+#: an H100 block's dynamic shared memory, which the staging must fit
+MAX_SMEM = 232448
+#: the SM count :func:`default_config` spreads a call over (the
+#: ``h100_sxm`` profile's, on every card, so the tune spec and the wrapper
+#: agree)
+SMS = get_profile("h100_sxm").sms
 
 
 def shape_key(b, t, h, p, n) -> str:
     return shape_key_from_dims(b=b, t=t, h=h, p=p, n=n)
 
 
+@functools.lru_cache(maxsize=None)
+def compiled_configs() -> frozenset:
+    """Every configuration the kernel takes."""
+    return frozenset(BlockConfig.make(chunk=c, rows=r, lanes=l)
+                     for c, r, l in itertools.product(CHUNKS, ROWS, LANES))
+
+
+def rows_per_lane(lanes: int) -> int:
+    """Rows a lane owns at ``lanes`` lanes a row (``rows_per_lane`` in the
+    source): 32 state values a thread at 4 lanes, 16 at 8 and 16."""
+    return lanes // 8 if lanes >= 16 else 1
+
+
+def rows_per_warp(lanes: int) -> int:
+    return 32 // lanes * rows_per_lane(lanes)
+
+
+def tile_rows(h, p, rows) -> int:
+    """The rows a block runs: the largest multiple of 8 up to ``rows``
+    that divides H·P."""
+    return max(r for r in range(8, rows + 1, 8) if h * p % r == 0)
+
+
 def default_config(b, t, h, p, n) -> BlockConfig:
-    return COMPILED
+    """Over a prompt, about one block an SM: the fewest rows a block (at
+    most 64) that keep B·H·P / rows within :data:`SMS` blocks, 16 lanes a
+    row, 64 steps a round.  At a decode step (T = 1), whose time is the
+    state's round trip, small blocks of 8 rows at 8 lanes a row, the
+    fastest on an H100 (``PERF.md``)."""
+    if t == 1:
+        return BlockConfig.make(chunk=64, rows=8, lanes=8)
+    want = min(max(ROWS), -(-b * h * p // SMS) + 7 & ~7)
+    rows = min((r for r in ROWS if r >= want and h * p % r == 0),
+               default=max(ROWS))
+    return BlockConfig.make(chunk=64, rows=rows, lanes=16)
+
+
+def smem_bytes(chunk, rows, itemsize) -> int:
+    """Dynamic shared memory of a launch over T > 1 (``Layout`` in the
+    source): fp32 copies of b, c (rows of :data:`MAX_STATE` values) and
+    the block's x for bf16 streams, the decay of each step and head, and
+    two raw buffers of b, c, x and dt."""
+    wide = 0 if itemsize == 4 else chunk * (2 * MAX_STATE + rows) * 4
+    raw = (chunk * (2 * MAX_STATE + rows) * itemsize
+           + chunk * MAX_HEADS * 4)
+    return wide + chunk * MAX_HEADS * 4 + 2 * raw
+
+
+@functools.lru_cache(maxsize=256)
+def geometry(b, t, h, p, n, cfg: BlockConfig, itemsize: int = 2) -> dict:
+    """The launch ``cfg`` makes: the rows a block owns
+    (:func:`tile_rows`), lanes a row, staging depth, blocks, threads a
+    block and shared bytes."""
+    rows = tile_rows(h, p, cfg["rows"])
+    return dict(rows=rows, lanes=cfg["lanes"], chunk=cfg["chunk"],
+                blocks=b * (h * p // rows),
+                threads=rows // rows_per_warp(cfg["lanes"]) * 32,
+                smem=smem_bytes(cfg["chunk"], rows, itemsize) if t > 1
+                else 0)
+
+
+def resolve_launch(bsz, t, h, p, n, dtype: str, backend: str = "cuda",
+                   config: Optional[BlockConfig] = None) -> BlockConfig:
+    """The configuration of a launch at (B, T, H, P, N): ``config`` (with
+    the caller's ``chunk`` laid over it) > the tuned entry under the JAX
+    key > :func:`default_config`; one that is not compiled raises
+    :class:`~repro_torch.bench.TileError` before any launch."""
+    return resolve_among(KERNEL_NAME, (bsz, t, h, p, n), dtype, backend,
+                         shape_key=shape_key, default=default_config,
+                         compiled=compiled_configs(), config=config)
 
 
 def check_kernel_args(x, b, c, dt, a, d, h_init=None):
@@ -71,7 +165,7 @@ def check_kernel_args(x, b, c, dt, a, d, h_init=None):
 def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor, *,
                h_init: Optional[torch.Tensor] = None,
-               return_state: bool = False,
+               return_state: bool = False, chunk: Optional[int] = None,
                config: Optional[BlockConfig] = None):
     """The Mamba-2 SSD recurrence over all T steps in one launch.
 
@@ -85,10 +179,14 @@ def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     with neither option it is exactly the TPU kernel.
 
     CUDA tensors launch the kernel (P and N multiples of 16, P <= 64,
-    N <= 128) or raise; CPU tensors take :func:`mamba2_ref`.  The
-    configuration (``config`` or the tune cache's, under the JAX key) must
-    be :data:`COMPILED`.  Each launch adds one to ``mamba2_ssd.launches``."""
+    N <= 128) or raise; CPU tensors take :func:`mamba2_ref`, whatever the
+    configuration.  The configuration (:func:`resolve_launch`: ``chunk``
+    laid over ``config``, else the tune cache's under the JAX key, else
+    :func:`default_config`) must be one of :func:`compiled_configs`, or
+    :class:`~repro_torch.bench.TileError` is raised.  Each launch adds one
+    to ``mamba2_ssd.launches``."""
     tensors = (x, b, c, dt, a, d) + (() if h_init is None else (h_init,))
+    config = pin_config(config, chunk=chunk)
     if all(t.device.type == "cpu" for t in tensors):
         return mamba2_ref(x, b, c, dt, a, d, h_init=h_init,
                           return_state=return_state)
@@ -96,12 +194,14 @@ def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError(f"mamba2_ssd: tensors on "
                          f"{[str(t.device) for t in tensors]}")
+    if h_init is not None and h_init.data_ptr() % 16:
+        raise ValueError("mamba2_ssd kernel takes a 16-byte aligned state")
+    cfg = resolve_launch(bsz, t, h, p, n, dtype_name(x.dtype), "cuda",
+                         config)
+    geom = geometry(bsz, t, h, p, n, cfg, x.element_size())
     y = torch.empty((bsz, t, h, p), dtype=x.dtype, device=x.device)
     h_out = (torch.empty((bsz, h, p, n), dtype=torch.float32,
                          device=x.device) if return_state else None)
-    resolve_fixed(KERNEL_NAME, (bsz, t, h, p, n), dtype_name(x.dtype),
-                  "cuda", shape_key=shape_key, compiled=COMPILED,
-                  config=config)
     lib = _build.load(LIBRARY, SIGNATURES)
     fn = lib.mamba2_ssd_bf16 if x.dtype == torch.bfloat16 else \
         lib.mamba2_ssd_f32
@@ -109,8 +209,9 @@ def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
              a.data_ptr(), d.data_ptr(),
              None if h_init is None else h_init.data_ptr(),
              None if h_out is None else h_out.data_ptr(), y.data_ptr(),
-             bsz, t, h, p, n, x.stride(0), x.stride(1), x.stride(2),
-             b.stride(0), b.stride(1), c.stride(0), c.stride(1),
+             bsz, t, h, p, n, geom["rows"], geom["lanes"], geom["chunk"],
+             x.stride(0), x.stride(1), x.stride(2), b.stride(0), b.stride(1),
+             c.stride(0), c.stride(1),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "mamba2_ssd")
     mamba2_ssd.launches += 1

@@ -1,37 +1,127 @@
 """``rwkv6_wkv`` wrapper: the hand-written CUDA kernel of
 ``csrc/rwkv6.cu`` for CUDA tensors, the plain PyTorch version
-(:func:`.ref.rwkv6_ref`) for CPU tensors."""
+(:func:`.ref.rwkv6_ref`) for CPU tensors.
+
+A launch's configuration has three keys: ``chunk``, the time steps staged
+a round (the JAX wrapper's ``chunk``, which ``rwkv6_wkv(chunk=)`` pins as
+the JAX wrapper's ``explicit={"chunk": chunk}`` does); ``cols``, the most
+state columns of one (b, h) a block owns (a head's columns are cut into
+ceil(D / cols) runs of nearly equal length); ``lanes``, the lanes side by
+side along a state row, 4 columns each.  Every combination of :data:`CHUNKS`,
+:data:`COLS` and :data:`LANES` with ``cols >= 4 * lanes`` is compiled
+(:func:`compiled_configs`), and all of them give the same bits.
+"""
 from __future__ import annotations
 
 import ctypes
+import functools
+import itertools
 from typing import Optional
 
 import torch
 
-from ...bench.config import (BlockConfig, dtype_name, resolve_fixed,
-                             shape_key_from_dims)
+from ...bench.config import (BlockConfig, dtype_name, pin_config,
+                             resolve_among, shape_key_from_dims)
+from ...roofline.hw import get_profile
 from .. import _build
 from .ref import rwkv6_ref
 
 LIBRARY = "rwkv6"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_ARGS = [_P] * 8 + [_I] * 7 + [_P]
 SIGNATURES = {"rwkv6_wkv_bf16": (ctypes.c_int, _ARGS),
               "rwkv6_wkv_f32": (ctypes.c_int, _ARGS)}
-MAX_HEAD_DIM = 128   # the kernel's register budget: 32 state rows a thread
+MAX_HEAD_DIM = 128   # the kernel's register budget: 16 state rows a lane
 KERNEL_NAME = "rwkv6"
-#: the one configuration the kernel is compiled for: inputs are staged 16
-#: time steps per round (``CH`` in the source) while the state stays in
-#: registers for all T, so the family's tune space has one point
-COMPILED = BlockConfig.make(chunk=16)
+#: time steps staged a round (``chunk``); 64 is the JAX wrapper's default
+CHUNKS = (8, 16, 32, 64)
+#: the most state columns a block owns (``cols``): a head's columns are
+#: cut into ceil(D / cols) runs of nearly equal length, whole warps each
+COLS = (8, 16, 24, 32, 64)
+#: lanes side by side along a state row (``lanes``), 32 / lanes along i
+LANES = (1, 2, 4)
+#: an H100 block's dynamic shared memory, which the staging must fit
+MAX_SMEM = 232448
+#: the most warps a block runs (``MAX_WARPS`` in the source)
+MAX_WARPS = 8
+#: the SM count :func:`default_config` spreads a call over (the
+#: ``h100_sxm`` profile's, on every card)
+SMS = get_profile("h100_sxm").sms
 
 
 def shape_key(b, t, h, d) -> str:
     return shape_key_from_dims(b=b, t=t, h=h, d=d)
 
 
+@functools.lru_cache(maxsize=None)
+def compiled_configs() -> frozenset:
+    """Every configuration the kernel takes."""
+    return frozenset(BlockConfig.make(chunk=c, cols=w, lanes=l)
+                     for c, w, l in itertools.product(CHUNKS, COLS, LANES)
+                     if w >= 4 * l)
+
+
 def default_config(b, t, h, d) -> BlockConfig:
-    return COMPILED
+    """About one block an SM: each head's columns in as many runs as
+    B·H·runs stays within :data:`SMS` blocks, the fewest columns a run
+    that allows, one lane along a row (32 along i), over a prompt; runs of
+    16 columns and four lanes along a row at a decode step (T = 1), whose
+    time is latency; 64 steps a round."""
+    runs = max(1, SMS // max(1, b * h))
+    cols = min((c for c in COLS if -(-d // c) <= runs), default=max(COLS))
+    if t == 1:              # a decode step: short runs, many blocks
+        return BlockConfig.make(chunk=64, cols=16, lanes=4)
+    return BlockConfig.make(chunk=64, cols=cols, lanes=1)
+
+
+def head_rows(d: int) -> int:
+    """D rounded up to a power of two, at least 16: the rows the kernel's
+    lanes cover (those past D are zeros)."""
+    ip = 16
+    while ip < d:
+        ip *= 2
+    return ip
+
+
+def smem_bytes(chunk, d, cols, itemsize) -> int:
+    """Dynamic shared memory of a launch over T > 1 (``Layout`` in the
+    source): u and the per-step bonus, fp32 copies of r, k (rows of
+    :func:`head_rows` values) and the block's v for bf16 streams, and two
+    raw buffers of r, k, v and w."""
+    ip = head_rows(d)
+    wide = 0 if itemsize == 4 else chunk * (2 * ip + cols) * 4
+    raw = chunk * ((2 * ip + cols) * itemsize + ip * 4)
+    return d * 4 + chunk * 4 + wide + 2 * raw
+
+
+@functools.lru_cache(maxsize=256)
+def geometry(b, t, h, d, cfg: BlockConfig, itemsize: int = 2) -> dict:
+    """The launch ``cfg`` makes: lanes along a row (at least 32 / the
+    padded head size), the rows a lane owns, the runs a head's columns are
+    cut into (ceil(D / cols), at most one a warp of columns and at least
+    enough that no run passes :data:`MAX_WARPS` warps), staging depth,
+    blocks, threads a block (the longest run's warps) and shared bytes."""
+    ip = head_rows(d)
+    lanes = max(cfg["lanes"], 32 // ip)
+    head_warps = d // (4 * lanes)
+    parts = min(head_warps, max(-(-d // cfg["cols"]),
+                                -(-head_warps // MAX_WARPS)))
+    warps = -(-head_warps // parts)
+    return dict(lanes=lanes, rows_per_lane=ip * lanes // 32, parts=parts,
+                chunk=cfg["chunk"], blocks=b * h * parts, threads=warps * 32,
+                smem=smem_bytes(cfg["chunk"], d, warps * 4 * lanes,
+                                itemsize) if t > 1 else 0)
+
+
+def resolve_launch(b, t, h, d, dtype: str, backend: str = "cuda",
+                   config: Optional[BlockConfig] = None) -> BlockConfig:
+    """The configuration of a launch at (B, T, H, D): ``config`` (with the
+    caller's ``chunk`` laid over it) > the tuned entry under the JAX key >
+    :func:`default_config`; one that is not compiled raises
+    :class:`~repro_torch.bench.TileError` before any launch."""
+    return resolve_among(KERNEL_NAME, (b, t, h, d), dtype, backend,
+                         shape_key=shape_key, default=default_config,
+                         compiled=compiled_configs(), config=config)
 
 
 def check_kernel_args(r, k, v, w, u, s_init=None):
@@ -65,7 +155,7 @@ def check_kernel_args(r, k, v, w, u, s_init=None):
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, *,
               s_init: Optional[torch.Tensor] = None,
-              return_state: bool = False,
+              return_state: bool = False, chunk: Optional[int] = None,
               config: Optional[BlockConfig] = None):
     """The RWKV-6 WKV recurrence over all T steps in one launch.
 
@@ -76,11 +166,15 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``return_state``, the final state (B, H, D, D) fp32 -- with neither
     option it is exactly the TPU kernel.
 
-    CUDA tensors launch the kernel (contiguous, D a multiple of 16 up to
-    128) or raise; CPU tensors take :func:`rwkv6_ref`.  The configuration
-    (``config`` or the tune cache's, under the JAX key) must be
-    :data:`COMPILED`.  Each launch adds one to ``rwkv6_wkv.launches``."""
+    CUDA tensors launch the kernel (contiguous and 16-byte aligned, D a
+    multiple of 16 up to 128) or raise; CPU tensors take
+    :func:`rwkv6_ref`, whatever the configuration.  The configuration
+    (:func:`resolve_launch`: ``chunk`` laid over ``config``, else the tune
+    cache's under the JAX key, else :func:`default_config`) must be one of
+    :func:`compiled_configs`, or :class:`~repro_torch.bench.TileError` is
+    raised.  Each launch adds one to ``rwkv6_wkv.launches``."""
     tensors = (r, k, v, w, u) + (() if s_init is None else (s_init,))
+    config = pin_config(config, chunk=chunk)
     if all(t.device.type == "cpu" for t in tensors):
         return rwkv6_ref(r, k, v, w, u, s_init=s_init,
                          return_state=return_state)
@@ -88,18 +182,21 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_cuda and t.device == r.device for t in tensors):
         raise ValueError(f"rwkv6_wkv: tensors on "
                          f"{[str(t.device) for t in tensors]}")
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError("rwkv6_wkv kernel takes 16-byte aligned tensors")
+    cfg = resolve_launch(b, t, h, d, dtype_name(r.dtype), "cuda", config)
+    geom = geometry(b, t, h, d, cfg, r.element_size())
     y = torch.empty_like(r)
     s_out = (torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
              if return_state else None)
-    resolve_fixed(KERNEL_NAME, (b, t, h, d), dtype_name(r.dtype), "cuda",
-                  shape_key=shape_key, compiled=COMPILED, config=config)
     lib = _build.load(LIBRARY, SIGNATURES)
     fn = lib.rwkv6_wkv_bf16 if r.dtype == torch.bfloat16 else \
         lib.rwkv6_wkv_f32
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), None if s_init is None else s_init.data_ptr(),
              None if s_out is None else s_out.data_ptr(), y.data_ptr(),
-             b, t, h, d, torch.cuda.current_stream(r.device).cuda_stream)
+             b, t, h, d, geom["parts"], geom["lanes"], geom["chunk"],
+             torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "rwkv6_wkv")
     rwkv6_wkv.launches += 1
     return (y, s_out) if return_state else y
