@@ -26,6 +26,9 @@
     python3 chip_smoke.py --scan-ablation --out scan_ablation.json
                                      # only B9 / B10 beside variants of
                                      # their source that drop one piece
+    python3 chip_smoke.py --conv-ablation --out conv_ablation.json
+                                     # only B5 beside variants of its
+                                     # source that drop one piece
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -2400,10 +2403,10 @@ def qmm_timing(torch, gen, dev, ms) -> list:
     return rows
 
 
-def sass_loop_ops(section: str) -> dict:
+def sass_loop_ops(section: str, marker: str = "IMMA") -> dict:
     """Opcode counts of the innermost loop of one ``cuobjdump -sass``
-    function that holds an integer MMA (IMMA): the body between a backward
-    branch and its target, the shortest such body."""
+    function that holds ``marker`` (an integer MMA by default): the body
+    between a backward branch and its target, the shortest such body."""
     import re
     ins = []
     for line in section.splitlines():
@@ -2421,7 +2424,7 @@ def sass_loop_ops(section: str) -> dict:
         if target and int(target.group(1), 16) < addr:
             body = [t[0] for a, t in ins
                     if int(target.group(1), 16) <= a <= addr]
-            if any(op.startswith("IMMA") for op in body) and (
+            if any(op.startswith(marker) for op in body) and (
                     best is None or len(body) < len(best)):
                 best = body
     ops = {}
@@ -2759,6 +2762,188 @@ def profiler_probe(torch, out: Path) -> None:
         indent=1))
 
 
+def build_variants(lib: str, variants: dict, signatures: dict) -> dict:
+    """Build each variant of ``csrc/<lib>.cu`` (``{name: [(old, new),
+    ...]}``, text substitutions; a substitution whose text is gone fails
+    the run), one nvcc each, all at once, into the build directory, and
+    load them with ``signatures``; returns ``{name: library}``."""
+    import ctypes
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / f"{lib}.cu").read_text()
+    vdir = _build.BUILD_DIR / f"{lib}_ablation"
+    vdir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                fail(f"{lib} ablation {name}: the kernel no longer has "
+                     f"{old.splitlines()[0]!r}")
+            text = text.replace(old, new)
+        (vdir / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
+             str(_build.CSRC), "-o", str(vdir / f"lib{name}.so"),
+             str(vdir / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"{lib} ablation {name} did not build:\n{log[-3000:]}")
+        handle = ctypes.CDLL(str(vdir / f"lib{name}.so"))
+        handle.repro_cuda_error_string.restype = ctypes.c_char_p
+        handle.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(handle, fn).restype = restype
+            getattr(handle, fn).argtypes = argtypes
+        libs[name] = handle
+    return libs
+
+
+#: variants of ``apr_conv.cu`` for ``--conv-ablation``: timing-only ones
+#: (wrong results) that drop one piece of the APR kernel, then ones that
+#: change its default tiles
+CONV_VARIANTS = {
+    # no halo staged (the resident path): no global loads of x
+    "no_halo": [("  for (int rr = warp; rr < pl.ti * pl.hrows; "
+                 "rr += NT / 32) {",
+                 "  for (int rr = 0; rr < 0; rr += NT / 32) {")],
+    # the filters of the prologue serve every step: no ring a step
+    "no_filter_ring": [("      if (s + 2 < steps) {\n        stage_filter",
+                        "      if (false) {\n        stage_filter")],
+    # no wait and no barrier a step (the first step's only)
+    "no_step_sync": [("      if (pl.resident || s == 0)\n        "
+                      "cp_async_wait<1>();\n      else\n        "
+                      "cp_async_wait<0>();\n      __syncthreads();",
+                      "      if (s == 0) {\n        cp_async_wait<1>();\n"
+                      "        __syncthreads();\n      }")],
+    # the input loads of a step hoisted out of its channel loop
+    "no_x_loads": [("lds4(xs + pb[i] + c)", "lds4(xs + pb[i])")],
+    # the filter loads of a step hoisted out of its channel loop
+    "no_f_loads": [("lds4(fs + (c + r) * BN + j4 * Tl::TXN * 4)",
+                    "lds4(fs + r * BN + j4 * Tl::TXN * 4)")],
+    # no shared-memory loads in the channel loop at all
+    "no_loads": [("lds4(xs + pb[i] + c)", "lds4(xs + pb[i])"),
+                 ("lds4(fs + (c + r) * BN + j4 * Tl::TXN * 4)",
+                  "lds4(fs + r * BN + j4 * Tl::TXN * 4)")],
+    # no channel loop: staging, barriers and the flush only
+    "no_math": [("for (int c = 0; c < chans; c += 4) {",
+                 "for (int c = 0; c < 0; c += 4) {")],
+    # no stores of the flush (acc kept live by a test never true)
+    "no_store": [("    if (pq[i] < 0 || b >= g.B",
+                  "    if (g.B > 0 || pq[i] < 0 || b >= g.B")],
+    # a block that only computes its pixels' offsets (the launch and the
+    # blocks' start and end)
+    "empty": [("  // Groups of cp.async: the input with step 0",
+               "  if (g.B > 0) return;\n  // Groups of cp.async: the input "
+               "with step 0")],
+    # a block that only stages its input and filters
+    "staging_only": [("  float acc[TP][TN];\n#pragma unroll\n  for (int i "
+                      "= 0;", "  if (g.B > 0) {\n    cp_async_wait<0>();\n"
+                      "    return;\n  }\n  float acc[TP][TN];\n#pragma "
+                      "unroll\n  for (int i = 0;")],
+}
+# no staging, no ring, no barrier a step: the loads and the math only
+CONV_VARIANTS["loads_math"] = (CONV_VARIANTS["no_halo"]
+                               + CONV_VARIANTS["no_filter_ring"]
+                               + CONV_VARIANTS["no_step_sync"])
+# ... and no loads: the math alone
+CONV_VARIANTS["math"] = CONV_VARIANTS["loads_math"] + CONV_VARIANTS["no_loads"]
+# ... four times over: (math_x4 - math) / 3 is the channel loop's time
+CONV_VARIANTS["math_x4"] = CONV_VARIANTS["math"] + [
+    ("for (int c = 0; c < chans; c += 4) {",
+     "for (int c = 0; c < 4 * chans; c += 4) {")]
+# the default tiles with 256 threads (twice the pixels a block)
+CONV_VARIANTS["threads256"] = [
+    ("X(16, 8, 4, 128, 16)", "X(16, 8, 4, 256, 16)"),
+    ("X(32, 8, 4, 128, 32)", "X(32, 8, 4, 256, 32)"),
+    ("X(64, 8, 4, 128, 1073741824)", "X(64, 8, 4, 256, 1073741824)")]
+# the default tiles with 8 pixels x 4 channels a thread
+CONV_VARIANTS["tp8_tn4"] = [
+    ("X(16, 8, 4, 128, 16)", "X(16, 4, 8, 128, 16)"),
+    ("X(32, 8, 4, 128, 32)", "X(32, 4, 8, 128, 32)"),
+    ("X(64, 8, 4, 128, 1073741824)", "X(64, 4, 8, 128, 1073741824)")]
+
+
+def conv_ablation(torch, out: Path) -> None:
+    """``--conv-ablation``: build ``apr_conv.cu`` and each of
+    :data:`CONV_VARIANTS` and time each, in the order kernel, variants,
+    kernel, through ``apr_conv2d`` at every distinct ResNet-20 conv at
+    batch CNN_BATCH on the default tile, then the kernel on every tile it
+    compiles, with per-forward totals, the blocks an SM holds and the SM
+    clock under load; also the K-loop opcode counts of the fp32 APR
+    kernels (``cuobjdump -sass``, beside ``out``).  A variant's time
+    against the kernel's says what that piece costs."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apr_conv import apr_conv2d
+    from repro_torch.kernels.apr_conv import ops as conv_ops
+    from repro_torch.models.cnn import conv_geometries
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    kernel = _build.load(conv_ops.LIBRARY, conv_ops.SIGNATURES)
+    libs = build_variants(conv_ops.LIBRARY, CONV_VARIANTS,
+                          conv_ops.SIGNATURES)
+    order = ["kernel", *CONV_VARIANTS, "kernel again"]
+    rows = {}
+    for g in conv_geometries("resnet20", CNN_BATCH):
+        key = (g["x_shape"], g["f_shape"], g["stride"], g["padding"])
+        if key in rows:
+            rows[key]["count"] += 1
+            continue
+        xs, fs, s, p = key
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
+        row = rows[key] = dict(layer=g["param"], count=1, ms={},
+                               blocks_per_sm=conv_ops.blocks_per_sm(
+                                   x, f, stride=s, padding=p))
+        for name in order:
+            _build._LIBS[conv_ops.LIBRARY] = libs.get(name, kernel)
+            try:
+                row["ms"][name] = cuda_ms(torch, lambda i: apr_conv2d(
+                    x, f, stride=s, padding=p), 30)
+                if name == "kernel":         # the SM clock under load
+                    for _ in range(int(200 / row["ms"][name])):
+                        apr_conv2d(x, f, stride=s, padding=p)
+                    row["clock"] = subprocess.run(
+                        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                         "power.draw", "--format=csv,noheader"],
+                        capture_output=True, text=True,
+                        timeout=60).stdout.strip()
+                    torch.cuda.synchronize()
+            finally:
+                _build._LIBS[conv_ops.LIBRARY] = kernel
+        row["tile_ms"] = {
+            f"{cfg['block_m']}x{cfg['block_n']}": cuda_ms(
+                torch, lambda i: apr_conv2d(x, f, stride=s, padding=p,
+                                            config=cfg), 30)
+            for cfg in conv_ops.APR_CONFIGS}
+        print(f"    {row['layer']:7s} x={xs} f={fs} s={s} ("
+              f"{row['blocks_per_sm']} blocks an SM; SM clock, max, "
+              f"power under load: {row['clock']}): " + ", ".join(
+                  f"{k_} {v:.4f}" for k_, v in row["ms"].items())
+              + "; tiles: " + ", ".join(f"{k_} {v:.4f}" for k_, v in
+                                        row["tile_ms"].items()), flush=True)
+        del x, f
+    totals = {name: sum(r["count"] * r["ms"][name] for r in rows.values())
+              for name in order}
+    totals.update({f"tile {t}": sum(r["count"] * r["tile_ms"][t]
+                                    for r in rows.values())
+                   for t in next(iter(rows.values()))["tile_ms"]})
+    print("    per ResNet-20 forward, ms: " + ", ".join(
+        f"{k_} {v:.4f}" for k_, v in totals.items()))
+    sass = conv_apr_sass(_build._target(conv_ops.LIBRARY),
+                         out.parent / f"{out.stem}_sass.txt")
+    for name, ops in sass.items():
+        print(f"    SASS conv APR loop {name[19:75]}: {ops}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(card=smi, totals=totals, sass=sass,
+                                   timing=list(rows.values())), indent=1))
+
+
 def scan_ablation(torch, out: Path) -> None:
     """``--scan-ablation``: build ``rwkv6.cu``, ``mamba2.cu`` and each of
     :data:`SCAN_VARIANTS` (one nvcc each, all at once) and time each
@@ -2766,48 +2951,16 @@ def scan_ablation(torch, out: Path) -> None:
     the default configuration, inputs rotated past the L2), in the order
     kernel, variants, kernel; writes ``out``.  A variant's time against the
     kernel's says what that piece costs."""
-    import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.mamba2 import ops as m2
     from repro_torch.kernels.rwkv6 import ops as r6
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    vdir = _build.BUILD_DIR / "scan_ablation"
-    vdir.mkdir(parents=True, exist_ok=True)
-    texts = {}
-    for lib, variants in SCAN_VARIANTS.items():
-        src = (_build.CSRC / f"{lib}.cu").read_text()
-        for name, subs in variants.items():
-            text = src
-            for old, new in subs:
-                if old not in text:
-                    fail(f"scan ablation {lib} {name}: the kernel no longer "
-                         f"has {old.splitlines()[0]!r}")
-                text = text.replace(old, new)
-            texts[lib, name] = text
-    procs = {}
-    for (lib, name), text in texts.items():
-        (vdir / f"{lib}_{name}.cu").write_text(text)
-        procs[lib, name] = subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
-             str(_build.CSRC), "-o", str(vdir / f"lib{lib}_{name}.so"),
-             str(vdir / f"{lib}_{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
     kernels = {r6.LIBRARY: _build.load(r6.LIBRARY, r6.SIGNATURES),
                m2.LIBRARY: _build.load(m2.LIBRARY, m2.SIGNATURES)}
-    libs = {}
-    for (lib, name), proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            fail(f"scan ablation {lib} {name} did not build:\n{log[-3000:]}")
-        handle = ctypes.CDLL(str(vdir / f"lib{lib}_{name}.so"))
-        handle.repro_cuda_error_string.restype = ctypes.c_char_p
-        handle.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        ops = r6 if lib == "rwkv6" else m2
-        for fn, (restype, argtypes) in ops.SIGNATURES.items():
-            getattr(handle, fn).restype = restype
-            getattr(handle, fn).argtypes = argtypes
-        libs[lib, name] = handle
+    libs = {(lib, name): handle for lib, ops in (("rwkv6", r6), ("mamba2", m2))
+            for name, handle in build_variants(
+                lib, SCAN_VARIANTS[lib], ops.SIGNATURES).items()}
     times = {}
     for lib, *shape in (("rwkv6", 1, 1024, 40, 64),
                         ("mamba2", 1, 1024, 80, 64, 128)):
@@ -2847,42 +3000,16 @@ def qmm_ablation(torch, out: Path) -> None:
     llama3-8b projection shapes (M = 4 and 16, bf16 x and out, weights
     rotated past the L2) at the default configuration, with per-tick
     totals at M = 4; writes ``out``."""
-    import ctypes
     from repro_torch.kernels import _build
     from repro_torch.kernels.quant_matmul import ops as qm
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
-    src = (_build.CSRC / "quant_matmul.cu").read_text()
-    vdir = _build.BUILD_DIR / "qmm_ablation"
-    vdir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, (_, subs) in QMM_VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                fail(f"qmm ablation {name}: the kernel no longer has "
-                     f"{old.splitlines()[0]!r}")
-            text = text.replace(old, new)
-        (vdir / f"{name}.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
-             str(_build.CSRC), "-o", str(vdir / f"lib{name}.so"),
-             str(vdir / f"{name}.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
     libs = {"kernel": _build.load(qm.LIBRARY, qm.SIGNATURES)}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            fail(f"qmm ablation {name} did not build:\n{log[-3000:]}")
-        lib = ctypes.CDLL(str(vdir / f"lib{name}.so"))
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        for fn, (restype, argtypes) in qm.SIGNATURES.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        libs[name] = lib
+    libs.update(build_variants(qm.LIBRARY, {
+        name: subs for name, (_, subs) in QMM_VARIANTS.items()},
+        qm.SIGNATURES))
 
     def run_on(name, fn):
         _build._LIBS[qm.LIBRARY] = libs[name]
@@ -2977,21 +3104,13 @@ def conv_label(xs, fs, s, p, bf16=False) -> str:
             f"s={s} p={p}{' bf16' if bf16 else ''}")
 
 
-def conv_correctness(torch, gen, dev) -> tuple:
-    """Phase 2 for the conv kernels: every conv geometry of LeNet-5 and
-    ResNet-20 at batch 1 and CNN_BATCH, the JAX tests' geometries
-    (tests/test_kernels_conv.py) and ragged ones, on ``apr_conv`` and on
-    the memory-resident ``apr_conv_hbm`` (one launch a call) against the
-    plain version, then the fused epilogue with every activation, bias and
-    none.  Returns ``(cases, digests)``: the cases as ``(kernel, case,
-    max_abs_err, ok)`` and the sha256 of each case's output bytes, by
-    kernel and case, so that two trees' runs show whether their kernels
-    give the same bits."""
-    import hashlib
-    from repro_torch.kernels.apr_conv import (apr_conv2d, apr_conv2d_fused,
-                                              conv2d_fused_ref, conv2d_ref)
+def conv_geometries_checked(torch) -> list:
+    """Phase 2's conv geometries as ``(x shape, f shape, stride, padding,
+    dtype)``: every conv of LeNet-5 and ResNet-20 at batch 1 and
+    CNN_BATCH, ragged ones (a 300-wide row whose halo does not fit a
+    512-pixel tile, so its steps restage; C = 132 in three channel ranges a
+    tap), and the JAX tests' (tests/test_kernels_conv.py) in bf16."""
     from repro_torch.models.cnn import CNNS, conv_geometries
-    bf16 = torch.bfloat16
     geoms = {}
     for net in CNNS:
         for batch in (1, CNN_BATCH):
@@ -3007,12 +3126,37 @@ def conv_correctness(torch, gen, dev) -> tuple:
             (2, 7, 7, 24, 3, 3, 40, 1, 1),      # M = 40 in a 64-wide tile
             (1, 9, 9, 8, 3, 3, 70, 1, 0),       # two channel tiles, 64 + 6
             (1, 4, 4, 8, 3, 3, 16, 1, 0),       # 2 x 2 output pixels
-            (4, 17, 17, 5, 5, 5, 33, 3, 2)]:    # K = 125, stride 3
+            (4, 17, 17, 5, 5, 5, 33, 3, 2),     # K = 125, stride 3
+            (1, 3, 300, 128, 3, 3, 8, 1, 1),    # restaged steps
+            (2, 5, 5, 132, 3, 3, 20, 1, 1)]:    # 3 channel ranges a tap
         geoms[((b, h, w, c), (hf, wf, c, m), s, p, torch.float32)] = None
     for key in [((1, 8, 8, 4), (3, 3, 4, 8), 1, 1),          # the JAX test
                 ((2, 32, 32, 3), (3, 3, 3, 16), 1, 1),
                 ((2, 15, 13, 16), (3, 3, 16, 32), 2, 1)]:
-        geoms[key + (bf16,)] = None
+        geoms[key + (torch.bfloat16,)] = None
+    return list(geoms)
+
+
+#: phase 2's fused-epilogue cases: (x shape, f shape, stride, padding)
+CONV_FUSED_CASES = [((3, 32, 32, 1), (5, 5, 1, 6), 1, 0),
+                    ((8, 32, 32, 16), (3, 3, 16, 32), 2, 1),
+                    ((2, 8, 8, 64), (3, 3, 64, 64), 1, 1)]
+
+
+def conv_correctness(torch, gen, dev) -> tuple:
+    """Phase 2 for the conv kernels: every geometry of
+    :func:`conv_geometries_checked` on ``apr_conv`` and on the
+    memory-resident ``apr_conv_hbm`` (one launch a call) against the plain
+    version, then the fused epilogue with every activation, bias and none.
+    Returns ``(cases, digests)``: the cases as ``(kernel, case,
+    max_abs_err, ok)`` and the sha256 of each case's output bytes, by
+    kernel and case, so that two trees' runs show whether their kernels
+    give the same bits."""
+    import hashlib
+    from repro_torch.kernels.apr_conv import (apr_conv2d, apr_conv2d_fused,
+                                              conv2d_fused_ref, conv2d_ref)
+    bf16 = torch.bfloat16
+    geoms = conv_geometries_checked(torch)
     cases, digests = [], {}
 
     def record(name, label, got, ref, ok=True):
@@ -3033,9 +3177,7 @@ def conv_correctness(torch, gen, dev) -> tuple:
         record("apr_conv_hbm", label, hbm, ref,
                apr_conv2d.hbm_launches - before == 1)
         del x, f, ref, got, hbm
-    for xs, fs, s, p in [((3, 32, 32, 1), (5, 5, 1, 6), 1, 0),
-                         ((8, 32, 32, 16), (3, 3, 16, 32), 2, 1),
-                         ((2, 8, 8, 64), (3, 3, 64, 64), 1, 1)]:
+    for xs, fs, s, p in CONV_FUSED_CASES:
         x, f = conv_inputs(torch, gen, dev, xs, fs)
         bias = torch.randn(fs[3], generator=gen, device=dev)
         for act in ("none", "relu", "silu", "gelu"):
@@ -3050,12 +3192,121 @@ def conv_correctness(torch, gen, dev) -> tuple:
     return cases, digests
 
 
+def conv_bit_checks(torch, gen, dev) -> list:
+    """Phase 2, bit for bit: on every geometry of
+    :func:`conv_geometries_checked`, every tile the APR conv kernel
+    compiles, pinned, gives the bytes of the default tile, one launch a
+    call; so does the fused epilogue (bias + ReLU, bias + GELU) on
+    :data:`CONV_FUSED_CASES`; and at batch CNN_BATCH the first and the
+    last image alone give the bytes of their rows inside the batch.
+    Returns ``(kernel, case, 0.0, ok)`` rows."""
+    from repro_torch.kernels.apr_conv import apr_conv2d, apr_conv2d_fused
+    from repro_torch.kernels.apr_conv import ops as conv_ops
+    tiles = conv_ops.APR_CONFIGS
+    rows = []
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def held(counter, base, fn):
+        """(tiles giving base's bytes, launches) over every pinned tile."""
+        same = launches = 0
+        for cfg in tiles:
+            before = counter()
+            got = fn(cfg)
+            launches += counter() - before
+            same += int(torch.equal(bits(got), bits(base)))
+        return same, launches
+
+    for xs, fs, s, p, dtype in conv_geometries_checked(torch):
+        x, f = conv_inputs(torch, gen, dev, xs, fs, dtype)
+        base = apr_conv2d(x, f, stride=s, padding=p)
+        same, launches = held(lambda: apr_conv2d.launches, base,
+                              lambda cfg: apr_conv2d(x, f, stride=s,
+                                                     padding=p, config=cfg))
+        note = ""
+        ok = same == len(tiles) and launches == len(tiles)
+        if xs[0] == CNN_BATCH:
+            alone = [torch.equal(bits(apr_conv2d(
+                x[i:i + 1].contiguous(), f, stride=s, padding=p)[0]),
+                bits(base[i])) for i in (0, xs[0] - 1)]
+            ok = ok and all(alone)
+            note = f", images 0 and {xs[0] - 1} alone = in the batch " \
+                f"{alone}"
+        torch.cuda.synchronize()
+        label = conv_label(xs, fs, s, p, dtype != torch.float32)
+        rows.append(("apr_conv", f"{label} tiles bit-equal {same}/"
+                     f"{len(tiles)}, {launches} launches{note}", 0.0, ok))
+        del x, f, base
+    for xs, fs, s, p in CONV_FUSED_CASES:
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
+        bias = torch.randn(fs[3], generator=gen, device=dev)
+        for act in ("relu", "gelu"):
+            base = apr_conv2d_fused(x, f, bias, activation=act, stride=s,
+                                    padding=p)
+            same, launches = held(
+                lambda: apr_conv2d_fused.launches, base,
+                lambda cfg: apr_conv2d_fused(x, f, bias, activation=act,
+                                             stride=s, padding=p, config=cfg))
+            torch.cuda.synchronize()
+            rows.append(("apr_conv", f"{conv_label(xs, fs, s, p)} {act}, "
+                         f"bias: tiles bit-equal {same}/{len(tiles)}, "
+                         f"{launches} launches", 0.0,
+                         same == len(tiles) and launches == len(tiles)))
+    return rows
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, by mangled name."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for|$)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 #: the baseline kernels whose SASS ``--baseline`` keeps (mangled-name
 #: fragments): B4m at the default tile and on the fp32 body (M <= 4), both
-#: on aligned operands, and B4c on fp32 inputs at 16 channels
+#: on aligned operands, and B4c on fp32 inputs at 16 channels (its name in
+#: this tree and in older ones)
 BASELINE_SASS = ("apr_matmul_kernelILi16ELi64ELi64ELb1ELb1E",
                  "f32_kernelIfLi64ELi64ELi4ELb1ELb1E",
-                 "conv_kernelIfLi16ELb1E", "apr_conv_hbm_kernelIfLi16E")
+                 "conv_kernelIfLi16ELb1E", "conv_hbm_kernelIfLi16E")
+#: the APR conv kernel on fp32 inputs, whose K-loop opcodes ``--baseline``
+#: counts (the tile's template arguments follow it)
+CONV_APR_SASS = "conv_apr_kernelIf"
+
+
+def conv_apr_sass(lib: Path, path: Path) -> dict:
+    """``cuobjdump -sass`` of ``lib``'s fp32 APR conv kernels into
+    ``path``; returns each one's inner-loop opcode counts (the loop that
+    holds its FFMAs, :func:`sass_loop_ops`)."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    res = subprocess.run([str(tool if tool.exists() else "cuobjdump"),
+                          "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    kept, counts = [], {}
+    for sec in res.stdout.split("Function : ")[1:]:
+        name = sec.split(None, 1)[0]
+        if CONV_APR_SASS in name:
+            kept.append("Function : " + sec)
+            counts[name] = sass_loop_ops(sec, "FFMA")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("".join(kept) + res.stderr)
+    return counts
 
 
 def baseline_sass(lib: Path, path: Path) -> dict:
@@ -3104,7 +3355,7 @@ def baseline_sweep(torch, out: Path) -> None:
     kernels.  Writes ``out``."""
     from repro_torch.core.apr import reduction_hbm_traffic
     from repro_torch.kernels import _build
-    from repro_torch.kernels.apr_conv import apr_conv2d
+    from repro_torch.kernels.apr_conv import apr_conv2d, apr_conv2d_fused
     from repro_torch.kernels.apr_conv import ops as conv_ops
     from repro_torch.kernels.apr_matmul import ops as mm
     from repro_torch.models.cnn import conv_geometries
@@ -3164,25 +3415,38 @@ def baseline_sweep(torch, out: Path) -> None:
             fill=2e5 * calls)
         t_k = cuda_ms(torch, lambda i: apr_conv2d(x, f, stride=s, padding=p),
                       50)
+        bias = torch.randn(fs[3], generator=gen, device=dev)
+        t_f = cuda_ms(torch, lambda i: apr_conv2d_fused(
+            x, f, bias, activation="relu", stride=s, padding=p), 50)
+        # every APR tile, where this tree's conv kernel has several
+        t_tiles = {}
+        for cfg in getattr(conv_ops, "APR_CONFIGS", ()):
+            t_tiles[f"{cfg['block_m']}x{cfg['block_n']}"] = cuda_ms(
+                torch, lambda i: apr_conv2d(x, f, stride=s, padding=p,
+                                            config=cfg), 50)
         k = fs[0] * fs[1] * fs[2]
         steps = -(-k // conv_ops.K_STEP)
         out_elems = CNN_BATCH * fs[3] * ((xs[1] + 2 * p - fs[0]) // s + 1) \
             * ((xs[2] + 2 * p - fs[1]) // s + 1)
         rows.append(dict(
             kernel="apr_conv_hbm", key=key, layer=g["param"], per_forward=1,
-            launches_per_call=calls, ms=t_h, apr_ms=t_k, hbm_steps=steps,
+            launches_per_call=calls, ms=t_h, apr_ms=t_k, fused_ms=t_f,
+            tile_ms=t_tiles, hbm_steps=steps,
             partial_bytes=(reduction_hbm_traffic(out_elems, steps, 4, "hbm")
                            - reduction_hbm_traffic(out_elems, steps, 4,
                                                    "apr"))))
-        del x, f
+        del x, f, bias
     totals = {}
     for r in rows:
         weight = r.get("per_tick", r.get("per_forward"))
         t = totals.setdefault(r["kernel"], {})
-        for key in ("ms", "apr_ms", "apr_one_split_ms", "partial_bytes",
-                    "launches_per_call"):
+        for key in ("ms", "apr_ms", "apr_one_split_ms", "fused_ms",
+                    "partial_bytes", "launches_per_call"):
             if key in r:
                 t[key] = t.get(key, 0) + weight * r[key]
+        for tile, ms in r.get("tile_ms", {}).items():
+            t.setdefault("tile_ms", {})[tile] = \
+                t.get("tile_ms", {}).get(tile, 0) + weight * ms
         r.pop("key", None)
     for r in rows:
         shape = (f"M={r['M']} K={r['K']} N={r['N']}" if "M" in r
@@ -3191,7 +3455,11 @@ def baseline_sweep(torch, out: Path) -> None:
               f"({r['launches_per_call']} launches a call, "
               f"{r['hbm_steps']} K steps, +{r['partial_bytes'] / 1e6:.3f} "
               f"MB of partials); APR {r['apr_ms']:.4f} ms: "
-              f"x{r['ms'] / r['apr_ms']:.2f}")
+              f"x{r['ms'] / r['apr_ms']:.2f}"
+              + (f"; fused bias+relu {r['fused_ms']:.4f} ms"
+                 if "fused_ms" in r else "")
+              + "".join(f"; tile {k_} {v:.4f}"
+                        for k_, v in r.get("tile_ms", {}).items()))
     for name, t in totals.items():
         unit = "tick (224 projections)" if name == "apr_matmul_hbm" \
             else "ResNet-20 forward (21 convs)"
@@ -3199,6 +3467,10 @@ def baseline_sweep(torch, out: Path) -> None:
               f"{t['apr_ms']:.3f} ms (x{t['ms'] / t['apr_ms']:.2f})"
               + (f", B1 at one split {t['apr_one_split_ms']:.3f} ms"
                  if "apr_one_split_ms" in t else "")
+              + (f", APR fused bias+relu {t['fused_ms']:.3f} ms"
+                 if "fused_ms" in t else "")
+              + "".join(f", tile {k_} {v:.3f} ms"
+                        for k_, v in t.get("tile_ms", {}).items())
               + f", {t['launches_per_call']:.0f} launches, "
               f"{t['partial_bytes'] / 1e9:.3f} GB of partials")
     conv_cases, digests = conv_correctness(torch, gen, dev)
@@ -3210,6 +3482,14 @@ def baseline_sweep(torch, out: Path) -> None:
     for lib, funcs in sass.items():
         for name, ops in funcs.items():
             print(f"    SASS {lib} {name[:70]}: {ops}")
+    apr_sass = conv_apr_sass(_build._target(conv_ops.LIBRARY),
+                             out.parent / f"{out.stem}_sass_conv_apr.txt")
+    for name, ops in apr_sass.items():
+        print(f"    SASS conv APR loop {name[:60]}: {ops}")
+    regs = {k_: v for k_, v in ptxas_kernels(_build.BUILD_LOGS.get(
+        conv_ops.LIBRARY, "")).items() if "conv" in k_}
+    for name, r in regs.items():
+        print(f"    ptxas {name[:70]}: {r}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -3217,7 +3497,8 @@ def baseline_sweep(torch, out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(
         card=smi, timing=rows, totals=totals, conv_digests=digests,
-        conv_cases=conv_cases, sass=sass), indent=1))
+        conv_cases=conv_cases, sass=sass, conv_apr_sass=apr_sass,
+        ptxas=regs), indent=1))
 
 
 def identity_ablation(torch, seed: int) -> dict:
@@ -3375,6 +3656,13 @@ def main() -> int:
                          "guarded body at N = 128) and "
                          "time each at a 1024-token prefill (scan_ablation); "
                          "writes --out")
+    ap.add_argument("--conv-ablation", action="store_true",
+                    help="only build apr_conv.cu and variants of it "
+                         "(CONV_VARIANTS: the halo staging, the filter "
+                         "ring, the barrier a step, the loads or the math "
+                         "dropped) and time each at every ResNet-20 conv "
+                         "at batch 256, with the K loop's opcode counts "
+                         "(conv_ablation); writes --out")
     ap.add_argument("--profiler-probe", action="store_true",
                     help="only build quant_matmul.cu, apr_matmul.cu, "
                          "rwkv6.cu and mamba2.cu and count, over many short "
@@ -3438,6 +3726,9 @@ def main() -> int:
         return 0
     if args.profiler_probe:
         profiler_probe(torch, Path(args.out))
+        return 0
+    if args.conv_ablation:
+        conv_ablation(torch, Path(args.out))
         return 0
     if args.baseline:
         baseline_sweep(torch, Path(args.out))
@@ -3609,6 +3900,7 @@ def main() -> int:
     # the conv kernels: every geometry of both nets, the JAX tests' and
     # ragged ones on both residencies, and the fused epilogue
     for name, case, err, ok in (conv_correctness(torch, gen, dev)[0]
+                                + conv_bit_checks(torch, gen, dev)
                                 + scan_correctness(torch, gen, dev)
                                 + scan_bit_checks(torch, gen, dev)
                                 + matmul_family_correctness(torch, gen, dev)
@@ -3744,6 +4036,7 @@ def main() -> int:
             x_cl, w_cl, bias, stride=s, padding=p)), 50)
         out_elems = CNN_BATCH * ((xs[1] + 2 * p - fs[0]) // s + 1) * \
             ((xs[2] + 2 * p - fs[1]) // s + 1) * fs[3]
+        resident = conv_ops.blocks_per_sm(x, f, stride=s, padding=p)
         partial_bytes = (reduction_hbm_traffic(out_elems, steps, 4, "hbm")
                          - reduction_hbm_traffic(out_elems, steps, 4, "apr"))
         fused = bound_ms(4 * (x.numel() + f.numel() + fs[3] + out_elems),
@@ -3751,6 +4044,8 @@ def main() -> int:
         conv_rows[key] = dict(
             layer=g["param"], count=1, x_shape=xs, f_shape=fs, stride=s,
             padding=p, K=k, hbm_steps=steps, ms=t_k, hbm_ms=t_h,
+            tile=str(conv_ops.default_config(*xs, *fs[:2], fs[3], s, p)),
+            blocks_per_sm=resident,
             plain_ms=t_p, library_ms=t_l, partial_bytes=partial_bytes,
             fused_ms=t_f, fused_plain_ms=t_fp, fused_library_ms=t_fl,
             fused_bound_ms=fused["bound_ms"],
@@ -3768,10 +4063,17 @@ def main() -> int:
               f"+{r['partial_bytes'] / 1e6:.1f} MB partials) plain "
               f"{r['plain_ms']:.4f} F.conv2d {r['library_ms']:.4f} bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['bound_ms'] / r['ms']:.0%} of bound; fused bias+relu "
+              f"{r['bound_ms'] / r['ms']:.0%} of bound, tile {r['tile']} "
+              f"{r['blocks_per_sm']} blocks an SM; fused bias+relu "
               f"{r['fused_ms']:.4f} plain {r['fused_plain_ms']:.4f} "
               f"F.conv2d+bias,relu {r['fused_library_ms']:.4f} bound "
               f"{r['fused_bound_ms']:.4f}")
+
+    conv_regs = {k_: v for k_, v in ptxas_kernels(_build.BUILD_LOGS.get(
+        conv_ops.LIBRARY, "")).items() if "conv" in k_}
+    report["conv_ptxas"] = conv_regs
+    for name, r in conv_regs.items():
+        print(f"    ptxas {name[19:80]}: {r}")
 
     def per_forward(key):
         """Sum over the 21 convs of one ResNet-20 forward at CNN_BATCH."""

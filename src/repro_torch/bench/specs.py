@@ -23,9 +23,9 @@ run one split).  Those two spaces depend on the operands' dtype: at
 and for the baseline at one split) at the same split counts.
 ``flash_decode`` and ``flash_decode_paged`` list the split counts their
 kernels take (1, 2, 4, 8) at their one chunk.
-``apr_conv``, ``apr_conv_fused``, ``mamba2`` and ``rwkv6`` have kernels
-compiled for one configuration, so their spaces have one point (widening
-them is later performance work).
+``apr_conv`` and ``apr_conv_fused`` list the APR conv kernel's tiles (every
+one gives the same bits), ``mamba2`` and ``rwkv6`` every configuration
+their kernels compile.
 
 A shape of ``apr_matmul`` with ``"hbm": 1`` selects the memory-resident
 baseline (``residency="hbm"``, shape key ``_reshbm``), one with
@@ -365,12 +365,35 @@ def _conv_inputs(shape, dtype, seed, device):
     return (x, f, shape["stride"], shape["padding"])
 
 
+def _conv_tile(cfg):
+    """The APR kernel's tile that ``cfg`` names, or None (the baseline's
+    tile, or any other configuration)."""
+    d = cfg.to_dict()
+    return next((t for t, c in zip(conv_ops.TILES, conv_ops.APR_CONFIGS)
+                 if c.to_dict() == d), None)
+
+
 def _conv_traffic(shape, cfg, dtype="float32"):
+    """On an APR tile, what the kernel stages (``conv_ops.plan``): each
+    tile's input halo with every channel (or, restaging, its pixels once
+    a tap) for each channel slice, each tile's filter slice, and the output
+    written once.  On
+    any other configuration (the baseline's tile included) the JAX
+    package's im2col model: the patch matrix once per column tile, the
+    filter once per row tile."""
     ho, wo = _conv_dims(shape)
     isz = _itemsize(dtype)
     mm = shape["b"] * ho * wo                       # im2col rows
     kk = shape["hf"] * shape["wf"] * shape["c"]     # im2col reduction depth
     nn = shape["m"]
+    out = reduction_hbm_traffic(mm * nn, 1, _F32, "apr")
+    tile = _conv_tile(cfg)
+    if tile is not None:
+        p = conv_ops.plan(*_conv_geometry(shape), tile, isz)
+        staged = (p["ti"] * p["hrows"] * p["hcols"] if p["resident"] else
+                  shape["hf"] * shape["wf"] * p["ti"] * p["th"] * p["tw"])
+        return (p["tiles"] * p["slices"] * staged * shape["c"] * isz
+                + p["tiles"] * kk * nn * isz + out)
     patches = mm * kk * isz * _cdiv(nn, cfg["block_n"])
     filters = kk * nn * isz * _cdiv(mm, cfg["block_m"])
     acc = reduction_hbm_traffic(mm * nn, _cdiv(kk, cfg["block_k"]), _F32,
@@ -379,8 +402,14 @@ def _conv_traffic(shape, cfg, dtype="float32"):
 
 
 def _conv_vmem(shape, cfg, dtype="float32"):
-    """The fp32 patch and filter tiles of one K step plus the pixel tables
-    (``conv_tile`` in apr_conv.cu)."""
+    """On an APR tile, its shared memory: the ring of filter slots and the
+    halo or the restaged pixels (``plan``'s ``smem``).  On any other
+    configuration the baseline's fp32 patch and filter tiles of one K step
+    plus its pixel tables."""
+    tile = _conv_tile(cfg)
+    if tile is not None:
+        return conv_ops.plan(*_conv_geometry(shape), tile,
+                             _itemsize(dtype))["smem"]
     bp, bn, bk = cfg["block_m"], cfg["block_n"], cfg["block_k"]
     return 4 * (bk * (bp + 1) + bk * bn) + 3 * 4 * bp
 
@@ -391,7 +420,7 @@ def _conv_flops(s):
 
 
 def _conv_space(shape):
-    return _among({conv_ops.compiled_config(shape["m"])})
+    return _among(conv_ops.compiled_configs(shape["m"]))
 
 
 register(KernelSpec(

@@ -442,6 +442,28 @@ def _jax_candidates(name, shape):
     return jax_all_specs()[name].candidates(shape)
 
 
+def _conv_halo_traffic(shape, cfg):
+    """fp32 bytes the APR conv kernel moves on tile ``cfg`` where each
+    block's halo with every channel fits its shared memory: a block takes
+    whole output rows of one image (``block_m`` pixels at most; whole
+    images where a row is shorter), reads its rows' input halo
+    ((rows - 1)·s + Hf) x ((Wo - 1)·s + Wf) with C channels and the
+    filter's Hf·Wf·C x M, and writes its outputs once; also the output
+    pixels."""
+    b, h, w, c = shape["b"], shape["h"], shape["w"], shape["c"]
+    hf, wf, m, s, p = (shape["hf"], shape["wf"], shape["m"],
+                       shape["stride"], shape["padding"])
+    ho, wo = (h + 2 * p - hf) // s + 1, (w + 2 * p - wf) // s + 1
+    assert wo <= cfg["block_m"]
+    rows = min(ho, cfg["block_m"] // wo)
+    images = min(b, cfg["block_m"] // (rows * wo))
+    tiles = -(-b // images) * -(-ho // rows)
+    halo = images * ((rows - 1) * s + hf) * ((wo - 1) * s + wf) * c
+    blocks = tiles * -(-m // cfg["block_n"])
+    return (4 * (blocks * halo + tiles * hf * wf * c * m + b * ho * wo * m),
+            b * ho * wo)
+
+
 @pytest.mark.parametrize("name,shape", QUICK_CASES,
                          ids=[f"{n}{'-int8' if s.get('kv_int8') else ''}"
                               for n, s in QUICK_CASES])
@@ -450,7 +472,9 @@ def test_models_equal_jax_at_float32(name, shape):
     its, at the JAX tune space's configurations and at the port's -- but
     for the quant families' activations: the port's kernel quantizes them
     inside its launch, so each column tile reads x at its float width
-    where the JAX model reads the int8 codes and their fp32 scales."""
+    where the JAX model reads the int8 codes and their fp32 scales; and
+    but for the APR conv kernel's tiles, which stage an input halo a block
+    where the JAX model gathers an im2col tile (fewer bytes)."""
     ours, theirs = get_spec(name), jax_all_specs()[name]
     assert ours.flops(shape) == theirs.flops(shape)
     configs = _jax_candidates(name, shape) + ours.candidates(shape)
@@ -461,6 +485,14 @@ def test_models_equal_jax_at_float32(name, shape):
             m, k = shape["m"], shape["k"]
             x_passes = -(-shape["n"] // cfg["block_n"])
             want += (m * k * 4 - (m * k + m * 4)) * x_passes
+        if name.startswith("apr_conv") and cfg in conv_ops.APR_CONFIGS:
+            # the APR conv kernel's tiles stage a halo a block, not the
+            # JAX model's im2col tile: fewer bytes than that model
+            halo, rows = _conv_halo_traffic(shape, cfg)
+            assert halo < want, (name, cfg)
+            want = halo
+            if name == "apr_conv_fused":     # the bias once a row tile
+                want += shape["m"] * 4 * -(-rows // cfg["block_m"])
         assert ours.hbm_bytes(shape, cfg, "float32") == want, (name, cfg)
         # bf16 operands move fewer bytes, never more
         assert ours.hbm_bytes(shape, cfg, "bfloat16") <= \
@@ -477,6 +509,11 @@ def test_one_point_families_compile_one_configuration():
             # both decode kernels take a split count at their one chunk
             assert sorted(c["splits"] for c in cands) == \
                 list(decode_ops.SPLITS), name
+            assert spec.default_config(shape) in cands
+        elif name in ("apr_conv", "apr_conv_fused"):
+            # the conv kernel takes every tile it compiles, any M
+            assert set(cands) == conv_ops.compiled_configs(shape["m"])
+            assert len(cands) == len(conv_ops.TILES)
             assert spec.default_config(shape) in cands
         elif name in ("mamba2", "rwkv6"):
             # the scans take every staging depth x tile x lanes they compile

@@ -333,10 +333,11 @@ def test_quant_kwargs_resolve_as_jax(kernel, tmp_path):
 
 @pytest.mark.parametrize("fused", [False, True])
 def test_conv_kwargs_resolve_as_jax(fused, tmp_path):
-    """The conv kernels' one compiled tile: pinned ``block_*`` equal to it
-    resolve to what the JAX package resolves with the same pins, alone and
-    over a shared cache entry of that tile; any other pinned value raises
-    TileError before a launch."""
+    """The conv kernels' default tile for M = 32 under the APR key (one of
+    the tiles the kernel compiles): pinned ``block_*`` equal to it resolve
+    to what the JAX package resolves with the same pins, alone and over a
+    shared cache entry of that tile; a pinned value that no compiled tile
+    has raises TileError before a launch."""
     x = torch.zeros((2, 8, 8, 16))
     f = torch.zeros((3, 3, 16, 32))
     dims = (2, 8, 8, 16, 3, 3, 32, 1, 1)
@@ -346,7 +347,8 @@ def test_conv_kwargs_resolve_as_jax(fused, tmp_path):
     key = (shape_key_from_dims(b=b, h=h, w=w, c=c, hf=hf, wf=wf, m=m,
                                s=stride, p=padding) if fused
            else jax_conv_ops.shape_key(*dims, "apr"))
-    compiled = conv_ops.compiled_config(32)
+    compiled = conv_ops.default_config(*dims, "apr")
+    assert compiled in conv_ops.compiled_configs(32, "apr")
     pins = {name: compiled[name] for name in ("block_m", "block_n",
                                               "block_k")}
     want = jax_resolve_config(kernel, key, "float32", "cuda",
