@@ -44,8 +44,9 @@ Phases (any failure exits non-zero before the final line):
      ``apr_matmul`` and ``apr_matmul_fused`` on fp32 operands, the conv
      kernels, and the recurrence
      kernels ``rwkv6_wkv`` (B9) and ``mamba2_ssd`` (B10) with their state in
-     and out, at the decode tick, at 1024- and 1000-token prefills and at the
-     smoke shapes, and bit for bit against themselves: across every
+     and out, at the decode tick, at 1024- and 1000-token prefills, at the
+     smoke shapes and (B10) at zamba2's N = 64 decode tick and 1024-token
+     forward, and bit for bit against themselves: across every
      compiled configuration (staging depth x tile x lanes), a batch row
      alone against it inside B = 4, one T = 37 call against 37 calls at
      T = 1 with the state carried, and one device kernel a call; and
@@ -67,7 +68,8 @@ Phases (any failure exits non-zero before the final line):
      fp32 body on the dequantized weight; the decode kernels under an fp32
      q over bf16 and int8 pools and a bf16 cache at every split count;
   3. time each kernel, its plain version and a PyTorch library call at the
-     serving path's shapes with CUDA events, beside the card's bound (B4m,
+     serving path's shapes with CUDA events, beside the card's bound (B1
+     also at phase 4d's prefill M = 1024, against ``torch.matmul``; B4m,
      B6, B7m and B8 at the llama3-8b projection shapes, B4m beside B1, B6
      at each split count beside the plain quantization's time;
      ``flash_decode`` also at S = 4096 near full; ``flash_decode_paged``
@@ -84,6 +86,10 @@ Phases (any failure exits non-zero before the final line):
   4c. serve full-width llama3-8b bf16 on the slot ServeEngine (4 requests,
      max_seq 256; ``flash_decode`` under every layer), and the same requests
      on the PagedServeEngine for token agreement;
+  4d. the dense whole-sequence entry points at full width: llama3-8b
+     ``bundle.forward`` and ``bundle.prefill(max_seq=T + 16)`` at B = 2,
+     T = 512 (B1 at M = 1024), their launches, times and peak memory, and 8
+     greedy decode ticks (B1, B3) from the prefilled cache;
   4b. quantize the weights on the card, free the bf16 ones, and serve the 6
      requests of phase 4 with int8 weights and int8 KV pages (int8-weight
      ``apr_matmul``, int8 ``flash_decode_paged``); it runs after 4c so that
@@ -91,9 +97,12 @@ Phases (any failure exits non-zero before the final line):
   5. run the smoke llama3-8b config on the card (kernels) and on the CPU
      (plain versions) with the same weights, and compare the logits and
      greedy tokens: ``decode_paged`` in bf16, ``decode_paged`` with int8
-     weights and int8 KV, ``decode_step`` on the slot cache; the same for
-     the rwkv6 and mamba2 smoke configs (``decode_paged`` through the state
-     pools, and ``prefill``); ``decode_paged`` over fp32 KV pools, and a
+     weights and int8 KV, ``decode_step`` on the slot cache, ``forward``
+     and ``prefill`` with bf16 and fp32 parameters; the same for the rwkv6,
+     mamba2 and zamba2 smoke configs (``decode_paged`` through the state
+     pools -- and the hybrid's KV pages -- and ``prefill``; the hybrid also
+     ``decode_step`` on its slot cache and ``forward``); ``decode_paged``
+     over fp32 KV pools, and a
      ``PagedServeEngine(kv_dtype="float32")`` serving the bf16 smoke model
      on the fp32-pool kernel; then the smoke model with fp32 parameters
      served by the engines on the card (the fp32 body; the decode kernels
@@ -107,13 +116,16 @@ Phases (any failure exits non-zero before the final line):
      (``apr_conv_hbm``, one launch a conv) and on the plain path, time all
      of them and ResNet-20 at batch 1, and compare card (kernels) and CPU
      (plain) logits;
-  7. serve full-width rwkv6-3b and then mamba2-2.7b (random bf16 weights
-     from a seed, one model at a time) on the PagedServeEngine with its
-     StateCache and on the slot ServeEngine, the same 6 requests on 4
-     slots: greedy tokens equal, every launch count checked; then a
-     1024-token ``bundle.prefill`` on each (B9/B10 over all T), every
-     layer's scan held to its plain version on the same inputs, its ms
-     and the scans' share of it (CUDA events);
+  7. serve full-width rwkv6-3b, mamba2-2.7b and the zamba2-1.2b hybrid
+     (random bf16 weights from a seed, one model at a time) on the
+     PagedServeEngine with its StateCache (the hybrid's shared attention on
+     KV pages behind the same table, B2) and on the slot ServeEngine (B3),
+     the same 6 requests on 4 slots: greedy tokens equal (printed for the
+     hybrid, whose engines attend on B2 and B3), every launch count
+     checked, a profiled decode tick; then a 1024-token ``bundle.prefill``
+     on each (``bundle.forward`` on the hybrid; B9/B10 over all T), every
+     layer's scan held to its plain version on the same inputs, its ms and
+     the scans' share of it (CUDA events);
   8. the tuning path at llama3-8b full width: every registered kernel
      family (the int8-weight tiles and both decode kernels' split counts
      included) swept exhaustively (the yardstick), then
@@ -349,21 +361,31 @@ def rel_logits_err(got, ref) -> float:
 
 
 # ------------------------------------------- recurrent families (B9, B10)
-#: the recurrent serving path: full-width rwkv6-3b and mamba2-2.7b, 4 slots,
-#: prefill chunks of 16, 6 requests on 4 slots (two admitted mid-flight)
-RECURRENT_ARCHS = ("rwkv6-3b", "mamba2-2.7b")
+#: the recurrent serving path: full-width rwkv6-3b, mamba2-2.7b and the
+#: zamba2-1.2b hybrid, 4 slots, prefill chunks of 16, 6 requests on 4 slots
+#: (two admitted mid-flight)
+RECURRENT_ARCHS = ("rwkv6-3b", "mamba2-2.7b", "zamba2-1.2b")
 RECURRENT_PROMPTS = (24, 57, 96, 40, 33, 70)
 RECURRENT_NEW = 16
 #: apr_matmul launches per token-forward, counted from the code: rwkv6 has
 #: wr, wk, wv, wg, wo, wA, wB, ck, cv, cr in each of 32 layers plus the
-#: lm_head; mamba2 w_in and w_out in each of 64 layers plus the lm_head.
-#: Phase 7 confirms both on the card.
-APR_PER_FORWARD = {"rwkv6-3b": 10 * 32 + 1, "mamba2-2.7b": 2 * 64 + 1}
-#: the state pools of 4 slots (StateCache.pool_slots = 2 + 4 * 2 = 10),
-#: computed from the configs: rwkv6 32 x 10 x (2 bf16 rows of 2560 + 40
-#: fp32 64x64 matrices), mamba2 64 x 10 x (3 x 5376 fp32 conv rows + 80
-#: fp32 64x128 states)
-STATE_POOL_BYTES = {"rwkv6-3b": 212_992_000, "mamba2-2.7b": 1_719_009_280}
+#: lm_head; mamba2 w_in and w_out in each of 64 layers plus the lm_head;
+#: zamba2 w_in and w_out in each of its 38 mamba layers, wq, wk, wv and wo
+#: in each of its 6 shared-attention applications, and the lm_head.
+#: Phase 7 confirms them on the card.
+APR_PER_FORWARD = {"rwkv6-3b": 10 * 32 + 1, "mamba2-2.7b": 2 * 64 + 1,
+                   "zamba2-1.2b": 2 * 38 + 4 * 6 + 1}
+#: decode-attention launches per token-forward (the hybrid's shared
+#: attention: B2 on the paged engine, B3 on the slot engine)
+ATTN_PER_FORWARD = {"rwkv6-3b": 0, "mamba2-2.7b": 0, "zamba2-1.2b": 6}
+#: the cache pools of 4 slots (StateCache.pool_slots = 2 + 4 * 2 = 10; the
+#: page pool 4 x 16 pages + the null page), computed from the configs:
+#: rwkv6 32 x 10 x (2 bf16 rows of 2560 + 40 fp32 64x64 matrices), mamba2
+#: 64 x 10 x (3 x 5376 fp32 conv rows + 80 fp32 64x128 states), zamba2 38 x
+#: 10 x (3 x 4224 fp32 conv rows + 64 fp32 64x64 states) + K and V pages,
+#: 2 x 6 x 65 x 16 x 32 x 64 bf16
+STATE_POOL_BYTES = {"rwkv6-3b": 212_992_000, "mamba2-2.7b": 1_719_009_280,
+                    "zamba2-1.2b": 468_838_400}
 #: the scans' fp32 state, kernel against plain version: the same fp32
 #: recurrence, the kernel with FMAs and y's sum in another order;
 #: |kernel - plain| <= STATE_RTOL * (|plain| + max |plain|)
@@ -486,6 +508,8 @@ def scan_correctness(torch, gen, dev) -> list:
             (1, 1000, 80, 64, 128, bf, False, False),
             (4, 1000, 80, 64, 128, bf, True, True),
             (2, 13, 8, 16, 16, bf, True, True),      # smoke heads
+            (4, 1, 64, 64, 64, f32, True, True),     # zamba2: decode tick
+            (1, 1024, 64, 64, 64, bf, False, True),  # and a 1024 forward
             (2, 9, 3, 48, 80, bf, True, False), (3, 7, 2, 32, 112, f32,
                                                  False, True)]:
         args, h0 = mamba_inputs(torch, gen, dev, b, t, h, p, n, dtype, init,
@@ -524,7 +548,9 @@ def scan_bit_checks(torch, gen, dev) -> list:
 
     rwkv_cases = [(4, 1, 40, 64, bf), (2, 37, 40, 64, bf), (3, 19, 2, 48, f32)]
     mamba_cases = [(4, 1, 80, 64, 128, f32), (2, 37, 80, 64, 128, bf),
-                   (3, 19, 2, 48, 80, bf)]     # 32-row tiles span heads
+                   (3, 19, 2, 48, 80, bf),     # 32-row tiles span heads
+                   (4, 1, 64, 64, 64, f32),    # zamba2's decode tick and
+                   (1, 1024, 64, 64, 64, bf)]  # 1024-token forward (N = 64)
     for kernel, ops, cases in (("rwkv6_wkv", r6, rwkv_cases),
                                ("mamba2_ssd", m2, mamba_cases)):
         fn = r6.rwkv6_wkv if kernel == "rwkv6_wkv" else m2.mamba2_ssd
@@ -766,12 +792,16 @@ def scan_config_sweep(torch, gen, dev) -> list:
 
 
 def recurrent_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
-    """Phase 5 for the recurrent families: the smoke config on the card
-    (B9/B10 and apr_matmul) and on the CPU (plain versions), same weights.
-    ``paged``: one prefill chunk of 8 (two rows, one padded after 5) through
-    the state pools, then 3 decode ticks, each side fed the CPU's greedy
-    tokens; ``prefill``: ``bundle.prefill`` of the 8 tokens (B9/B10 over all
-    T on the card, the chunked formula on the CPU)."""
+    """Phase 5 for the recurrent families and the hybrid: the smoke config
+    on the card (B9/B10, apr_matmul and, for the hybrid, B2/B3) and on the
+    CPU (plain versions), same weights.  ``paged``: one prefill chunk of 8
+    (two rows, one padded after 5) through the state pools and, for the
+    hybrid, KV pages 1-2 and 3-4 of the table, then 3 decode ticks, each
+    side fed the CPU's greedy tokens; ``prefill``: ``bundle.prefill`` of the
+    8 tokens (B9/B10 over all T on the card, the chunked formula on the
+    CPU).  The hybrid adds ``slot``: 4 decode steps on the slot cache (one
+    row starting empty, one at length 3), and ``forward``: every position of
+    ``bundle.forward`` over the 8 tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     scfg = get_config(arch, smoke=True)
@@ -796,16 +826,24 @@ def recurrent_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
                 out["cpu"][row, nxt[row]] - out["cpu"][row, got[row]])))
         return nxt, int((nxt == got).sum())
 
+    def result(diffs, flips, agree, total):
+        return dict(max_abs_logits_diff=max(diffs), per_step=diffs,
+                    greedy_agree=agree, greedy_total=total, flips=flips,
+                    bound=SMOKE_LOGITS_BOUND)
+
     res = {}
-    # paged: [2 KV columns | read | T writes]; the chunk's last real token
-    # of row 0 writes slot 2, of row 1 slot 3; the rest go to trash slot 1
+    # paged: [3 KV columns | read | T writes]; the chunk's last real token
+    # of row 0 writes state slot 2, of row 1 slot 3; the rest go to trash
+    # slot 1; row 0's KV on pages 1-2, row 1's on pages 3-4
     caches = {w: b_.init_paged_cache(9, 8, state_slots=6)
               for w, b_ in bundles.items()}
     tokens, counts = first, np.array([8, 5], np.int32)
     lengths = np.zeros(2, np.int32)
+    pages = np.array([[1, 2, 0], [3, 4, 0]], np.int32)
     writes = np.ones((2, 8), np.int32)
     writes[0, 7], writes[1, 4] = 2, 3
-    tables = np.concatenate([np.zeros((2, 3), np.int32), writes], axis=1)
+    tables = np.concatenate([pages, np.zeros((2, 1), np.int32), writes],
+                            axis=1)
     diffs, flips, agree = [], [], 0
     for step in range(4):
         out = {}
@@ -820,28 +858,47 @@ def recurrent_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
         tokens = nxt.numpy()[:, None].astype(np.int32)
         lengths = lengths + counts
         counts = np.ones(2, np.int32)
-        tables = np.array([[0, 0, 2, 2], [0, 0, 3, 3]], np.int32)
-    res["paged"] = dict(max_abs_logits_diff=max(diffs), per_step=diffs,
-                        greedy_agree=agree, greedy_total=8, flips=flips,
-                        bound=SMOKE_LOGITS_BOUND)
+        tables = np.concatenate([pages, [[2, 2], [3, 3]]], axis=1).astype(
+            np.int32)
+    res["paged"] = result(diffs, flips, agree, 8)
     out = {w: b_.prefill(prm[w], *on(w, (first,)))[0][:, 0].float().cpu()
            for w, b_ in bundles.items()}
     diffs, flips = [], []
     _, agree = record(out, diffs, flips, 0)
-    res["prefill"] = dict(max_abs_logits_diff=diffs[0], per_step=diffs,
-                          greedy_agree=agree, greedy_total=2, flips=flips,
-                          bound=SMOKE_LOGITS_BOUND)
+    res["prefill"] = result(diffs, flips, agree, 2)
+    if scfg.family != "hybrid":
+        return res
+    caches = {w: b_.init_cache(2, 16) for w, b_ in bundles.items()}
+    tokens, lengths = first[:, :1], np.array([0, 3], np.int32)
+    diffs, flips, agree = [], [], 0
+    for step in range(4):
+        out = {w: b_.decode_step(prm[w], caches[w], *on(w, (
+            tokens, lengths)))[:, 0].float().cpu()
+            for w, b_ in bundles.items()}
+        nxt, n_eq = record(out, diffs, flips, step)
+        agree += n_eq
+        tokens = nxt.numpy()[:, None].astype(np.int32)
+        lengths = lengths + 1
+    res["slot"] = result(diffs, flips, agree, 8)
+    out = {w: b_.forward(prm[w], *on(w, (first,))).float().cpu().reshape(
+        16, -1) for w, b_ in bundles.items()}
+    diffs, flips = [], []
+    _, agree = record(out, diffs, flips, 0)
+    res["forward"] = result(diffs, flips, agree, 16)
     return res
 
 
 def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                       reset_counts, llm_counts, check_served) -> dict:
     """Phase 7: full-width ``arch`` (random bf16 weights from ``seed``) on
-    the PagedServeEngine with its StateCache (4 slots, prefill chunks of 16)
-    and on the slot ServeEngine, the same 6 requests; greedy tokens must be
-    equal, and every launch count must be what the path demands.  Then
-    ``bundle.prefill`` of one 1024-token prompt with B9/B10 over all T, held
-    to the card's plain path and timed."""
+    the PagedServeEngine with its StateCache (4 slots, prefill chunks of 16;
+    the hybrid's shared attention on KV pages behind the same table) and on
+    the slot ServeEngine, the same 6 requests; the greedy tokens of the two
+    are compared (the caller gates them), and every launch count must be
+    what the path demands.  Then ``bundle.prefill`` of one 1024-token prompt
+    (``bundle.forward`` for the hybrid, whose prefill is the forward's last
+    row) with B9/B10 over all T, held to the card's plain path and
+    timed."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.mamba2 import mamba2_ssd
     from repro_torch.kernels.rwkv6 import rwkv6_wkv
@@ -850,6 +907,7 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
 
     cfg = get_config(arch)
     scan_name = "rwkv6_wkv" if cfg.family == "ssm" else "mamba2_ssd"
+    hybrid = cfg.family == "hybrid"
     bundle = build_model(cfg, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -866,26 +924,40 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     bundle.decode_paged = checked(forward)
     kw = dict(device="cuda", slots=4, page_size=16, prefill_chunk=16)
 
-    def expect(token_forwards: int) -> dict:
-        return {**{k: 0 for k in llm_counts()},
-                "apr_matmul": per_fwd * token_forwards,
-                scan_name: cfg.num_layers * token_forwards}
+    def expect(token_forwards: int, attention: str = None) -> dict:
+        """The launches of ``token_forwards`` token-forwards, the hybrid's
+        shared attention on ``attention`` (B2 ``flash_decode_paged`` or B3
+        ``flash_decode``; none in a whole-sequence forward)."""
+        out = {**{k: 0 for k in llm_counts()},
+               "apr_matmul": per_fwd * token_forwards,
+               scan_name: cfg.num_layers * token_forwards}
+        if attention:
+            out[attention] = ATTN_PER_FORWARD[arch] * token_forwards
+        return out
 
     # one token-forward alone, to confirm the per-forward counts
     warm = PagedServeEngine(bundle, params, **kw)
     warm.submit(Request(rid=-1, prompt=[1] * 20, max_new_tokens=2))
     warm.run_until_drained()
     reset_counts()
+    # [16 KV page columns | read | write]: distinct pages for each row's
+    # positions (the hybrid reads them; the recurrent families do not),
+    # state slots 2..5 read and written
     one = np.zeros((4, 16 + 2), np.int32)
     one[:, 16:] = np.arange(2, 6)[:, None]
+    at = 1
+    for i, n in enumerate(RECURRENT_PROMPTS[:4]):
+        need = -(-(n + 1) // 16)
+        one[i, :need] = np.arange(at, at + need)
+        at += need
     forward(params, warm.cache, *[torch.from_numpy(a).to(dev) for a in (
         np.ones((4, 1), np.int32), np.zeros(4, np.int32),
         np.ones(4, np.int32), one)])
     torch.cuda.synchronize()
     per_forward = llm_counts()
-    if per_forward != expect(1):
+    if per_forward != expect(1, "flash_decode_paged"):
         fail(f"{arch}: one decode forward launched {per_forward}, expected "
-             f"{expect(1)}")
+             f"{expect(1, 'flash_decode_paged')}")
     del warm
 
     reqs = [Request(rid=i, prompt=p, max_new_tokens=RECURRENT_NEW)
@@ -911,23 +983,26 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                  peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                  state_pool_bytes=engine.kv_pool_bytes(),
                  state_pool_slots=engine.state.pool_slots,
-                 launches=launches, expected_launches=expect(token_forwards))
+                 launches=launches, expected_launches=expect(
+                     token_forwards, "flash_decode_paged"))
     # the least a decode tick at 4 slots could take: every weight but the
-    # embedding streamed once, the 4 sequences' state read and written
+    # embedding streamed once, the 4 sequences' state read and written (the
+    # hybrid's KV at these lengths, ~5 MB, left out)
     live_state = (paged["state_pool_bytes"] * engine.slots
                   / engine.state.pool_slots)
     paged["tick_bound_ms"] = (weight_gb * 1e9 - params["embed"].numel()
                               * params["embed"].element_size()
                               + 2 * live_state) / HBM_BYTES_PER_S * 1e3
     check_served(f"phase 7 {arch} paged", reqs, RECURRENT_NEW, launches,
-                 expect(token_forwards))
+                 expect(token_forwards, "flash_decode_paged"))
     if paged["state_pool_bytes"] != STATE_POOL_BYTES[arch]:
         fail(f"{arch}: state pools of {paged['state_pool_bytes']} bytes, "
              f"expected {STATE_POOL_BYTES[arch]}")
     paged_out = [r.output for r in reqs]
 
     # one decode tick at the phase's prompt lengths, reading and writing
-    # state slots 2..5: wall time and the profiled device-idle share
+    # state slots 2..5 (and the pages of ``one``): wall time and the
+    # profiled device-idle share
     tick = [torch.from_numpy(a).to(dev) for a in (
         np.ones((4, 1), np.int32), np.asarray(RECURRENT_PROMPTS[:4],
                                               np.int32),
@@ -992,11 +1067,12 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                 tokens_equal_paged=same,
                 tokens_total=sum(len(o) for o in paged_out),
                 launches=slot_launches, expected_launches=expect(
-                    len(step_ms)))
+                    len(step_ms), "flash_decode"))
     check_served(f"phase 7 {arch} slot", slot_reqs, RECURRENT_NEW,
-                 slot_launches, expect(len(step_ms)))
+                 slot_launches, expect(len(step_ms), "flash_decode"))
 
-    # bundle.prefill of one 1024-token prompt, B9/B10 at T = 1024.  The
+    # bundle.prefill of one 1024-token prompt (the hybrid: bundle.forward,
+    # whose last row its prefill is), B9/B10 at T = 1024.  The
     # gate is every layer's scan held to its plain version (the per-step
     # scan of ``ref.py``) on the same inputs, with phase 2's tolerances, and
     # finite logits.  The logits' distance from the card's plain path (the
@@ -1021,8 +1097,14 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
         return mamba2_ref(*a, h_init=h_init, return_state=return_state)
 
     def shadowed(*a, **kw):
+        # y, and the state out where the caller asks for it (a prefill
+        # does, the hybrid's forward does not)
         out = scan(*a, **kw)
         ref = per_step(*a, **kw)
+        if not kw.get("return_state"):
+            layer_errs.append((scan_err(out, ref, BF16_RTOL, SCAN_ATOL_REL),
+                               (0.0, 0.0, True)))
+            return out
         layer_errs.append((scan_err(out[0], ref[0], BF16_RTOL, SCAN_ATOL_REL),
                            scan_err(out[1], ref[1], STATE_RTOL, STATE_RTOL)))
         return out
@@ -1051,7 +1133,8 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
             mod.use_scan_kernel = lambda x: False
         t0 = time.perf_counter()
         try:
-            out, _ = bundle.prefill(params, prompt)
+            out = (bundle.forward(params, prompt)[:, -1:] if hybrid
+                   else bundle.prefill(params, prompt)[0])
             torch.cuda.synchronize()
         finally:
             setattr(mod, fn, scan)
@@ -1068,7 +1151,8 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     y_rel = max(e[0][1] for e in layer_errs)
     s_rel = max(e[1][1] for e in layer_errs)
     scan_ms = sum(a.elapsed_time(b) for a, b in scan_events)
-    prefill = dict(tokens=1024, kernel_ms=1e3 * times["kernel"],
+    prefill = dict(tokens=1024, entry="forward" if hybrid else "prefill",
+                   kernel_ms=1e3 * times["kernel"],
                    scan_ms=scan_ms, scan_share=scan_ms / 1e3
                    / times["kernel"], scan_launches=len(scan_events),
                    plain_ms=1e3 * times["plain"],
@@ -1095,6 +1179,143 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     return dict(arch=arch, layers=cfg.num_layers, weight_gb=weight_gb,
                 init_s=init_s, per_forward_launches=per_forward, paged=paged,
                 slot=slot, prefill_1024=prefill, tokens_equal=same)
+
+
+# ------------------------------- the dense whole-sequence entry points
+#: phase 4d's batch: B rows of T tokens (B x T = PREFILL_M), the prefilled
+#: cache MAX_SEQ_PAD longer than T, and the decode ticks run from it
+DENSE_B, DENSE_T, MAX_SEQ_PAD, DENSE_TICKS = 2, 512, 16, 8
+#: positions of the prefilled cache held (printed) against the cache that
+#: ``lm_decode_step`` builds token by token
+DENSE_KV_CHECK = 64
+
+
+def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
+                         llm_counts, expected_counts) -> dict:
+    """Phase 4d: full-width llama3-8b (``bundle`` and ``params`` of phase
+    4) through ``bundle.forward`` and ``bundle.prefill(max_seq=T + 16)`` at
+    B = 2, T = 512, every projection on B1 at M = B x T: wall and CUDA-event
+    ms, peak memory, and the launches, which must be the 225 B1 launches
+    of one forward each (32 layers x 7 + the lm_head, from the code).  For
+    information: prefill's logits against forward's last row, and the
+    first :data:`DENSE_KV_CHECK` positions of prefill's K/V against the
+    cache ``decode_step`` builds token by token; both differ by B1's
+    split count at another M (ROADMAP C.2).  Gate: finite logits of the
+    shapes expected, the launch counts, and :data:`DENSE_TICKS` greedy
+    decode ticks that run from the prefilled cache (B1 and B3 launches as
+    the path demands)."""
+    cfg = bundle.cfg
+    per_call = 7 * cfg.num_layers + 1
+    dev = bundle.device
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (DENSE_B, DENSE_T))).to(dev)
+    out = dict(B=DENSE_B, T=DENSE_T, max_seq=DENSE_T + MAX_SEQ_PAD)
+
+    def run(name, fn):
+        """One warm call, then one counted and timed call: the result and
+        its launches, wall ms (host clock to a synchronize), CUDA-event ms
+        and peak memory."""
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                         event_ms=start.elapsed_time(end),
+                         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                         launches=llm_counts(),
+                         expected_launches=expected_counts(
+                             apr_matmul=per_call))
+        if out[name]["launches"] != out[name]["expected_launches"]:
+            fail(f"phase 4d {name}: kernel launches {out[name]['launches']}"
+                 f" != expected {out[name]['expected_launches']}")
+        return res
+
+    logits = run("forward", lambda: bundle.forward(params, tokens))
+    last, cache = run("prefill", lambda: bundle.prefill(
+        params, tokens, max_seq=DENSE_T + MAX_SEQ_PAD))
+    v = cfg.padded_vocab
+    if (logits.shape != (DENSE_B, DENSE_T, v) or last.shape != (DENSE_B, 1, v)
+            or not bool(torch.isfinite(logits).all())
+            or not bool(torch.isfinite(last).all())):
+        fail(f"phase 4d: logits {tuple(logits.shape)} / {tuple(last.shape)} "
+             f"not finite of shape ({DENSE_B}, {DENSE_T} or 1, {v})")
+    live = slice(0, cfg.vocab_size)
+    out["prefill_vs_forward_last"] = dict(
+        max_abs_diff=float((last[:, 0, live].float()
+                            - logits[:, -1, live].float()).abs().max()),
+        argmax_equal=bool(torch.equal(last[:, 0].argmax(-1),
+                                      logits[:, -1].argmax(-1))))
+    del logits
+    # the first positions again, token by token through the decode path
+    steps = bundle.init_cache(DENSE_B, DENSE_KV_CHECK)
+    for t in range(DENSE_KV_CHECK):
+        bundle.decode_step(params, steps, tokens[:, t:t + 1], torch.full(
+            (DENSE_B,), t, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    kv = {}
+    for name in ("k", "v"):
+        a = cache[name][:, :, :, :DENSE_KV_CHECK].float()
+        b = steps[name].float()
+        kv[name] = dict(max_abs_diff=float((a - b).abs().max()),
+                        values_differ=int((a != b).sum()),
+                        values=a.numel())
+    out["prefill_kv_vs_decode_steps"] = kv
+    del steps
+    # greedy decode ticks from the prefilled cache
+    finite.clear()
+    reset_counts()
+    nxt = last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    lengths = torch.full((DENSE_B,), DENSE_T, dtype=torch.int32, device=dev)
+    generated, tick_ms = [], []
+    for _ in range(DENSE_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_logits = bundle.decode_step(params, cache, nxt, lengths)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        finite.append(bool(torch.isfinite(step_logits).all()))
+        nxt = step_logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        generated.append(nxt[:, 0].tolist())
+        lengths = lengths + 1
+    launches = llm_counts()
+    expect = expected_counts(apr_matmul=per_call * DENSE_TICKS,
+                             flash_decode=cfg.num_layers * DENSE_TICKS)
+    out["decode_from_prefill"] = dict(
+        ticks=DENSE_TICKS, tokens=generated, ms_per_tick=float(
+            np.mean(tick_ms)), launches=launches, expected_launches=expect)
+    if not all(finite) or launches != expect:
+        fail(f"phase 4d: decode from the prefilled cache: finite "
+             f"{all(finite)}, launches {launches} != expected {expect}")
+    del cache, last
+    torch.cuda.empty_cache()
+    f, p = out["forward"], out["prefill"]
+    print(f"[4d] full-width {cfg.name} whole sequence, B={DENSE_B} "
+          f"T={DENSE_T} (B1 at M={DENSE_B * DENSE_T}): forward "
+          f"{f['wall_ms']:.2f} ms wall, {f['event_ms']:.2f} ms CUDA events, "
+          f"peak {f['peak_mem_gb']:.2f} GB; prefill (max_seq "
+          f"{out['max_seq']}) {p['wall_ms']:.2f} ms wall, "
+          f"{p['event_ms']:.2f} ms CUDA events, peak "
+          f"{p['peak_mem_gb']:.2f} GB; launches each {f['launches']['apr_matmul']} "
+          f"apr_matmul (expected {per_call}), no other kernel")
+    pv = out["prefill_vs_forward_last"]
+    print(f"    information: prefill's logits vs forward's last row max "
+          f"|diff| {pv['max_abs_diff']:.4g}, argmax equal "
+          f"{pv['argmax_equal']}; prefill's K/V at positions "
+          f"< {DENSE_KV_CHECK} vs decode_step token by token: "
+          + ", ".join(f"{n} max |diff| {r['max_abs_diff']:.4g} "
+                      f"({r['values_differ']}/{r['values']} values differ)"
+                      for n, r in kv.items()))
+    d = out["decode_from_prefill"]
+    print(f"    {DENSE_TICKS} greedy decode ticks from the prefilled cache: "
+          f"{d['ms_per_tick']:.3f} ms a tick, tokens {d['tokens']}, "
+          f"launches {launches}")
+    return out
 
 
 # ------------------- matmul families (B1 tiles, B4m, B6, B7m, B8) and tuning
@@ -1802,7 +2023,11 @@ PAGED_CASES = [(4, 32, 8, 128, 16, 16, [40, 96, 150, 196]),  # serving shape
                (3, 8, 2, 64, 8, 5, [33, 0, 7]),
                (2, 14, 2, 64, 16, 4, [64, 5]),                # group of 7
                (3, 8, 2, 64, 5, 10, [50, 0, 23]),             # pages of 5
-               (2, 6, 2, 34, 4, 6, [17, 0])]                  # D % 4 != 0
+               (2, 6, 2, 34, 4, 6, [17, 0]),                  # D % 4 != 0
+               # zamba2-1.2b's shared attention: a group of 1, phase 7's
+               # prompt lengths, then edges and a row 16 tokens on
+               (4, 32, 32, 64, 16, 16, list(RECURRENT_PROMPTS[:4])),
+               (4, 32, 32, 64, 16, 16, [0, 1, 16, 112])]
 #: the lengths of phase 3's paged rows and of the profiled decode tick
 MAIN_LENGTHS = [40, 96, 150, 196]
 
@@ -2336,6 +2561,45 @@ def projection_timing(torch, gen, dev, ms) -> list:
                     del w32
                 del x32
             del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: the M of phase 4d's whole-sequence forward: B = 2 rows of T = 512
+PREFILL_M = 1024
+
+
+def prefill_matmul_timing(torch, gen, dev, m: int = PREFILL_M) -> list:
+    """B1 at the llama3-8b projection shapes and the lm_head at prefill M
+    (phase 4d's B x T rows): ms per call at the configuration the wrapper
+    resolves (weights rotated past the 50 MB L2 where one is smaller than
+    200 MB), the plain version, ``torch.matmul`` on the same bf16 operands,
+    and the bound, which at this M is the bf16 operations at the tensor
+    cores' peak, not the bytes."""
+    from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
+    from repro_torch.kernels.apr_matmul import ops as mm
+    bf16 = torch.bfloat16
+    rows = []
+    for k, n in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]:
+        nbuf = min(4, max(1, math.ceil(200e6 / (k * n * 2))))
+        ws = [(torch.randn((k, n), generator=gen, device=dev)
+               * k ** -0.5).to(bf16) for _ in range(nbuf)]
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        iters = 5 if n > 100_000 else 20
+        t_k = cuda_ms(torch, lambda i: apr_matmul(
+            x, ws[i % nbuf], out_dtype=bf16), iters, warmup=2)
+        t_p = cuda_ms(torch, lambda i: matmul_ref(x, ws[i % nbuf], bf16), 2,
+                      warmup=1)
+        t_l = cuda_ms(torch, lambda i: torch.matmul(x, ws[i % nbuf]), iters,
+                      warmup=2)
+        tile, splits = mm.resolve_launch("apr_matmul", m, k, n, "bfloat16",
+                                         "cuda")
+        rows.append(dict(kernel="apr_matmul", M=m, K=k, N=n, ms=t_k,
+                         plain_ms=t_p, library_ms=t_l, weight_buffers=nbuf,
+                         tile=tile, splits=splits,
+                         **bound_ms(2 * (m * k + k * n + m * n),
+                                    2 * m * k * n)))
+        del ws, x
     torch.cuda.empty_cache()
     return rows
 
@@ -3501,15 +3765,24 @@ def baseline_sweep(torch, out: Path) -> None:
         ptxas=regs), indent=1))
 
 
-def identity_ablation(torch, seed: int) -> dict:
+def identity_ablation(torch, seed: int,
+                      archs=RECURRENT_ARCHS) -> dict:
     """``--ablate``: phase 7's paged-vs-slot greedy-token comparison at full
     width, with each card-side measure the path rests on turned off in
     turn (and both together):
 
     * ``single-mean rms_norm``: ``rms_norm``'s variance is one mean over d
       on the card, as on the CPU, not the mean over ``NORM_GROUPS`` groups;
-    * ``einsum conv`` (mamba2): ``mamba2_decode``'s conv over its window is
-      ``torch.einsum("bkc,kc->bc")``, not the ``addcmul`` chain.
+    * ``einsum conv`` (mamba2, zamba2): ``mamba2_decode``'s conv over its
+      window is ``torch.einsum("bkc,kc->bc")``, not the ``addcmul`` chain.
+
+    The hybrid (zamba2) also runs, alone and together, the two sources of
+    sum order its engines do not share: B1's split count, which the
+    wrapper picks by M (a paged prefill chunk's one row against the slot
+    engine's four), pinned to one split (``B1 one split``); and B2 against
+    B3, both pinned to one split (``decode attention one split``) or both
+    swapped for their plain versions (``plain decode attention``), which
+    walk the same 256 positions in the same order.
 
     Each variant also runs one ``decode_step`` at B = 4 (the slot engine's
     batch) from a nonzero state and each of its rows alone at B = 1 (a
@@ -3519,12 +3792,31 @@ def identity_ablation(torch, seed: int) -> dict:
     Returns, per arch and variant, the equal tokens out of all, the first
     mismatching position of each request and the B = 4 vs B = 1 check, or
     the error the variant raised."""
+    import functools
+
     from repro_torch.configs import get_config
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.kernels.flash_decode import (
+        decode_attention_ref, flash_decode, flash_decode_paged,
+        paged_decode_attention_q_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.models import build_model, layers, ssm
     from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
     def einsum_conv(window, w):
         return torch.einsum("bkc,kc->bc", window, w)
+
+    def plain_decode(q, k, v, lengths, **_):
+        return decode_attention_ref(q, k, v, lengths)
+
+    def plain_paged(q, kp, vp, lengths, tables, k_scales=None,
+                    v_scales=None, **_):
+        if k_scales is None:
+            return paged_decode_attention_ref(q, kp, vp, lengths, tables)
+        return paged_decode_attention_q_ref(q, kp, vp, k_scales, v_scales,
+                                            lengths, tables)
+
+    one_split = fd.COMPILED.replace(splits=1)
 
     def batch_invariant(bundle, params, rng) -> bool:
         dev = bundle.device
@@ -3532,14 +3824,17 @@ def identity_ablation(torch, seed: int) -> dict:
         lengths = torch.zeros(4, dtype=torch.int32, device=dev)
         toks = [torch.from_numpy(rng.integers(
             1, bundle.cfg.vocab_size, (4, 1))).to(dev) for _ in range(4)]
-        for t in toks[:3]:                   # a nonzero state
-            bundle.decode_step(params, cache, t, lengths)
+        for j, t in enumerate(toks[:3]):     # a nonzero state (and KV)
+            bundle.decode_step(params, cache, t, lengths + j)
+        # each row's carry before the step: the hybrid's KV cache is
+        # written in place
+        rows = [{k: v[:, i:i + 1].clone() for k, v in cache.items()}
+                for i in range(4)]
         whole = dict(cache)
-        logits = bundle.decode_step(params, whole, toks[3], lengths)
-        for i in range(4):
-            row = {k: v[:, i:i + 1].clone() for k, v in cache.items()}
+        logits = bundle.decode_step(params, whole, toks[3], lengths + 3)
+        for i, row in enumerate(rows):
             got = bundle.decode_step(params, row, toks[3][i:i + 1],
-                                     lengths[i:i + 1])
+                                     lengths[i:i + 1] + 3)
             if not torch.equal(got[0], logits[i]) or not all(
                     torch.equal(row[k][:, 0], whole[k][:, i]) for k in row):
                 return False
@@ -3552,8 +3847,22 @@ def identity_ablation(torch, seed: int) -> dict:
     }
     variants = {"as shipped": [], **measures,
                 "both off": [x for v in measures.values() for x in v]}
+    b1_one = [(layers, "apr_matmul",
+               functools.partial(apr_matmul, splits=1))]
+    fd_one = [(layers, "flash_decode",
+               functools.partial(flash_decode, config=one_split)),
+              (layers, "flash_decode_paged",
+               functools.partial(flash_decode_paged, config=one_split))]
+    fd_plain = [(layers, "flash_decode", plain_decode),
+                (layers, "flash_decode_paged", plain_paged)]
+    hybrid_variants = {"B1 one split": b1_one,
+                       "decode attention one split": fd_one,
+                       "plain decode attention": fd_plain,
+                       "B1 + decode attention one split": b1_one + fd_one,
+                       "B1 one split + plain decode attention":
+                           b1_one + fd_plain}
     out = {}
-    for arch in RECURRENT_ARCHS:
+    for arch in archs:
         cfg = get_config(arch)
         bundle = build_model(cfg, device="cuda")
         params = bundle.init_params(
@@ -3562,15 +3871,17 @@ def identity_ablation(torch, seed: int) -> dict:
         prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                    for n in RECURRENT_PROMPTS]
         out[arch] = {}
-        for name, patches in variants.items():
-            if name == "einsum conv" and cfg.family != "mamba":
+        for name, patches in {**variants, **(
+                hybrid_variants if cfg.family == "hybrid" else {})}.items():
+            if name == "einsum conv" and cfg.family not in ("mamba",
+                                                            "hybrid"):
                 continue
             saved = [(m, attr, getattr(m, attr)) for m, attr, _ in patches]
             for m, attr, fn in patches:
                 setattr(m, attr, fn)
             t0 = time.perf_counter()
             try:
-                outs = []
+                outs, splits = [], []
                 for engine in (PagedServeEngine(bundle, params, device="cuda",
                                                 slots=4, page_size=16,
                                                 prefill_chunk=16),
@@ -3579,10 +3890,14 @@ def identity_ablation(torch, seed: int) -> dict:
                     reqs = [Request(rid=i, prompt=p,
                                     max_new_tokens=RECURRENT_NEW)
                             for i, p in enumerate(prompts)]
+                    before = dict(apr_matmul.split_launches)
                     for r in reqs:
                         engine.submit(r)
                     engine.run_until_drained()
                     outs.append([r.output for r in reqs])
+                    splits.append({n: c - before.get(n, 0) for n, c in sorted(
+                        apr_matmul.split_launches.items())
+                        if c > before.get(n, 0)})
                     del engine
                 torch.cuda.synchronize()
                 first = [next((i for i, (a, b) in enumerate(zip(pa, sl))
@@ -3592,6 +3907,8 @@ def identity_ablation(torch, seed: int) -> dict:
                                             for a, b in zip(pa, sl)),
                            tokens_total=sum(len(o) for o in outs[0]),
                            first_mismatch=first,
+                           b1_launches_by_splits=dict(paged=splits[0],
+                                                      slot=splits[1]),
                            step_b4_equals_b1=batch_invariant(bundle, params,
                                                              rng))
             except Exception as e:          # a variant may not run at all
@@ -3606,7 +3923,8 @@ def identity_ablation(torch, seed: int) -> dict:
                      f"paged vs slot tokens {res['tokens_equal']}/"
                      f"{res['tokens_total']}, first mismatch per request "
                      f"{res['first_mismatch']}, decode step B=4 equal to B=1 "
-                     f"rows {res['step_b4_equals_b1']}")
+                     f"rows {res['step_b4_equals_b1']}, B1 launches by split "
+                     f"count {res['b1_launches_by_splits']}")
                   + f" ({res['seconds']:.1f} s)", flush=True)
         del params, bundle
         torch.cuda.empty_cache()
@@ -3620,10 +3938,14 @@ def main() -> int:
                                          "chip_smoke.json"))
     ap.add_argument("--ablate", action="store_true",
                     help="only check rms_norm's batch invariance and serve "
-                         "rwkv6-3b and mamba2-2.7b on both engines with each "
-                         "card-side measure turned off in turn "
+                         "rwkv6-3b, mamba2-2.7b and zamba2-1.2b on both "
+                         "engines with each card-side measure turned off in "
+                         "turn, and zamba2's B1 and decode attention pinned "
                          "(identity_ablation); writes "
                          "chiprun_out/identity_ablation.json")
+    ap.add_argument("--ablate-arch", action="append",
+                    choices=RECURRENT_ARCHS,
+                    help="with --ablate, only this arch (repeatable)")
     ap.add_argument("--baseline", action="store_true",
                     help="only build apr_matmul.cu and apr_conv.cu, time "
                          "the memory-resident baselines B4m and B4c beside "
@@ -3735,6 +4057,7 @@ def main() -> int:
         return 0
     if args.ablate:
         _build.build_all({apr_ops.LIBRARY: apr_ops.SIGNATURES,
+                          fd_ops.LIBRARY: fd_ops.SIGNATURES,
                           rwkv6_ops.LIBRARY: rwkv6_ops.SIGNATURES,
                           mamba2_ops.LIBRARY: mamba2_ops.SIGNATURES})
         norms = norm_invariance(torch, torch.Generator(
@@ -3747,7 +4070,9 @@ def main() -> int:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(dict(
             norm_invariance=norms,
-            engines=identity_ablation(torch, args.seed)), indent=1))
+            engines=identity_ablation(torch, args.seed,
+                                      args.ablate_arch or RECURRENT_ARCHS)),
+            indent=1))
         return 0
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -3804,7 +4129,9 @@ def main() -> int:
                  (4, 256, 5000, 0),      # last tile 8 columns wide
                  (9, 130, 6000, 0),      # masked loads, ragged last tile
                  (1, 8, 8, 0),
-                 (4, 512, 256, 1)]       # operand 2 bytes off alignment
+                 (4, 512, 256, 1),       # operand 2 bytes off alignment
+                 (PREFILL_M, 4096, 4096, 0),    # phase 4d's prefill M
+                 (PREFILL_M, 14336, 4096, 0)]
     for m, k, n, off in mm_cases:
         xb = randn(m * k + off)
         x = xb[off:].view(m, k)
@@ -3864,7 +4191,10 @@ def main() -> int:
             (3, 8, 2, 64, 48, [33, 0, 7]),                # S not a chunk mult.
             (2, 14, 2, 64, 64, [64, 0]),                  # group of 7
             (6, 32, 8, 128, 4096, [0, 1, 33, 1000, 4095, 4096]),
-            (2, 6, 2, 36, 40, [17, 0])]:                  # D % 4 != 0
+            (2, 6, 2, 36, 40, [17, 0]),                   # D % 4 != 0
+            # zamba2-1.2b's slot cache (max_seq 256), a group of 1
+            (4, 32, 32, 64, 256, list(RECURRENT_PROMPTS[:4])),
+            (4, 32, 32, 64, 256, [0, 1, 33, 112])]:
         q = randn(b, hq, d)
         k_c, v_c = randn(b, s_len, hkv, d), randn(b, s_len, hkv, d)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -4000,6 +4330,31 @@ def main() -> int:
                   f"M={r['library_m']}")
     timing.extend(scan_rows)
     report["timing"] = timing
+    # B1 at phase 4d's prefill M, per whole-sequence forward (225
+    # projections at M = B x T)
+    prefill_rows = prefill_matmul_timing(torch, gen, dev)
+    for r in prefill_rows:
+        print_timing_row(r)
+    prefill_shape = {(r["K"], r["N"]): r for r in prefill_rows}
+
+    def per_prefill_forward(key):
+        return 32 * sum(cnt * prefill_shape[kn][key]
+                        for kn, cnt in LLAMA_DECODE_SHAPES.items()) + \
+            prefill_shape[LM_HEAD][key]
+
+    prefill_mm = {key: per_prefill_forward(key) for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "t_mem_ms", "t_ops_ms")}
+    prefill_mm["bound_by"] = ("bytes" if prefill_mm["t_mem_ms"]
+                              >= prefill_mm["t_ops_ms"] else "operations")
+    report["prefill_matmul"] = dict(rows=prefill_rows, per_forward=prefill_mm)
+    print(f"    apr_matmul per full-width llama3-8b forward at M={PREFILL_M} "
+          f"(225 projections): {prefill_mm['ms']:.3f} ms, torch.matmul "
+          f"{prefill_mm['library_ms']:.3f} ms "
+          f"({prefill_mm['ms'] / prefill_mm['library_ms']:.2f}x), plain "
+          f"{prefill_mm['plain_ms']:.3f} ms, bound "
+          f"{prefill_mm['bound_ms']:.3f} ms ({prefill_mm['bound_by']}: "
+          f"bf16 tensor-core peak), {prefill_mm['bound_ms'] / prefill_mm['ms']:.0%} "
+          f"of bound")
 
     # apr_conv, apr_conv_hbm, the plain version and F.conv2d on every
     # distinct conv of ResNet-20 at CNN_BATCH; inputs of at most 16.8 MB
@@ -4445,6 +4800,12 @@ def main() -> int:
 
     phase_done("phase 4c")
 
+    # --------------------------- 4d the dense whole-sequence entry points
+    dense = dense_whole_sequence(torch, bundle, params, rng, finite,
+                                 reset_counts, llm_counts, expected_counts)
+    report["dense_whole_sequence"] = dense
+    phase_done("phase 4d")
+
     # --------------------------------------- 4b int8 weights + int8 KV pages
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4586,14 +4947,40 @@ def main() -> int:
 
     parity = {kind: smoke_parity(kind)
               for kind in ("paged_bf16", "paged_int8", "paged_f32", "slot")}
+    # the whole-sequence entry points on the 8 smoke tokens: every position
+    # of forward's logits and prefill's (max_seq 12) last ones, bf16 and
+    # fp32 parameters (the fp32 body under every projection on the card)
+    for label, prm, bound in (
+            ("bf16", smoke_params["bf16"], SMOKE_LOGITS_BOUND),
+            ("fp32", {k: v.float() for k, v in smoke_params["bf16"].items()},
+             F32_SMOKE_LOGITS_BOUND)):
+        dprm = {"cpu": prm, "cuda": {k: v.to(dev) for k, v in prm.items()}}
+        for entry in ("forward", "prefill"):
+            out = {}
+            for where, b_ in bundles.items():
+                toks = on(where, (smoke_tokens,))[0]
+                lg = (b_.forward(dprm[where], toks) if entry == "forward"
+                      else b_.prefill(dprm[where], toks, max_seq=12)[0])
+                out[where] = lg.float().cpu().reshape(-1, lg.shape[-1])
+            nxt, got = out["cpu"].argmax(-1), out["cuda"].argmax(-1)
+            err = float((out["cpu"] - out["cuda"]).abs().max())
+            parity[f"{entry}_{label}"] = dict(
+                max_abs_logits_diff=err, per_step=[err],
+                greedy_agree=int((nxt == got).sum()),
+                greedy_total=int(nxt.numel()), flips=[dict(
+                    step=0, row=row, cpu_gap=float(
+                        out["cpu"][row, nxt[row]] - out["cpu"][row, got[row]]))
+                    for row in torch.nonzero(nxt != got).flatten().tolist()],
+                bound=bound)
     for arch in RECURRENT_ARCHS:
         for kind, r in recurrent_smoke_parity(torch, arch, args.seed,
                                               dev).items():
             parity[f"{arch.split('-')[0]}_{kind}"] = r
     report["smoke_parity"] = parity
-    print("[5] smoke llama3-8b, rwkv6-3b and mamba2-2.7b, card (kernels) vs "
-          f"CPU (plain), same weights (bound {SMOKE_LOGITS_BOUND} on max "
-          "|logits diff|):")
+    print("[5] smoke llama3-8b, rwkv6-3b, mamba2-2.7b and zamba2-1.2b, card "
+          f"(kernels) vs CPU (plain), same weights (bound {SMOKE_LOGITS_BOUND} "
+          f"on max |logits diff|, {F32_SMOKE_LOGITS_BOUND:g} for the fp32 "
+          "entries):")
     for kind, r in parity.items():
         print(f"    {kind:14s} max |logits diff| "
               f"{r['max_abs_logits_diff']:.4g}, per step "
@@ -4604,7 +4991,7 @@ def main() -> int:
                         f"CPU's logits" for f in r["flips"]))
     for kind, r in parity.items():
         err = r["max_abs_logits_diff"]
-        if not math.isfinite(err) or err > SMOKE_LOGITS_BOUND:
+        if not math.isfinite(err) or err > r["bound"]:
             fail(f"{kind}: card and CPU logits differ beyond the bound")
     # a bf16 model serving on fp32 KV pools (kv_dtype="float32"): every
     # decode tick's attention on the fp32-pool kernel
@@ -4929,9 +5316,9 @@ def main() -> int:
               f"{pg['prefill_ms_per_chunk']:.3f} ms per chunk; TTFT mean "
               f"{pg['mean_ttft_s'] * 1e3:.2f} ms, p50 "
               f"{pg['p50_ttft_s'] * 1e3:.2f} ms; peak memory "
-              f"{pg['peak_mem_gb']:.2f} GB; state pools "
+              f"{pg['peak_mem_gb']:.2f} GB; state (and KV) pools "
               f"{pg['state_pool_bytes']} bytes ({pg['state_pool_slots']} "
-              f"slots)")
+              f"state slots)")
         print(f"    launches {pg['launches']} over {pg['token_forwards']} "
               f"token-forwards (expected {pg['expected_launches']})")
         print(f"    decode tick at lengths {list(RECURRENT_PROMPTS[:4])}: wall "
@@ -4948,7 +5335,7 @@ def main() -> int:
               f"{sl['mean_ttft_s'] * 1e3:.2f} ms; launches {sl['launches']}; "
               f"greedy tokens equal to the paged engine's "
               f"{sl['tokens_equal_paged']}/{sl['tokens_total']}")
-        print(f"    prefill of 1024 tokens: kernels {pf['kernel_ms']:.3f} ms "
+        print(f"    {pf['entry']} of 1024 tokens: kernels {pf['kernel_ms']:.3f} ms "
               f"(host clock), of it the {pf['scan_launches']} scans "
               f"{pf['scan_ms']:.3f} ms (CUDA events, "
               f"{pf['scan_share']:.1%}), "
@@ -4963,7 +5350,10 @@ def main() -> int:
               f"{pf['plain_pair_diff']:.4g} apart (max |logit| "
               f"{pf['max_abs_logit']:.4g}), argmax equal "
               f"{pf['argmax_equal']}; launches {pf['launches']}")
-        if sl["tokens_equal_paged"] != sl["tokens_total"]:
+        # the hybrid's two engines attend on B2 and B3, whose split sums
+        # differ, so its count is printed and not gated (ROADMAP C.2)
+        if (sl["tokens_equal_paged"] != sl["tokens_total"]
+                and ATTN_PER_FORWARD[arch] == 0):
             fail(f"{arch}: the slot engine's greedy tokens differ from the "
                  f"paged engine's ({sl['tokens_equal_paged']}/"
                  f"{sl['tokens_total']})")
@@ -4978,10 +5368,15 @@ def main() -> int:
     phase_done("phase 8")
 
     # ------------------------------------------------------------- 9 report
-    def tick_entry(name, source, replaces, n, kernel=None, row=None):
+    def by_path(**paths) -> dict:
+        """``launches`` (their sum) and ``launches_by_path``: each path's
+        count, read just after the run that zeroed it."""
+        return dict(launches=sum(paths.values()), launches_by_path=paths)
+
+    def tick_entry(name, source, replaces, paths, kernel=None, row=None):
         """A kernels-line entry timed per full-width decode tick: the 225
         projections of phase 3's ``kernel`` rows, or 32 launches of
-        ``row``."""
+        ``row``; ``paths`` as :func:`by_path` takes them."""
         if row is None:
             t = {key: per_tick(key, kernel) for key in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "t_mem_ms",
@@ -4993,59 +5388,84 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms")}
             bound_by = row["bound_by"]
         return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=n, max_abs_err=errs[name], ms=t["ms"],
+                    **by_path(**paths), max_abs_err=errs[name], ms=t["ms"],
                     plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
                     bound_by=bound_by, library_ms=t["library_ms"])
+
+    def hybrid_launches(engine, name):
+        """``name``'s launches on phase 7's zamba2 ``engine`` run."""
+        return recurrent["zamba2-1.2b"][engine]["launches"][name]
 
     mm_src = "src/repro_torch/csrc/apr_matmul.cu"
     fd_src = "src/repro_torch/csrc/flash_decode.cu"
     kernels = [
         tick_entry("apr_matmul", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
-                   serve["launches"]["apr_matmul"], kernel="apr_matmul"),
+                   {"phase 4": serve["launches"]["apr_matmul"]},
+                   kernel="apr_matmul"),
         tick_entry("apr_matmul_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
-                   serve_q["launches"]["apr_matmul_int8w"],
+                   {"phase 4b": serve_q["launches"]["apr_matmul_int8w"]},
                    kernel="apr_matmul_int8w"),
         tick_entry("apr_matmul_f32", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
-                   f32_runs["fp32 pools"]["launches"]["apr_matmul_f32"],
+                   {"phase 5 fp32 pools": f32_runs["fp32 pools"][
+                       "launches"]["apr_matmul_f32"]},
                    kernel="apr_matmul_f32"),
         tick_entry("apr_matmul_f32_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
-                   f32_runs["int8 weights, fp32 pools"]["launches"][
-                       "apr_matmul_f32_int8w"],
+                   {"phase 5 int8 weights, fp32 pools": f32_runs[
+                       "int8 weights, fp32 pools"]["launches"][
+                       "apr_matmul_f32_int8w"]},
                    kernel="apr_matmul_f32_int8w"),
         tick_entry("flash_decode_paged", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
-                   serve["launches"]["flash_decode_paged"],
+                   {"phase 4": serve["launches"]["flash_decode_paged"],
+                    "phase 7 zamba2-1.2b paged": hybrid_launches(
+                        "paged", "flash_decode_paged")},
                    row=paged_rows["flash_decode_paged"]),
         tick_entry("flash_decode_paged_f32", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
-                   serve_f["launches"]["flash_decode_paged_f32"],
+                   {"phase 4f": serve_f["launches"]["flash_decode_paged_f32"]},
                    row=paged_rows["flash_decode_paged_f32"]),
         tick_entry("flash_decode_paged_f32q", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
-                   f32_runs["bf16 pools"]["launches"][
-                       "flash_decode_paged_f32q"],
+                   {"phase 5 bf16 pools": f32_runs["bf16 pools"][
+                       "launches"]["flash_decode_paged_f32q"]},
                    row=paged_rows["flash_decode_paged_f32q"]),
         tick_entry("flash_decode_paged_int8", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:81",
-                   serve_q["launches"]["flash_decode_paged_int8"],
+                   {"phase 4b": serve_q["launches"][
+                       "flash_decode_paged_int8"]},
                    row=paged_rows["flash_decode_paged_int8"]),
         tick_entry("flash_decode_paged_int8_f32q", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:81",
-                   f32_runs["int8 pools"]["launches"][
-                       "flash_decode_paged_int8_f32q"],
+                   {"phase 5 int8 pools": f32_runs["int8 pools"][
+                       "launches"]["flash_decode_paged_int8_f32q"]},
                    row=paged_rows["flash_decode_paged_int8_f32q"]),
         tick_entry("flash_decode", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:240",
-                   slot["launches"]["flash_decode"], row=fdc_row),
+                   {"phase 4c": slot["launches"]["flash_decode"],
+                    "phase 4d decode from the prefilled cache": dense[
+                        "decode_from_prefill"]["launches"]["flash_decode"],
+                    "phase 7 zamba2-1.2b slot": hybrid_launches(
+                        "slot", "flash_decode")}, row=fdc_row),
         tick_entry("flash_decode_f32q", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:240",
-                   f32_runs["slot engine"]["launches"]["flash_decode_f32q"],
-                   row=fdc32q_row),
+                   {"phase 5 slot engine": f32_runs["slot engine"][
+                       "launches"]["flash_decode_f32q"]}, row=fdc32q_row),
     ]
+    # B1 at prefill M, per whole-sequence forward (phase 3's rows at M =
+    # B x T); launches are those of phase 4d's forward and prefill
+    kernels.append(dict(
+        name="apr_matmul_prefill", route="cuda", source=mm_src,
+        replaces="src/repro/kernels/apr_matmul/kernel.py:139",
+        **by_path(**{f"phase 4d {e}": dense[e]["launches"]["apr_matmul"]
+                     for e in ("forward", "prefill")}),
+        max_abs_err=errs["apr_matmul"], ms=prefill_mm["ms"],
+        plain_ms=prefill_mm["plain_ms"], bound_ms=prefill_mm["bound_ms"],
+        bound_by=prefill_mm["bound_by"],
+        library_ms=prefill_mm["library_ms"]))
     conv_bound_by = ("bytes" if conv_total["t_mem_ms"] >=
                      conv_total["t_ops_ms"] else "operations")
     for name, key, n, err in (
@@ -5056,7 +5476,8 @@ def main() -> int:
             replaces=("src/repro/kernels/apr_conv/kernel.py:44"
                       if name == "apr_conv" else
                       "src/repro/kernels/apr_matmul/kernel.py:124"),
-            launches=n, max_abs_err=err, ms=conv_total[key],
+            **by_path(**{"phase 6": n}), max_abs_err=err,
+            ms=conv_total[key],
             plain_ms=conv_total["plain_ms"], bound_ms=conv_total["bound_ms"],
             bound_by=conv_bound_by, library_ms=conv_total["library_ms"]))
     # B9 and B10 per full-width decode tick at 4 slots: one launch per
@@ -5071,7 +5492,10 @@ def main() -> int:
         n_layers = recurrent[arch]["layers"]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=recurrent[arch]["paged"]["launches"][name],
+            **by_path(**{f"phase 7 {a} {e}": r[e]["launches"][name]
+                         for a, r in recurrent.items()
+                         for e in ("paged", "slot")
+                         if r[e]["launches"][name]}),
             max_abs_err=errs[name], ms=n_layers * row["ms"],
             plain_ms=n_layers * row["plain_ms"],
             bound_ms=n_layers * row["bound_ms"], bound_by=row["bound_by"],
@@ -5093,12 +5517,16 @@ def main() -> int:
             "t_ops_ms")}
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=tuning["launches"][name], max_abs_err=errs[name],
+            **by_path(**{"phase 8": tuning["launches"][name]}),
+            max_abs_err=errs[name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="bytes" if t["t_mem_ms"] >= t["t_ops_ms"]
             else "operations", library_ms=t["library_ms"]))
     report["kernels"] = kernels
     report["kernels_note"] = (
+        "launches: the sum of launches_by_path, whose each entry is one "
+        "path's count, read just after the run that zeroed the counts and "
+        "gated there against what that path demands. "
         "apr_matmul, apr_matmul_int8w, apr_matmul_f32, "
         "apr_matmul_f32_int8w, flash_decode_paged, flash_decode_paged_f32, "
         "flash_decode_paged_f32q, flash_decode_paged_int8, "
@@ -5111,8 +5539,11 @@ def main() -> int:
         "decode-attention launches at the phase-3 lengths (flash_decode "
         "over a max_seq-256 contiguous cache; the _f32q entries an fp32 q "
         "over bf16 or int8 K/V, library SDPA in fp32); launches are those "
-        "of phase 4 (bf16 paged), 4f (fp32 KV pages), 4b (int8 paged), 4c "
-        "(slot) and 5 (the fp32-param smoke model: apr_matmul_f32 on fp32 "
+        "of phase 4 (bf16 paged; flash_decode_paged also phase 7's zamba2 "
+        "paged run), 4f (fp32 KV pages), 4b (int8 paged), 4c (slot; "
+        "flash_decode also phase 4d's decode ticks from the prefilled cache "
+        "and phase 7's zamba2 slot run) and 5 (the fp32-param smoke model: "
+        "apr_matmul_f32 on fp32 "
         "pools, apr_matmul_f32_int8w with int8 weights, "
         "flash_decode_paged_f32q / _int8_f32q on bf16 / int8 pools, "
         "flash_decode_f32q on the slot engine). flash_decode_f32 (B3 over "
@@ -5125,10 +5556,16 @@ def main() -> int:
         "TF32); launches are those of phase 6's main path (one LeNet-5 and "
         "one ResNet-20 forward) and of its memory-resident ResNet-20 forward "
         "(one apr_conv_hbm launch a conv). "
+        "apr_matmul_prefill: B1 per full-width llama3-8b whole-sequence "
+        f"forward at M = {PREFILL_M} (225 projections; phase 3's prefill "
+        "rows, library torch.matmul on the same bf16 operands, bound the "
+        "bf16 tensor-core peak); launches are those of phase 4d's forward "
+        "and prefill. "
         "rwkv6_wkv and mamba2_ssd: per full-width decode tick (4 slots, "
         "state in and out): 32 and 64 launches at the phase-3 decode shape; "
         "no PyTorch call computes either recurrence (library_ms null); "
-        "launches are those of phase 7's PagedServeEngine runs. "
+        "launches are those of phase 7's PagedServeEngine and ServeEngine "
+        "runs (mamba2_ssd: mamba2-2.7b's and zamba2-1.2b's). "
         "apr_matmul_hbm (B4m), apr_matmul_fused (B7m, bias + silu), "
         "quant_matmul (B6) and quant_matmul_fused (B8, bias + silu): per "
         "full-width decode tick's 224 projections (no lm_head) at the "

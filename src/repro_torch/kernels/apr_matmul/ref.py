@@ -8,15 +8,32 @@ import torch
 import torch.nn.functional as F
 
 
+def _fp32_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x (M, K) @ y (K, N)`` on fp32 operands.  On the CPU a single row
+    is taken from a product of two: PyTorch's CPU matmul sums a lone row
+    (its matrix-vector path) in another order than the rows of a larger
+    product, one fp32 ulp apart now and then, so without it a row's bits
+    would depend on its batch -- a paged prefill chunk of one row against
+    the slot engine's batch of all slots -- and the engines' bf16 greedy
+    tokens part (``tests/test_torch_state.py``, zamba2).
+    ``tests/test_torch_forward.py`` holds a row's bits equal at M = 1, 2,
+    4 and 16."""
+    x, y = x.float(), y.float()
+    if x.dim() == 2 and x.shape[0] == 1 and x.device.type == "cpu":
+        return torch.matmul(x.expand(2, -1), y)[:1]
+    return torch.matmul(x, y)
+
+
 def matmul_ref(x: torch.Tensor, y: torch.Tensor,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``x @ y`` accumulated in fp32 and rounded once to ``out_dtype``.
 
     The operands are widened to fp32 before the product, so a bf16 input
-    never meets a bf16 accumulator.  On a GPU the caller keeps
+    never meets a bf16 accumulator, and each row's sum is that of a
+    multi-row product (:func:`_fp32_matmul`).  On a GPU the caller keeps
     ``torch.backends.cuda.matmul.allow_tf32`` False, or the product rounds
     its inputs to TF32."""
-    return torch.matmul(x.float(), y.float()).to(out_dtype)
+    return _fp32_matmul(x, y).to(out_dtype)
 
 
 #: epilogue activations, by name, with their codes in the CUDA kernels
@@ -42,7 +59,7 @@ def matmul_fused_ref(x: torch.Tensor, y: torch.Tensor,
                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``activation(x @ y + bias)``: fp32 accumulator, bias first, then the
     activation, rounded once to ``out_dtype``."""
-    acc = torch.matmul(x.float(), y.float())
+    acc = _fp32_matmul(x, y)
     if bias is not None:
         acc = acc + bias.reshape(1, -1).float()
     return activation_ref(acc, activation).to(out_dtype)
@@ -70,7 +87,7 @@ def _split_partials(x: torch.Tensor, y: torch.Tensor, splits: int
     acc = None
     for s in range(splits):
         lo, hi = min(k, s * rng), min(k, (s + 1) * rng)
-        part = torch.matmul(x[:, lo:hi].float(), y[lo:hi].float())
+        part = _fp32_matmul(x[:, lo:hi], y[lo:hi])
         acc = part if acc is None else acc + part
     return acc
 

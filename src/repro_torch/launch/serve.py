@@ -7,6 +7,7 @@ continuous batching (or the contiguous slot engine), on the GPU unless
     PYTHONPATH=src python -m repro_torch.launch.serve --engine slot
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --state-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --kv-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
 
 It serves the arch's smoke config with random weights (seed 0), as the JAX
@@ -16,8 +17,10 @@ concurrently.  ``--prefix-sharing`` turns on the refcounted prefix cache;
 ``--slo-mix`` marks every other request TTFT-class; ``--int8-weights``
 serves the int8-weight variant of the params and ``--kv-dtype int8`` int8
 KV pages (paged engine).  The recurrent archs (``rwkv6-3b``,
-``mamba2-2.7b``) serve from state pools; ``--state-dtype int8`` stores their
-large state leaves int8 (paged engine).
+``mamba2-2.7b``) serve from state pools, and the hybrid ``zamba2-1.2b``
+from state pools and KV pages behind one block table (its shared
+attention's); ``--state-dtype int8`` stores their large state leaves int8
+(paged engine).
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ def main(argv=None) -> None:
     ap.add_argument("--state-dtype", choices=("float32", "int8"),
                     default="float32",
                     help="recurrent-state pool storage dtype (rwkv6-3b, "
-                         "mamba2-2.7b; paged engine)")
+                         "mamba2-2.7b, zamba2-1.2b; paged engine)")
     args = ap.parse_args(argv)
 
     from ..configs import get_config
@@ -118,11 +121,11 @@ def main(argv=None) -> None:
               f"preempt={row['preemptions']} jumped={row['queue_jumped']}")
     if not isinstance(engine, PagedServeEngine):
         return
-    if engine.state is not None:
-        print(f"  state pools {args.state_dtype}: {engine.kv_pool_bytes()} "
-              f"bytes ({engine.state.pool_slots} state slots)")
-    else:
-        print(f"  kv pool {args.kv_dtype}: {engine.kv_pool_bytes()} bytes")
+    pools = ([f"kv pool {args.kv_dtype}"] if "k" in engine.cache else []) \
+        + ([f"state pools {args.state_dtype}"] if engine.state else [])
+    print(f"  {' + '.join(pools)}: {engine.kv_pool_bytes()} bytes"
+          + (f" ({engine.state.pool_slots} state slots)" if engine.state
+             else ""))
     m = engine.metrics
     print(f"  ticks={m.ticks}  prefill={m.prefill_tokens} tok "
           f"({m.prefill_tps:.1f} tok/s)  decode={m.decode_tokens} tok "

@@ -1,8 +1,9 @@
 """Building blocks of the port's model paths, in PyTorch.
 
-Port of the subset of the JAX package's ``repro.models.layers`` that
-``lm_decode_paged`` and ``lm_decode_step`` run, plus the parameter
-initialiser and the elementwise ops the recurrent families share.
+Port of the subset of the JAX package's ``repro.models.layers`` that the
+ported model paths run (``attention`` for the whole-sequence entry points,
+``attention_decode_paged`` and ``attention_decode`` for serving), plus the
+parameter initialiser and the elementwise ops the recurrent families share.
 Functions take and return
 tensors; parameters are plain dicts keyed by the JAX names, and every
 weight may be an int8 :class:`~repro_torch.quant.QuantizedTensor`.  Every
@@ -216,6 +217,19 @@ def swiglu(x: torch.Tensor, w_gate: Weight, w_up: Weight,
     return tp_einsum(silu(g) * u, w_down)
 
 
+def attn_params(prefix: str, cfg: ModelConfig,
+                layers: Optional[int]) -> ParamSpecs:
+    """Shapes and init scales of one (or ``layers`` stacked) attention
+    blocks, name for name as the JAX ``attn_params``."""
+    d, h, hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+    lead = () if layers is None else (layers,)
+    shapes = {"wq": (d, h * dh), "wk": (d, hkv * dh), "wv": (d, hkv * dh),
+              "wo": (h * dh, d)}
+    return {f"{prefix}.{name}": (lead + shape, fan_in_scale(shape))
+            for name, shape in shapes.items()}
+
+
 def project_qkv(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
                 positions: torch.Tensor):
     b, t, _ = x.shape
@@ -245,6 +259,28 @@ def gqa_scores_attend(q, k, v, mask) -> torch.Tensor:
     ct = torch.promote_types(q.dtype, v.dtype)
     out = torch.einsum("bhgts,bshd->bthgd", probs.to(ct), v.to(ct))
     return out.reshape(b, t, h * dh)
+
+
+def causal_mask(t: int, device) -> torch.Tensor:
+    """The (1, 1, 1, T, T) lower-triangular mask of whole-sequence
+    self-attention, broadcast over (B, Hkv, G)."""
+    return torch.tril(torch.ones((t, t), dtype=torch.bool,
+                                 device=device))[None, None, None]
+
+
+def attention(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention over a whole sequence ``x`` (B, T, d) at
+    ``positions`` (B, T), for the forward and prefill paths:
+    ``project_qkv``, then ``gqa_scores_attend`` under the causal mask, then
+    ``wo`` through :func:`tp_einsum`, as the JAX layer computes it.  The
+    projections go through ``apr_matmul``; the score and probability
+    products are plain PyTorch, as the JAX layer computes them outside any
+    kernel (not ``scaled_dot_product_attention``, whose sums run in another
+    order).  Returns (B, T, d)."""
+    q, k, v = project_qkv(p, prefix, cfg, x, positions)
+    mask = causal_mask(x.shape[1], x.device)
+    return tp_einsum(gqa_scores_attend(q, k, v, mask), p[f"{prefix}.wo"])
 
 
 def attention_decode_paged(

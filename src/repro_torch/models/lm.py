@@ -1,23 +1,24 @@
-"""Decoder-only dense LM on a paged KV cache, in PyTorch.
+"""Decoder-only dense LM, in PyTorch.
 
-Port of the dense-family serving subset of the JAX package's
-``repro.models.lm``: the parameter layout of ``build_params``,
-``init_paged_cache`` / ``lm_decode_paged`` (paged KV, bf16 or int8) and
-``init_cache`` / ``lm_decode_step`` (the slot engine's contiguous cache).
+Port of the dense-family subset of the JAX package's ``repro.models.lm``:
+the parameter layout of ``build_params``, the whole-sequence entry points
+``lm_forward`` and ``lm_prefill``, ``init_paged_cache`` /
+``lm_decode_paged`` (paged KV, bf16 or int8) and ``init_cache`` /
+``lm_decode_step`` (the slot engine's contiguous cache).
 Parameters keep the JAX names and the stacked layout -- ``blk.0.attn.wq``
 is (n_layers, d, h·dh), and layer ``i`` uses the (K, N) slice ``[i]`` as it
 lies in memory; any matmul weight may be an int8 ``QuantizedTensor``.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import ParamSpecs, Params, attention_decode, \
-    attention_decode_paged, linear, mask_vocab_logits, \
-    rms_norm, swiglu
+from .layers import ParamSpecs, Params, attention, attention_decode, \
+    attention_decode_paged, attn_params, causal_mask, gqa_scores_attend, \
+    linear, mask_vocab_logits, project_qkv, rms_norm, swiglu, tp_einsum
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
               "int8": torch.int8}
@@ -30,19 +31,21 @@ def _check_dense(cfg: ModelConfig) -> None:
             f"{cfg.family!r} ({cfg.name})")
 
 
+def _check_prefix(prefix_embeds) -> None:
+    if prefix_embeds is not None:
+        raise NotImplementedError(
+            "prefix_embeds (the vlm and audio families) is not ported yet")
+
+
 def build_params(cfg: ModelConfig) -> ParamSpecs:
     """Shapes and init scales of the dense LM, name for name as the JAX
     ``build_params`` lays them out (``moe_every`` is 1, so every layer is
     ``blk.0.*`` stacked over ``num_layers``)."""
     _check_dense(cfg)
     d, n, ff = cfg.d_model, cfg.num_layers, cfg.d_ff
-    h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     specs: ParamSpecs = {"embed": ((cfg.padded_vocab, d), 0.02)}
-    for name, shape in (("attn.wq", (n, d, h * dh)),
-                        ("attn.wk", (n, d, hkv * dh)),
-                        ("attn.wv", (n, d, hkv * dh)),
-                        ("attn.wo", (n, h * dh, d)),
-                        ("mlp.w_gate", (n, d, ff)),
+    specs.update(attn_params("blk.0.attn", cfg, n))
+    for name, shape in (("mlp.w_gate", (n, d, ff)),
                         ("mlp.w_up", (n, d, ff)),
                         ("mlp.w_down", (n, ff, d))):
         specs[f"blk.0.{name}"] = (shape, shape[-2] ** -0.5)  # 1/sqrt(fan_in)
@@ -101,10 +104,11 @@ def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-             attend: Callable[[int, Params, torch.Tensor], torch.Tensor]
-             ) -> torch.Tensor:
+             attend: Callable[[int, Params, torch.Tensor], torch.Tensor],
+             last_only: bool = False) -> torch.Tensor:
     """Embed, run every layer (``attend(i, layer_params, h)`` is layer
-    ``i``'s attention on the normed input), final norm and head."""
+    ``i``'s attention on the normed input), final norm and head (on the
+    last position alone with ``last_only``)."""
     _check_dense(cfg)
     x = params["embed"][tokens.long()]
     for i in range(cfg.num_layers):
@@ -114,8 +118,52 @@ def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + attend(i, lp, h)
         h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
         x = x + swiglu(h, lp["mlp.w_gate"], lp["mlp.w_up"], lp["mlp.w_down"])
+    if last_only:
+        x = x[:, -1:]
     x = rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
     return _lm_head(params, cfg, x)
+
+
+def _positions(tokens: torch.Tensor) -> torch.Tensor:
+    b, s = tokens.shape
+    return torch.arange(s, device=tokens.device).expand(b, s)
+
+
+def lm_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Logits (B, T, V) of the whole sequence ``tokens`` (B, T), every
+    layer's attention causal over it (the JAX ``lm_forward`` with its
+    layers unrolled).  ``prefix_embeds`` (vlm, audio) is not ported and
+    raises."""
+    _check_prefix(prefix_embeds)
+    positions = _positions(tokens)
+    return _decoder(params, cfg, tokens, lambda i, lp, h: attention(
+        lp, "attn", cfg, h, positions))
+
+
+def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+               max_seq: Optional[int] = None, *,
+               prefix_embeds: Optional[torch.Tensor] = None):
+    """The whole prompt (B, T) at once: the last-position logits (B, 1, V)
+    and the slot engine's cache after it, ``k`` / ``v`` of shape
+    ``(n_layers, 1, B, max_seq, Hkv, Dh)`` in bf16 with the prompt's K/V at
+    positions ``< T`` and zeros past them (``max_seq`` defaults to T), as
+    the JAX ``lm_prefill`` pads and stacks them and ``lm_decode_step``
+    reads them.  ``prefix_embeds`` is not ported and raises."""
+    _check_prefix(prefix_embeds)
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_seq or s, tokens.device)
+    positions = _positions(tokens)
+    mask = causal_mask(s, tokens.device)
+
+    def attend(i, lp, h):
+        q, k, v = project_qkv(lp, "attn", cfg, h, positions)
+        cache["k"][i, 0, :, :s] = k
+        cache["v"][i, 0, :, :s] = v
+        return tp_einsum(gqa_scores_attend(q, k, v, mask), lp["attn.wo"])
+
+    logits = _decoder(params, cfg, tokens, attend, last_only=True)
+    return logits, cache
 
 
 def lm_decode_paged(

@@ -3,7 +3,8 @@ caches and their decode steps, and the whole-sequence entry points.
 
 Port of the JAX package's ``repro.models.registry.ModelBundle`` for the
 families ported so far: ``dense`` (``models/lm.py``), ``ssm`` (rwkv6,
-``models/rwkv_lm.py``) and ``mamba`` (mamba2, ``models/ssm.py``).  A bundle
+``models/rwkv_lm.py``), ``mamba`` (mamba2, ``models/ssm.py``) and
+``hybrid`` (zamba2, ``models/hybrid.py``).  A bundle
 is bound to one device at construction; it defaults to ``"cuda"`` and
 raises when there is no card, unless the caller passes ``device="cpu"``.
 """
@@ -17,39 +18,55 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..quant import quantize_params
-from . import lm, rwkv_lm, ssm
+from . import hybrid, lm, rwkv_lm, ssm
 from .layers import ParamSpecs, Params, init_from_specs
 
 
 @dataclasses.dataclass(frozen=True)
 class Family:
-    """One family's module functions.  A KV family's take the module
-    signatures of ``lm``; a state family's (``state=True``) those of
-    ``rwkv_lm``/``ssm``, whose decode state is a fixed-size recurrent
-    register file served through the paged *state* cache
-    (``serve/state_cache.py``).  ``forward``/``prefill`` are ``None`` where
-    the port has no whole-sequence entry point for the family yet."""
+    """One family's module functions.  ``kv``: the decode state holds
+    attention KV, so the cache functions take the KV arguments (``lm``'s:
+    ``max_seq``, the page pools' ``pool_pages, page_size, kv_dtype``) and
+    the decode step the positions ``lengths``.  ``state``: the decode state
+    holds a fixed-size recurrent register file, served through the paged
+    *state* cache (``serve/state_cache.py``), so the paged pools take
+    ``state_slots, state_dtype`` and the decode step returns the new state
+    (``rwkv_lm``, ``ssm``).  The hybrid is both."""
     build_params: Callable
     init_cache: Callable
     decode_step: Callable
     init_paged_cache: Callable
     decode_paged: Callable
-    forward: Optional[Callable] = None
-    prefill: Optional[Callable] = None
+    forward: Callable
+    prefill: Callable
+    kv: bool = True
     state: bool = False
+
+
+def _hybrid_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                    max_seq: Optional[int] = None):
+    """The hybrid's prefill, as the JAX registry defines it: the forward's
+    last row and no cache (serving builds the decode state by running the
+    decode path over the prompt)."""
+    return hybrid.hybrid_forward(params, cfg, tokens)[:, -1:], None
 
 
 FAMILIES: Dict[str, Family] = {
     "dense": Family(lm.build_params, lm.init_cache, lm.lm_decode_step,
-                    lm.init_paged_cache, lm.lm_decode_paged),
+                    lm.init_paged_cache, lm.lm_decode_paged, lm.lm_forward,
+                    lm.lm_prefill),
     "ssm": Family(rwkv_lm.build_params, rwkv_lm.init_state,
                   rwkv_lm.rwkv_decode_step, rwkv_lm.init_paged_state,
                   rwkv_lm.rwkv_decode_paged, rwkv_lm.rwkv_forward,
-                  rwkv_lm.rwkv_prefill, state=True),
+                  rwkv_lm.rwkv_prefill, kv=False, state=True),
     "mamba": Family(ssm.build_lm_params, ssm.init_lm_state,
                     ssm.mamba_decode_step, ssm.init_paged_state,
                     ssm.mamba_decode_paged, ssm.mamba_forward,
-                    ssm.mamba_prefill, state=True),
+                    ssm.mamba_prefill, kv=False, state=True),
+    "hybrid": Family(hybrid.build_params, hybrid.init_state,
+                     hybrid.hybrid_decode_step, hybrid.init_paged_cache,
+                     hybrid.hybrid_decode_paged, hybrid.hybrid_forward,
+                     _hybrid_prefill, state=True),
 }
 
 
@@ -59,7 +76,7 @@ def family(cfg: ModelConfig) -> Family:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the port has no {cfg.family!r} family yet ({cfg.name}); "
-            f"ported: dense, ssm (rwkv6), mamba (mamba2)")
+            f"ported: dense, ssm (rwkv6), mamba (mamba2), hybrid (zamba2)")
     return FAMILIES[cfg.family]
 
 
@@ -113,22 +130,18 @@ class ModelBundle:
         return init_from_specs(param_specs(self.cfg), generator, self.device)
 
     # ---- whole-sequence entry points ------------------------------------
-    def _whole(self, fn: Optional[Callable], what: str) -> Callable:
-        if fn is None:
-            raise NotImplementedError(
-                f"{self.cfg.family!r} family: the port has no {what} yet")
-        return fn
-
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """Logits (B, T, V) of the whole sequence ``tokens`` (B, T)."""
-        return self._whole(self.family.forward, "forward")(
-            params, self.cfg, tokens)
+        return self.family.forward(params, self.cfg, tokens)
 
-    def prefill(self, params: Params, tokens: torch.Tensor):
+    def prefill(self, params: Params, tokens: torch.Tensor,
+                max_seq: Optional[int] = None):
         """The whole prompt (B, T) at once: last-position logits (B, 1, V)
-        and the decode carry (the slot engine's cache layout) after it."""
-        return self._whole(self.family.prefill, "prefill")(
-            params, self.cfg, tokens)
+        and the decode carry after it, in the slot engine's cache layout
+        (a KV family's cache ``max_seq`` long, T by default; the hybrid,
+        as in the JAX package, returns none)."""
+        args = (max_seq,) if self.family.kv else ()
+        return self.family.prefill(params, self.cfg, tokens, *args)
 
     # ---- multi-precision --------------------------------------------------
     @property
@@ -149,25 +162,25 @@ class ModelBundle:
     # ---- contiguous (slot engine) cache -----------------------------------
     def init_cache(self, batch: int, max_seq: int) -> Dict[str, torch.Tensor]:
         """The slot engine's cache: the contiguous bf16 KV cache (batch x
-        max_seq) of a KV family, or a state family's decode carry of
-        ``batch`` rows (every leaf has the batch at axis 1)."""
-        if self.family.state:
-            return self.family.init_cache(self.cfg, batch, self.device)
-        return self.family.init_cache(self.cfg, batch, max_seq, self.device)
+        max_seq) of a KV family, a state family's decode carry of ``batch``
+        rows, or both for the hybrid (every leaf of a state family's carry
+        has the batch at axis 1)."""
+        args = (max_seq,) if self.family.kv else ()
+        return self.family.init_cache(self.cfg, batch, *args, self.device)
 
     def decode_step(self, params: Params, cache: Dict[str, torch.Tensor],
                     tokens, lengths) -> torch.Tensor:
-        """One decode token per slot; returns the logits (B, 1, V).  A KV
-        family writes the new K/V into ``cache`` in place; a state family
-        replaces ``cache``'s state tensors with the new ones (the old
-        tensors are not written)."""
-        if self.family.state:
-            logits, new = self.family.decode_step(params, self.cfg, cache,
-                                                  tokens)
-            cache.update(new)
-            return logits
-        return self.family.decode_step(params, self.cfg, cache, tokens,
-                                       lengths)
+        """One decode token per slot; returns the logits (B, 1, V).  The
+        new K/V are written into ``cache`` in place; a state family's new
+        state tensors replace ``cache``'s (the old tensors are not
+        written)."""
+        args = (lengths,) if self.family.kv else ()
+        out = self.family.decode_step(params, self.cfg, cache, tokens, *args)
+        if not self.family.state:
+            return out
+        logits, new = out
+        cache.update(new)
+        return logits
 
     # ---- paged serving contract -------------------------------------------
     @property
@@ -190,12 +203,12 @@ class ModelBundle:
         adds the fp32 scale pools).  A state family: state pools with the
         physical state slot at axis 1, ``state_slots`` =
         ``StateCache.pool_slots`` (reserved ids included), and
-        ``state_dtype="int8"`` storing the large state leaves int8."""
-        if self.family.state:
-            return self.family.init_paged_cache(self.cfg, state_slots,
-                                                state_dtype, self.device)
-        return self.family.init_paged_cache(self.cfg, pool_pages, page_size,
-                                            kv_dtype, self.device)
+        ``state_dtype="int8"`` storing the large state leaves int8.  The
+        hybrid holds both kinds."""
+        kv = (pool_pages, page_size, kv_dtype) if self.family.kv else ()
+        state = (state_slots, state_dtype) if self.family.state else ()
+        return self.family.init_paged_cache(self.cfg, *kv, *state,
+                                            self.device)
 
     def decode_paged(self, params: Params, cache: Dict[str, torch.Tensor],
                      tokens, lengths, new_counts, block_tables) -> torch.Tensor:

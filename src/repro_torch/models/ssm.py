@@ -7,8 +7,8 @@ all T steps in :func:`ssd_chunked` (forward, prefill), and at T = 1 with the
 state in and out for the state step of :func:`mamba2_decode`.  On CPU
 tensors both keep the JAX package's formulas op for op: the chunked matmul
 formula in :func:`ssd_chunked`, the inline step in :func:`mamba2_decode`.
-:func:`mamba2_mixer` is the whole block body, as the hybrid family will
-reuse it.
+:func:`mamba2_mixer` is the whole block body, which the hybrid family
+(``models/hybrid.py``) reuses with :func:`mamba2_decode`.
 """
 from __future__ import annotations
 

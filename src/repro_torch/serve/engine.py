@@ -1,7 +1,8 @@
 """Paged continuous-batching serving engine, in PyTorch.
 
-Port of the JAX package's ``repro.serve.engine`` for the dense and the
-recurrent (rwkv6, mamba2) families: :class:`EngineMetrics`,
+Port of the JAX package's ``repro.serve.engine`` for the dense, the
+recurrent (rwkv6, mamba2) and the hybrid (zamba2) families:
+:class:`EngineMetrics`,
 :class:`PagedServeEngine` with chunked prefill, preemption, the refcounted
 prefix cache, bf16 or int8 KV pools and the recurrent-state pools behind a
 :class:`~.state_cache.StateCache`, and the contiguous :class:`ServeEngine`
@@ -158,7 +159,10 @@ class PagedServeEngine:
     one-deep snapshot ring; the block table of every forward is extended
     with one state-read column and T state-write columns, and only a
     chunk's last real token writes the slot's state (the rest go to
-    ``TRASH_STATE``).  The page allocator still ledgers their tokens.
+    ``TRASH_STATE``).  The page allocator still ledgers their tokens; the
+    hybrid (zamba2) also keeps its shared attention's K/V in the pages of
+    those columns, so preemption, defrag and truncation move both kinds of
+    storage.
     ``state_dtype="int8"`` stores the large state leaves int8 with
     per-(layer, slot, head) scales: lossy across steps, so not
     token-identity gated.  ``prefix_sharing`` is rejected for these
@@ -522,8 +526,9 @@ class PagedServeEngine:
 
 class ServeEngine:
     """Contiguous slot engine: one ``slots x max_seq`` bf16 KV cache (or,
-    for the recurrent families, one decode carry of ``slots`` rows),
-    prefill-on-admit *through the decode path*, token by token.
+    for the recurrent families, one decode carry of ``slots`` rows; for
+    the hybrid, both), prefill-on-admit *through the decode path*, token by
+    token.
 
     The numerics reference the paged engine must match token for token.
     Device state: the cache (``bundle.init_cache``), updated by
@@ -608,8 +613,10 @@ class ServeEngine:
                 # lengths: the slot starts from zeros, and the prompt loop
                 # below advances every row's recurrence, so the other rows
                 # are restored once at the end (rows are independent in
-                # decode, so that is exact).  decode_step replaces the
-                # cache's tensors, so ``keep`` still holds the old ones.
+                # decode, so that is exact).  The loop runs on clones --
+                # decode_step replaces the state tensors and writes the
+                # hybrid's KV caches in place -- so ``keep`` still holds
+                # every leaf as it was.
                 keep = dict(self.cache)
                 for k, a in keep.items():
                     self.cache[k] = a.clone()

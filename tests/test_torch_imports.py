@@ -64,6 +64,9 @@ def test_package_imports_without_jax():
             "repro_torch.kernels.mamba2", "repro_torch.kernels.mamba2.ops",
             "repro_torch.kernels.mamba2.ref",
             "repro_torch.configs.rwkv6_3b"} <= set(lines)
+    # the zamba2 hybrid family
+    assert {"repro_torch.models.hybrid",
+            "repro_torch.configs.zamba2_1p2b"} <= set(lines)
     # the tuning layer, the cost model, the hardware profiles and the int8
     # matmul family
     assert {"repro_torch.bench", "repro_torch.bench.config",
@@ -112,7 +115,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
         PagedServeEngine(bundle, params)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b", "zamba2-1.2b"])
 def test_recurrent_bundles_default_to_cuda(no_cuda, arch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(get_config(arch, smoke=True))
@@ -134,6 +137,8 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
                                   ["--int8-weights", "--kv-dtype", "int8"],
                                   ["--arch", "rwkv6-3b"],
                                   ["--arch", "mamba2-2.7b", "--state-dtype",
+                                   "int8"],
+                                  ["--arch", "zamba2-1.2b", "--kv-dtype",
                                    "int8"]])
 def test_launcher_new_paths_default_to_cuda(no_cuda, args):
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -12,7 +12,7 @@ compiles a jitted or scanned body with fewer bf16 roundings, and JAX's own
 jitted and eager bf16 logits differ by up to 0.07 on these smoke models,
 where the port's bf16 decode step equals the eager one bit for bit.  In
 fp32 the JAX side is jitted (1e-5 from eager).  The launcher serves
-both archs on the CPU."""
+both archs, and the zamba2 hybrid, on the CPU."""
 import contextlib
 import dataclasses
 import io
@@ -247,10 +247,13 @@ def test_init_state_and_pools_match_jax():
             tpaged(get_config(arch, smoke=True), 10, "bfloat16")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["zamba2-1.2b"])
 @pytest.mark.parametrize("args", [[], ["--engine", "slot"],
-                                  ["--state-dtype", "int8"]])
+                                  ["--state-dtype", "int8"],
+                                  ["--kv-dtype", "int8"]])
 def test_launcher_serves_on_the_cpu(arch, args):
+    """Both engines serve each recurrent arch and the zamba2 hybrid, whose
+    paged engine holds int8 KV pages with ``--kv-dtype int8``."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         launch_serve.main(["--arch", arch, "--device", "cpu", "--requests",
@@ -262,6 +265,8 @@ def test_launcher_serves_on_the_cpu(arch, args):
     assert out.count("tokens=3") == 2
     if "--state-dtype" in args:
         assert "state pools int8" in out
+    if "--kv-dtype" in args and arch == "zamba2-1.2b":
+        assert "kv pool int8 + state pools float32" in out
 
 
 @pytest.mark.parametrize("arch", ARCHS)

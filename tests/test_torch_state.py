@@ -2,10 +2,12 @@
 (``gather_state``/``scatter_state`` with int8 leaves, ``copy_state_slot``,
 ``copy_kv_page``, ``split_state_tables``) against the JAX functions, the
 copied ``StateCache`` driven in lockstep with the JAX copy, the port's paged
-and slot engines against the JAX slot engine's greedy tokens on the rwkv6
-and mamba2 smoke configs, the engines' state choreography (preemption,
-defrag, truncate, rejections), and the bundle, bridge and configs of the two
-families."""
+and slot engines against the JAX slot engine's greedy tokens on the rwkv6,
+mamba2 and zamba2 smoke configs, the engines' state choreography
+(preemption, defrag, truncate, rejections), and the bundle, bridge and
+configs of the three families.  The zamba2 hybrid's paged engine holds KV
+pages and a state slot behind one block table; its golden is the JAX slot
+engine, not the JAX paged engine (a red cell, ROADMAP C.1)."""
 import dataclasses
 
 import jax
@@ -33,7 +35,8 @@ from repro_torch.serve.state_cache import (NULL_STATE, TRASH_STATE,
                                            OutOfStateSlots, StateCache)
 
 PCTX = ParallelContext(None)
-ARCHS = ["rwkv6-3b", "mamba2-2.7b"]
+RECURRENT = ["rwkv6-3b", "mamba2-2.7b"]
+ARCHS = RECURRENT + ["zamba2-1.2b"]
 #: the JAX identity matrix's trace and paged geometry
 #: (tests/test_engine_identity.py): a shared 16-token head, 2 slots, so the
 #: third request is admitted mid-flight
@@ -236,6 +239,7 @@ def test_engines_match_jax_slot_engine(family, dtype):
 
 
 @pytest.mark.parametrize("state_dtype", ["int8"])
+@pytest.mark.parametrize("family", RECURRENT, indirect=True)
 def test_paged_engine_matches_jax_paged_engine(family, state_dtype):
     """fp32 params, int8 state pools: greedy tokens and the state pools'
     bytes equal to the JAX PagedServeEngine's (int8 state is lossy across
@@ -289,7 +293,8 @@ def test_truncate_restores_the_checkpointed_state(family):
     eng.step()                     # prefill chunk, then one decode tick
     slot = req.slot
     n0, cur = eng.state.length(slot), eng.state.cur(slot)
-    saved = {k: v[:, cur].clone() for k, v in eng.cache.items()}
+    saved = {k: v[:, cur].clone() for k, v in eng.cache.items()
+             if k in tps.STATE_POOL_KEYS}
     eng.state.snapshot(slot)       # queued copy cur -> a ring id
     eng._sync_state_copies()
     eng.step()                     # one more token
@@ -337,7 +342,15 @@ def test_bridge_maps_params_name_for_name(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_bundle_capabilities(arch):
+    """The JAX bundle's flags: state families (the hybrid among them) page
+    through the StateCache and not through ``supports_paged_kv`` alone, and
+    have no int8-weight path; the dense family pages KV, and has every
+    whole-sequence entry point since the dense forward was ported."""
     bundle = build_model(get_config(arch, smoke=True), device="cpu")
+    jbundle = jax_build_model(jax_get_config(arch, smoke=True))
+    for flag in ("supports_paged_state", "supports_paged_serving",
+                 "supports_paged_kv", "supports_int8_weights"):
+        assert getattr(bundle, flag) == getattr(jbundle, flag), flag
     assert bundle.supports_paged_state and bundle.supports_paged_serving
     assert not bundle.supports_paged_kv
     assert not bundle.supports_int8_weights
@@ -345,11 +358,12 @@ def test_bundle_capabilities(arch):
         bundle.quantize_params(bundle.init_params())
     dense = build_model(get_config("llama3-8b", smoke=True), device="cpu")
     assert dense.supports_paged_kv and not dense.supports_paged_state
-    with pytest.raises(NotImplementedError, match="forward"):
-        dense.forward(dense.init_params(), torch.ones((1, 2), dtype=torch.long))
+    logits = dense.forward(dense.init_params(),
+                           torch.ones((1, 2), dtype=torch.long))
+    assert logits.shape == (1, 2, dense.cfg.padded_vocab)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "arctic-480b",
+@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "arctic-480b",
                                   "internvl2-1b", "whisper-large-v3"])
 def test_unported_families_raise_by_name(arch):
     cfg = get_config(arch, smoke=True)
@@ -363,11 +377,14 @@ def test_configs_reach_both_families(arch, smoke):
     assert dataclasses.asdict(get_config(arch, smoke)) == \
         dataclasses.asdict(jax_get_config(arch, smoke))
     from repro.configs import rwkv6_3b as jax_rwkv6_3b
-    from repro_torch.configs import rwkv6_3b
-    assert dataclasses.asdict(rwkv6_3b.CONFIG) == \
-        dataclasses.asdict(jax_rwkv6_3b.CONFIG)
-    assert dataclasses.asdict(rwkv6_3b.SMOKE_CONFIG) == \
-        dataclasses.asdict(jax_rwkv6_3b.SMOKE_CONFIG)
+    from repro.configs import zamba2_1p2b as jax_zamba2_1p2b
+    from repro_torch.configs import rwkv6_3b, zamba2_1p2b
+    for mod, jmod in ((rwkv6_3b, jax_rwkv6_3b),
+                      (zamba2_1p2b, jax_zamba2_1p2b)):
+        assert dataclasses.asdict(mod.CONFIG) == \
+            dataclasses.asdict(jmod.CONFIG)
+        assert dataclasses.asdict(mod.SMOKE_CONFIG) == \
+            dataclasses.asdict(jmod.SMOKE_CONFIG)
 
 
 def test_rwkv_head_padding_is_refused():
