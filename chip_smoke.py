@@ -51,7 +51,15 @@ Phases (any failure exits non-zero before the final line):
      alone against it inside B = 4, one T = 37 call against 37 calls at
      T = 1 with the state carried, and one device kernel a call; and
      ``rms_norm``'s variance, row for row, at B = 1 and
-     inside batches of 4 and 16; and the matmul families at every tile
+     inside batches of 4 and 16; a row's bits across the batch: B1 under
+     its default configuration at M = 1, 4, 16, 20, 64 and 1024 (llama3-8b's
+     projections, bf16 and fp32), B2, B2q and B3 under their default split
+     at B = 1, 4 and 20 (llama3-8b's and zamba2's geometry; B2 and B2q at
+     B = 20 also against their plain version), and folded T > 1 paged calls
+     (a prefill chunk's B = 1, T = 16, whole and partial, and a verify
+     step's 4 x 5 rows) against T = 1 calls, all bit for bit, and the
+     plain version at phase 2's tolerances; and the matmul families at
+     every tile
      their kernels compile, at the llama3-8b projection shapes and ragged
      ones: ``apr_matmul`` (B1), its memory-resident baseline (B4m, one
      launch a call, equal to B1 at the same tile bit for bit; on fp32
@@ -76,20 +84,35 @@ Phases (any failure exits non-zero before the final line):
      over bf16, fp32 and int8 pools and ``flash_decode`` over a bf16 and
      an fp32 cache at each split count, and under an fp32 q over bf16 and
      int8 pools and a bf16 cache; B1, B7m and the fp32 body (fp32 and int8
-     weights) at each split count, with per-tick totals);
+     weights) at each split count, with per-tick totals; B2 over 20 and 64
+     rows at each split count, :data:`WIDE_BATCHES`);
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
-     every kernel of the path was launched as often as the path demands;
+     every kernel of the path was launched as often as the path demands
+     (prefill chunks attend on ``flash_decode_paged`` too, T folded into
+     the batch);
   4f. serve phase 4's requests on ``PagedServeEngine(kv_dtype="float32")``
      (fp32 KV pools under the bf16 model: every decode tick's attention on
      ``flash_decode_paged`` over fp32 pools), tokens against phase 4's;
   4c. serve full-width llama3-8b bf16 on the slot ServeEngine (4 requests,
      max_seq 256; ``flash_decode`` under every layer), and the same requests
-     on the PagedServeEngine for token agreement;
+     on the PagedServeEngine: greedy tokens equal;
   4d. the dense whole-sequence entry points at full width: llama3-8b
      ``bundle.forward`` and ``bundle.prefill(max_seq=T + 16)`` at B = 2,
      T = 512 (B1 at M = 1024), their launches, times and peak memory, and 8
      greedy decode ticks (B1, B3) from the prefilled cache;
+  4e. speculative decoding at full width: phase 4's requests on the
+     ``SpeculativeServeEngine`` (4 slots, spec_k = 4; verify steps run B1 at
+     M = 20 and B2 over 20 rows) with the n-gram draft and with a
+     ``ModelDraft`` of full-width llama3-8b-draft (random weights from the
+     seed + 1), with the oracle (llama3-8b as its own ``ModelDraft``, one
+     proposal corrupted at a depth going round 0..spec_k: every verify row
+     emits, the draft rolls back after partial accepts; each step's
+     accepted count gated, :class:`CorruptedDraft`), and after 4b with
+     int8 weights and KV and the n-gram draft: greedy tokens equal to the
+     plain paged engine's (phase 4's, 4b's), acceptance, tokens a step, ms
+     a verify step and the launches gated against the code's counts (the
+     draft model's forwards counted);
   4b. quantize the weights on the card, free the bf16 ones, and serve the 6
      requests of phase 4 with int8 weights and int8 KV pages (int8-weight
      ``apr_matmul``, int8 ``flash_decode_paged``); it runs after 4c so that
@@ -120,10 +143,15 @@ Phases (any failure exits non-zero before the final line):
      (random bf16 weights from a seed, one model at a time) on the
      PagedServeEngine with its StateCache (the hybrid's shared attention on
      KV pages behind the same table, B2) and on the slot ServeEngine (B3),
-     the same 6 requests on 4 slots: greedy tokens equal (printed for the
-     hybrid, whose engines attend on B2 and B3), every launch count
-     checked, a profiled decode tick; then a 1024-token ``bundle.prefill``
-     on each (``bundle.forward`` on the hybrid; B9/B10 over all T), every
+     the same 6 requests on 4 slots: greedy tokens equal (the hybrid's
+     too: its engines attend on B2 and B3 at one split count), every
+     launch count checked, a profiled decode tick; zamba2 and rwkv6 (4
+     requests) also on the ``SpeculativeServeEngine`` (state-ring restore,
+     KV truncate on the hybrid) with the n-gram draft and with the oracle
+     (a :class:`Replay` of the paged tokens under :class:`CorruptedDraft`:
+     every ring depth restored, each step's accepted count gated), tokens
+     equal to the paged engine's; then a 1024-token ``bundle.prefill`` on
+     each (``bundle.forward`` on the hybrid; B9/B10 over all T), every
      layer's scan held to its plain version on the same inputs, its ms and
      the scans' share of it (CUDA events);
   8. the tuning path at llama3-8b full width: every registered kernel
@@ -367,6 +395,12 @@ def rel_logits_err(got, ref) -> float:
 RECURRENT_ARCHS = ("rwkv6-3b", "mamba2-2.7b", "zamba2-1.2b")
 RECURRENT_PROMPTS = (24, 57, 96, 40, 33, 70)
 RECURRENT_NEW = 16
+#: the phase-7 archs also served on the SpeculativeServeEngine (n-gram
+#: draft, SPEC_K proposals a step: state-ring restore, and on the hybrid KV
+#: truncate too), with the requests (the first n of the phase's) and new
+#: tokens each; a request's tokens do not depend on the batch it rides in,
+#: so they are held to the first tokens of the paged run's
+SPEC_STATE_ARCHS = {"rwkv6-3b": (4, 16), "zamba2-1.2b": (6, 16)}
 #: apr_matmul launches per token-forward, counted from the code: rwkv6 has
 #: wr, wk, wv, wg, wo, wA, wB, ck, cv, cr in each of 32 layers plus the
 #: lm_head; mamba2 w_in and w_out in each of 64 layers plus the lm_head;
@@ -1071,6 +1105,66 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     check_served(f"phase 7 {arch} slot", slot_reqs, RECURRENT_NEW,
                  slot_launches, expect(len(step_ms), "flash_decode"))
 
+    # the speculative engine on the same requests, with the n-gram draft
+    # and with the oracle (the paged run's tokens, corrupted at a depth
+    # going round 0..SPEC_K): every verify step runs spec_k + 1
+    # token-forwards (the recurrent paths step one token at a time),
+    # rejected proposals roll back the KV pages and restore the state ring;
+    # tokens gated equal to the paged engine's
+    spec = spec_oracle = None
+    if arch in SPEC_STATE_ARCHS:
+        from repro_torch.spec import NgramDraft, SpeculativeServeEngine
+        spec_n, spec_new = SPEC_STATE_ARCHS[arch]
+        spec_ref = [o[:spec_new] for o in paged_out[:spec_n]]
+
+        def serve_spec(tag, draft):
+            bundle.decode_paged = checked(forward)
+            spec_reqs = [Request(rid=i, prompt=p, max_new_tokens=spec_new)
+                         for i, p in enumerate(prompts[:spec_n])]
+            spec_engine = SpeculativeServeEngine(
+                bundle, params, spec_k=SPEC_K, draft=draft, **kw)
+            finite.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            for r in spec_reqs:
+                spec_engine.submit(r)
+            spec_engine.run_until_drained()
+            torch.cuda.synchronize()
+            spec_wall = time.perf_counter() - t0
+            spec_launches = llm_counts()
+            bundle.decode_paged = forward
+            sm = spec_engine.metrics
+            spec_forwards = (spec_engine.prefill_chunk * sm.prefill_calls
+                             + (SPEC_K + 1) * sm.decode_calls)
+            spec_same = sum(a == b for r, o in zip(spec_reqs, spec_ref)
+                            for a, b in zip(r.output, o))
+            run = dict(**sm.summary(), wall_s=spec_wall, spec_k=SPEC_K,
+                       max_new=spec_new, draft=tag,
+                       token_forwards=spec_forwards,
+                       ms_per_verify_step=1e3 * sm.decode_time_s
+                       / sm.decode_calls,
+                       state_restores=spec_engine.state.stats["restores"],
+                       tokens_equal_paged=spec_same,
+                       tokens_total=sum(len(o) for o in spec_ref),
+                       launches=spec_launches, expected_launches=expect(
+                           spec_forwards, "flash_decode_paged"))
+            check_served(f"phase 7 {arch} spec ({tag})", spec_reqs,
+                         spec_new, spec_launches,
+                         expect(spec_forwards, "flash_decode_paged"))
+            if spec_same != run["tokens_total"]:
+                fail(f"phase 7 {arch} ({tag}): speculative tokens differ "
+                     f"from the paged engine's ({spec_same}/"
+                     f"{run['tokens_total']})")
+            if isinstance(draft, CorruptedDraft):
+                run["steps_by_accepted"] = draft.check(
+                    f"phase 7 {arch} ({tag})")
+            return run
+
+        spec = serve_spec("n-gram draft", NgramDraft())
+        spec_oracle = serve_spec("oracle, corrupted at depth 0..4",
+                                 CorruptedDraft(Replay(spec_ref),
+                                                cfg.vocab_size, SPEC_K))
+
     # bundle.prefill of one 1024-token prompt (the hybrid: bundle.forward,
     # whose last row its prefill is), B9/B10 at T = 1024.  The
     # gate is every layer's scan held to its plain version (the per-step
@@ -1178,7 +1272,9 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     torch.cuda.empty_cache()
     return dict(arch=arch, layers=cfg.num_layers, weight_gb=weight_gb,
                 init_s=init_s, per_forward_launches=per_forward, paged=paged,
-                slot=slot, prefill_1024=prefill, tokens_equal=same)
+                slot=slot, spec=spec, spec_oracle=spec_oracle,
+                prefill_1024=prefill,
+                tokens_equal=same)
 
 
 # ------------------------------- the dense whole-sequence entry points
@@ -1199,11 +1295,13 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
     of one forward each (32 layers x 7 + the lm_head, from the code).  For
     information: prefill's logits against forward's last row, and the
     first :data:`DENSE_KV_CHECK` positions of prefill's K/V against the
-    cache ``decode_step`` builds token by token; both differ by B1's
-    split count at another M (ROADMAP C.2).  Gate: finite logits of the
-    shapes expected, the launch counts, and :data:`DENSE_TICKS` greedy
-    decode ticks that run from the prefilled cache (B1 and B3 launches as
-    the path demands)."""
+    cache ``decode_step`` builds token by token: layer 0's are the same
+    bits (B1's split count follows K and N alone, so a row's bits do not
+    depend on M), deeper layers differ by the attention before them (the
+    whole-sequence path's plain score products against B3).  Gate: finite
+    logits of the shapes expected, the launch counts, and
+    :data:`DENSE_TICKS` greedy decode ticks that run from the prefilled
+    cache (B1 and B3 launches as the path demands)."""
     cfg = bundle.cfg
     per_call = 7 * cfg.num_layers + 1
     dev = bundle.device
@@ -1264,7 +1362,8 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
         b = steps[name].float()
         kv[name] = dict(max_abs_diff=float((a - b).abs().max()),
                         values_differ=int((a != b).sum()),
-                        values=a.numel())
+                        values=a.numel(),
+                        layer0_equal=bool(torch.equal(a[0], b[0])))
     out["prefill_kv_vs_decode_steps"] = kv
     del steps
     # greedy decode ticks from the prefilled cache
@@ -1309,13 +1408,252 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
           f"{pv['argmax_equal']}; prefill's K/V at positions "
           f"< {DENSE_KV_CHECK} vs decode_step token by token: "
           + ", ".join(f"{n} max |diff| {r['max_abs_diff']:.4g} "
-                      f"({r['values_differ']}/{r['values']} values differ)"
+                      f"({r['values_differ']}/{r['values']} values differ, "
+                      f"layer 0 bit-equal {r['layer0_equal']})"
                       for n, r in kv.items()))
     d = out["decode_from_prefill"]
     print(f"    {DENSE_TICKS} greedy decode ticks from the prefilled cache: "
           f"{d['ms_per_tick']:.3f} ms a tick, tokens {d['tokens']}, "
           f"launches {launches}")
     return out
+
+
+# ------------------------------- a row's bits do not depend on the batch
+#: phase 2's row-bits checks: the M of B1 (a lone row, the 4-slot tick, a
+#: prefill chunk, a 4-slot verify step at spec_k = 4, 64 rows, phase 4d's
+#: forward) and the B of the decode kernels (a paged prefill chunk's
+#: token, the 4-slot tick, the verify step's 4 x 5 rows)
+ROW_MS = (1, 4, 16, 20, 64, 1024)
+ROW_BS = (1, 4, 20)
+#: (model, Hq, Hkv, D) of the decode geometries held across B
+ROW_GEOMETRIES = (("llama3-8b", 32, 8, 128), ("zamba2-1.2b", 32, 32, 64))
+#: the folded T > 1 calls of phase 2, (T, the real tokens of each row): a
+#: prefill chunk of 16 at B = 1, whole and the last one of a prompt, and
+#: a 4-slot verify step at spec_k = 4 (20 rows), all real and ragged
+ROW_FOLDS = ((16, (16,)), (16, (11,)), (5, (5, 5, 5, 5)), (5, (5, 3, 1, 0)))
+
+
+def row_bits_checks(torch, gen, dev) -> tuple:
+    """Phase 2: a row's bits do not depend on the batch.  B1 under its
+    default configuration at every M of :data:`ROW_MS`, on llama3-8b's
+    projections and lm_head, bf16 and fp32 operands: the M rows of each
+    call bit-equal to the first M rows of the call at M = 1024.  B2 (bf16
+    pools), B2q (int8 pools) and B3 under their default split count at
+    every B of :data:`ROW_BS`, at llama3-8b's and zamba2's geometry (pages
+    of 16, 16 a table; the slot cache at S = 256): each call's rows
+    bit-equal to the first rows of the call at B = 20, and the B = 20
+    call of B2 and B2q held to its plain version on the same inputs at
+    phase 2's paged tolerances.  The folded T > 1 paged call
+    (``layers.paged_attention_folded``: a prefill chunk's or a verify
+    step's attention) at each of :data:`ROW_FOLDS`, bf16 and int8 pools:
+    every real row bit-equal to a T = 1 call at the same length, and held
+    to the plain version on the same rows.  Returns (cases, info): info says,
+    for each geometry, whether B2 over pages and B3 over a contiguous
+    cache of the same K/V give the same bits at their default splits."""
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.kernels.flash_decode import (
+        flash_decode, flash_decode_paged, paged_decode_attention_q_ref,
+        paged_decode_attention_ref)
+    from repro_torch.models.layers import paged_attention_folded
+    from repro_torch.quant import quantize_channelwise
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def first_rows_equal(outs):
+        ref = outs[max(outs)]
+        diffs = [float((o.float() - ref[:n].float()).abs().max())
+                 for n, o in outs.items()]
+        return max(diffs), all(torch.equal(o, ref[:n])
+                               for n, o in outs.items())
+
+    cases, info = [], []
+    m_max = max(ROW_MS)
+    for dtype, name in ((torch.bfloat16, "apr_matmul"),
+                        (torch.float32, "apr_matmul_f32")):
+        for k, n in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]:
+            x = randn(m_max, k, dtype=dtype)
+            w = randn(k, n, scale=k ** -0.5, dtype=dtype)
+            outs = {m: apr_matmul(x[:m], w) for m in ROW_MS}
+            torch.cuda.synchronize()
+            err, ok = first_rows_equal(outs)
+            cases.append((name, f"row bits across M={list(ROW_MS)} K={k} "
+                          f"N={n} {str(dtype)[6:]} default config", err, ok))
+            del x, w, outs
+    b_max, ps, p_max = max(ROW_BS), 16, 16
+    s_len = ps * p_max
+    lengths = torch.tensor([(37 * i + 24) % s_len + 1 for i in range(b_max)],
+                           dtype=torch.int32, device=dev)
+    tables = torch.arange(1, 1 + b_max * p_max, dtype=torch.int32,
+                          device=dev).reshape(b_max, p_max)
+    for label, hq, hkv, d in ROW_GEOMETRIES:
+        q = randn(b_max, hq, d)
+        kp, vp = (randn(1 + b_max * p_max, ps, hkv, d) for _ in "kv")
+        kq, vq = (quantize_channelwise(a.float(), axis=-1) for a in (kp, vp))
+        pools = {"flash_decode_paged": (kp, vp, {}),
+                 "flash_decode_paged_int8": (kq.q, vq.q, dict(
+                     k_scales=kq.scale[..., 0].contiguous(),
+                     v_scales=vq.scale[..., 0].contiguous()))}
+
+        def plain(name, qq, lens, tabs):
+            """The plain version of ``name`` over the pool on these rows."""
+            kk, vv, sc = pools[name]
+            if sc:
+                return paged_decode_attention_q_ref(
+                    qq, kk, vv, sc["k_scales"], sc["v_scales"], lens, tabs)
+            return paged_decode_attention_ref(qq, kk, vv, lens, tabs)
+
+        for name, (kk, vv, sc) in pools.items():
+            outs = {b: flash_decode_paged(q[:b], kk, vv, lengths[:b],
+                                          tables[:b], **sc) for b in ROW_BS}
+            torch.cuda.synchronize()
+            err, ok = first_rows_equal(outs)
+            cases.append((name, f"row bits across B={list(ROW_BS)} {label} "
+                          f"Hq={hq} Hkv={hkv} D={d} pages {p_max}x{ps} "
+                          f"default splits", err, ok))
+            err, ok = max_err(outs[b_max], plain(name, q, lengths, tables),
+                              Q_ATOL if sc else ATOL)
+            cases.append((name, f"B={b_max} {label} default splits vs plain",
+                          err, ok))
+            if name == "flash_decode_paged":
+                paged_out = outs[b_max]
+        # the slot engine's cache holding the same K/V as the pages
+        k_c = kp[1:].reshape(b_max, s_len, hkv, d)
+        v_c = vp[1:].reshape(b_max, s_len, hkv, d)
+        outs = {b: flash_decode(q[:b], k_c[:b], v_c[:b], lengths[:b])
+                for b in ROW_BS}
+        torch.cuda.synchronize()
+        err, ok = first_rows_equal(outs)
+        cases.append(("flash_decode", f"row bits across B={list(ROW_BS)} "
+                      f"{label} Hq={hq} Hkv={hkv} D={d} S={s_len} default "
+                      f"splits", err, ok))
+        info.append(dict(geometry=label, b2_equals_b3=bool(torch.equal(
+            paged_out, outs[b_max])), max_abs_diff=float(
+            (paged_out.float() - outs[b_max].float()).abs().max())))
+        # a prefill chunk's or a verify step's attention, folded, against
+        # its tokens one by one and against the plain version
+        for t, real in ROW_FOLDS:
+            b = len(real)
+            counts = torch.tensor(real, dtype=torch.int32, device=dev)
+            lens0 = torch.clamp(lengths[:b], max=s_len - t)
+            qt = randn(b, t, hq, d)
+            rows = [(row, i) for row in range(b) for i in range(real[row])]
+            q_rows = torch.stack([qt[row, i] for row, i in rows])
+            lens_rows = torch.stack([lens0[row] + i + 1 for row, i in rows])
+            tabs_rows = tables[[row for row, _ in rows]]
+            for name, (kk, vv, sc) in pools.items():
+                folded = paged_attention_folded(qt, kk, vv, lens0, counts,
+                                                tables[:b], **sc)
+                got = torch.stack([folded[row, i] for row, i in rows])
+                one_rows = {}
+                for i in range(t):
+                    one = paged_attention_folded(
+                        qt[:, i:i + 1], kk, vv, lens0 + i,
+                        (counts > i).to(torch.int32), tables[:b], **sc)
+                    for row in range(b):
+                        if i < real[row]:
+                            one_rows[row, i] = one[row, 0]
+                by_token = torch.stack([one_rows[r] for r in rows])
+                ref = plain(name, q_rows, lens_rows, tabs_rows)
+                torch.cuda.synchronize()
+                err, ok = max_err(got, ref.reshape(got.shape),
+                                  Q_ATOL if sc else ATOL)
+                same = bool(torch.equal(got, by_token))
+                cases.append((name, f"folded B={b} T={t} (real tokens "
+                              f"{list(real)}) {label}: rows bit-equal to T=1 "
+                              f"calls {same}, vs plain", err, ok and same))
+        del q, kp, vp, kq, vq, pools, k_c, v_c
+    return cases, info
+
+
+#: phase 4e's proposals a slot a verify step
+SPEC_K = 4
+
+
+class Replay:
+    """A draft that proposes, for each request, the next tokens the plain
+    engine emitted for it (``outputs[rid]``), as many as asked and as it
+    has."""
+
+    def __init__(self, outputs):
+        self.outputs = outputs
+
+    def admit(self, slot, req):
+        pass
+
+    def release(self, slot):
+        pass
+
+    def observe(self, slot, req, new_len):
+        pass
+
+    def propose(self, plan):
+        return {slot: list(self.outputs[req.rid][len(req.output):
+                                                  len(req.output) + k])
+                for slot, req, k in plan}
+
+
+class CorruptedDraft:
+    """The oracle draft of phases 4e and 7: ``inner``'s proposals (a
+    :class:`Replay` of the plain engine's tokens, or a ``ModelDraft`` of
+    the target model itself) with the one at depth ``d`` replaced by
+    another token, ``d`` going round 0..k over each request's verify
+    steps.  If every verify row's greedy token is the plain engine's, a
+    step accepts exactly ``min(d, len(proposals))``: so a request of 16
+    new tokens accepts every count from 0 to k, every verify row emits,
+    every state-ring depth is restored and a model draft rolls back after
+    partial accepts.  ``steps`` holds each step's (accepted, expected),
+    the accepted count read off the tokens the step emitted (one more;
+    ``verify_plan`` keeps a step's proposals under the request's
+    remaining tokens), when the engine observes the step or finishes the
+    request in it."""
+
+    def __init__(self, inner, vocab: int, k: int):
+        self.inner, self.vocab, self.k = inner, vocab, k
+        self.pending = {}          # slot -> (request, tokens, expected)
+        self.steps = []
+
+    def _settle(self, slot):
+        req, before, want = self.pending.pop(slot)
+        self.steps.append((len(req.output) - before - 1, want))
+
+    def admit(self, slot, req):
+        self.inner.admit(slot, req)
+
+    def release(self, slot):
+        if slot in self.pending:
+            self._settle(slot)
+        self.inner.release(slot)
+
+    def observe(self, slot, req, new_len):
+        self._settle(slot)
+        self.inner.observe(slot, req, new_len)
+
+    def propose(self, plan):
+        out = self.inner.propose(plan)
+        for slot, req, _ in plan:
+            p = list(out.get(slot, []))
+            d = req.spec_steps % (self.k + 1)
+            if d < len(p):
+                p[d] = (p[d] + 1) % self.vocab
+            out[slot] = p
+            self.pending[slot] = (req, len(req.output), min(d, len(p)))
+        return out
+
+    def check(self, tag: str) -> dict:
+        """Fail unless every step accepted what it was expected to and the
+        steps accepted every count from 0 to k; returns the counts."""
+        wrong = [s for s in self.steps if s[0] != s[1]]
+        seen = sorted({a for a, _ in self.steps})
+        if wrong:
+            fail(f"{tag}: {len(wrong)}/{len(self.steps)} verify steps "
+                 f"accepted other than the plain engine's tokens allow "
+                 f"(accepted, expected) {wrong[:8]}")
+        if seen != list(range(self.k + 1)):
+            fail(f"{tag}: verify steps accepted only {seen} of 0..{self.k}")
+        return {str(a): sum(1 for s in self.steps if s[0] == a)
+                for a in seen}
 
 
 # ------------------- matmul families (B1 tiles, B4m, B6, B7m, B8) and tuning
@@ -1918,7 +2256,8 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
              f"{expect_splits}")
     check_served("phase 8", reqs, 16, serve_launches, expected_counts(
         apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
-        flash_decode_paged=cfg.num_layers * m.decode_calls))
+        flash_decode_paged=cfg.num_layers * (m.decode_calls
+                                             + m.prefill_calls)))
     # the fp32 operands' kernels (and an fp32 q's) serve no bf16 path:
     # phases 2 and 5 hold them (the fp32 baseline, phase 2 alone)
     unlaunched = [k for k, v in path_launches.items() if not v and k not in (
@@ -2002,7 +2341,9 @@ def decode_timing(torch, gen, dev, cases, kv_dtype=None,
                               4 * tokens * hq * d))
         if hasattr(fd, "SPLITS"):
             try:
-                row["splits"] = fd.default_splits(b, hkv, s_len, kv_bytes)
+                row["splits"] = fd.resolve_splits(
+                    b, hq, hkv, d, s_len, str(q.dtype)[6:], "cuda",
+                    kv_bytes=kv_bytes)
             except TypeError:         # an older tree: one default for all
                 row["splits"] = fd.default_splits(b, hkv, s_len)
             row["split_ms"] = {n: cuda_ms(torch, lambda i: flash_decode(
@@ -2402,11 +2743,15 @@ PAGED_SWEEP = [(1, 16, [196]), (2, 16, [96, 196]), (4, 16, MAIN_LENGTHS),
                (8, 16, MAIN_LENGTHS * 2), (16, 16, [150] * 16),
                (4, 64, [1000, 700, 300, 1024]),
                (4, 256, [4000, 3000, 2000, 4096]), (1, 256, [4096])]
+#: phase 3: B2 wider than the 4-slot reference batch, at each split count
+#: (the default is the 4-slot count, 8 splits at bf16): a 4-slot verify
+#: step at spec_k = 4 and a 64-slot decode tick
+WIDE_BATCHES = [(20, 16, MAIN_LENGTHS * 5), (64, 16, MAIN_LENGTHS * 16)]
 
 
-def paged_split_sweep(torch, gen, dev) -> list:
-    """B2 over bf16, fp32 and int8 pools at each :data:`PAGED_SWEEP`
-    geometry: µs per launch at each split count (pools rotated over 8
+def paged_split_sweep(torch, gen, dev, cases=PAGED_SWEEP) -> list:
+    """B2 over bf16, fp32 and int8 pools at each (B, P_max, lengths) of
+    ``cases``: µs per launch at each split count (pools rotated over 8
     layers), and the count the wrapper picks.  Empty for a tree whose
     paged kernel takes no split count."""
     from repro_torch.bench import BlockConfig
@@ -2417,7 +2762,7 @@ def paged_split_sweep(torch, gen, dev) -> list:
         return []
     hq, hkv, d, ps, layers = 32, 8, 128, 16, 8
     rows = []
-    for b, p_max, lengths in PAGED_SWEEP:
+    for b, p_max, lengths in cases:
         q, kp, vp, lens, tables, _ = paged_inputs(
             torch, gen, dev, b, hq, hkv, d, ps, p_max, lengths, layers)
         kq, vq = (quantize_channelwise(t, axis=-1) for t in (kp, vp))
@@ -4227,9 +4572,15 @@ def main() -> int:
                               f" twice bit-equal={b3_det[-1]}", err, ok))
         del q, k_c, v_c
 
+    # a row's bits across M (B1) and B (B2, B2q, B3), and the folded T > 1
+    # paged call against T = 1 calls
+    row_cases, b2_vs_b3 = row_bits_checks(torch, gen, dev)
+    report["b2_vs_b3_bits"] = b2_vs_b3
+
     # the conv kernels: every geometry of both nets, the JAX tests' and
     # ragged ones on both residencies, and the fused epilogue
-    for name, case, err, ok in (conv_correctness(torch, gen, dev)[0]
+    for name, case, err, ok in (row_cases
+                                + conv_correctness(torch, gen, dev)[0]
                                 + conv_bit_checks(torch, gen, dev)
                                 + scan_correctness(torch, gen, dev)
                                 + scan_bit_checks(torch, gen, dev)
@@ -4279,6 +4630,10 @@ def main() -> int:
               f"d={r['d']} {r['mean']} B={r['batch']}: {r['rows_differ']}/"
               f"{r['rows']}" for r in norms))
     report["norm_invariance"] = norms
+    print("    information: B2 over pages vs B3 over a contiguous cache of "
+          "the same K/V at their default splits (B = 20): " + ", ".join(
+              f"{r['geometry']} bit-equal {r['b2_equals_b3']} (max |diff| "
+              f"{r['max_abs_diff']:.3g})" for r in b2_vs_b3))
     if not all(ok for *_, ok in cases):
         fail("a kernel disagrees with its plain version")
     if any(r["rows_differ"] for r in norms if r["mean"] == "grouped"):
@@ -4496,6 +4851,14 @@ def main() -> int:
                  f"{min(r['split_ms'].values()) * 1e3:.2f} us"
                  if "split_ms" in r else ""))
 
+    # what the split count fixed at the 4-slot one costs a wider batch
+    wide = paged_split_sweep(torch, gen, dev, WIDE_BATCHES)
+    report["wide_batch_splits"] = wide
+    for r in wide:
+        print(f"    {r['kernel']} B={r['B']} lengths={r['lengths'][:4]}...: "
+              f"default {r['splits']} splits; us a launch by split count "
+              + ", ".join(f"{n}: {t:.2f}" for n, t in r["split_us"].items()))
+
     phase_done("phase 3")
 
     # -------------------------------------------------------------- 4 serve
@@ -4689,7 +5052,8 @@ def main() -> int:
     m = engine.metrics
     expect = expected_counts(
         apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
-        flash_decode_paged=cfg.num_layers * m.decode_calls)
+        flash_decode_paged=cfg.num_layers * (m.decode_calls
+                                             + m.prefill_calls))
     serve = dict(weight_gb=weight_gb, init_s=init_s,
                  **paged_summary(engine, wall_s, launches, expect))
     report["serve"] = serve
@@ -4711,7 +5075,8 @@ def main() -> int:
     m = engine.metrics
     expect = expected_counts(
         apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
-        flash_decode_paged_f32=cfg.num_layers * m.decode_calls)
+        flash_decode_paged_f32=cfg.num_layers * (m.decode_calls
+                                                 + m.prefill_calls))
     serve_f = paged_summary(engine, wall_s, launches, expect)
     same = sum(a == b for r, o in zip(reqs, bf16_outputs)
                for a, b in zip(r.output, o))
@@ -4797,6 +5162,12 @@ def main() -> int:
           f"(expected {slot_expect}); tokens equal to the PagedServeEngine's "
           f"{same}/{n_tok}")
     check_served("phase 4c", slot_reqs, 8, slot_launches, slot_expect)
+    # a row's bits do not depend on the batch, so the slot engine (B3, the
+    # prompt one token at a time) and the paged one (B2, chunks of 16)
+    # agree token for token
+    if same != n_tok:
+        fail(f"phase 4c: the slot engine's greedy tokens differ from the "
+             f"paged engine's ({same}/{n_tok})")
 
     phase_done("phase 4c")
 
@@ -4805,6 +5176,139 @@ def main() -> int:
                                  reset_counts, llm_counts, expected_counts)
     report["dense_whole_sequence"] = dense
     phase_done("phase 4d")
+
+    # ------------------------- 4e speculative decoding at full width
+    from repro_torch.configs import get_draft_config
+    from repro_torch.models import build_draft_model
+    from repro_torch.spec import ModelDraft, SpeculativeServeEngine
+
+    def serve_spec(prm, kv_dtype, draft=None, proposer=None):
+        """Warm a throwaway engine, then serve phase 4's requests on a
+        ``SpeculativeServeEngine(spec_k=SPEC_K)`` (the n-gram draft, a
+        ``ModelDraft`` of ``draft`` = (bundle, params), or ``proposer()``)
+        with every launch count set to 0 just before; returns the engine,
+        its requests, the wall seconds, the counts read just after, and the
+        model draft's forwards (counted at its ``_step``) and layers."""
+        kw = dict(engine_kw, kv_dtype=kv_dtype, spec_k=SPEC_K)
+        if draft is not None:
+            kw.update(draft_bundle=draft[0], draft_params=draft[1])
+
+        def make():
+            return SpeculativeServeEngine(bundle, prm, **kw, **(
+                {} if proposer is None else {"draft": proposer()}))
+        warm = make()
+        warm.submit(Request(rid=-1, prompt=[1] * 20, max_new_tokens=6))
+        warm.run_until_drained()
+        del warm
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=16)
+                for i, p in enumerate(prompts)]
+        engine = make()
+        draft_calls, draft_layers = [0], 0
+        model = getattr(engine.draft, "inner", engine.draft)
+        if isinstance(model, ModelDraft):
+            draft_layers = model.bundle.cfg.num_layers
+            step = model._step
+
+            def counted(*a):
+                draft_calls[0] += 1
+                return step(*a)
+            model._step = counted
+        torch.cuda.synchronize()
+        finite.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (engine, reqs, wall, llm_counts(), draft_calls[0],
+                draft_layers)
+
+    def spec_run(tag, prm, kv_dtype, plain_outputs, plain_tick_ms, weights,
+                 attention, draft=None, proposer=None,
+                 name="ngram") -> dict:
+        """Phase 4e: one speculative run (``serve_spec``'s drafts; ``name``
+        for a ``proposer``), its tokens gated equal to the plain paged
+        engine's (``plain_outputs``), an oracle's accepted counts to
+        :meth:`CorruptedDraft.check`, and its launches to the code's
+        counts: ``per_call`` B1 (``weights``) and 32 decode attentions
+        (``attention``) a target forward (a prefill chunk or a verify
+        step), and the draft model's own per forward."""
+        engine, reqs, wall_s, launches, draft_calls, d_layers = serve_spec(
+            prm, kv_dtype, draft, proposer)
+        m = engine.metrics
+        forwards = m.decode_calls + m.prefill_calls
+        d_per_call = 7 * d_layers + 1 if d_layers else 0
+        expect = expected_counts(**{
+            weights: per_call * forwards + d_per_call * draft_calls,
+            attention: cfg.num_layers * forwards + d_layers * draft_calls})
+        same = sum(a == b for r, o in zip(reqs, plain_outputs)
+                   for a, b in zip(r.output, o))
+        total = sum(len(o) for o in plain_outputs)
+        run = dict(**m.summary(), wall_s=wall_s, spec_k=SPEC_K,
+                   kv_dtype=kv_dtype,
+                   draft=(name if draft is None else draft[0].cfg.name),
+                   ms_per_verify_step=1e3 * m.decode_time_s / m.decode_calls,
+                   plain_ms_per_tick=plain_tick_ms,
+                   draft_ms_per_step=1e3 * m.draft_time_s / m.decode_calls,
+                   draft_forwards=draft_calls,
+                   tokens_equal_plain=same, tokens_total=total,
+                   launches=launches, expected_launches=expect)
+        print(f"[4e] {tag}: SpeculativeServeEngine(spec_k={SPEC_K}, draft="
+              f"{run['draft']}, kv {kv_dtype}), phase 4's {len(reqs)} "
+              f"requests in {wall_s:.2f} s wall: {m.spec_steps} request "
+              f"verify steps in {m.decode_calls} verify forwards, acceptance "
+              f"{m.acceptance_rate:.3f} ({m.draft_accepted}/"
+              f"{m.draft_proposed}), {m.tokens_per_step:.3f} tokens a step; "
+              f"{run['ms_per_verify_step']:.3f} ms a verify forward (plain "
+              f"tick {plain_tick_ms:.3f} ms), draft "
+              f"{run['draft_ms_per_step']:.3f} ms a step ({draft_calls} draft "
+              f"forwards); decode {m.decode_tokens} tok, {m.decode_tps:.2f} "
+              f"tok/s, incl. draft {m.spec_decode_tps:.2f} tok/s; greedy "
+              f"tokens equal to the plain engine's {same}/{total}; launches "
+              f"{launches[weights]} {weights} + {launches[attention]} "
+              f"{attention} (expected {expect[weights]} + "
+              f"{expect[attention]})")
+        check_served(f"phase 4e {tag}", reqs, 16, launches, expect)
+        if same != total:
+            fail(f"phase 4e {tag}: speculative tokens differ from the plain "
+                 f"paged engine's ({same}/{total})")
+        if isinstance(engine.draft, CorruptedDraft):
+            run["steps_by_accepted"] = engine.draft.check(f"phase 4e {tag}")
+            print(f"    verify steps by tokens accepted (each as the plain "
+                  f"engine's tokens allow): {run['steps_by_accepted']}")
+        del engine, reqs
+        torch.cuda.empty_cache()
+        return run
+
+    spec_runs = {}
+    spec_runs["ngram"] = spec_run(
+        "n-gram draft, bf16", params, "bfloat16", bf16_outputs,
+        serve["decode_ms_per_tick"], "apr_matmul", "flash_decode_paged")
+    dcfg = get_draft_config("llama3-8b")
+    dbundle = build_draft_model(cfg, dcfg, device="cuda")
+    dparams = dbundle.init_params(torch.Generator(device=dev).manual_seed(
+        args.seed + 1))
+    spec_runs["model"] = spec_run(
+        f"{dcfg.name} draft ({dcfg.num_layers} layers, d={dcfg.d_model}), "
+        f"bf16", params, "bfloat16", bf16_outputs,
+        serve["decode_ms_per_tick"], "apr_matmul", "flash_decode_paged",
+        draft=(dbundle, dparams))
+    del dbundle, dparams
+    # the oracle: llama3-8b as its own ModelDraft (its own paged cache; its
+    # proposals are the plain engine's tokens where a row's bits do not
+    # depend on the batch), one proposal a list corrupted at a depth going
+    # round 0..SPEC_K: partial accepts, every verify row, draft rollback
+    spec_runs["oracle"] = spec_run(
+        "oracle: llama3-8b as its own draft, corrupted at depth 0..4, bf16",
+        params, "bfloat16", bf16_outputs, serve["decode_ms_per_tick"],
+        "apr_matmul", "flash_decode_paged", name="llama3-8b self, corrupted",
+        proposer=lambda: CorruptedDraft(
+            ModelDraft(bundle, params, slots=slots, page_size=16, chunk=16,
+                       kv_dtype="bfloat16"), cfg.vocab_size, SPEC_K))
+    report["serve_spec"] = spec_runs
+    phase_done("phase 4e")
 
     # --------------------------------------- 4b int8 weights + int8 KV pages
     torch.cuda.synchronize()
@@ -4848,7 +5352,8 @@ def main() -> int:
     m = engine.metrics
     expect = expected_counts(
         apr_matmul_int8w=per_call * (m.decode_calls + m.prefill_calls),
-        flash_decode_paged_int8=cfg.num_layers * m.decode_calls)
+        flash_decode_paged_int8=cfg.num_layers * (m.decode_calls
+                                                  + m.prefill_calls))
     serve_q = dict(weight_gb=int8_gb, quantize_s=quant_s,
                    **paged_summary(engine, wall_s, launches, expect))
     same = sum(a == b for r, o in zip(reqs, bf16_outputs)
@@ -4872,10 +5377,20 @@ def main() -> int:
           f"{serve_q['int8_tile_launches']}")
     check_served("phase 4b", reqs, 16, launches, expect)
     serve_q["profiled_tick"] = profile_tick(qparams, engine)
-    del qparams, engine, reqs, bundle
+    int8_outputs = [r.output for r in reqs]
+    del engine, reqs
     torch.cuda.empty_cache()
-
     phase_done("phase 4b")
+
+    # 4e's int8 run: int8 weights and KV pages, the n-gram draft, against
+    # phase 4b's tokens
+    spec_runs["int8"] = spec_run(
+        "n-gram draft, int8 weights + int8 KV", qparams, "int8",
+        int8_outputs, serve_q["decode_ms_per_tick"], "apr_matmul_int8w",
+        "flash_decode_paged_int8")
+    del qparams, bundle
+    torch.cuda.empty_cache()
+    phase_done("phase 4e int8")
 
     # ----------------------------------------------- 5 card vs CPU, smoke
     scfg = get_config("llama3-8b", smoke=True)
@@ -5013,7 +5528,8 @@ def main() -> int:
     fp32_expect = expected_counts(
         apr_matmul=(7 * scfg.num_layers + 1) * (fm.decode_calls
                                                 + fm.prefill_calls),
-        flash_decode_paged_f32=scfg.num_layers * fm.decode_calls)
+        flash_decode_paged_f32=scfg.num_layers * (fm.decode_calls
+                                                  + fm.prefill_calls))
     report["serve_fp32_pools_smoke"] = dict(
         kv_pool_bytes=fp32_eng.kv_pool_bytes(), launches=fp32_launches,
         expected_launches=fp32_expect, decode_calls=fm.decode_calls,
@@ -5123,7 +5639,7 @@ def main() -> int:
                          "int8": "flash_decode_paged_int8_f32q"}[kv_dtype]
             expect = expected_counts(**{
                 weights: per_call_s * forwards,
-                attention: scfg.num_layers * fm.decode_calls})
+                attention: scfg.num_layers * forwards})
         diffs = [float((c - g).abs().max()) for c, g in
                  zip(logits["cpu"], logits["card"]) if c.numel()]
         tokens = {w: [r.output for r in rs] for w, rs in reqs.items()}
@@ -5350,10 +5866,32 @@ def main() -> int:
               f"{pf['plain_pair_diff']:.4g} apart (max |logit| "
               f"{pf['max_abs_logit']:.4g}), argmax equal "
               f"{pf['argmax_equal']}; launches {pf['launches']}")
-        # the hybrid's two engines attend on B2 and B3, whose split sums
-        # differ, so its count is printed and not gated (ROADMAP C.2)
-        if (sl["tokens_equal_paged"] != sl["tokens_total"]
-                and ATTN_PER_FORWARD[arch] == 0):
+        for sp in (rec["spec"], rec["spec_oracle"]):
+            if sp is None:
+                continue
+            print(f"    SpeculativeServeEngine ({sp['draft']}, spec_k="
+                  f"{sp['spec_k']}): {sp['requests_done']} requests "
+                  f"({sp['max_new']} new tokens) in "
+                  f"{sp['wall_s']:.2f} s wall; {sp['spec_steps']} request "
+                  f"verify steps in {sp['decode_calls']} verify forwards "
+                  f"({sp['ms_per_verify_step']:.3f} ms each, spec_k + 1 "
+                  f"token-forwards), acceptance "
+                  f"{sp['acceptance_rate']:.3f}, "
+                  f"{sp['tokens_per_step']:.3f} tokens a step, "
+                  f"{sp['spec_decode_tps']:.2f} tok/s incl. draft; "
+                  f"{sp['state_restores']} state-ring restores; greedy "
+                  f"tokens equal to the paged engine's "
+                  f"{sp['tokens_equal_paged']}/{sp['tokens_total']}; "
+                  f"launches {sp['launches']} over {sp['token_forwards']} "
+                  f"token-forwards" + (
+                      f"; verify steps by tokens accepted (each as the "
+                      f"paged engine's tokens allow) "
+                      f"{sp['steps_by_accepted']}"
+                      if "steps_by_accepted" in sp else ""))
+        # a row's bits do not depend on the batch (B1's and the decode
+        # attention's split counts follow the shape alone), so the engines
+        # agree token for token on every family, the hybrid included
+        if sl["tokens_equal_paged"] != sl["tokens_total"]:
             fail(f"{arch}: the slot engine's greedy tokens differ from the "
                  f"paged engine's ({sl['tokens_equal_paged']}/"
                  f"{sl['tokens_total']})")
@@ -5401,11 +5939,19 @@ def main() -> int:
     kernels = [
         tick_entry("apr_matmul", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
-                   {"phase 4": serve["launches"]["apr_matmul"]},
+                   {"phase 4": serve["launches"]["apr_matmul"],
+                    "phase 4e n-gram": spec_runs["ngram"][
+                        "launches"]["apr_matmul"],
+                    "phase 4e model draft": spec_runs["model"][
+                        "launches"]["apr_matmul"],
+                    "phase 4e oracle": spec_runs["oracle"][
+                        "launches"]["apr_matmul"]},
                    kernel="apr_matmul"),
         tick_entry("apr_matmul_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
-                   {"phase 4b": serve_q["launches"]["apr_matmul_int8w"]},
+                   {"phase 4b": serve_q["launches"]["apr_matmul_int8w"],
+                    "phase 4e int8": spec_runs["int8"][
+                        "launches"]["apr_matmul_int8w"]},
                    kernel="apr_matmul_int8w"),
         tick_entry("apr_matmul_f32", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
@@ -5421,8 +5967,18 @@ def main() -> int:
         tick_entry("flash_decode_paged", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
                    {"phase 4": serve["launches"]["flash_decode_paged"],
+                    "phase 4e n-gram": spec_runs["ngram"][
+                        "launches"]["flash_decode_paged"],
+                    "phase 4e model draft": spec_runs["model"][
+                        "launches"]["flash_decode_paged"],
+                    "phase 4e oracle": spec_runs["oracle"][
+                        "launches"]["flash_decode_paged"],
                     "phase 7 zamba2-1.2b paged": hybrid_launches(
-                        "paged", "flash_decode_paged")},
+                        "paged", "flash_decode_paged"),
+                    "phase 7 zamba2-1.2b spec": hybrid_launches(
+                        "spec", "flash_decode_paged"),
+                    "phase 7 zamba2-1.2b spec oracle": hybrid_launches(
+                        "spec_oracle", "flash_decode_paged")},
                    row=paged_rows["flash_decode_paged"]),
         tick_entry("flash_decode_paged_f32", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
@@ -5436,7 +5992,9 @@ def main() -> int:
         tick_entry("flash_decode_paged_int8", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:81",
                    {"phase 4b": serve_q["launches"][
-                       "flash_decode_paged_int8"]},
+                       "flash_decode_paged_int8"],
+                    "phase 4e int8": spec_runs["int8"][
+                        "launches"]["flash_decode_paged_int8"]},
                    row=paged_rows["flash_decode_paged_int8"]),
         tick_entry("flash_decode_paged_int8_f32q", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:81",
@@ -5494,8 +6052,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             **by_path(**{f"phase 7 {a} {e}": r[e]["launches"][name]
                          for a, r in recurrent.items()
-                         for e in ("paged", "slot")
-                         if r[e]["launches"][name]}),
+                         for e in ("paged", "slot", "spec", "spec_oracle")
+                         if r.get(e) and r[e]["launches"][name]}),
             max_abs_err=errs[name], ms=n_layers * row["ms"],
             plain_ms=n_layers * row["plain_ms"],
             bound_ms=n_layers * row["bound_ms"], bound_by=row["bound_by"],
@@ -5539,8 +6097,13 @@ def main() -> int:
         "decode-attention launches at the phase-3 lengths (flash_decode "
         "over a max_seq-256 contiguous cache; the _f32q entries an fp32 q "
         "over bf16 or int8 K/V, library SDPA in fp32); launches are those "
-        "of phase 4 (bf16 paged; flash_decode_paged also phase 7's zamba2 "
-        "paged run), 4f (fp32 KV pages), 4b (int8 paged), 4c (slot; "
+        "of phase 4 (bf16 paged: decode ticks and, folded over the chunk's "
+        "rows, prefill chunks; flash_decode_paged also phase 7's zamba2 "
+        "paged and speculative runs), 4e (the speculative engine: verify "
+        "steps, prefill chunks and the model draft's own forwards; "
+        "apr_matmul and flash_decode_paged its n-gram and model-draft runs, "
+        "apr_matmul_int8w and flash_decode_paged_int8 its int8 run), 4f "
+        "(fp32 KV pages), 4b (int8 paged), 4c (slot; "
         "flash_decode also phase 4d's decode ticks from the prefilled cache "
         "and phase 7's zamba2 slot run) and 5 (the fp32-param smoke model: "
         "apr_matmul_f32 on fp32 "
@@ -5565,7 +6128,8 @@ def main() -> int:
         "state in and out): 32 and 64 launches at the phase-3 decode shape; "
         "no PyTorch call computes either recurrence (library_ms null); "
         "launches are those of phase 7's PagedServeEngine and ServeEngine "
-        "runs (mamba2_ssd: mamba2-2.7b's and zamba2-1.2b's). "
+        "runs (mamba2_ssd: mamba2-2.7b's and zamba2-1.2b's, and zamba2's "
+        "SpeculativeServeEngine run). "
         "apr_matmul_hbm (B4m), apr_matmul_fused (B7m, bias + silu), "
         "quant_matmul (B6) and quant_matmul_fused (B8, bias + silu): per "
         "full-width decode tick's 224 projections (no lm_head) at the "

@@ -107,17 +107,19 @@ def shape_key(m: int, k: int, n: int, residency: str = "apr",
             + ("_wint8" if w_int8 else ""))
 
 
-def default_splits(m: int, k: int, n: int, block_m: int, block_n: int,
-                   w_bytes: int = 2) -> int:
-    """The split count from the geometry and the weight's bytes an element
-    alone: the largest of :data:`SPLITS` for which the column tiles x row
-    tiles x splits stay within :data:`SPLIT_BLOCK_BUDGET` blocks, and no
-    more splits than K has 128-row ranges (at least one).  At llama3-8b's
-    decode shapes (M = 4 or 16, 64-column tiles), bf16 or fp32 weights: 8
-    at N = 1024, 2 at N = 4096, 1 at N = 14336 and at the lm_head; int8
-    codes under an fp32 ``x``: 8 at N = 1024 and 4096, 2 at N = 14336."""
-    tiles = -(-n // block_n) * -(-m // block_m)
-    cap = min(max(1, SPLIT_BLOCK_BUDGET[w_bytes] // max(1, tiles)),
+def default_splits(k: int, n: int, block_n: int, w_bytes: int = 2) -> int:
+    """The split count from (K, N) and the weight's bytes an element alone,
+    never from M: the largest of :data:`SPLITS` for which the column tiles
+    of one row tile x splits stay within :data:`SPLIT_BLOCK_BUDGET` blocks,
+    and no more splits than K has 128-row ranges (at least one).  B1's bits
+    depend on the split count, so a row gets the same bits at every M: a
+    decode tick (M = slots), a prefill chunk and a speculative verify step
+    (M = slots x (spec_k + 1)) agree.  At llama3-8b's projections (64-column
+    tiles), bf16 or fp32 weights: 8 at N = 1024, 2 at N = 4096, 1 at
+    N = 14336 and at the lm_head; int8 codes under an fp32 ``x``: 8 at
+    N = 1024 and 4096, 2 at N = 14336."""
+    col_tiles = max(1, -(-n // block_n))
+    cap = min(max(1, SPLIT_BLOCK_BUDGET[w_bytes] // col_tiles),
               max(1, -(-k // K_RANGE)))
     return max(s for s in SPLITS if s <= cap)
 
@@ -125,19 +127,20 @@ def default_splits(m: int, k: int, n: int, block_m: int, block_n: int,
 def default_config(m: int, k: int, n: int) -> BlockConfig:
     """Untuned bf16 configuration: the 16 x 64 x 64 tile, one 16x16 WMMA
     fragment per warp (the tile the serving path has run since the port's
-    first slice), at :func:`default_splits`."""
+    first slice), at :func:`default_splits` (M does not enter)."""
     bm, bn, bk = DEFAULT_TILE
     return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk,
-                            splits=default_splits(m, k, n, bm, bn))
+                            splits=default_splits(k, n, bn))
 
 
 def f32_default_config(m: int, k: int, n: int,
                        w_int8: bool = False) -> BlockConfig:
     """Untuned fp32-body configuration: :data:`F32_DEFAULT_TILE` at
-    :func:`default_splits` for fp32 weights, or int8 codes (``w_int8``)."""
+    :func:`default_splits` for fp32 weights, or int8 codes (``w_int8``);
+    M does not enter."""
     bm, bn, bk = F32_DEFAULT_TILE
     return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk,
-                            splits=default_splits(m, k, n, bm, bn,
+                            splits=default_splits(k, n, bn,
                                                   1 if w_int8 else 4))
 
 

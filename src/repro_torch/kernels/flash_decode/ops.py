@@ -65,6 +65,9 @@ SMS = get_profile("h100_sxm").sms
 #: registers fill an SM's register file and measured slower as soon as
 #: their clusters outnumbered half the SMs on an H100 (PERF.md §7)
 BLOCK_BUDGET = {1: 2 * SMS, 2: 2 * SMS, 4: SMS // 2}
+#: the batch :func:`default_splits` is evaluated at, whatever the launch's
+#: B: the serving default of 4 slots
+REFERENCE_BATCH = 4
 
 
 def shape_key(b, hq, hkv, d, s) -> str:
@@ -77,19 +80,23 @@ def paged_shape_key(b, hq, hkv, d, pages, ps, kv_int8: bool = False) -> str:
             + ("_kvint8" if kv_int8 else ""))
 
 
-def default_splits(b, hkv, s, kv_bytes: int = 2) -> int:
+def default_splits(hkv, s, kv_bytes: int = 2) -> int:
     """The split count of either kernel, from the geometry and the cache's
-    bytes a value alone (the lengths live on the device; ``s`` is S or the
-    table width ``P_max * ps``): the largest of :data:`SPLITS` for which
-    the B·Hkv·splits blocks stay within :data:`BLOCK_BUDGET`, and no more
-    splits than the row has 32-token steps."""
-    cap = min(max(1, BLOCK_BUDGET[kv_bytes] // max(1, b * hkv)),
+    bytes a value alone, never from the batch (``s`` is S or the table
+    width ``P_max * ps``; the lengths live on the device): the largest of
+    :data:`SPLITS` for which :data:`REFERENCE_BATCH` x Hkv x splits blocks
+    stay within :data:`BLOCK_BUDGET`, and no more splits than the row has
+    32-token steps.  A row's sums then run in one order at every B: a
+    decode tick, a paged prefill chunk of B = 1, a speculative verify step
+    of B x T rows and the slot engine's step agree where S equals the
+    table width."""
+    cap = min(max(1, BLOCK_BUDGET[kv_bytes] // (REFERENCE_BATCH * hkv)),
               -(-s // COMPILED["chunk"]))
     return max(n for n in SPLITS if n <= cap)
 
 
 def default_config(b, hq, hkv, d, s, kv_bytes: int = 2) -> BlockConfig:
-    return COMPILED.replace(splits=default_splits(b, hkv, s, kv_bytes))
+    return COMPILED.replace(splits=default_splits(hkv, s, kv_bytes))
 
 
 def compiled_configs() -> tuple:
@@ -100,7 +107,7 @@ def compiled_configs() -> tuple:
 def paged_default_config(b, hq, hkv, d, pages, ps, kv_int8: bool = False,
                          kv_bytes: int = 2) -> BlockConfig:
     return COMPILED.replace(splits=default_splits(
-        b, hkv, pages * ps, 1 if kv_int8 else kv_bytes))
+        hkv, pages * ps, 1 if kv_int8 else kv_bytes))
 
 
 def check_dtypes(name: str, q_dtype: torch.dtype,

@@ -9,6 +9,7 @@ continuous batching (or the contiguous slot engine), on the GPU unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --state-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --kv-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --draft-model ngram
 
 It serves the arch's smoke config with random weights (seed 0), as the JAX
 launcher does.  Requests are submitted through
@@ -20,12 +21,18 @@ KV pages (paged engine).  The recurrent archs (``rwkv6-3b``,
 ``mamba2-2.7b``) serve from state pools, and the hybrid ``zamba2-1.2b``
 from state pools and KV pages behind one block table (its shared
 attention's); ``--state-dtype int8`` stores their large state leaves int8
-(paged engine).
+(paged engine).  ``--draft-model`` serves on the speculative engine
+(:mod:`repro_torch.spec`): ``ngram`` self-drafts, ``auto`` takes the arch's
+registered draft model (``configs.DRAFT_FOR``) and any other value names a
+draft config (``configs.DRAFTS``); a draft model's weights come from seed
+1; ``--spec-k`` proposals are verified a step a slot.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+
+import torch
 
 
 def main(argv=None) -> None:
@@ -58,10 +65,16 @@ def main(argv=None) -> None:
                     default="float32",
                     help="recurrent-state pool storage dtype (rwkv6-3b, "
                          "mamba2-2.7b, zamba2-1.2b; paged engine)")
+    ap.add_argument("--draft-model", default=None,
+                    help="speculative decoding draft: 'ngram', 'auto', or a "
+                         "draft arch name (repro_torch.spec; paged engine "
+                         "only)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="drafted tokens verified per step per slot")
     args = ap.parse_args(argv)
 
-    from ..configs import get_config
-    from ..models import build_model
+    from ..configs import get_config, get_draft_config
+    from ..models import build_draft_model, build_model
     from ..serve import (SLO_THROUGHPUT, SLO_TTFT, AsyncServeFrontend,
                          PagedServeEngine, ServeEngine)
 
@@ -70,14 +83,44 @@ def main(argv=None) -> None:
     params = bundle.init_params()
     if args.int8_weights:
         params = bundle.quantize_params(params)
+    if args.draft_model and args.engine != "paged":
+        raise SystemExit(f"--draft-model requires the paged engine (got "
+                         f"--engine {args.engine})")
     if args.engine == "paged":
-        engine = PagedServeEngine(bundle, params, device=args.device,
-                                  slots=args.slots, page_size=args.page_size,
-                                  num_pages=args.num_pages,
-                                  prefill_chunk=args.prefill_chunk,
-                                  kv_dtype=args.kv_dtype,
-                                  state_dtype=args.state_dtype,
-                                  prefix_sharing=args.prefix_sharing)
+        engine_kw = dict(device=args.device, slots=args.slots,
+                         page_size=args.page_size, num_pages=args.num_pages,
+                         prefill_chunk=args.prefill_chunk,
+                         kv_dtype=args.kv_dtype, state_dtype=args.state_dtype,
+                         prefix_sharing=args.prefix_sharing)
+        if args.draft_model:
+            from ..spec import SpeculativeServeEngine
+
+            if args.draft_model == "ngram":
+                draft_cfg = None
+            elif args.draft_model == "auto":
+                draft_cfg = get_draft_config(args.arch, smoke=True)
+            else:  # an explicit *draft* arch name (not a target arch)
+                draft_cfg = get_draft_config(args.draft_model, smoke=True,
+                                             pairing=False)
+                if draft_cfg is None:
+                    raise SystemExit(
+                        f"no draft config registered as {args.draft_model!r}")
+            if draft_cfg is None:
+                print(f"speculative: ngram self-draft, k={args.spec_k}")
+                engine = SpeculativeServeEngine(
+                    bundle, params, spec_k=args.spec_k, **engine_kw)
+            else:
+                print(f"speculative: draft={draft_cfg.name}, k={args.spec_k}")
+                draft_bundle = build_draft_model(cfg, draft_cfg,
+                                                 device=args.device)
+                draft_params = draft_bundle.init_params(torch.Generator(
+                    device=draft_bundle.device).manual_seed(1))
+                engine = SpeculativeServeEngine(
+                    bundle, params, spec_k=args.spec_k,
+                    draft_bundle=draft_bundle, draft_params=draft_params,
+                    **engine_kw)
+        else:
+            engine = PagedServeEngine(bundle, params, **engine_kw)
     else:
         if args.kv_dtype != "bfloat16":
             print(f"note: --kv-dtype {args.kv_dtype} only applies to the "
@@ -142,6 +185,10 @@ def main(argv=None) -> None:
               f"effective-KV x{m.effective_kv_multiplier:.2f} "
               f"({m.prompt_pages_logical} logical / "
               f"{m.prompt_pages_unique} unique pages)")
+    if m.spec_steps:
+        print(f"  speculative: acceptance={m.acceptance_rate:.0%}  "
+              f"tokens/step={m.tokens_per_step:.2f}  "
+              f"decode tok/s incl draft={m.spec_decode_tps:.1f}")
 
 
 if __name__ == "__main__":

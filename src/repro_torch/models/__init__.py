@@ -1,3 +1,5 @@
-from .registry import ModelBundle, build_model
+from .registry import (ModelBundle, build_draft_model, build_model,
+                       check_draft_pair)
 
-__all__ = ["ModelBundle", "build_model"]
+__all__ = ["ModelBundle", "build_draft_model", "build_model",
+           "check_draft_pair"]

@@ -283,6 +283,60 @@ def attention(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
     return tp_einsum(gqa_scores_attend(q, k, v, mask), p[f"{prefix}.wo"])
 
 
+def paged_attention_folded(q, k_pages, v_pages, lengths, new_counts,
+                           block_tables, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
+    """q (B, T, Hq, D) of T new tokens a row, whose K/V are already in the
+    pools, attended by one ``flash_decode_paged`` call over B·T rows: row
+    ``b·T + i`` is ``q[b, i]`` over table ``block_tables[b]`` at length
+    ``lengths[b] + min(i + 1, new_counts[b])``, the length the decode tick
+    of that token would give it, so a padded position (``i >=
+    new_counts[b]``) stays inside the row's written tokens and its output
+    is garbage the caller ignores.  At T == 1 that is ``lengths +
+    new_counts`` over the tables as given.  Returns (B, T, Hq·D) in q's
+    dtype; CPU tensors take the kernel's plain version."""
+    b, t = q.shape[:2]
+    lengths, new_counts = lengths.long(), new_counts.long()
+    if t == 1:   # the decode tick: no copy of the tables on its host path
+        lens, tables = lengths + new_counts, block_tables
+    else:
+        steps = torch.arange(1, t + 1, device=q.device)
+        lens = (lengths[:, None]
+                + torch.minimum(steps[None], new_counts[:, None])).reshape(-1)
+        tables = block_tables.repeat_interleave(t, dim=0)
+    scales = ({} if k_scales is None
+              else dict(k_scales=k_scales, v_scales=v_scales))
+    out = flash_decode_paged(q.reshape(b * t, *q.shape[2:]).contiguous(),
+                             k_pages, v_pages, lens.to(torch.int32), tables,
+                             **scales)
+    return out.reshape(b, t, -1)
+
+
+def paged_attention_gather(q, k_pages, v_pages, positions, block_tables,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
+    """The JAX layer's paged attention: q (B, T, Hq, D) at ``positions``
+    (B, T) over the pages of ``block_tables`` gathered into one (B, S)
+    view (int8 pages dequantized to q's dtype), each token attending to
+    the positions at or before its own.  Returns (B, T, Hq·D) in q's
+    dtype."""
+    b = q.shape[0]
+    tables = block_tables.long()
+    k_all = k_pages[tables].reshape(b, -1, *k_pages.shape[2:])
+    v_all = v_pages[tables].reshape(b, -1, *v_pages.shape[2:])
+    if k_scales is not None:   # dequantize the gathered view before softmax
+        ks_all = k_scales[tables].reshape(b, -1, k_scales.shape[2])
+        vs_all = v_scales[tables].reshape(b, -1, v_scales.shape[2])
+        k_all = (k_all.float() * ks_all[..., None]).to(q.dtype)
+        v_all = (v_all.float() * vs_all[..., None]).to(q.dtype)
+    s = k_all.shape[1]
+    mask = (torch.arange(s, device=q.device)[None, None]
+            <= positions[:, :, None])[:, None, None]
+    # q's dtype on every device, as the decode kernel (and the JAX kernels)
+    # return it: fp32 pools under a bf16 model keep the bf16 activations the
+    # card's apr_matmul takes (the JAX layer promotes them to fp32 here)
+    return gqa_scores_attend(q, k_all, v_all, mask).to(q.dtype)
+
+
 def attention_decode_paged(
     p: Params,
     prefix: str,
@@ -312,15 +366,18 @@ def attention_decode_paged(
     (``quantize_channelwise(axis=-1)``) and its fp32 scale written to the
     same slot of the scale pool.
 
-    On CUDA the decode step (T == 1) calls the ``flash_decode_paged``
-    kernel (bf16, fp32 or int8 pools) with lengths ``lengths + new_counts``,
-    after the new K/V are in the pool; rows with ``new_counts == 0`` then
-    hold zeros or garbage.  Chunked prefill, and every call on the CPU,
-    gathers the pages (dequantizing int8 ones to ``x.dtype``) and attends
-    as the JAX layer does.  The attention output has q's dtype on both
-    paths; the JAX layer differs only for fp32 pools under a bf16 model,
-    where it keeps fp32.  Returns the attention output after the ``wo``
-    projection, (B, T, d).
+    On CUDA every T (the decode step, a prefill chunk, a speculative
+    verify step) calls the ``flash_decode_paged`` kernel (bf16, fp32 or
+    int8 pools) once, after the new K/V are in the pool, with T folded into
+    the batch (:func:`paged_attention_folded`), so a token's attention sums
+    in the order of the decode tick that would have produced it; padded
+    positions then hold zeros or garbage.  There is no other path on CUDA:
+    a geometry the kernel refuses raises.  On the CPU the pages are
+    gathered (int8 ones dequantized to ``x.dtype``) and attended as the JAX
+    layer does (:func:`paged_attention_gather`).  The attention output has
+    q's dtype on both paths; the JAX layer differs only for fp32 pools
+    under a bf16 model, where it keeps fp32.  Returns the attention output
+    after the ``wo`` projection, (B, T, d).
     """
     b, t, _ = x.shape
     ps = k_pages.shape[1]
@@ -344,28 +401,12 @@ def attention_decode_paged(
         k_pages.index_put_((pids, offs), k_new.to(k_pages.dtype))
         v_pages.index_put_((pids, offs), v_new.to(v_pages.dtype))
     scales = dict(k_scales=k_scales, v_scales=v_scales) if quantized else {}
-    if x.is_cuda and t == 1:
-        out = flash_decode_paged(
-            q[:, 0].contiguous(), k_pages, v_pages,
-            (lengths + new_counts.long()).to(torch.int32),
-            block_tables, **scales).reshape(b, 1, -1)
+    if x.is_cuda:
+        out = paged_attention_folded(q, k_pages, v_pages, lengths, new_counts,
+                                     block_tables, **scales)
     else:
-        tables = block_tables.long()
-        k_all = k_pages[tables].reshape(b, -1, *k_pages.shape[2:])
-        v_all = v_pages[tables].reshape(b, -1, *v_pages.shape[2:])
-        if quantized:   # dequantize the gathered view before the softmax
-            ks_all = k_scales[tables].reshape(b, -1, k_scales.shape[2])
-            vs_all = v_scales[tables].reshape(b, -1, v_scales.shape[2])
-            k_all = (k_all.float() * ks_all[..., None]).to(x.dtype)
-            v_all = (v_all.float() * vs_all[..., None]).to(x.dtype)
-        s = k_all.shape[1]
-        mask = (torch.arange(s, device=x.device)[None, None]
-                <= positions[:, :, None])[:, None, None]
-        # q's dtype on every device, as the decode kernel (and the JAX
-        # kernels) return it: fp32 pools under a bf16 model keep the bf16
-        # activations the card's apr_matmul takes (the JAX layer promotes
-        # them to fp32 here)
-        out = gqa_scores_attend(q, k_all, v_all, mask).to(q.dtype)
+        out = paged_attention_gather(q, k_pages, v_pages, positions,
+                                     block_tables, **scales)
     return tp_einsum(out, p[f"{prefix}.wo"])
 
 

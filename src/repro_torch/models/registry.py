@@ -223,3 +223,40 @@ class ModelBundle:
 
 def build_model(cfg: ModelConfig, device="cuda") -> ModelBundle:
     return ModelBundle(cfg=cfg, device=device)
+
+
+#: the families with a paged KV cache of attention layers alone, as the JAX
+#: package counts them (the port has ``dense`` of these so far)
+_LM_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_draft_pair(target: ModelConfig, draft: ModelConfig) -> None:
+    """Validate a (target, draft) speculative-decoding pairing, as the JAX
+    package does.
+
+    Greedy verification compares the draft's proposed token *ids* against
+    the target's argmax, so the two models must share one tokenizer -- the
+    config-level proxy is an identical ``vocab_size``.  Both sides must
+    also speak the paged decode contract: the target verifies through
+    ``decode_paged`` and a model-backed draft keeps its own paged cache in
+    lockstep (rollback via ``PagedKVCache.truncate``).
+    """
+    if draft.vocab_size != target.vocab_size:
+        raise ValueError(
+            f"draft {draft.name!r} (vocab {draft.vocab_size}) does not share "
+            f"target {target.name!r}'s tokenizer (vocab {target.vocab_size}); "
+            "speculative verification compares token ids, so the pair must "
+            "use one vocabulary")
+    for role, cfg in (("target", target), ("draft", draft)):
+        if cfg.family not in _LM_FAMILIES:
+            raise ValueError(
+                f"{role} {cfg.name!r} ({cfg.family!r} family) has no paged "
+                "KV cache; speculative decoding runs on the paged engine")
+
+
+def build_draft_model(target: ModelConfig, draft: ModelConfig,
+                      device="cuda") -> ModelBundle:
+    """The draft-side :class:`ModelBundle` for speculative decoding, on
+    ``device``, after :func:`check_draft_pair` validates the pairing."""
+    check_draft_pair(target, draft)
+    return build_model(draft, device=device)

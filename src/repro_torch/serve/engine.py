@@ -6,8 +6,9 @@ recurrent (rwkv6, mamba2) and the hybrid (zamba2) families:
 :class:`PagedServeEngine` with chunked prefill, preemption, the refcounted
 prefix cache, bf16 or int8 KV pools and the recurrent-state pools behind a
 :class:`~.state_cache.StateCache`, and the contiguous :class:`ServeEngine`
-baseline.  The tensor-parallel, graph, speculative and autotune branches of
-the JAX engine are not ported yet.
+baseline.  The hooks the speculative engine (:mod:`repro_torch.spec`)
+overrides are here too; the tensor-parallel and graph branches of the JAX
+engine are not ported yet.
 
 The host side (page allocator, state-slot allocator, scheduler, block
 tables) is the same Python code as in the JAX package; the device side is
@@ -50,6 +51,13 @@ class EngineMetrics:
     started_at: float = dataclasses.field(default_factory=time.perf_counter)
     ttfts: List[float] = dataclasses.field(default_factory=list)
     util_samples: List[float] = dataclasses.field(default_factory=list)
+    # speculative decoding (repro_torch.spec); all zero on the plain engine
+    spec_steps: int = 0           # verify steps, counted per participating
+                                  #   request (a batched tick adds one per
+                                  #   DECODING slot it verified)
+    draft_proposed: int = 0       # draft tokens proposed across all steps
+    draft_accepted: int = 0       # ... accepted by the target AND emitted
+    draft_time_s: float = 0.0     # time spent producing draft proposals
     # prefix cache (prefix_sharing=True); hit/cow stay zero without it
     prefix_hit_tokens: int = 0    # prompt tokens whose KV came from the
                                   #   prefix cache instead of prefill
@@ -84,6 +92,25 @@ class EngineMetrics:
         return float(np.median(self.ttfts)) if self.ttfts else float("nan")
 
     @property
+    def acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the target model verified."""
+        return self.draft_accepted / max(self.draft_proposed, 1)
+
+    @property
+    def tokens_per_step(self) -> float:
+        """Tokens emitted per verify step (1.0 would match plain decode;
+        the speculative ceiling is spec_k + 1)."""
+        return self.decode_tokens / max(self.spec_steps, 1)
+
+    @property
+    def spec_decode_tps(self) -> float:
+        """Decode tokens per second *including* draft time -- the
+        speculative throughput to compare against a plain engine's
+        ``decode_tps`` (which has no draft phase)."""
+        return self.decode_tokens / max(self.decode_time_s
+                                        + self.draft_time_s, 1e-9)
+
+    @property
     def effective_kv_multiplier(self) -> float:
         """Logical prompt pages served per physical page consumed -- the
         effective-KV-capacity multiplier prefix sharing buys."""
@@ -116,6 +143,16 @@ class EngineMetrics:
             "peak_page_utilization": self.peak_page_utilization,
             "mean_page_utilization": self.mean_page_utilization,
         }
+        if self.spec_steps:  # speculative fields only when spec ran
+            out.update({
+                "spec_steps": self.spec_steps,
+                "draft_proposed": self.draft_proposed,
+                "draft_accepted": self.draft_accepted,
+                "draft_time_s": self.draft_time_s,
+                "acceptance_rate": self.acceptance_rate,
+                "tokens_per_step": self.tokens_per_step,
+                "spec_decode_tps": self.spec_decode_tps,
+            })
         if self.prefix_hit_requests or self.cow_copies:
             out.update({
                 "prefix_hit_tokens": self.prefix_hit_tokens,
@@ -156,8 +193,10 @@ class PagedServeEngine:
     Recurrent families (rwkv6, mamba2) keep each sequence's fixed-size
     state in a pool of physical state slots (``bundle.init_paged_cache``'s
     state pools, slot axis 1) allocated by a :class:`StateCache` with a
-    one-deep snapshot ring; the block table of every forward is extended
-    with one state-read column and T state-write columns, and only a
+    snapshot ring (one deep; ``spec_k + 1`` deep on the speculative engine,
+    whose subclass sets ``spec_k`` before calling up); the block table of
+    every forward is extended (:meth:`_tables`) with one state-read
+    column and T state-write columns, and only a
     chunk's last real token writes the slot's state (the rest go to
     ``TRASH_STATE``).  The page allocator still ledgers their tokens; the
     hybrid (zamba2) also keeps its shared attention's K/V in the pages of
@@ -217,9 +256,10 @@ class PagedServeEngine:
         self.kv_dtype = kv_dtype
         self.state_dtype = state_dtype
         # recurrent-state slot pool: one current state per engine slot plus
-        # a one-deep snapshot ring for truncate rollback
+        # a snapshot ring for truncate rollback (depth spec_k + 1 on the
+        # speculative engine, whose subclass sets ``spec_k`` before this)
         self.state: Optional[StateCache] = (
-            StateCache(slots=slots, ring_depth=1)
+            StateCache(slots=slots, ring_depth=getattr(self, "spec_k", 0) + 1)
             if bundle.supports_paged_state else None)
         # tuned-kernel plumbing: an explicit ``tune_cache`` is scoped to
         # this engine (warm-up and every step()); see scoped_cache
@@ -347,6 +387,11 @@ class PagedServeEngine:
                     self.metrics.prefix_hit_requests += 1
             if self.state is not None:
                 self.state.alloc(slot)
+            self._on_admit(slot, req)
+
+    def _on_admit(self, slot: int, req: Request) -> None:
+        """Placement hook for subclasses (the speculative engine notifies
+        its draft proposer here); the base engine needs nothing."""
 
     def _preempt(self, req: Request) -> None:
         self.kv.free_slot(req.slot)

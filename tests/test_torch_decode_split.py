@@ -408,9 +408,11 @@ def test_split_counts_enumerate_and_price():
     assert set(cands) == set(fd_ops.compiled_configs())
     # the default: 4 x 8 rows x heads, 8 splits put 256 blocks on 132 SMs
     assert spec.default_config(DECODE_SHAPE)["splits"] == 8
-    assert fd_ops.default_splits(1, 8, 4096) == 8
-    assert fd_ops.default_splits(4, 8, 40) == 2        # two 32-token steps
-    assert fd_ops.default_splits(64, 8, 4096) == 1
+    assert fd_ops.default_splits(8, 4096) == 8
+    assert fd_ops.default_splits(8, 40) == 2           # two 32-token steps
+    # the batch never enters: 64 rows take the count of 4
+    assert fd_ops.resolve_splits(64, 32, 8, 128, 4096, "bfloat16",
+                                 "cuda") == 8
     # the JAX package's key, unchanged
     assert spec.shape_key(DECODE_SHAPE) == \
         jax_all_specs()["flash_decode"].shape_key(DECODE_SHAPE)

@@ -67,6 +67,9 @@ def test_package_imports_without_jax():
     # the zamba2 hybrid family
     assert {"repro_torch.models.hybrid",
             "repro_torch.configs.zamba2_1p2b"} <= set(lines)
+    # speculative decoding
+    assert {"repro_torch.spec", "repro_torch.spec.draft",
+            "repro_torch.spec.engine"} <= set(lines)
     # the tuning layer, the cost model, the hardware profiles and the int8
     # matmul family
     assert {"repro_torch.bench", "repro_torch.bench.config",
@@ -121,6 +124,14 @@ def test_recurrent_bundles_default_to_cuda(no_cuda, arch):
         build_model(get_config(arch, smoke=True))
 
 
+def test_spec_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from repro_torch.spec import SpeculativeServeEngine
+    bundle = build_model(get_config("llama3-8b", smoke=True), device="cpu")
+    params = bundle.init_params()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SpeculativeServeEngine(bundle, params)
+
+
 def test_slot_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
     bundle = build_model(get_config("llama3-8b", smoke=True), device="cpu")
     params = bundle.init_params()
@@ -139,7 +150,10 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
                                   ["--arch", "mamba2-2.7b", "--state-dtype",
                                    "int8"],
                                   ["--arch", "zamba2-1.2b", "--kv-dtype",
-                                   "int8"]])
+                                   "int8"],
+                                  ["--draft-model", "ngram"],
+                                  ["--draft-model", "auto", "--spec-k",
+                                   "2"]])
 def test_launcher_new_paths_default_to_cuda(no_cuda, args):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--requests", "1"] + args)

@@ -212,10 +212,10 @@ def test_fp32_x_int8_weight_is_a_compiled_pair():
 
 
 # ------------------------------------------------------- default split count
-#: llama3-8b's decode projections (K, N) and the split count the geometry
-#: gives at M = 4 and 16 on 64-column tiles: column tiles x splits about
-#: one block on each of the h100_sxm profile's 132 SMs for bf16 and fp32
-#: weights, about four for int8 codes under an fp32 x
+#: llama3-8b's projections (K, N) and the split count the geometry gives
+#: on 64-column tiles at every M: the column tiles of one row tile x splits
+#: about one block on each of the h100_sxm profile's 132 SMs for bf16 and
+#: fp32 weights, about four for int8 codes under an fp32 x
 LLAMA_SPLITS = {(4096, 4096): 2, (4096, 1024): 8, (4096, 14336): 1,
                 (14336, 4096): 2, (4096, 128256): 1}
 LLAMA_INT8_SPLITS = {(4096, 4096): 8, (4096, 1024): 8, (4096, 14336): 2,
@@ -227,7 +227,7 @@ def test_default_splits_at_llama3_8b_shapes(m):
     assert apr_ops.SMS == 132
     assert apr_ops.SPLIT_BLOCK_BUDGET == {1: 528, 2: 132, 4: 132}
     for (k, n), want in LLAMA_SPLITS.items():
-        assert apr_ops.default_splits(m, k, n, 16, 64) == want, (k, n)
+        assert apr_ops.default_splits(k, n, 64) == want, (k, n)
         assert apr_ops.default_config(m, k, n)["splits"] == want
         assert apr_ops.f32_default_config(m, k, n)["splits"] == want
         assert apr_ops.resolve_launch("apr_matmul", m, k, n, "bfloat16",
@@ -239,11 +239,12 @@ def test_default_splits_at_llama3_8b_shapes(m):
         assert apr_ops.f32_default_config(m, k, n, True)["splits"] == \
             LLAMA_INT8_SPLITS[(k, n)], (k, n)
     # at most one split a 128-row range of K, at least one
-    assert apr_ops.default_splits(m, 96, 40, 16, 64) == 1
-    assert apr_ops.default_splits(m, 300, 40, 16, 64) == 2
-    assert apr_ops.default_splits(m, 0, 40, 16, 64) == 1
-    # more row tiles take fewer splits
-    assert apr_ops.default_splits(64, 4096, 1024, 16, 64) == 2
+    assert apr_ops.default_splits(96, 40, 64) == 1
+    assert apr_ops.default_splits(300, 40, 64) == 2
+    assert apr_ops.default_splits(0, 40, 64) == 1
+    # more row tiles take the same splits: M never enters the count
+    assert apr_ops.default_config(64, 4096, 1024)["splits"] == \
+        apr_ops.default_config(m, 4096, 1024)["splits"] == 8
     # the memory-resident baseline and the int8-weight kernel: one split
     assert apr_ops.resolve_launch("apr_matmul", m, 4096, 1024, "bfloat16",
                                   "cuda", "hbm")[1] == 1

@@ -345,12 +345,15 @@ def test_default_splits_weigh_the_cache_bytes():
     """bf16 and int8 caches aim at two blocks a SM, fp32 ones at one to
     every two SMs; both wrappers resolve the default of their cache's
     bytes, under the same key."""
-    assert [fd_ops.default_splits(b, 8, 256) for b in (1, 4, 8, 16, 64)] \
-        == [8, 8, 4, 2, 1]
-    assert fd_ops.default_splits(4, 8, 256, 1) == 8
-    assert [fd_ops.default_splits(b, 8, 256, 4) for b in (1, 2, 4, 8)] \
-        == [8, 4, 2, 1]
-    assert fd_ops.default_splits(1, 8, 40, 4) == 2     # two 32-token steps
+    # the batch never enters: every B takes the count of 4 rows
+    assert [fd_ops.resolve_paged_splits(b, 32, 8, 128, 16, 16, False,
+                                        "bfloat16", "cuda")
+            for b in (1, 4, 8, 16, 64)] == [8, 8, 8, 8, 8]
+    assert fd_ops.default_splits(8, 256, 1) == 8
+    assert [fd_ops.resolve_paged_splits(b, 32, 8, 128, 16, 16, False,
+                                        "bfloat16", "cuda", kv_bytes=4)
+            for b in (1, 2, 4, 8)] == [2, 2, 2, 2]
+    assert fd_ops.default_splits(8, 40, 4) == 2        # two 32-token steps
     assert fd_ops.resolve_paged_splits(4, 32, 8, 128, 16, 16, False,
                                        "bfloat16", "cuda", kv_bytes=4) == 2
     assert fd_ops.resolve_paged_splits(4, 32, 8, 128, 16, 16, True,
