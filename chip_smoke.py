@@ -74,7 +74,14 @@ Phases (any failure exits non-zero before the final line):
      split count (B4m and the int8-weight kernel bit-equal to B1 at one
      split); the fp32 body likewise, and over int8 weights bit-equal to the
      fp32 body on the dequantized weight; the decode kernels under an fp32
-     q over bf16 and int8 pools and a bf16 cache at every split count;
+     q over bf16 and int8 pools and a bf16 cache at every split count; the
+     moe and vlm families' shapes: B1 at the routers (K = 7168 / 5120, N =
+     128), the experts' projections and internvl2-1b's 896-wide ones at M
+     = 1, 2, 4, 16 and 64 (each row bit-equal to its row at M = 64; over
+     int8 weights at llama4's expert shapes), B2/B2q/B3 at arctic-480b's,
+     llama4-maverick's and internvl2-1b's geometries at every split count
+     (and a row's bits across B), and B5/B4c at MobileNet-V1's 14 convs at
+     batch 1 and 256;
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B1
      also at phase 4d's prefill M = 1024, against ``torch.matmul``; B4m,
@@ -132,13 +139,20 @@ Phases (any failure exits non-zero before the final line):
      with an fp32 q) and on the CPU -- the PagedServeEngine on fp32, bf16
      and int8 pools, with int8 weights on fp32 pools, and the slot
      ServeEngine: every forward's logits within 1e-3, greedy tokens equal,
-     the launches exactly those of the path;
-  6. run the paper's CNNs (LeNet-5, ResNet-20; random fp32 weights from a
-     seed) at batch 256 with every conv on ``apr_conv``, check each
-     forward's launches, run ResNet-20 on the memory-resident baseline
-     (``apr_conv_hbm``, one launch a conv) and on the plain path, time all
-     of them and ResNet-20 at batch 1, and compare card (kernels) and CPU
-     (plain) logits;
+     the launches exactly those of the path; and the smoke arctic-480b,
+     llama4-maverick-400b-a17b and internvl2-1b: ``decode_paged`` over
+     bf16 pools, with int8 weights over int8 pools and with fp32 params
+     over fp32 pools, ``decode_step``, and ``forward`` / ``prefill`` (after
+     8 vision embeddings for the vlm) with bf16 and fp32 params;
+  6. run the paper's CNNs (LeNet-5, ResNet-20, MobileNet-V1; random fp32
+     weights from a seed) at batch 256 with every dense conv on
+     ``apr_conv`` (MobileNet's 13 depthwise convs plain ``F.conv2d``, as
+     the JAX model computes them outside any kernel), check each forward's
+     launches, run ResNet-20 and MobileNet-V1 on the memory-resident
+     baseline (``apr_conv_hbm``, one launch a conv) and on the plain path,
+     time all of them and both at batch 1 (with MobileNet's depthwise
+     share by CUDA events), and compare card (kernels) and CPU (plain)
+     logits;
   7. serve full-width rwkv6-3b, mamba2-2.7b and the zamba2-1.2b hybrid
      (random bf16 weights from a seed, one model at a time) on the
      PagedServeEngine with its StateCache (the hybrid's shared attention on
@@ -154,6 +168,19 @@ Phases (any failure exits non-zero before the final line):
      each (``bundle.forward`` on the hybrid; B9/B10 over all T), every
      layer's scan held to its plain version on the same inputs, its ms and
      the scans' share of it (CUDA events);
+  7b. the moe and vlm families at published widths (random bf16 weights
+     drawn on the card, one model at a time): arctic-480b cut to 2 layers
+     and llama4-maverick to one super-block (a dense and an MoE layer)
+     serve phase 4's requests on 4 slots at the published capacity factor
+     1.25 (paged; arctic also slot; llama4 also with int8 weights and int8
+     KV), with the dropped dispatches, ms a tick and a profiled tick
+     against its byte floor, then drop-free (factor E / k): paged and slot
+     tokens gated equal, and arctic's n-gram speculative tokens equal to
+     the paged engine's; every run's B1 launches gated against its routing
+     (3 a non-empty expert).  internvl2-1b at full size: ``forward`` and
+     ``prefill`` at B = 2 over 256 stubbed vision embeddings and 256
+     tokens, 8 decode ticks from the prefilled cache (B3), and the 6
+     requests on both engines, tokens gated equal;
   8. the tuning path at llama3-8b full width: every registered kernel
      family (the int8-weight tiles and both decode kernels' split counts
      included) swept exhaustively (the yardstick), then
@@ -1277,6 +1304,713 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                 tokens_equal=same)
 
 
+# ------------------------------------- the moe and vlm families (B1-B3)
+#: phase 2's B1 shapes of the moe and vlm families, (K, N): the routers,
+#: the experts' projections of arctic-480b and llama4-maverick, and
+#: internvl2-1b's projections and lm_head (896 wide)
+MOE_VLM_MM_SHAPES = [(7168, 128), (5120, 128),
+                     (7168, 4864), (4864, 7168), (5120, 8192), (8192, 5120),
+                     (896, 896), (896, 128), (896, 4864), (4864, 896),
+                     (896, 151808)]
+#: the M of those checks: one row, a decode tick's queue, a prefill
+#: chunk's, up to a 4-slot chunk's rows
+MOE_ROW_MS = (1, 2, 4, 16, 64)
+#: phase 7b: the MoE archs at published widths, depth cut to this many
+#: layers (arctic: 2 MoE layers; llama4: one super-block of a dense and an
+#: MoE layer), served at the published capacity factor and drop-free
+MOE_LAYERS = {"arctic-480b": 2, "llama4-maverick-400b-a17b": 2}
+#: the capacity factor at which no dispatch drops: E / k, so the capacity
+#: is the call's row count
+MOE_DROP_FREE = {"arctic-480b": 64.0, "llama4-maverick-400b-a17b": 128.0}
+#: phase 4's requests (prompt lengths; 16 new tokens each), drawn below
+#: each model's own vocab
+SERVE_PROMPTS = (24, 180, 57, 133, 96, 40)
+#: phase 7b's internvl2-1b whole sequence: B rows of the published 256
+#: stubbed vision embeddings then VLM_TEXT text tokens
+VLM_B, VLM_TEXT, VLM_TICKS = 2, 256, 8
+
+
+def moe_vlm_matmul_checks(torch, gen, dev) -> list:
+    """Phase 2: B1 (bf16 weights, and over int8 weights at llama4's expert
+    shapes, as its int8 run serves them) at :data:`MOE_VLM_MM_SHAPES` under
+    the default configuration: each call at every M of :data:`MOE_ROW_MS`
+    gives the first M rows of the M = 64 call bit for bit (a row's bits do
+    not depend on the queue it rides in), and the M = 64 call is held to
+    the plain version at the bf16 tolerance."""
+    from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
+    from repro_torch.quant import quantize_channelwise
+    cases, m_max = [], max(MOE_ROW_MS)
+    for k, n in MOE_VLM_MM_SHAPES:
+        x = torch.randn((m_max, k), generator=gen, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5).to(
+            torch.bfloat16)
+        weights = [("apr_matmul", w, w)]
+        if (k, n) in ((5120, 8192), (8192, 5120)):
+            qt = quantize_channelwise(w.float())
+            weights.append(("apr_matmul_int8w", qt,
+                            qt.dequantize(torch.bfloat16)))
+        for name, ww, w_plain in weights:
+            outs = {m: apr_matmul(x[:m], ww) for m in MOE_ROW_MS}
+            ref = matmul_ref(x, w_plain, torch.bfloat16)
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, outs[m_max][:m])
+                       for m, o in outs.items())
+            err, ok = max_err(outs[m_max], ref)
+            cases.append((name, f"K={k} N={n} rows at M={list(MOE_ROW_MS)} "
+                          f"bit-equal to M={m_max}'s {same}, vs plain", err,
+                          ok and same))
+        del x, w, weights, outs
+    return cases
+
+
+def family_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
+    """Phase 5 for the moe and vlm families: the smoke config on the card
+    (B1, B2/B2q, B3) and on the CPU (plain versions), same weights.
+    ``paged_*``: one prefill chunk of 8 (two rows, one padded after 5: its
+    padded rows route too) then 3 decode ticks over bf16 pools (bf16
+    params), int8 pools with int8 weights (the router full precision), and
+    fp32 pools with fp32 params; ``slot``: 4 decode steps on the slot cache
+    (one row starting empty); ``forward_*`` / ``prefill_*``: every position
+    of ``bundle.forward`` and ``bundle.prefill``'s last one over the 8
+    tokens, after the 8 stubbed vision embeddings for the vlm, bf16 and
+    fp32 params.  Each side is fed the CPU's greedy tokens; bound
+    SMOKE_LOGITS_BOUND (bf16) or F32_SMOKE_LOGITS_BOUND (fp32).
+
+    The router is a product in the activations' dtype on both sides (as
+    in JAX), so where two experts' router logits lie within a bf16 ulp the
+    card's and the CPU's sums may round them into the other order and
+    route a token to another expert: its logits then differ by O(1), and
+    so do the later steps that attend to its K/V.  Each side's routing is
+    recorded; a step whose routing differs is gated to be such a near-tie
+    (on the CPU's router logits, each expert only the card picked within
+    a bf16 ulp of the CPU's k-th logit) and, from it on, its logits are
+    reported and not held to the bound (``routing_flips``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import linear
+    scfg = get_config(arch, smoke=True)
+    devices = {"cpu": torch.device("cpu"), "cuda": dev}
+    bundles = {w: build_model(scfg, device=d) for w, d in devices.items()}
+    cpu_params = bundles["cpu"].init_params(
+        torch.Generator().manual_seed(seed))
+    variants = {"bf16": cpu_params,
+                "int8": bundles["cpu"].quantize_params(cpu_params),
+                "fp32": {k: v.float() for k, v in cpu_params.items()}}
+    rng = np.random.default_rng(seed)
+    first = rng.integers(1, scfg.vocab_size, (2, 8)).astype(np.int32)
+    prefix = None
+    if scfg.vision_tokens:
+        prefix = torch.from_numpy(rng.standard_normal(
+            (2, scfg.vision_tokens, scfg.d_model)).astype(np.float32))
+    routes = {"cpu": [], "cuda": []}
+    route_of = moe_mod.route
+    side = ["cpu"]                     # the side whose forward is running
+
+    def recorded(x, w, cfg, capacity):
+        r = route_of(x, w, cfg, capacity)
+        logits = linear(x, w).float() if side[0] == "cpu" else None
+        routes[side[0]].append((r.expert.reshape(x.shape[0], -1).cpu(),
+                                logits))
+        return r
+
+    def on(where, arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(devices[where])
+                for a in arrays]
+
+    def params_on(label):
+        return {"cpu": variants[label],
+                "cuda": {k: v.to(dev) for k, v in variants[label].items()}}
+
+    def flips_of(step, real=None) -> list:
+        """The routing differences of this step's calls (cleared after) on
+        the rows of real tokens (``real``: their indices among the call's
+        B·T rows, all by default), each checked to be a router near-tie.
+        A padded position's row is garbage by contract (on the card it
+        attends as its row's last real token, on the CPU over the unwritten
+        positions after it) and routes as it may; at this drop-free factor
+        it takes no real token's place."""
+        out = []
+        for call, ((sel, logits), (sel_c, _)) in enumerate(zip(
+                routes["cpu"], routes["cuda"])):
+            for row in (range(sel.shape[0]) if real is None else real):
+                extra = set(sel_c[row].tolist()) - set(sel[row].tolist())
+                if not extra:
+                    continue
+                kth = float(torch.sort(logits[row], descending=True
+                                       ).values[sel.shape[1] - 1])
+                ulp = 2.0 ** (math.floor(math.log2(max(abs(kth), 1e-30)))
+                              - 7)
+                gap = max(kth - float(logits[row, e]) for e in extra)
+                out.append(dict(step=step, call=call, row=row, gap=gap,
+                                ulp=ulp, near_tie=gap <= ulp))
+        if len(routes["cpu"]) != len(routes["cuda"]):
+            out.append(dict(step=step, calls=(len(routes["cpu"]),
+                                              len(routes["cuda"])),
+                            near_tie=False))
+        routes["cpu"].clear()
+        routes["cuda"].clear()
+        return out
+
+    def record(out, diffs, flips, step):
+        diffs.append(float((out["cpu"] - out["cuda"]).abs().max()))
+        nxt, got = out["cpu"].argmax(-1), out["cuda"].argmax(-1)
+        for row in torch.nonzero(nxt != got).flatten().tolist():
+            flips.append(dict(step=step, row=row, cpu_gap=float(
+                out["cpu"][row, nxt[row]] - out["cpu"][row, got[row]])))
+        return nxt, int((nxt == got).sum())
+
+    def result(diffs, flips, agree, total, bound, routing):
+        """Held to ``bound``: the steps before the first routing flip."""
+        first_flip = min((f["step"] for f in routing), default=len(diffs))
+        held = diffs[:first_flip]
+        return dict(max_abs_logits_diff=max(held, default=0.0),
+                    per_step=diffs, greedy_agree=agree, greedy_total=total,
+                    flips=flips, bound=bound, routing_flips=routing,
+                    steps_held=len(held))
+
+    res = {}
+    moe_mod.route = recorded
+    try:
+        for label, kv, bound in (("bf16", "bfloat16", SMOKE_LOGITS_BOUND),
+                                 ("int8", "int8", SMOKE_LOGITS_BOUND),
+                                 ("fp32", "float32", F32_SMOKE_LOGITS_BOUND)):
+            prm = params_on(label)
+            caches = {w: b_.init_paged_cache(9, 8, kv)
+                      for w, b_ in bundles.items()}
+            tables = np.array([[1, 2, 0, 0], [3, 4, 0, 0]], np.int32)
+            tokens, counts = first, np.array([8, 5], np.int32)
+            lengths = np.zeros(2, np.int32)
+            diffs, flips, agree, routing = [], [], 0, []
+            for step in range(4):
+                out = {}
+                for where, b_ in bundles.items():
+                    side[0] = where
+                    logits = b_.decode_paged(prm[where], caches[where], *on(
+                        where, (tokens, lengths, counts, tables)))
+                    out[where] = logits[[0, 1], torch.from_numpy(
+                        counts - 1).long().to(devices[where])].float().cpu()
+                t = tokens.shape[1]
+                routing += flips_of(step, [b * t + i for b in range(2)
+                                           for i in range(counts[b])])
+                nxt, n_eq = record(out, diffs, flips, step)
+                agree += n_eq
+                tokens = nxt.numpy()[:, None].astype(np.int32)
+                lengths, counts = lengths + counts, np.ones(2, np.int32)
+            res[f"paged_{label}"] = result(diffs, flips, agree, 8, bound,
+                                           routing)
+        prm = params_on("bf16")
+        caches = {w: b_.init_cache(2, 16) for w, b_ in bundles.items()}
+        tokens, lengths = first[:, :1], np.array([0, 3], np.int32)
+        diffs, flips, agree, routing = [], [], 0, []
+        for step in range(4):
+            out = {}
+            for w, b_ in bundles.items():
+                side[0] = w
+                out[w] = b_.decode_step(prm[w], caches[w], *on(w, (
+                    tokens, lengths)))[:, 0].float().cpu()
+            routing += flips_of(step)
+            nxt, n_eq = record(out, diffs, flips, step)
+            agree += n_eq
+            tokens = nxt.numpy()[:, None].astype(np.int32)
+            lengths = lengths + 1
+        res["slot"] = result(diffs, flips, agree, 8, SMOKE_LOGITS_BOUND,
+                             routing)
+        for label, bound in (("bf16", SMOKE_LOGITS_BOUND),
+                             ("fp32", F32_SMOKE_LOGITS_BOUND)):
+            prm = params_on(label)
+            dtype = torch.float32 if label == "fp32" else torch.bfloat16
+            for entry in ("forward", "prefill"):
+                out = {}
+                for w, b_ in bundles.items():
+                    side[0] = w
+                    pe = (None if prefix is None
+                          else prefix.to(dtype).to(devices[w]))
+                    toks = on(w, (first,))[0]
+                    lg = (b_.forward(prm[w], toks, prefix_embeds=pe)
+                          if entry == "forward" else
+                          b_.prefill(prm[w], toks, max_seq=32,
+                                     prefix_embeds=pe)[0])
+                    out[w] = lg.float().cpu().reshape(-1, lg.shape[-1])
+                routing = flips_of(0)
+                diffs, flips = [], []
+                _, agree = record(out, diffs, flips, 0)
+                res[f"{entry}_{label}"] = result(
+                    diffs, flips, agree, out["cpu"].shape[0], bound, routing)
+    finally:
+        moe_mod.route = route_of
+    bad = [f for r in res.values() for f in r["routing_flips"]
+           if not f["near_tie"]]
+    if bad:
+        fail(f"phase 5 {arch}: card and CPU route differently away from a "
+             f"router near-tie: {bad[:4]}")
+    return res
+
+
+def serve_counted(torch, bundle, prm, kind: str, prompts, max_new: int,
+                  finite, reset_counts, llm_counts, kv_dtype="bfloat16"):
+    """Serve ``prompts`` (``max_new`` tokens each) on a fresh engine of
+    ``kind`` -- ``"paged"`` (PagedServeEngine, 4 slots, pages and chunks
+    of 16), ``"slot"`` (ServeEngine, 4 slots, max_seq 256) or ``"spec"``
+    (the n-gram SpeculativeServeEngine over the paged one, spec_k =
+    SPEC_K) -- with every launch count set to 0 just before and read just
+    after.  Returns a dict: outputs, wall seconds, the launches, the
+    target forwards (paged: decode ticks + prefill chunks + verify steps;
+    slot: decode steps), ms a decode forward, the engine metrics' summary
+    (not the slot engine's, which keeps none) and peak memory."""
+    from repro_torch.serve import PagedServeEngine, Request, ServeEngine
+    from repro_torch.spec import NgramDraft, SpeculativeServeEngine
+    kw = dict(device="cuda", slots=4, page_size=16, prefill_chunk=16,
+              kv_dtype=kv_dtype)
+    step_ms = []
+    if kind == "slot":
+        inner = bundle.decode_step
+
+        def timed_step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = inner(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits
+        bundle.decode_step = timed_step
+        engine = ServeEngine(bundle, prm, device="cuda", slots=4, max_seq=256)
+    else:
+        inner = bundle.decode_paged
+
+        def checked(*a):
+            logits = inner(*a)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits
+        bundle.decode_paged = checked
+        engine = (SpeculativeServeEngine(bundle, prm, spec_k=SPEC_K,
+                                         draft=NgramDraft(), **kw)
+                  if kind == "spec" else PagedServeEngine(bundle, prm, **kw))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    finite.clear()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+    finally:
+        if kind == "slot":
+            bundle.decode_step = inner
+        else:
+            bundle.decode_paged = inner
+    out = dict(kind=kind, kv_dtype=kv_dtype, wall_s=time.perf_counter() - t0,
+               launches=llm_counts(), outputs=[r.output for r in reqs],
+               done=all(r.done for r in reqs),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if kind == "slot":
+        out.update(forwards=len(step_ms), ms_per_tick=float(np.mean(step_ms)),
+                   ms_per_tick_median=float(np.median(step_ms)))
+    else:
+        m = engine.metrics
+        out.update(forwards=m.decode_calls + m.prefill_calls,
+                   ms_per_tick=1e3 * m.decode_time_s / m.decode_calls,
+                   ms_per_prefill_chunk=1e3 * m.prefill_time_s
+                   / m.prefill_calls, **m.summary())
+    out["reqs"] = reqs
+    del engine
+    return out
+
+
+def tokens_equal(a, b) -> tuple:
+    """(equal tokens, tokens) of two runs' outputs, position by
+    position."""
+    return (sum(x == y for oa, ob in zip(a, b) for x, y in zip(oa, ob)),
+            sum(len(o) for o in b))
+
+
+def moe_serving(torch, arch: str, seed: int, dev, finite, reset_counts,
+                llm_counts, check_served) -> dict:
+    """Phase 7b for an MoE arch: published widths, depth cut to
+    :data:`MOE_LAYERS` (random bf16 weights drawn on the card from
+    ``seed``), phase 4's requests (:data:`SERVE_PROMPTS`, 16 new tokens,
+    prompts below the arch's vocab) on 4 slots.  At the published capacity
+    factor: the paged engine (and arctic's slot engine), with the dropped
+    dispatches, ms a tick, a profiled tick's idle share against its byte
+    floor, and llama4 also with int8 weights and int8 KV (quantized on the
+    card, the bf16 weights freed first).  Drop-free (:data:`MOE_DROP_FREE`):
+    the paged and slot engines' tokens gated equal, and arctic's n-gram
+    speculative engine's equal to the paged engine's.  Every run's B1
+    launches are gated against the count its routing gives: per forward
+    the attention's 4 and the head's 1, each dense layer's 3, each MoE
+    layer's router and (arctic) dense residual, and 3 for every expert
+    with a non-empty queue, as ``moe.expert_counts`` read them."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.quant import QuantizedTensor
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=MOE_LAYERS[arch])
+    n_moe = cfg.num_layers // cfg.moe_every
+    n_dense = cfg.num_layers - n_moe
+    res_ff = 3 if cfg.dense_residual_ff else 0
+    bundle = build_model(cfg, device="cuda")
+    free = build_model(dataclasses.replace(
+        cfg, moe_capacity_factor=MOE_DROP_FREE[arch]), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in params.values()) / 1e9
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in SERVE_PROMPTS]
+
+    routing = dict(calls=0, nonempty=0, dropped=0, dispatches=0, read_s=0.0)
+    counts_of = moe_mod.expert_counts
+
+    def counted(r):
+        t0 = time.perf_counter()
+        counts = counts_of(r)
+        routing["read_s"] += time.perf_counter() - t0
+        routing["calls"] += 1
+        routing["nonempty"] += sum(c > 0 for c in counts)
+        routing["dropped"] += sum(max(c - r.capacity, 0) for c in counts)
+        routing["dispatches"] += sum(counts)
+        return counts
+
+    def expect(forwards: int, int8: bool, attention: str) -> dict:
+        """The launches of ``forwards`` forwards whose MoE layers ran
+        ``routing["nonempty"]`` experts in all (int8 weights: the router
+        stays bf16, on B1)."""
+        per_fwd = (4 * cfg.num_layers + 3 * n_dense
+                   + (1 + res_ff) * n_moe + 1)
+        weights = per_fwd * forwards + 3 * routing["nonempty"]
+        out = {k: 0 for k in llm_counts()}
+        if int8:
+            out["apr_matmul"] = n_moe * forwards
+            out["apr_matmul_int8w"] = weights - n_moe * forwards
+        else:
+            out["apr_matmul"] = weights
+        out[attention] = cfg.num_layers * forwards
+        return out
+
+    def run(tag, b_, prm, kind, kv_dtype="bfloat16", int8=False) -> dict:
+        for key in routing:
+            routing[key] = 0
+        r = serve_counted(torch, b_, prm, kind, prompts, 16, finite,
+                          reset_counts, llm_counts, kv_dtype)
+        attention = ("flash_decode" if kind == "slot" else
+                     "flash_decode_paged_int8" if kv_dtype == "int8" else
+                     "flash_decode_paged")
+        r["expected_launches"] = expect(r["forwards"], int8, attention)
+        r["routing"] = dict(routing, read_ms_per_layer=1e3
+                            * routing["read_s"] / max(routing["calls"], 1),
+                            capacity_factor=b_.cfg.moe_capacity_factor)
+        check_served(f"phase 7b {arch} {tag}", r.pop("reqs"), 16,
+                     r["launches"], r["expected_launches"])
+        if routing["calls"] != n_moe * r["forwards"]:
+            fail(f"phase 7b {arch} {tag}: {routing['calls']} routings for "
+                 f"{r['forwards']} forwards of {n_moe} MoE layers")
+        rt = r["routing"]
+        print(f"    {tag}: {kind} engine, capacity factor "
+              f"{rt['capacity_factor']:g}, {r['forwards']} forwards in "
+              f"{r['wall_s']:.2f} s wall, {r['ms_per_tick']:.3f} ms a decode "
+              f"{'step' if kind == 'slot' else 'forward'}; routing: "
+              f"{rt['dispatches']} dispatches, {rt['dropped']} dropped, "
+              f"{rt['nonempty']} expert launches of 3 B1 "
+              f"({rt['nonempty'] / max(rt['calls'], 1):.2f} experts a MoE "
+              f"layer), the counts' host read {rt['read_ms_per_layer']:.3f} "
+              f"ms a MoE layer; launches {r['launches']['apr_matmul']} "
+              f"apr_matmul + {r['launches']['apr_matmul_int8w']} int8w + "
+              f"{r['launches'][attention]} {attention} (expected "
+              f"{r['expected_launches']['apr_matmul']} + "
+              f"{r['expected_launches']['apr_matmul_int8w']} + "
+              f"{r['expected_launches'][attention]}); peak "
+              f"{r['peak_mem_gb']:.2f} GB", flush=True)
+        return r
+
+    out = dict(arch=arch, layers=cfg.num_layers, weight_gb=weight_gb,
+               init_s=init_s, runs={})
+    print(f"[7b] {arch} at published widths (d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.num_experts} experts top-"
+          f"{cfg.experts_per_token}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}), {cfg.num_layers} layers: {weight_gb:.2f} GB "
+          f"bf16 weights drawn on the card in {init_s:.2f} s", flush=True)
+    moe_mod.expert_counts = counted
+    try:
+        # warm the kernels at these shapes on a throwaway run
+        serve_counted(torch, bundle, params, "paged", [prompts[0][:20]], 2,
+                      finite, reset_counts, llm_counts)
+        runs = out["runs"]
+        runs["paged"] = run("published factor, paged", bundle, params,
+                            "paged")
+        out["tick"] = moe_tick(torch, bundle, params, cfg, rng, routing, dev)
+        if arch == "arctic-480b":
+            runs["slot"] = run("published factor, slot", bundle, params,
+                               "slot")
+            same, total = tokens_equal(runs["slot"]["outputs"],
+                                       runs["paged"]["outputs"])
+            print(f"    information: at the published factor a token's "
+                  f"routing depends on the rows beside it (capacity): "
+                  f"slot/paged tokens {same}/{total}")
+        runs["paged_drop_free"] = run("drop-free, paged", free, params,
+                                      "paged")
+        runs["slot_drop_free"] = run("drop-free, slot", free, params, "slot")
+        same, total = tokens_equal(runs["slot_drop_free"]["outputs"],
+                                   runs["paged_drop_free"]["outputs"])
+        out["drop_free_slot_vs_paged"] = (same, total)
+        print(f"    drop-free: slot/paged greedy tokens {same}/{total}")
+        if same != total:
+            fail(f"phase 7b {arch}: drop-free slot and paged tokens differ "
+                 f"({same}/{total})")
+        if arch == "arctic-480b":
+            runs["spec_drop_free"] = run("drop-free, n-gram spec", free,
+                                         params, "spec")
+            same, total = tokens_equal(runs["spec_drop_free"]["outputs"],
+                                       runs["paged_drop_free"]["outputs"])
+            out["spec_vs_paged"] = (same, total)
+            sp = runs["spec_drop_free"]
+            print(f"    n-gram SpeculativeServeEngine (spec_k={SPEC_K}): "
+                  f"acceptance {sp['acceptance_rate']:.3f}, "
+                  f"{sp['tokens_per_step']:.3f} tokens a step; greedy "
+                  f"tokens equal to the paged engine's {same}/{total}")
+            if same != total:
+                fail(f"phase 7b {arch}: speculative tokens differ from the "
+                     f"paged engine's ({same}/{total})")
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            qparams = bundle.quantize_params(params)
+            torch.cuda.synchronize()
+            quant_s = time.perf_counter() - t0
+            del params
+            torch.cuda.empty_cache()
+            int8_gb = sum(w.nbytes if isinstance(w, QuantizedTensor)
+                          else w.numel() * w.element_size()
+                          for w in qparams.values()) / 1e9
+            print(f"    int8 weights: {int8_gb:.2f} GB, quantized on the "
+                  f"card in {quant_s:.2f} s, the bf16 weights freed")
+            runs["paged_int8"] = run("published factor, int8 weights + "
+                                     "int8 KV, paged", bundle, qparams,
+                                     "paged", kv_dtype="int8", int8=True)
+            runs["paged_int8"].update(weight_gb=int8_gb, quantize_s=quant_s)
+            same, total = tokens_equal(runs["paged_int8"]["outputs"],
+                                       runs["paged"]["outputs"])
+            print(f"    information: int8 tokens equal to bf16's {same}/"
+                  f"{total} (random weights; int8 moves near-ties and, at "
+                  f"the published factor, the routing)")
+            params = qparams
+    finally:
+        moe_mod.expert_counts = counts_of
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_tick(torch, bundle, params, cfg, rng, routing, dev) -> dict:
+    """One decode tick of the paged path at 4 slots, lengths
+    :data:`MAIN_LENGTHS` and random tokens: wall ms (5 ticks), a profiled
+    tick's device-busy time and idle share, and its byte floor -- every
+    weight it reads once (attention, dense FFNs, routers, residuals, the
+    head; of the experts those it routes to) and the K/V of the live
+    tokens -- over the card's memory rate."""
+    slots, ps = 4, 16
+    tables = np.zeros((slots, 16), np.int32)
+    at = 1
+    for i, n in enumerate(MAIN_LENGTHS):
+        need = -(-(n + 1) // ps)
+        tables[i, :need] = np.arange(at, at + need)
+        at += need
+    cache = bundle.init_paged_cache(at + 1, ps)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(1, cfg.vocab_size, (slots, 1)).astype(np.int32),
+        np.asarray(MAIN_LENGTHS, np.int32), np.ones(slots, np.int32),
+        tables)]
+    fwd = bundle.decode_paged
+    fwd(params, cache, *args)
+    torch.cuda.synchronize()
+    for key in routing:
+        routing[key] = 0
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fwd(params, cache, *args)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    experts = routing["nonempty"] / 5
+    expert_bytes = 3 * cfg.d_model * cfg.d_ff * 2
+    dense_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
+                      if k != "embed" and ".moe.w_" not in k)
+    kv_bytes = (sum(MAIN_LENGTHS) + slots) * cfg.num_layers * 2 \
+        * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    floor_bytes = dense_bytes + experts * expert_bytes + kv_bytes
+    tick = dict(wall_ms=wall, experts_a_tick=experts,
+                floor_gb=floor_bytes / 1e9,
+                floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3,
+                read_ms_per_layer=1e3 * routing["read_s"]
+                / max(routing["calls"], 1))
+    # the counts' read alone, the card idle: what the host pays beyond
+    # waiting for the router's result
+    counts = torch.zeros(cfg.num_experts, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        counts.tolist()
+    tick["idle_read_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    by_kernel = profile_device(torch, lambda: fwd(params, cache, *args), 5)
+    if by_kernel:
+        busy = sum(by_kernel.values())
+        tick.update(device_busy_ms=busy, idle_share=1 - busy / wall,
+                    top_kernels_ms=dict(sorted(by_kernel.items(),
+                                               key=lambda kv: -kv[1])[:6]))
+    print(f"    decode tick at lengths {MAIN_LENGTHS} (4 slots, random "
+          f"tokens): wall {wall:.3f} ms, {experts:g} experts launched a "
+          f"tick, byte floor {tick['floor_gb']:.3f} GB = "
+          f"{tick['floor_ms']:.3f} ms"
+          + (f", device busy {tick['device_busy_ms']:.3f} ms (profiler), "
+             f"idle share {tick['idle_share']:.1%}" if by_kernel else "")
+          + f"; the counts' host read {tick['read_ms_per_layer']:.3f} ms a "
+          f"MoE layer in the tick ({tick['idle_read_ms']:.4f} ms with the "
+          f"card idle)", flush=True)
+    for name, t in tick.get("top_kernels_ms", {}).items():
+        print(f"      {t:8.3f} ms  {name[:90]}")
+    del cache
+    return tick
+
+
+def vlm_full(torch, seed: int, dev, finite, reset_counts, llm_counts,
+             check_served) -> dict:
+    """Phase 7b for internvl2-1b at full size (24 layers, published
+    widths; random bf16 weights from ``seed``): ``bundle.forward`` and
+    ``bundle.prefill`` at B = :data:`VLM_B` over the published 256 stubbed
+    vision embeddings then :data:`VLM_TEXT` text tokens (B1 at M = B x
+    512), their launches (169 B1 each) and times; :data:`VLM_TICKS` greedy
+    decode ticks from the prefilled cache (B1, B3); then phase 4's
+    requests on the paged and slot engines, greedy tokens gated equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("internvl2-1b")
+    bundle = build_model(cfg, device="cuda")
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(seed))
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in params.values()) / 1e9
+    per_call = 7 * cfg.num_layers + 1
+    zero = {k: 0 for k in llm_counts()}
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (VLM_B, VLM_TEXT))).to(dev)
+    vision = (torch.randn((VLM_B, cfg.vision_tokens, cfg.d_model),
+                          generator=torch.Generator(device=dev).manual_seed(
+                              seed + 2), device=dev) * 0.02).to(
+        torch.bfloat16)
+    s = cfg.vision_tokens + VLM_TEXT
+    out = dict(arch=cfg.name, layers=cfg.num_layers, weight_gb=weight_gb,
+               B=VLM_B, vision_tokens=cfg.vision_tokens, text_tokens=VLM_TEXT)
+
+    def timed(name, fn):
+        fn()
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        expect = dict(zero, apr_matmul=per_call)
+        out[name] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                         event_ms=start.elapsed_time(end),
+                         launches=llm_counts(), expected_launches=expect)
+        if out[name]["launches"] != expect:
+            fail(f"phase 7b internvl2-1b {name}: launches "
+                 f"{out[name]['launches']} != expected {expect}")
+        return res
+
+    logits = timed("forward", lambda: bundle.forward(
+        params, tokens, prefix_embeds=vision))
+    last, cache = timed("prefill", lambda: bundle.prefill(
+        params, tokens, max_seq=s + MAX_SEQ_PAD, prefix_embeds=vision))
+    v = cfg.padded_vocab
+    if (logits.shape != (VLM_B, s, v) or last.shape != (VLM_B, 1, v)
+            or not bool(torch.isfinite(logits).all())
+            or not bool(torch.isfinite(last).all())):
+        fail(f"phase 7b internvl2-1b: logits {tuple(logits.shape)} / "
+             f"{tuple(last.shape)} not finite of shape ({VLM_B}, {s} or 1, "
+             f"{v})")
+    out["prefill_vs_forward_last"] = float(
+        (last[:, 0, :cfg.vocab_size].float()
+         - logits[:, -1, :cfg.vocab_size].float()).abs().max())
+    del logits
+    finite.clear()
+    reset_counts()
+    nxt = last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    lengths = torch.full((VLM_B,), s, dtype=torch.int32, device=dev)
+    generated, tick_ms = [], []
+    for _ in range(VLM_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_logits = bundle.decode_step(params, cache, nxt, lengths)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        finite.append(bool(torch.isfinite(step_logits).all()))
+        nxt = step_logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        generated.append(nxt[:, 0].tolist())
+        lengths = lengths + 1
+    launches = llm_counts()
+    expect = dict(zero, apr_matmul=per_call * VLM_TICKS,
+                  flash_decode=cfg.num_layers * VLM_TICKS)
+    out["decode_from_prefill"] = dict(
+        ticks=VLM_TICKS, tokens=generated, ms_per_tick=float(np.mean(
+            tick_ms)), launches=launches, expected_launches=expect)
+    if not all(finite) or launches != expect:
+        fail(f"phase 7b internvl2-1b: decode from the prefilled cache: "
+             f"finite {all(finite)}, launches {launches} != {expect}")
+    del cache, last
+    f, p = out["forward"], out["prefill"]
+    print(f"[7b] internvl2-1b full size ({cfg.num_layers} layers, "
+          f"{weight_gb:.2f} GB bf16): forward of {cfg.vision_tokens} vision "
+          f"embeddings + {VLM_TEXT} tokens at B={VLM_B} {f['wall_ms']:.2f} "
+          f"ms wall, {f['event_ms']:.2f} ms CUDA events; prefill (max_seq "
+          f"{s + MAX_SEQ_PAD}) {p['wall_ms']:.2f} ms wall, "
+          f"{p['event_ms']:.2f} ms CUDA events; {per_call} apr_matmul "
+          f"launches each; prefill's last logits vs forward's last row max "
+          f"|diff| {out['prefill_vs_forward_last']:.4g}; {VLM_TICKS} decode "
+          f"ticks from the prefilled cache {np.mean(tick_ms):.3f} ms a tick, "
+          f"tokens {generated}", flush=True)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in SERVE_PROMPTS]
+    for kind, attention in (("paged", "flash_decode_paged"),
+                            ("slot", "flash_decode")):
+        r = serve_counted(torch, bundle, params, kind, prompts, 16, finite,
+                          reset_counts, llm_counts)
+        r["expected_launches"] = dict(
+            zero, apr_matmul=per_call * r["forwards"],
+            **{attention: cfg.num_layers * r["forwards"]})
+        check_served(f"phase 7b internvl2-1b {kind}", r.pop("reqs"), 16,
+                     r["launches"], r["expected_launches"])
+        out[kind] = r
+        print(f"    {kind} engine: {r['forwards']} forwards in "
+              f"{r['wall_s']:.2f} s wall, {r['ms_per_tick']:.3f} ms a decode "
+              f"{'step' if kind == 'slot' else 'tick'}; launches "
+              f"{r['launches']['apr_matmul']} apr_matmul + "
+              f"{r['launches'][attention]} {attention}", flush=True)
+    same, total = tokens_equal(out["slot"]["outputs"],
+                               out["paged"]["outputs"])
+    out["slot_vs_paged"] = (same, total)
+    print(f"    slot/paged greedy tokens {same}/{total}")
+    if same != total:
+        fail(f"phase 7b internvl2-1b: slot and paged tokens differ "
+             f"({same}/{total})")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------- the dense whole-sequence entry points
 #: phase 4d's batch: B rows of T tokens (B x T = PREFILL_M), the prefilled
 #: cache MAX_SEQ_PAD longer than T, and the decode ticks run from it
@@ -1426,7 +2160,10 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
 ROW_MS = (1, 4, 16, 20, 64, 1024)
 ROW_BS = (1, 4, 20)
 #: (model, Hq, Hkv, D) of the decode geometries held across B
-ROW_GEOMETRIES = (("llama3-8b", 32, 8, 128), ("zamba2-1.2b", 32, 32, 64))
+ROW_GEOMETRIES = (("llama3-8b", 32, 8, 128), ("zamba2-1.2b", 32, 32, 64),
+                  ("arctic-480b", 56, 8, 128),
+                  ("llama4-maverick-400b-a17b", 40, 8, 128),
+                  ("internvl2-1b", 14, 2, 64))
 #: the folded T > 1 calls of phase 2, (T, the real tokens of each row): a
 #: prefill chunk of 16 at B = 1, whole and the last one of a prompt, and
 #: a 4-slot verify step at spec_k = 4 (20 rows), all real and ragged
@@ -2368,7 +3105,12 @@ PAGED_CASES = [(4, 32, 8, 128, 16, 16, [40, 96, 150, 196]),  # serving shape
                # zamba2-1.2b's shared attention: a group of 1, phase 7's
                # prompt lengths, then edges and a row 16 tokens on
                (4, 32, 32, 64, 16, 16, list(RECURRENT_PROMPTS[:4])),
-               (4, 32, 32, 64, 16, 16, [0, 1, 16, 112])]
+               (4, 32, 32, 64, 16, 16, [0, 1, 16, 112]),
+               # the moe and vlm families' geometries: arctic-480b (a
+               # group of 7), llama4-maverick (5), internvl2-1b (7, D 64)
+               (4, 56, 8, 128, 16, 16, [40, 96, 150, 196]),
+               (4, 40, 8, 128, 16, 16, [0, 1, 16, 196]),
+               (4, 14, 2, 64, 16, 16, [40, 96, 150, 256])]
 #: the lengths of phase 3's paged rows and of the profiled decode tick
 MAIN_LENGTHS = [40, 96, 150, 196]
 
@@ -3865,6 +4607,88 @@ def conv_bit_checks(torch, gen, dev) -> list:
     return rows
 
 
+def cnn_conv_timing(torch, gen, dev, net: str) -> list:
+    """Phase 3: ``apr_conv``, ``apr_conv_hbm``, the plain version and
+    ``F.conv2d`` (and the fused bias + ReLU epilogue against its plain
+    version and library chain) on every distinct conv of ``net`` at
+    CNN_BATCH, with the bound, the tile and the baseline's partial bytes;
+    inputs of at most 16.8 MB stay in the L2, as one layer's output does
+    for the next.  Returns one row a distinct conv (``count``: how often a
+    forward runs it)."""
+    import torch.nn.functional as F
+    from repro_torch.core.apr import reduction_hbm_traffic
+    from repro_torch.kernels.apr_conv import (apr_conv2d, apr_conv2d_fused,
+                                              conv2d_fused_ref, conv2d_ref)
+    from repro_torch.kernels.apr_conv import ops as conv_ops
+    from repro_torch.models.cnn import conv_geometries
+    conv_rows = {}
+    for g in conv_geometries(net, CNN_BATCH):
+        key = (g["x_shape"], g["f_shape"], g["stride"], g["padding"])
+        if key in conv_rows:
+            conv_rows[key]["count"] += 1
+            continue
+        xs, fs, s, p = key
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
+        x_cl = x.permute(0, 3, 1, 2)          # NHWC memory: channels-last
+        w_cl = f.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        k = fs[0] * fs[1] * fs[2]
+        steps = -(-k // conv_ops.K_STEP)
+        t_k = cuda_ms(torch, lambda i: apr_conv2d(x, f, stride=s, padding=p),
+                      50)
+        t_h = cuda_ms(torch, lambda i: apr_conv2d(
+            x, f, stride=s, padding=p, residency="hbm"), 20)
+        t_p = cuda_ms(torch, lambda i: conv2d_ref(x, f, stride=s, padding=p),
+                      50)
+        t_l = cuda_ms(torch, lambda i: F.conv2d(x_cl, w_cl, stride=s,
+                                                padding=p), 50)
+        # the fused epilogue (B7's conv route): bias + ReLU at the flush,
+        # against the plain version and F.conv2d with bias, then F.relu
+        bias = torch.randn(fs[3], generator=gen, device=dev)
+        t_f = cuda_ms(torch, lambda i: apr_conv2d_fused(
+            x, f, bias, activation="relu", stride=s, padding=p), 50)
+        t_fp = cuda_ms(torch, lambda i: conv2d_fused_ref(
+            x, f, bias, "relu", stride=s, padding=p), 50)
+        t_fl = cuda_ms(torch, lambda i: F.relu(F.conv2d(
+            x_cl, w_cl, bias, stride=s, padding=p)), 50)
+        out_elems = CNN_BATCH * ((xs[1] + 2 * p - fs[0]) // s + 1) * \
+            ((xs[2] + 2 * p - fs[1]) // s + 1) * fs[3]
+        resident = conv_ops.blocks_per_sm(x, f, stride=s, padding=p)
+        partial_bytes = (reduction_hbm_traffic(out_elems, steps, 4, "hbm")
+                         - reduction_hbm_traffic(out_elems, steps, 4, "apr"))
+        fused = bound_ms(4 * (x.numel() + f.numel() + fs[3] + out_elems),
+                         2 * out_elems * (k + 1), FP32_FLOPS_PER_S)
+        conv_rows[key] = dict(
+            layer=g["param"], count=1, x_shape=xs, f_shape=fs, stride=s,
+            padding=p, K=k, hbm_steps=steps, ms=t_k, hbm_ms=t_h,
+            tile=str(conv_ops.default_config(*xs, *fs[:2], fs[3], s, p)),
+            blocks_per_sm=resident,
+            plain_ms=t_p, library_ms=t_l, partial_bytes=partial_bytes,
+            fused_ms=t_f, fused_plain_ms=t_fp, fused_library_ms=t_fl,
+            fused_bound_ms=fused["bound_ms"],
+            **bound_ms(4 * (x.numel() + f.numel() + out_elems),
+                       2 * out_elems * k, FP32_FLOPS_PER_S))
+        del x, f, x_cl, w_cl, bias
+    conv_rows = list(conv_rows.values())
+    print(f"    {net} convs at batch {CNN_BATCH} (CUDA events, warm L2; "
+          f"bound: fp32 FMA at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s or "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s):")
+    for r in conv_rows:
+        print(f"    {r['layer']:7s} x{r['count']} x={r['x_shape']} "
+              f"f={r['f_shape']} s={r['stride']}: apr_conv {r['ms']:.4f} "
+              f"apr_conv_hbm {r['hbm_ms']:.4f} ({r['hbm_steps']} steps, "
+              f"+{r['partial_bytes'] / 1e6:.1f} MB partials) plain "
+              f"{r['plain_ms']:.4f} F.conv2d {r['library_ms']:.4f} bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"{r['bound_ms'] / r['ms']:.0%} of bound, tile {r['tile']} "
+              f"{r['blocks_per_sm']} blocks an SM; fused bias+relu "
+              f"{r['fused_ms']:.4f} plain {r['fused_plain_ms']:.4f} "
+              f"F.conv2d+bias,relu {r['fused_library_ms']:.4f} bound "
+              f"{r['fused_bound_ms']:.4f}")
+
+    return conv_rows
+
+
 def ptxas_kernels(log: str) -> dict:
     """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
     log, by mangled name."""
@@ -4346,13 +5170,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import torch.nn.functional as F
     from repro_torch.bench import ConfigCache, set_default_cache
     from repro_torch.configs import get_config
-    from repro_torch.core.apr import reduction_hbm_traffic
     from repro_torch.kernels import _build
-    from repro_torch.kernels.apr_conv import (apr_conv2d, apr_conv2d_fused,
-                                              conv2d_fused_ref, conv2d_ref)
+    from repro_torch.kernels.apr_conv import apr_conv2d, apr_conv2d_fused, \
+        conv2d_ref
     from repro_torch.kernels.apr_conv import ops as conv_ops
     from repro_torch.kernels.apr_matmul import (apr_matmul, apr_matmul_fused,
                                                 matmul_ref)
@@ -4539,7 +5361,12 @@ def main() -> int:
             (2, 6, 2, 36, 40, [17, 0]),                   # D % 4 != 0
             # zamba2-1.2b's slot cache (max_seq 256), a group of 1
             (4, 32, 32, 64, 256, list(RECURRENT_PROMPTS[:4])),
-            (4, 32, 32, 64, 256, [0, 1, 33, 112])]:
+            (4, 32, 32, 64, 256, [0, 1, 33, 112]),
+            # arctic-480b's, llama4-maverick's and internvl2-1b's slot
+            # caches (max_seq 256)
+            (4, 56, 8, 128, 256, [40, 96, 150, 196]),
+            (4, 40, 8, 128, 256, [0, 1, 33, 256]),
+            (4, 14, 2, 64, 256, [40, 96, 150, 196])]:
         q = randn(b, hq, d)
         k_c, v_c = randn(b, s_len, hkv, d), randn(b, s_len, hkv, d)
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -4580,6 +5407,7 @@ def main() -> int:
     # the conv kernels: every geometry of both nets, the JAX tests' and
     # ragged ones on both residencies, and the fused epilogue
     for name, case, err, ok in (row_cases
+                                + moe_vlm_matmul_checks(torch, gen, dev)
                                 + conv_correctness(torch, gen, dev)[0]
                                 + conv_bit_checks(torch, gen, dev)
                                 + scan_correctness(torch, gen, dev)
@@ -4711,90 +5539,35 @@ def main() -> int:
           f"bf16 tensor-core peak), {prefill_mm['bound_ms'] / prefill_mm['ms']:.0%} "
           f"of bound")
 
-    # apr_conv, apr_conv_hbm, the plain version and F.conv2d on every
-    # distinct conv of ResNet-20 at CNN_BATCH; inputs of at most 16.8 MB
-    # stay in the L2, as one layer's output does for the next
-    conv_rows = {}
-    for g in conv_geometries("resnet20", CNN_BATCH):
-        key = (g["x_shape"], g["f_shape"], g["stride"], g["padding"])
-        if key in conv_rows:
-            conv_rows[key]["count"] += 1
-            continue
-        xs, fs, s, p = key
-        x, f = conv_inputs(torch, gen, dev, xs, fs)
-        x_cl = x.permute(0, 3, 1, 2)          # NHWC memory: channels-last
-        w_cl = f.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        k = fs[0] * fs[1] * fs[2]
-        steps = -(-k // conv_ops.K_STEP)
-        t_k = cuda_ms(torch, lambda i: apr_conv2d(x, f, stride=s, padding=p),
-                      50)
-        t_h = cuda_ms(torch, lambda i: apr_conv2d(
-            x, f, stride=s, padding=p, residency="hbm"), 20)
-        t_p = cuda_ms(torch, lambda i: conv2d_ref(x, f, stride=s, padding=p),
-                      50)
-        t_l = cuda_ms(torch, lambda i: F.conv2d(x_cl, w_cl, stride=s,
-                                                padding=p), 50)
-        # the fused epilogue (B7's conv route): bias + ReLU at the flush,
-        # against the plain version and F.conv2d with bias, then F.relu
-        bias = torch.randn(fs[3], generator=gen, device=dev)
-        t_f = cuda_ms(torch, lambda i: apr_conv2d_fused(
-            x, f, bias, activation="relu", stride=s, padding=p), 50)
-        t_fp = cuda_ms(torch, lambda i: conv2d_fused_ref(
-            x, f, bias, "relu", stride=s, padding=p), 50)
-        t_fl = cuda_ms(torch, lambda i: F.relu(F.conv2d(
-            x_cl, w_cl, bias, stride=s, padding=p)), 50)
-        out_elems = CNN_BATCH * ((xs[1] + 2 * p - fs[0]) // s + 1) * \
-            ((xs[2] + 2 * p - fs[1]) // s + 1) * fs[3]
-        resident = conv_ops.blocks_per_sm(x, f, stride=s, padding=p)
-        partial_bytes = (reduction_hbm_traffic(out_elems, steps, 4, "hbm")
-                         - reduction_hbm_traffic(out_elems, steps, 4, "apr"))
-        fused = bound_ms(4 * (x.numel() + f.numel() + fs[3] + out_elems),
-                         2 * out_elems * (k + 1), FP32_FLOPS_PER_S)
-        conv_rows[key] = dict(
-            layer=g["param"], count=1, x_shape=xs, f_shape=fs, stride=s,
-            padding=p, K=k, hbm_steps=steps, ms=t_k, hbm_ms=t_h,
-            tile=str(conv_ops.default_config(*xs, *fs[:2], fs[3], s, p)),
-            blocks_per_sm=resident,
-            plain_ms=t_p, library_ms=t_l, partial_bytes=partial_bytes,
-            fused_ms=t_f, fused_plain_ms=t_fp, fused_library_ms=t_fl,
-            fused_bound_ms=fused["bound_ms"],
-            **bound_ms(4 * (x.numel() + f.numel() + out_elems),
-                       2 * out_elems * k, FP32_FLOPS_PER_S))
-        del x, f, x_cl, w_cl, bias
-    conv_rows = list(conv_rows.values())
-    print(f"    ResNet-20 convs at batch {CNN_BATCH} (CUDA events, warm L2; "
-          f"bound: fp32 FMA at {FP32_FLOPS_PER_S / 1e12:g} TFLOP/s or "
-          f"{HBM_BYTES_PER_S / 1e12:g} TB/s):")
-    for r in conv_rows:
-        print(f"    {r['layer']:7s} x{r['count']} x={r['x_shape']} "
-              f"f={r['f_shape']} s={r['stride']}: apr_conv {r['ms']:.4f} "
-              f"apr_conv_hbm {r['hbm_ms']:.4f} ({r['hbm_steps']} steps, "
-              f"+{r['partial_bytes'] / 1e6:.1f} MB partials) plain "
-              f"{r['plain_ms']:.4f} F.conv2d {r['library_ms']:.4f} bound "
-              f"{r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"{r['bound_ms'] / r['ms']:.0%} of bound, tile {r['tile']} "
-              f"{r['blocks_per_sm']} blocks an SM; fused bias+relu "
-              f"{r['fused_ms']:.4f} plain {r['fused_plain_ms']:.4f} "
-              f"F.conv2d+bias,relu {r['fused_library_ms']:.4f} bound "
-              f"{r['fused_bound_ms']:.4f}")
-
+    # every distinct conv of ResNet-20 and of MobileNet-V1 at CNN_BATCH
+    conv_rows = cnn_conv_timing(torch, gen, dev, "resnet20")
+    mb_conv_rows = cnn_conv_timing(torch, gen, dev, "mobilenet_v1")
     conv_regs = {k_: v for k_, v in ptxas_kernels(_build.BUILD_LOGS.get(
         conv_ops.LIBRARY, "")).items() if "conv" in k_}
     report["conv_ptxas"] = conv_regs
     for name, r in conv_regs.items():
         print(f"    ptxas {name[19:80]}: {r}")
 
-    def per_forward(key):
-        """Sum over the 21 convs of one ResNet-20 forward at CNN_BATCH."""
-        return sum(r["count"] * r[key] for r in conv_rows)
+    def per_forward(rows):
+        """Sums over the convs of one forward at CNN_BATCH."""
+        return {key: sum(r["count"] * r[key] for r in rows) for key in (
+            "ms", "hbm_ms", "plain_ms", "library_ms", "bound_ms", "t_mem_ms",
+            "t_ops_ms", "partial_bytes", "fused_ms", "fused_plain_ms",
+            "fused_library_ms", "fused_bound_ms")}
 
     report["conv_timing"] = conv_rows
-    conv_total = {key: per_forward(key) for key in (
-        "ms", "hbm_ms", "plain_ms", "library_ms", "bound_ms", "t_mem_ms",
-        "t_ops_ms", "partial_bytes", "fused_ms", "fused_plain_ms",
-        "fused_library_ms", "fused_bound_ms")}
+    report["mobilenet_conv_timing"] = mb_conv_rows
+    conv_total = per_forward(conv_rows)
+    mb_total = per_forward(mb_conv_rows)
     report["conv_per_forward"] = conv_total
+    report["mobilenet_conv_per_forward"] = mb_total
+    print(f"    per MobileNet-V1 forward (14 convs: conv1 + 13 pointwise): "
+          f"apr_conv {mb_total['ms']:.4f} ms, apr_conv_hbm "
+          f"{mb_total['hbm_ms']:.4f} ms (+{mb_total['partial_bytes'] / 1e9:.3f}"
+          f" GB of partial sums), plain {mb_total['plain_ms']:.4f} ms, "
+          f"F.conv2d {mb_total['library_ms']:.4f} ms, bound "
+          f"{mb_total['bound_ms']:.4f} ms "
+          f"({mb_total['bound_ms'] / mb_total['ms']:.0%} of bound)")
     print(f"    per ResNet-20 forward: apr_conv {conv_total['ms']:.4f} ms, "
           f"apr_conv_hbm {conv_total['hbm_ms']:.4f} ms (+"
           f"{conv_total['partial_bytes'] / 1e9:.3f} GB of partial sums "
@@ -5491,8 +6264,13 @@ def main() -> int:
         for kind, r in recurrent_smoke_parity(torch, arch, args.seed,
                                               dev).items():
             parity[f"{arch.split('-')[0]}_{kind}"] = r
+    for arch in (*MOE_LAYERS, "internvl2-1b"):
+        for kind, r in family_smoke_parity(torch, arch, args.seed,
+                                           dev).items():
+            parity[f"{arch.split('-')[0]}_{kind}"] = r
     report["smoke_parity"] = parity
-    print("[5] smoke llama3-8b, rwkv6-3b, mamba2-2.7b and zamba2-1.2b, card "
+    print("[5] smoke llama3-8b, rwkv6-3b, mamba2-2.7b, zamba2-1.2b, "
+          "arctic-480b, llama4-maverick-400b-a17b and internvl2-1b, card "
           f"(kernels) vs CPU (plain), same weights (bound {SMOKE_LOGITS_BOUND} "
           f"on max |logits diff|, {F32_SMOKE_LOGITS_BOUND:g} for the fp32 "
           "entries):")
@@ -5503,7 +6281,13 @@ def main() -> int:
               f"{r['greedy_agree']}/{r['greedy_total']}"
               + "".join(f"; step {f['step']} row {f['row']}: the card's token"
                         f" is {f['cpu_gap']:.4g} below the CPU's best on the "
-                        f"CPU's logits" for f in r["flips"]))
+                        f"CPU's logits" for f in r["flips"])
+              + "".join(f"; routing differs at step {f['step']} (MoE call "
+                        f"{f.get('call')}, row {f.get('row')}: the card's "
+                        f"expert {f.get('gap', 0):.3g} below the CPU's k-th "
+                        f"router logit, a bf16 ulp {f.get('ulp', 0):.3g}), "
+                        f"held: the {r['steps_held']} steps before"
+                        for f in r.get("routing_flips", ())))
     for kind, r in parity.items():
         err = r["max_abs_logits_diff"]
         if not math.isfinite(err) or err > r["bound"]:
@@ -5722,30 +6506,51 @@ def main() -> int:
     hbm_rel = rel_logits_err(logits_hbm, logits["resnet20"])
     logits_plain = fwd(params, x, conv=conv2d_ref)
     plain_rel = rel_logits_err(logits["resnet20"], logits_plain)
+    # MobileNet-V1 on the baseline (its 14 convs memory-resident, the
+    # depthwise ones plain on both) and on the plain path
+    mfwd, mparams, mx = nets["mobilenet_v1"]
+    reset_counts()
+    mb_hbm = mfwd(mparams, mx, conv=hbm_conv)
+    torch.cuda.synchronize()
+    mb_hbm_launches = apr_conv2d.hbm_launches
+    mb_hbm_rel = rel_logits_err(mb_hbm, logits["mobilenet_v1"])
+    mb_plain_rel = rel_logits_err(logits["mobilenet_v1"],
+                                  mfwd(mparams, mx, conv=conv2d_ref))
     cnn = dict(batch=CNN_BATCH, launches_per_forward=per_net,
                expected_per_forward=expect_per_net, main_path_launches=
                cnn_launches, hbm_launches=hbm_launches,
                expected_hbm_launches=expect_hbm,
+               mobilenet_hbm_launches=mb_hbm_launches,
                resnet20_hbm_vs_apr_rel=hbm_rel,
                resnet20_apr_vs_plain_rel=plain_rel,
+               mobilenet_hbm_vs_apr_rel=mb_hbm_rel,
+               mobilenet_apr_vs_plain_rel=mb_plain_rel,
                max_abs_logit={n: float(v.abs().max())
                               for n, v in logits.items()})
     print(f"[6] CNN inference at batch {CNN_BATCH}: apr_conv launches per "
-          f"forward {per_net} (expected {expect_per_net}); ResNet-20 on "
-          f"apr_conv_hbm: {hbm_launches} launches (expected {expect_hbm}); "
-          f"ResNet-20 max |diff| / max |logit|: hbm vs apr {hbm_rel:.3g}, "
-          f"apr vs plain {plain_rel:.3g} (bound {CNN_LOGITS_RTOL:g})")
+          f"forward {per_net} (expected {expect_per_net}); on "
+          f"apr_conv_hbm: ResNet-20 {hbm_launches} launches (expected "
+          f"{expect_hbm}), MobileNet-V1 {mb_hbm_launches} (expected "
+          f"{expect_per_net['mobilenet_v1']}); max |diff| / max |logit|: "
+          f"ResNet-20 hbm vs apr {hbm_rel:.3g}, apr vs plain "
+          f"{plain_rel:.3g}; MobileNet-V1 hbm vs apr {mb_hbm_rel:.3g}, apr "
+          f"vs plain {mb_plain_rel:.3g} (bound {CNN_LOGITS_RTOL:g})")
     if per_net != expect_per_net:
         fail(f"apr_conv launches {per_net} != {expect_per_net}")
     if hbm_launches != expect_hbm:
         fail(f"apr_conv_hbm launches {hbm_launches} != {expect_hbm}")
-    for name, v in list(logits.items()) + [("resnet20 hbm", logits_hbm)]:
+    if mb_hbm_launches != expect_per_net["mobilenet_v1"]:
+        fail(f"MobileNet-V1 apr_conv_hbm launches {mb_hbm_launches} != "
+             f"{expect_per_net['mobilenet_v1']}")
+    for name, v in list(logits.items()) + [("resnet20 hbm", logits_hbm),
+                                           ("mobilenet_v1 hbm", mb_hbm)]:
         if v.shape != (CNN_BATCH, 10) or not bool(torch.isfinite(v).all()):
             fail(f"{name}: logits {tuple(v.shape)} not finite of shape "
                  f"({CNN_BATCH}, 10)")
-    if not hbm_rel <= CNN_LOGITS_RTOL or not plain_rel <= CNN_LOGITS_RTOL:
-        fail("ResNet-20 forwards disagree beyond the bound")
-    del logits, logits_hbm, logits_plain
+    if not max(hbm_rel, plain_rel, mb_hbm_rel,
+               mb_plain_rel) <= CNN_LOGITS_RTOL:
+        fail("CNN forwards disagree beyond the bound")
+    del logits, logits_hbm, logits_plain, mb_hbm
 
     # times per forward (host clock around synchronised calls)
     fwd, params, x = nets["resnet20"]
@@ -5760,13 +6565,54 @@ def main() -> int:
              conv2d_ref),
             ("resnet20 b1", 1, 50, fwd, params, x1, apr_conv2d),
             ("resnet20 b1 plain", 1, 50, fwd, params, x1, conv2d_ref)]
+    mx1 = mx[:1].contiguous()
+    runs += [(f"mobilenet_v1 b{CNN_BATCH}", CNN_BATCH, 20, mfwd, mparams, mx,
+              apr_conv2d),
+             (f"mobilenet_v1 b{CNN_BATCH} hbm", CNN_BATCH, 10, mfwd, mparams,
+              mx, hbm_conv),
+             (f"mobilenet_v1 b{CNN_BATCH} plain", CNN_BATCH, 20, mfwd,
+              mparams, mx, conv2d_ref),
+             ("mobilenet_v1 b1", 1, 50, mfwd, mparams, mx1, apr_conv2d),
+             ("mobilenet_v1 b1 plain", 1, 50, mfwd, mparams, mx1,
+              conv2d_ref)]
     times, rates = {}, {}
     for label, batch, iters, f_, p_, x_, conv in runs:
         times[label] = forward_ms(lambda: f_(p_, x_, conv=conv), iters)
         rates[label] = batch / times[label] * 1e3
-        print(f"    {label:22s} {times[label]:9.4f} ms per forward, "
+        print(f"    {label:26s} {times[label]:9.4f} ms per forward, "
               f"{rates[label]:10.1f} images/s")
     cnn["ms_per_forward"], cnn["images_per_s"] = times, rates
+    # MobileNet-V1's depthwise convs (plain F.conv2d, groups = C) against
+    # its whole forward, by CUDA events around each and around the forward
+    from repro_torch.models.cnn import depthwise
+    dw_share = {}
+    for batch, x_ in ((CNN_BATCH, mx), (1, mx1)):
+        pairs, whole = [], []
+
+        def dw_timed(x, f, stride):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            a.record()
+            y = depthwise(x, f, stride)
+            b.record()
+            pairs.append((a, b))
+            return y
+
+        for _ in range(6):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            a.record()
+            mfwd(mparams, x_, dw=dw_timed)
+            b.record()
+            whole.append((a, b))
+        torch.cuda.synchronize()
+        pairs, whole = pairs[13:], whole[1:]       # the first forward warms
+        dw_ms = sum(a.elapsed_time(b) for a, b in pairs) / len(whole)
+        fwd_ms = sum(a.elapsed_time(b) for a, b in whole) / len(whole)
+        dw_share[batch] = dict(depthwise_ms=dw_ms, forward_event_ms=fwd_ms,
+                               share=dw_ms / fwd_ms)
+        print(f"    MobileNet-V1 at batch {batch}: the 13 depthwise convs "
+              f"(F.conv2d, groups = C) {dw_ms:.4f} ms of a {fwd_ms:.4f} ms "
+              f"forward (CUDA events), {dw_ms / fwd_ms:.1%}")
+    cnn["mobilenet_depthwise"] = dw_share
     prof = profile_device(torch, lambda: fwd(params, x), 5)
     if prof:
         busy = sum(prof.values())
@@ -5898,6 +6744,19 @@ def main() -> int:
     report["recurrent"] = recurrent
     phase_done("phase 7")
 
+    # ------------------------ 7b the moe and vlm families, full width
+    torch.cuda.empty_cache()
+    families = {}
+    for arch in MOE_LAYERS:
+        families[arch] = moe_serving(torch, arch, args.seed, dev, finite,
+                                     reset_counts, llm_counts, check_served)
+        torch.cuda.empty_cache()
+    families["internvl2-1b"] = vlm_full(torch, args.seed, dev, finite,
+                                        reset_counts, llm_counts,
+                                        check_served)
+    report["families"] = families
+    phase_done("phase 7b")
+
     # ------------------------- 8 the tuning path at llama3-8b full width
     tuning = tuning_path(torch, args.seed, dev, tmp.name, engine_kw, prompts,
                          bf16_outputs, checked, finite, reset_counts,
@@ -5934,6 +6793,21 @@ def main() -> int:
         """``name``'s launches on phase 7's zamba2 ``engine`` run."""
         return recurrent["zamba2-1.2b"][engine]["launches"][name]
 
+    def family_paths(name) -> dict:
+        """``name``'s launches on each of phase 7b's runs that launched
+        it (each run zeroed before and gated after)."""
+        paths = {}
+        for arch, fam in families.items():
+            runs = dict(fam.get("runs", {}))
+            runs.update({k: fam[k] for k in ("forward", "prefill",
+                                             "decode_from_prefill", "paged",
+                                             "slot") if k in fam})
+            for run_name, r in runs.items():
+                if r["launches"].get(name):
+                    paths[f"phase 7b {arch} {run_name}"] = \
+                        r["launches"][name]
+        return paths
+
     mm_src = "src/repro_torch/csrc/apr_matmul.cu"
     fd_src = "src/repro_torch/csrc/flash_decode.cu"
     kernels = [
@@ -5945,13 +6819,15 @@ def main() -> int:
                     "phase 4e model draft": spec_runs["model"][
                         "launches"]["apr_matmul"],
                     "phase 4e oracle": spec_runs["oracle"][
-                        "launches"]["apr_matmul"]},
+                        "launches"]["apr_matmul"],
+                    **family_paths("apr_matmul")},
                    kernel="apr_matmul"),
         tick_entry("apr_matmul_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
                    {"phase 4b": serve_q["launches"]["apr_matmul_int8w"],
                     "phase 4e int8": spec_runs["int8"][
-                        "launches"]["apr_matmul_int8w"]},
+                        "launches"]["apr_matmul_int8w"],
+                    **family_paths("apr_matmul_int8w")},
                    kernel="apr_matmul_int8w"),
         tick_entry("apr_matmul_f32", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
@@ -5978,7 +6854,8 @@ def main() -> int:
                     "phase 7 zamba2-1.2b spec": hybrid_launches(
                         "spec", "flash_decode_paged"),
                     "phase 7 zamba2-1.2b spec oracle": hybrid_launches(
-                        "spec_oracle", "flash_decode_paged")},
+                        "spec_oracle", "flash_decode_paged"),
+                    **family_paths("flash_decode_paged")},
                    row=paged_rows["flash_decode_paged"]),
         tick_entry("flash_decode_paged_f32", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
@@ -5994,7 +6871,8 @@ def main() -> int:
                    {"phase 4b": serve_q["launches"][
                        "flash_decode_paged_int8"],
                     "phase 4e int8": spec_runs["int8"][
-                        "launches"]["flash_decode_paged_int8"]},
+                        "launches"]["flash_decode_paged_int8"],
+                    **family_paths("flash_decode_paged_int8")},
                    row=paged_rows["flash_decode_paged_int8"]),
         tick_entry("flash_decode_paged_int8_f32q", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:81",
@@ -6007,7 +6885,8 @@ def main() -> int:
                     "phase 4d decode from the prefilled cache": dense[
                         "decode_from_prefill"]["launches"]["flash_decode"],
                     "phase 7 zamba2-1.2b slot": hybrid_launches(
-                        "slot", "flash_decode")}, row=fdc_row),
+                        "slot", "flash_decode"),
+                    **family_paths("flash_decode")}, row=fdc_row),
         tick_entry("flash_decode_f32q", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:240",
                    {"phase 5 slot engine": f32_runs["slot engine"][
@@ -6024,20 +6903,29 @@ def main() -> int:
         plain_ms=prefill_mm["plain_ms"], bound_ms=prefill_mm["bound_ms"],
         bound_by=prefill_mm["bound_by"],
         library_ms=prefill_mm["library_ms"]))
-    conv_bound_by = ("bytes" if conv_total["t_mem_ms"] >=
-                     conv_total["t_ops_ms"] else "operations")
-    for name, key, n, err in (
-            ("apr_conv", "ms", cnn_launches["apr_conv"], errs["apr_conv"]),
-            ("apr_conv_hbm", "hbm_ms", hbm_launches, errs["apr_conv_hbm"])):
-        kernels.append(dict(
-            name=name, route="cuda", source="src/repro_torch/csrc/apr_conv.cu",
-            replaces=("src/repro/kernels/apr_conv/kernel.py:44"
-                      if name == "apr_conv" else
-                      "src/repro/kernels/apr_matmul/kernel.py:124"),
-            **by_path(**{"phase 6": n}), max_abs_err=err,
-            ms=conv_total[key],
-            plain_ms=conv_total["plain_ms"], bound_ms=conv_total["bound_ms"],
-            bound_by=conv_bound_by, library_ms=conv_total["library_ms"]))
+    # the conv kernels per ResNet-20 forward (LeNet-5's and ResNet-20's
+    # launches) and per MobileNet-V1 forward (its launches), at CNN_BATCH
+    for suffix, total, apr_paths, hbm_paths in (
+            ("", conv_total,
+             {f"phase 6 {net}": per_net[net] for net in ("lenet",
+                                                          "resnet20")},
+             {"phase 6 resnet20": hbm_launches}),
+            ("_mobilenet", mb_total,
+             {"phase 6 mobilenet_v1": per_net["mobilenet_v1"]},
+             {"phase 6 mobilenet_v1": mb_hbm_launches})):
+        bound_by = ("bytes" if total["t_mem_ms"] >= total["t_ops_ms"]
+                    else "operations")
+        for name, key, paths in (("apr_conv", "ms", apr_paths),
+                                 ("apr_conv_hbm", "hbm_ms", hbm_paths)):
+            kernels.append(dict(
+                name=name + suffix, route="cuda",
+                source="src/repro_torch/csrc/apr_conv.cu",
+                replaces=("src/repro/kernels/apr_conv/kernel.py:44"
+                          if name == "apr_conv" else
+                          "src/repro/kernels/apr_matmul/kernel.py:124"),
+                **by_path(**paths), max_abs_err=errs[name], ms=total[key],
+                plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
+                bound_by=bound_by, library_ms=total["library_ms"]))
     # B9 and B10 per full-width decode tick at 4 slots: one launch per
     # layer at the phase-3 decode shape (32 rwkv6 layers, 64 mamba2 ones)
     for name, arch, source, replaces in (
@@ -6118,7 +7006,17 @@ def main() -> int:
         f"{CNN_BATCH} (21 convs; library F.conv2d, channels-last fp32 without "
         "TF32); launches are those of phase 6's main path (one LeNet-5 and "
         "one ResNet-20 forward) and of its memory-resident ResNet-20 forward "
-        "(one apr_conv_hbm launch a conv). "
+        "(one apr_conv_hbm launch a conv). apr_conv_mobilenet and "
+        "apr_conv_hbm_mobilenet: the same kernels per MobileNet-V1 forward "
+        f"at batch {CNN_BATCH} (its 14 convs: conv1 and the 13 pointwise; "
+        "the depthwise convs are plain F.conv2d, as the JAX model computes "
+        "them outside any kernel); launches are those of its phase-6 "
+        "forward on each. "
+        "Phase 7b (the moe and vlm families at published widths) adds its "
+        "runs to apr_matmul, apr_matmul_int8w, flash_decode_paged, "
+        "flash_decode_paged_int8 and flash_decode; the MoE runs' apr_matmul "
+        "counts are gated against their routing (3 launches a non-empty "
+        "expert). "
         "apr_matmul_prefill: B1 per full-width llama3-8b whole-sequence "
         f"forward at M = {PREFILL_M} (225 projections; phase 3's prefill "
         "rows, library torch.matmul on the same bf16 operands, bound the "

@@ -1,8 +1,10 @@
 """The paper's edge-inference scenario on the port, both levels.
 
-Level B: LeNet-5 and ResNet-20 inference with every convolution on the
-``apr_conv`` kernel (on the GPU unless ``--device cpu``), each forward
-checked against the plain path -- the same weights and device, the conv
+Level B: LeNet-5, ResNet-20 and MobileNet-V1 inference with every dense
+convolution on the ``apr_conv`` kernel (on the GPU unless ``--device
+cpu``; MobileNet's depthwise convs stay plain PyTorch, as the JAX model
+computes them outside any kernel), each forward checked against the plain
+path -- the same weights and device, the conv
 computed by :func:`conv2d_ref` -- and reported with its logits shape,
 argmax, ms per forward and kernel launches.
 
@@ -103,8 +105,8 @@ def run_level_a(models) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--net", choices=("lenet", "resnet20"), default=None,
-                    help="one net (default: both)")
+    ap.add_argument("--net", choices=("lenet", "resnet20", "mobilenet_v1"),
+                    default=None, help="one net (default: all three)")
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--quick", action="store_true",
                     help="LeNet only, at both levels")
@@ -113,7 +115,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                          "(its plain PyTorch version)")
     args = ap.parse_args(argv)
     names = (["lenet"] if args.quick else
-             [args.net] if args.net else ["lenet", "resnet20"])
+             [args.net] if args.net else ["lenet", "resnet20",
+                                          "mobilenet_v1"])
     run_level_b(names, args.batch, args.device)
     run_level_a(("lenet",) if args.quick else
                 ("lenet", "resnet20", "mobilenet_v1"))

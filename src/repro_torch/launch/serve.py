@@ -8,6 +8,9 @@ continuous batching (or the contiguous slot engine), on the GPU unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b --state-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b --kv-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --int8-weights
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b --engine slot
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --draft-model ngram
 
@@ -17,7 +20,10 @@ launcher does.  Requests are submitted through
 concurrently.  ``--prefix-sharing`` turns on the refcounted prefix cache;
 ``--slo-mix`` marks every other request TTFT-class; ``--int8-weights``
 serves the int8-weight variant of the params and ``--kv-dtype int8`` int8
-KV pages (paged engine).  The recurrent archs (``rwkv6-3b``,
+KV pages (paged engine).  The MoE archs (``arctic-480b``,
+``llama4-maverick-400b-a17b``) and the vlm ``internvl2-1b`` serve text
+tokens on either engine, as the JAX launcher does (the vlm's vision
+prefix reaches ``forward`` / ``prefill`` alone).  The recurrent archs (``rwkv6-3b``,
 ``mamba2-2.7b``) serve from state pools, and the hybrid ``zamba2-1.2b``
 from state pools and KV pages behind one block table (its shared
 attention's); ``--state-dtype int8`` stores their large state leaves int8

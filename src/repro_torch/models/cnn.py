@@ -1,20 +1,29 @@
-"""The paper's benchmark CNNs, LeNet-5 and ResNet-20, in PyTorch.
+"""The paper's three benchmark CNNs, LeNet-5, ResNet-20 and MobileNet-V1,
+in PyTorch.
 
 Port of the JAX package's ``repro.models.cnn``: NHWC activations, HWIO
 filters and the JAX parameter names, so bridged JAX params load name for
-name.  Every convolution goes through :func:`apr_conv2d`, which launches the
-hand-written ``apr_conv`` kernel for CUDA tensors and computes the plain
-version for CPU tensors -- so the device picks the path, and the JAX
-``conv_impl`` switch has no counterpart.  ``conv=`` swaps in another conv
-with the same signature (the memory-resident baseline, or the plain version
-on the card).  ReLU, pooling and the FC products stay plain torch, as the JAX
-package computes them outside any kernel.
+name.  Every dense convolution goes through :func:`apr_conv2d`, which
+launches the hand-written ``apr_conv`` kernel for CUDA tensors and computes
+the plain version for CPU tensors -- so the device picks the path, and the
+JAX ``conv_impl`` switch has no counterpart.  ``conv=`` swaps in another
+conv with the same signature (the memory-resident baseline, or the plain
+version on the card).  ReLU, pooling and the FC products stay plain torch,
+as the JAX package computes them outside any kernel.
+
+MobileNet-V1's depthwise convs stay plain PyTorch too
+(``F.conv2d(groups=C)``, :func:`depthwise`): the JAX model computes them
+with ``lax.conv_general_dilated`` under every ``conv_impl`` (its
+``"pallas"`` branch falls through to ``lax``), outside any Pallas kernel,
+so there is no TPU kernel to port there.  Its first conv and its 13
+pointwise convs run on ``apr_conv``: 14 launches a forward.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..kernels.apr_conv import apr_conv2d, conv2d_ref
@@ -120,20 +129,75 @@ def resnet20_forward(p: Params, x: torch.Tensor, *,
     return _gap(x) @ p["fc"]
 
 
+# ------------------------------------- MobileNet-V1 (32x32, "(Scaled)")
+#: (cin, cout, stride) of each depthwise-separable pair, the JAX model's
+_MOBILENET_CFG = [
+    (32, 64, 1), (64, 128, 2), (128, 128, 1), (128, 256, 2),
+    (256, 256, 1), (256, 512, 2),
+    (512, 512, 1), (512, 512, 1), (512, 512, 1), (512, 512, 1), (512, 512, 1),
+    (512, 1024, 2), (1024, 1024, 1),
+]
+
+
+def mobilenet_param_specs() -> ParamSpecs:
+    """The JAX builder's names, shapes and scales.  ``dw{i}`` keeps its
+    as-built ``(3, 3, cin, 1)`` layout: channel ``c``'s filter is
+    ``[:, :, c, 0]``."""
+    shapes = {"conv1": (3, 3, 3, 32)}
+    for i, (cin, cout, _s) in enumerate(_MOBILENET_CFG):
+        shapes[f"dw{i}"] = (3, 3, cin, 1)
+        shapes[f"pw{i}"] = (1, 1, cin, cout)
+    shapes["fc"] = (1024, 10)
+    return _specs(shapes)
+
+
+def mobilenet_params(generator: Optional[torch.Generator] = None, *,
+                     device="cuda") -> Params:
+    return init_params(mobilenet_param_specs(), generator, device)
+
+
+def depthwise(x: torch.Tensor, f: torch.Tensor, stride: int) -> torch.Tensor:
+    """3x3 depthwise conv, padding 1, of NHWC ``x`` with the ``(3, 3, C,
+    1)`` filter ``f`` (channel ``c``'s filter ``f[:, :, c, 0]``): one
+    filter a channel, ``F.conv2d(groups=C)``, plain PyTorch on every
+    device, as the JAX model computes it with ``lax`` outside any kernel
+    (exact fp32 products where cuDNN's TF32 is off, as the launchers and
+    ``chip_smoke.py`` set it)."""
+    c = x.shape[-1]
+    w = f[:, :, :, 0].permute(2, 0, 1)[:, None]         # (C, 1, 3, 3)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=1,
+                 groups=c)
+    return y.permute(0, 2, 3, 1)
+
+
+def mobilenet_forward(p: Params, x: torch.Tensor, *, conv: Conv = apr_conv2d,
+                      dw: Callable[..., torch.Tensor] = depthwise
+                      ) -> torch.Tensor:
+    """x: (B, 32, 32, 3) -> logits (B, 10).  ``conv`` takes the first and
+    the pointwise convs, ``dw`` the depthwise ones."""
+    x = torch.relu(conv(x, p["conv1"], stride=1, padding=1))
+    for i, (_cin, _cout, s) in enumerate(_MOBILENET_CFG):
+        x = torch.relu(dw(x, p[f"dw{i}"], s))
+        x = torch.relu(conv(x, p[f"pw{i}"], stride=1, padding=0))
+    return _gap(x) @ p["fc"]
+
+
 CNNS: Dict[str, Dict] = {
     "lenet": {"params": lenet_params, "forward": lenet_forward,
               "specs": lenet_param_specs, "input": (32, 32, 1)},
     "resnet20": {"params": resnet20_params, "forward": resnet20_forward,
                  "specs": resnet20_param_specs, "input": (32, 32, 3)},
-    # "mobilenet_v1" is not ported: the JAX reference's depthwise conv
-    # raises on its own filter layout (ROADMAP C.1).
+    "mobilenet_v1": {"params": mobilenet_params, "forward": mobilenet_forward,
+                     "specs": mobilenet_param_specs, "input": (32, 32, 3)},
 }
 
 
 def conv_geometries(name: str, batch: int = 1) -> List[Dict]:
-    """Every conv of one forward of ``CNNS[name]`` at ``batch``, in order:
-    ``dict(param, x_shape, f_shape, stride, padding)``.  The forward runs
-    on meta tensors, so nothing is computed."""
+    """Every conv of one forward of ``CNNS[name]`` at ``batch`` that goes
+    through ``conv=`` (the ``apr_conv`` launches; not MobileNet's plain
+    depthwise convs), in order: ``dict(param, x_shape, f_shape, stride,
+    padding)``.  The forward runs on meta tensors, so nothing is
+    computed."""
     spec = CNNS[name]
     params = {n: torch.empty(shape, device="meta")
               for n, (shape, _) in spec["specs"]().items()}

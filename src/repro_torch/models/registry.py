@@ -2,9 +2,12 @@
 caches and their decode steps, and the whole-sequence entry points.
 
 Port of the JAX package's ``repro.models.registry.ModelBundle`` for the
-families ported so far: ``dense`` (``models/lm.py``), ``ssm`` (rwkv6,
-``models/rwkv_lm.py``), ``mamba`` (mamba2, ``models/ssm.py``) and
-``hybrid`` (zamba2, ``models/hybrid.py``).  A bundle
+families ported so far: ``dense``, ``moe`` (arctic, llama4; the MoE layer
+in ``models/moe.py``) and ``vlm`` (internvl2), all three on
+``models/lm.py``; ``ssm`` (rwkv6, ``models/rwkv_lm.py``), ``mamba``
+(mamba2, ``models/ssm.py``) and ``hybrid`` (zamba2, ``models/hybrid.py``).
+The ``audio`` family (whisper, ``models/encdec.py``) is not ported yet.
+A bundle
 is bound to one device at construction; it defaults to ``"cuda"`` and
 raises when there is no card, unless the caller passes ``device="cpu"``.
 """
@@ -20,6 +23,10 @@ from ..configs.base import ModelConfig
 from ..quant import quantize_params
 from . import hybrid, lm, rwkv_lm, ssm
 from .layers import ParamSpecs, Params, init_from_specs
+
+#: the families with a paged KV cache of attention layers alone, served by
+#: ``models/lm.py``, as the JAX package counts them
+_LM_FAMILIES = lm.FAMILIES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +58,14 @@ def _hybrid_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return hybrid.hybrid_forward(params, cfg, tokens)[:, -1:], None
 
 
+_LM = Family(lm.build_params, lm.init_cache, lm.lm_decode_step,
+             lm.init_paged_cache, lm.lm_decode_paged, lm.lm_forward,
+             lm.lm_prefill)
+
 FAMILIES: Dict[str, Family] = {
-    "dense": Family(lm.build_params, lm.init_cache, lm.lm_decode_step,
-                    lm.init_paged_cache, lm.lm_decode_paged, lm.lm_forward,
-                    lm.lm_prefill),
+    "dense": _LM,
+    "moe": _LM,
+    "vlm": _LM,
     "ssm": Family(rwkv_lm.build_params, rwkv_lm.init_state,
                   rwkv_lm.rwkv_decode_step, rwkv_lm.init_paged_state,
                   rwkv_lm.rwkv_decode_paged, rwkv_lm.rwkv_forward,
@@ -76,7 +87,9 @@ def family(cfg: ModelConfig) -> Family:
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the port has no {cfg.family!r} family yet ({cfg.name}); "
-            f"ported: dense, ssm (rwkv6), mamba (mamba2), hybrid (zamba2)")
+            f"ported: dense, moe (arctic, llama4), vlm (internvl2), ssm "
+            f"(rwkv6), mamba (mamba2), hybrid (zamba2); audio (whisper) is "
+            f"the one family still missing")
     return FAMILIES[cfg.family]
 
 
@@ -130,29 +143,48 @@ class ModelBundle:
         return init_from_specs(param_specs(self.cfg), generator, self.device)
 
     # ---- whole-sequence entry points ------------------------------------
-    def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits (B, T, V) of the whole sequence ``tokens`` (B, T)."""
-        return self.family.forward(params, self.cfg, tokens)
+    def _prefix(self, prefix_embeds) -> dict:
+        """``prefix_embeds`` as the LM families take it (the JAX bundle's
+        ``batch["vision_embeds"]``); the other families have no prefix."""
+        if prefix_embeds is None:
+            return {}
+        if self.family is not _LM:
+            raise ValueError(f"the {self.cfg.family!r} family takes no "
+                             "prefix_embeds")
+        return {"prefix_embeds": prefix_embeds}
+
+    def forward(self, params: Params, tokens: torch.Tensor, *,
+                prefix_embeds: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Logits (B, S, V) of the whole sequence ``tokens`` (B, T), after
+        ``prefix_embeds`` (B, Nv, d) when given (S = Nv + T)."""
+        return self.family.forward(params, self.cfg, tokens,
+                                   **self._prefix(prefix_embeds))
 
     def prefill(self, params: Params, tokens: torch.Tensor,
-                max_seq: Optional[int] = None):
-        """The whole prompt (B, T) at once: last-position logits (B, 1, V)
-        and the decode carry after it, in the slot engine's cache layout
-        (a KV family's cache ``max_seq`` long, T by default; the hybrid,
-        as in the JAX package, returns none)."""
+                max_seq: Optional[int] = None, *,
+                prefix_embeds: Optional[torch.Tensor] = None):
+        """The whole prompt (B, T) at once, after ``prefix_embeds`` when
+        given: last-position logits (B, 1, V) and the decode carry after
+        it, in the slot engine's cache layout (a KV family's cache
+        ``max_seq`` long, the sequence's length by default; the hybrid, as
+        in the JAX package, returns none)."""
         args = (max_seq,) if self.family.kv else ()
-        return self.family.prefill(params, self.cfg, tokens, *args)
+        return self.family.prefill(params, self.cfg, tokens, *args,
+                                   **self._prefix(prefix_embeds))
 
     # ---- multi-precision --------------------------------------------------
     @property
     def supports_int8_weights(self) -> bool:
-        # the recurrent families keep their own mixer products in the JAX
-        # package too (src/repro/models/registry.py: dense/moe/vlm/audio)
-        return self.cfg.family == "dense"
+        # the JAX package's set (dense/moe/vlm/audio) without the audio
+        # family, which is not ported; the recurrent families keep their
+        # own mixer products there too
+        return self.cfg.family in _LM_FAMILIES
 
     def quantize_params(self, params: Params) -> Params:
         """Int8-weight variant of ``params`` (symmetric per-output-channel;
-        embeddings and norms stay as they are), on the params' device.  A
+        embeddings, norms and the MoE router stay as they are), on the
+        params' device.  A
         drop-in replacement for every entry point below."""
         if not self.supports_int8_weights:
             raise ValueError(f"{self.cfg.family!r} family has no int8-weight "
@@ -225,9 +257,6 @@ def build_model(cfg: ModelConfig, device="cuda") -> ModelBundle:
     return ModelBundle(cfg=cfg, device=device)
 
 
-#: the families with a paged KV cache of attention layers alone, as the JAX
-#: package counts them (the port has ``dense`` of these so far)
-_LM_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_draft_pair(target: ModelConfig, draft: ModelConfig) -> None:

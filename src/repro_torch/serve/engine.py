@@ -1,6 +1,7 @@
 """Paged continuous-batching serving engine, in PyTorch.
 
-Port of the JAX package's ``repro.serve.engine`` for the dense, the
+Port of the JAX package's ``repro.serve.engine`` for the attention
+families (dense; moe: arctic, llama4; vlm: internvl2, on text tokens), the
 recurrent (rwkv6, mamba2) and the hybrid (zamba2) families:
 :class:`EngineMetrics`,
 :class:`PagedServeEngine` with chunked prefill, preemption, the refcounted

@@ -12,6 +12,13 @@ drops the KV page suffix, and on the recurrent-state families (rwkv6,
 mamba2, zamba2) the ``StateCache`` checkpoint the verify forward wrote is
 restored in the same ``_truncate_slot`` call.
 
+Targets are the paged families: the attention ones (dense, moe, vlm) and
+the recurrent-state ones.  On an MoE target a verify step routes its
+``slots x (spec_k + 1)`` rows together, so its tokens equal the plain
+engine's where the routing drops nothing (a capacity factor of ``E / k``);
+at the published factor a token's routing depends on the rows beside it,
+as in the JAX package.
+
 Token identity with the plain engine: row ``i`` of the verify logits is
 computed from the state the plain engine would have after emitting the
 first ``i`` tokens, and emission stops at the first position where the

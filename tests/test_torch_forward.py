@@ -187,20 +187,21 @@ def test_prefill_hands_off_to_decode_step(model, dtype):
 
 
 def test_unported_inputs_raise_by_name(model):
-    """``prefix_embeds`` (vlm, audio) and the MoE family are A.10's: the
-    entry points refuse them by name rather than run without them."""
+    """The audio family (``models/encdec.py``) is the one LM family not
+    ported: the LM entry points and the bundle refuse it by name, and the
+    non-LM families refuse ``prefix_embeds``."""
     _, params = model
     tp = params["float32"][1]
-    cfg = get_config(ARCH, smoke=True)
+    audio = get_config("whisper-large-v3", smoke=True)
     toks = torch.ones((1, 3), dtype=torch.long)
-    embeds = torch.zeros((1, 2, cfg.d_model))
     for fn in (tlm.lm_forward, tlm.lm_prefill):
-        with pytest.raises(NotImplementedError, match="prefix_embeds"):
-            fn(tp, cfg, toks, prefix_embeds=embeds)
-    moe = get_config("arctic-480b", smoke=True)
-    for fn in (tlm.lm_forward, tlm.lm_prefill):
-        with pytest.raises(NotImplementedError, match="moe"):
-            fn(tp, moe, toks)
+        with pytest.raises(NotImplementedError, match="audio"):
+            fn(tp, audio, toks)
+    with pytest.raises(NotImplementedError, match="audio"):
+        build_model(audio, device="cpu")
+    rwkv = build_model(get_config("rwkv6-3b", smoke=True), device="cpu")
+    with pytest.raises(ValueError, match="prefix_embeds"):
+        rwkv.forward({}, toks, prefix_embeds=torch.zeros((1, 2, 64)))
 
 
 def test_forward_hands_the_kernel_what_it_takes(model, monkeypatch):

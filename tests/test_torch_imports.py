@@ -67,6 +67,12 @@ def test_package_imports_without_jax():
     # the zamba2 hybrid family
     assert {"repro_torch.models.hybrid",
             "repro_torch.configs.zamba2_1p2b"} <= set(lines)
+    # the moe and vlm families, MobileNet, and the configs of this slice
+    assert {"repro_torch.models.moe", "repro_torch.models.lm",
+            "repro_torch.models.cnn", "repro_torch.configs.arctic_480b",
+            "repro_torch.configs.llama4_maverick_400b",
+            "repro_torch.configs.internvl2_1b",
+            "repro_torch.configs.deepseek_coder_33b"} <= set(lines)
     # speculative decoding
     assert {"repro_torch.spec", "repro_torch.spec.draft",
             "repro_torch.spec.engine"} <= set(lines)

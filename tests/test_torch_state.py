@@ -363,8 +363,7 @@ def test_bundle_capabilities(arch):
     assert logits.shape == (1, 2, dense.cfg.padded_vocab)
 
 
-@pytest.mark.parametrize("arch", ["llama4-maverick-400b-a17b", "arctic-480b",
-                                  "internvl2-1b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3"])
 def test_unported_families_raise_by_name(arch):
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match=cfg.family):
