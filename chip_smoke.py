@@ -29,6 +29,12 @@
     python3 chip_smoke.py --conv-ablation --out conv_ablation.json
                                      # only B5 beside variants of its
                                      # source that drop one piece
+    python3 chip_smoke.py --decode-ab scratch_tree --out decode_ab.json
+                                     # only the decode kernels of this
+                                     # tree beside an older tree's: the
+                                     # G <= 8 kernels' ptxas counts and
+                                     # output bits equal, the G = 12 and
+                                     # 16 cases against the plain version
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -81,7 +87,14 @@ Phases (any failure exits non-zero before the final line):
      int8 weights at llama4's expert shapes), B2/B2q/B3 at arctic-480b's,
      llama4-maverick's and internvl2-1b's geometries at every split count
      (and a row's bits across B), and B5/B4c at MobileNet-V1's 14 convs at
-     batch 1 and 256;
+     batch 1 and 256; B2, B2q and B3 at GQA groups wider than 8
+     (starcoder2-15b's 12 over 4 kv heads, chatglm3-6b's 16 over 2, and
+     12 or 16 over one head at D % 4 != 0 and pages of 5), every split
+     count, every pool and q dtype, twice bit-equal, padded tables and
+     length-0 rows, a row's bits across B, and B2 over pages bit-equal to
+     B3 over the same K/V at every geometry; the folded T > 1 call's
+     padded rows (each attending up to its own index) against the plain
+     version too;
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B1
      also at phase 4d's prefill M = 1024, against ``torch.matmul``; B4m,
@@ -92,7 +105,9 @@ Phases (any failure exits non-zero before the final line):
      an fp32 cache at each split count, and under an fp32 q over bf16 and
      int8 pools and a bf16 cache; B1, B7m and the fp32 body (fp32 and int8
      weights) at each split count, with per-tick totals; B2 over 20 and 64
-     rows at each split count, :data:`WIDE_BATCHES`);
+     rows at each split count, :data:`WIDE_BATCHES`; B2, B2q and B3 at
+     starcoder2-15b's and chatglm3-6b's 4-slot ticks, :data:`WIDE_TIMING`;
+     the decode kernels' ptxas registers, spills and static shared memory);
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
      every kernel of the path was launched as often as the path demands
@@ -143,7 +158,13 @@ Phases (any failure exits non-zero before the final line):
      llama4-maverick-400b-a17b and internvl2-1b: ``decode_paged`` over
      bf16 pools, with int8 weights over int8 pools and with fp32 params
      over fp32 pools, ``decode_step``, and ``forward`` / ``prefill`` (after
-     8 vision embeddings for the vlm) with bf16 and fp32 params;
+     8 vision embeddings for the vlm) with bf16 and fp32 params, every
+     row's routing compared (padded positions' too); the same for the
+     G-wide smoke variants of starcoder2-15b (12 query heads of 128 over
+     one kv head) and chatglm3-6b (16), which run the wide decode kernels;
+     and arctic's and llama4's smoke configs at the published capacity
+     factor on the card's PagedServeEngine, every forward replayed on the
+     CPU: the dropped dispatches by request equal (:func:`capacity_drops`);
   6. run the paper's CNNs (LeNet-5, ResNet-20, MobileNet-V1; random fp32
      weights from a seed) at batch 256 with every dense conv on
      ``apr_conv`` (MobileNet's 13 depthwise convs plain ``F.conv2d``, as
@@ -153,8 +174,9 @@ Phases (any failure exits non-zero before the final line):
      time all of them and both at batch 1 (with MobileNet's depthwise
      share by CUDA events), and compare card (kernels) and CPU (plain)
      logits;
-  7. serve full-width rwkv6-3b, mamba2-2.7b and the zamba2-1.2b hybrid
-     (random bf16 weights from a seed, one model at a time) on the
+  7. serve rwkv6-3b, mamba2-2.7b and the zamba2-1.2b hybrid at published
+     widths, depth cut to about half (:data:`RECURRENT_LAYERS`; random
+     bf16 weights from a seed, one model at a time) on the
      PagedServeEngine with its StateCache (the hybrid's shared attention on
      KV pages behind the same table, B2) and on the slot ServeEngine (B3),
      the same 6 requests on 4 slots: greedy tokens equal (the hybrid's
@@ -181,6 +203,14 @@ Phases (any failure exits non-zero before the final line):
      ``prefill`` at B = 2 over 256 stubbed vision embeddings and 256
      tokens, 8 decode ticks from the prefilled cache (B3), and the 6
      requests on both engines, tokens gated equal;
+  7c. groups wider than 8 and the audio family at full width:
+     starcoder2-15b (44 GB bf16) and chatglm3-6b (12.5 GB) serve phase 4's
+     requests on the paged (B1 + B2) and slot (B1 + B3) engines, tokens
+     gated equal, a decode tick against its byte floor, starcoder2 also
+     with int8 weights and KV (B1 int8, B2q); whisper-large-v3 prefills 2
+     rows of 1500 stub frames, decodes 8 ticks from that cache (B1, B3 at
+     G = 1, D = 64) and serves phase 4's requests on the slot engine, every
+     run's launches gated (:func:`wide_serving`, :func:`whisper_full`);
   8. the tuning path at llama3-8b full width: every registered kernel
      family (the int8-weight tiles and both decode kernels' split counts
      included) swept exhaustively (the yardstick), then
@@ -203,6 +233,7 @@ It needs nothing beyond this repository, PyTorch with CUDA, and nvcc.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -428,25 +459,46 @@ RECURRENT_NEW = 16
 #: tokens each; a request's tokens do not depend on the batch it rides in,
 #: so they are held to the first tokens of the paged run's
 SPEC_STATE_ARCHS = {"rwkv6-3b": (4, 16), "zamba2-1.2b": (6, 16)}
-#: apr_matmul launches per token-forward, counted from the code: rwkv6 has
-#: wr, wk, wv, wg, wo, wA, wB, ck, cv, cr in each of 32 layers plus the
-#: lm_head; mamba2 w_in and w_out in each of 64 layers plus the lm_head;
-#: zamba2 w_in and w_out in each of its 38 mamba layers, wq, wk, wv and wo
-#: in each of its 6 shared-attention applications, and the lm_head.
-#: Phase 7 confirms them on the card.
-APR_PER_FORWARD = {"rwkv6-3b": 10 * 32 + 1, "mamba2-2.7b": 2 * 64 + 1,
-                   "zamba2-1.2b": 2 * 38 + 4 * 6 + 1}
-#: decode-attention launches per token-forward (the hybrid's shared
-#: attention: B2 on the paged engine, B3 on the slot engine)
-ATTN_PER_FORWARD = {"rwkv6-3b": 0, "mamba2-2.7b": 0, "zamba2-1.2b": 6}
-#: the cache pools of 4 slots (StateCache.pool_slots = 2 + 4 * 2 = 10; the
-#: page pool 4 x 16 pages + the null page), computed from the configs:
-#: rwkv6 32 x 10 x (2 bf16 rows of 2560 + 40 fp32 64x64 matrices), mamba2
-#: 64 x 10 x (3 x 5376 fp32 conv rows + 80 fp32 64x128 states), zamba2 38 x
-#: 10 x (3 x 4224 fp32 conv rows + 64 fp32 64x64 states) + K and V pages,
-#: 2 x 6 x 65 x 16 x 32 x 64 bf16
-STATE_POOL_BYTES = {"rwkv6-3b": 212_992_000, "mamba2-2.7b": 1_719_009_280,
-                    "zamba2-1.2b": 468_838_400}
+#: phase 7's depth: each arch at its published widths, cut to about half
+#: its layers (the hybrid to 3 of its 6 super-blocks and its 2-layer tail)
+#: so that the whole run, phase 7c included, stays well inside its time
+#: limit (rwkv6-3b has 32 layers, mamba2-2.7b 64, zamba2-1.2b 38)
+RECURRENT_LAYERS = {"rwkv6-3b": 16, "mamba2-2.7b": 32, "zamba2-1.2b": 20}
+
+
+def attn_per_forward(cfg) -> int:
+    """Decode-attention launches per token-forward: the hybrid's shared
+    attention, once a super-block (B2 on the paged engine, B3 on the slot
+    engine); none for the recurrent families."""
+    return cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+
+
+def apr_per_forward(cfg) -> int:
+    """apr_matmul launches per token-forward, counted from the code: rwkv6
+    has wr, wk, wv, wg, wo, wA, wB, ck, cv, cr in each layer plus the
+    lm_head; mamba2 w_in and w_out in each layer plus the lm_head; zamba2
+    w_in and w_out in each mamba layer, wq, wk, wv and wo in each shared-
+    attention application, and the lm_head.  Phase 7 confirms them on the
+    card."""
+    if cfg.family == "ssm":
+        return 10 * cfg.num_layers + 1
+    return 2 * cfg.num_layers + 4 * attn_per_forward(cfg) + 1
+
+
+def state_pool_bytes(cfg) -> int:
+    """The cache pools of 4 slots (StateCache.pool_slots = 2 + 4 * 2 = 10;
+    the page pool 4 x 16 pages + the null page), computed from the
+    configs: a rwkv6 layer 10 x (2 bf16 rows of 2560 + 40 fp32 64x64
+    matrices), a mamba2 layer 10 x (3 x 5376 fp32 conv rows + 80 fp32
+    64x128 states), a zamba2 mamba layer 10 x (3 x 4224 fp32 conv rows +
+    64 fp32 64x64 states) and a shared-attention application K and V
+    pages, 2 x 65 x 16 x 32 x 64 bf16 (the full depths: 212,992,000,
+    1,719,009,280 and 468,838,400 bytes)."""
+    per_layer = {"ssm": 10 * (2 * 2560 * 2 + 40 * 64 * 64 * 4),
+                 "mamba": 10 * (3 * 5376 * 4 + 80 * 64 * 128 * 4),
+                 "hybrid": 10 * (3 * 4224 * 4 + 64 * 64 * 64 * 4)}
+    return (cfg.num_layers * per_layer[cfg.family]
+            + attn_per_forward(cfg) * 2 * 65 * 16 * 32 * 64 * 2)
 #: the scans' fp32 state, kernel against plain version: the same fp32
 #: recurrence, the kernel with FMAs and y's sum in another order;
 #: |kernel - plain| <= STATE_RTOL * (|plain| + max |plain|)
@@ -966,7 +1018,8 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     from repro_torch.models import build_model
     from repro_torch.serve import PagedServeEngine, Request, ServeEngine
 
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=RECURRENT_LAYERS[arch])
     scan_name = "rwkv6_wkv" if cfg.family == "ssm" else "mamba2_ssd"
     hybrid = cfg.family == "hybrid"
     bundle = build_model(cfg, device="cuda")
@@ -977,7 +1030,7 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
     init_s = time.perf_counter() - t0
     weight_gb = sum(t.numel() * t.element_size()
                     for t in params.values()) / 1e9
-    per_fwd = APR_PER_FORWARD[arch]
+    per_fwd = apr_per_forward(cfg)
     rng = np.random.default_rng(seed)
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                for n in RECURRENT_PROMPTS]
@@ -993,7 +1046,7 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                "apr_matmul": per_fwd * token_forwards,
                scan_name: cfg.num_layers * token_forwards}
         if attention:
-            out[attention] = ATTN_PER_FORWARD[arch] * token_forwards
+            out[attention] = attn_per_forward(cfg) * token_forwards
         return out
 
     # one token-forward alone, to confirm the per-forward counts
@@ -1056,9 +1109,9 @@ def recurrent_serving(torch, arch: str, seed: int, dev, checked, finite,
                               + 2 * live_state) / HBM_BYTES_PER_S * 1e3
     check_served(f"phase 7 {arch} paged", reqs, RECURRENT_NEW, launches,
                  expect(token_forwards, "flash_decode_paged"))
-    if paged["state_pool_bytes"] != STATE_POOL_BYTES[arch]:
+    if paged["state_pool_bytes"] != state_pool_bytes(cfg):
         fail(f"{arch}: state pools of {paged['state_pool_bytes']} bytes, "
-             f"expected {STATE_POOL_BYTES[arch]}")
+             f"expected {state_pool_bytes(cfg)}")
     paged_out = [r.output for r in reqs]
 
     # one decode tick at the phase's prompt lengths, reading and writing
@@ -1364,13 +1417,38 @@ def moe_vlm_matmul_checks(torch, gen, dev) -> list:
     return cases
 
 
-def family_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
-    """Phase 5 for the moe and vlm families: the smoke config on the card
-    (B1, B2/B2q, B3) and on the CPU (plain versions), same weights.
-    ``paged_*``: one prefill chunk of 8 (two rows, one padded after 5: its
-    padded rows route too) then 3 decode ticks over bf16 pools (bf16
-    params), int8 pools with int8 weights (the router full precision), and
-    fp32 pools with fp32 params; ``slot``: 4 decode steps on the slot cache
+def route_flips(sel, logits, sel_card, **where) -> list:
+    """The rows whose experts differ between the CPU's selections ``sel``
+    (t, k) and the card's ``sel_card``, each with how far the card's extra
+    expert sits below the CPU's k-th router logit (``logits``, the CPU's
+    fp32 router logits) and whether that is within a bf16 ulp of it (a
+    near-tie: the router is a product in the activations' dtype, so the
+    card's and the CPU's sums may round two such experts into the other
+    order); ``where`` is added to each entry."""
+    out = []
+    for row in range(sel.shape[0]):
+        extra = set(sel_card[row].tolist()) - set(sel[row].tolist())
+        if not extra:
+            continue
+        kth = float(logits[row].sort(descending=True).values[
+            sel.shape[1] - 1])
+        ulp = 2.0 ** (math.floor(math.log2(max(abs(kth), 1e-30))) - 7)
+        gap = max(kth - float(logits[row, e]) for e in extra)
+        out.append(dict(where, row=row, gap=gap, ulp=ulp,
+                        near_tie=gap <= ulp))
+    return out
+
+
+def family_smoke_parity(torch, arch: str, seed: int, dev,
+                        scfg=None) -> dict:
+    """Phase 5 for the moe and vlm families and the dense G-wide smoke
+    variants (``scfg``; the arch's smoke config by default): the config on
+    the card (B1, B2/B2q, B3) and on the CPU (plain versions), same
+    weights.  ``paged_*``: one prefill chunk of 8 (two rows, one padded
+    after 5: its padded rows route too) then 3 decode ticks over bf16
+    pools (bf16 params), int8 pools with int8 weights (the router full
+    precision), and fp32 pools with fp32 params; ``slot``: 4 decode steps
+    on the slot cache
     (one row starting empty); ``forward_*`` / ``prefill_*``: every position
     of ``bundle.forward`` and ``bundle.prefill``'s last one over the 8
     tokens, after the 8 stubbed vision embeddings for the vlm, bf16 and
@@ -1385,12 +1463,15 @@ def family_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
     recorded; a step whose routing differs is gated to be such a near-tie
     (on the CPU's router logits, each expert only the card picked within
     a bf16 ulp of the CPU's k-th logit) and, from it on, its logits are
-    reported and not held to the bound (``routing_flips``)."""
+    reported and not held to the bound (``routing_flips``).  Every row's
+    routing is compared, padded positions' included: on the card a padded
+    position attends up to its own index over its row's table, as on the
+    CPU, so it routes from the same hidden state."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.layers import linear
-    scfg = get_config(arch, smoke=True)
+    scfg = scfg or get_config(arch, smoke=True)
     devices = {"cpu": torch.device("cpu"), "cuda": dev}
     bundles = {w: build_model(scfg, device=d) for w, d in devices.items()}
     cpu_params = bundles["cpu"].init_params(
@@ -1423,28 +1504,14 @@ def family_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
         return {"cpu": variants[label],
                 "cuda": {k: v.to(dev) for k, v in variants[label].items()}}
 
-    def flips_of(step, real=None) -> list:
+    def flips_of(step) -> list:
         """The routing differences of this step's calls (cleared after) on
-        the rows of real tokens (``real``: their indices among the call's
-        B·T rows, all by default), each checked to be a router near-tie.
-        A padded position's row is garbage by contract (on the card it
-        attends as its row's last real token, on the CPU over the unwritten
-        positions after it) and routes as it may; at this drop-free factor
-        it takes no real token's place."""
+        every one of the calls' B·T rows, padded ones included, each
+        checked to be a router near-tie (:func:`route_flips`)."""
         out = []
         for call, ((sel, logits), (sel_c, _)) in enumerate(zip(
                 routes["cpu"], routes["cuda"])):
-            for row in (range(sel.shape[0]) if real is None else real):
-                extra = set(sel_c[row].tolist()) - set(sel[row].tolist())
-                if not extra:
-                    continue
-                kth = float(torch.sort(logits[row], descending=True
-                                       ).values[sel.shape[1] - 1])
-                ulp = 2.0 ** (math.floor(math.log2(max(abs(kth), 1e-30)))
-                              - 7)
-                gap = max(kth - float(logits[row, e]) for e in extra)
-                out.append(dict(step=step, call=call, row=row, gap=gap,
-                                ulp=ulp, near_tie=gap <= ulp))
+            out += route_flips(sel, logits, sel_c, step=step, call=call)
         if len(routes["cpu"]) != len(routes["cuda"]):
             out.append(dict(step=step, calls=(len(routes["cpu"]),
                                               len(routes["cuda"])),
@@ -1491,9 +1558,7 @@ def family_smoke_parity(torch, arch: str, seed: int, dev) -> dict:
                         where, (tokens, lengths, counts, tables)))
                     out[where] = logits[[0, 1], torch.from_numpy(
                         counts - 1).long().to(devices[where])].float().cpu()
-                t = tokens.shape[1]
-                routing += flips_of(step, [b * t + i for b in range(2)
-                                           for i in range(counts[b])])
+                routing += flips_of(step)
                 nxt, n_eq = record(out, diffs, flips, step)
                 agree += n_eq
                 tokens = nxt.numpy()[:, None].astype(np.int32)
@@ -1750,7 +1815,8 @@ def moe_serving(torch, arch: str, seed: int, dev, finite, reset_counts,
         runs = out["runs"]
         runs["paged"] = run("published factor, paged", bundle, params,
                             "paged")
-        out["tick"] = moe_tick(torch, bundle, params, cfg, rng, routing, dev)
+        out["tick"] = paged_tick(torch, bundle, params, cfg, rng, dev,
+                                 routing)
         if arch == "arctic-480b":
             runs["slot"] = run("published factor, slot", bundle, params,
                                "slot")
@@ -1813,13 +1879,15 @@ def moe_serving(torch, arch: str, seed: int, dev, finite, reset_counts,
     return out
 
 
-def moe_tick(torch, bundle, params, cfg, rng, routing, dev) -> dict:
+def paged_tick(torch, bundle, params, cfg, rng, dev, routing=None) -> dict:
     """One decode tick of the paged path at 4 slots, lengths
     :data:`MAIN_LENGTHS` and random tokens: wall ms (5 ticks), a profiled
     tick's device-busy time and idle share, and its byte floor -- every
     weight it reads once (attention, dense FFNs, routers, residuals, the
-    head; of the experts those it routes to) and the K/V of the live
-    tokens -- over the card's memory rate."""
+    head; of an MoE model's experts those it routes to, counted in
+    ``routing``) and the K/V of the live tokens -- over the card's memory
+    rate."""
+    moe = routing is not None
     slots, ps = 4, 16
     tables = np.zeros((slots, 16), np.int32)
     at = 1
@@ -1835,33 +1903,33 @@ def moe_tick(torch, bundle, params, cfg, rng, routing, dev) -> dict:
     fwd = bundle.decode_paged
     fwd(params, cache, *args)
     torch.cuda.synchronize()
-    for key in routing:
+    for key in routing or {}:
         routing[key] = 0
     t0 = time.perf_counter()
     for _ in range(5):
         fwd(params, cache, *args)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 5 * 1e3
-    experts = routing["nonempty"] / 5
+    experts = routing["nonempty"] / 5 if moe else 0
     expert_bytes = 3 * cfg.d_model * cfg.d_ff * 2
     dense_bytes = sum(t.numel() * t.element_size() for k, t in params.items()
                       if k != "embed" and ".moe.w_" not in k)
     kv_bytes = (sum(MAIN_LENGTHS) + slots) * cfg.num_layers * 2 \
         * cfg.num_kv_heads * cfg.resolved_head_dim * 2
     floor_bytes = dense_bytes + experts * expert_bytes + kv_bytes
-    tick = dict(wall_ms=wall, experts_a_tick=experts,
-                floor_gb=floor_bytes / 1e9,
-                floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3,
-                read_ms_per_layer=1e3 * routing["read_s"]
-                / max(routing["calls"], 1))
-    # the counts' read alone, the card idle: what the host pays beyond
-    # waiting for the router's result
-    counts = torch.zeros(cfg.num_experts, dtype=torch.int64, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(20):
-        counts.tolist()
-    tick["idle_read_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    tick = dict(wall_ms=wall, floor_gb=floor_bytes / 1e9,
+                floor_ms=floor_bytes / HBM_BYTES_PER_S * 1e3)
+    if moe:
+        tick.update(experts_a_tick=experts, read_ms_per_layer=1e3
+                    * routing["read_s"] / max(routing["calls"], 1))
+        # the counts' read alone, the card idle: what the host pays beyond
+        # waiting for the router's result
+        counts = torch.zeros(cfg.num_experts, dtype=torch.int64, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            counts.tolist()
+        tick["idle_read_ms"] = (time.perf_counter() - t0) / 20 * 1e3
     by_kernel = profile_device(torch, lambda: fwd(params, cache, *args), 5)
     if by_kernel:
         busy = sum(by_kernel.values())
@@ -1869,14 +1937,15 @@ def moe_tick(torch, bundle, params, cfg, rng, routing, dev) -> dict:
                     top_kernels_ms=dict(sorted(by_kernel.items(),
                                                key=lambda kv: -kv[1])[:6]))
     print(f"    decode tick at lengths {MAIN_LENGTHS} (4 slots, random "
-          f"tokens): wall {wall:.3f} ms, {experts:g} experts launched a "
-          f"tick, byte floor {tick['floor_gb']:.3f} GB = "
+          f"tokens): wall {wall:.3f} ms, "
+          + (f"{experts:g} experts launched a tick, " if moe else "")
+          + f"byte floor {tick['floor_gb']:.3f} GB = "
           f"{tick['floor_ms']:.3f} ms"
           + (f", device busy {tick['device_busy_ms']:.3f} ms (profiler), "
              f"idle share {tick['idle_share']:.1%}" if by_kernel else "")
-          + f"; the counts' host read {tick['read_ms_per_layer']:.3f} ms a "
-          f"MoE layer in the tick ({tick['idle_read_ms']:.4f} ms with the "
-          f"card idle)", flush=True)
+          + (f"; the counts' host read {tick['read_ms_per_layer']:.3f} ms a "
+             f"MoE layer in the tick ({tick['idle_read_ms']:.4f} ms with "
+             f"the card idle)" if moe else ""), flush=True)
     for name, t in tick.get("top_kernels_ms", {}).items():
         print(f"      {t:8.3f} ms  {name[:90]}")
     del cache
@@ -2007,6 +2076,454 @@ def vlm_full(torch, seed: int, dev, finite, reset_counts, llm_counts,
         fail(f"phase 7b internvl2-1b: slot and paged tokens differ "
              f"({same}/{total})")
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 5's capacity-drop runs: the smoke MoE configs (drop-free at their
+#: factor of 64) at the published factor, 6 requests on 4 slots
+DROP_FACTOR = 1.25
+DROP_PROMPTS = (5, 17, 9, 12, 3, 14)
+
+
+def capacity_drops(torch, arch: str, seed: int, dev) -> dict:
+    """Phase 5: ``arch``'s smoke config at the published capacity factor
+    (:data:`DROP_FACTOR`) on the card's ``PagedServeEngine`` (4 slots,
+    pages and prefill chunks of 8, bf16 pools), :data:`DROP_PROMPTS`
+    requests of 6 new tokens.  Every ``decode_paged`` call the engine makes
+    is recorded and replayed on the CPU bundle (plain versions) in order,
+    over a cache of the same pools, so both sides route the same tokens
+    with the same K/V history.  Each routing call's kept and dropped
+    dispatches are attributed by row to the request the engine serves
+    there (``"padding"`` for padded positions and idle slots, which route
+    too).  Up to the first call whose selections differ, each call's
+    kept/dropped masks must be equal on both sides, so the drops by
+    request are equal; after it the drops are reported, not held (the
+    flipped token's hidden state differs from then on).  The card's and
+    the CPU's router logits differ by the bf16 noise of the hidden states
+    (ROADMAP C.0, "card against CPU"), so over a run of 25 forwards a
+    selection may flip at a gap of a few bf16 ulps (2-4 on an H100, on
+    real and padded rows alike): the differing rows' gap on the CPU's router
+    logits must lie within the larger of a bf16 ulp (phase 5's near-tie
+    rule) and the router-logit noise of the real rows up to that call,
+    and the padded rows' noise within twice the real rows' (a padded row
+    held like a real one; before the padded-row repair it attended over
+    other positions than on the CPU and parted by O(1))."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import linear
+    from repro_torch.serve import PagedServeEngine, Request
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              moe_capacity_factor=DROP_FACTOR)
+    bundles = {"cpu": build_model(cfg, device="cpu"),
+               "cuda": build_model(cfg, device="cuda")}
+    cpu_params = bundles["cpu"].init_params(
+        torch.Generator().manual_seed(seed))
+    params = {"cpu": cpu_params,
+              "cuda": {k: v.to(dev) for k, v in cpu_params.items()}}
+    rng = np.random.default_rng(seed + 5)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in DROP_PROMPTS]
+    routes = {"cpu": [], "cuda": []}
+    side = ["cuda"]
+    route_of = moe_mod.route
+
+    def recorded(x, w, cfg_, capacity):
+        r = route_of(x, w, cfg_, capacity)
+        k = cfg_.experts_per_token
+        routes[side[0]].append((r.expert.reshape(-1, k).cpu(),
+                                r.keep.reshape(-1, k).cpu(),
+                                linear(x, w).float().cpu()))
+        return r
+
+    calls = []                   # (args on the CPU, the row owners)
+    engine = PagedServeEngine(bundles["cuda"], params["cuda"], device="cuda",
+                              slots=4, page_size=8, prefill_chunk=8)
+    inner = bundles["cuda"].decode_paged
+
+    def record(prm, cache, tokens, lengths, counts, tables):
+        b, t = tokens.shape
+        host = [a.cpu() for a in (tokens, lengths, counts, tables)]
+        owner_of = []
+        for row in range(b):
+            if b == engine.slots:                 # the decode tick
+                slot = row
+            else:                                 # a request's prefill
+                slot = next(s_ for s_ in range(engine.slots)
+                            if engine.active[s_] is not None
+                            and np.array_equal(engine.kv.block_tables[s_][
+                                :tables.shape[1]], host[3][row].numpy()))
+            req = engine.active[slot]
+            owner_of += [req.rid if req is not None and i < int(host[2][row])
+                         else "padding" for i in range(t)]
+        calls.append((host, owner_of))
+        return inner(prm, cache, tokens, lengths, counts, tables)
+
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=6)
+            for i, p in enumerate(prompts)]
+    moe_mod.route = recorded
+    bundles["cuda"].decode_paged = record
+    try:
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        side[0] = "cpu"
+        cache = bundles["cpu"].init_paged_cache(engine.cache["k"].shape[2],
+                                                8)
+        for host, _ in calls:
+            bundles["cpu"].decode_paged(params["cpu"], cache, *host)
+    finally:
+        moe_mod.route = route_of
+        bundles["cuda"].decode_paged = inner
+    if len(routes["cpu"]) != len(routes["cuda"]) or not routes["cpu"]:
+        fail(f"phase 5 {arch} at factor {DROP_FACTOR}: "
+             f"{len(routes['cuda'])} routings on the card, "
+             f"{len(routes['cpu'])} on the CPU")
+    per_call = len(routes["cpu"]) // len(calls)
+    drops = {"cpu": {}, "cuda": {}}
+    held = {"cpu": {}, "cuda": {}}
+    first_flip, flips, masks_differ = None, [], []
+    # |router logits, card - CPU| up to the first flip (its flipped rows
+    # left out), on real and on padded rows: the hidden states' agreement
+    # the routing rests on
+    noise = {"real": 0.0, "padding": 0.0}
+    for n, ((sel, keep, logits), (sel_c, keep_c, logits_c)) in enumerate(
+            zip(routes["cpu"], routes["cuda"])):
+        owners = calls[n // per_call][1]
+        call_flips = route_flips(sel, logits, sel_c, call=n)
+        for f in call_flips:
+            f.update(owner=str(owners[f["row"]]), logits_diff=float(
+                (logits[f["row"]] - logits_c[f["row"]]).abs().max()))
+        if first_flip is None:
+            flipped = {f["row"] for f in call_flips}
+            for row, diff in enumerate((logits - logits_c).abs().amax(-1)
+                                       .tolist()):
+                kind = "padding" if owners[row] == "padding" else "real"
+                if row not in flipped:
+                    noise[kind] = max(noise[kind], diff)
+        if call_flips and first_flip is None:
+            first_flip, flips = n, call_flips
+        for where, kp in (("cpu", keep), ("cuda", keep_c)):
+            for row, dropped in enumerate((~kp).sum(-1).tolist()):
+                for dst in (drops, held) if first_flip is None else (drops,):
+                    dst[where][owners[row]] = (dst[where].get(owners[row], 0)
+                                               + dropped)
+        if first_flip is None and not torch.equal(keep, keep_c):
+            masks_differ.append(n)
+    out = dict(arch=arch, capacity_factor=DROP_FACTOR, calls=len(calls),
+               routings=len(routes["cpu"]), first_flip=first_flip,
+               flips=flips, masks_differ_before_flip=masks_differ,
+               router_logits_diff_before_flip=noise,
+               drops_by_request={w: {str(k): v for k, v in d.items()}
+                                 for w, d in drops.items()},
+               held_drops_by_request={w: {str(k): v for k, v in d.items()}
+                                      for w, d in held.items()},
+               tokens=[r.output for r in reqs])
+    print(f"    {arch} smoke at capacity factor {DROP_FACTOR}, card's "
+          f"PagedServeEngine replayed on the CPU ({len(calls)} forwards, "
+          f"{len(routes['cpu'])} routings): dropped dispatches by request, "
+          f"card {out['drops_by_request']['cuda']}, CPU "
+          f"{out['drops_by_request']['cpu']}; "
+          + ("no routing differs" if first_flip is None else
+             f"routing first differs at routing {first_flip} (rows "
+             f"{[(f['row'], f['owner'], round(f['gap'], 5), f['ulp'],
+                  round(f['logits_diff'], 5)) for f in flips]}"
+             f" as (row, request, gap, bf16 ulp, the row's max |router "
+             f"logits diff|); held before it: card "
+             f"{out['held_drops_by_request']['cuda']}, CPU "
+             f"{out['held_drops_by_request']['cpu']})")
+          + f"; max |router logits, card - CPU| before it: real rows "
+          f"{noise['real']:.4g}, padded rows {noise['padding']:.4g}",
+          flush=True)
+    for f in flips:
+        f["explained"] = f["gap"] <= max(f["ulp"], noise["real"])
+    if masks_differ or not all(f["explained"] for f in flips):
+        fail(f"phase 5 {arch} at factor {DROP_FACTOR}: the card's drops "
+             f"differ from the CPU's beyond the router-logit agreement of "
+             f"real rows (masks differ at routings {masks_differ[:4]}, "
+             f"flips {flips[:4]}, real rows' noise {noise['real']:.4g})")
+    if noise["padding"] > 2 * max(noise["real"], 2.0 ** -8):
+        fail(f"phase 5 {arch} at factor {DROP_FACTOR}: padded rows' router "
+             f"logits part from the CPU's by {noise['padding']:.4g}, beyond "
+             f"twice the real rows' {noise['real']:.4g}")
+    if first_flip is None and drops["cpu"] != drops["cuda"]:
+        fail(f"phase 5 {arch} at factor {DROP_FACTOR}: drops by request "
+             f"differ: {out['drops_by_request']}")
+    return out
+
+
+#: phase 7c: the archs whose GQA group is wider than 8, at full width
+WIDE_ARCHS = ("starcoder2-15b", "chatglm3-6b")
+#: phase 5: their G-wide smoke variants, (arch, G): G query heads of 128
+#: over one kv head, 2 layers of d 64 (starcoder2's group, chatglm3's)
+WIDE_SMOKE = (("starcoder2-15b", 12), ("chatglm3-6b", 16))
+
+
+def wide_variant(cfg, groups: int):
+    """The G-wide narrow variant of a full-width config: ``groups`` query
+    heads over one kv head of 128, the smoke depth and widths."""
+    from repro_torch.configs import scale_down
+    return scale_down(cfg, num_heads=groups, num_kv_heads=1, head_dim=128,
+                      name=f"{cfg.name}-g{groups}")
+
+
+def quantize_streaming(torch, bundle, params) -> dict:
+    """``bundle.quantize_params(params)`` one tensor at a time, each bf16
+    tensor dropped from ``params`` (emptied) as soon as its int8 copy
+    exists, so the card never holds both copies of the weights (44 GB of
+    starcoder2-15b beside its 22 GB of int8)."""
+    out = {}
+    for name in list(params):
+        out.update(bundle.quantize_params({name: params.pop(name)}))
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_serving(torch, arch: str, seed: int, dev, finite, reset_counts,
+                 llm_counts, check_served) -> dict:
+    """Phase 7c for a GQA group wider than 8 (starcoder2-15b: 12, chatglm3-
+    6b: 16) at full width (random bf16 weights drawn on the card from
+    ``seed``): phase 4's requests (:data:`SERVE_PROMPTS`, 16 new tokens)
+    on 4 slots on the paged engine (B1 + B2) and the slot engine (B1 +
+    B3), tokens gated equal, each run's launches gated (``7 L + 1`` B1 and
+    ``L`` decode-attention launches a forward); a decode tick at the
+    phase-3 lengths against its byte floor, with a profiled tick's idle
+    share; starcoder2 also with int8 weights (quantized on the card, the
+    bf16 weights dropped as they go) and int8 KV (B1 int8, B2q)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant import QuantizedTensor
+    cfg = get_config(arch)
+    bundle = build_model(cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in params.values()) / 1e9
+    per_fwd = 7 * cfg.num_layers + 1
+    zero = {k: 0 for k in llm_counts()}
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in SERVE_PROMPTS]
+    out = dict(arch=arch, layers=cfg.num_layers, weight_gb=weight_gb,
+               init_s=init_s, group=cfg.num_heads // cfg.num_kv_heads)
+    print(f"[7c] {arch} full width ({cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}: a group of {out['group']}, d_ff "
+          f"{cfg.d_ff}): {weight_gb:.2f} GB bf16 weights drawn on the card "
+          f"in {init_s:.2f} s", flush=True)
+    serve_counted(torch, bundle, params, "paged", [prompts[0][:20]], 2,
+                  finite, reset_counts, llm_counts)       # warm-up
+
+    def run(kind, prm, kv_dtype="bfloat16", int8=False):
+        r = serve_counted(torch, bundle, prm, kind, prompts, 16, finite,
+                          reset_counts, llm_counts, kv_dtype)
+        attention = ("flash_decode" if kind == "slot" else
+                     "flash_decode_paged_int8" if kv_dtype == "int8" else
+                     "flash_decode_paged")
+        r["expected_launches"] = dict(zero, **{
+            "apr_matmul_int8w" if int8 else "apr_matmul":
+                per_fwd * r["forwards"],
+            attention: cfg.num_layers * r["forwards"]})
+        check_served(f"phase 7c {arch} {kind} {kv_dtype}", r.pop("reqs"), 16,
+                     r["launches"], r["expected_launches"])
+        print(f"    {kind} engine{', int8 weights + int8 KV' if int8 else ''}"
+              f": {r['forwards']} forwards in {r['wall_s']:.2f} s wall, "
+              f"{r['ms_per_tick']:.3f} ms a decode "
+              f"{'step' if kind == 'slot' else 'tick'}; launches "
+              f"{r['launches']['apr_matmul_int8w' if int8 else 'apr_matmul']}"
+              f" B1 + {r['launches'][attention]} {attention} (expected "
+              f"{r['expected_launches']}); peak {r['peak_mem_gb']:.2f} GB",
+              flush=True)
+        return r
+
+    out["paged"] = run("paged", params)
+    out["tick"] = paged_tick(torch, bundle, params, cfg, rng, dev)
+    out["slot"] = run("slot", params)
+    same, total = tokens_equal(out["slot"]["outputs"],
+                               out["paged"]["outputs"])
+    out["slot_vs_paged"] = (same, total)
+    print(f"    slot/paged greedy tokens {same}/{total}", flush=True)
+    if same != total:
+        fail(f"phase 7c {arch}: slot and paged tokens differ ({same}/"
+             f"{total})")
+    if arch == "starcoder2-15b":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = quantize_streaming(torch, bundle, params)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        int8_gb = sum(w.nbytes if isinstance(w, QuantizedTensor)
+                      else w.numel() * w.element_size()
+                      for w in params.values()) / 1e9
+        print(f"    int8 weights: {int8_gb:.2f} GB, quantized on the card "
+              f"in {quant_s:.2f} s (the bf16 weights dropped as they go)",
+              flush=True)
+        out["paged_int8"] = run("paged", params, kv_dtype="int8", int8=True)
+        out["paged_int8"].update(weight_gb=int8_gb, quantize_s=quant_s)
+        same, total = tokens_equal(out["paged_int8"]["outputs"],
+                                   out["paged"]["outputs"])
+        print(f"    information: int8 tokens equal to bf16's {same}/{total} "
+              f"(random weights; int8 moves near-ties)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+#: phase 7c's whisper-large-v3 prefill: B rows of F frames (the published
+#: 1500) and a prompt of T tokens, then decode ticks from its cache
+WHISPER_B, WHISPER_T, WHISPER_TICKS = 2, 16, 8
+
+
+def whisper_full(torch, seed: int, dev, finite, reset_counts, llm_counts,
+                 check_served) -> dict:
+    """Phase 7c for whisper-large-v3 at full size (32 encoder and 32
+    decoder layers, published widths; random bf16 weights from ``seed``):
+    ``bundle.prefill`` over :data:`WHISPER_B` rows of random stub frames
+    (the published 1500 a row) and a :data:`WHISPER_T`-token prompt (B1
+    under every projection, 513 launches: the encoder's 6 a layer, the
+    decoder's 10 and the head), its time (CUDA events); then
+    :data:`WHISPER_TICKS` greedy decode ticks from that cache (257 B1 and
+    32 B3 a tick: self-attention at G = 1, D = 64; the cross-attention over
+    the 1500 frames plain, as in the JAX model); then phase 4's requests
+    on the slot engine, which decodes against the zero cross K/V of its
+    cache as the JAX engine does (no frames reach it), launches gated, and
+    a 4-slot decode tick at the phase-3 lengths against its byte floor
+    (the decoder's and the head's weights, the cross K/V and the live
+    self K/V read once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("whisper-large-v3")
+    bundle = build_model(cfg, device="cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = bundle.init_params(gen)
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in params.values()) / 1e9
+    L, le = cfg.num_layers, cfg.encoder_layers
+    prefill_b1 = 6 * le + 10 * L + 1
+    tick_b1 = 8 * L + 1
+    zero = {k: 0 for k in llm_counts()}
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (WHISPER_B, WHISPER_T))).to(dev)
+    frames = torch.randn((WHISPER_B, cfg.encoder_frames, cfg.d_model),
+                         generator=gen, device=dev).to(torch.bfloat16)
+    out = dict(arch=cfg.name, layers=L, encoder_layers=le,
+               weight_gb=weight_gb, B=WHISPER_B, frames=cfg.encoder_frames,
+               prompt=WHISPER_T)
+    max_seq = WHISPER_T + MAX_SEQ_PAD
+    bundle.prefill(params, tokens, max_seq, frames=frames)      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+    t0 = time.perf_counter()
+    start.record()
+    last, cache = bundle.prefill(params, tokens, max_seq, frames=frames)
+    end.record()
+    torch.cuda.synchronize()
+    expect = dict(zero, apr_matmul=prefill_b1)
+    out["prefill"] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                          event_ms=start.elapsed_time(end),
+                          launches=llm_counts(), expected_launches=expect)
+    if out["prefill"]["launches"] != expect or not bool(
+            torch.isfinite(last).all()) or last.shape != (
+            WHISPER_B, 1, cfg.padded_vocab):
+        fail(f"phase 7c whisper-large-v3 prefill: launches "
+             f"{out['prefill']['launches']} (expected {expect}), logits "
+             f"{tuple(last.shape)} finite {bool(torch.isfinite(last).all())}")
+    finite.clear()
+    reset_counts()
+    nxt = last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    lengths = torch.full((WHISPER_B,), WHISPER_T, dtype=torch.int32,
+                         device=dev)
+    generated, tick_ms = [], []
+    for _ in range(WHISPER_TICKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = bundle.decode_step(params, cache, nxt, lengths)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        finite.append(bool(torch.isfinite(logits).all()))
+        nxt = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        generated.append(nxt[:, 0].tolist())
+        lengths = lengths + 1
+    launches = llm_counts()
+    expect = dict(zero, apr_matmul=tick_b1 * WHISPER_TICKS,
+                  flash_decode=L * WHISPER_TICKS)
+    out["decode_from_prefill"] = dict(
+        ticks=WHISPER_TICKS, tokens=generated,
+        ms_per_tick=float(np.mean(tick_ms)), launches=launches,
+        expected_launches=expect)
+    if not all(finite) or launches != expect:
+        fail(f"phase 7c whisper-large-v3: decode from the prefilled cache: "
+             f"finite {all(finite)}, launches {launches} != {expect}")
+    cross_gb = cache["cross_k"].numel() * 2 * 2 / 1e9
+    del cache, last
+    print(f"[7c] whisper-large-v3 full size ({le} + {L} layers, "
+          f"{weight_gb:.2f} GB bf16): prefill of {cfg.encoder_frames} "
+          f"frames and {WHISPER_T} tokens at B={WHISPER_B} "
+          f"{out['prefill']['wall_ms']:.2f} ms wall, "
+          f"{out['prefill']['event_ms']:.2f} ms CUDA events, {prefill_b1} "
+          f"apr_matmul launches (cross K/V {cross_gb:.3f} GB); "
+          f"{WHISPER_TICKS} decode ticks from its cache "
+          f"{np.mean(tick_ms):.3f} ms a tick ({tick_b1} apr_matmul + {L} "
+          f"flash_decode each), tokens {generated}", flush=True)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in SERVE_PROMPTS]
+    r = serve_counted(torch, bundle, params, "slot", prompts, 16, finite,
+                      reset_counts, llm_counts)
+    r["expected_launches"] = dict(zero, apr_matmul=tick_b1 * r["forwards"],
+                                  flash_decode=L * r["forwards"])
+    check_served("phase 7c whisper-large-v3 slot", r.pop("reqs"), 16,
+                 r["launches"], r["expected_launches"])
+    out["slot"] = r
+    print(f"    slot engine: {r['forwards']} forwards in {r['wall_s']:.2f} s "
+          f"wall, {r['ms_per_tick']:.3f} ms a decode step; launches "
+          f"{r['launches']['apr_matmul']} apr_matmul + "
+          f"{r['launches']['flash_decode']} flash_decode; peak "
+          f"{r['peak_mem_gb']:.2f} GB", flush=True)
+    # a 4-slot tick at the phase-3 lengths, its byte floor: the decoder's
+    # and the head's weights, the cross K/V and the live self K/V
+    slots = 4
+    cache = bundle.init_cache(slots, 256)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        rng.integers(1, cfg.vocab_size, (slots, 1)).astype(np.int32),
+        np.asarray(MAIN_LENGTHS, np.int32))]
+    step = lambda: bundle.decode_step(params, cache, *args)
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    weights = sum(t.numel() * t.element_size() for k, t in params.items()
+                  if k.startswith("dec.") or k in ("lm_head", "final_norm"))
+    kv = slots * L * cfg.num_kv_heads * cfg.resolved_head_dim * 2 * 2 * (
+        cfg.encoder_frames + sum(MAIN_LENGTHS) / slots + 1)
+    tick = dict(wall_ms=wall, floor_gb=(weights + kv) / 1e9,
+                floor_ms=(weights + kv) / HBM_BYTES_PER_S * 1e3)
+    by_kernel = profile_device(torch, step, 5)
+    if by_kernel:
+        busy = sum(by_kernel.values())
+        tick.update(device_busy_ms=busy, idle_share=1 - busy / wall,
+                    top_kernels_ms=dict(sorted(by_kernel.items(),
+                                               key=lambda kv_: -kv_[1])[:6]))
+    out["tick"] = tick
+    print(f"    decode tick at lengths {MAIN_LENGTHS} (4 slots, the cross "
+          f"K/V of 1500 frames): wall {wall:.3f} ms, byte floor "
+          f"{tick['floor_gb']:.3f} GB = {tick['floor_ms']:.3f} ms"
+          + (f", device busy {tick['device_busy_ms']:.3f} ms (profiler), "
+             f"idle share {tick['idle_share']:.1%}" if by_kernel else ""),
+          flush=True)
+    for name, t in tick.get("top_kernels_ms", {}).items():
+        print(f"      {t:8.3f} ms  {name[:90]}")
+    del cache, params
     torch.cuda.empty_cache()
     return out
 
@@ -2163,7 +2680,8 @@ ROW_BS = (1, 4, 20)
 ROW_GEOMETRIES = (("llama3-8b", 32, 8, 128), ("zamba2-1.2b", 32, 32, 64),
                   ("arctic-480b", 56, 8, 128),
                   ("llama4-maverick-400b-a17b", 40, 8, 128),
-                  ("internvl2-1b", 14, 2, 64))
+                  ("internvl2-1b", 14, 2, 64), ("starcoder2-15b", 48, 4, 128),
+                  ("chatglm3-6b", 32, 2, 128))
 #: the folded T > 1 calls of phase 2, (T, the real tokens of each row): a
 #: prefill chunk of 16 at B = 1, whole and the last one of a prompt, and
 #: a 4-slot verify step at spec_k = 4 (20 rows), all real and ragged
@@ -2183,10 +2701,12 @@ def row_bits_checks(torch, gen, dev) -> tuple:
     phase 2's paged tolerances.  The folded T > 1 paged call
     (``layers.paged_attention_folded``: a prefill chunk's or a verify
     step's attention) at each of :data:`ROW_FOLDS`, bf16 and int8 pools:
-    every real row bit-equal to a T = 1 call at the same length, and held
-    to the plain version on the same rows.  Returns (cases, info): info says,
-    for each geometry, whether B2 over pages and B3 over a contiguous
-    cache of the same K/V give the same bits at their default splits."""
+    every real row bit-equal to a T = 1 call at the same length, and every
+    row, padded ones included (each attends to the positions at or before
+    its own, as on the CPU), held to the plain version.  B2 over pages and
+    B3 over a contiguous cache of the same K/V give the same bits at their
+    default splits at every geometry (a case each).  Returns (cases,
+    info): info holds that comparison by geometry."""
     from repro_torch.kernels.apr_matmul import apr_matmul
     from repro_torch.kernels.flash_decode import (
         flash_decode, flash_decode_paged, paged_decode_attention_q_ref,
@@ -2268,38 +2788,43 @@ def row_bits_checks(torch, gen, dev) -> tuple:
         info.append(dict(geometry=label, b2_equals_b3=bool(torch.equal(
             paged_out, outs[b_max])), max_abs_diff=float(
             (paged_out.float() - outs[b_max].float()).abs().max())))
+        cases.append(("flash_decode", f"B={b_max} {label} B2 over pages = "
+                      f"B3 over the same K/V, bits", info[-1]["max_abs_diff"],
+                      info[-1]["b2_equals_b3"]))
         # a prefill chunk's or a verify step's attention, folded, against
         # its tokens one by one and against the plain version
         for t, real in ROW_FOLDS:
             b = len(real)
-            counts = torch.tensor(real, dtype=torch.int32, device=dev)
             lens0 = torch.clamp(lengths[:b], max=s_len - t)
             qt = randn(b, t, hq, d)
             rows = [(row, i) for row in range(b) for i in range(real[row])]
-            q_rows = torch.stack([qt[row, i] for row, i in rows])
-            lens_rows = torch.stack([lens0[row] + i + 1 for row, i in rows])
-            tabs_rows = tables[[row for row, _ in rows]]
+            q_all = qt.reshape(b * t, hq, d)
+            lens_all = (lens0[:, None] + torch.arange(
+                1, t + 1, device=dev)[None]).reshape(-1).to(torch.int32)
+            tabs_all = tables[:b].repeat_interleave(t, dim=0)
             for name, (kk, vv, sc) in pools.items():
-                folded = paged_attention_folded(qt, kk, vv, lens0, counts,
+                folded = paged_attention_folded(qt, kk, vv, lens0,
                                                 tables[:b], **sc)
                 got = torch.stack([folded[row, i] for row, i in rows])
                 one_rows = {}
                 for i in range(t):
                     one = paged_attention_folded(
-                        qt[:, i:i + 1], kk, vv, lens0 + i,
-                        (counts > i).to(torch.int32), tables[:b], **sc)
+                        qt[:, i:i + 1], kk, vv, lens0 + i, tables[:b], **sc)
                     for row in range(b):
                         if i < real[row]:
                             one_rows[row, i] = one[row, 0]
                 by_token = torch.stack([one_rows[r] for r in rows])
-                ref = plain(name, q_rows, lens_rows, tabs_rows)
+                ref = plain(name, q_all, lens_all, tabs_all)
                 torch.cuda.synchronize()
-                err, ok = max_err(got, ref.reshape(got.shape),
+                err, ok = max_err(folded.reshape(b * t, -1),
+                                  ref.reshape(b * t, -1),
                                   Q_ATOL if sc else ATOL)
                 same = bool(torch.equal(got, by_token))
                 cases.append((name, f"folded B={b} T={t} (real tokens "
-                              f"{list(real)}) {label}: rows bit-equal to T=1 "
-                              f"calls {same}, vs plain", err, ok and same))
+                              f"{list(real)}) {label}: real rows bit-equal "
+                              f"to T=1 calls {same}, all {b * t} rows "
+                              f"(padded ones included) vs plain", err,
+                              ok and same))
         del q, kp, vp, kq, vq, pools, k_c, v_c
     return cases, info
 
@@ -3014,6 +3539,10 @@ def tuning_path(torch, seed: int, dev, tmpdir, engine_kw, prompts,
 #: caches phase 3 rotates, so that each launch finds its cache cold
 DECODE_GEOMETRY = dict(b=4, hq=32, hkv=8, d=128)
 DECODE_LAYERS = 32
+#: phase 3's geometries of groups wider than 8 (the 4-slot tick of
+#: starcoder2-15b, 40 layers, and of chatglm3-6b, 28)
+WIDE_TIMING = {"starcoder2-15b": (dict(b=4, hq=48, hkv=4, d=128), 40),
+               "chatglm3-6b": (dict(b=4, hq=32, hkv=2, d=128), 28)}
 #: phase 3's contiguous-cache shapes (S, lengths): the slot engine's cache
 #: (max_seq 256) at the phase-4 lengths, and a long cache near full
 DECODE_TIMING = ((256, (40, 96, 150, 196)), (4096, (3968, 4000, 4032, 4095)))
@@ -3023,8 +3552,9 @@ DECODE_SWEEP = DECODE_TIMING + tuple((4096, (n,) * 4)
 
 
 def decode_timing(torch, gen, dev, cases, kv_dtype=None,
-                  q_dtype=None) -> list:
-    """B3 (``flash_decode``) at the llama3-8b geometry, per (S, lengths) of
+                  q_dtype=None, geometry=None, layers=None) -> list:
+    """B3 (``flash_decode``) at the llama3-8b geometry (or ``geometry``,
+    rotating over ``layers`` caches), per (S, lengths) of
     ``cases``: ms per launch (caches rotated over 32 layers), the plain
     version, masked SDPA on the same inputs, and the byte bound (q and the
     output once, the live tokens' K and V once, the lengths); where the
@@ -3039,8 +3569,9 @@ def decode_timing(torch, gen, dev, cases, kv_dtype=None,
     from repro_torch.kernels.flash_decode import (decode_attention_ref,
                                                   flash_decode)
     from repro_torch.kernels.flash_decode import ops as fd
-    b, hq, hkv, d = (DECODE_GEOMETRY[k] for k in ("b", "hq", "hkv", "d"))
-    layers = DECODE_LAYERS
+    geometry = geometry or DECODE_GEOMETRY
+    b, hq, hkv, d = (geometry[k] for k in ("b", "hq", "hkv", "d"))
+    layers = layers or DECODE_LAYERS
     kv_dtype = kv_dtype or torch.bfloat16
     q_dtype = q_dtype or torch.bfloat16
     name = ("flash_decode_f32" if kv_dtype == torch.float32
@@ -3110,7 +3641,41 @@ PAGED_CASES = [(4, 32, 8, 128, 16, 16, [40, 96, 150, 196]),  # serving shape
                # group of 7), llama4-maverick (5), internvl2-1b (7, D 64)
                (4, 56, 8, 128, 16, 16, [40, 96, 150, 196]),
                (4, 40, 8, 128, 16, 16, [0, 1, 16, 196]),
-               (4, 14, 2, 64, 16, 16, [40, 96, 150, 256])]
+               (4, 14, 2, 64, 16, 16, [40, 96, 150, 256]),
+               # groups wider than 8, in parts of 8 query heads: starcoder2
+               # (12 over 4 kv heads), chatglm3 (16 over 2), and a group of
+               # 12 over one head on pages of 5 and of 16 at D % 4 != 0
+               (4, 48, 4, 128, 16, 16, [40, 96, 150, 196]),
+               (4, 48, 4, 128, 16, 16, [0, 1, 16, 17]),
+               (4, 32, 2, 128, 16, 16, [40, 96, 150, 196]),
+               (6, 32, 2, 128, 16, 16, [0, 1, 15, 16, 17, 256]),
+               (3, 12, 1, 128, 5, 10, [50, 0, 23]),
+               (2, 16, 1, 34, 4, 6, [17, 0])]
+#: phase 2's contiguous-cache cases (B, Hq, Hkv, D, S, lengths): rows of
+#: length 0 (the mean of V over all S positions, as the JAX kernel gives
+#: it), S not a multiple of the 32-token step, long caches, D % 4 != 0
+B3_CASES = [(4, 32, 8, 128, 256, [40, 96, 150, 196]),     # serving shape
+            (4, 32, 8, 128, 256, [0, 1, 33, 256]),
+            (3, 8, 2, 64, 48, [33, 0, 7]),                # S not a chunk mult.
+            (2, 14, 2, 64, 64, [64, 0]),                  # group of 7
+            (6, 32, 8, 128, 4096, [0, 1, 33, 1000, 4095, 4096]),
+            (2, 6, 2, 36, 40, [17, 0]),                   # D % 4 != 0
+            # zamba2-1.2b's slot cache (max_seq 256), a group of 1
+            (4, 32, 32, 64, 256, [24, 57, 96, 40]),
+            (4, 32, 32, 64, 256, [0, 1, 33, 112]),
+            # arctic-480b's, llama4-maverick's and internvl2-1b's slot
+            # caches (max_seq 256)
+            (4, 56, 8, 128, 256, [40, 96, 150, 196]),
+            (4, 40, 8, 128, 256, [0, 1, 33, 256]),
+            (4, 14, 2, 64, 256, [40, 96, 150, 196]),
+            # starcoder2-15b's (12 over 4) and chatglm3-6b's (16 over 2)
+            # slot caches, a long one, a group of 12 at D % 4 != 0, and
+            # whisper-large-v3's decoder self-attention (20 heads of 64)
+            (4, 48, 4, 128, 256, [40, 96, 150, 196]),
+            (4, 32, 2, 128, 256, [0, 1, 33, 256]),
+            (6, 48, 4, 128, 4096, [0, 1, 33, 1000, 4095, 4096]),
+            (2, 12, 1, 36, 40, [17, 0]),
+            (4, 20, 20, 64, 256, [16, 17, 40, 1])]
 #: the lengths of phase 3's paged rows and of the profiled decode tick
 MAIN_LENGTHS = [40, 96, 150, 196]
 
@@ -3162,8 +3727,16 @@ def f32q_err(got, ref) -> tuple:
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
-def paged_correctness(torch, gen, dev) -> tuple:
-    """Phase 2 for B2 and B2q: every case of :data:`PAGED_CASES` over bf16
+def digest(torch, t) -> str:
+    """The sha256 of a tensor's bytes: bits, compared across runs."""
+    import hashlib
+    return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def paged_correctness(torch, gen, dev, cases=None) -> tuple:
+    """Phase 2 for B2 and B2q: every case of ``cases`` (:data:`PAGED_CASES`)
+    over bf16
     pools, int8 pools with per-(slot, head) fp32 scales, and fp32 pools
     under a bf16 and an fp32 q, and bf16 and int8 pools under an fp32 q,
     at the split count the wrapper picks and at each one it takes, each
@@ -3174,14 +3747,15 @@ def paged_correctness(torch, gen, dev) -> tuple:
     dequantize) within BF16_RTOL*|plain| + Q_ATOL and to the plain version
     on the fp32-dequantized pools at the bf16 tolerance; an fp32 q to the
     split plain version at its split count within the fp32 tolerance
-    (F32Q_RTOL).  Returns (cases, twice-bit-equal flags)."""
+    (F32Q_RTOL).  Returns (cases, twice-bit-equal flags, {case: digest of
+    its output})."""
     from repro_torch.kernels.flash_decode import (
         flash_decode_paged, paged_decode_attention_q_ref,
         paged_decode_attention_ref, paged_decode_attention_split_ref)
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.quant import quantize_channelwise
-    cases, det = [], []
-    for b, hq, hkv, d, ps, p_max, lengths in PAGED_CASES:
+    out, det, digests = [], [], {}
+    for b, hq, hkv, d, ps, p_max, lengths in cases or PAGED_CASES:
         q, kp, vp, lens, tables, dead = paged_inputs(
             torch, gen, dev, b, hq, hkv, d, ps, p_max, lengths)
         kp, vp = kp[0], vp[0]
@@ -3235,12 +3809,67 @@ def paged_correctness(torch, gen, dev) -> tuple:
                 ok = (ok and det[-1] and got.dtype == qq.dtype
                       and torch.equal(padded, got)
                       and all(not got[i].float().any() for i in zero_rows))
-                cases.append((name, f"B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} "
-                              f"P_max={p_max} lengths={lengths} q "
-                              f"{str(qq.dtype)[6:]} splits={n or 'default'}"
-                              f" twice bit-equal={det[-1]}{extra}", err, ok))
+                label = (f"B={b} Hq={hq} Hkv={hkv} D={d} ps={ps} P_max="
+                         f"{p_max} lengths={lengths} q {str(qq.dtype)[6:]} "
+                         f"splits={n or 'default'}")
+                digests[f"{name} {label}"] = digest(torch, got)
+                out.append((name, f"{label} twice bit-equal={det[-1]}"
+                            f"{extra}", err, ok))
         del q, kp, vp, kq, vq, ks, vs
-    return cases, det
+    return out, det, digests
+
+
+def contig_correctness(torch, gen, dev, cases=None) -> tuple:
+    """Phase 2 for B3: every case of ``cases`` (:data:`B3_CASES`) over a
+    bf16 and an fp32 cache under a bf16 q, and under an fp32 q over both,
+    at the split count the wrapper picks and at each one it takes (splits
+    past a row's walk are empty), each launched twice on the same inputs
+    (equal bits): held to the plain version (the JAX oracle: a row of
+    length 0 is the mean of V over all S positions) at the bf16 tolerance,
+    an fp32 q over the bf16 cache (an fp32-param model on the slot engine)
+    to the split plain version within the fp32 tolerance.  Returns (cases,
+    twice-bit-equal flags, {case: digest of its output})."""
+    from repro_torch.kernels.flash_decode import (
+        decode_attention_ref, decode_attention_split_ref, flash_decode)
+    from repro_torch.kernels.flash_decode import ops as fd
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    out, det, digests = [], [], {}
+    for b, hq, hkv, d, s_len, lengths in cases or B3_CASES:
+        q = randn(b, hq, d)
+        k_c, v_c = randn(b, s_len, hkv, d), randn(b, s_len, hkv, d)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for qq, kk, vv in ((q, k_c, v_c), (q, k_c.float(), v_c.float()),
+                           (q.float(), k_c.float(), v_c.float()),
+                           (q.float(), k_c, v_c)):
+            ref = decode_attention_ref(qq, kk, vv, lens)
+            f32q = qq.dtype == torch.float32 and kk.dtype == torch.bfloat16
+            name = "flash_decode_f32q" if f32q else "flash_decode"
+            for n in (None,) + fd.SPLITS:
+                cfg_n = None if n is None else fd.COMPILED.replace(splits=n)
+                got = flash_decode(qq, kk, vv, lens, config=cfg_n)
+                again = flash_decode(qq, kk, vv, lens, config=cfg_n)
+                torch.cuda.synchronize()
+                if f32q:
+                    err, ok = f32q_err(got, decode_attention_split_ref(
+                        qq, kk, vv, lens, n or fd.resolve_splits(
+                            b, hq, hkv, d, s_len, "float32", "cuda",
+                            kv_bytes=2)))
+                else:
+                    err, ok = max_err(got, ref)
+                det.append(torch.equal(got, again))
+                ok = ok and got.dtype == qq.dtype and det[-1]
+                label = (f"B={b} Hq={hq} Hkv={hkv} D={d} S={s_len} lengths="
+                         f"{lengths} q {str(qq.dtype)[6:]} cache "
+                         f"{str(kk.dtype)[6:]} splits={n or 'default'}")
+                digests[f"{name} {label}"] = digest(torch, got)
+                out.append((name, f"{label} twice bit-equal={det[-1]}", err,
+                            ok))
+        del q, k_c, v_c
+    return out, det, digests
 
 
 #: |apr_matmul_f32 - plain| <= F32_MM_SLACK * K * 2^-24 * (|x| @ |w| +
@@ -3355,9 +3984,11 @@ def matmul_f32_correctness(torch, gen, dev) -> list:
     return cases
 
 
-def paged_timing(torch, gen, dev, lengths=None) -> list:
+def paged_timing(torch, gen, dev, lengths=None, geometry=None,
+                 layers=None) -> list:
     """B2 (``flash_decode_paged``) over bf16 pools, fp32 pools and int8
-    pools (B2q) at the llama3-8b geometry, pages of 16 in a 16-page table,
+    pools (B2q) at the llama3-8b geometry (or ``geometry``, rotating over
+    ``layers`` pools), pages of 16 in a 16-page table,
     at ``lengths`` (:data:`MAIN_LENGTHS`): ms per launch (pools rotated
     over 32 layers, bf16 q), the plain version, gather + SDPA on the same
     pools (fp32 SDPA for fp32 pools, the dequantized pools in bf16 for
@@ -3377,8 +4008,9 @@ def paged_timing(torch, gen, dev, lengths=None) -> list:
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.quant import quantize_channelwise
     lengths = lengths or MAIN_LENGTHS
-    b, hq, hkv, d = (DECODE_GEOMETRY[k] for k in ("b", "hq", "hkv", "d"))
-    ps, p_max, layers = 16, 16, DECODE_LAYERS
+    geometry = geometry or DECODE_GEOMETRY
+    b, hq, hkv, d = (geometry[k] for k in ("b", "hq", "hkv", "d"))
+    ps, p_max, layers = 16, 16, layers or DECODE_LAYERS
     q, kp, vp, lens, tables, _ = paged_inputs(torch, gen, dev, b, hq, hkv, d,
                                               ps, p_max, lengths, layers)
     live = torch.arange(p_max * ps, device=dev)[None] < lens[:, None].long()
@@ -4690,8 +5322,8 @@ def cnn_conv_timing(torch, gen, dev, net: str) -> list:
 
 
 def ptxas_kernels(log: str) -> dict:
-    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
-    log, by mangled name."""
+    """Registers, spill bytes and static shared memory of each kernel in an
+    ``nvcc -Xptxas -v`` log, by mangled name."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -4708,7 +5340,121 @@ def ptxas_kernels(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and name:
+            out[name]["smem"] = int(m.group(1))
     return out
+
+
+def fd_kernel_key(name: str, wide_arg: bool = True) -> str:
+    """A ``flash_decode.cu`` kernel's mangled name without its file's
+    anonymous-namespace tag and, where the tree's kernels take the
+    ``WIDE`` template argument (``wide_arg``), without it when it is false
+    (the last argument, ``Lb0E`` before the names' closing ``EEv``), so
+    that a tree before wide groups names each of its kernels as this tree
+    does."""
+    import re
+    name = re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "<anon>", name)
+    return name.replace("Lb0EEEv", "EEv") if wide_arg else name
+
+
+def fd_ptxas(log: str, wide_arg: bool = True) -> dict:
+    """The ptxas counts of ``flash_decode.cu``'s split kernels, by
+    :func:`fd_kernel_key`."""
+    return {fd_kernel_key(n, wide_arg): v
+            for n, v in ptxas_kernels(log).items() if "split_kernel" in n}
+
+
+def decode_ab(torch, parent: Path, out: Path) -> None:
+    """``--decode-ab DIR``: build ``flash_decode.cu`` of this tree and of
+    the tree unpacked at ``DIR`` with the same flags, and hold the kernels
+    of groups up to 8 to the older tree's: every one of its split kernels
+    compiled here with the same registers, spill bytes and static shared
+    memory, and every phase-2 case of B2, B2q and B3 at G <= 8 (each
+    dtype, every split count) giving the same output bits, from the same
+    inputs (this tree, the older one, this tree again).  Then the wide
+    cases (G = 12, 16) on this tree against the plain version.  Writes
+    ``out``; fails on any difference."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import ops as fd
+    dev = torch.device("cuda")
+    out_dir = _build.BUILD_DIR / "flash_decode_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # both trees' sources, one nvcc each at once, with the build's flags
+    # (a library this tree built before has no ptxas log to read)
+    procs = {tree: subprocess.Popen(
+        [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
+         str(src.parent), "-o", str(out_dir / f"lib{tree}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tree, src in (("this", _build.CSRC / "flash_decode.cu"),
+                          ("older", parent / "src" / "repro_torch" / "csrc"
+                           / "flash_decode.cu"))}
+    libs, logs = {}, {}
+    for tree, proc in procs.items():
+        logs[tree], _ = proc.communicate()
+        if proc.returncode:
+            fail(f"decode-ab: {tree} tree's flash_decode.cu did not build:"
+                 f"\n{logs[tree][-3000:]}")
+        lib = ctypes.CDLL(str(out_dir / f"lib{tree}.so"))
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        for fn, (restype, argtypes) in fd.SIGNATURES.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        libs[tree] = lib
+    new_lib, old_lib = libs["this"], libs["older"]
+    new_k = fd_ptxas(logs["this"])
+    old_k = fd_ptxas(logs["older"], wide_arg=False)
+    differ = {k: (v, new_k.get(k)) for k, v in old_k.items()
+              if new_k.get(k) != v}
+    wide_k = {k: v for k, v in new_k.items() if k not in old_k}
+    narrow = lambda cases: [c for c in cases if c[1] // c[2] <= 8]
+    wide = lambda cases: [c for c in cases if c[1] // c[2] > 8]
+
+    def run(lib) -> dict:
+        _build._LIBS[fd.LIBRARY] = lib
+        gen = torch.Generator(device=dev).manual_seed(0)
+        d2 = paged_correctness(torch, gen, dev, narrow(PAGED_CASES))[2]
+        d3 = contig_correctness(torch, gen, dev, narrow(B3_CASES))[2]
+        torch.cuda.synchronize()
+        return {**d2, **d3}
+
+    try:
+        digests = [run(new_lib), run(old_lib), run(new_lib)]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        wide_cases = (
+            paged_correctness(torch, gen, dev, wide(PAGED_CASES))[0]
+            + contig_correctness(torch, gen, dev, wide(B3_CASES))[0])
+    finally:
+        _build._LIBS.pop(fd.LIBRARY, None)
+    bits_differ = sorted(k for k in digests[0]
+                         if len({d[k] for d in digests}) != 1)
+    failing = [c for c in wide_cases if not c[3]]
+    res = dict(parent=str(parent), old_kernels=len(old_k),
+               new_kernels=len(new_k), ptxas_differ=differ,
+               ptxas_old=old_k, ptxas_wide=wide_k,
+               narrow_outputs=len(digests[0]), bits_differ=bits_differ,
+               wide_cases=[dict(kernel=n, case=c, max_abs_err=e, ok=o)
+                           for n, c, e, o in wide_cases])
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(res, indent=1))
+    print(f"[decode-ab] ptxas: {len(old_k)} split kernels in {parent}, "
+          f"{len(new_k)} here ({len(wide_k)} wide); counts differ in "
+          f"{len(differ)}: {list(differ.items())[:4]}")
+    for k, v in sorted(wide_k.items()):
+        print(f"    wide: {k[:100]} {v}")
+    print(f"[decode-ab] {len(digests[0])} G <= 8 outputs (B2, B2q, B3, every "
+          f"dtype and split count): bits differ in {len(bits_differ)} "
+          f"(this tree, the older one, this tree again): "
+          f"{bits_differ[:4]}")
+    for n, c, e, o in wide_cases:
+        print(f"    {'ok  ' if o else 'FAIL'} {n:28s} {c} max_abs_err={e:.3g}")
+    if not old_k or len(old_k) != len(new_k) - len(wide_k) or differ:
+        fail("decode-ab: the G <= 8 kernels' ptxas counts differ")
+    if bits_differ or failing:
+        fail(f"decode-ab: {len(bits_differ)} G <= 8 outputs differ, "
+             f"{len(failing)} wide cases fail")
 
 
 #: the baseline kernels whose SASS ``--baseline`` keeps (mangled-name
@@ -5154,6 +5900,12 @@ def main() -> int:
                          "dropped) and time each at every ResNet-20 conv "
                          "at batch 256, with the K loop's opcode counts "
                          "(conv_ablation); writes --out")
+    ap.add_argument("--decode-ab", metavar="DIR",
+                    help="only build flash_decode.cu of this tree and of "
+                         "the tree unpacked at DIR, hold the G <= 8 kernels "
+                         "to the older tree's ptxas counts and output bits "
+                         "and the G = 12 and 16 cases to the plain version "
+                         "(decode_ab); writes --out")
     ap.add_argument("--profiler-probe", action="store_true",
                     help="only build quant_matmul.cu, apr_matmul.cu, "
                          "rwkv6.cu and mamba2.cu and count, over many short "
@@ -5219,6 +5971,9 @@ def main() -> int:
     if args.conv_ablation:
         conv_ablation(torch, Path(args.out))
         return 0
+    if args.decode_ab:
+        decode_ab(torch, Path(args.decode_ab).resolve(), Path(args.out))
+        return 0
     if args.baseline:
         baseline_sweep(torch, Path(args.out))
         return 0
@@ -5275,6 +6030,7 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
     report["build_s"] = build_s
+    report["build_seconds"] = dict(_build.BUILD_SECONDS)
     phase_done("phase 1")
 
     # ------------------------------------------------------------ 2 correct
@@ -5339,65 +6095,19 @@ def main() -> int:
 
     # the paged kernels (B2, B2q, fp32 pools) at every split count, each
     # case twice for equal bits and with out-of-pool table padding
-    paged_cases, b2_det = paged_correctness(torch, gen, dev)
+    paged_cases, b2_det, b2_digests = paged_correctness(torch, gen, dev)
     for name, case, err, ok in paged_cases:
         errs[name] = max(errs[name], err)
         cases.append((name, case, err, ok))
 
-    # the contiguous cache of the slot engine, rows of length 0 included:
-    # they return the mean of V over all S positions, as the JAX kernel
-    # does; at the split count the wrapper picks and at every one it may
-    # be given (splits past a row's walk are empty), over bf16 and fp32
-    # caches, and under an fp32 q over the bf16 cache (an fp32-param model
-    # on the slot engine; fp32 tolerance against the split plain version);
-    # and twice on the same inputs, for equal bits
-    b3_det = []
-    for b, hq, hkv, d, s_len, lengths in [
-            (4, 32, 8, 128, 256, [40, 96, 150, 196]),     # serving shape
-            (4, 32, 8, 128, 256, [0, 1, 33, 256]),
-            (3, 8, 2, 64, 48, [33, 0, 7]),                # S not a chunk mult.
-            (2, 14, 2, 64, 64, [64, 0]),                  # group of 7
-            (6, 32, 8, 128, 4096, [0, 1, 33, 1000, 4095, 4096]),
-            (2, 6, 2, 36, 40, [17, 0]),                   # D % 4 != 0
-            # zamba2-1.2b's slot cache (max_seq 256), a group of 1
-            (4, 32, 32, 64, 256, list(RECURRENT_PROMPTS[:4])),
-            (4, 32, 32, 64, 256, [0, 1, 33, 112]),
-            # arctic-480b's, llama4-maverick's and internvl2-1b's slot
-            # caches (max_seq 256)
-            (4, 56, 8, 128, 256, [40, 96, 150, 196]),
-            (4, 40, 8, 128, 256, [0, 1, 33, 256]),
-            (4, 14, 2, 64, 256, [40, 96, 150, 196])]:
-        q = randn(b, hq, d)
-        k_c, v_c = randn(b, s_len, hkv, d), randn(b, s_len, hkv, d)
-        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        for qq, kk, vv in ((q, k_c, v_c), (q, k_c.float(), v_c.float()),
-                           (q.float(), k_c.float(), v_c.float()),
-                           (q.float(), k_c, v_c)):
-            ref = decode_attention_ref(qq, kk, vv, lens)
-            f32q = qq.dtype == torch.float32 and kk.dtype == torch.bfloat16
-            name = "flash_decode_f32q" if f32q else "flash_decode"
-            for n in (None,) + fd_ops.SPLITS:
-                cfg_n = (None if n is None
-                         else fd_ops.COMPILED.replace(splits=n))
-                got = flash_decode(qq, kk, vv, lens, config=cfg_n)
-                again = flash_decode(qq, kk, vv, lens, config=cfg_n)
-                torch.cuda.synchronize()
-                if f32q:
-                    err, ok = f32q_err(got, decode_attention_split_ref(
-                        qq, kk, vv, lens, n or fd_ops.resolve_splits(
-                            b, hq, hkv, d, s_len, "float32", "cuda",
-                            kv_bytes=2)))
-                else:
-                    err, ok = max_err(got, ref)
-                b3_det.append(torch.equal(got, again))
-                ok = ok and got.dtype == qq.dtype and b3_det[-1]
-                errs[name] = max(errs[name], err)
-                cases.append((name, f"B={b} Hq={hq} Hkv={hkv} "
-                              f"D={d} S={s_len} lengths={lengths} q "
-                              f"{str(qq.dtype)[6:]} cache "
-                              f"{str(kk.dtype)[6:]} splits={n or 'default'}"
-                              f" twice bit-equal={b3_det[-1]}", err, ok))
-        del q, k_c, v_c
+    # the contiguous cache of the slot engine (B3), rows of length 0
+    # included, at every split count, over bf16 and fp32 caches and under
+    # an fp32 q, twice on the same inputs for equal bits
+    b3_cases, b3_det, b3_digests = contig_correctness(torch, gen, dev)
+    for name, case, err, ok in b3_cases:
+        errs[name] = max(errs[name], err)
+        cases.append((name, case, err, ok))
+    report["decode_digests"] = {**b2_digests, **b3_digests}
 
     # a row's bits across M (B1) and B (B2, B2q, B3), and the folded T > 1
     # paged call against T = 1 calls
@@ -5458,8 +6168,8 @@ def main() -> int:
               f"d={r['d']} {r['mean']} B={r['batch']}: {r['rows_differ']}/"
               f"{r['rows']}" for r in norms))
     report["norm_invariance"] = norms
-    print("    information: B2 over pages vs B3 over a contiguous cache of "
-          "the same K/V at their default splits (B = 20): " + ", ".join(
+    print("    B2 over pages vs B3 over a contiguous cache of the same K/V "
+          "at their default splits (B = 20; gated): " + ", ".join(
               f"{r['geometry']} bit-equal {r['b2_equals_b3']} (max |diff| "
               f"{r['max_abs_diff']:.3g})" for r in b2_vs_b3))
     if not all(ok for *_, ok in cases):
@@ -5487,6 +6197,20 @@ def main() -> int:
                                q_dtype=torch.float32)[0]
     decode_rows.append(fdc32q_row)
     timing.extend(decode_rows)
+    # the same at the groups wider than 8 (in parts of 8 on the grid):
+    # starcoder2-15b's and chatglm3-6b's 4-slot ticks, pools and caches
+    # rotated over their layers
+    wide_rows = {}
+    for arch, (geometry, n_layers) in WIDE_TIMING.items():
+        rows = paged_timing(torch, gen, dev, geometry=geometry,
+                            layers=n_layers)
+        rows += decode_timing(torch, gen, dev, DECODE_TIMING[:1],
+                              geometry=geometry, layers=n_layers)
+        for r in rows:
+            r["arch"] = arch
+            wide_rows[(r["kernel"], arch)] = r
+        timing.extend(rows)
+    report["wide_timing"] = [dict(r) for r in wide_rows.values()]
     torch.cuda.empty_cache()
     scan_rows = scan_timing(torch, gen, dev)
     mm_rows = matmul_family_timing(torch, gen, dev, slots)
@@ -5547,6 +6271,12 @@ def main() -> int:
     report["conv_ptxas"] = conv_regs
     for name, r in conv_regs.items():
         print(f"    ptxas {name[19:80]}: {r}")
+    # the decode kernels' registers, spills and static shared memory, the
+    # wide ones (a group in parts of 8) beside the G = 8 ones they reuse
+    fd_regs = fd_ptxas(_build.BUILD_LOGS.get(fd_ops.LIBRARY, ""))
+    report["decode_ptxas"] = fd_regs
+    for name, r in sorted(fd_regs.items()):
+        print(f"    ptxas {name[name.find('split_kernel'):][:70]}: {r}")
 
     def per_forward(rows):
         """Sums over the convs of one forward at CNN_BATCH."""
@@ -6268,12 +6998,21 @@ def main() -> int:
         for kind, r in family_smoke_parity(torch, arch, args.seed,
                                            dev).items():
             parity[f"{arch.split('-')[0]}_{kind}"] = r
+    # the G-wide smoke variants: the wide decode kernels (a group in parts
+    # of 8) under the model, held to the llama3-8b smoke bounds
+    for arch, groups in WIDE_SMOKE:
+        for kind, r in family_smoke_parity(
+                torch, arch, args.seed, dev,
+                scfg=wide_variant(get_config(arch), groups)).items():
+            parity[f"{arch.split('-')[0]}_g{groups}_{kind}"] = r
     report["smoke_parity"] = parity
     print("[5] smoke llama3-8b, rwkv6-3b, mamba2-2.7b, zamba2-1.2b, "
-          "arctic-480b, llama4-maverick-400b-a17b and internvl2-1b, card "
-          f"(kernels) vs CPU (plain), same weights (bound {SMOKE_LOGITS_BOUND} "
-          f"on max |logits diff|, {F32_SMOKE_LOGITS_BOUND:g} for the fp32 "
-          "entries):")
+          "arctic-480b, llama4-maverick-400b-a17b, internvl2-1b and the "
+          "G-wide variants of starcoder2-15b (G = 12) and chatglm3-6b (G = "
+          f"16), card (kernels) vs CPU (plain), same weights (bound "
+          f"{SMOKE_LOGITS_BOUND} on max |logits diff|, "
+          f"{F32_SMOKE_LOGITS_BOUND:g} for the fp32 entries; every row's "
+          "routing compared, padded positions' included):")
     for kind, r in parity.items():
         print(f"    {kind:14s} max |logits diff| "
               f"{r['max_abs_logits_diff']:.4g}, per step "
@@ -6292,6 +7031,11 @@ def main() -> int:
         err = r["max_abs_logits_diff"]
         if not math.isfinite(err) or err > r["bound"]:
             fail(f"{kind}: card and CPU logits differ beyond the bound")
+    # the MoE smoke configs at the published capacity factor: the card's
+    # dropped dispatches, request by request, against the CPU's
+    report["capacity_drops"] = {arch: capacity_drops(torch, arch, args.seed,
+                                                     dev)
+                                for arch in MOE_LAYERS}
     # a bf16 model serving on fp32 KV pools (kv_dtype="float32"): every
     # decode tick's attention on the fp32-pool kernel
     fp32_eng = PagedServeEngine(bundles["cuda"], {
@@ -6757,6 +7501,19 @@ def main() -> int:
     report["families"] = families
     phase_done("phase 7b")
 
+    # ---- 7c groups wider than 8 and the audio family, full width
+    torch.cuda.empty_cache()
+    wide = {}
+    for arch in WIDE_ARCHS:
+        wide[arch] = wide_serving(torch, arch, args.seed, dev, finite,
+                                  reset_counts, llm_counts, check_served)
+        torch.cuda.empty_cache()
+    wide["whisper-large-v3"] = whisper_full(torch, args.seed, dev, finite,
+                                            reset_counts, llm_counts,
+                                            check_served)
+    report["wide"] = wide
+    phase_done("phase 7c")
+
     # ------------------------- 8 the tuning path at llama3-8b full width
     tuning = tuning_path(torch, args.seed, dev, tmp.name, engine_kw, prompts,
                          bf16_outputs, checked, finite, reset_counts,
@@ -6808,6 +7565,14 @@ def main() -> int:
                         r["launches"][name]
         return paths
 
+    def wide_paths(name, archs=None) -> dict:
+        """``name``'s launches on each of phase 7c's runs (of ``archs``,
+        every arch by default) that launched it."""
+        return {f"phase 7c {arch} {run_name}": r["launches"][name]
+                for arch, res in wide.items() if archs is None
+                or arch in archs for run_name, r in res.items()
+                if isinstance(r, dict) and r.get("launches", {}).get(name)}
+
     mm_src = "src/repro_torch/csrc/apr_matmul.cu"
     fd_src = "src/repro_torch/csrc/flash_decode.cu"
     kernels = [
@@ -6820,14 +7585,16 @@ def main() -> int:
                         "launches"]["apr_matmul"],
                     "phase 4e oracle": spec_runs["oracle"][
                         "launches"]["apr_matmul"],
-                    **family_paths("apr_matmul")},
+                    **family_paths("apr_matmul"),
+                    **wide_paths("apr_matmul")},
                    kernel="apr_matmul"),
         tick_entry("apr_matmul_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
                    {"phase 4b": serve_q["launches"]["apr_matmul_int8w"],
                     "phase 4e int8": spec_runs["int8"][
                         "launches"]["apr_matmul_int8w"],
-                    **family_paths("apr_matmul_int8w")},
+                    **family_paths("apr_matmul_int8w"),
+                    **wide_paths("apr_matmul_int8w")},
                    kernel="apr_matmul_int8w"),
         tick_entry("apr_matmul_f32", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
@@ -6886,12 +7653,32 @@ def main() -> int:
                         "decode_from_prefill"]["launches"]["flash_decode"],
                     "phase 7 zamba2-1.2b slot": hybrid_launches(
                         "slot", "flash_decode"),
-                    **family_paths("flash_decode")}, row=fdc_row),
+                    **family_paths("flash_decode"),
+                    **wide_paths("flash_decode", ("whisper-large-v3",))},
+                   row=fdc_row),
         tick_entry("flash_decode_f32q", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:240",
                    {"phase 5 slot engine": f32_runs["slot engine"][
                        "launches"]["flash_decode_f32q"]}, row=fdc32q_row),
     ]
+    # B2, B2q and B3 at the groups wider than 8, per full-width decode
+    # tick of their arch (phase 3's rows times its layers); launches are
+    # those of phase 7c's runs of that arch
+    for (name, arch), row in wide_rows.items():
+        n_layers = WIDE_TIMING[arch][1]
+        paths = wide_paths(name, (arch,))
+        if not paths:
+            continue
+        kernels.append(dict(
+            name=f"{name}_g{row['Hq'] // row['Hkv']}", route="cuda",
+            source=fd_src, replaces=(
+                "src/repro/kernels/flash_decode/kernel.py:240"
+                if name == "flash_decode" else
+                "src/repro/kernels/flash_decode/kernel.py:153"),
+            **by_path(**paths), max_abs_err=errs[name],
+            **{key: n_layers * row[key] for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms")},
+            bound_by=row["bound_by"]))
     # B1 at prefill M, per whole-sequence forward (phase 3's rows at M =
     # B x T); launches are those of phase 4d's forward and prefill
     kernels.append(dict(
@@ -6935,7 +7722,7 @@ def main() -> int:
              "src/repro/kernels/mamba2/kernel.py:59")):
         row = next(r for r in scan_rows
                    if r["kernel"] == name and r["shape"] == "decode")
-        n_layers = recurrent[arch]["layers"]
+        n_layers = get_config(arch).num_layers   # per full-depth tick
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             **by_path(**{f"phase 7 {a} {e}": r[e]["launches"][name]
@@ -7016,7 +7803,16 @@ def main() -> int:
         "runs to apr_matmul, apr_matmul_int8w, flash_decode_paged, "
         "flash_decode_paged_int8 and flash_decode; the MoE runs' apr_matmul "
         "counts are gated against their routing (3 launches a non-empty "
-        "expert). "
+        "expert). Phase 7c adds its runs to apr_matmul and "
+        "apr_matmul_int8w, and whisper-large-v3's to flash_decode. "
+        "flash_decode_paged_g12, flash_decode_paged_int8_g12 and "
+        "flash_decode_g12 (starcoder2-15b, 48 query heads over 4 kv heads), "
+        "flash_decode_paged_g16 and flash_decode_g16 (chatglm3-6b, 32 over "
+        "2): the same kernels at a group wider than 8 (in parts of 8 query "
+        "heads on the grid), per full-width decode tick of that arch (40 / "
+        "28 launches at the phase-3 lengths, library gather + SDPA or "
+        "masked SDPA); launches are those of phase 7c's runs of that "
+        "arch. "
         "apr_matmul_prefill: B1 per full-width llama3-8b whole-sequence "
         f"forward at M = {PREFILL_M} (225 projections; phase 3's prefill "
         "rows, library torch.matmul on the same bf16 operands, bound the "

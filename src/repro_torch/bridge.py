@@ -36,8 +36,10 @@ def params_from_numpy(
         arrays: Mapping[str, Union[np.ndarray, Tuple[np.ndarray, np.ndarray]]],
         device="cpu", dtype: Optional[torch.dtype] = None
 ) -> Dict[str, Union[torch.Tensor, QuantizedTensor]]:
-    """A dict of named arrays (params keyed ``blk.0.attn.wq`` ..., or a
-    paged cache's pools) to the same dict of tensors.  A ``(q, scale)``
+    """A dict of named arrays (params keyed ``blk.0.attn.wq`` ..., the
+    audio family's ``pos_enc``, ``pos_dec``, ``enc.*``, ``dec.self.*``,
+    ``dec.cross.*``, ``dec.ln3`` and ``enc_final``, or a cache's pools)
+    to the same dict of tensors.  A ``(q, scale)``
     pair becomes a :class:`QuantizedTensor` (int8 codes and fp32 scales as
     they are; ``dtype`` casts only the plain arrays)."""
     out = {}

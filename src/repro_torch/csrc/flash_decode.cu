@@ -33,13 +33,14 @@
 // many loads in flight.
 //
 // The split body:
-//  * grid (splits, Hkv, B), cluster (splits, 1, 1), splits <= 8 (the
-//    portable cluster size); the wrapper picks the split count from the
-//    geometry, the SM count and the cache's bytes a value (the lengths live
-//    on the device), so that the B·Hkv·splits blocks put about two on each
-//    SM (a block's walk is latency-bound, so a second block on the SM
-//    streams alongside it), or, for fp32 caches, whose 8-warp blocks fill
-//    an SM's registers, one on every other SM.
+//  * grid (splits, Hkv, B) (Hkv·parts for a group wider than 8, below),
+//    cluster (splits, 1, 1), splits <= 8 (the portable cluster size); the
+//    wrapper picks the split count from the geometry, the SM count and the
+//    cache's bytes a value (the lengths live on the device), so that the
+//    B·Hkv·splits blocks put about two on each SM (a block's walk is
+//    latency-bound, so a second block on the SM streams alongside it), or,
+//    for fp32 caches, whose 8-warp blocks fill an SM's registers, one on
+//    every other SM.
 //    Split s walks positions [s·range, (s+1)·range) of its row (range from
 //    S, or from the table width P_max·ps), cut at the row's walk;
 //  * inside a split, each warp owns TPW tokens of every 32-token step (8
@@ -58,7 +59,16 @@
 //    memory between two __syncwarp;
 //  * G is a template parameter (1, 2, 4, 8; a group of 3, 5, 6 or 7 runs
 //    in the next one with the extra rows masked), so the register arrays
-//    match the model;
+//    match the model.  A group wider than 8 (up to 16: starcoder2's 12,
+//    chatglm3's 16) runs in parts of 8 query rows on the grid (WIDE): grid
+//    (splits, Hkv·parts, B), block y = (kv head, part), part p holding rows
+//    8p .. min(8p + 8, g) of the head's group in the G = 8 body.  So the
+//    registers, the shared memory and the combine order stay those of
+//    G = 8 (static arrays ~38 KB with 4 warps, and G = 16 in one block
+//    would need ~64 KB of them for fp32 caches and spill its 128 scores a
+//    step); the cost is that each part reads the head's K and V once, the
+//    second read mostly from L2.  The G <= 8 instantiations (WIDE false)
+//    compile to the code they did before;
 //  * at the end the block's warps are combined in shared memory, in warp
 //    order; then, after cluster.sync(), every block of the cluster combines
 //    a slice of the (G, D) outputs, reading each split's (m, l, acc) from
@@ -107,7 +117,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int MAX_G = 8, MAX_D = 128;
+constexpr int MAX_G = 8, MAX_D = 128;          // a block's rows; D
+constexpr int MAX_WIDE_G = 16;                 // a group, in parts of MAX_G
 constexpr int STEP = 32;                       // tokens per block step
 constexpr int MAX_SPLITS = 8;                  // the portable cluster size
 constexpr int E = 4;                           // dims per lane (D <= 128)
@@ -238,6 +249,7 @@ struct Args {
   int range;                                   // positions per split
   int ps, p_pool, p_max;                       // paged
   float scale;
+  int parts;                                   // WIDE: ceil(g / G)
 };
 
 // Contiguous loader: the TPW tokens at positions p.. (below hi) of the row
@@ -427,10 +439,12 @@ __device__ __forceinline__ void consume_step(WarpState<G>& st,
   }
 }
 
-// G: the group size the arrays hold (g <= G); VEC: D % 4 == 0 and 16-byte
-// aligned caches, so a lane's 4 values are one vector load; PAGED: the
-// paged loader (its block-table slice in dynamic shared memory).
-template <typename TQ, typename T, int G, bool VEC, bool PAGED>
+// G: the group size the arrays hold (g <= G, or, WIDE, the rows of a part);
+// VEC: D % 4 == 0 and 16-byte aligned caches, so a lane's 4 values are one
+// vector load; PAGED: the paged loader (its block-table slice in dynamic
+// shared memory); WIDE: a group of g > G split into a.parts parts of G rows
+// on grid y (the last part holds the remainder).
+template <typename TQ, typename T, int G, bool VEC, bool PAGED, bool WIDE>
 __global__ void __launch_bounds__(Split<T>::THREADS)
     split_kernel(const Args<TQ, T> a) {
   constexpr int TPW = Split<T>::TPW, NW = Split<T>::NW;
@@ -443,11 +457,15 @@ __global__ void __launch_bounds__(Split<T>::THREADS)
   __shared__ __align__(16) float pacc_s[G][MAX_D];
   extern __shared__ int pages_s[];             // paged: the table slice
 
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  // the kv head, and (WIDE) the first of this part's query rows
+  const int h = WIDE ? (int)blockIdx.y / a.parts : (int)blockIdx.y;
+  const int r0 = WIDE ? (int)blockIdx.y % a.parts * G : 0;
   const int nsplit = gridDim.x;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int d = a.d, g = a.g;
-  const size_t q_base = ((size_t)b * a.hkv + h) * g * d;
+  const int d = a.d, g = WIDE ? min(G, a.g - r0) : a.g;
+  const size_t q_base = WIDE ? (((size_t)b * a.hkv + h) * a.g + r0) * d
+                             : ((size_t)b * a.hkv + h) * g * d;
   const int d0 = lane * E;                     // this lane's first dim
   const int n = min(E, d - d0);                // its dims inside D
 
@@ -577,16 +595,17 @@ __global__ void __launch_bounds__(Split<T>::THREADS)
   cluster.sync();                              // keep the states until read
 }
 
-template <typename TQ, typename T, int G, bool PAGED>
+template <typename TQ, typename T, int G, bool PAGED, bool WIDE>
 int launch_g(const Args<TQ, T>& a, int b, int splits, cudaStream_t stream) {
   const bool vec = a.d % E == 0 &&
                    reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
   void (*kernel)(const Args<TQ, T>) =
-      vec ? split_kernel<TQ, T, G, true, PAGED>
-          : split_kernel<TQ, T, G, false, PAGED>;
+      vec ? split_kernel<TQ, T, G, true, PAGED, WIDE>
+          : split_kernel<TQ, T, G, false, PAGED, WIDE>;
   // the paged table slice: the pages a split's range may touch.  The static
-  // arrays take at most ~38 KB, so up to 8 KB more fits the default 48 KB
+  // arrays take at most ~38 KB (G = 8, the widest a block holds: a wider
+  // group runs in parts of 8), so up to 8 KB more fits the default 48 KB
   const int dynamic =
       PAGED ? (int)sizeof(int) * ((a.range + a.ps - 1) / a.ps + 1) : 0;
   if (dynamic > 8 * 1024) {
@@ -595,7 +614,7 @@ int launch_g(const Args<TQ, T>& a, int b, int splits, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, a.hkv, b);
+  cfg.gridDim = dim3(splits, a.hkv * (WIDE ? a.parts : 1), b);
   cfg.blockDim = dim3(Split<T>::THREADS);
   cfg.dynamicSmemBytes = dynamic;
   cfg.stream = stream;
@@ -612,23 +631,26 @@ int launch_g(const Args<TQ, T>& a, int b, int splits, cudaStream_t stream) {
 }
 
 // Check the geometry, set g, range and the score scale, and launch at the
-// compiled G that holds g.
+// compiled G that holds g, or a group wider than MAX_G in parts of MAX_G.
 template <typename TQ, typename T, bool PAGED>
 int launch(Args<TQ, T> a, int b, int hq, int splits, void* stream) {
-  if (b <= 0 || a.hkv <= 0 || hq % a.hkv != 0 || hq / a.hkv > MAX_G ||
+  if (b <= 0 || a.hkv <= 0 || hq % a.hkv != 0 || hq / a.hkv > MAX_WIDE_G ||
       a.d <= 0 || a.d > MAX_D || a.s <= 0 || b > 65535 || a.hkv > 65535 ||
       (splits != 1 && splits != 2 && splits != 4 && splits != 8))
     return (int)cudaErrorInvalidValue;
   a.g = hq / a.hkv;
+  a.parts = (a.g + MAX_G - 1) / MAX_G;
+  if (a.hkv * a.parts > 65535) return (int)cudaErrorInvalidValue;
   // split ranges: whole steps, the last split cut at S
   const int steps = (a.s + STEP - 1) / STEP;
   a.range = (steps + splits - 1) / splits * STEP;
   a.scale = 1.0f / sqrtf((float)a.d);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a.g == 1) return launch_g<TQ, T, 1, PAGED>(a, b, splits, s);
-  if (a.g == 2) return launch_g<TQ, T, 2, PAGED>(a, b, splits, s);
-  if (a.g <= 4) return launch_g<TQ, T, 4, PAGED>(a, b, splits, s);
-  return launch_g<TQ, T, 8, PAGED>(a, b, splits, s);
+  if (a.g == 1) return launch_g<TQ, T, 1, PAGED, false>(a, b, splits, s);
+  if (a.g == 2) return launch_g<TQ, T, 2, PAGED, false>(a, b, splits, s);
+  if (a.g <= 4) return launch_g<TQ, T, 4, PAGED, false>(a, b, splits, s);
+  if (a.g <= MAX_G) return launch_g<TQ, T, 8, PAGED, false>(a, b, splits, s);
+  return launch_g<TQ, T, MAX_G, PAGED, true>(a, b, splits, s);
 }
 
 template <typename TQ, typename T>
@@ -676,9 +698,9 @@ int launch_contig(const void* q, const void* k, const void* v,
 // out (B, Hq, D) = attention of q (B, Hq, D) over the paged pools k/v
 // (P, ps, Hkv, D), bf16 and contiguous; q and out bf16 (q_f32 == 0) or
 // fp32; lengths (B,) and block tables (B, P_max) int32; each row's walk
-// split over `splits` blocks of one cluster (1, 2, 4 or 8).  A row of
-// length 0 returns zeros.  Launches on `stream` and returns
-// cudaGetLastError().
+// split over `splits` blocks of one cluster (1, 2, 4 or 8).  Hq / Hkv <= 16
+// and D <= 128.  A row of length 0 returns zeros.  Launches on `stream`
+// and returns cudaGetLastError().
 extern "C" int flash_decode_paged_bf16(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        const void* tables, void* out, int b,
@@ -733,8 +755,8 @@ extern "C" int flash_decode_paged_f32(const void* q, const void* k,
 // out (B, Hq, D) = attention of q (B, Hq, D) over the contiguous cache k/v
 // (B, S, Hkv, D), bf16 and contiguous; q and out bf16 (q_f32 == 0) or
 // fp32; lengths (B,) int32; the sequence split over `splits` blocks of one
-// cluster (1, 2, 4 or 8).  A row of length 0 returns the mean of its S
-// values of V.
+// cluster (1, 2, 4 or 8); Hq / Hkv <= 16 and D <= 128.  A row of length 0
+// returns the mean of its S values of V.
 extern "C" int flash_decode_bf16(const void* q, const void* k, const void* v,
                                  const void* lengths, void* out, int b, int hq,
                                  int hkv, int d, int s, int splits, int q_f32,

@@ -7,7 +7,11 @@
 * :func:`flash_decode`: the same over a contiguous (B, S, Hkv, D) cache.
 
 Both kernels split each row's walk over the blocks of a thread-block
-cluster (``splits``, tunable).
+cluster (``splits``, tunable).  They take a GQA group ``G = Hq / Hkv`` of
+up to :data:`MAX_GROUP` query heads at a head dim of up to
+:data:`MAX_HEAD_DIM`: a block holds at most :data:`BLOCK_GROUP` of a
+group's rows, so a wider group (starcoder2's 12, chatglm3's 16) runs in
+:func:`group_parts` parts on the grid.
 
 The CUDA kernels take the (q, K/V) dtype pairs of :data:`KERNEL_DTYPES`;
 the output has the dtype of q, as in the JAX kernels.
@@ -36,7 +40,10 @@ SIGNATURES = {
     "flash_decode_bf16": (ctypes.c_int, [_P] * 5 + [_I] * 7 + [_P]),
     "flash_decode_f32": (ctypes.c_int, [_P] * 5 + [_I] * 7 + [_P]),
 }
-MAX_GROUP, MAX_HEAD_DIM = 8, 128   # the kernel's register budget
+#: the query rows a block holds (the kernel's register and shared-memory
+#: budget), the widest group the kernels take (in parts of BLOCK_GROUP) and
+#: the widest head
+BLOCK_GROUP, MAX_GROUP, MAX_HEAD_DIM = 8, 16, 128
 KERNEL_NAME = "flash_decode"
 PAGED_KERNEL_NAME = "flash_decode_paged"
 #: (q dtype, K/V dtype) pairs each kernel family is compiled for: a bf16
@@ -80,23 +87,32 @@ def paged_shape_key(b, hq, hkv, d, pages, ps, kv_int8: bool = False) -> str:
             + ("_kvint8" if kv_int8 else ""))
 
 
+def group_parts(hq, hkv) -> int:
+    """The blocks a (row, kv head) takes at one split: one for a group of
+    up to :data:`BLOCK_GROUP` query heads, ``ceil(G / BLOCK_GROUP)`` for a
+    wider one."""
+    return -(-(hq // hkv) // BLOCK_GROUP)
+
+
 def default_splits(hkv, s, kv_bytes: int = 2) -> int:
     """The split count of either kernel, from the geometry and the cache's
     bytes a value alone, never from the batch (``s`` is S or the table
     width ``P_max * ps``; the lengths live on the device): the largest of
-    :data:`SPLITS` for which :data:`REFERENCE_BATCH` x Hkv x splits blocks
-    stay within :data:`BLOCK_BUDGET`, and no more splits than the row has
-    32-token steps.  A row's sums then run in one order at every B: a
-    decode tick, a paged prefill chunk of B = 1, a speculative verify step
-    of B x T rows and the slot engine's step agree where S equals the
-    table width."""
+    :data:`SPLITS` for which :data:`REFERENCE_BATCH` x ``hkv`` x splits
+    blocks stay within :data:`BLOCK_BUDGET`, and no more splits than the
+    row has 32-token steps.  ``hkv`` counts a row's blocks at one split:
+    Hkv x :func:`group_parts`, which is Hkv for a group of up to 8.  A
+    row's sums then run in one order at every B: a decode tick, a paged
+    prefill chunk of B = 1, a speculative verify step of B x T rows and
+    the slot engine's step agree where S equals the table width."""
     cap = min(max(1, BLOCK_BUDGET[kv_bytes] // (REFERENCE_BATCH * hkv)),
               -(-s // COMPILED["chunk"]))
     return max(n for n in SPLITS if n <= cap)
 
 
 def default_config(b, hq, hkv, d, s, kv_bytes: int = 2) -> BlockConfig:
-    return COMPILED.replace(splits=default_splits(hkv, s, kv_bytes))
+    return COMPILED.replace(splits=default_splits(
+        hkv * group_parts(hq, hkv), s, kv_bytes))
 
 
 def compiled_configs() -> tuple:
@@ -107,7 +123,7 @@ def compiled_configs() -> tuple:
 def paged_default_config(b, hq, hkv, d, pages, ps, kv_int8: bool = False,
                          kv_bytes: int = 2) -> BlockConfig:
     return COMPILED.replace(splits=default_splits(
-        hkv, pages * ps, 1 if kv_int8 else kv_bytes))
+        hkv * group_parts(hq, hkv), pages * ps, 1 if kv_int8 else kv_bytes))
 
 
 def check_dtypes(name: str, q_dtype: torch.dtype,
@@ -123,6 +139,22 @@ def check_dtypes(name: str, q_dtype: torch.dtype,
             f"{q_dtype} and {kv_dtype}")
 
 
+def check_geometry(name: str, q_shape, kv_shape) -> None:
+    """Raise ``ValueError`` unless the kernels take q of ``q_shape`` (B,
+    Hq, D) over K/V of ``kv_shape`` (..., Hkv, D): Hq a multiple of Hkv,
+    G = Hq / Hkv <= :data:`MAX_GROUP` and D <= :data:`MAX_HEAD_DIM`."""
+    hq, d = q_shape[-2:]
+    hkv = kv_shape[-2]
+    if (kv_shape[-1] != d or hq % hkv or hq // hkv > MAX_GROUP
+            or d > MAX_HEAD_DIM):
+        raise ValueError(f"{name}: q {tuple(q_shape)} against K/V "
+                         f"{tuple(kv_shape)}: the kernel takes Hq a multiple "
+                         f"of Hkv with G = Hq / Hkv <= {MAX_GROUP} (a group "
+                         f"wider than {BLOCK_GROUP} runs in parts of "
+                         f"{BLOCK_GROUP} query heads) and D <= "
+                         f"{MAX_HEAD_DIM}")
+
+
 def _check_cuda(name, tensors, q, k, v):
     """Device, dtype, GQA-geometry and layout checks shared by the CUDA
     paths; raises on anything the kernel does not take."""
@@ -132,13 +164,7 @@ def _check_cuda(name, tensors, q, k, v):
     check_dtypes(name, q.dtype, k.dtype)
     if v.dtype != k.dtype:
         raise TypeError(f"{name}: K {k.dtype} and V {v.dtype}")
-    b, hq, d = q.shape
-    hkv = k.shape[-2]
-    if (k.shape[-1] != d or hq % hkv or hq // hkv > MAX_GROUP
-            or d > MAX_HEAD_DIM):
-        raise ValueError(f"{name}: q {tuple(q.shape)} against K/V "
-                         f"{tuple(k.shape)} (G <= {MAX_GROUP}, D <= "
-                         f"{MAX_HEAD_DIM})")
+    check_geometry(name, q.shape, k.shape)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel takes contiguous tensors")
 

@@ -11,6 +11,9 @@ continuous batching (or the contiguous slot engine), on the GPU unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama4-maverick-400b-a17b --int8-weights
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b --engine slot
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-15b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b --engine slot
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --engine slot
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --draft-model ngram
 
@@ -23,7 +26,10 @@ serves the int8-weight variant of the params and ``--kv-dtype int8`` int8
 KV pages (paged engine).  The MoE archs (``arctic-480b``,
 ``llama4-maverick-400b-a17b``) and the vlm ``internvl2-1b`` serve text
 tokens on either engine, as the JAX launcher does (the vlm's vision
-prefix reaches ``forward`` / ``prefill`` alone).  The recurrent archs (``rwkv6-3b``,
+prefix reaches ``forward`` / ``prefill`` alone).  ``whisper-large-v3``
+(the audio family) serves on the slot engine alone, as in the JAX package,
+decoding against the zero cross K/V of its cache (no audio frames reach
+an engine); ``--engine paged`` refuses it.  The recurrent archs (``rwkv6-3b``,
 ``mamba2-2.7b``) serve from state pools, and the hybrid ``zamba2-1.2b``
 from state pools and KV pages behind one block table (its shared
 attention's); ``--state-dtype int8`` stores their large state leaves int8
@@ -86,6 +92,10 @@ def main(argv=None) -> None:
 
     cfg = get_config(args.arch, smoke=True)
     bundle = build_model(cfg, device=args.device)
+    if args.engine == "paged" and not bundle.supports_paged_serving:
+        raise SystemExit(f"{args.arch} ({cfg.family!r} family) has no paged "
+                         "KV cache or state pool; serve it with --engine "
+                         "slot")
     params = bundle.init_params()
     if args.int8_weights:
         params = bundle.quantize_params(params)

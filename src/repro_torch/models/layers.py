@@ -16,6 +16,7 @@ CPU path is the middle link of the parity chain kernel == plain == JAX.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -210,6 +211,18 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (``approximate=True``): ``x * 0.5 * (1 + tanh(
+    sqrt(2 / pi) * (x + 0.044715 * x^3)))`` with JAX's constants in
+    ``x.dtype`` and every step rounded to it, its op sequence, which in
+    bf16 equals JAX's bit for bit (PyTorch's ``gelu(approximate="tanh")``
+    and a scalar constant work in fp32 and round once)."""
+    def const(v):
+        return torch.tensor(v, dtype=x.dtype, device=x.device)
+    inner = const(math.sqrt(2 / math.pi)) * (x + const(0.044715) * (x * x * x))
+    return x * (const(0.5) * (const(1.0) + torch.tanh(inner)))
+
+
 def swiglu(x: torch.Tensor, w_gate: Weight, w_up: Weight,
            w_down: Weight) -> torch.Tensor:
     g = linear(x, w_gate)
@@ -231,14 +244,18 @@ def attn_params(prefix: str, cfg: ModelConfig,
 
 
 def project_qkv(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor):
+                positions: Optional[torch.Tensor], apply_rope: bool = True):
+    """q (B, T, H, Dh), k and v (B, T, Hkv, Dh) of ``x`` (B, T, d), rotary
+    at ``positions`` (B, T) unless ``apply_rope`` is off or there are no
+    positions, as the JAX layer does."""
     b, t, _ = x.shape
     h, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = linear(x, p[f"{prefix}.wq"]).reshape(b, t, h, dh)
     k = linear(x, p[f"{prefix}.wk"]).reshape(b, t, hkv, dh)
     v = linear(x, p[f"{prefix}.wv"]).reshape(b, t, hkv, dh)
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    if apply_rope and positions is not None:
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     return q, k, v
 
 
@@ -269,40 +286,45 @@ def causal_mask(t: int, device) -> torch.Tensor:
 
 
 def attention(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """Causal self-attention over a whole sequence ``x`` (B, T, d) at
-    ``positions`` (B, T), for the forward and prefill paths:
-    ``project_qkv``, then ``gqa_scores_attend`` under the causal mask, then
+              positions: Optional[torch.Tensor] = None, *,
+              causal: bool = True, apply_rope: bool = True) -> torch.Tensor:
+    """Self-attention over a whole sequence ``x`` (B, T, d), for the
+    forward and prefill paths: ``project_qkv`` (rotary at ``positions``
+    (B, T) when given and ``apply_rope``), then ``gqa_scores_attend`` under
+    the causal mask (none when ``causal`` is off: whisper's encoder), then
     ``wo`` through :func:`tp_einsum`, as the JAX layer computes it.  The
     projections go through ``apr_matmul``; the score and probability
     products are plain PyTorch, as the JAX layer computes them outside any
     kernel (not ``scaled_dot_product_attention``, whose sums run in another
     order).  Returns (B, T, d)."""
-    q, k, v = project_qkv(p, prefix, cfg, x, positions)
-    mask = causal_mask(x.shape[1], x.device)
+    q, k, v = project_qkv(p, prefix, cfg, x, positions, apply_rope)
+    mask = causal_mask(x.shape[1], x.device) if causal else None
     return tp_einsum(gqa_scores_attend(q, k, v, mask), p[f"{prefix}.wo"])
 
 
-def paged_attention_folded(q, k_pages, v_pages, lengths, new_counts,
-                           block_tables, k_scales=None,
-                           v_scales=None) -> torch.Tensor:
+def paged_attention_folded(q, k_pages, v_pages, lengths, block_tables,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
     """q (B, T, Hq, D) of T new tokens a row, whose K/V are already in the
     pools, attended by one ``flash_decode_paged`` call over B·T rows: row
     ``b·T + i`` is ``q[b, i]`` over table ``block_tables[b]`` at length
-    ``lengths[b] + min(i + 1, new_counts[b])``, the length the decode tick
-    of that token would give it, so a padded position (``i >=
-    new_counts[b]``) stays inside the row's written tokens and its output
-    is garbage the caller ignores.  At T == 1 that is ``lengths +
-    new_counts`` over the tables as given.  Returns (B, T, Hq·D) in q's
-    dtype; CPU tensors take the kernel's plain version."""
+    ``lengths[b] + i + 1``, so every position attends to the logical
+    positions at or before its own, as :func:`paged_attention_gather` and
+    the JAX layer attend them.  A real position gets the length the
+    decode tick of its token would give it.  A padded one reads what the
+    gather reads: the pages its table names (null page 0, where padded
+    positions write, included; an entry outside the pool is a dead
+    position to both), up to the table's width, so its output equals the
+    plain version's too (an MoE layer routes every row, padded ones
+    included).  At T == 1 that is ``lengths + 1`` over the tables as
+    given.  Returns (B, T, Hq·D) in q's dtype; CPU tensors take the
+    kernel's plain version."""
     b, t = q.shape[:2]
-    lengths, new_counts = lengths.long(), new_counts.long()
+    lengths = lengths.long()
     if t == 1:   # the decode tick: no copy of the tables on its host path
-        lens, tables = lengths + new_counts, block_tables
+        lens, tables = lengths + 1, block_tables
     else:
         steps = torch.arange(1, t + 1, device=q.device)
-        lens = (lengths[:, None]
-                + torch.minimum(steps[None], new_counts[:, None])).reshape(-1)
+        lens = (lengths[:, None] + steps[None]).reshape(-1)
         tables = block_tables.repeat_interleave(t, dim=0)
     scales = ({} if k_scales is None
               else dict(k_scales=k_scales, v_scales=v_scales))
@@ -357,9 +379,9 @@ def attention_decode_paged(
     and is written **in place** (``index_put_``) into ``k_pages`` /
     ``v_pages`` at page ``block_tables[b, pos // page_size]``, offset
     ``pos % page_size``.  Positions ``i >= new_counts[b]`` are padding:
-    their writes go to the reserved null page 0 and their query rows are
-    garbage the caller ignores.  Token ``i`` attends to positions
-    ``<= lengths + i``.
+    their writes go to the reserved null page 0, and the caller ignores
+    their logits (an MoE layer still routes them).  Token ``i``, real or
+    padded, attends to positions ``<= lengths + i``.
 
     With ``k_scales``/``v_scales`` the pools are **int8**: each new (token,
     head) vector is quantized over the head dim on write
@@ -371,13 +393,13 @@ def attention_decode_paged(
     int8 pools) once, after the new K/V are in the pool, with T folded into
     the batch (:func:`paged_attention_folded`), so a token's attention sums
     in the order of the decode tick that would have produced it; padded
-    positions then hold zeros or garbage.  There is no other path on CUDA:
-    a geometry the kernel refuses raises.  On the CPU the pages are
-    gathered (int8 ones dequantized to ``x.dtype``) and attended as the JAX
-    layer does (:func:`paged_attention_gather`).  The attention output has
-    q's dtype on both paths; the JAX layer differs only for fp32 pools
-    under a bf16 model, where it keeps fp32.  Returns the attention output
-    after the ``wo`` projection, (B, T, d).
+    positions attend up to their own index, as on the CPU.  There is no
+    other path on CUDA: a geometry the kernel refuses raises.  On the CPU
+    the pages are gathered (int8 ones dequantized to ``x.dtype``) and
+    attended as the JAX layer does (:func:`paged_attention_gather`).  The
+    attention output has q's dtype on both paths; the JAX layer differs
+    only for fp32 pools under a bf16 model, where it keeps fp32.  Returns
+    the attention output after the ``wo`` projection, (B, T, d).
     """
     b, t, _ = x.shape
     ps = k_pages.shape[1]
@@ -386,6 +408,15 @@ def attention_decode_paged(
     positions = lengths[:, None] + steps[None]                  # (B, T)
     q, k_new, v_new = project_qkv(p, prefix, cfg, x, positions)
     write = steps[None] < new_counts.long()[:, None]            # (B, T)
+    # every padded position writes slot 0 of null page 0, and the card
+    # orders such writes in no way: give them all the last one's K/V (what
+    # the CPU's in-order writes leave there), so that the page holds the
+    # same bits on both and the padded positions that read it agree
+    rows = torch.arange(b * t, device=x.device).reshape(b, t)
+    src = torch.where(write, rows,
+                      torch.where(write, -1, rows).amax()).reshape(-1)
+    k_new, v_new = (n.reshape(b * t, *n.shape[2:])[src].reshape(n.shape)
+                    for n in (k_new, v_new))
     page_idx = torch.clamp(positions // ps, max=block_tables.shape[1] - 1)
     bidx = torch.arange(b, device=x.device)[:, None]
     pids = torch.where(write, block_tables.long()[bidx, page_idx], 0)
@@ -402,7 +433,7 @@ def attention_decode_paged(
         v_pages.index_put_((pids, offs), v_new.to(v_pages.dtype))
     scales = dict(k_scales=k_scales, v_scales=v_scales) if quantized else {}
     if x.is_cuda:
-        out = paged_attention_folded(q, k_pages, v_pages, lengths, new_counts,
+        out = paged_attention_folded(q, k_pages, v_pages, lengths,
                                      block_tables, **scales)
     else:
         out = paged_attention_gather(q, k_pages, v_pages, positions,
@@ -418,20 +449,23 @@ def attention_decode(
     k_cache: torch.Tensor,       # (B, S, Hkv, Dh) contiguous slot cache
     v_cache: torch.Tensor,
     lengths: torch.Tensor,       # (B,) int32 tokens already in the cache
+    *,
+    apply_rope: bool = True,
 ) -> torch.Tensor:
     """One-token attention against, and update of, a contiguous KV cache.
 
-    The new token of row ``b`` sits at position ``lengths[b]`` and is
-    written there **in place**; it attends to positions ``<= lengths``.  On
-    CUDA the ``flash_decode`` kernel runs with lengths ``lengths + 1``,
-    after the write; on the CPU the whole cache is masked and attended as
-    the JAX layer does.  Returns the attention output after the ``wo``
-    projection, (B, 1, d).
+    The new token of row ``b`` sits at position ``lengths[b]`` (rotary
+    there unless ``apply_rope`` is off) and is written there **in place**;
+    it attends to positions ``<= lengths``.  On CUDA the ``flash_decode``
+    kernel runs with lengths ``lengths + 1``, after the write; on the CPU
+    the whole cache is masked and attended as the JAX layer does.  Returns
+    the attention output after the ``wo`` projection, (B, 1, d).
     """
     b = x.shape[0]
     s = k_cache.shape[1]
     pos = lengths.long()
-    q, k_new, v_new = project_qkv(p, prefix, cfg, x, pos[:, None])
+    q, k_new, v_new = project_qkv(p, prefix, cfg, x, pos[:, None],
+                                  apply_rope)
     bidx = torch.arange(b, device=x.device)
     k_cache.index_put_((bidx, pos), k_new[:, 0].to(k_cache.dtype))
     v_cache.index_put_((bidx, pos), v_new[:, 0].to(v_cache.dtype))

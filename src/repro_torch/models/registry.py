@@ -5,9 +5,9 @@ Port of the JAX package's ``repro.models.registry.ModelBundle`` for the
 families ported so far: ``dense``, ``moe`` (arctic, llama4; the MoE layer
 in ``models/moe.py``) and ``vlm`` (internvl2), all three on
 ``models/lm.py``; ``ssm`` (rwkv6, ``models/rwkv_lm.py``), ``mamba``
-(mamba2, ``models/ssm.py``) and ``hybrid`` (zamba2, ``models/hybrid.py``).
-The ``audio`` family (whisper, ``models/encdec.py``) is not ported yet.
-A bundle
+(mamba2, ``models/ssm.py``), ``hybrid`` (zamba2, ``models/hybrid.py``) and
+``audio`` (whisper, ``models/encdec.py``; the slot engine only, as in the
+JAX package: it pages no cross-attention cache).  A bundle
 is bound to one device at construction; it defaults to ``"cuda"`` and
 raises when there is no card, unless the caller passes ``device="cpu"``.
 """
@@ -21,7 +21,7 @@ import torch
 from .._device import resolve_device
 from ..configs.base import ModelConfig
 from ..quant import quantize_params
-from . import hybrid, lm, rwkv_lm, ssm
+from . import encdec, hybrid, lm, rwkv_lm, ssm
 from .layers import ParamSpecs, Params, init_from_specs
 
 #: the families with a paged KV cache of attention layers alone, served by
@@ -58,6 +58,21 @@ def _hybrid_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return hybrid.hybrid_forward(params, cfg, tokens)[:, -1:], None
 
 
+def _no_paged_cache(*args, **kwargs):
+    """The audio family's paged functions: the JAX package pages no
+    encoder-decoder cache (its ``_LM_FAMILIES``), so neither does the
+    port."""
+    raise ValueError("the 'audio' family has no paged KV cache or state "
+                     "pool; serve it on the contiguous ServeEngine")
+
+
+def _audio_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   max_seq: Optional[int] = None, *, frames: torch.Tensor):
+    """The audio family's prefill with the bundle's arguments: the cache
+    ``max_seq`` long (the prompt's length by default)."""
+    return encdec.encdec_prefill(params, cfg, tokens, frames, max_seq)
+
+
 _LM = Family(lm.build_params, lm.init_cache, lm.lm_decode_step,
              lm.init_paged_cache, lm.lm_decode_paged, lm.lm_forward,
              lm.lm_prefill)
@@ -78,6 +93,9 @@ FAMILIES: Dict[str, Family] = {
                      hybrid.hybrid_decode_step, hybrid.init_paged_cache,
                      hybrid.hybrid_decode_paged, hybrid.hybrid_forward,
                      _hybrid_prefill, state=True),
+    "audio": Family(encdec.build_params, encdec.init_cache,
+                    encdec.encdec_decode_step, _no_paged_cache,
+                    _no_paged_cache, encdec.encdec_forward, _audio_prefill),
 }
 
 
@@ -86,10 +104,8 @@ def family(cfg: ModelConfig) -> Family:
     not have yet."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port has no {cfg.family!r} family yet ({cfg.name}); "
-            f"ported: dense, moe (arctic, llama4), vlm (internvl2), ssm "
-            f"(rwkv6), mamba (mamba2), hybrid (zamba2); audio (whisper) is "
-            f"the one family still missing")
+            f"the port has no {cfg.family!r} family ({cfg.name}); "
+            f"ported: {', '.join(FAMILIES)}")
     return FAMILIES[cfg.family]
 
 
@@ -143,43 +159,54 @@ class ModelBundle:
         return init_from_specs(param_specs(self.cfg), generator, self.device)
 
     # ---- whole-sequence entry points ------------------------------------
-    def _prefix(self, prefix_embeds) -> dict:
-        """``prefix_embeds`` as the LM families take it (the JAX bundle's
-        ``batch["vision_embeds"]``); the other families have no prefix."""
-        if prefix_embeds is None:
-            return {}
-        if self.family is not _LM:
+    def _inputs(self, prefix_embeds, frames) -> dict:
+        """The inputs beside the tokens, as the JAX bundle's ``batch``
+        holds them: ``prefix_embeds`` for the LM families (its
+        ``"vision_embeds"``), ``frames`` for the audio family, which needs
+        them; every other family takes neither."""
+        if prefix_embeds is not None and self.family is not _LM:
             raise ValueError(f"the {self.cfg.family!r} family takes no "
                              "prefix_embeds")
-        return {"prefix_embeds": prefix_embeds}
+        audio = self.cfg.family == "audio"
+        if (frames is not None) != audio:
+            raise ValueError(
+                "the 'audio' family needs frames" if audio else
+                f"the {self.cfg.family!r} family takes no frames")
+        return ({"frames": frames} if audio else
+                {} if prefix_embeds is None else
+                {"prefix_embeds": prefix_embeds})
 
     def forward(self, params: Params, tokens: torch.Tensor, *,
-                prefix_embeds: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                prefix_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, S, V) of the whole sequence ``tokens`` (B, T), after
-        ``prefix_embeds`` (B, Nv, d) when given (S = Nv + T)."""
+        ``prefix_embeds`` (B, Nv, d) when given (S = Nv + T); the audio
+        family's decoder logits (S = T) over its encoded ``frames`` (B, F,
+        d)."""
         return self.family.forward(params, self.cfg, tokens,
-                                   **self._prefix(prefix_embeds))
+                                   **self._inputs(prefix_embeds, frames))
 
     def prefill(self, params: Params, tokens: torch.Tensor,
                 max_seq: Optional[int] = None, *,
-                prefix_embeds: Optional[torch.Tensor] = None):
+                prefix_embeds: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None):
         """The whole prompt (B, T) at once, after ``prefix_embeds`` when
-        given: last-position logits (B, 1, V) and the decode carry after
-        it, in the slot engine's cache layout (a KV family's cache
-        ``max_seq`` long, the sequence's length by default; the hybrid, as
-        in the JAX package, returns none)."""
+        given (over the encoded ``frames`` for the audio family):
+        last-position logits (B, 1, V) and the decode carry after it, in
+        the slot engine's cache layout (a KV family's cache ``max_seq``
+        long, the sequence's length by default, the audio family's with
+        the frames' cross K/V; the hybrid, as in the JAX package, returns
+        none)."""
         args = (max_seq,) if self.family.kv else ()
         return self.family.prefill(params, self.cfg, tokens, *args,
-                                   **self._prefix(prefix_embeds))
+                                   **self._inputs(prefix_embeds, frames))
 
     # ---- multi-precision --------------------------------------------------
     @property
     def supports_int8_weights(self) -> bool:
-        # the JAX package's set (dense/moe/vlm/audio) without the audio
-        # family, which is not ported; the recurrent families keep their
-        # own mixer products there too
-        return self.cfg.family in _LM_FAMILIES
+        # the JAX package's set; the recurrent families keep their own
+        # mixer products there too
+        return self.cfg.family in _LM_FAMILIES + ("audio",)
 
     def quantize_params(self, params: Params) -> Params:
         """Int8-weight variant of ``params`` (symmetric per-output-channel;
@@ -217,7 +244,7 @@ class ModelBundle:
     # ---- paged serving contract -------------------------------------------
     @property
     def supports_paged_kv(self) -> bool:
-        return not self.family.state
+        return self.cfg.family in _LM_FAMILIES
 
     @property
     def supports_paged_state(self) -> bool:

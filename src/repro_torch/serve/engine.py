@@ -573,8 +573,10 @@ class PagedServeEngine:
 class ServeEngine:
     """Contiguous slot engine: one ``slots x max_seq`` bf16 KV cache (or,
     for the recurrent families, one decode carry of ``slots`` rows; for
-    the hybrid, both), prefill-on-admit *through the decode path*, token by
-    token.
+    the hybrid, both; for the audio family, the self-attention cache and
+    the cross K/V of ``encoder_frames`` frames, which stay the zeros of
+    ``init_cache``: no frames reach the engine, as in the JAX package),
+    prefill-on-admit *through the decode path*, token by token.
 
     The numerics reference the paged engine must match token for token.
     Device state: the cache (``bundle.init_cache``), updated by

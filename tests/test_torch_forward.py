@@ -187,9 +187,10 @@ def test_prefill_hands_off_to_decode_step(model, dtype):
 
 
 def test_unported_inputs_raise_by_name(model):
-    """The audio family (``models/encdec.py``) is the one LM family not
-    ported: the LM entry points and the bundle refuse it by name, and the
-    non-LM families refuse ``prefix_embeds``."""
+    """The audio family runs on ``models/encdec.py``, not on the LM
+    entry points, which refuse it by name; its bundle needs ``frames`` and
+    takes no ``prefix_embeds``; the non-LM families refuse
+    ``prefix_embeds``."""
     _, params = model
     tp = params["float32"][1]
     audio = get_config("whisper-large-v3", smoke=True)
@@ -197,8 +198,12 @@ def test_unported_inputs_raise_by_name(model):
     for fn in (tlm.lm_forward, tlm.lm_prefill):
         with pytest.raises(NotImplementedError, match="audio"):
             fn(tp, audio, toks)
-    with pytest.raises(NotImplementedError, match="audio"):
-        build_model(audio, device="cpu")
+    whisper = build_model(audio, device="cpu")
+    with pytest.raises(ValueError, match="prefix_embeds"):
+        whisper.forward({}, toks, prefix_embeds=torch.zeros((1, 2, 64)),
+                        frames=torch.zeros((1, 16, 64)))
+    with pytest.raises(ValueError, match="frames"):
+        whisper.prefill({}, toks)
     rwkv = build_model(get_config("rwkv6-3b", smoke=True), device="cpu")
     with pytest.raises(ValueError, match="prefix_embeds"):
         rwkv.forward({}, toks, prefix_embeds=torch.zeros((1, 2, 64)))

@@ -76,6 +76,10 @@ def test_package_imports_without_jax():
     # speculative decoding
     assert {"repro_torch.spec", "repro_torch.spec.draft",
             "repro_torch.spec.engine"} <= set(lines)
+    # the audio family and the wide-group archs' config modules
+    assert {"repro_torch.models.encdec", "repro_torch.configs.starcoder2_15b",
+            "repro_torch.configs.chatglm3_6b",
+            "repro_torch.configs.whisper_large_v3"} <= set(lines)
     # the tuning layer, the cost model, the hardware profiles and the int8
     # matmul family
     assert {"repro_torch.bench", "repro_torch.bench.config",
@@ -159,7 +163,10 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
                                    "int8"],
                                   ["--draft-model", "ngram"],
                                   ["--draft-model", "auto", "--spec-k",
-                                   "2"]])
+                                   "2"],
+                                  ["--arch", "starcoder2-15b"],
+                                  ["--arch", "whisper-large-v3", "--engine",
+                                   "slot"]])
 def test_launcher_new_paths_default_to_cuda(no_cuda, args):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--requests", "1"] + args)

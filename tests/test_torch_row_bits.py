@@ -6,7 +6,7 @@ served models run; and T > 1 paged attention folded into the batch of one
 ``flash_decode_paged`` call (``layers.paged_attention_folded``, the CUDA
 path of ``attention_decode_paged``) equals the gather path the CPU and the
 JAX layer take, through the kernel's plain version, padded rows
-ignored."""
+included."""
 import numpy as np
 import pytest
 import torch
@@ -128,10 +128,10 @@ FOLD_CASES = [
 @pytest.mark.parametrize("case", range(len(FOLD_CASES)))
 def test_folded_call_equals_gather_path(case, kind):
     """Row ``b·T + i`` of the folded call (q of token i at length
-    ``lengths[b] + i + 1``) against the gather path's token i, real rows
-    only: within 1e-5 for an fp32 q (int8 pools dequantized in fp32 on
-    both), one bf16 ulp of the output's scale for a bf16 q.  Padded rows
-    stay finite and inside the written tokens."""
+    ``lengths[b] + i + 1``) against the gather path's token i, at every
+    position, padded ones (``i >= new counts``) included, since an MoE
+    layer routes them: within 1e-5 for an fp32 q (int8 pools dequantized
+    in fp32 on both), one bf16 ulp of the output's scale for a bf16 q."""
     b, t, hq, hkv, d, ps, width, lengths, counts = FOLD_CASES[case]
     rng = np.random.default_rng(case)
     pool_pages = 1 + b * width
@@ -142,17 +142,15 @@ def test_folded_call_equals_gather_path(case, kind):
     q = torch.from_numpy(rng.standard_normal((b, t, hq, d)).astype(
         np.float32)).to(qdt)
     lens = torch.tensor(lengths, dtype=torch.int32)
-    cnts = torch.tensor(counts, dtype=torch.int32)
     positions = lens.long()[:, None] + torch.arange(t)[None]
-    got = paged_attention_folded(q, k_pages, v_pages, lens, cnts, tables,
+    got = paged_attention_folded(q, k_pages, v_pages, lens, tables,
                                  **scales)
     ref = paged_attention_gather(q, k_pages, v_pages, positions, tables,
                                  **scales)
     assert got.shape == ref.shape == (b, t, hq * d)
     assert got.dtype == ref.dtype == qdt
-    real = torch.arange(t)[None] < cnts.long()[:, None]       # (B, T)
     assert torch.isfinite(got.float()).all()
-    diff = (got.float() - ref.float()).abs()[real]
+    diff = (got.float() - ref.float()).abs()
     if kind == "bfloat16":
         assert float(diff.max()) <= 2 ** -7 * float(ref.float().abs().max())
     else:
@@ -172,11 +170,10 @@ def test_folded_rows_are_single_token_calls():
         np.float32)).to(torch.bfloat16)
     lens = torch.tensor([2, 9, 0], dtype=torch.int32)
     cnts = torch.tensor([4, 3, 1], dtype=torch.int32)
-    got = paged_attention_folded(q, k_pages, v_pages, lens, cnts, tables)
+    got = paged_attention_folded(q, k_pages, v_pages, lens, tables)
     for i in range(t):
-        one = paged_attention_folded(
-            q[:, i:i + 1], k_pages, v_pages, lens + i,
-            (cnts > i).to(torch.int32), tables)
+        one = paged_attention_folded(q[:, i:i + 1], k_pages, v_pages,
+                                     lens + i, tables)
         for row in range(b):
             if i < int(cnts[row]):
                 assert torch.equal(got[row, i], one[row, 0]), (row, i)
