@@ -94,7 +94,10 @@ Phases (any failure exits non-zero before the final line):
      length-0 rows, a row's bits across B, and B2 over pages bit-equal to
      B3 over the same K/V at every geometry; the folded T > 1 call's
      padded rows (each attending up to its own index) against the plain
-     version too;
+     version too; and the graph path's fused kernels at its shapes: B7m
+     (relu, no bias, fp32) at LeNet-5's FC layers, B7 (relu) at
+     ResNet-20's ten relu convs at batch 256, B6 and B8 at the head
+     (:func:`graph_kernel_checks`);
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B1
      also at phase 4d's prefill M = 1024, against ``torch.matmul``; B4m,
@@ -113,6 +116,17 @@ Phases (any failure exits non-zero before the final line):
      every kernel of the path was launched as often as the path demands
      (prefill chunks attend on ``flash_decode_paged`` too, T folded into
      the batch);
+  4g. serve phase 4's requests on ``PagedServeEngine(use_graph=True)``:
+     both steps traced on the card at full width, fused by the cost
+     model's schedule and run by the graph executor (B1 for every matmul
+     node, B2 for the attention node); tokens gated equal to phase 4's,
+     node and cluster counts, schedule and bytes, ms a tick and a profiled
+     tick's idle share; after 4b the first 3 requests (8 new tokens) with
+     int8 weights and int8 KV pages: the head folds into ``quant_matmul`` (B6, or B8 under a fused
+     epilogue; launches gated to folded nodes x steps), one tick's logits
+     gated against the plain step's within the bound of the head's
+     activation quantization (:func:`quant_head_bound`), tokens against
+     4b's printed;
   4f. serve phase 4's requests on ``PagedServeEngine(kv_dtype="float32")``
      (fp32 KV pools under the bf16 model: every decode tick's attention on
      ``flash_decode_paged`` over fp32 pools), tokens against phase 4's;
@@ -174,6 +188,12 @@ Phases (any failure exits non-zero before the final line):
      time all of them and both at batch 1 (with MobileNet's depthwise
      share by CUDA events), and compare card (kernels) and CPU (plain)
      logits;
+  6g. LeNet-5 and ResNet-20 at batch 256 through ``graph.compile_fn``
+     (traced on the card), fused and unfused: logits against the eager
+     forward's within phase 6's bound, launches gated (B7m twice a LeNet-5
+     forward, B7 ten times a ResNet-20 one), ms a forward fused, unfused
+     and eager (CUDA events), and B7m / B7 per forward against their plain
+     versions and bounds;
   7. serve rwkv6-3b, mamba2-2.7b and the zamba2-1.2b hybrid at published
      widths, depth cut to about half (:data:`RECURRENT_LAYERS`; random
      bf16 weights from a seed, one model at a time) on the
@@ -423,15 +443,17 @@ def one_kernel_a_call(torch, fn, kernel: str, reps: int = 5,
     ``kernel``, at most one a call, and at least one event in the trace.
     A device side with fewer events than launch calls lost records (the
     profiler can drop device records, see :func:`profiler_probe`), so the
-    session is profiled again, up to ``tries`` in all; where every session
-    lost some, the launch calls are the count and the text says so."""
-    for session in range(1, tries + 1):
+    session is profiled again, up to ``tries`` in all, or up to twice
+    that while no session has recorded a device event (such a trace names
+    no kernel to judge); where every session lost some, the launch calls
+    are the count and the text says so."""
+    for session in range(1, 2 * tries + 1):
         events, calls = {}, {}
         if profile_device(torch, fn, reps, counts=events,
                           launches=calls) is None:
             return False, "profiler unavailable"
         kernels, issued = sum(events.values()), sum(calls.values())
-        if kernels >= issued:
+        if kernels >= issued or (session >= tries and kernels > 0):
             break
     ok = (issued == 1 and 0 < kernels <= 1
           and all(kernel in key for key in events))
@@ -464,6 +486,9 @@ SPEC_STATE_ARCHS = {"rwkv6-3b": (4, 16), "zamba2-1.2b": (6, 16)}
 #: so that the whole run, phase 7c included, stays well inside its time
 #: limit (rwkv6-3b has 32 layers, mamba2-2.7b 64, zamba2-1.2b 38)
 RECURRENT_LAYERS = {"rwkv6-3b": 16, "mamba2-2.7b": 32, "zamba2-1.2b": 20}
+#: phase 4g's int8 run: the first requests of phase 4's and their new
+#: tokens (the bf16 run serves all 6 with 16 each, gated 96/96)
+GRAPH_INT8_REQUESTS, GRAPH_INT8_NEW = 3, 8
 
 
 def attn_per_forward(cfg) -> int:
@@ -5680,6 +5705,324 @@ def baseline_sweep(torch, out: Path) -> None:
         ptxas=regs), indent=1))
 
 
+# ------------------ the graph compiler's path (B6, B7, B7m, B8 served)
+#: LeNet-5's FC layers (K, N): the graph path's B7m clusters (relu, no
+#: bias, fp32) at CNN_BATCH rows
+LENET_FC = ((400, 120), (120, 84))
+#: the head's rows on the graph path: the 4-slot decode tick and a prefill
+#: chunk (B6 / B8 at LM_HEAD, bf16 x)
+HEAD_MS = (4, 16)
+
+
+def relu_convs(batch: int) -> list:
+    """ResNet-20's convs whose output feeds a relu alone -- the first conv
+    and each block's c1, the graph compiler's ten B7 clusters -- at
+    ``batch`` (:func:`conv_geometries`' dicts)."""
+    from repro_torch.models.cnn import conv_geometries
+    return [g for g in conv_geometries("resnet20", batch)
+            if g["param"] == "conv1" or g["param"].endswith("c1")]
+
+
+def graph_kernel_checks(torch, gen, dev) -> list:
+    """Phase 2 at the graph path's shapes: B7m (``apr_matmul_fused``, relu,
+    no bias, fp32) at LeNet-5's FC layers within the fp32 bound; B7
+    (``apr_conv2d_fused``, relu, no bias) at ResNet-20's ten relu convs at
+    CNN_BATCH within the conv bound; B6 and B8 (activation none and relu)
+    at the head's shape, bf16 x and out, bit for bit against their plain
+    versions (as phase 2 holds them at the projections).  One case a
+    (kernel, shape)."""
+    from repro_torch.kernels.apr_conv import (apr_conv2d_fused,
+                                              conv2d_fused_ref)
+    from repro_torch.kernels.apr_matmul import apr_matmul_fused
+    from repro_torch.kernels.apr_matmul.ref import matmul_fused_ref
+    from repro_torch.kernels.quant_matmul import (quant_matmul,
+                                                  quant_matmul_fused,
+                                                  quant_matmul_fused_ref,
+                                                  quant_matmul_ref)
+    from repro_torch.quant import quantize_channelwise
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = []
+    for k, n in LENET_FC:
+        x = torch.randn((CNN_BATCH, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        got = apr_matmul_fused(x, w, activation="relu", out_dtype=f32)
+        ref = matmul_fused_ref(x, w, None, "relu", f32)
+        sums = torch.matmul(x.abs(), w.abs())
+        err, ok = f32_err(got, ref, F32_MM_SLACK * k * 2.0 ** -24 * sums
+                          + F32_MM_ULPS * 2.0 ** -24 * ref.abs())
+        cases.append(("apr_matmul_fused_f32", f"graph path: LeNet-5 FC "
+                      f"M={CNN_BATCH} K={k} N={n} relu", err, ok))
+    for g in relu_convs(CNN_BATCH):
+        xs, fs, s, p = g["x_shape"], g["f_shape"], g["stride"], g["padding"]
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
+        got = apr_conv2d_fused(x, f, activation="relu", stride=s, padding=p)
+        ref = conv2d_fused_ref(x, f, None, "relu", stride=s, padding=p)
+        err, ok = conv_err(got, ref)
+        cases.append(("apr_conv_fused", f"graph path: ResNet-20 {g['param']} "
+                      f"{conv_label(xs, fs, s, p)} relu", err, ok))
+        del x, f, got, ref
+    k, n = LM_HEAD
+    w = quantize_channelwise((torch.randn((k, n), generator=gen, device=dev)
+                              * k ** -0.5).to(bf16))
+    for m in HEAD_MS:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        for name, got, ref in (
+                ("quant_matmul", quant_matmul(x, w, out_dtype=bf16),
+                 quant_matmul_ref(x, w.q, w.scale, bf16)),
+                ("quant_matmul_fused", quant_matmul_fused(
+                    x, w, activation="none", out_dtype=bf16),
+                 quant_matmul_fused_ref(x, w.q, w.scale, None, "none", bf16)),
+                ("quant_matmul_fused", quant_matmul_fused(
+                    x, w, activation="relu", out_dtype=bf16),
+                 quant_matmul_fused_ref(x, w.q, w.scale, None, "relu",
+                                        bf16))):
+            err = float((got.float() - ref.float()).abs().max())
+            cases.append((name, f"graph path: head M={m} K={k} N={n}",
+                          err, bool(torch.equal(got, ref))))
+    return cases
+
+
+def graph_fused_timing(torch, gen, dev) -> dict:
+    """The graph path's fused kernels per forward, CUDA events: B7m (fp32,
+    relu, no bias) over LeNet-5's two FC layers at CNN_BATCH and B7 (relu,
+    no bias) over ResNet-20's ten relu convs, each beside its plain version,
+    its bound (fp32 FMA or memory) and the one PyTorch call that computes a
+    product and its relu: ``torch._addmm_activation`` over a zero bias
+    (cuBLASLt's relu epilogue) and ``torch.cudnn_convolution_relu`` on the
+    channels-last views, as phase 3 times ``F.conv2d``.  Where cuDNN
+    refuses the fused call, ``F.relu(F.conv2d(...))`` is timed instead and
+    ``library_call`` says so."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.apr_conv import (apr_conv2d_fused,
+                                              conv2d_fused_ref)
+    from repro_torch.kernels.apr_matmul import apr_matmul_fused
+    from repro_torch.kernels.apr_matmul.ref import matmul_fused_ref
+    f32 = torch.float32
+    out = {}
+    calls = {}
+    rows = []
+    for k, n in LENET_FC:
+        x = torch.randn((CNN_BATCH, k), generator=gen, device=dev)
+        w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+        zero = torch.zeros(n, device=dev)
+        rows.append(dict(
+            ms=cuda_ms(torch, lambda i: apr_matmul_fused(
+                x, w, activation="relu", out_dtype=f32), 50),
+            plain_ms=cuda_ms(torch, lambda i: matmul_fused_ref(
+                x, w, None, "relu", f32), 50),
+            library_ms=cuda_ms(torch, lambda i: torch._addmm_activation(
+                zero, x, w), 50),
+            nbytes=4 * (CNN_BATCH * k + k * n + CNN_BATCH * n),
+            flops=2 * CNN_BATCH * k * n))
+    out["apr_matmul_fused_f32"] = rows
+    calls["apr_matmul_fused_f32"] = "torch._addmm_activation (zero bias)"
+
+    def conv_relu(x_cl, w_cl, s, p):
+        return torch.cudnn_convolution_relu(x_cl, w_cl, None, (s, s), (p, p),
+                                            (1, 1), 1)
+    try:
+        g = relu_convs(CNN_BATCH)[0]
+        x, f = conv_inputs(torch, gen, dev, g["x_shape"], g["f_shape"])
+        got = conv_relu(x.permute(0, 3, 1, 2), f.permute(3, 2, 0, 1)
+                        .contiguous(memory_format=torch.channels_last),
+                        g["stride"], g["padding"]).permute(0, 2, 3, 1)
+        ref = conv2d_fused_ref(x, f, None, "relu", stride=g["stride"],
+                               padding=g["padding"])
+        if not torch.allclose(got, ref, rtol=1e-4, atol=1e-4):
+            raise RuntimeError("its result differs from relu(conv)")
+        calls["apr_conv_fused"] = "torch.cudnn_convolution_relu"
+    except RuntimeError as e:
+        print(f"    cudnn_convolution_relu refused ({str(e)[:120]}); timing "
+              f"F.relu(F.conv2d) instead")
+
+        def conv_relu(x_cl, w_cl, s, p):                    # noqa: F811
+            return F.relu(F.conv2d(x_cl, w_cl, stride=s, padding=p))
+        calls["apr_conv_fused"] = "F.relu(F.conv2d) (two calls)"
+    rows = []
+    for g in relu_convs(CNN_BATCH):
+        xs, fs, s, p = g["x_shape"], g["f_shape"], g["stride"], g["padding"]
+        x, f = conv_inputs(torch, gen, dev, xs, fs)
+        x_cl = x.permute(0, 3, 1, 2)          # NHWC memory: channels-last
+        w_cl = f.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        n_out = CNN_BATCH * ((xs[1] + 2 * p - fs[0]) // s + 1) \
+            * ((xs[2] + 2 * p - fs[1]) // s + 1) * fs[3]
+        rows.append(dict(
+            ms=cuda_ms(torch, lambda i: apr_conv2d_fused(
+                x, f, activation="relu", stride=s, padding=p), 50),
+            plain_ms=cuda_ms(torch, lambda i: conv2d_fused_ref(
+                x, f, None, "relu", stride=s, padding=p), 50),
+            library_ms=cuda_ms(torch, lambda i: conv_relu(x_cl, w_cl, s, p),
+                               50),
+            nbytes=4 * (x.numel() + f.numel() + n_out),
+            flops=2 * n_out * fs[0] * fs[1] * fs[2]))
+        del x, f, x_cl, w_cl
+    out["apr_conv_fused"] = rows
+    totals = {}
+    for name, rs in out.items():
+        nbytes = sum(r["nbytes"] for r in rs)
+        flops = sum(r["flops"] for r in rs)
+        totals[name] = dict(
+            ms=sum(r["ms"] for r in rs),
+            plain_ms=sum(r["plain_ms"] for r in rs),
+            library_ms=sum(r["library_ms"] for r in rs),
+            library_call=calls[name],
+            launches_per_forward=len(rs), nbytes=nbytes, flops=flops,
+            **bound_ms(nbytes, flops, FP32_FLOPS_PER_S))
+    return totals
+
+
+def graph_summary(executors) -> dict:
+    """Node and cluster counts, the schedule and its bytes of each
+    compiled step (``{label: GraphExecutor}``)."""
+    out = {}
+    for label, ex in executors.items():
+        g = ex.graph
+        body = [b for n in g.nodes for b in n.body_nodes()]
+        d = ex.schedule
+        out[label] = dict(
+            nodes=len(g.nodes), clusters=sum(n.is_fused for n in g.nodes),
+            primitive_ops=len(body),
+            matmul=sum(b.op == "matmul" for b in body),
+            quant_matmul=sum(b.op == "quant_matmul" for b in body),
+            conv2d=sum(b.op == "conv2d" for b in body),
+            kernel_clusters=[list(c) for c in ex.kernel_clusters()],
+            dispatched=sorted(ex.dispatched.values()),
+            passes=None if d is None else d.passes,
+            traffic_unfused=None if d is None
+            else d.unfused.intermediate_traffic,
+            traffic_fused=None if d is None
+            else d.fused.intermediate_traffic,
+            traffic_reduction=None if d is None else d.traffic_reduction,
+            const_bytes=g.const_bytes())
+    return out
+
+
+def print_graph_summary(summary) -> None:
+    for label, s in summary.items():
+        print(f"    {label} graph: {s['nodes']} nodes ({s['clusters']} "
+              f"clusters, {s['primitive_ops']} ops: {s['matmul']} matmul, "
+              f"{s['quant_matmul']} quant_matmul, {s['conv2d']} conv2d), "
+              f"schedule {s['passes']}, intermediate traffic "
+              f"{s['traffic_unfused']} -> {s['traffic_fused']} B"
+              + (f" ({s['traffic_reduction']:.3f}x less)"
+                 if s["traffic_reduction"] else "")
+              + f", consts {s['const_bytes'] / 1e9:.2f} GB by reference; "
+              f"fused kernels: {s['dispatched'] or 'none'}")
+
+
+def quant_head_bound(torch, x, w, logits_a, logits_b):
+    """Whether the int8 x int8 head (dynamic per-row activation codes) and
+    the int8-weight one (bf16 activations over the weight dequantized to
+    bf16) agree within what the activation quantization allows, row by row
+    and column by column: |a - b| <= sum_k (s_row / 2 + 2^-8 |x_k|) |W_kn|
+    + K 2^-23 sum_k |x_k| |W_kn| + 2^-8 (|a| + |b|), with s_row = max |x| /
+    127 the row's code step (half a step is the largest rounding of a
+    code), 2^-8 the bf16 rounding of the dequantized weight and of each
+    output, and the last fp32 sums' order.  Returns (max |a - b|, the
+    largest share of its bound used, whether every element is inside)."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    wd = w.dequantize(torch.float32).abs()
+    step = xf.abs().amax(dim=-1, keepdim=True) / 127
+    sums = torch.matmul(xf.abs(), wd)
+    bound = (step / 2) * wd.sum(dim=0)[None] + (2.0 ** -8 + xf.shape[-1]
+                                                 * 2.0 ** -23) * sums
+    a = logits_a.float().reshape(bound.shape)
+    b = logits_b.float().reshape(bound.shape)
+    bound = bound + 2.0 ** -8 * (a.abs() + b.abs())
+    diff = (a - b).abs()
+    return (float(diff.max()), float((diff / bound).max()),
+            bool((diff <= bound).all()))
+
+
+def graph_head_tick(torch, engine, dec, forward, qparams, tick_args) -> dict:
+    """One decode tick of an int8-weight graph engine (``dec``, its decode
+    executor) and of the plain step (``forward``), on copies of the
+    engine's pools.  The folded head's call is captured (its wrapper, input
+    and output), and so is the plain step's head input.  Returns whether
+    the head's output equals its plain version on the captured input and
+    the model's int8 head bit for bit (phase 2: B6 and B8 equal theirs at
+    the head's shape), whether
+    that input equals the plain step's head input bit for bit, whether the
+    pools written are equal, and the logits' distance from the plain
+    step's (B1's int8-weight head) within the bound of the head's
+    activation quantization (:func:`quant_head_bound`)."""
+    import repro_torch.kernels.quant_matmul as qmm_pkg
+    from repro_torch.kernels.quant_matmul.ref import (quant_matmul_fused_ref,
+                                                      quant_matmul_ref)
+    from repro_torch.models import layers as lm_layers
+    head_w = qparams.get("lm_head")
+    qnode = next(n for n in dec.graph.nodes
+                 if any(b.op == "quant_matmul" for b in n.body_nodes()))
+    built = dec._compiled.pop(qnode.id, None)
+    graph_head, plain_head = [], []
+    wrappers = {"quant_matmul": qmm_pkg.quant_matmul,
+                "quant_matmul_fused": qmm_pkg.quant_matmul_fused}
+    apr_mm = lm_layers.apr_matmul
+
+    def capturing(name):
+        def run(*a, **kw):
+            y = wrappers[name](*a, **kw)
+            graph_head.append((name, a, kw, y))
+            return y
+        return run
+
+    def plain_capture(x, w, **kw):
+        if w is head_w:
+            plain_head.append(x)
+        return apr_mm(x, w, **kw)
+    caches = [{k: v.clone() for k, v in engine.cache.items()}
+              for _ in range(2)]
+    try:
+        for name in wrappers:
+            setattr(qmm_pkg, name, capturing(name))
+        dec._fn_for(qnode)                  # rebuilt on the capturing names
+        lm_layers.apr_matmul = plain_capture
+        plain_logits = forward(qparams, caches[0], *tick_args)
+        lm_layers.apr_matmul = apr_mm
+        graph_logits = engine._decode_step(qparams, caches[1], *tick_args)
+    finally:
+        lm_layers.apr_matmul = apr_mm
+        for name, fn in wrappers.items():
+            setattr(qmm_pkg, name, fn)
+        dec._compiled.pop(qnode.id, None)
+        if built is not None:
+            dec._compiled[qnode.id] = built
+    out = dict(head_calls=len(graph_head), plain_head_calls=len(plain_head),
+               head_wrapper=None, head_equal_plain_version=False,
+               head_max_abs_err=None, head_input_equal_plain_step=False,
+               max_abs_diff=float("nan"), largest_bound_share=float("nan"),
+               within_bound=False)
+    if len(graph_head) == 1 and len(plain_head) == 1:
+        name, a, kw, y = graph_head[0]
+        x2d = a[0]
+        # the model's own int8 head and the plain step's dtype, not the
+        # operands the graph passed
+        dtype = plain_head[0].dtype
+        if name == "quant_matmul":
+            ref = quant_matmul_ref(x2d, head_w.q, head_w.scale, dtype)
+        else:
+            ref = quant_matmul_fused_ref(x2d, head_w.q, head_w.scale,
+                                         kw.get("bias"),
+                                         kw.get("activation", "none"), dtype)
+        err, share, inside = quant_head_bound(torch, x2d, head_w,
+                                              graph_logits, plain_logits)
+        out.update(
+            head_wrapper=name, head_equal_plain_version=bool(
+                y.dtype == ref.dtype and torch.equal(y, ref)),
+            head_max_abs_err=float((y.float() - ref.float()).abs().max()),
+            head_input_equal_plain_step=bool(torch.equal(
+                x2d, plain_head[0].reshape(x2d.shape))),
+            max_abs_diff=err, largest_bound_share=share, within_bound=inside)
+    out.update(
+        argmax_equal=int((graph_logits.argmax(-1)
+                          == plain_logits.argmax(-1)).sum()),
+        rows=int(plain_logits.shape[0]),
+        pools_equal=all(torch.equal(caches[0][k], caches[1][k])
+                        for k in engine.cache))
+    return out
+
+
 def identity_ablation(torch, seed: int,
                       archs=RECURRENT_ARCHS) -> dict:
     """``--ablate``: phase 7's paged-vs-slot greedy-token comparison at full
@@ -6042,7 +6385,7 @@ def main() -> int:
         "rwkv6_wkv", "mamba2_ssd", "apr_matmul_hbm", "apr_matmul_fused",
         "quant_matmul", "quant_matmul_fused", "apr_matmul_f32",
         "apr_matmul_fused_f32", "apr_matmul_f32_int8w",
-        "apr_matmul_hbm_f32")}
+        "apr_matmul_hbm_f32", "apr_conv_fused")}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -6124,7 +6467,8 @@ def main() -> int:
                                 + scan_bit_checks(torch, gen, dev)
                                 + matmul_family_correctness(torch, gen, dev)
                                 + qmm_tie_and_launch_checks(torch, gen, dev)
-                                + matmul_f32_correctness(torch, gen, dev)):
+                                + matmul_f32_correctness(torch, gen, dev)
+                                + graph_kernel_checks(torch, gen, dev)):
         errs[name] = max(errs[name], err)
         cases.append((name, case, err, ok))
     print(f"[2] kernel vs plain version on the card (tolerance "
@@ -6515,21 +6859,23 @@ def main() -> int:
         np.ones((slots, 1), np.int32), np.asarray(main_lengths, np.int32),
         np.ones(slots, np.int32), tick_tables)]
 
-    def profile_tick(prm, engine) -> dict:
+    def profile_tick(prm, engine, step=None) -> dict:
         """Where a decode tick's time goes at the phase-3 lengths: device
         busy time (sum of kernel times on the one stream) against the
-        tick's wall time; {} where the profiler cannot trace."""
-        forward(prm, engine.cache, *tick_args)          # warm
+        tick's wall time; {} where the profiler cannot trace.  ``step``:
+        the tick's forward (the plain step by default)."""
+        step = forward if step is None else step
+        step(prm, engine.cache, *tick_args)             # warm
         torch.cuda.synchronize()
         ticks = 5
         t0 = time.perf_counter()                        # wall, profiler off
         for _ in range(ticks):
-            forward(prm, engine.cache, *tick_args)
+            step(prm, engine.cache, *tick_args)
         torch.cuda.synchronize()
         tick_wall = (time.perf_counter() - t0) / ticks * 1e3
         host = {}
         by_kernel = profile_device(
-            torch, lambda: forward(prm, engine.cache, *tick_args), ticks,
+            torch, lambda: step(prm, engine.cache, *tick_args), ticks,
             host)
         if not by_kernel:
             return {}
@@ -6571,6 +6917,77 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_done("phase 4")
+
+    # ------------------------- 4g the graph-compiled engine, full width
+    def serve_graph(prm, kv_dtype, prompts, max_new):
+        """Phase 4's requests on ``PagedServeEngine(use_graph=True)``: its
+        prefill step and decode tick traced on the card at full width from
+        the plain step (the finite check wraps the compiled steps), warmed
+        on one request, then served with every count set to 0 just before.
+        Returns the engine, its requests, the wall seconds, the counts read
+        just after, the compile seconds and the two executors."""
+        bundle.decode_paged = forward
+        t0 = time.perf_counter()
+        engine = PagedServeEngine(
+            bundle, prm, kv_dtype=kv_dtype, use_graph=True,
+            tune_cache=str(Path(tmp.name) / f"graph_{kv_dtype}.json"),
+            **engine_kw)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        bundle.decode_paged = checked(forward)
+        exs = {"prefill": engine._prefill.executor,
+               "decode": engine._decode_step.executor}
+        engine._prefill = checked(engine._prefill)
+        engine._decode_step = checked(engine._decode_step)
+        engine.submit(Request(rid=-1, prompt=[1] * 20, max_new_tokens=2))
+        engine.run_until_drained()                      # warm
+        engine.metrics = type(engine.metrics)()
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        finite.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return engine, reqs, wall, llm_counts(), compile_s, exs
+
+    engine, reqs, wall_s, launches, compile_s, exs = serve_graph(
+        params, "bfloat16", prompts, 16)
+    m = engine.metrics
+    expect = expected_counts(
+        apr_matmul=per_call * (m.decode_calls + m.prefill_calls),
+        flash_decode_paged=cfg.num_layers * (m.decode_calls
+                                             + m.prefill_calls))
+    serve_g = dict(compile_s=compile_s, graphs=graph_summary(exs),
+                   **paged_summary(engine, wall_s, launches, expect))
+    same = sum(a == b for r, o in zip(reqs, bf16_outputs)
+               for a, b in zip(r.output, o))
+    n_tok = sum(len(o) for o in bf16_outputs)
+    serve_g["tokens_equal_phase4"] = same
+    report["serve_graph"] = serve_g
+    print(f"[4g] served {m.requests_done}/{len(reqs)} requests of full-width "
+          f"{cfg.name} bf16 on PagedServeEngine(use_graph=True) in "
+          f"{wall_s:.2f} s wall (both steps traced on the card and compiled "
+          f"in {compile_s:.2f} s; phase 4: {serve['decode_ms_per_tick']:.3f} "
+          f"ms per tick, {serve['prefill_ms_per_chunk']:.3f} ms per chunk):")
+    print_graph_summary(serve_g["graphs"])
+    print_paged(serve_g, m)
+    print(f"    greedy tokens equal to phase 4's: {same}/{n_tok}")
+    check_served("phase 4g", reqs, 16, launches, expect)
+    if same != n_tok:
+        fail(f"phase 4g: the graph engine's greedy tokens differ from phase "
+             f"4's ({same}/{n_tok})")
+    serve_g["profiled_tick"] = profile_tick(params, engine,
+                                            engine._decode_step)
+    del engine, reqs, exs
+    torch.cuda.empty_cache()
+
+    phase_done("phase 4g")
 
     # ------------------------------ 4f bf16 weights over fp32 KV pages
     engine, reqs, wall_s, launches = serve_paged(params, "float32", prompts,
@@ -6884,6 +7301,72 @@ def main() -> int:
     del engine, reqs
     torch.cuda.empty_cache()
     phase_done("phase 4b")
+
+    # 4g's int8 run: int8 weights and KV pages on the graph engine, whose
+    # head folds into quant_matmul (B6, or B8 under a fused epilogue)
+    engine, reqs, wall_s, launches, compile_s, exs = serve_graph(
+        qparams, "int8", prompts[:GRAPH_INT8_REQUESTS], GRAPH_INT8_NEW)
+    m = engine.metrics
+    calls = {"prefill": m.prefill_calls, "decode": m.decode_calls}
+    folded = {k: sum(b.op == "quant_matmul" for n in ex.graph.nodes
+                     for b in n.body_nodes()) for k, ex in exs.items()}
+    b8 = {k: sum(v == "quant_matmul_fused" for v in ex.dispatched.values())
+          for k, ex in exs.items()}
+    expect = expected_counts(
+        apr_matmul_int8w=sum((per_call - folded[k]) * calls[k]
+                             for k in calls),
+        quant_matmul=sum((folded[k] - b8[k]) * calls[k] for k in calls),
+        quant_matmul_fused=sum(b8[k] * calls[k] for k in calls),
+        flash_decode_paged_int8=cfg.num_layers * sum(calls.values()))
+    serve_gq = dict(compile_s=compile_s, graphs=graph_summary(exs),
+                    folded_per_step=folded,
+                    **paged_summary(engine, wall_s, launches, expect))
+    same = sum(a == b for r, o in zip(reqs, int8_outputs)
+               for a, b in zip(r.output, o))
+    n_tok = sum(len(r.output) for r in reqs)
+    serve_gq["tokens_equal_phase4b"] = same
+    # one decode tick at the phase-3 lengths on copies of the served pools
+    tick = graph_head_tick(torch, engine, exs["decode"], forward, qparams,
+                           tick_args)
+    serve_gq["tick_vs_plain"] = tick
+    report["serve_graph_int8"] = serve_gq
+    print(f"[4g] served {m.requests_done}/{len(reqs)} requests of full-width "
+          f"{cfg.name} with int8 weights and int8 KV pages on "
+          f"PagedServeEngine(use_graph=True) in {wall_s:.2f} s wall "
+          f"(compiled in {compile_s:.2f} s; phase 4b: "
+          f"{serve_q['decode_ms_per_tick']:.3f} ms per tick); folded "
+          f"quant_matmul nodes a step {folded}, of them on B8 {b8}:")
+    print_graph_summary(serve_gq["graphs"])
+    print_paged(serve_gq, m)
+    print(f"    greedy tokens equal to phase 4b's (int8-weight head on B1's "
+          f"int8-weight kernel): {same}/{n_tok} of the first "
+          f"{GRAPH_INT8_REQUESTS} requests' first {GRAPH_INT8_NEW} "
+          f"(information: the folded head quantizes its activations per "
+          f"row); one tick at lengths {main_lengths}: the folded head "
+          f"({tick['head_wrapper']}, {tick['head_calls']} call) equal to its"
+          f" plain version on its input {tick['head_equal_plain_version']} "
+          f"(max |diff| {tick['head_max_abs_err']}), its input equal to the "
+          f"plain step's head input {tick['head_input_equal_plain_step']}, "
+          f"pools written equal {tick['pools_equal']} (all three gated); "
+          f"against the plain step (B1's int8-weight head): max |logits "
+          f"diff| {tick['max_abs_diff']:.4g}, at most "
+          f"{tick['largest_bound_share']:.3f} of the activation-quantization"
+          f" bound (gated), argmax equal {tick['argmax_equal']}/"
+          f"{tick['rows']}")
+    check_served("phase 4g int8", reqs, GRAPH_INT8_NEW, launches, expect)
+    if not (tick["head_equal_plain_version"]
+            and tick["head_input_equal_plain_step"]):
+        fail(f"phase 4g int8: the folded head ({tick['head_calls']} calls "
+             f"captured, {tick['plain_head_calls']} plain) is not its plain "
+             f"version on the plain step's head input bit for bit")
+    if not (tick["within_bound"] and tick["pools_equal"]):
+        fail("phase 4g int8: the graph step's logits leave the activation-"
+             "quantization bound of the plain step's, or its pools differ")
+    if not sum(folded.values()):
+        fail("phase 4g int8: no quant_matmul node was folded")
+    del engine, reqs, exs
+    torch.cuda.empty_cache()
+    phase_done("phase 4g int8")
 
     # 4e's int8 run: int8 weights and KV pages, the n-gram draft, against
     # phase 4b's tokens
@@ -7394,8 +7877,93 @@ def main() -> int:
     if not all(v["rel"] <= CNN_LOGITS_RTOL and v["argmax_equal"]
                for v in parity.values()):
         fail("CNN logits on the card and the CPU disagree")
-    del nets
     phase_done("phase 6")
+
+    # ----------------------------- 6g the CNNs through the graph compiler
+    from repro_torch.bench.config import scoped_cache
+    from repro_torch.graph import compile_fn
+    #: the graph path's launches a forward: B7m, B7 and the kernels that run
+    #: the rest (B5, the fp32 B1)
+    graph_counts = lambda: {                              # noqa: E731
+        "apr_matmul_fused_f32": apr_matmul_fused.f32_launches,
+        "apr_conv_fused": apr_conv2d_fused.launches,
+        "apr_conv": apr_conv2d.launches,
+        "apr_matmul_f32": apr_matmul.f32_launches}
+    n_convs = {name: len(conv_geometries(name)) for name in ("lenet",
+                                                            "resnet20")}
+    expect_g = {
+        ("lenet", "fused"): dict(apr_matmul_fused_f32=2, apr_conv_fused=0,
+                                 apr_conv=n_convs["lenet"], apr_matmul_f32=1),
+        ("lenet", "unfused"): dict(apr_matmul_fused_f32=0, apr_conv_fused=0,
+                                   apr_conv=n_convs["lenet"],
+                                   apr_matmul_f32=3),
+        ("resnet20", "fused"): dict(
+            apr_matmul_fused_f32=0, apr_conv_fused=10,
+            apr_conv=n_convs["resnet20"] - 10, apr_matmul_f32=1),
+        ("resnet20", "unfused"): dict(
+            apr_matmul_fused_f32=0, apr_conv_fused=0,
+            apr_conv=n_convs["resnet20"], apr_matmul_f32=1)}
+    graph_cnn = {}
+    with scoped_cache(ConfigCache(Path(tmp.name) / "graph_cnn.json")):
+        for name in ("lenet", "resnet20"):
+            fwd, params, x = nets[name]
+            fn = (lambda f, p: lambda xx: f(p, xx))(fwd, params)
+            eager = fn(x)
+            t0 = time.perf_counter()
+            exs = {"fused": compile_fn(fn, x, name=f"{name}-b{CNN_BATCH}"),
+                   "unfused": compile_fn(fn, x, fused=False)}
+            torch.cuda.synchronize()
+            res = dict(compile_s=time.perf_counter() - t0,
+                       graphs=graph_summary(exs), runs={})
+            for label, ex in exs.items():
+                ex(x)                                   # warm: builds nodes
+                torch.cuda.synchronize()
+                reset_counts()
+                out = ex(x)
+                torch.cuda.synchronize()
+                launches = graph_counts()
+                res["runs"][label] = dict(
+                    launches=launches, expected=expect_g[(name, label)],
+                    rel_vs_eager=rel_logits_err(out, eager),
+                    finite=bool(torch.isfinite(out).all()),
+                    shape=list(out.shape),
+                    ms=cuda_ms(torch, lambda i: ex(x), 10),
+                    host_ms=forward_ms(lambda: ex(x), 10))
+            res["eager_ms"] = cuda_ms(torch, lambda i: fn(x), 10)
+            res["eager_host_ms"] = forward_ms(lambda: fn(x), 10)
+            graph_cnn[name] = res
+    graph_fused = graph_fused_timing(torch, gen, dev)
+    report["graph_cnn"] = dict(nets=graph_cnn, fused_kernels=graph_fused)
+    print(f"[6g] LeNet-5 and ResNet-20 at batch {CNN_BATCH} through "
+          f"compile_fn (traced on the card; the cost model's schedule):")
+    for name, res in graph_cnn.items():
+        print_graph_summary({f"{name} {k}": v
+                             for k, v in res["graphs"].items()})
+        for label, r in res["runs"].items():
+            print(f"    {name} {label}: {r['ms']:.3f} ms a forward (CUDA "
+                  f"events; host {r['host_ms']:.3f} ms), eager "
+                  f"{res['eager_ms']:.3f} ms (host {res['eager_host_ms']:.3f}"
+                  f" ms); max|diff|/max|logit| vs eager {r['rel_vs_eager']:.3g}"
+                  f" (bound {CNN_LOGITS_RTOL:g}); launches {r['launches']} "
+                  f"(expected {r['expected']})")
+    for name, t in graph_fused.items():
+        print(f"    {name} per forward ({t['launches_per_forward']} launches):"
+              f" {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+              f"{t['library_call']} {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), "
+              f"{t['bound_ms'] / t['ms']:.0%} of bound")
+    for name, res in graph_cnn.items():
+        for label, r in res["runs"].items():
+            if r["launches"] != r["expected"]:
+                fail(f"phase 6g {name} {label}: launches {r['launches']} != "
+                     f"{r['expected']}")
+            if not (r["finite"] and r["shape"] == [CNN_BATCH, 10]
+                    and r["rel_vs_eager"] <= CNN_LOGITS_RTOL):
+                fail(f"phase 6g {name} {label}: logits {r['shape']} finite "
+                     f"{r['finite']}, {r['rel_vs_eager']:.3g} from the eager "
+                     f"forward's")
+    del nets
+    phase_done("phase 6g")
 
     # --------------------------------- 7 recurrent serving, full width
     recurrent = {}
@@ -7573,12 +8141,20 @@ def main() -> int:
                 or arch in archs for run_name, r in res.items()
                 if isinstance(r, dict) and r.get("launches", {}).get(name)}
 
+    def graph_cnn_paths(name) -> dict:
+        """``name``'s launches on each of phase 6g's forwards that launched
+        it (each zeroed before and gated after)."""
+        return {f"phase 6g {net} {label}": r["launches"][name]
+                for net, res in graph_cnn.items()
+                for label, r in res["runs"].items() if r["launches"][name]}
+
     mm_src = "src/repro_torch/csrc/apr_matmul.cu"
     fd_src = "src/repro_torch/csrc/flash_decode.cu"
     kernels = [
         tick_entry("apr_matmul", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
                    {"phase 4": serve["launches"]["apr_matmul"],
+                    "phase 4g": serve_g["launches"]["apr_matmul"],
                     "phase 4e n-gram": spec_runs["ngram"][
                         "launches"]["apr_matmul"],
                     "phase 4e model draft": spec_runs["model"][
@@ -7591,6 +8167,8 @@ def main() -> int:
         tick_entry("apr_matmul_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
                    {"phase 4b": serve_q["launches"]["apr_matmul_int8w"],
+                    "phase 4g int8": serve_gq["launches"][
+                        "apr_matmul_int8w"],
                     "phase 4e int8": spec_runs["int8"][
                         "launches"]["apr_matmul_int8w"],
                     **family_paths("apr_matmul_int8w"),
@@ -7599,7 +8177,8 @@ def main() -> int:
         tick_entry("apr_matmul_f32", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
                    {"phase 5 fp32 pools": f32_runs["fp32 pools"][
-                       "launches"]["apr_matmul_f32"]},
+                       "launches"]["apr_matmul_f32"],
+                    **graph_cnn_paths("apr_matmul_f32")},
                    kernel="apr_matmul_f32"),
         tick_entry("apr_matmul_f32_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
@@ -7610,6 +8189,7 @@ def main() -> int:
         tick_entry("flash_decode_paged", fd_src,
                    "src/repro/kernels/flash_decode/kernel.py:153",
                    {"phase 4": serve["launches"]["flash_decode_paged"],
+                    "phase 4g": serve_g["launches"]["flash_decode_paged"],
                     "phase 4e n-gram": spec_runs["ngram"][
                         "launches"]["flash_decode_paged"],
                     "phase 4e model draft": spec_runs["model"][
@@ -7637,6 +8217,8 @@ def main() -> int:
                    "src/repro/kernels/flash_decode/kernel.py:81",
                    {"phase 4b": serve_q["launches"][
                        "flash_decode_paged_int8"],
+                    "phase 4g int8": serve_gq["launches"][
+                        "flash_decode_paged_int8"],
                     "phase 4e int8": spec_runs["int8"][
                         "launches"]["flash_decode_paged_int8"],
                     **family_paths("flash_decode_paged_int8")},
@@ -7694,8 +8276,9 @@ def main() -> int:
     # launches) and per MobileNet-V1 forward (its launches), at CNN_BATCH
     for suffix, total, apr_paths, hbm_paths in (
             ("", conv_total,
-             {f"phase 6 {net}": per_net[net] for net in ("lenet",
-                                                          "resnet20")},
+             {**{f"phase 6 {net}": per_net[net] for net in ("lenet",
+                                                            "resnet20")},
+              **graph_cnn_paths("apr_conv")},
              {"phase 6 resnet20": hbm_launches}),
             ("_mobilenet", mb_total,
              {"phase 6 mobilenet_v1": per_net["mobilenet_v1"]},
@@ -7748,13 +8331,31 @@ def main() -> int:
         t = {key: per_tick(key, name, lm_head=False) for key in (
             "ms", "plain_ms", "bound_ms", "library_ms", "t_mem_ms",
             "t_ops_ms")}
+        graph_path = ({"phase 4g int8": serve_gq["launches"][name]}
+                      if serve_gq["launches"].get(name) else {})
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            **by_path(**{"phase 8": tuning["launches"][name]}),
+            **by_path(**{"phase 8": tuning["launches"][name]},
+                      **graph_path),
             max_abs_err=errs[name],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by="bytes" if t["t_mem_ms"] >= t["t_ops_ms"]
             else "operations", library_ms=t["library_ms"]))
+    # B7m on fp32 operands over LeNet-5's two FC layers and B7 over
+    # ResNet-20's ten relu convs, per forward at CNN_BATCH (phase 6g's
+    # timing); launches are those of phase 6g's fused forwards, the
+    # graph compiler's dispatch
+    for name, source, replaces in (
+            ("apr_matmul_fused_f32", mm_src,
+             "src/repro/kernels/apr_matmul/kernel.py:86"),
+            ("apr_conv_fused", "src/repro_torch/csrc/apr_conv.cu",
+             "src/repro/kernels/apr_matmul/kernel.py:86")):
+        t = graph_fused[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            **by_path(**graph_cnn_paths(name)), max_abs_err=errs[name],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     report["kernels"] = kernels
     report["kernels_note"] = (
         "launches: the sum of launches_by_path, whose each entry is one "

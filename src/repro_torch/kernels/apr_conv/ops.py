@@ -23,6 +23,7 @@ import torch
 from ...bench.config import (BlockConfig, dtype_name, pin_config,
                              resolve_among, shape_key_from_dims)
 from .. import _build
+from .._leaf import graph_leaf
 from ..apr_matmul.ref import ACTIVATIONS
 from .ref import conv2d_fused_ref, conv2d_ref
 
@@ -215,6 +216,7 @@ def _geometry(x: torch.Tensor, f: torch.Tensor, stride: int,
     return args, (b, ho, wo, m)
 
 
+@graph_leaf
 def apr_conv2d(x: torch.Tensor, f: torch.Tensor, *, stride: int = 1,
                padding: int = 0, block_m: Optional[int] = None,
                block_n: Optional[int] = None, block_k: Optional[int] = None,

@@ -40,6 +40,7 @@ from ...core.apr import reduction_hbm_traffic
 from ...quant import QuantizedTensor
 from ...roofline.hw import get_profile
 from .. import _build
+from .._leaf import graph_leaf
 from .ref import (ACTIVATIONS, K_RANGE, matmul_fused_ref, matmul_ref,
                   split_range)
 
@@ -373,6 +374,7 @@ def _partial(out: torch.Tensor) -> torch.Tensor:
     return torch.empty(out.shape, dtype=torch.float32, device=out.device)
 
 
+@graph_leaf
 def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                block_m: Optional[int] = None, block_n: Optional[int] = None,
                block_k: Optional[int] = None, splits: Optional[int] = None,

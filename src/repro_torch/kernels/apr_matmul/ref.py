@@ -7,6 +7,8 @@ partials in split order (:func:`matmul_split_ref`,
 import torch
 import torch.nn.functional as F
 
+from .._leaf import graph_leaf
+
 
 def _fp32_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``x (M, K) @ y (K, N)`` on fp32 operands.  On the CPU a single row
@@ -24,6 +26,7 @@ def _fp32_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, y)
 
 
+@graph_leaf
 def matmul_ref(x: torch.Tensor, y: torch.Tensor,
                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``x @ y`` accumulated in fp32 and rounded once to ``out_dtype``.

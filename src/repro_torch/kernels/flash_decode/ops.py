@@ -28,6 +28,7 @@ from ...bench.config import (BlockConfig, TileError, dtype_name,
                              shape_key_from_dims)
 from ...roofline.hw import get_profile
 from .. import _build
+from .._leaf import graph_leaf
 from .ref import (decode_attention_ref, paged_decode_attention_q_ref,
                   paged_decode_attention_ref)
 
@@ -201,6 +202,7 @@ def resolve_paged_splits(b, hq, hkv, d, pages, ps, kv_int8: bool,
         dtype, backend, config)
 
 
+@graph_leaf
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, lengths: torch.Tensor,
                        block_tables: torch.Tensor, *,

@@ -16,6 +16,7 @@ continuous batching (or the contiguous slot engine), on the GPU unless
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-large-v3 --engine slot
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --draft-model ngram
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --graph-prefill --explain
 
 It serves the arch's smoke config with random weights (seed 0), as the JAX
 launcher does.  Requests are submitted through
@@ -37,7 +38,11 @@ attention's); ``--state-dtype int8`` stores their large state leaves int8
 (:mod:`repro_torch.spec`): ``ngram`` self-drafts, ``auto`` takes the arch's
 registered draft model (``configs.DRAFT_FOR``) and any other value names a
 draft config (``configs.DRAFTS``); a draft model's weights come from seed
-1; ``--spec-k`` proposals are verified a step a slot.
+1; ``--spec-k`` proposals are verified a step a slot.  ``--graph-prefill``
+routes the paged engine's prefill step and decode tick through the graph
+compiler (:mod:`repro_torch.graph`; dense family), whose fusion schedule
+the cost model picks (``--cost-model off``: the fixed pass pipeline);
+``--explain`` prints the cost model's per-pass audit before serving.
 """
 from __future__ import annotations
 
@@ -77,6 +82,18 @@ def main(argv=None) -> None:
                     default="float32",
                     help="recurrent-state pool storage dtype (rwkv6-3b, "
                          "mamba2-2.7b, zamba2-1.2b; paged engine)")
+    ap.add_argument("--graph-prefill", action="store_true",
+                    help="route chunked prefill and the decode tick through "
+                         "the repro_torch.graph fused executor (paged "
+                         "engine only)")
+    ap.add_argument("--cost-model", choices=("on", "off"), default="on",
+                    help="with --graph-prefill: choose the fusion schedule "
+                         "with the repro_torch.cost model and cache it by "
+                         "graph signature ('off' reverts to the fixed pass "
+                         "pipeline)")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the cost model's per-pass schedule audit "
+                         "for the graph-compiled steps before serving")
     ap.add_argument("--draft-model", default=None,
                     help="speculative decoding draft: 'ngram', 'auto', or a "
                          "draft arch name (repro_torch.spec; paged engine "
@@ -102,12 +119,28 @@ def main(argv=None) -> None:
     if args.draft_model and args.engine != "paged":
         raise SystemExit(f"--draft-model requires the paged engine (got "
                          f"--engine {args.engine})")
+    if args.graph_prefill and cfg.family == "hybrid":
+        raise SystemExit(
+            "--graph-prefill is unsupported for the hybrid family: the "
+            "graph executor's cluster boundaries make the f32 SSD update "
+            "FMA-contraction sensitive, so token identity to the plain "
+            "path cannot be guaranteed (run without --graph-prefill)")
+    if args.graph_prefill and args.engine != "paged":
+        raise SystemExit(f"--graph-prefill requires the paged engine (got "
+                         f"--engine {args.engine})")
+    if args.graph_prefill and args.draft_model:
+        raise SystemExit("--graph-prefill does not combine with "
+                         "--draft-model: the speculative verify step has no "
+                         "graph-compiled form")
     if args.engine == "paged":
         engine_kw = dict(device=args.device, slots=args.slots,
                          page_size=args.page_size, num_pages=args.num_pages,
                          prefill_chunk=args.prefill_chunk,
                          kv_dtype=args.kv_dtype, state_dtype=args.state_dtype,
                          prefix_sharing=args.prefix_sharing)
+        if args.graph_prefill:
+            engine_kw.update(use_graph=True,
+                             graph_cost_model=(args.cost_model == "on"))
         if args.draft_model:
             from ..spec import SpeculativeServeEngine
 
@@ -150,6 +183,13 @@ def main(argv=None) -> None:
                              slots=args.slots,
                              max_seq=max(128, args.prompt_len + args.max_new
                                          + 2))
+
+    if args.explain:
+        report = (engine.graph_schedule_report()
+                  if isinstance(engine, PagedServeEngine) else "")
+        print(report if report else
+              "no graph schedules to explain (needs --graph-prefill with "
+              "the cost model on)")
 
     # a shared prompt head (the "system prompt") + a per-request tail, so
     # --prefix-sharing has something to dedupe

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .._device import resolve_device
+from ..kernels._leaf import graph_leaf
 from ..kernels.apr_conv import apr_conv2d, conv2d_ref
 
 Params = Dict[str, torch.Tensor]
@@ -156,13 +157,16 @@ def mobilenet_params(generator: Optional[torch.Generator] = None, *,
     return init_params(mobilenet_param_specs(), generator, device)
 
 
+@graph_leaf
 def depthwise(x: torch.Tensor, f: torch.Tensor, stride: int) -> torch.Tensor:
     """3x3 depthwise conv, padding 1, of NHWC ``x`` with the ``(3, 3, C,
     1)`` filter ``f`` (channel ``c``'s filter ``f[:, :, c, 0]``): one
     filter a channel, ``F.conv2d(groups=C)``, plain PyTorch on every
     device, as the JAX model computes it with ``lax`` outside any kernel
     (exact fp32 products where cuDNN's TF32 is off, as the launchers and
-    ``chip_smoke.py`` set it)."""
+    ``chip_smoke.py`` set it).  The graph tracer records it as one
+    NHWC ``conv2d`` node with ``feature_group_count = C``, the JAX model's
+    grouped conv, which no fused kernel serves."""
     c = x.shape[-1]
     w = f[:, :, :, 0].permute(2, 0, 1)[:, None]         # (C, 1, 3, 3)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=1,

@@ -8,8 +8,8 @@ recurrent (rwkv6, mamba2) and the hybrid (zamba2) families:
 prefix cache, bf16 or int8 KV pools and the recurrent-state pools behind a
 :class:`~.state_cache.StateCache`, and the contiguous :class:`ServeEngine`
 baseline.  The hooks the speculative engine (:mod:`repro_torch.spec`)
-overrides are here too; the tensor-parallel and graph branches of the JAX
-engine are not ported yet.
+overrides are here too, and the graph-compiled steps of ``use_graph``; the
+tensor-parallel branch of the JAX engine is not ported yet.
 
 The host side (page allocator, state-slot allocator, scheduler, block
 tables) is the same Python code as in the JAX package; the device side is
@@ -208,6 +208,20 @@ class PagedServeEngine:
     token-identity gated.  ``prefix_sharing`` is rejected for these
     families: a state is a running summary of its whole history, so a
     cached prefix cannot be attached mid-sequence.
+
+    ``use_graph=True`` routes the chunked-prefill step *and* the T=1
+    decode tick through the :mod:`repro_torch.graph` compiler: the paged
+    decode contract is traced at the two fixed shapes on the engine's
+    device, the fusion passes run (chosen by the :mod:`repro_torch.cost`
+    model; ``graph_cost_model=False`` or ``$REPRO_TORCH_COST_MODEL=off``
+    reverts to the fixed pipeline, and the chosen schedule persists in this
+    engine's ``tune_cache``), and both steps run through the graph
+    executor (``"kernel"`` on the card, where recognized epilogue clusters
+    launch the fused kernels and a folded int8 head the int8 x int8 GEMM;
+    ``"plain"`` on the CPU).  The dense family is served; the hybrid is
+    refused with the JAX engine's ``ValueError``, the other families with
+    a ``NotImplementedError``.  :meth:`graph_schedule_report` prints the
+    cost model's audit.
     """
 
     def __init__(self, bundle: ModelBundle, params, *, device="cuda",
@@ -217,12 +231,23 @@ class PagedServeEngine:
                  kv_dtype: str = "bfloat16",
                  state_dtype: str = "float32",
                  prefix_sharing: bool = False,
+                 use_graph: bool = False,
+                 graph_cost_model: Optional[bool] = None,
                  tune_cache: Optional[str] = None,
                  autotune_at_start: bool = False):
         self.device = resolve_device(device)
         if bundle.device != self.device:
             raise ValueError(f"engine device {self.device} differs from the "
                              f"bundle's {bundle.device}")
+        if use_graph and bundle.cfg.family == "hybrid":
+            raise ValueError(
+                "use_graph=True is unsupported for the hybrid family: "
+                "cluster boundaries are compilation boundaries, and the "
+                "interleaved f32 SSD update + bf16 attention is sensitive "
+                "to cross-op FMA contraction — a 1-ulp f32 shift at a "
+                "cluster cut can cross a bf16 rounding boundary and flip "
+                "a greedy token, breaking the token-identity invariant; "
+                "serve hybrids on the plain paged engine")
         if not bundle.supports_paged_serving:
             raise ValueError(
                 f"{bundle.cfg.family!r} family has no paged KV cache or "
@@ -277,6 +302,41 @@ class PagedServeEngine:
         self.active: List[Optional[Request]] = [None] * slots
         self.last_tokens = np.zeros((slots,), np.int64)
         self.metrics = EngineMetrics()
+        self.use_graph = use_graph
+        # the graph-compiled steps; None: ``bundle.decode_paged``, looked up
+        # at every forward
+        self._prefill = self._decode_step = None
+        if use_graph:
+            # graph-compiled chunked prefill AND decode tick, each traced
+            # once at the engine's fixed shapes -- (B=1, T=chunk) and
+            # (B=slots, T=1) -- on the engine's device, fused, and run
+            # cluster by cluster (repro_torch.graph.compiler); under this
+            # engine's tune cache, so the cost model's schedules persist
+            # next to the tuned kernel tiles
+            from ..graph.compiler import (compile_decode_step,
+                                          compile_prefill_step)
+            width = self.kv.max_pages_per_slot
+            with scoped_cache(self.tune_cache):
+                self._prefill = compile_prefill_step(
+                    bundle, params, self.cache, chunk=prefill_chunk,
+                    table_width=width, cost_model=graph_cost_model)
+                self._decode_step = compile_decode_step(
+                    bundle, params, self.cache, slots=slots,
+                    table_width=width, cost_model=graph_cost_model)
+
+    def graph_schedule_report(self) -> str:
+        """Human-readable cost-model schedule report for the graph-compiled
+        steps (``launch.serve --explain``): one
+        :meth:`~repro_torch.cost.ScheduleDecision.report` block per compiled
+        step.  Empty when ``use_graph=False`` or the cost model was off."""
+        blocks = []
+        for label, step in (("prefill", self._prefill),
+                            ("decode", self._decode_step)):
+            ex = getattr(step, "executor", None)
+            decision = getattr(ex, "schedule", None)
+            if decision is not None:
+                blocks.append(f"[{label}] {decision.report()}")
+        return "\n".join(blocks)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -285,11 +345,15 @@ class PagedServeEngine:
     def _to_device(self, a) -> torch.Tensor:
         return torch.from_numpy(np.asarray(a, np.int32)).to(self.device)
 
-    def _forward(self, tokens, lengths, counts, tables) -> torch.Tensor:
-        return self.bundle.decode_paged(
-            self.params, self.cache, self._to_device(tokens),
-            self._to_device(lengths), self._to_device(counts),
-            self._to_device(tables))
+    def _forward(self, tokens, lengths, counts, tables,
+                 step=None) -> torch.Tensor:
+        """One forward through ``step`` (the prefill tick passes its own
+        under ``use_graph``), else the graph-compiled decode tick, else the
+        bundle's ``decode_paged``."""
+        step = step or self._decode_step or self.bundle.decode_paged
+        return step(self.params, self.cache, self._to_device(tokens),
+                    self._to_device(lengths), self._to_device(counts),
+                    self._to_device(tables))
 
     def _tables(self, rows, write_ids=None) -> np.ndarray:
         """Block-table rows for a forward over engine slots ``rows``: the KV
@@ -486,7 +550,8 @@ class PagedServeEngine:
             self._sync()
             t0 = time.perf_counter()
             logits = self._forward([padded], [req.prefill_pos], [n],
-                                   self._tables([req.slot], write_ids))
+                                   self._tables([req.slot], write_ids),
+                                   step=self._prefill)
             self._sync()
             self.metrics.prefill_time_s += time.perf_counter() - t0
             self.metrics.prefill_calls += 1

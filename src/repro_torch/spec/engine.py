@@ -71,6 +71,11 @@ class SpeculativeServeEngine(PagedServeEngine):
             raise ValueError("spec_k must be >= 0")
         if draft is not None and draft_bundle is not None:
             raise ValueError("pass either draft= or draft_bundle=, not both")
+        if kwargs.get("use_graph"):
+            raise NotImplementedError(
+                "use_graph=True is not ported to the speculative engine: its "
+                "verify step (T = spec_k + 1) has no graph-compiled form; "
+                "serve it with use_graph=False")
         self.spec_k = spec_k  # set before super().__init__ sizes the ring
         super().__init__(bundle, params, **kwargs)
         self.sched.verify_budget = verify_budget

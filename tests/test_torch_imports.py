@@ -89,6 +89,41 @@ def test_package_imports_without_jax():
             "repro_torch.roofline.hw", "repro_torch.kernels.quant_matmul",
             "repro_torch.kernels.quant_matmul.ops",
             "repro_torch.kernels.quant_matmul.ref"} <= set(lines)
+    # the graph compiler and the graph half of the cost model
+    assert {"repro_torch.graph", "repro_torch.graph.ir",
+            "repro_torch.graph.trace", "repro_torch.graph.passes",
+            "repro_torch.graph.plan", "repro_torch.graph.executor",
+            "repro_torch.graph.compiler", "repro_torch.cost.graph",
+            "repro_torch.cost.schedule",
+            "repro_torch.kernels._leaf"} <= set(lines)
+
+
+def test_graph_compiler_works_without_jax():
+    """LeNet-5 compiles (cost model, schedule cache) and runs through the
+    graph executor in a process where jax and the JAX package cannot be
+    imported."""
+    code = (
+        "import sys, tempfile, torch\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.bench.config import ConfigCache, scoped_cache\n"
+        "from repro_torch.graph import compile_fn\n"
+        "from repro_torch.models import cnn\n"
+        "p = cnn.lenet_params(device='cpu')\n"
+        "x = torch.zeros((2, 32, 32, 1))\n"
+        "fn = lambda xx: cnn.lenet_forward(p, xx)\n"
+        "with tempfile.TemporaryDirectory() as d, "
+        "scoped_cache(ConfigCache(d + '/c.json')):\n"
+        "    ex = compile_fn(fn, x, impl='kernel')\n"
+        "    assert torch.equal(ex(x), fn(x))\n"
+        "    print(ex.schedule.passes, len(ex.kernel_clusters()))\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+    assert "fuse_matmul_epilogue" in res.stdout
 
 
 def test_tuning_layer_works_without_jax():
