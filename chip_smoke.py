@@ -35,6 +35,10 @@
                                      # G <= 8 kernels' ptxas counts and
                                      # output bits equal, the G = 12 and
                                      # 16 cases against the plain version
+    python3 chip_smoke.py --matmul-ptxas-ab scratch_tree --out ab.json
+                                     # only apr_matmul.cu of this tree
+                                     # beside an older tree's: every older
+                                     # kernel's ptxas counts equal
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -58,8 +62,9 @@ Phases (any failure exits non-zero before the final line):
      T = 1 with the state carried, and one device kernel a call; and
      ``rms_norm``'s variance, row for row, at B = 1 and
      inside batches of 4 and 16; a row's bits across the batch: B1 under
-     its default configuration at M = 1, 4, 16, 20, 64 and 1024 (llama3-8b's
-     projections, bf16 and fp32), B2, B2q and B3 under their default split
+     its default configuration at M = 1, 4, 16, 20, 64, 128 and 1024
+     (llama3-8b's projections, bf16 -- on wide tiles from M = 128 -- and
+     fp32), B2, B2q and B3 under their default split
      at B = 1, 4 and 20 (llama3-8b's and zamba2's geometry; B2 and B2q at
      B = 20 also against their plain version), and folded T > 1 paged calls
      (a prefill chunk's B = 1, T = 16, whole and partial, and a verify
@@ -97,7 +102,12 @@ Phases (any failure exits non-zero before the final line):
      version too; and the graph path's fused kernels at its shapes: B7m
      (relu, no bias, fp32) at LeNet-5's FC layers, B7 (relu) at
      ResNet-20's ten relu convs at batch 256, B6 and B8 at the head
-     (:func:`graph_kernel_checks`);
+     (:func:`graph_kernel_checks`); B1's wide body: one wgmma chain
+     against the WMMA chain on random and hard operands, bit for bit
+     (:func:`mma_probe`, gated), and every wide tile against the 16 x 64 x
+     64 tile at every split count, bf16 and fp32 out and B7m's
+     activations, bit for bit, at M = 17 to 3000 on llama3-8b's and
+     whisper's projections (:func:`wide_bit_checks`);
   3. time each kernel, its plain version and a PyTorch library call at the
      serving path's shapes with CUDA events, beside the card's bound (B1
      also at phase 4d's prefill M = 1024, against ``torch.matmul``; B4m,
@@ -110,7 +120,10 @@ Phases (any failure exits non-zero before the final line):
      weights) at each split count, with per-tick totals; B2 over 20 and 64
      rows at each split count, :data:`WIDE_BATCHES`; B2, B2q and B3 at
      starcoder2-15b's and chatglm3-6b's 4-slot ticks, :data:`WIDE_TIMING`;
-     the decode kernels' ptxas registers, spills and static shared memory);
+     the decode kernels' ptxas registers, spills and static shared memory;
+     B1 at whisper's prefill M = 3000, and the wide tiles against the 16 x
+     64 x 64 tile and ``torch.matmul`` over M = 64 to 3000,
+     :func:`wide_sweep`);
   4. serve full-width llama3-8b (32 layers, random bf16 weights from a seed)
      on the port's PagedServeEngine: 6 ragged requests on 4 slots, and check
      every kernel of the path was launched as often as the path demands
@@ -228,9 +241,10 @@ Phases (any failure exits non-zero before the final line):
      requests on the paged (B1 + B2) and slot (B1 + B3) engines, tokens
      gated equal, a decode tick against its byte floor, starcoder2 also
      with int8 weights and KV (B1 int8, B2q); whisper-large-v3 prefills 2
-     rows of 1500 stub frames, decodes 8 ticks from that cache (B1, B3 at
-     G = 1, D = 64) and serves phase 4's requests on the slot engine, every
-     run's launches gated (:func:`wide_serving`, :func:`whisper_full`);
+     rows of 1500 stub frames (again with 16 x 64 x 64 pinned, bits gated
+     equal, and one profiled prefill of each), decodes 8 ticks from that
+     cache (B1, B3 at G = 1, D = 64) and serves phase 4's requests on the
+     slot engine, every run's launches gated (:func:`wide_serving`, :func:`whisper_full`);
   8. the tuning path at llama3-8b full width: every registered kernel
      family (the int8-weight tiles and both decode kernels' split counts
      included) swept exhaustively (the yardstick), then
@@ -2420,8 +2434,14 @@ def whisper_full(torch, seed: int, dev, finite, reset_counts, llm_counts,
     cache as the JAX engine does (no frames reach it), launches gated, and
     a 4-slot decode tick at the phase-3 lengths against its byte floor
     (the decoder's and the head's weights, the cross K/V and the live
-    self K/V read once)."""
+    self K/V read once).  The prefill also runs with every B1 launch
+    pinned to the 16 x 64 x 64 tile (:func:`narrow_cache`), timed in the
+    same way, its logits and cache gated bit-equal to the default run's
+    (whose projections over the frames run on wide tiles); one more of
+    each is profiled (device-busy time, B1's part, the idle share)."""
+    from repro_torch.bench import scoped_cache
     from repro_torch.configs import get_config
+    from repro_torch.kernels.apr_matmul import apr_matmul
     from repro_torch.models import build_model
     cfg = get_config("whisper-large-v3")
     bundle = build_model(cfg, device="cuda")
@@ -2442,19 +2462,62 @@ def whisper_full(torch, seed: int, dev, finite, reset_counts, llm_counts,
                weight_gb=weight_gb, B=WHISPER_B, frames=cfg.encoder_frames,
                prompt=WHISPER_T)
     max_seq = WHISPER_T + MAX_SEQ_PAD
-    bundle.prefill(params, tokens, max_seq, frames=frames)      # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-    t0 = time.perf_counter()
-    start.record()
-    last, cache = bundle.prefill(params, tokens, max_seq, frames=frames)
-    end.record()
-    torch.cuda.synchronize()
-    expect = dict(zero, apr_matmul=prefill_b1)
-    out["prefill"] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
-                          event_ms=start.elapsed_time(end),
-                          launches=llm_counts(), expected_launches=expect)
+
+    def prefill(name):
+        bundle.prefill(params, tokens, max_seq, frames=frames)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        t0 = time.perf_counter()
+        start.record()
+        res = bundle.prefill(params, tokens, max_seq, frames=frames)
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                         event_ms=start.elapsed_time(end),
+                         launches=llm_counts(),
+                         wide_launches=apr_matmul.wide_launches,
+                         expected_launches=dict(zero, apr_matmul=prefill_b1))
+        return res
+
+    with scoped_cache(narrow_cache()):
+        last_n, cache_n = prefill("prefill_narrow")
+    last, cache = prefill("prefill")
+    same = torch.equal(last, last_n) and all(
+        torch.equal(cache[key], cache_n[key]) for key in cache)
+    out["narrow_bit_equal"] = same
+    del last_n, cache_n
+
+    # where each prefill's time goes: the device's busy time and B1's share
+    # of it in one profiled prefill, against the prefill's CUDA-event time
+    def profiled(name):
+        by_kernel = profile_device(torch, lambda: bundle.prefill(
+            params, tokens, max_seq, frames=frames), 1)
+        if by_kernel:
+            busy = sum(by_kernel.values())
+            out[name]["profile"] = dict(
+                device_busy_ms=busy,
+                b1_ms=sum(t for k, t in by_kernel.items()
+                          if "apr_matmul_kernel" in k or "wide_kernel" in k),
+                wide_ms=sum(t for k, t in by_kernel.items()
+                            if "wide_kernel" in k),
+                idle_share=1 - busy / out[name]["event_ms"],
+                top_kernels_ms=dict(sorted(by_kernel.items(),
+                                           key=lambda kv_: -kv_[1])[:6]))
+    with scoped_cache(narrow_cache()):
+        profiled("prefill_narrow")
+    profiled("prefill")
+    expect = out["prefill"]["expected_launches"]
+    # over the frames: the encoder's 6 projections a layer, the decoder's
+    # cross K and V
+    wide = (out["prefill"]["wide_launches"],
+            out["prefill_narrow"]["wide_launches"])
+    if not same or wide != (6 * le + 2 * L, 0) or out["prefill_narrow"][
+            "launches"] != expect:
+        fail(f"phase 7c whisper-large-v3 prefill with the 16 x 64 x 64 "
+             f"tile pinned: bit-equal {same}, wide launches {wide} "
+             f"(expected ({6 * le + 2 * L}, 0)), launches "
+             f"{out['prefill_narrow']['launches']}")
     if out["prefill"]["launches"] != expect or not bool(
             torch.isfinite(last).all()) or last.shape != (
             WHISPER_B, 1, cfg.padded_vocab):
@@ -2494,10 +2557,22 @@ def whisper_full(torch, seed: int, dev, finite, reset_counts, llm_counts,
           f"frames and {WHISPER_T} tokens at B={WHISPER_B} "
           f"{out['prefill']['wall_ms']:.2f} ms wall, "
           f"{out['prefill']['event_ms']:.2f} ms CUDA events, {prefill_b1} "
-          f"apr_matmul launches (cross K/V {cross_gb:.3f} GB); "
+          f"apr_matmul launches, {out['prefill']['wide_launches']} on wide "
+          f"tiles (16 x 64 x 64 pinned: "
+          f"{out['prefill_narrow']['event_ms']:.2f} ms, bit-equal {same}; "
+          f"cross K/V {cross_gb:.3f} GB); "
           f"{WHISPER_TICKS} decode ticks from its cache "
           f"{np.mean(tick_ms):.3f} ms a tick ({tick_b1} apr_matmul + {L} "
           f"flash_decode each), tokens {generated}", flush=True)
+    for name in ("prefill", "prefill_narrow"):
+        if "profile" in out[name]:
+            p = out[name]["profile"]
+            print(f"    profiled {name}: device busy {p['device_busy_ms']:.2f} "
+                  f"ms of {out[name]['event_ms']:.2f} ms events (idle share "
+                  f"{p['idle_share']:.1%}), B1 {p['b1_ms']:.2f} ms (wide "
+                  f"tiles {p['wide_ms']:.2f})", flush=True)
+            for kname, t in p["top_kernels_ms"].items():
+                print(f"      {t:8.3f} ms  {kname[:90]}")
     prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist()
                for n in SERVE_PROMPTS]
     r = serve_counted(torch, bundle, params, "slot", prompts, 16, finite,
@@ -2562,6 +2637,26 @@ DENSE_B, DENSE_T, MAX_SEQ_PAD, DENSE_TICKS = 2, 512, 16, 8
 DENSE_KV_CHECK = 64
 
 
+def narrow_cache():
+    """A :class:`~repro_torch.bench.ConfigCache` that pins every bf16
+    launch of B1 and B7m (APR residency, bf16 weight) to the 16 x 64 x 64
+    tile at the default split count, for ``scoped_cache``: a whole path on
+    the tile the decode tick runs, to hold the wide tiles' bits to."""
+    from repro_torch.bench import BlockConfig, ConfigCache
+    from repro_torch.kernels.apr_matmul import ops as mm
+
+    class Narrow(ConfigCache):
+        def lookup(self, kernel, shape_key, dtype, backend):
+            if (kernel in (mm.KERNEL_NAME, mm.FUSED_KERNEL_NAME)
+                    and dtype == "bfloat16" and "_reshbm" not in shape_key
+                    and "_wint8" not in shape_key):
+                bm, bn, bk = mm.DEFAULT_TILE
+                return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk)
+            return None
+    return Narrow(Path(tempfile.mkdtemp(prefix="narrow_")) / "pin.json",
+                  autosave=False)
+
+
 def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
                          llm_counts, expected_counts) -> dict:
     """Phase 4d: full-width llama3-8b (``bundle`` and ``params`` of phase
@@ -2575,9 +2670,15 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
     bits (B1's split count follows K and N alone, so a row's bits do not
     depend on M), deeper layers differ by the attention before them (the
     whole-sequence path's plain score products against B3).  Gate: finite
-    logits of the shapes expected, the launch counts, and
-    :data:`DENSE_TICKS` greedy decode ticks that run from the prefilled
-    cache (B1 and B3 launches as the path demands)."""
+    logits of the shapes expected, the launch counts (every projection at
+    M = B x T on a wide tile: all 225 of the forward, the prefill's but its
+    last-row head), and :data:`DENSE_TICKS` greedy decode ticks that run
+    from the prefilled cache (B1 and B3 launches as the path demands).
+    Then both again with every B1 launch pinned to the 16 x 64 x 64 tile
+    (:func:`narrow_cache`): logits and the prefilled cache bit-equal to the
+    default run's."""
+    from repro_torch.bench import scoped_cache
+    from repro_torch.kernels.apr_matmul import apr_matmul
     cfg = bundle.cfg
     per_call = 7 * cfg.num_layers + 1
     dev = bundle.device
@@ -2603,6 +2704,7 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
                          event_ms=start.elapsed_time(end),
                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                          launches=llm_counts(),
+                         wide_launches=apr_matmul.wide_launches,
                          expected_launches=expected_counts(
                              apr_matmul=per_call))
         if out[name]["launches"] != out[name]["expected_launches"]:
@@ -2613,6 +2715,37 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
     logits = run("forward", lambda: bundle.forward(params, tokens))
     last, cache = run("prefill", lambda: bundle.prefill(
         params, tokens, max_seq=DENSE_T + MAX_SEQ_PAD))
+    with scoped_cache(narrow_cache()):
+        same = dict(logits=torch.equal(logits, run(
+            "forward_narrow", lambda: bundle.forward(params, tokens))))
+        last_n, cache_n = run("prefill_narrow", lambda: bundle.prefill(
+            params, tokens, max_seq=DENSE_T + MAX_SEQ_PAD))
+    same["prefill_logits"] = torch.equal(last, last_n)
+    same["prefill_cache"] = all(torch.equal(cache[key], cache_n[key])
+                                for key in cache)
+    del last_n, cache_n
+    out["narrow_bit_equal"] = same
+    wide = {name: out[name]["wide_launches"] for name in (
+        "forward", "prefill", "forward_narrow", "prefill_narrow")}
+    if wide != dict(forward=per_call, prefill=per_call - 1,
+                    forward_narrow=0, prefill_narrow=0):
+        fail(f"phase 4d: wide-tile launches {wide}: expected every "
+             f"projection at M = {DENSE_B * DENSE_T} wide, none pinned")
+    if not all(same.values()):
+        fail(f"phase 4d: with the 16 x 64 x 64 tile pinned, logits and the "
+             f"prefilled cache are not the default run's bits: {same}")
+    # where a forward's time goes: the device's busy time (profiler)
+    # against the forward's CUDA-event time
+    by_kernel = profile_device(torch, lambda: bundle.forward(params, tokens),
+                               1)
+    if by_kernel:
+        busy = sum(by_kernel.values())
+        out["forward_profile"] = dict(
+            device_busy_ms=busy,
+            wide_ms=sum(t for k, t in by_kernel.items() if "wide_kernel" in k),
+            idle_share=1 - busy / out["forward"]["event_ms"],
+            top_kernels_ms=dict(sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1])[:6]))
     v = cfg.padded_vocab
     if (logits.shape != (DENSE_B, DENSE_T, v) or last.shape != (DENSE_B, 1, v)
             or not bool(torch.isfinite(logits).all())
@@ -2677,7 +2810,17 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
           f"{out['max_seq']}) {p['wall_ms']:.2f} ms wall, "
           f"{p['event_ms']:.2f} ms CUDA events, peak "
           f"{p['peak_mem_gb']:.2f} GB; launches each {f['launches']['apr_matmul']} "
-          f"apr_matmul (expected {per_call}), no other kernel")
+          f"apr_matmul (expected {per_call}), no other kernel; on wide "
+          f"tiles {f['wide_launches']} and {p['wide_launches']}")
+    fn, pn = out["forward_narrow"], out["prefill_narrow"]
+    print(f"    the 16 x 64 x 64 tile pinned: forward {fn['event_ms']:.2f} ms, "
+          f"prefill {pn['event_ms']:.2f} ms CUDA events; bit-equal to the "
+          f"wide run: {same}")
+    if "forward_profile" in out:
+        fp = out["forward_profile"]
+        print(f"    a profiled forward: device busy {fp['device_busy_ms']:.2f} "
+              f"ms ({fp['wide_ms']:.2f} in the wide body), idle share "
+              f"{fp['idle_share']:.1%} of the unprofiled forward's events")
     pv = out["prefill_vs_forward_last"]
     print(f"    information: prefill's logits vs forward's last row max "
           f"|diff| {pv['max_abs_diff']:.4g}, argmax equal "
@@ -2696,10 +2839,11 @@ def dense_whole_sequence(torch, bundle, params, rng, finite, reset_counts,
 
 # ------------------------------- a row's bits do not depend on the batch
 #: phase 2's row-bits checks: the M of B1 (a lone row, the 4-slot tick, a
-#: prefill chunk, a 4-slot verify step at spec_k = 4, 64 rows, phase 4d's
-#: forward) and the B of the decode kernels (a paged prefill chunk's
-#: token, the 4-slot tick, the verify step's 4 x 5 rows)
-ROW_MS = (1, 4, 16, 20, 64, 1024)
+#: prefill chunk, a 4-slot verify step at spec_k = 4, 64 rows, the first
+#: M of the wide tiles, phase 4d's forward) and the B of the decode
+#: kernels (a paged prefill chunk's token, the 4-slot tick, the verify
+#: step's 4 x 5 rows)
+ROW_MS = (1, 4, 16, 20, 64, 128, 1024)
 ROW_BS = (1, 4, 20)
 #: (model, Hq, Hkv, D) of the decode geometries held across B
 ROW_GEOMETRIES = (("llama3-8b", 32, 8, 128), ("zamba2-1.2b", 32, 32, 64),
@@ -4313,18 +4457,27 @@ def projection_timing(torch, gen, dev, ms) -> list:
 PREFILL_M = 1024
 
 
-def prefill_matmul_timing(torch, gen, dev, m: int = PREFILL_M) -> list:
-    """B1 at the llama3-8b projection shapes and the lm_head at prefill M
-    (phase 4d's B x T rows): ms per call at the configuration the wrapper
-    resolves (weights rotated past the 50 MB L2 where one is smaller than
-    200 MB), the plain version, ``torch.matmul`` on the same bf16 operands,
-    and the bound, which at this M is the bf16 operations at the tensor
-    cores' peak, not the bytes."""
+#: whisper-large-v3's prefill: B1 over the frames of WHISPER_B rows (M =
+#: 2 x 1500) at these (K, N), launches a prefill: the encoder's q, k, v, o
+#: (4 a layer) and the decoder's cross K, V of the encoder output (2 a
+#: layer) at (1280, 1280), the encoder's GELU MLP at the other two
+WHISPER_PREFILL_SHAPES = {(1280, 1280): 4 * 32 + 2 * 32, (1280, 5120): 32,
+                          (5120, 1280): 32}
+
+
+def prefill_matmul_timing(torch, gen, dev, m: int = PREFILL_M,
+                          shapes=None) -> list:
+    """B1 at prefill M: by default the llama3-8b projection shapes and the
+    lm_head at phase 4d's B x T rows; ms per call at the configuration the
+    wrapper resolves (weights rotated past the 50 MB L2 where one is
+    smaller than 200 MB), the plain version, ``torch.matmul`` on the same
+    bf16 operands, and the bound, which at this M is the bf16 operations
+    at the tensor cores' peak, not the bytes."""
     from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
     from repro_torch.kernels.apr_matmul import ops as mm
     bf16 = torch.bfloat16
     rows = []
-    for k, n in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]:
+    for k, n in shapes or list(LLAMA_DECODE_SHAPES) + [LM_HEAD]:
         nbuf = min(4, max(1, math.ceil(200e6 / (k * n * 2))))
         ws = [(torch.randn((k, n), generator=gen, device=dev)
                * k ** -0.5).to(bf16) for _ in range(nbuf)]
@@ -4344,6 +4497,190 @@ def prefill_matmul_timing(torch, gen, dev, m: int = PREFILL_M) -> list:
                          **bound_ms(2 * (m * k + k * n + m * n),
                                     2 * m * k * n)))
         del ws, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: the wgmma probe's operands: random, sums that cancel to a small rest
+#: (a large term and its negation on either side of small ones), products
+#: of exponents from 2^-40 to 2^40 side by side, and products below
+#: fp32's normal range (both factors near 2^-66) among normal ones
+PROBE_KINDS = ("random", "cancelling", "mixed exponents",
+               "subnormal products")
+PROBE_KS = (64, 1024, 4096)
+
+
+def probe_operands(torch, gen, dev, kind: str, k: int) -> tuple:
+    """A (64, k) and B (k, 128), bf16, of the probe kind ``kind``."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def pow2(lo, hi, *shape):
+        return torch.exp2(torch.randint(lo, hi + 1, shape, generator=gen,
+                                        device=dev).float())
+    a, b = randn(64, k), randn(k, 128)
+    if kind == "cancelling":
+        # k pairs (2i, 2i + 1): a large product and nearly its negation
+        a = a * 2.0 ** 12
+        a[:, 1::2] = -a[:, 0::2] * (1 + randn(64, k // 2) * 2.0 ** -6)
+        b[1::2] = b[0::2]
+        a[:, 3::8] = randn(64, k // 8) * 2.0 ** -4
+    elif kind == "mixed exponents":
+        a, b = a * pow2(-20, 20, 64, k), b * pow2(-20, 20, k, 128)
+    elif kind == "subnormal products":
+        tiny = torch.rand((64, k), generator=gen, device=dev) < 0.75
+        a = torch.where(tiny, a * 2.0 ** -66, a * 2.0 ** -60)
+        b = b * 2.0 ** -66
+    return a.to(torch.bfloat16), b.to(torch.bfloat16)
+
+
+def mma_probe(torch, gen, dev) -> dict:
+    """The instruction probe: one ``wgmma.mma_async`` m64n128k16 chain over
+    K (bf16 -> fp32, B transposed from shared memory,
+    ``apr_matmul_wgmma_probe``) against the WMMA 16x16x16 chain of B1's
+    16 x 64 x 64 body at one split, fp32 out, on the same operands
+    (:data:`PROBE_KINDS` x :data:`PROBE_KS`): elements that differ in any
+    bit, and the largest difference.  ``equal`` is what lets the wide body
+    run wgmma and keep the 16 x 64 x 64 body's bits."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.kernels.apr_matmul import ops as mm
+    lib = _build.load(mm.LIBRARY, mm.SIGNATURES)
+    fn = lib.apr_matmul_wgmma_probe
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p]
+    cases = []
+    for kind in PROBE_KINDS:
+        for k in PROBE_KS:
+            a, b = probe_operands(torch, gen, dev, kind, k)
+            got = torch.empty((64, 128), dtype=torch.float32, device=dev)
+            _build.check(lib, fn(a.data_ptr(), b.data_ptr(), got.data_ptr(),
+                                 k, torch.cuda.current_stream().cuda_stream),
+                         "apr_matmul_wgmma_probe")
+            wmma = apr_matmul(a, b, out_dtype=torch.float32, block_m=16,
+                              block_n=64, block_k=64, splits=1)
+            torch.cuda.synchronize()
+            same = (got.view(torch.int32) == wmma.view(torch.int32))
+            cases.append(dict(kind=kind, K=k, elements=got.numel(),
+                              differ=int((~same).sum()),
+                              max_abs_diff=float((got - wmma).abs().max()),
+                              finite=bool(got.isfinite().all()),
+                              nonzero=int((wmma != 0).sum())))
+    return dict(cases=cases, equal=all(c["differ"] == 0 for c in cases))
+
+
+#: phase 2's wide-tile checks: the M (below, at and past the 128-row tile,
+#: phase 4d's, whisper's 2 x 1500 frames) and the (K, N) of llama3-8b's
+#: projections (its lm_head at M = 128) and whisper-large-v3's
+WIDE_CHECK_MS = (17, 128, 130, 1024, 3000)
+WHISPER_SHAPES = ((1280, 1280), (1280, 5120), (5120, 1280))
+
+
+def wide_bit_checks(torch, gen, dev) -> list:
+    """Phase 2: B1's wide body bit for bit against its 16 x 64 x 64 body,
+    at every wide tile pinned, every split count, bf16 and fp32 out, on
+    :data:`WIDE_CHECK_MS` x the llama3-8b and whisper projections (and the
+    lm_head at M = 128), and at the default split count, bf16 out, within
+    the bf16 tolerance of the split plain version; B7m
+    (``apr_matmul_fused``, bias, each activation, bf16 out) bit for bit at
+    the default split count.  One case a (kernel, M, K, N), its error the
+    largest against the plain version."""
+    from repro_torch.kernels.apr_matmul import ops as mm
+    from repro_torch.kernels.apr_matmul.ref import matmul_split_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    narrow = mm.DEFAULT_TILE
+
+    def run(x, w, tile, splits, out, bias=None, act=None):
+        cfg = tile_config(tile, splits)
+        if act is None:
+            return mm.apr_matmul(x, w, out_dtype=out, config=cfg)
+        return mm.apr_matmul_fused(x, w, bias, activation=act,
+                                   out_dtype=out, config=cfg)
+    geoms = [(m, k, n) for m in WIDE_CHECK_MS
+             for k, n in list(LLAMA_DECODE_SHAPES) + list(WHISPER_SHAPES)]
+    geoms.append((128,) + LM_HEAD)
+    cases = []
+    for m, k, n in geoms:
+        x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+        w = (torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+             ).to(bf16)
+        bias = torch.randn((n,), generator=gen, device=dev)
+        splits = mm.SPLITS if n < 100_000 else (1,)
+        s_default = mm.default_splits(k, n, narrow[1])
+        plain = matmul_split_ref(x.float(), w.float(), s_default, bf16)
+        runs = differ = 0
+        err, ok = 0.0, True
+        for out in (bf16, f32):
+            for s in splits:
+                ref = run(x, w, narrow, s, out)
+                for tile in mm.WIDE_TILES:
+                    got = run(x, w, tile, s, out)
+                    runs += 1
+                    differ += int((got != ref).sum())
+                    if out == bf16 and s == s_default:
+                        e, o = max_err(got, plain)
+                        err, ok = max(err, e), ok and o
+        fused_runs = fused_differ = 0
+        if n < 100_000:
+            for act in ACTIVATIONS:
+                ref = run(x, w, narrow, s_default, bf16, bias, act)
+                for tile in mm.WIDE_TILES:
+                    got = run(x, w, tile, s_default, bf16, bias, act)
+                    fused_runs += 1
+                    fused_differ += int((got != ref).sum())
+        torch.cuda.synchronize()
+        cases.append(("apr_matmul_wide", f"M={m} K={k} N={n} ({runs} tile/"
+                      f"split/out runs) elements differing {differ}", err,
+                      ok and differ == 0))
+        if fused_runs:
+            cases.append(("apr_matmul_fused_wide", f"M={m} K={k} N={n} "
+                          f"({fused_runs} tile/act runs) elements differing "
+                          f"{fused_differ}", 0.0, fused_differ == 0))
+        del x, w, bias, plain
+    torch.cuda.empty_cache()
+    return cases
+
+
+#: phase 3's M sweep of the wide body against the 16 x 64 x 64 one and
+#: torch.matmul, at three (K, N) (llama3-8b's q/o, gate/up and k/v
+#: projections): where the default turns wide, and to which tile
+WIDE_SWEEP_MS = (64, 128, 256, 512, 1024, 3000)
+WIDE_SWEEP_SHAPES = ((4096, 4096), (4096, 14336), (4096, 1024))
+
+
+def wide_sweep(torch, gen, dev) -> list:
+    """Phase 3: ms a call of every wide tile, the 16 x 64 x 64 tile and
+    ``torch.matmul`` at :data:`WIDE_SWEEP_MS` x :data:`WIDE_SWEEP_SHAPES`,
+    bf16 out, at the default split count, weights rotated past the L2."""
+    from repro_torch.kernels.apr_matmul import ops as mm
+    bf16 = torch.bfloat16
+    rows = []
+    for k, n in WIDE_SWEEP_SHAPES:
+        nbuf = min(4, max(1, math.ceil(200e6 / (k * n * 2))))
+        ws = [(torch.randn((k, n), generator=gen, device=dev)
+               * k ** -0.5).to(bf16) for _ in range(nbuf)]
+        s = mm.default_splits(k, n, mm.DEFAULT_TILE[1])
+        for m in WIDE_SWEEP_MS:
+            x = torch.randn((m, k), generator=gen, device=dev).to(bf16)
+            iters = 10 if m >= 1024 else 20
+            row = dict(M=m, K=k, N=n, splits=s,
+                       default="x".join(str(mm.default_config(m, k, n)[b])
+                                        for b in ("block_m", "block_n",
+                                                  "block_k")),
+                       library_ms=cuda_ms(torch, lambda i: torch.matmul(
+                           x, ws[i % nbuf]), iters),
+                       **bound_ms(2 * (m * k + k * n + m * n), 2 * m * k * n))
+            for tile in (mm.DEFAULT_TILE,) + mm.WIDE_TILES:
+                cfg = tile_config(tile, s)
+
+                def fn(i, cfg=cfg):
+                    return mm.apr_matmul(x, ws[i % nbuf], out_dtype=bf16,
+                                         config=cfg)
+                row["x".join(map(str, tile))] = cuda_ms(torch, fn, iters)
+            rows.append(row)
+            del x
+        del ws
     torch.cuda.empty_cache()
     return rows
 
@@ -5390,6 +5727,49 @@ def fd_ptxas(log: str, wide_arg: bool = True) -> dict:
             for n, v in ptxas_kernels(log).items() if "split_kernel" in n}
 
 
+def matmul_ptxas_ab(parent: Path, out: Path) -> None:
+    """``--matmul-ptxas-ab DIR``: build ``apr_matmul.cu`` of this tree and
+    of the tree unpacked at ``DIR`` with the build's flags, one nvcc each at
+    once, and hold every kernel of the older tree to its registers, spill
+    bytes and static shared memory here (names without the file's
+    anonymous-namespace tag).  Writes ``out``; fails on any difference."""
+    import re
+    from repro_torch.kernels import _build
+    out_dir = _build.BUILD_DIR / "apr_matmul_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {tree: subprocess.Popen(
+        [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS, "-I",
+         str(src.parent), "-o", str(out_dir / f"lib{tree}.so"), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for tree, src in (("this", _build.CSRC / "apr_matmul.cu"),
+                          ("older", parent / "src" / "repro_torch" / "csrc"
+                           / "apr_matmul.cu"))}
+    kernels = {}
+    for tree, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            fail(f"matmul-ptxas-ab: {tree} tree's apr_matmul.cu did not "
+                 f"build:\n{log[-3000:]}")
+        kernels[tree] = {
+            re.sub(r"\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "<anon>", n): v
+            for n, v in ptxas_kernels(log).items()}
+    this, older = kernels["this"], kernels["older"]
+    differ = {k: (v, this.get(k)) for k, v in older.items()
+              if this.get(k) != v}
+    new = {k: v for k, v in this.items() if k not in older}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(older=older, this=this, differ=differ,
+                                   new=new), indent=1))
+    print(f"[ptxas-ab] apr_matmul.cu: {len(older) - len(differ)}/"
+          f"{len(older)} kernels of the older tree with the same registers, "
+          f"spills and shared memory here; {len(new)} new:")
+    for k, v in new.items():
+        print(f"    {k[:90]}: {v}")
+    if differ:
+        fail(f"matmul-ptxas-ab: kernels differ from the older tree's: "
+             f"{differ}")
+
+
 def decode_ab(torch, parent: Path, out: Path) -> None:
     """``--decode-ab DIR``: build ``flash_decode.cu`` of this tree and of
     the tree unpacked at ``DIR`` with the same flags, and hold the kernels
@@ -6249,6 +6629,11 @@ def main() -> int:
                          "to the older tree's ptxas counts and output bits "
                          "and the G = 12 and 16 cases to the plain version "
                          "(decode_ab); writes --out")
+    ap.add_argument("--matmul-ptxas-ab", metavar="DIR",
+                    help="only build apr_matmul.cu of this tree and of the "
+                         "tree unpacked at DIR and hold every kernel of the "
+                         "older tree to its ptxas counts (matmul_ptxas_ab); "
+                         "writes --out")
     ap.add_argument("--profiler-probe", action="store_true",
                     help="only build quant_matmul.cu, apr_matmul.cu, "
                          "rwkv6.cu and mamba2.cu and count, over many short "
@@ -6316,6 +6701,9 @@ def main() -> int:
         return 0
     if args.decode_ab:
         decode_ab(torch, Path(args.decode_ab).resolve(), Path(args.out))
+        return 0
+    if args.matmul_ptxas_ab:
+        matmul_ptxas_ab(Path(args.matmul_ptxas_ab).resolve(), Path(args.out))
         return 0
     if args.baseline:
         baseline_sweep(torch, Path(args.out))
@@ -6385,7 +6773,8 @@ def main() -> int:
         "rwkv6_wkv", "mamba2_ssd", "apr_matmul_hbm", "apr_matmul_fused",
         "quant_matmul", "quant_matmul_fused", "apr_matmul_f32",
         "apr_matmul_fused_f32", "apr_matmul_f32_int8w",
-        "apr_matmul_hbm_f32", "apr_conv_fused")}
+        "apr_matmul_hbm_f32", "apr_conv_fused", "apr_matmul_wide",
+        "apr_matmul_fused_wide")}
     cases = []
     mm_cases = [(m, k, n, 0) for m in (4, 16)
                 for (k, n) in list(LLAMA_DECODE_SHAPES) + [LM_HEAD]]
@@ -6452,15 +6841,35 @@ def main() -> int:
         cases.append((name, case, err, ok))
     report["decode_digests"] = {**b2_digests, **b3_digests}
 
+    # the wide body's instruction: one wgmma chain against the WMMA chain
+    # of the 16 x 64 x 64 body on the same operands, bit for bit
+    t_wide = time.perf_counter()
+    probe = mma_probe(torch, gen, dev)
+    # seconds of the wide body's checks and timings in phases 2 and 3
+    wide_s = report["wide_s"] = dict(mma_probe=time.perf_counter() - t_wide)
+    report["mma_probe"] = probe
+    print(f"[2] wgmma m64n128k16 chain vs WMMA 16x16x16 chain (bf16 -> "
+          f"fp32, one split), the wide body's instruction against the 16 x "
+          f"64 x 64 body's: bit-equal {probe['equal']}")
+    for c in probe["cases"]:
+        print(f"    {c['kind']:20s} K={c['K']:<5d} elements differing "
+              f"{c['differ']}/{c['elements']} (max |diff| "
+              f"{c['max_abs_diff']:.3g}; nonzero {c['nonzero']})")
+    if not probe["equal"]:
+        fail("the wide body runs wgmma, whose chain differs from WMMA's")
+
     # a row's bits across M (B1) and B (B2, B2q, B3), and the folded T > 1
     # paged call against T = 1 calls
     row_cases, b2_vs_b3 = row_bits_checks(torch, gen, dev)
     report["b2_vs_b3_bits"] = b2_vs_b3
+    moe_vlm_cases = moe_vlm_matmul_checks(torch, gen, dev)
+    t_wide = time.perf_counter()
+    wide_cases = wide_bit_checks(torch, gen, dev)
+    wide_s["wide_bit_checks"] = time.perf_counter() - t_wide
 
     # the conv kernels: every geometry of both nets, the JAX tests' and
     # ragged ones on both residencies, and the fused epilogue
-    for name, case, err, ok in (row_cases
-                                + moe_vlm_matmul_checks(torch, gen, dev)
+    for name, case, err, ok in (row_cases + moe_vlm_cases + wide_cases
                                 + conv_correctness(torch, gen, dev)[0]
                                 + conv_bit_checks(torch, gen, dev)
                                 + scan_correctness(torch, gen, dev)
@@ -6500,7 +6909,9 @@ def main() -> int:
           f"max(|plain|, |pre-activation|) or the bf16 tolerance for bf16 "
           f"out, the same bits across tiles and split counts, twice "
           f"bit-equal, tie rows bit-equal, one device kernel a call; B7m "
-          f"the bf16 tolerance):")
+          f"the bf16 tolerance; B1's and B7m's wide tiles bit-equal to the "
+          f"16 x 64 x 64 tile at every split count, and at the default the "
+          f"bf16 tolerance against the split plain version):")
     for name, shape, err, ok in cases:
         print(f"    {'ok  ' if ok else 'FAIL'} {name:23s} {shape:50s} "
               f"max_abs_err={err:.3g}")
@@ -6606,6 +7017,45 @@ def main() -> int:
           f"{prefill_mm['bound_ms']:.3f} ms ({prefill_mm['bound_by']}: "
           f"bf16 tensor-core peak), {prefill_mm['bound_ms'] / prefill_mm['ms']:.0%} "
           f"of bound")
+    # B1 at whisper-large-v3's prefill M (2 x 1500 frames), per prefill
+    whisper_m = WHISPER_B * get_config("whisper-large-v3").encoder_frames
+    t_wide = time.perf_counter()
+    whisper_rows = prefill_matmul_timing(torch, gen, dev, whisper_m,
+                                         list(WHISPER_PREFILL_SHAPES))
+    for r in whisper_rows:
+        print_timing_row(r)
+    wide_s["whisper_rows"] = time.perf_counter() - t_wide
+    whisper_shape = {(r["K"], r["N"]): r for r in whisper_rows}
+    whisper_mm = {key: sum(cnt * whisper_shape[kn][key] for kn, cnt in
+                           WHISPER_PREFILL_SHAPES.items())
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "t_mem_ms", "t_ops_ms")}
+    whisper_mm["bound_by"] = ("bytes" if whisper_mm["t_mem_ms"]
+                              >= whisper_mm["t_ops_ms"] else "operations")
+    report["prefill_matmul_whisper"] = dict(rows=whisper_rows,
+                                            per_prefill=whisper_mm)
+    print(f"    apr_matmul per whisper-large-v3 prefill at M={whisper_m} "
+          f"({sum(WHISPER_PREFILL_SHAPES.values())} projections over the "
+          f"frames): {whisper_mm['ms']:.3f} ms, torch.matmul "
+          f"{whisper_mm['library_ms']:.3f} ms "
+          f"({whisper_mm['ms'] / whisper_mm['library_ms']:.2f}x), bound "
+          f"{whisper_mm['bound_ms']:.3f} ms ({whisper_mm['bound_by']})")
+    # the wide tiles against the 16 x 64 x 64 one and torch.matmul across M
+    t_wide = time.perf_counter()
+    sweep_rows = wide_sweep(torch, gen, dev)
+    wide_s["wide_sweep"] = time.perf_counter() - t_wide
+    report["wide_sweep"] = sweep_rows
+    tiles = (apr_ops.DEFAULT_TILE,) + apr_ops.WIDE_TILES
+    print("    M sweep, ms a call (bf16 out, default split count; tiles "
+          + ", ".join("x".join(map(str, t)) for t in tiles)
+          + ", torch.matmul):")
+    for r in sweep_rows:
+        print(f"      K={r['K']:<5d} N={r['N']:<5d} M={r['M']:<4d} "
+              + " ".join(f"{r['x'.join(map(str, t))]:.4f}" for t in tiles)
+              + f" {r['library_ms']:.4f} (default {r['default']}) "
+              f"bound {r['bound_ms']:.4f}")
+    print("    the wide body's checks and timings took "
+          + ", ".join(f"{k_} {t:.1f} s" for k_, t in wide_s.items()))
 
     # every distinct conv of ResNet-20 and of MobileNet-V1 at CNN_BATCH
     conv_rows = cnn_conv_timing(torch, gen, dev, "resnet20")
@@ -6726,6 +7176,7 @@ def main() -> int:
         mamba2_ssd.launches = 0
         apr_matmul.hbm_launches = 0
         apr_matmul.hbm_f32_launches = 0
+        apr_matmul.wide_launches = 0
         apr_matmul.tile_launches.clear()
         apr_matmul.split_launches.clear()
         apr_matmul.int8_tile_launches.clear()
@@ -6911,6 +7362,12 @@ def main() -> int:
           f"weights, init {init_s:.2f} s) in {wall_s:.2f} s wall:")
     print_paged(serve, m)
     check_served("phase 4", reqs, 16, launches, expect)
+    serve["tile_launches"] = {str(t): n for t, n in
+                              apr_matmul.tile_launches.items()}
+    print(f"    B1 launches by tile: {serve['tile_launches']}")
+    if set(apr_matmul.tile_launches) & set(apr_ops.WIDE_TILES):
+        fail(f"phase 4: a wide tile served a tick or a chunk "
+             f"{serve['tile_launches']}")
     bf16_outputs = [r.output for r in reqs]
     serve["profiled_tick"] = profile_tick(params, engine)
     del engine, reqs
@@ -8261,17 +8718,23 @@ def main() -> int:
             **{key: n_layers * row[key] for key in (
                 "ms", "plain_ms", "bound_ms", "library_ms")},
             bound_by=row["bound_by"]))
-    # B1 at prefill M, per whole-sequence forward (phase 3's rows at M =
-    # B x T); launches are those of phase 4d's forward and prefill
-    kernels.append(dict(
-        name="apr_matmul_prefill", route="cuda", source=mm_src,
-        replaces="src/repro/kernels/apr_matmul/kernel.py:139",
-        **by_path(**{f"phase 4d {e}": dense[e]["launches"]["apr_matmul"]
-                     for e in ("forward", "prefill")}),
-        max_abs_err=errs["apr_matmul"], ms=prefill_mm["ms"],
-        plain_ms=prefill_mm["plain_ms"], bound_ms=prefill_mm["bound_ms"],
-        bound_by=prefill_mm["bound_by"],
-        library_ms=prefill_mm["library_ms"]))
+    # B1's wide body, per whole-sequence forward (phase 3's rows at M =
+    # B x T) and per whisper prefill (its rows at M = 2 x 1500); launches
+    # are the wide-tile ones of phase 4d's forward and prefill and of phase
+    # 7c's whisper prefill
+    whisper_wide = wide["whisper-large-v3"]["prefill"]["wide_launches"]
+    for name, t, paths in (
+            ("apr_matmul_wide", prefill_mm,
+             {f"phase 4d {e}": dense[e]["wide_launches"]
+              for e in ("forward", "prefill")}),
+            ("apr_matmul_wide_whisper", whisper_mm,
+             {"phase 7c whisper-large-v3 prefill": whisper_wide})):
+        kernels.append(dict(
+            name=name, route="cuda", source=mm_src,
+            replaces="src/repro/kernels/apr_matmul/kernel.py:139",
+            **by_path(**paths), max_abs_err=errs["apr_matmul_wide"],
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"]))
     # the conv kernels per ResNet-20 forward (LeNet-5's and ResNet-20's
     # launches) and per MobileNet-V1 forward (its launches), at CNN_BATCH
     for suffix, total, apr_paths, hbm_paths in (
@@ -8414,11 +8877,18 @@ def main() -> int:
         "28 launches at the phase-3 lengths, library gather + SDPA or "
         "masked SDPA); launches are those of phase 7c's runs of that "
         "arch. "
-        "apr_matmul_prefill: B1 per full-width llama3-8b whole-sequence "
-        f"forward at M = {PREFILL_M} (225 projections; phase 3's prefill "
-        "rows, library torch.matmul on the same bf16 operands, bound the "
-        "bf16 tensor-core peak); launches are those of phase 4d's forward "
-        "and prefill. "
+        "apr_matmul_wide: B1's wide body (TMA ring, wgmma) per full-width "
+        f"llama3-8b whole-sequence forward at M = {PREFILL_M} (225 "
+        "projections; phase 3's prefill rows, library torch.matmul on the "
+        "same bf16 operands, bound the bf16 tensor-core peak); launches are "
+        "the wide-tile ones of phase 4d's forward and prefill (the "
+        "prefill's last-row head runs the 16 x 64 x 64 tile). "
+        "apr_matmul_wide_whisper: the same per whisper-large-v3 prefill, "
+        "its 256 projections over 2 x 1500 frames (phase 3's whisper rows); "
+        "launches are the wide-tile ones of phase 7c's whisper prefill. "
+        "max_abs_err of both: against the split plain version in phase 2's "
+        "wide cases, where every wide tile is also bit-equal to the 16 x 64 "
+        "x 64 tile. "
         "rwkv6_wkv and mamba2_ssd: per full-width decode tick (4 slots, "
         "state in and out): 32 and 64 launches at the phase-3 decode shape; "
         "no PyTorch call computes either recurrence (library_ms null); "
@@ -8442,10 +8912,10 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     report["nvidia_smi"] = card
     report["total_s"] = time.perf_counter() - t_start
+    report["phase_s"] = phase_s
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
-    report["phase_s"] = phase_s
     print(f"[9] wrote {out}; total {report['total_s']:.1f} s (per phase "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} })")
     print(json.dumps({"kernels": kernels}))

@@ -136,6 +136,9 @@ def _matmul_vmem(shape, cfg, dtype="float32"):
         smem = matmul_ops.f32_smem_bytes
     elif shape.get("w_int8"):
         smem = matmul_ops.int8w_smem_bytes
+    elif (cfg["block_m"], cfg["block_n"], cfg["block_k"]) in \
+            matmul_ops.WIDE_TILES:
+        smem = matmul_ops.wide_smem_bytes
     else:
         smem = matmul_ops.smem_bytes
     return smem(cfg["block_m"], cfg["block_n"], cfg["block_k"])
@@ -180,17 +183,22 @@ def _apr_matmul_ref(args):
 def _apr_matmul_default(s):
     if s.get("w_int8"):
         return matmul_ops.int8w_default_config(s["m"], s["k"], s["n"])
-    if s.get("hbm"):
-        return matmul_ops.default_config(s["m"], s["k"], s["n"]).replace(
-            splits=1)
-    return matmul_ops.default_config(s["m"], s["k"], s["n"])
+    return matmul_ops.default_config(s["m"], s["k"], s["n"], _residency(s))
+
+
+def _bf16_tiles(shape) -> tuple:
+    """The bf16 body's tiles swept at ``shape``: the wide ones too at
+    ``m >= 128`` where TMA takes K and N (:func:`~matmul_ops.wide_takes`)."""
+    if matmul_ops.wide_takes(shape["m"], shape["k"], shape["n"]):
+        return matmul_ops.TILES + matmul_ops.WIDE_TILES
+    return matmul_ops.TILES
 
 
 def _apr_matmul_space(shape, dtype="bfloat16") -> TuneSpace:
-    """bf16 operands: the bf16 tiles at each split count (one for the
-    memory-resident baseline), or the int8-weight tiles; fp32 ``x``: the
-    fp32 body's tiles at each split count (one for the baseline), over
-    either weight."""
+    """bf16 operands: the bf16 tiles (wide ones at m >= 128) at each split
+    count (the 16-row tiles at one split for the memory-resident
+    baseline), or the int8-weight tiles; fp32 ``x``: the fp32 body's tiles
+    at each split count (one for the baseline), over either weight."""
     if shape.get("hbm"):
         return _tile_space(matmul_ops.F32_TILES if dtype == "float32"
                            else matmul_ops.TILES, (1,))
@@ -198,12 +206,12 @@ def _apr_matmul_space(shape, dtype="bfloat16") -> TuneSpace:
         return _tile_space(matmul_ops.F32_TILES, _split_counts(shape))
     if shape.get("w_int8"):
         return _tile_space(matmul_ops.INT8W_TILES)
-    return _tile_space(matmul_ops.TILES, _split_counts(shape))
+    return _tile_space(_bf16_tiles(shape), _split_counts(shape))
 
 
 def _fused_matmul_space(shape, dtype="bfloat16") -> TuneSpace:
     return _tile_space(matmul_ops.F32_TILES if dtype == "float32"
-                       else matmul_ops.TILES, _split_counts(shape))
+                       else _bf16_tiles(shape), _split_counts(shape))
 
 
 register(KernelSpec(

@@ -14,7 +14,14 @@
 // byte, far under the ~295 per byte at which the bf16 tensor cores become
 // the limit.  The time is the time to stream B from memory once, which
 // needs many blocks with many bytes in flight: at N = 1024 a 64-column tile
-// gives 16 blocks for 132 SMs.
+// gives 16 blocks for 132 SMs.  The whole-sequence paths (a forward or a
+// prefill over B·T rows, whisper's 2 x 1500 frames, a 1024-token prefill
+// around the scans) call it with M in the hundreds or thousands: about M
+// operations a byte again, now far above 295, so the tensor cores bound it.
+// There the 16-row tiles lose (each weight tile read M / 16 times, every
+// WMMA waiting on its fragment loads), and from 128 rows the wrapper takes
+// the wide body below: 128 x 128 or 128 x 256 tiles staged by TMA into
+// wgmma, each weight tile read M / 128 times.
 //
 // Split-K over a thread-block cluster (the bf16 and fp32 bodies): the K
 // range of each column tile is cut into `splits` (1, 2, 4 or 8) contiguous
@@ -53,6 +60,34 @@
 //    masked; it applies bias (fp32, may be null) and the activation of
 //    epilogue.cuh (B7m, apr_matmul_fused), each step rounded on its own as
 //    the plain version rounds it.
+//
+// Wide bf16 body (apr_matmul_bf16 at APR_MATMUL_WIDE_TILES, M >= 128; B1
+// and B7m): the same function and the same bits as the bf16 body at every
+// split count, on the card's large-M shape.
+//  * a block of 3 warpgroups per BM x BN tile (BM = 128): warpgroup 0's
+//    first thread keeps a 4-stage ring of shared memory full by TMA (2-D
+//    tensor maps built per call; the (BM x 64) K-major A box and BN / 64
+//    boxes of the (64 x BN) row-major weight as it lies in memory, all under
+//    the 128-byte swizzle; elements past M, N and K arrive as zeros), one
+//    full and one empty mbarrier a stage;
+//  * warpgroups 1 and 2 own 64 rows each and keep their fp32 accumulators
+//    in registers over the whole split range (the APR), one wgmma
+//    m64n128k16 a 128 columns and 16 K rows, B read N-major (transposed)
+//    straight from the ring; each output sums its range in 16-wide steps in
+//    ascending order, as above.  That wgmma's k16 step rounds as WMMA
+//    16x16x16's (HMMA.16816.F32.BF16 on sm_90a) is what the bits rest on:
+//    chip_smoke.py's phase 2 probes it on random and hard operands
+//    (cancelling sums, mixed exponents, subnormal products) and holds the
+//    two bodies equal bit for bit at every tile and split count;
+//  * the split-K combine is the bf16 body's, through distributed shared
+//    memory in split order; the flush pads the C tile's rows (no bank
+//    conflicts on the fragment stores), applies bias and activation as
+//    store_out and writes 4 outputs a thread (K and N multiples of 8, the
+//    bases 16-byte aligned: what TMA needs, so the wrapper sends only such
+//    operands here);
+//  * the grid runs row tiles fastest, so the blocks in flight share a
+//    weight column tile: the weight crosses device memory about once even
+//    where it is far larger than the L2 (the lm_head's 1 GB).
 //
 // Memory residency (apr_matmul(residency="hbm"), B4m, the paper's baseline,
 // the F-extension's fmac.s through memory of its Fig. 1(b)): one launch per
@@ -154,6 +189,7 @@
 //    QuantizedTensor.dequantize(float32); the products and sums are then
 //    exactly the fp32 body's, so the two give the same bits.
 #include <cooperative_groups.h>
+#include <cuda.h>                              // CUtensorMap (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -1019,6 +1055,472 @@ int launch_f32(const void* a, const void* b, const void* scale,
       s);
 }
 
+// ------------------------------------------------------ the wide bf16 body
+// Shared-memory layout of a BM x BN wide tile, from a 1024-byte aligned
+// base (the 128-byte swizzle's period): a ring of STAGES stages [A | B],
+// A the (BM x 64) K-major tile, 128 bytes a row, B the (64 x BN) N-major
+// slice as BN / 64 boxes of 64 rows x 128 bytes; then the full and empty
+// barriers of each stage.  The flush's fp32 C tile (rows padded by 8
+// floats, so a warp's fragment stores fall in distinct banks) reuses the
+// ring.
+constexpr int WIDE_BK = 64;                   // one 128-byte row of A
+constexpr int WG = 128;                       // threads of a warpgroup
+
+template <int BM, int BN>
+struct WideTile {
+  static constexpr int CONSUMERS = BM / 64;   // warpgroups, 64 rows each
+  static constexpr int THREADS = WG * (CONSUMERS + 1);  // + the producer
+  static constexpr int A_STAGE = BM * WIDE_BK * 2;      // bytes
+  static constexpr int B_BOX = WIDE_BK * 64 * 2;        // 64 columns
+  static constexpr int B_STAGE = BN / 64 * B_BOX;
+  static constexpr int STAGE = A_STAGE + B_STAGE;
+  static constexpr int STAGES = 4;
+  static constexpr int RING = STAGES * STAGE;
+  static constexpr int LDC = BN + 8;          // the C tile's row stride
+  static constexpr int FLUSH = BM * LDC * 4;
+  static constexpr int BODY = RING > FLUSH ? RING : FLUSH;
+  static constexpr int SMEM = 1024 + BODY + 2 * STAGES * 8;  // + alignment
+  static constexpr int ACC = BN / 2;          // accumulators a thread holds
+  static_assert(BM % 64 == 0 && BN % 128 == 0 && K_RANGE % WIDE_BK == 0,
+                "whole warpgroups, m64n128 products and stages in a range");
+  static_assert(SMEM <= 232448, "within 227 KB of shared memory");
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk `chunk` of 128-byte row `row` under the
+// 128-byte swizzle: the chunk index XOR the row index modulo 8.
+__device__ __forceinline__ int sw128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A wait on one ring stage that lasts this long is a deadlock: it traps, so
+// a fault ends the launch with an error instead of holding the card.  The
+// bound is 10 s of the card's global timer, not a count of tries, whose
+// time depends on how often the block is scheduled.
+constexpr uint64_t MBAR_DEADLOCK_NS = 10'000'000'000ull;
+
+// Wait for the phase of `parity` to complete; the clock is read once every
+// 1024 failed tries.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done, tries = 0;
+  uint64_t since = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (++tries % 1024 == 0) {
+      const uint64_t now = global_ns();
+      if (since == 0) since = now;
+      else if (now - since > MBAR_DEADLOCK_NS) __trap();
+    }
+  }
+}
+
+// The box of `map` at (c0 columns, c1 rows) into shared memory at dst,
+// its bytes reported to bar; elements past the tensor's edges arrive as 0.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor under the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, int lbo,
+                                              int sbo) {
+  return ((smem_addr(p) & 0x3FFFFu) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+template <int N>
+__device__ __forceinline__ void keep_in_registers(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 fp32, this warpgroup's fragment) += A (64 x 16, K-major) ·
+// B (16 x 128, N-major: imm-trans-b 1), both read from shared memory.
+// d[4j + e] is element (16·warp + lane / 4 + 8·(e / 2), 8j + 2·(lane % 4)
+// + e % 2) of the 64 x 128 tile, the layout of mma.sync.m16n8k16's
+// accumulators, which WMMA 16x16x16 lowers to on sm_90a.
+__device__ __forceinline__ void wgmma_m64n128k16(float* d, uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// act(v[i] + bias[gn + i]) rounded once, for 4 adjacent outputs of C at
+// o (o % 4 == 0): store_out's steps, written as one 16-byte (fp32) or
+// 8-byte (bf16) store
+__device__ __forceinline__ void store_out4(void* c, size_t o, float4 v,
+                                          const float* bias, int gn, int act,
+                                          int out_f32) {
+  float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (bias != nullptr) x[i] = __fadd_rn(x[i], bias[gn + i]);
+    x[i] = activate(x[i], act);
+  }
+  if (out_f32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(c) + o) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(c) + o) = u;
+  }
+}
+
+// The wide body's flush: the C tile `part` (BM x BN, row stride LDC) of
+// each block of the cluster, added in split order (combine_splits' sums,
+// 4 adjacent outputs a thread: N % 8 == 0 puts a group of 4 wholly inside
+// or outside C) and written once; one split writes its own tile.
+template <int BM, int BN, int LDC, int NT>
+__device__ __forceinline__ void wide_flush(float* part, int m0, int n0,
+                                           int M, int N, void* c,
+                                           const float* bias, int act,
+                                           int out_f32) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nsplit = (int)gridDim.x;
+  const int rank = nsplit > 1 ? (int)cluster.block_rank() : 0;
+  if (nsplit > 1)
+    cluster.sync();                           // every split's partial is in
+  else
+    __syncthreads();
+  constexpr int GROUPS = BM * BN / 4;
+  for (int g = rank * NT + (int)threadIdx.x; g < GROUPS; g += nsplit * NT) {
+    const int r = g / (BN / 4), col = 4 * (g % (BN / 4));
+    const int gm = m0 + r, gn = n0 + col;
+    if (gm < M && gn < N) {
+      float4 v = *reinterpret_cast<const float4*>(
+          (nsplit > 1 ? cluster.map_shared_rank(part, 0) : part) + r * LDC +
+          col);
+#pragma unroll
+      for (int s = 1; s < MAX_SPLITS; ++s)
+        if (s < nsplit) {
+          const float4 u = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(part, s) + r * LDC + col);
+          v = make_float4(__fadd_rn(v.x, u.x), __fadd_rn(v.y, u.y),
+                          __fadd_rn(v.z, u.z), __fadd_rn(v.w, u.w));
+        }
+      store_out4(c, (size_t)gm * N + gn, v, bias, gn, act, out_f32);
+    }
+  }
+  if (nsplit > 1) cluster.sync();             // keep the partials until read
+}
+
+// C = act(A·B + bias) over this block's split (as apr_matmul_kernel: all
+// of K at one split, else split blockIdx.x's krange rows), BM x BN a block:
+// row tile blockIdx.y, column tile blockIdx.z, so that the blocks that run
+// together share a column tile of the weight (read from device memory
+// about once, not once a row tile) and A, a few MB, stays in the L2.
+// Warpgroup 0 is the producer: one thread keeps the ring full by TMA (the
+// A box and BN / 64 B boxes a stage, each stage's bytes counted by its full
+// barrier).  Warpgroups 1.. each own 64 rows and every column: per stage
+// BN / 128 wgmma m64n128k16 products for each of its four 16-row K steps,
+// one commit group a stage, the previous stage released (one arrive a
+// warp on its empty barrier) once its group has completed.  The
+// accumulators stay in registers over the whole range and each output
+// sums its range in 16-wide steps in ascending order, so the bits are
+// apr_matmul_kernel's at every split count.
+template <int BM, int BN>
+__global__ void __launch_bounds__(WideTile<BM, BN>::THREADS, 1)
+    wide_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b,
+                const float* __restrict__ bias, void* c, int M, int N, int K,
+                int krange, int out_f32, int act) {
+  using T = WideTile<BM, BN>;
+  constexpr int STAGES = T::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_dynamic[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dynamic) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::BODY);
+  uint64_t* empty = full + STAGES;
+
+  const int wg = threadIdx.x / WG;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.z * BN;
+  int t_begin = 0, t_end = (K + WIDE_BK - 1) / WIDE_BK;
+  if (gridDim.x > 1) {                        // this split's K tiles
+    t_begin = blockIdx.x * (krange / WIDE_BK);
+    t_end = min(t_end, t_begin + krange / WIDE_BK);
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * T::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[T::ACC];                          // the APR (consumers)
+#pragma unroll
+  for (int i = 0; i < T::ACC; ++i) acc[i] = 0.0f;
+  if (wg == 0) {
+    if (threadIdx.x == 0) {
+      for (int t = t_begin; t < t_end; ++t) {
+        const int i = t - t_begin, s = i % STAGES;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        unsigned char* st = ring + s * T::STAGE;
+        mbar_expect_tx(&full[s], T::STAGE);
+        tma_load(st, &map_a, t * WIDE_BK, m0, &full[s]);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load(st + T::A_STAGE + j * T::B_BOX, &map_b, n0 + 64 * j,
+                   t * WIDE_BK, &full[s]);
+      }
+    }
+  } else {
+    const unsigned char* rows = ring + (wg - 1) * 64 * 128;
+    const bool arrives = threadIdx.x % 32 == 0;
+    for (int t = t_begin; t < t_end; ++t) {
+      const int i = t - t_begin, s = i % STAGES;
+      mbar_wait(&full[s], (i / STAGES) & 1);
+      const unsigned char* sa = rows + s * T::STAGE;
+      const unsigned char* sb = ring + s * T::STAGE + T::A_STAGE;
+      keep_in_registers<T::ACC>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WIDE_BK / 16; ++kk) {
+        const uint64_t da = gmma_desc(sa + 32 * kk, 16, 1024);
+#pragma unroll
+        for (int h = 0; h < BN / 128; ++h)
+          wgmma_m64n128k16(acc + 64 * h, da,
+                           gmma_desc(sb + 2 * h * T::B_BOX + 2048 * kk,
+                                     T::B_BOX, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();                        // stage i - 1's products done
+      keep_in_registers<T::ACC>(acc);
+      if (i > 0 && arrives) mbar_arrive(&empty[(i - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    keep_in_registers<T::ACC>(acc);
+  }
+  __syncthreads();                            // every stage consumed
+
+  // the C tile through shared memory, then one coalesced, masked write
+  float* sc = reinterpret_cast<float*>(ring);
+  if (wg > 0) {
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int r = (wg - 1) * 64 + 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<float2*>(sc + r * T::LDC + 8 * j + c0) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(sc + (r + 8) * T::LDC + 8 * j + c0) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  wide_flush<BM, BN, T::LDC, T::THREADS>(sc, m0, n0, M, N, c, bias, act,
+                                         out_f32);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, from the driver at run time (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major bf16 (rows x cols) matrix in boxes of
+// (box_rows x 64 columns) under the 128-byte swizzle, zeros past its edges
+int tensor_map(CUtensorMap* map, const void* base, int rows, int cols,
+               int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                      const_cast<void*>(base), dims, strides, box, step,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int BM, int BN>
+int launch_wide(const void* a, const void* b, const void* bias, void* c,
+                int m, int n, int k, int splits, int krange, int out_f32,
+                int act, cudaStream_t s) {
+  using T = WideTile<BM, BN>;
+  // TMA: 16-byte aligned bases and row strides
+  if ((m + BM - 1) / BM > 65535 || (n + BN - 1) / BN > 65535 || k % 8 ||
+      n % 8 || reinterpret_cast<uintptr_t>(a) % 16 ||
+      reinterpret_cast<uintptr_t>(b) % 16)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  const int kk = k > 0 ? k : 8;               // K = 0 loads nothing
+  int e = tensor_map(&map_a, a, m, kk, BM);
+  if (e == 0) e = tensor_map(&map_b, b, kk, n, WIDE_BK);
+  if (e != 0) return e;
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const float*, void*,
+                 int, int, int, int, int, int) = wide_kernel<BM, BN>;
+  // on every launch, as the attribute belongs to the current device
+  cudaError_t r = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (r != cudaSuccess) return (int)r;
+  return launch_split(kernel,
+                      dim3(splits, (m + BM - 1) / BM, (n + BN - 1) / BN),
+                      T::THREADS, T::SMEM, s, map_a, map_b,
+                      static_cast<const float*>(bias), c, m, n, k, krange,
+                      out_f32, act);
+}
+
+// The instruction probe: C (64 x 128, fp32) = A (64 x K) · B (K x 128),
+// bf16 row-major, K a multiple of 64, by one warpgroup as one chain of
+// wgmma m64n128k16 over the 16-row steps of K in ascending order, B read
+// N-major (transposed) from shared memory, as the wide body reads it; the
+// operands staged by plain loads under the 128-byte swizzle.
+__global__ void __launch_bounds__(WG)
+    wgmma_probe_kernel(const __nv_bfloat16* __restrict__ a,
+                       const __nv_bfloat16* __restrict__ b, float* c, int K) {
+  constexpr int B_BOX = WIDE_BK * 64 * 2;
+  __shared__ __align__(1024) unsigned char smem[64 * 128 + 2 * B_BOX];
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  for (int k0 = 0; k0 < K; k0 += WIDE_BK) {
+    __syncthreads();                          // the last step is read
+    for (int idx = threadIdx.x; idx < 64 * 8; idx += WG) {
+      const int row = idx / 8, ch = idx % 8;
+      *reinterpret_cast<uint4*>(smem + sw128(row, ch)) =
+          *reinterpret_cast<const uint4*>(a + (size_t)row * K + k0 + 8 * ch);
+    }
+    for (int idx = threadIdx.x; idx < 64 * 16; idx += WG) {
+      const int row = idx / 16, col8 = idx % 16;
+      *reinterpret_cast<uint4*>(smem + 64 * 128 + (col8 / 8) * B_BOX +
+                                sw128(row, col8 % 8)) =
+          *reinterpret_cast<const uint4*>(b + (size_t)(k0 + row) * 128 +
+                                          8 * col8);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    keep_in_registers<64>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < WIDE_BK / 16; ++kk)
+      wgmma_m64n128k16(acc, gmma_desc(smem + 32 * kk, 16, 1024),
+                       gmma_desc(smem + 64 * 128 + 2048 * kk, B_BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep_in_registers<64>(acc);
+  }
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r = 16 * warp + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    c[r * 128 + 8 * j + c0] = acc[4 * j];
+    c[r * 128 + 8 * j + c0 + 1] = acc[4 * j + 1];
+    c[(r + 8) * 128 + 8 * j + c0] = acc[4 * j + 2];
+    c[(r + 8) * 128 + 8 * j + c0 + 1] = acc[4 * j + 3];
+  }
+}
+
 // The bf16 tiles (BM, BN, BK) compiled; bench/specs.py's apr_matmul space
 // lists the same
 #define APR_MATMUL_TILES(X) \
@@ -1030,6 +1532,10 @@ int launch_f32(const void* a, const void* b, const void* scale,
 // The fp32-body tiles (16, BN, BK) compiled; kernels/apr_matmul/ops.py's
 // F32_TILES lists the same
 #define F32_TILES(X) X(64, 32) X(64, 64)
+
+// The wide bf16 tiles (BM, BN, 64) compiled, for M >= 128 (the wide body);
+// kernels/apr_matmul/ops.py's WIDE_TILES lists the same
+#define APR_MATMUL_WIDE_TILES(X) X(128, 128, 64) X(128, 256, 64)
 
 }  // namespace
 
@@ -1055,7 +1561,24 @@ extern "C" int apr_matmul_bf16(const void* a, const void* b, const void* bias,
                                         splits, krange, out_f32, act, s);
   APR_MATMUL_TILES(APR_MATMUL_DISPATCH)
 #undef APR_MATMUL_DISPATCH
+#define WIDE_DISPATCH(BM_, BN_, BK_)                                        \
+  if (bm == BM_ && bn == BN_ && bk == BK_)                                  \
+    return launch_wide<BM_, BN_>(a, b, bias, c, m, n, k, splits, krange,   \
+                                 out_f32, act, s);
+  APR_MATMUL_WIDE_TILES(WIDE_DISPATCH)
+#undef WIDE_DISPATCH
   return (int)cudaErrorInvalidValue;
+}
+
+// The wgmma-vs-WMMA probe: C (64 x 128, fp32) = A (64 x K) · B (K x 128),
+// bf16 row-major, K a multiple of 64 (wgmma_probe_kernel).
+extern "C" int apr_matmul_wgmma_probe(const void* a, const void* b, void* c,
+                                      int k, void* stream) {
+  if (k <= 0 || k % WIDE_BK) return (int)cudaErrorInvalidValue;
+  wgmma_probe_kernel<<<1, WG, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<float*>(c), k);
+  return (int)cudaGetLastError();
 }
 
 // The memory-resident baseline, C (M, N) = A (M, K) · B (K, N) in one

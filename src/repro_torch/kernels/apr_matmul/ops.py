@@ -67,11 +67,23 @@ KERNEL_DTYPES = {
                                   (torch.float32, torch.float32)}),
 }
 #: the (block_m, block_n, block_k) tiles ``apr_matmul.cu`` compiles
-#: (``APR_MATMUL_TILES``) for the bf16 APR, memory-resident and fused kernels
+#: (``APR_MATMUL_TILES``) for the bf16 APR, memory-resident and fused
+#: kernels: 4 warps of 16 x 16 WMMA fragments over a ``cp.async`` ring, the
+#: decode family (M = a tick's slots or a prefill chunk's 16 rows); the
+#: wide family (:data:`WIDE_TILES`) serves larger M
 TILES = ((16, 64, 32), (16, 64, 64), (16, 64, 128),
          (32, 64, 32), (32, 64, 64), (32, 64, 128))
-#: the untuned tile
+#: the untuned tile below :data:`WIDE_MIN_M` rows
 DEFAULT_TILE = (16, 64, 64)
+#: the wide tiles (``APR_MATMUL_WIDE_TILES``) of the bf16 APR and fused
+#: kernels for prefill M: a TMA ring of 128-byte-swizzled (BM x 64) A and
+#: (64 x BN) B tiles feeding tensor-core MMAs of 64 rows a warpgroup.  Every
+#: one gives the bits of :data:`TILES` at each split count.  TMA needs both
+#: operands 16-byte aligned and K and N multiples of 8; the
+#: memory-resident baseline and the int8-weight kernel have no wide tiles
+WIDE_TILES = ((128, 128, 64), (128, 256, 64))
+#: the fewest rows at which :func:`default_config` takes a wide tile
+WIDE_MIN_M = 128
 #: the (block_m, block_n, block_k) tiles of the int8-weight kernel
 #: (``INT8W_TILES`` in ``apr_matmul.cu``); every one gives the same bits
 INT8W_TILES = ((16, 16, 128), (16, 32, 64), (16, 64, 64), (16, 32, 128),
@@ -125,13 +137,36 @@ def default_splits(k: int, n: int, block_n: int, w_bytes: int = 2) -> int:
     return max(s for s in SPLITS if s <= cap)
 
 
-def default_config(m: int, k: int, n: int) -> BlockConfig:
-    """Untuned bf16 configuration: the 16 x 64 x 64 tile, one 16x16 WMMA
+def wide_takes(m: int, k: int, n: int) -> bool:
+    """Whether the untuned bf16 configuration at (M, K, N) is wide: at
+    least :data:`WIDE_MIN_M` rows, K and N multiples of 8 (TMA's 16-byte
+    row strides)."""
+    return m >= WIDE_MIN_M and k % 8 == 0 and n % 8 == 0
+
+
+def default_config(m: int, k: int, n: int,
+                   residency: str = "apr") -> BlockConfig:
+    """Untuned bf16 configuration: below :data:`WIDE_MIN_M` rows (or at K
+    or N not a multiple of 8) the 16 x 64 x 64 tile, one 16x16 WMMA
     fragment per warp (the tile the serving path has run since the port's
-    first slice), at :func:`default_splits` (M does not enter)."""
-    bm, bn, bk = DEFAULT_TILE
+    first slice); at prefill M (:func:`wide_takes`) a wide tile
+    (:data:`WIDE_TILES`): 128 x 256 x 64 from 256 rows where N is a
+    multiple of 256, else 128 x 128 x 64 (the M sweep of ``chip_smoke.py``
+    phase 3 on an H100).  All at :func:`default_splits` of the 64-column
+    tiles, so M does not enter the split count and a row gets the same
+    bits at every M.  The memory-resident baseline (``residency="hbm"``)
+    runs the 16 x 64 x 64 tile at one split."""
+    if residency == "hbm":
+        bm, bn, bk = DEFAULT_TILE
+        return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk, splits=1)
+    if not wide_takes(m, k, n):
+        bm, bn, bk = DEFAULT_TILE
+    elif m >= 2 * WIDE_MIN_M and n % 256 == 0:
+        bm, bn, bk = 128, 256, 64
+    else:
+        bm, bn, bk = 128, 128, 64
     return BlockConfig.make(block_m=bm, block_n=bn, block_k=bk,
-                            splits=default_splits(k, n, bn))
+                            splits=default_splits(k, n, DEFAULT_TILE[1]))
 
 
 def f32_default_config(m: int, k: int, n: int,
@@ -176,6 +211,17 @@ def smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
     return max(ring, block_m * block_n * 4)
 
 
+def wide_smem_bytes(block_m: int, block_n: int, block_k: int = 64) -> int:
+    """Shared memory a wide tile takes (``WideTile<...>::SMEM``): 1 KB of
+    alignment slack, the 4-stage ring of (block_m x 64) A and (64 x
+    block_n) B bf16 tiles, or the fp32 C tile of the flush and the split
+    partial (rows padded by 8 floats) if larger, and a full and an empty
+    barrier a stage."""
+    ring = _STAGES * (block_m + block_n) * block_k * 2
+    flush = block_m * (block_n + 8) * 4
+    return 1024 + max(ring, flush) + 2 * _STAGES * 8
+
+
 def f32_smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
     """Shared memory an fp32-body tile takes (``FTile::SMEM`` at 16 rows):
     a ring of [A (16 x block_k) | weight (block_k x block_n)] fp32 stages of
@@ -196,7 +242,7 @@ def accumulator_traffic_bytes(m: int, n: int, k: int, block_k: int,
 
 def _tile(cfg: BlockConfig, w_int8: bool = False) -> tuple:
     tile = (cfg["block_m"], cfg["block_n"], cfg["block_k"])
-    tiles = INT8W_TILES if w_int8 else TILES
+    tiles = INT8W_TILES if w_int8 else TILES + WIDE_TILES
     if tile not in tiles:
         raise TileError(f"apr_matmul: {'int8-weight ' if w_int8 else ''}"
                         f"tile {tile} is not compiled; compiled tiles "
@@ -224,21 +270,24 @@ def _default(m: int, k: int, n: int, residency: str,
              w_int8: bool = False) -> BlockConfig:
     if w_int8:
         return int8w_default_config(m, k, n)
-    if residency == "hbm":               # the paper's one-chain baseline
-        return default_config(m, k, n).replace(splits=1)
-    return default_config(m, k, n)
+    return default_config(m, k, n, residency)
 
 
 def resolve_launch(kernel: str, m: int, k: int, n: int, dtype: str,
                    backend: str, residency: str = "apr",
                    config: Optional[BlockConfig] = None,
-                   w_int8: bool = False) -> tuple:
+                   w_int8: bool = False, aligned: bool = True) -> tuple:
     """``((block_m, block_n, block_k), splits)`` of a launch of ``kernel``
     (``apr_matmul`` or ``apr_matmul_fused``) on bf16 ``x``: the tile
-    checked against :data:`TILES` (:data:`INT8W_TILES` for the int8-weight
-    kernel, ``w_int8``, which runs one split), the split count against
-    :data:`SPLITS`.  Without a caller's ``config`` the resolution is
-    memoized in the active cache."""
+    checked against :data:`TILES` and :data:`WIDE_TILES`
+    (:data:`INT8W_TILES` for the int8-weight kernel, ``w_int8``, which
+    runs one split), the split count against :data:`SPLITS`.  Without a
+    caller's ``config`` the resolution is memoized in the active cache.
+    A wide tile on operands TMA cannot take (``aligned`` False: a base not
+    16-byte aligned; or K or N not a multiple of 8) gives way to the 16 x
+    64 x 64 tile, the same bits, where it came from the default or the
+    cache, and raises :class:`~repro_torch.bench.TileError` where the
+    caller pinned it; under ``residency="hbm"`` it raises."""
     shape_key_of = _SHAPE_KEYS[kernel]
     dims = (m, k, n, residency, w_int8)
     if config is None:
@@ -248,7 +297,20 @@ def resolve_launch(kernel: str, m: int, k: int, n: int, dtype: str,
         cfg = resolve_config(kernel, shape_key_of(*dims), dtype, backend,
                              default=_default(*dims), override=config)
     tile = _tile(cfg, w_int8)
-    return tile, _splits(cfg, (1,) if w_int8 else SPLITS)
+    splits = _splits(cfg, (1,) if w_int8 else SPLITS)
+    if tile in WIDE_TILES:
+        if residency == "hbm":
+            raise TileError(f"{kernel}: the memory-resident baseline runs "
+                            f"the tiles {TILES}, not the wide {tile}")
+        if not (aligned and k % 8 == 0 and n % 8 == 0):
+            if config is not None:
+                raise TileError(
+                    f"{kernel}: wide tile {tile} pinned on operands TMA "
+                    f"cannot take (K={k}, N={n}, 16-byte aligned: "
+                    f"{aligned}); it needs K and N multiples of 8 and "
+                    f"aligned bases")
+            tile = DEFAULT_TILE
+    return tile, splits
 
 
 def resolve_tile(kernel: str, m: int, k: int, n: int, dtype: str,
@@ -362,6 +424,11 @@ def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
         raise ValueError(f"{what} kernel takes contiguous row-major operands")
 
 
+def _aligned(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Both bases 16-byte aligned, as TMA needs them (a wide tile)."""
+    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+
+
 def _count(counts: dict, key) -> None:
     counts[key] = counts.get(key, 0) + 1
 
@@ -402,8 +469,9 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
     split count above one with ``residency="hbm"`` raises.  CUDA tensors
     launch the kernel (``out_dtype`` bf16 or fp32) or raise; CPU tensors
     take :func:`matmul_ref`.  Each launch adds one to
-    ``apr_matmul.launches`` (and to ``apr_matmul.tile_launches[tile]`` and
-    ``apr_matmul.split_launches[splits]``), ``apr_matmul.hbm_launches``
+    ``apr_matmul.launches`` (and to ``apr_matmul.tile_launches[tile]``,
+    ``apr_matmul.split_launches[splits]`` and, on a wide tile,
+    ``apr_matmul.wide_launches``), ``apr_matmul.hbm_launches``
     (the baseline on bf16 operands; ``apr_matmul.hbm_f32_launches`` on
     fp32 ones), ``apr_matmul.int8_launches`` (int8 weight, bf16 ``x``; and
     ``apr_matmul.int8_tile_launches[tile]``), ``apr_matmul.f32_launches``
@@ -447,7 +515,7 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
         return out
     tile, n_splits = resolve_launch(KERNEL_NAME, m, k, n,
                                     dtype_name(x.dtype), "cuda", residency,
-                                    config, quantized)
+                                    config, quantized, _aligned(x, w))
     if residency == "hbm" and n_splits != 1:
         raise ValueError(f"apr_matmul: the memory-resident baseline runs one "
                          f"split, not {n_splits}")
@@ -480,12 +548,14 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                               ACTIVATIONS["none"], stream)
     _build.check(lib, err, "apr_matmul")
     apr_matmul.launches += 1
+    apr_matmul.wide_launches += tile in WIDE_TILES
     _count(apr_matmul.tile_launches, tile)
     _count(apr_matmul.split_launches, n_splits)
     return out
 
 
 apr_matmul.launches = 0
+apr_matmul.wide_launches = 0
 apr_matmul.hbm_launches = 0
 apr_matmul.hbm_f32_launches = 0
 apr_matmul.int8_launches = 0
@@ -539,7 +609,7 @@ def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
     m, k = x.shape
     (bm, bn, bk), n_splits = resolve_launch(
         FUSED_KERNEL_NAME, m, k, n, dtype_name(x.dtype), "cuda", "apr",
-        config)
+        config, aligned=_aligned(x, y))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out

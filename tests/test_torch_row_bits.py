@@ -20,8 +20,9 @@ from repro_torch.quant import quantize_channelwise
 
 #: the M a served row meets: a lone paged prefill row or B = 1 tick, the
 #: 4-slot decode tick, a 16-token prefill chunk, a 4-slot verify step at
-#: spec_k = 4, the tick at 64 slots, and the whole-sequence forward
-MS = (1, 4, 16, 20, 64, 1024)
+#: spec_k = 4, the tick at 64 slots, the first M of the wide tiles, the
+#: whole-sequence forward, and whisper's prefill over 2 x 1500 frames
+MS = (1, 4, 16, 20, 64, 128, 1024, 3000)
 #: the batches of the decode attention: B = 1 (a paged prefill chunk's
 #: token on the hybrid), 4 slots, a 4-slot verify step at spec_k = 4, 64
 BS = (1, 4, 16, 20, 64)
