@@ -255,7 +255,22 @@ Phases (any failure exits non-zero before the final line):
      candidate may be rejected, the pruned winner must be the exhaustive
      one (or a predicted tie, or within the timer spreads), and the engine
      must launch the tuned tiles;
-  9. print the kernels' line, the card's name and power limit, and as the
+  9. training (:func:`train_matmul_checks`, :func:`train_smoke_parity`,
+     :func:`train_launcher_resume`, :func:`train_full`): 9a B1 under
+     autograd (``AprMatmulFunction``) at llama3-8b's projections and head
+     at M = 1024 (bf16; fp32 at two), dX and dW within phase 2's bound of
+     autograd through ``matmul_ref``, each product, the transposes and
+     ``torch.matmul`` timed; 9b the smoke llama3-8b (AdamW, Adafactor) and
+     internvl2-1b (the vlm mask) train 3 steps on the card and on the CPU
+     from the same params and batches, losses and grad norms within the
+     stated bounds, and an fp32-params step 0 within 1e-3; 9c
+     ``repro_torch.launch.train`` 20 steps, then ``--resume`` for 10,
+     against 30 in one run, losses equal bit for bit; 9d llama3-8b at full
+     width cut to 4 layers, AdamW, B = 2, T = 512, 5 steps: finite losses,
+     115 B1 launches a step (29 forward, 28 recompute, 58 backward), ms a
+     step, tokens/s, peak memory, a profiled step and the optimizer's
+     share;
+  10. print the kernels' line, the card's name and power limit, and as the
      last line ``{"ok": true, "device": {...}}``.
 
 Phases 1-7 resolve every kernel's configuration from an empty cache (the
@@ -6403,6 +6418,421 @@ def graph_head_tick(torch, engine, dec, forward, qparams, tick_args) -> dict:
     return out
 
 
+# ------------------------------------------------ the training path (B1)
+#: llama3-8b's projections (K, N) by name, each once a layer, and its head
+#: once a step: phase 9a's shapes and phase 9d's model
+TRAIN_PROJ = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024),
+              "o": (4096, 4096), "gate": (4096, 14336),
+              "up": (4096, 14336), "down": (14336, 4096)}
+TRAIN_HEAD = (4096, 128256)
+#: phase 9a's shapes also checked on the fp32 body
+TRAIN_F32 = ("k", "down")
+#: phase 9d's batch (B rows of T tokens: M = 1024 rows a projection) and
+#: depth (llama3-8b at full width, its 32 layers cut to 4: 1.923 B
+#: parameters, 30.8 GB of bf16 params, bf16 grads and fp32 AdamW state)
+TRAIN_B, TRAIN_T = 2, 512
+TRAIN_LAYERS = 4
+TRAIN_STEPS = 5
+#: B1 launches a full-width step: the forward's 7 projections a layer and
+#: the head, the remat recompute's 7 a layer, dX and dW of each
+TRAIN_FWD_LAUNCHES = 7 * TRAIN_LAYERS + 1
+TRAIN_RECOMPUTE_LAUNCHES = 7 * TRAIN_LAYERS
+TRAIN_BWD_LAUNCHES = 2 * TRAIN_FWD_LAUNCHES
+#: phase 9b: bounds on |card - CPU| / |CPU| of each step's loss and grad
+#: norm.  bf16: the card's B1 (and its backward) sums in another order
+#: than the CPU's plain products and lands one bf16 ulp apart now and
+#: then, which the steps compound; fp32 params at step 0: sums in another
+#: order only (the loss, the grad norm, each grad leaf against its max)
+TRAIN_BF16_LOSS_RTOL = 1e-2
+TRAIN_BF16_GNORM_RTOL = 2e-2
+TRAIN_F32_RTOL = 1e-3
+#: phase 9b's smoke batch (B rows of T tokens) and hyperparameters
+TRAIN_SMOKE_SHAPE = (64, 4)
+TRAIN_SMOKE_HYPER = dict(peak_lr=1e-2, warmup=2, total_steps=10)
+#: phase 9c: the launcher, first run, resumed run, checkpoint period
+TRAIN_CLI_STEPS = (20, 10, 10)
+
+
+def train_matmul_checks(torch, gen, dev, m: int = TRAIN_B * TRAIN_T,
+                        shapes=None) -> list:
+    """Phase 9a: B1 under autograd (``AprMatmulFunction``) at llama3-8b's
+    projections and head at M = ``m`` rows, bf16 (and fp32 at
+    :data:`TRAIN_F32`): dX and dW of the Function against torch autograd
+    through ``matmul_ref`` on the card, each within phase 2's B1 bound
+    (:func:`max_err`).  Operands at the training path's scales: x of unit
+    variance (a normed activation), w at its init scale (K^-0.5), dY of
+    unit variance.  Then each product alone by CUDA events: the forward
+    ``apr_matmul(x, w)``, dX ``apr_matmul(dY, Wᵀ)`` and dW
+    ``apr_matmul(Xᵀ, dY)`` on their contiguous transposes, the two
+    transposes' copies apart, the plain products (``matmul_ref`` on the
+    transposed views) and ``torch.matmul`` on the same operands (the
+    library, which takes the transposes as views); one bound for each
+    product (the same bytes and operations)."""
+    from repro_torch.kernels.apr_matmul import (AprMatmulFunction,
+                                                apr_matmul, matmul_ref)
+    if shapes is None:
+        shapes = [(name, k, n, torch.bfloat16)
+                  for name, (k, n) in TRAIN_PROJ.items()]
+        shapes.append(("head", *TRAIN_HEAD, torch.bfloat16))
+        shapes += [(name, *TRAIN_PROJ[name], torch.float32)
+                   for name in TRAIN_F32]
+    rows = []
+    for name, k, n, dtype in shapes:
+        x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((k, n), generator=gen, device=dev)
+             * k ** -0.5).to(dtype)
+        dy = torch.randn((m, n), generator=gen, device=dev).to(dtype)
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        AprMatmulFunction.apply(xa, wa, dtype).backward(dy)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        matmul_ref(xr, wr, dtype).backward(dy)
+        dx_err, dx_ok = max_err(xa.grad, xr.grad)
+        dw_err, dw_ok = max_err(wa.grad, wr.grad)
+        del xa, wa, xr, wr
+        wt, xt = w.t().contiguous(), x.t().contiguous()
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOPS_PER_S
+        row = dict(name=name, M=m, K=k, N=n, dtype=str(dtype)[6:],
+                   dx_err=dx_err, dw_err=dw_err, ok=dx_ok and dw_ok,
+                   **bound_ms((m * k + k * n + m * n) * x.element_size(),
+                              2.0 * m * k * n, peak))
+        products = {
+            "fwd": (lambda i: apr_matmul(x, w, out_dtype=dtype),
+                    lambda i: matmul_ref(x, w, dtype),
+                    lambda i: torch.matmul(x, w)),
+            "dx": (lambda i: apr_matmul(dy, wt, out_dtype=dtype),
+                   lambda i: matmul_ref(dy, w.t(), dtype),
+                   lambda i: torch.matmul(dy, w.t())),
+            "dw": (lambda i: apr_matmul(xt, dy, out_dtype=dtype),
+                   lambda i: matmul_ref(x.t(), dy, dtype),
+                   lambda i: torch.matmul(x.t(), dy))}
+        for p, (kernel, plain, lib) in products.items():
+            row[f"{p}_ms"] = cuda_ms(torch, kernel, 5)
+            row[f"plain_{p}_ms"] = cuda_ms(torch, plain, 3, warmup=1)
+            row[f"library_{p}_ms"] = cuda_ms(torch, lib, 5)
+        row["wt_ms"] = cuda_ms(torch, lambda i: w.t().contiguous(), 5)
+        row["xt_ms"] = cuda_ms(torch, lambda i: x.t().contiguous(), 5)
+        rows.append(row)
+        print(f"    9a {name:>4} {row['dtype']:>8} M={m} K={k} N={n}: "
+              f"|dX - plain| {dx_err:.3g}, |dW - plain| {dw_err:.3g} "
+              f"({'ok' if row['ok'] else 'FAILED'}); ms fwd "
+              f"{row['fwd_ms']:.3f} dX {row['dx_ms']:.3f} dW "
+              f"{row['dw_ms']:.3f} (torch.matmul {row['library_fwd_ms']:.3f}"
+              f" / {row['library_dx_ms']:.3f} / {row['library_dw_ms']:.3f}; "
+              f"plain {row['plain_dx_ms']:.3f} / {row['plain_dw_ms']:.3f}), "
+              f"transposes Wt {row['wt_ms']:.3f} Xt {row['xt_ms']:.3f}, "
+              f"bound {row['bound_ms']:.3f} a product", flush=True)
+        del x, w, dy, wt, xt
+    return rows
+
+
+def train_step_totals(rows) -> dict:
+    """Phase 9a's bf16 rows summed over one full-width phase-9d step
+    (:data:`TRAIN_LAYERS` layers' projections and the head): the forward
+    and its remat recompute (``fwd``: each projection twice, the head
+    once), the backward (``bwd``: dX + dW of each) and its parts, the
+    transposes, the plain versions, ``torch.matmul`` and the bounds."""
+    counts = {r["name"]: (TRAIN_LAYERS if r["name"] in TRAIN_PROJ else 1)
+              for r in rows if r["dtype"] == "bfloat16"}
+    bf = [r for r in rows if r["dtype"] == "bfloat16"]
+
+    def total(key, fwd_twice=False):
+        return sum(counts[r["name"]] * r[key]
+                   * (2 if fwd_twice and r["name"] in TRAIN_PROJ else 1)
+                   for r in bf)
+    out = {}
+    for part in ("fwd", "dx", "dw"):
+        twice = part == "fwd"
+        out[part] = dict(ms=total(f"{part}_ms", twice),
+                         plain_ms=total(f"plain_{part}_ms", twice),
+                         library_ms=total(f"library_{part}_ms", twice),
+                         bound_ms=total("bound_ms", twice),
+                         t_mem_ms=total("t_mem_ms", twice),
+                         t_ops_ms=total("t_ops_ms", twice))
+    out["bwd"] = {key: out["dx"][key] + out["dw"][key] for key in out["dx"]}
+    out["transpose_ms"] = total("wt_ms") + total("xt_ms")
+    for part in ("fwd", "bwd"):
+        t = out[part]
+        t["bound_by"] = "bytes" if t["t_mem_ms"] >= t["t_ops_ms"] \
+            else "operations"
+    out["max_abs_err"] = max(max(r["dx_err"], r["dw_err"]) for r in bf)
+    return out
+
+
+def _train_pair(torch, cfg, dev, params_cpu, hyper, batches):
+    """The same steps on the CPU (plain versions) and on ``dev`` (the
+    kernels) from the same params: per step (card, CPU) loss and grad
+    norm."""
+    from repro_torch.models import build_model
+    from repro_torch.train import init_optimizer, make_train_step
+    out = []
+    runs = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        bundle = build_model(cfg, device=device)
+        params = {k: v.to(device) for k, v in params_cpu.items()}
+        opt = init_optimizer(cfg, params)
+        step_fn = make_train_step(bundle, hyper)
+        runs[where] = []
+        for s, batch in enumerate(batches):
+            params, opt, m = step_fn(params, opt, batch, s)
+            runs[where].append({k: float(v) for k, v in m.items()})
+    for card, cpu in zip(runs["card"], runs["cpu"]):
+        out.append({k: (card[k], cpu[k]) for k in card})
+    return out
+
+
+def train_smoke_parity(torch, dev, reset_counts, llm_counts) -> dict:
+    """Phase 9b: the smoke configs train on the card and on the CPU from
+    the same params (seed 0) and batches (``SyntheticLMSource``): llama3-8b
+    with AdamW, with Adafactor, and internvl2-1b (the vlm mask), 3 steps
+    each, every step's loss and grad norm within
+    :data:`TRAIN_BF16_LOSS_RTOL` / :data:`TRAIN_BF16_GNORM_RTOL`; then
+    llama3-8b with fp32 params at step 0 (the fp32 body under autograd):
+    the loss, the grad norm and every grad leaf (against its max) within
+    :data:`TRAIN_F32_RTOL`.  The card's launches are counted."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm_sq
+    from repro_torch.train import TrainHyper, loss_and_grads
+    t, b = TRAIN_SMOKE_SHAPE
+    hyper = TrainHyper(**TRAIN_SMOKE_HYPER)
+    out = {}
+    reset_counts()
+    for label, arch, optimizer in (("adamw", "llama3-8b", "adamw"),
+                                   ("adafactor", "llama3-8b", "adafactor"),
+                                   ("vlm", "internvl2-1b", "adamw")):
+        cfg = dataclasses.replace(get_config(arch, smoke=True),
+                                  optimizer=optimizer)
+        params = build_model(cfg, device="cpu").init_params()
+        src = SyntheticLMSource(cfg, ShapeSpec("9b", t, b, "train"))
+        steps = _train_pair(torch, cfg, dev, params, hyper,
+                            [src.batch_at(s) for s in range(3)])
+        errs = {k: max(abs(st[k][0] - st[k][1]) / abs(st[k][1])
+                       for st in steps) for k in ("loss", "grad_norm")}
+        ok = (errs["loss"] <= TRAIN_BF16_LOSS_RTOL
+              and errs["grad_norm"] <= TRAIN_BF16_GNORM_RTOL
+              and all(math.isfinite(c) for s in steps for c, _ in
+                      s.values()))
+        out[label] = dict(arch=arch, optimizer=optimizer, steps=steps,
+                          rel_err=errs, ok=ok)
+        print(f"    9b {label:>9} ({arch} smoke, {optimizer}): losses card "
+              f"{[round(s['loss'][0], 5) for s in steps]} CPU "
+              f"{[round(s['loss'][1], 5) for s in steps]}; max rel err loss "
+              f"{errs['loss']:.2e}, grad norm {errs['grad_norm']:.2e} "
+              f"({'ok' if ok else 'FAILED'})", flush=True)
+    # fp32 params, step 0: loss and every gradient
+    cfg = get_config("llama3-8b", smoke=True)
+    p32 = {k: v.float() for k, v in
+           build_model(cfg, device="cpu").init_params().items()}
+    batch = SyntheticLMSource(cfg, ShapeSpec("9b", t, b, "train")).batch_at(0)
+    res = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        loss, grads = loss_and_grads(build_model(cfg, device=device),
+                                     {k: v.to(device) for k, v in p32.items()},
+                                     batch)
+        res[where] = (float(loss), float(torch.sqrt(global_norm_sq(
+            [grads[k] for k in sorted(grads)]))),
+                      {k: g.cpu() for k, g in grads.items()})
+    (lc, gc, gr_c), (lp, gp, gr_p) = res["card"], res["cpu"]
+    grad_err = max(float((gr_c[k] - gr_p[k]).abs().max()
+                         / gr_p[k].abs().max().clamp_min(1e-30))
+                   for k in gr_p)
+    f32 = dict(loss=(lc, lp), grad_norm=(gc, gp),
+               rel_err=dict(loss=abs(lc - lp) / abs(lp),
+                            grad_norm=abs(gc - gp) / gp, grads=grad_err))
+    f32["ok"] = max(f32["rel_err"].values()) <= TRAIN_F32_RTOL
+    out["fp32_step0"] = f32
+    out["launches"] = llm_counts()
+    print(f"    9b fp32 params, step 0: loss card {lc:.6f} CPU {lp:.6f}; rel "
+          f"err loss {f32['rel_err']['loss']:.2e}, grad norm "
+          f"{f32['rel_err']['grad_norm']:.2e}, grads (of each leaf's max) "
+          f"{grad_err:.2e} ({'ok' if f32['ok'] else 'FAILED'}); card "
+          f"launches: apr_matmul {out['launches']['apr_matmul']}, "
+          f"apr_matmul_f32 {out['launches']['apr_matmul_f32']}", flush=True)
+    return out
+
+
+def train_launcher_resume(torch, tmpdir) -> dict:
+    """Phase 9c: ``repro_torch.launch.train`` on the card (llama3-8b smoke,
+    its default batch 4 x 64, AdamW): :data:`TRAIN_CLI_STEPS` -- a first run
+    checkpointing every 10 steps, then ``--resume`` for the rest -- against
+    the same steps in one uninterrupted run (every part given the whole
+    run's ``--total-steps``): the losses equal bit for bit."""
+    from repro_torch.launch import train as launch_train
+    first, resumed, every = TRAIN_CLI_STEPS
+    total = first + resumed
+    base = ["--arch", "llama3-8b", "--smoke", "--device", "cuda",
+            "--total-steps", str(total), "--ckpt-every", str(every)]
+    t0 = time.perf_counter()
+    whole = launch_train.main(base + ["--steps", str(total), "--ckpt-dir",
+                                      str(Path(tmpdir) / "whole")])
+    part1 = launch_train.main(base + ["--steps", str(first), "--ckpt-dir",
+                                      str(Path(tmpdir) / "split")])
+    part2 = launch_train.main(base + ["--steps", str(resumed), "--resume",
+                                      "--ckpt-dir",
+                                      str(Path(tmpdir) / "split")])
+    seconds = time.perf_counter() - t0
+    split = part1.losses + part2.losses
+    differ = [i for i, (a, b) in enumerate(zip(split, whole.losses))
+              if a != b]
+    out = dict(losses=whole.losses, resumed_losses=part2.losses,
+               steps_differ=differ, equal=not differ
+               and len(split) == len(whole.losses) == total,
+               finite=all(math.isfinite(v) for v in split),
+               max_abs_diff=max(abs(a - b) for a, b in
+                                zip(split, whole.losses)), seconds=seconds)
+    verdict = ("equal bit for bit" if out["equal"]
+               else f"differ at steps {differ}")
+    print(f"    9c launcher: {first} steps + --resume {resumed} against "
+          f"{total} in one run: losses {verdict}"
+          f" (loss {whole.losses[0]:.4f} -> {whole.losses[-1]:.4f}; "
+          f"{seconds:.1f} s for the three runs)", flush=True)
+    return out
+
+
+def train_full(torch, seed: int, dev, reset_counts) -> dict:
+    """Phase 9d: llama3-8b at full width, :data:`TRAIN_LAYERS` layers,
+    random bf16 params from ``seed``, AdamW (``donate=True``: one copy of
+    the state), B x T = :data:`TRAIN_B` x :data:`TRAIN_T` tokens from
+    ``SyntheticLMSource``: :data:`TRAIN_STEPS` steps through
+    ``make_train_step``, each timed by CUDA events and on the host clock,
+    B1's launches counted (the Function's forward wrapped to count its
+    own and the recompute's, the rest being the backward's; for the caller
+    to gate); then one step profiled (device busy
+    time against the steady step's, B1's share, top device ops) and one
+    split by CUDA events into forward + backward and the optimizer
+    update."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.kernels.apr_matmul import AprMatmulFunction, apr_matmul
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_update, warmup_cosine
+    from repro_torch.train import (TrainHyper, init_optimizer,
+                                   loss_and_grads, make_train_step)
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    bundle = build_model(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = bundle.init_params(torch.Generator(device=dev).manual_seed(seed))
+    opt = init_optimizer(cfg, params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    state_gb = sum(t.numel() * t.element_size() for t in (
+        *params.values(), *opt.m.values(), *opt.v.values(),
+        *opt.master.values())) / 1e9
+    src = SyntheticLMSource(cfg, ShapeSpec("9d", TRAIN_T, TRAIN_B, "train"),
+                            seed=seed)
+    hyper = TrainHyper(peak_lr=3e-4, warmup=2, total_steps=100)
+    step_fn = make_train_step(bundle, hyper, donate=True)
+    # the Function's forward counted apart: the forward's and the remat
+    # recompute's (which runs inside the backward) launches; the rest of
+    # B1's launches are the backward's products
+    inner = AprMatmulFunction.forward
+    fwd = {"launches": 0}
+
+    def counted(ctx, x, w, out_dtype):
+        before = apr_matmul.launches
+        y = inner(ctx, x, w, out_dtype)
+        fwd["launches"] += apr_matmul.launches - before
+        return y
+    AprMatmulFunction.forward = staticmethod(counted)
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        steps = []
+        for s in range(TRAIN_STEPS):
+            batch = src.batch_at(s)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            h0 = time.perf_counter()
+            e0.record()
+            params, opt, m = step_fn(params, opt, batch, s)
+            e1.record()
+            torch.cuda.synchronize()
+            steps.append(dict(event_ms=e0.elapsed_time(e1),
+                              host_ms=(time.perf_counter() - h0) * 1e3,
+                              **{k: float(v) for k, v in m.items()}))
+        launches = dict(apr_matmul=apr_matmul.launches,
+                        forward=fwd["launches"],
+                        backward=apr_matmul.launches - fwd["launches"],
+                        wide=apr_matmul.wide_launches,
+                        tiles={str(k): v for k, v in
+                               apr_matmul.tile_launches.items()},
+                        other=apr_matmul.int8_launches
+                        + apr_matmul.f32_launches + apr_matmul.hbm_launches)
+    finally:
+        AprMatmulFunction.forward = staticmethod(inner)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady = sorted(s["event_ms"] for s in steps[1:])
+    step_ms = steady[len(steady) // 2]
+    out = dict(layers=TRAIN_LAYERS, batch=TRAIN_B, seq=TRAIN_T,
+               params=n_params, state_gb=state_gb, init_s=init_s,
+               steps=steps, step_ms=step_ms,
+               tokens_per_s=TRAIN_B * TRAIN_T / (step_ms / 1e3),
+               peak_gb=peak_gb, launches=launches,
+               expected=dict(forward=TRAIN_FWD_LAUNCHES,
+                             recompute=TRAIN_RECOMPUTE_LAUNCHES,
+                             backward=TRAIN_BWD_LAUNCHES))
+
+    # one profiled step, and one split into forward + backward | update
+    def one_step(s):
+        nonlocal params, opt
+        params, opt, _ = step_fn(params, opt, src.batch_at(s), s)
+    s = TRAIN_STEPS
+    by_kernel = profile_device(torch, lambda: one_step(s), 1)
+    if by_kernel:
+        busy = sum(by_kernel.values())
+        out["profile"] = dict(
+            device_busy_ms=busy, idle_share=max(0.0, 1 - busy / step_ms),
+            b1_ms=sum(t for k, t in by_kernel.items()
+                      if "apr_matmul_kernel" in k or "wide_kernel" in k),
+            top_kernels_ms=dict(sorted(by_kernel.items(),
+                                       key=lambda kv: -kv[1])[:8]))
+    s += 1
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    step_t = torch.as_tensor(s, dtype=torch.int32).to(dev)
+    ev[0].record()
+    loss, grads = loss_and_grads(bundle, params, src.batch_at(s))
+    ev[1].record()
+    lr = warmup_cosine(step_t, peak_lr=hyper.peak_lr, warmup=hyper.warmup,
+                       total=hyper.total_steps)
+    params, opt = adamw_update(grads, opt, lr, donate=True)
+    ev[2].record()
+    torch.cuda.synchronize()
+    out["split"] = dict(forward_backward_ms=ev[0].elapsed_time(ev[1]),
+                        optimizer_ms=ev[1].elapsed_time(ev[2]),
+                        loss=float(loss))
+    out["split"]["optimizer_share"] = out["split"]["optimizer_ms"] / (
+        out["split"]["forward_backward_ms"] + out["split"]["optimizer_ms"])
+    del params, opt, grads, loss
+    torch.cuda.empty_cache()
+    prof = out.get("profile")
+    print(f"    9d llama3-8b full width, {TRAIN_LAYERS} layers "
+          f"({n_params / 1e9:.3f} B params, {state_gb:.1f} GB params + "
+          f"AdamW state), B x T = {TRAIN_B} x {TRAIN_T}: losses "
+          f"{[round(x['loss'], 4) for x in steps]}, grad norms "
+          f"{[round(x['grad_norm'], 3) for x in steps]}; "
+          f"{step_ms:.2f} ms a step (CUDA events, median of steps 2-"
+          f"{TRAIN_STEPS}; host {[round(x['host_ms'], 1) for x in steps]}), "
+          f"{out['tokens_per_s']:.0f} tokens/s, peak {peak_gb:.2f} GB; B1 "
+          f"{launches['apr_matmul']} launches ({launches['backward']} in the "
+          f"backward, {launches['wide']} on wide tiles); split: forward + "
+          f"backward {out['split']['forward_backward_ms']:.2f} ms, AdamW "
+          f"{out['split']['optimizer_ms']:.2f} ms "
+          f"({out['split']['optimizer_share']:.1%})"
+          + (f"; a profiled step: device busy {prof['device_busy_ms']:.2f} "
+             f"ms (B1 {prof['b1_ms']:.2f}), idle {prof['idle_share']:.1%} of "
+             f"the step" if prof else ""), flush=True)
+    if prof:
+        for k, t in prof["top_kernels_ms"].items():
+            print(f"       {t:9.3f} ms  {k[:110]}")
+    return out
+
+
 def identity_ablation(torch, seed: int,
                       archs=RECURRENT_ARCHS) -> dict:
     """``--ablate``: phase 7's paged-vs-slot greedy-token comparison at full
@@ -8546,7 +8976,60 @@ def main() -> int:
     report["tuning"] = tuning
     phase_done("phase 8")
 
-    # ------------------------------------------------------------- 9 report
+    # ----------------------------------------------- 9 the training path
+    print("[9] training: B1 under autograd, the smoke configs card against "
+          "CPU, the launcher resumed, llama3-8b at full width", flush=True)
+    train_rows = train_matmul_checks(torch, gen, dev)
+    bad = [f"{r['name']} {r['dtype']}" for r in train_rows if not r["ok"]]
+    if bad:
+        fail(f"phase 9a: B1's dX / dW outside phase 2's bound at {bad}")
+    totals = train_step_totals(train_rows)
+    print(f"    9a per full-width step ({TRAIN_LAYERS} layers + head, M = "
+          f"{TRAIN_B * TRAIN_T}): B1 forward + recompute "
+          f"{totals['fwd']['ms']:.3f} ms (torch.matmul "
+          f"{totals['fwd']['library_ms']:.3f}, bound "
+          f"{totals['fwd']['bound_ms']:.3f}), backward dX "
+          f"{totals['dx']['ms']:.3f} + dW {totals['dw']['ms']:.3f} ms "
+          f"(torch.matmul {totals['dx']['library_ms']:.3f} + "
+          f"{totals['dw']['library_ms']:.3f}, bound "
+          f"{totals['bwd']['bound_ms']:.3f}; plain "
+          f"{totals['bwd']['plain_ms']:.3f}), transposes "
+          f"{totals['transpose_ms']:.3f} ms", flush=True)
+    train_smoke = train_smoke_parity(torch, dev, reset_counts, llm_counts)
+    bad = [k for k, v in train_smoke.items()
+           if isinstance(v, dict) and not v.get("ok", True)]
+    if bad:
+        fail(f"phase 9b: card and CPU training part beyond the bounds in "
+             f"{bad}")
+    train_cli = train_launcher_resume(torch, tmp.name)
+    if not (train_cli["equal"] and train_cli["finite"]):
+        fail(f"phase 9c: the resumed launcher run's losses differ from the "
+             f"uninterrupted run's at steps {train_cli['steps_differ']}")
+    torch.cuda.empty_cache()
+    train = train_full(torch, args.seed, dev, reset_counts)
+    want = TRAIN_STEPS * (TRAIN_FWD_LAUNCHES + TRAIN_RECOMPUTE_LAUNCHES
+                          + TRAIN_BWD_LAUNCHES)
+    train_launches = train["launches"]
+    if not all(math.isfinite(st[k]) for st in train["steps"]
+               for k in ("loss", "grad_norm")):
+        fail(f"phase 9d: a loss or grad norm is not finite: "
+             f"{train['steps']}")
+    if (train_launches["apr_matmul"] != want
+            or train_launches["backward"]
+            != TRAIN_STEPS * TRAIN_BWD_LAUNCHES
+            or train_launches["forward"] != TRAIN_STEPS * (
+                TRAIN_FWD_LAUNCHES + TRAIN_RECOMPUTE_LAUNCHES)
+            or train_launches["other"]):
+        fail(f"phase 9d: B1 launches {train_launches} over {TRAIN_STEPS} "
+             f"steps; "
+             f"expected {want} ({TRAIN_FWD_LAUNCHES} forward + "
+             f"{TRAIN_RECOMPUTE_LAUNCHES} recompute + {TRAIN_BWD_LAUNCHES} "
+             f"backward a step), no other matmul kernel")
+    report["train"] = dict(matmul=train_rows, totals=totals,
+                           smoke=train_smoke, launcher=train_cli, full=train)
+    phase_done("phase 9")
+
+    # ------------------------------------------------------------ 10 report
     def by_path(**paths) -> dict:
         """``launches`` (their sum) and ``launches_by_path``: each path's
         count, read just after the run that zeroed it."""
@@ -8619,7 +9102,8 @@ def main() -> int:
                     "phase 4e oracle": spec_runs["oracle"][
                         "launches"]["apr_matmul"],
                     **family_paths("apr_matmul"),
-                    **wide_paths("apr_matmul")},
+                    **wide_paths("apr_matmul"),
+                    "phase 9b": train_smoke["launches"]["apr_matmul"]},
                    kernel="apr_matmul"),
         tick_entry("apr_matmul_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
@@ -8635,7 +9119,9 @@ def main() -> int:
                    "src/repro/kernels/apr_matmul/kernel.py:139",
                    {"phase 5 fp32 pools": f32_runs["fp32 pools"][
                        "launches"]["apr_matmul_f32"],
-                    **graph_cnn_paths("apr_matmul_f32")},
+                    **graph_cnn_paths("apr_matmul_f32"),
+                    "phase 9b fp32": train_smoke["launches"][
+                        "apr_matmul_f32"]},
                    kernel="apr_matmul_f32"),
         tick_entry("apr_matmul_f32_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
@@ -8735,6 +9221,27 @@ def main() -> int:
             **by_path(**paths), max_abs_err=errs["apr_matmul_wide"],
             ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=t["library_ms"]))
+    # B1 on the training path, per full-width phase-9d step (phase 9a's
+    # rows): the forward and its remat recompute, and the backward (dX +
+    # dW; the transposes' copies apart); launches are phase 9d's
+    for name, part, launches in (
+            ("apr_matmul_train", "fwd",
+             train_launches["apr_matmul"] - train_launches["backward"]),
+            ("apr_matmul_train_backward", "bwd",
+             train_launches["backward"])):
+        t = totals[part]
+        entry = dict(
+            name=name, route="cuda", source=mm_src,
+            replaces="src/repro/kernels/apr_matmul/kernel.py:139",
+            **by_path(**{"phase 9d": launches}),
+            max_abs_err=(errs["apr_matmul_wide"] if part == "fwd"
+                         else totals["max_abs_err"]), ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=t["library_ms"])
+        if part == "bwd":
+            entry.update(dx_ms=totals["dx"]["ms"], dw_ms=totals["dw"]["ms"],
+                         transpose_ms=totals["transpose_ms"])
+        kernels.append(entry)
     # the conv kernels per ResNet-20 forward (LeNet-5's and ResNet-20's
     # launches) and per MobileNet-V1 forward (its launches), at CNN_BATCH
     for suffix, total, apr_paths, hbm_paths in (
@@ -8903,7 +9410,22 @@ def main() -> int:
         "launch, their library (quantization, torch._int_mm, the two "
         "scale multiplies, + bias and silu) is timed at M = 32 where "
         "_int_mm refuses M <= 16; launches are those of phase 8's counted "
-        "window (warm_cache sweep and the tuned engine's serving)")
+        "window (warm_cache sweep and the tuned engine's serving). "
+        "apr_matmul_train and apr_matmul_train_backward: B1 on the training "
+        f"path, per full-width llama3-8b step ({TRAIN_LAYERS} layers, M = "
+        f"{TRAIN_B * TRAIN_T} rows; phase 9a's rows): the forward and its "
+        "remat recompute (each projection twice, the head once), and the "
+        "backward's dX = dY Wt and dW = Xt dY of every projection "
+        "(dx_ms, dw_ms apart; transpose_ms the copies of Wt and Xt, not in "
+        "ms); max_abs_err: phase 2's wide cases for the forward, phase "
+        "9a's dX and dW against autograd through matmul_ref (values up to "
+        "~200) for the backward; plain: autograd's products through matmul_ref, library: "
+        "torch.matmul on the same operands (transposes as views), bound: "
+        "the products' bytes or bf16 operations; launches are phase 9d's "
+        f"{TRAIN_STEPS} steps (split by a wrapper of "
+        "AprMatmulFunction.forward that counts the forward's and the "
+        "recompute's launches); apr_matmul and apr_matmul_f32 also count "
+        "phase 9b's smoke training on the card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -8916,7 +9438,7 @@ def main() -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(report, indent=1))
-    print(f"[9] wrote {out}; total {report['total_s']:.1f} s (per phase "
+    print(f"[10] wrote {out}; total {report['total_s']:.1f} s (per phase "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} })")
     print(json.dumps({"kernels": kernels}))
     print(card)

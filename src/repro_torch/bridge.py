@@ -1,5 +1,6 @@
 """Weight bridge: numpy arrays (e.g. ``np.asarray`` of the JAX package's
-params) to torch tensors, name for name.
+params) to torch tensors, name for name, and optimizer states between the
+packages (:func:`opt_state_from_numpy`, :func:`opt_state_to_numpy`).
 
 numpy has no bfloat16 of its own; JAX hands its bf16 arrays over as the
 ``ml_dtypes`` ``bfloat16`` dtype.  Those bytes are reinterpreted through a
@@ -9,11 +10,12 @@ arrays ``(q, scale)`` and becomes the port's :class:`QuantizedTensor`.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from .optim import AdafactorState, AdamWState
 from .quant import QuantizedTensor
 
 
@@ -51,3 +53,37 @@ def params_from_numpy(
         else:
             out[name] = tensor_from_numpy(a, device, dtype)
     return out
+
+
+#: the port's optimizer states by their fields (the JAX package's
+#: ``AdamWState`` and ``AdafactorState`` have the same fields in order)
+_OPT_STATES = {AdamWState._fields: AdamWState,
+               AdafactorState._fields: AdafactorState}
+
+
+def opt_state_from_numpy(state, device="cpu"):
+    """An optimizer state whose leaves are numpy arrays (e.g.
+    ``jax.tree.map(np.asarray, ...)`` of the JAX package's ``AdamWState``
+    or ``AdafactorState``, or a dict of its fields) as the port's state of
+    the same fields, on ``device``: ``step`` a 0-d int32 tensor, every
+    other field a dict of named fp32 tensors, bit for bit."""
+    fields = state._asdict() if hasattr(state, "_asdict") else dict(state)
+    cls = _OPT_STATES.get(tuple(fields))
+    if cls is None:
+        raise ValueError(f"no optimizer state has the fields {tuple(fields)}")
+    return cls(**{name: tensor_from_numpy(value, device) if name == "step"
+                  else params_from_numpy(value, device)
+                  for name, value in fields.items()})
+
+
+def opt_state_to_numpy(state) -> Dict[str, Any]:
+    """The inverse of :func:`opt_state_from_numpy`: the state's fields, in
+    order, as numpy arrays (``step``) and dicts of named arrays, ready for
+    the JAX package's state of the same name (``AdamWState(**fields)``
+    after ``jnp.asarray`` of each leaf).  Optimizer states hold fp32 and
+    int32 only."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().numpy().copy()
+    return {name: host(value) if name == "step"
+            else {k: host(v) for k, v in value.items()}
+            for name, value in state._asdict().items()}

@@ -1,9 +1,11 @@
-"""Model configs: copies of the JAX package's ``repro.configs.base`` and
-``repro.configs.registry`` (its ``__init__`` pulls in ``shapes.py``, which
-imports jax, so the port keeps its own)."""
+"""Model configs: copies of the JAX package's ``repro.configs.base``,
+``repro.configs.registry`` and ``repro.configs.shapes`` (the shape set
+without the dry-run's ``input_specs``)."""
 from .base import ModelConfig, scale_down
 from .registry import (ARCHS, DRAFT_FOR, DRAFTS, EXTRAS, SMOKE, get_config,
                        get_draft_config)
+from .shapes import SHAPES, ShapeSpec, applicable, skip_reason
 
 __all__ = ["ModelConfig", "scale_down", "ARCHS", "DRAFT_FOR", "DRAFTS",
-           "EXTRAS", "SMOKE", "get_config", "get_draft_config"]
+           "EXTRAS", "SMOKE", "get_config", "get_draft_config", "SHAPES",
+           "ShapeSpec", "applicable", "skip_reason"]

@@ -566,6 +566,60 @@ apr_matmul.split_launches = {}
 apr_matmul.int8_tile_launches = {}
 
 
+class AprMatmulFunction(torch.autograd.Function):
+    """:func:`apr_matmul` under autograd, for training: the forward is
+    ``apr_matmul(x, w, out_dtype=out_dtype)``, and both products of the
+    backward go through :func:`apr_matmul` too, each only when
+    ``needs_input_grad`` asks for it::
+
+        dX = apr_matmul(dY, Wᵀ, out_dtype=x.dtype)
+        dW = apr_matmul(Xᵀ, dY, out_dtype=w.dtype)
+
+    The kernels take contiguous row-major operands, so ``Wᵀ`` and ``Xᵀ``
+    are explicit copies.  CUDA tensors launch the kernels (bf16 or fp32
+    bodies, as the forward's dtypes pick them) or raise; CPU tensors run
+    the same three products through :func:`matmul_ref`.  Only plain
+    tensors: an int8 weight has no gradient (:func:`apr_matmul_grad`
+    refuses one)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return apr_matmul(x, w, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = apr_matmul(dy, w.t().contiguous(), out_dtype=x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = apr_matmul(x.t().contiguous(), dy, out_dtype=w.dtype)
+        return dx, dw, None
+
+
+def needs_grad(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor]
+               ) -> bool:
+    """Whether ``x @ y`` must be differentiable: grad mode on and an
+    operand that requires grad (an int8 weight's scales count)."""
+    w = y.scale if isinstance(y, QuantizedTensor) else y
+    return torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+
+
+def apr_matmul_grad(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor],
+                    out_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ y`` rounded to ``out_dtype`` through
+    :class:`AprMatmulFunction`, for a product :func:`needs_grad` marks.
+    Raises ``TypeError`` for an int8 :class:`QuantizedTensor` weight: the
+    port trains bf16 and fp32 parameters only, as the JAX package does."""
+    if isinstance(y, QuantizedTensor):
+        raise TypeError("apr_matmul: an int8 QuantizedTensor weight has no "
+                        "gradient; train bf16 or fp32 parameters")
+    return AprMatmulFunction.apply(x, y, out_dtype)
+
+
 def apr_matmul_fused(x: torch.Tensor, y: torch.Tensor,
                      bias: Optional[torch.Tensor] = None, *,
                      block_m: Optional[int] = None,

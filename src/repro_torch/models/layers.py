@@ -22,7 +22,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.apr_matmul import apr_matmul, matmul_ref
+from ..kernels.apr_matmul import apr_matmul, apr_matmul_grad, matmul_ref, \
+    needs_grad
 from ..kernels.flash_decode import flash_decode, flash_decode_paged
 from ..quant import QuantizedTensor, quantize_channelwise
 
@@ -144,8 +145,16 @@ def materialize_weight(w: Weight, dtype: torch.dtype) -> torch.Tensor:
 def linear(x: torch.Tensor, w: Weight) -> torch.Tensor:
     """``x (..., K) @ w (K, N)`` in ``x.dtype`` with an fp32 accumulator
     (the JAX layers' ``einsum("btd,dk->btk", x, materialize_weight(w))``),
-    through ``apr_matmul``, which takes bf16 and int8 weights alike."""
-    y = apr_matmul(x.reshape(-1, x.shape[-1]), w, out_dtype=x.dtype)
+    through ``apr_matmul``, which takes bf16 and int8 weights alike.  Under
+    a gradient (``needs_grad``: grad mode on, an operand that requires
+    grad) the product goes through ``AprMatmulFunction``, whose backward
+    runs both products on ``apr_matmul`` too; serving, where no operand
+    requires grad, makes the plain call."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if needs_grad(x2, w):
+        y = apr_matmul_grad(x2, w, x.dtype)
+    else:
+        y = apr_matmul(x2, w, out_dtype=x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
@@ -177,14 +186,20 @@ def tp_einsum(x: torch.Tensor, w: Weight) -> torch.Tensor:
     it even on one device -- K cut into :data:`TP_CHUNKS` slices, one fp32
     partial per slice, a balanced tree sum, one rounding to ``x.dtype``.
     CUDA tensors: one ``apr_matmul`` launch whose fp32 accumulator spans
-    the whole K (the same sum in another fp32 order)."""
+    the whole K (the same sum in another fp32 order).  Under a gradient
+    the plain path's slices go through ``AprMatmulFunction`` (on the CPU
+    its products are ``matmul_ref``'s), so the backward is the card's."""
     if x.is_cuda:
         return linear(x, w)
-    w = materialize_weight(w, x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
+    if needs_grad(x2, w):   # each slice's product differentiable
+        mm = apr_matmul_grad
+    else:
+        w = materialize_weight(w, x.dtype)
+        mm = matmul_ref
     k = x2.shape[1]
     step = k // _tp_chunks(k)
-    parts = [matmul_ref(x2[:, i:i + step], w[i:i + step], torch.float32)
+    parts = [mm(x2[:, i:i + step], w[i:i + step], torch.float32)
              for i in range(0, k, step)]
     y = _tree_sum(parts).to(x.dtype)
     return y.reshape(*x.shape[:-1], w.shape[1])

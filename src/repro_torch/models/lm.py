@@ -11,13 +11,15 @@ cache).  Parameters keep the JAX names and the stacked layout --
 and super-block ``sb`` uses the (K, N) slice ``[sb]`` as it lies in memory;
 any matmul weight may be an int8 ``QuantizedTensor`` (the MoE router stays
 full precision).  The layers run unrolled, super-block by super-block, in
-the JAX ``_super_block``'s order.
+the JAX ``_super_block``'s order; ``lm_forward`` is differentiable (the
+training path), with each super-block rematerialised under ``cfg.remat``.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import ParamSpecs, Params, attention, attention_decode, \
@@ -125,34 +127,30 @@ def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return mask_vocab_logits(linear(x, head), cfg.vocab_size)
 
 
-def _layers(params: Params, cfg: ModelConfig
-            ) -> Iterator[Tuple[Tuple[int, int], Params]]:
-    """``((sb, j), layer params)`` for every layer in order: super-block
-    ``sb``'s slice of ``blk.{j}.*``, named as the JAX ``_super_block``
-    names them (``attn.wq``, ``ln1``, ``mlp.w_gate`` / ``moe.router``)."""
+def _super_blocks(params: Params, cfg: ModelConfig
+                  ) -> Iterator[Tuple[int, Tuple[Params, ...]]]:
+    """``(sb, layer params)`` for every super-block in order: for each
+    layer ``j``, super-block ``sb``'s slice of ``blk.{j}.*``, named as the
+    JAX ``_super_block`` names them (``attn.wq``, ``ln1``, ``mlp.w_gate``
+    / ``moe.router``)."""
     n_sb, me = super_block(cfg)
     for sb in range(n_sb):
+        layers = []
         for j in range(me):
             pre = f"blk.{j}."
-            yield (sb, j), {name[len(pre):]: w[sb]
-                            for name, w in params.items()
-                            if name.startswith(pre)}
+            layers.append({name[len(pre):]: w[sb]
+                           for name, w in params.items()
+                           if name.startswith(pre)})
+        yield sb, tuple(layers)
 
 
-def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-             attend: Callable[[Tuple[int, int], Params, torch.Tensor],
-                              torch.Tensor],
-             last_only: bool = False,
-             prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Embed (after ``prefix_embeds``, when given), run every layer
-    (``attend((sb, j), layer_params, h)`` is layer ``(sb, j)``'s attention
-    on the normed input; the MoE layer's FFN is ``moe_block``), final norm
-    and head (on the last position alone with ``last_only``)."""
-    _check_family(cfg)
-    x = params["embed"][tokens.long()]
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
-    for (sb, j), lp in _layers(params, cfg):
+def _super_block(cfg: ModelConfig, attend, sb: int,
+                 layers: Tuple[Params, ...], x: torch.Tensor) -> torch.Tensor:
+    """Super-block ``sb``'s ``moe_every`` layers on ``x``, the JAX
+    ``_super_block``: ``attend((sb, j), layer_params, h)`` is layer ``(sb,
+    j)``'s attention on the normed input; the MoE layer's FFN is
+    ``moe_block``."""
+    for j, lp in enumerate(layers):
         h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
         x = x + attend((sb, j), lp, h)
         h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
@@ -161,6 +159,47 @@ def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             x = x + swiglu(h, lp["mlp.w_gate"], lp["mlp.w_up"],
                            lp["mlp.w_down"])
+    return x
+
+
+def requires_grad(params: Params) -> bool:
+    """Whether a gradient flows to ``params``: grad mode on and some
+    parameter tensor that requires grad (serving holds none)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(w, torch.Tensor) and w.requires_grad
+        for w in params.values())
+
+
+def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+             attend: Callable[[Tuple[int, int], Params, torch.Tensor],
+                              torch.Tensor],
+             last_only: bool = False,
+             prefix_embeds: Optional[torch.Tensor] = None,
+             remat: bool = False) -> torch.Tensor:
+    """Embed (after ``prefix_embeds``, when given), run every super-block
+    (:func:`_super_block`), final norm and head (on the last position
+    alone with ``last_only``).  With ``remat`` and a gradient to compute
+    (:func:`requires_grad`) each super-block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward, the port of ``jax.checkpoint`` with the
+    ``nothing_saveable`` policy (``cfg.remat_policy == "nothing"``; the
+    others are refused by name)."""
+    _check_family(cfg)
+    remat = remat and requires_grad(params)
+    if remat and cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; the port "
+            "recomputes with the 'nothing' policy (jax.checkpoint's "
+            "nothing_saveable)")
+    x = params["embed"][tokens.long()]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    for sb, layers in _super_blocks(params, cfg):
+        if remat:
+            x = checkpoint(_super_block, cfg, attend, sb, layers, x,
+                           use_reentrant=False)
+        else:
+            x = _super_block(cfg, attend, sb, layers, x)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
@@ -182,11 +221,14 @@ def lm_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     (the vlm's vision embeddings, any LM family's stub prefix) then the
     embedded ``tokens`` (B, T), S = Nv + T, positions over the whole
     sequence, every layer's attention causal over it (the JAX
-    ``lm_forward`` with its layers unrolled)."""
+    ``lm_forward`` with its layers unrolled; under a gradient, each
+    super-block recomputed in the backward when ``cfg.remat``, as the JAX
+    forward wraps it in ``jax.checkpoint``)."""
     positions = _positions(tokens.shape[0], _length(tokens, prefix_embeds),
                            tokens.device)
     return _decoder(params, cfg, tokens, lambda sj, lp, h: attention(
-        lp, "attn", cfg, h, positions), prefix_embeds=prefix_embeds)
+        lp, "attn", cfg, h, positions), prefix_embeds=prefix_embeds,
+        remat=cfg.remat)
 
 
 def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -96,6 +96,16 @@ def test_package_imports_without_jax():
             "repro_torch.graph.compiler", "repro_torch.cost.graph",
             "repro_torch.cost.schedule",
             "repro_torch.kernels._leaf"} <= set(lines)
+    # the training path: shapes, optimizers, train step, data, checkpoints,
+    # the runtime and the launcher
+    assert {"repro_torch.configs.shapes", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.adafactor",
+            "repro_torch.optim.schedule", "repro_torch.optim.tree",
+            "repro_torch.train", "repro_torch.train.step",
+            "repro_torch.data", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
+            "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
+            "repro_torch.launch.train"} <= set(lines)
 
 
 def test_graph_compiler_works_without_jax():
@@ -205,6 +215,34 @@ def test_launcher_defaults_to_cuda_and_raises_without_it(no_cuda):
 def test_launcher_new_paths_default_to_cuda(no_cuda, args):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         launch_serve.main(["--requests", "1"] + args)
+
+
+def test_train_launcher_defaults_to_cuda_and_raises_without_it(no_cuda,
+                                                               tmp_path):
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--steps", "1", "--ckpt-dir", str(tmp_path)])
+
+
+def test_training_works_without_jax(tmp_path):
+    """Two train steps of the smoke model, a checkpoint and its restore in
+    a process where jax and the JAX package cannot be imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.launch import train\n"
+        f"r = train.main(['--device', 'cpu', '--steps', '2', '--batch', '2', "
+        f"'--seq', '8', '--ckpt-every', '2', '--ckpt-dir', {str(tmp_path)!r}])\n"
+        "r = train.main(['--device', 'cpu', '--steps', '1', '--batch', '2', "
+        f"'--seq', '8', '--resume', '--ckpt-dir', {str(tmp_path)!r}])\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "resumed from step 2" in res.stdout
+    assert res.stdout.split()[-1] == "ok"
 
 
 def test_autotune_defaults_to_cuda_and_raises_without_it(no_cuda):
