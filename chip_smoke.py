@@ -208,7 +208,7 @@ Phases (any failure exits non-zero before the final line):
      and eager (CUDA events), and B7m / B7 per forward against their plain
      versions and bounds;
   7. serve rwkv6-3b, mamba2-2.7b and the zamba2-1.2b hybrid at published
-     widths, depth cut to about half (:data:`RECURRENT_LAYERS`; random
+     widths, depth cut to about a quarter (:data:`RECURRENT_LAYERS`; random
      bf16 weights from a seed, one model at a time) on the
      PagedServeEngine with its StateCache (the hybrid's shared attention on
      KV pages behind the same table, B2) and on the slot ServeEngine (B3),
@@ -269,7 +269,21 @@ Phases (any failure exits non-zero before the final line):
      width cut to 4 layers, AdamW, B = 2, T = 512, 5 steps: finite losses,
      115 B1 launches a step (29 forward, 28 recompute, 58 backward), ms a
      step, tokens/s, peak memory, a profiled step and the optimizer's
-     share;
+     share; 9e the recurrent and audio families' training
+     (:func:`scan_grad_checks`, :func:`train_recurrent_smoke_parity`,
+     :func:`train_recurrent_full`): 9e-a B9's and B10's backward kernels
+     (``csrc/rwkv6_bwd.cu``, ``csrc/mamba2_bwd.cu``) against their plain
+     versions at rwkv6-3b's, mamba2-2.7b's and zamba2-1.2b's training
+     shapes (bf16, fp32), at T = 1, 37 and 1024, B = 1 and decays near
+     1e-24 and near 1, twice bit-equal, timed against their bounds; 9e-b
+     the rwkv6-3b, mamba2-2.7b, zamba2-1.2b and whisper-large-v3 smoke
+     configs train 3 steps on the card and on the CPU, losses and grad
+     norms within the stated bounds; 9e-c the same archs at full width with
+     their depth cut (4 layers; zamba2 one super-block; whisper 4 + 4 over
+     1500 frames), AdamW, B = 2, T = 512, 3 steps: finite losses, B1's and
+     B9/B10's forward, recompute and backward launches a step gated, no
+     plain backward on the card, ms a step, tokens/s, peak memory and the
+     optimizer's share;
   10. print the kernels' line, the card's name and power limit, and as the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -510,11 +524,13 @@ RECURRENT_NEW = 16
 #: tokens each; a request's tokens do not depend on the batch it rides in,
 #: so they are held to the first tokens of the paged run's
 SPEC_STATE_ARCHS = {"rwkv6-3b": (4, 16), "zamba2-1.2b": (6, 16)}
-#: phase 7's depth: each arch at its published widths, cut to about half
-#: its layers (the hybrid to 3 of its 6 super-blocks and its 2-layer tail)
-#: so that the whole run, phase 7c included, stays well inside its time
-#: limit (rwkv6-3b has 32 layers, mamba2-2.7b 64, zamba2-1.2b 38)
-RECURRENT_LAYERS = {"rwkv6-3b": 16, "mamba2-2.7b": 32, "zamba2-1.2b": 20}
+#: phase 7's depth: each arch at its published widths, cut to about a
+#: quarter of its layers (the hybrid to 1 of its 6 super-blocks and a
+#: 4-layer tail) so that the whole run, phases 7c and 9e included, stays
+#: well inside its time limit on a slow host (rwkv6-3b has 32 layers,
+#: mamba2-2.7b 64, zamba2-1.2b 38; at about half depth the run took 1001
+#: to 1109 s on one)
+RECURRENT_LAYERS = {"rwkv6-3b": 8, "mamba2-2.7b": 16, "zamba2-1.2b": 10}
 #: phase 4g's int8 run: the first requests of phase 4's and their new
 #: tokens (the bf16 run serves all 6 with 16 each, gated 96/96)
 GRAPH_INT8_REQUESTS, GRAPH_INT8_NEW = 3, 8
@@ -6691,6 +6707,53 @@ def train_launcher_resume(torch, tmpdir) -> dict:
     return out
 
 
+class ForwardLaunchCounter:
+    """Counts B1's launches made inside ``AprMatmulFunction.forward`` (the
+    forward's and the remat recompute's, which runs inside the backward)
+    while the ``with`` block runs; B1's other launches on a training step
+    are the backward's products."""
+
+    def __enter__(self):
+        from repro_torch.kernels.apr_matmul import (AprMatmulFunction,
+                                                    apr_matmul)
+        self.launches = 0
+        self._fn = AprMatmulFunction
+        self._inner = inner = AprMatmulFunction.forward
+
+        def counted(ctx, x, w, out_dtype):
+            before = apr_matmul.launches
+            y = inner(ctx, x, w, out_dtype)
+            self.launches += apr_matmul.launches - before
+            return y
+        AprMatmulFunction.forward = staticmethod(counted)
+        return self
+
+    def __exit__(self, *exc):
+        self._fn.forward = staticmethod(self._inner)
+
+
+def split_step(torch, bundle, params, opt, batch, step: int, hyper, dev):
+    """One AdamW step (``donate=True``) split by CUDA events into forward +
+    backward (``loss_and_grads``) and the update: (params, opt, split)."""
+    from repro_torch.optim import adamw_update, warmup_cosine
+    from repro_torch.train import loss_and_grads
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    step_t = torch.as_tensor(step, dtype=torch.int32).to(dev)
+    ev[0].record()
+    loss, grads = loss_and_grads(bundle, params, batch)
+    ev[1].record()
+    lr = warmup_cosine(step_t, peak_lr=hyper.peak_lr, warmup=hyper.warmup,
+                       total=hyper.total_steps)
+    params, opt = adamw_update(grads, opt, lr, donate=True)
+    ev[2].record()
+    torch.cuda.synchronize()
+    split = dict(forward_backward_ms=ev[0].elapsed_time(ev[1]),
+                 optimizer_ms=ev[1].elapsed_time(ev[2]), loss=float(loss))
+    split["optimizer_share"] = split["optimizer_ms"] / (
+        split["forward_backward_ms"] + split["optimizer_ms"])
+    return params, opt, split
+
+
 def train_full(torch, seed: int, dev, reset_counts) -> dict:
     """Phase 9d: llama3-8b at full width, :data:`TRAIN_LAYERS` layers,
     random bf16 params from ``seed``, AdamW (``donate=True``: one copy of
@@ -6705,11 +6768,9 @@ def train_full(torch, seed: int, dev, reset_counts) -> dict:
     update."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.data import SyntheticLMSource
-    from repro_torch.kernels.apr_matmul import AprMatmulFunction, apr_matmul
+    from repro_torch.kernels.apr_matmul import apr_matmul
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw_update, warmup_cosine
-    from repro_torch.train import (TrainHyper, init_optimizer,
-                                   loss_and_grads, make_train_step)
+    from repro_torch.train import TrainHyper, init_optimizer, make_train_step
     cfg = dataclasses.replace(get_config("llama3-8b"),
                               num_layers=TRAIN_LAYERS)
     bundle = build_model(cfg, device=dev)
@@ -6728,19 +6789,7 @@ def train_full(torch, seed: int, dev, reset_counts) -> dict:
                             seed=seed)
     hyper = TrainHyper(peak_lr=3e-4, warmup=2, total_steps=100)
     step_fn = make_train_step(bundle, hyper, donate=True)
-    # the Function's forward counted apart: the forward's and the remat
-    # recompute's (which runs inside the backward) launches; the rest of
-    # B1's launches are the backward's products
-    inner = AprMatmulFunction.forward
-    fwd = {"launches": 0}
-
-    def counted(ctx, x, w, out_dtype):
-        before = apr_matmul.launches
-        y = inner(ctx, x, w, out_dtype)
-        fwd["launches"] += apr_matmul.launches - before
-        return y
-    AprMatmulFunction.forward = staticmethod(counted)
-    try:
+    with ForwardLaunchCounter() as fwd:
         torch.cuda.synchronize()
         reset_counts()
         steps = []
@@ -6757,15 +6806,13 @@ def train_full(torch, seed: int, dev, reset_counts) -> dict:
                               host_ms=(time.perf_counter() - h0) * 1e3,
                               **{k: float(v) for k, v in m.items()}))
         launches = dict(apr_matmul=apr_matmul.launches,
-                        forward=fwd["launches"],
-                        backward=apr_matmul.launches - fwd["launches"],
+                        forward=fwd.launches,
+                        backward=apr_matmul.launches - fwd.launches,
                         wide=apr_matmul.wide_launches,
                         tiles={str(k): v for k, v in
                                apr_matmul.tile_launches.items()},
                         other=apr_matmul.int8_launches
                         + apr_matmul.f32_launches + apr_matmul.hbm_launches)
-    finally:
-        AprMatmulFunction.forward = staticmethod(inner)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     steady = sorted(s["event_ms"] for s in steps[1:])
     step_ms = steady[len(steady) // 2]
@@ -6793,22 +6840,9 @@ def train_full(torch, seed: int, dev, reset_counts) -> dict:
             top_kernels_ms=dict(sorted(by_kernel.items(),
                                        key=lambda kv: -kv[1])[:8]))
     s += 1
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    step_t = torch.as_tensor(s, dtype=torch.int32).to(dev)
-    ev[0].record()
-    loss, grads = loss_and_grads(bundle, params, src.batch_at(s))
-    ev[1].record()
-    lr = warmup_cosine(step_t, peak_lr=hyper.peak_lr, warmup=hyper.warmup,
-                       total=hyper.total_steps)
-    params, opt = adamw_update(grads, opt, lr, donate=True)
-    ev[2].record()
-    torch.cuda.synchronize()
-    out["split"] = dict(forward_backward_ms=ev[0].elapsed_time(ev[1]),
-                        optimizer_ms=ev[1].elapsed_time(ev[2]),
-                        loss=float(loss))
-    out["split"]["optimizer_share"] = out["split"]["optimizer_ms"] / (
-        out["split"]["forward_backward_ms"] + out["split"]["optimizer_ms"])
-    del params, opt, grads, loss
+    params, opt, out["split"] = split_step(torch, bundle, params, opt,
+                                           src.batch_at(s), s, hyper, dev)
+    del params, opt
     torch.cuda.empty_cache()
     prof = out.get("profile")
     print(f"    9d llama3-8b full width, {TRAIN_LAYERS} layers "
@@ -6830,6 +6864,448 @@ def train_full(torch, seed: int, dev, reset_counts) -> dict:
     if prof:
         for k, t in prof["top_kernels_ms"].items():
             print(f"       {t:9.3f} ms  {k[:110]}")
+    return out
+
+
+# ------------------------- the recurrent and audio families' training path
+#: phase 9e-a's training shapes of the backward kernels: rwkv6-3b's
+#: (B, T, H, D) and mamba2-2.7b's and zamba2-1.2b's (B, T, H, P, N), at
+#: phase 9e-c's B x T
+SCAN_GRAD_SHAPES = {"rwkv6-3b": (2, 512, 40, 64),
+                    "mamba2-2.7b": (2, 512, 80, 64, 128),
+                    "zamba2-1.2b": (2, 512, 64, 64, 64)}
+#: ... and its odd shapes (T = 1, T = 37, B = 1, T = 1024) and decay
+#: extremes, few heads so that the plain version stays quick
+SCAN_GRAD_ODD = {"rwkv6_wkv_backward": [
+    dict(shape=(2, 1, 4, 64)), dict(shape=(2, 37, 4, 64)),
+    dict(shape=(1, 96, 4, 64)), dict(shape=(1, 1024, 40, 64)),
+    dict(shape=(2, 96, 4, 64), decay="tiny"),
+    dict(shape=(2, 96, 4, 64), decay="one")],
+    "mamba2_ssd_backward": [
+    dict(shape=(2, 1, 4, 64, 128)), dict(shape=(2, 37, 4, 64, 128)),
+    dict(shape=(1, 96, 4, 64, 64)), dict(shape=(1, 1024, 80, 64, 128)),
+    dict(shape=(2, 96, 4, 64, 128), decay="tiny"),
+    dict(shape=(2, 96, 4, 64, 128), decay="one")]}
+#: |kernel - plain| / max |plain| of each gradient: both sum in fp32 from
+#: the same inputs, in another order (per-step dots over up to 128 terms,
+#: state recurrences over T steps, sums over heads and batch rows)
+SCAN_GRAD_RTOL = 2e-5
+#: fp32 operations per state element per step that the function needs (the
+#: count each kernel's header gives) and the card's fp32 rate
+SCAN_GRAD_OPS = {"rwkv6_wkv_backward": 17, "mamba2_ssd_backward": 15}
+FP32_FLOPS = 67e12
+#: phase 9e-b's bf16 steps: |card - CPU| / |CPU| of each step's loss and
+#: grad norm within the larger of phase 9b's bounds and SPLIT_FACTOR x the
+#: CPU's own split, |per-step path - chunked path| / |chunked| on the same
+#: steps.  AdamW at lr 1e-2 moves a weight by ~lr whatever its gradient's
+#: size, so a gradient element near 0 whose sign two runs round apart
+#: moves it the other way: on the CPU alone, the recurrences' two exact
+#: forms part zamba2-1.2b's bf16 step-2 loss by ~1e-2 and grad norm by
+#: ~8e-2 (this phase's ``cpu_split``), while step 0 with fp32 params,
+#: before any update, agrees far more closely.  Step 0 with fp32 params (every leaf within
+#: TRAIN_F32_RTOL) is the tight check of the kernels on the model's path.
+SPLIT_FACTOR = 2.0
+#: phase 9e-c: each arch at its published widths, depth cut (zamba2: one
+#: super-block of 6 mamba layers and the shared attention; whisper: 4
+#: encoder and 4 decoder layers over its 1500 frames), B x T = TRAIN_B x
+#: TRAIN_T, AdamW, 3 steps
+TRAIN_RECURRENT = {"rwkv6-3b": dict(num_layers=4),
+                   "mamba2-2.7b": dict(num_layers=4),
+                   "zamba2-1.2b": dict(num_layers=6),
+                   "whisper-large-v3": dict(num_layers=4, encoder_layers=4)}
+TRAIN_RECURRENT_STEPS = 3
+
+
+def scan_grad_inputs(torch, gen, dev, kernel, shape, dtype, decay="mid"):
+    """Inputs of a backward call at ``shape`` and a ``dy`` of unit variance:
+    r, k, v, u (x, b, c) in ``dtype``, w (dt, a, d) in fp32; the decay
+    drawn ordinary, near 1e-24 (``tiny``) or near 1 (``one``)."""
+    def randn(*shp, scale=1.0):
+        return (torch.randn(shp, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def uniform(shp, lo, hi):
+        return torch.empty(shp, device=dev).uniform_(lo, hi, generator=gen)
+    if kernel == "rwkv6_wkv_backward":
+        b, t, h, d = shape
+        w = uniform((b, t, h, d), *{"mid": (0.05, 0.999),
+                                     "tiny": (1e-24, 1e-20),
+                                     "one": (0.9999, 1.0)}[decay])
+        return (randn(b, t, h, d), randn(b, t, h, d), randn(b, t, h, d), w,
+                randn(h, d, scale=0.3), randn(b, t, h, d))
+    b, t, h, p, n = shape
+    dt = uniform((b, t, h), *{"mid": (0.01, 0.5), "tiny": (20.0, 30.0),
+                              "one": (1e-5, 1e-4)}[decay])
+    return (randn(b, t, h, p), randn(b, t, n), randn(b, t, n), dt,
+            -uniform((h,), 0.5, 4.0),
+            torch.randn((h,), generator=gen, device=dev), randn(b, t, h, p))
+
+
+def scan_grad_bound(kernel, shape, itemsize) -> dict:
+    """The least time of a backward call: its inputs read once and its
+    gradients written once (each in its input's dtype, as the Function
+    returns them) against the card's bytes rate, and
+    :data:`SCAN_GRAD_OPS` per state element per step against the fp32
+    rate."""
+    if kernel == "rwkv6_wkv_backward":
+        b, t, h, d = shape
+        stream = b * t * h * d
+        nbytes = (4 * stream * itemsize + stream * 4          # r k v dy, w
+                  + 3 * stream * itemsize + stream * 4        # dr dk dv, dw
+                  + 2 * h * d * itemsize)                      # u, du
+        elems = b * t * h * d * d
+    else:
+        b, t, h, p, n = shape
+        stream = b * t * h * p
+        nbytes = ((2 * stream + 2 * b * t * n) * itemsize   # x dy b c
+                  + (stream + 2 * b * t * n) * itemsize       # dx db dc
+                  + 2 * b * t * h * 4 + 4 * h * 4)            # dt a d, grads
+        elems = b * t * h * p * n
+    return bound_ms(nbytes, SCAN_GRAD_OPS[kernel] * elems,
+                    flops_per_s=FP32_FLOPS)
+
+
+def scan_grad_checks(torch, gen, dev) -> list:
+    """Phase 9e-a: each backward kernel against its plain version on the
+    card (``rwkv6_ref_bwd``, ``mamba2_ref_bwd``) at the training shapes of
+    :data:`SCAN_GRAD_SHAPES` in bf16 and fp32 and at the odd shapes and
+    decay extremes of :data:`SCAN_GRAD_ODD` in bf16: every gradient within
+    :data:`SCAN_GRAD_RTOL` of the plain one's largest magnitude, and two
+    calls bit-equal.  At the bf16 training shapes also the kernel's ms (CUDA
+    events, 5 calls), the plain version's (one call) and the bound."""
+    from repro_torch.kernels.mamba2 import mamba2_ref_bwd, mamba2_ssd_backward
+    from repro_torch.kernels.rwkv6 import rwkv6_ref_bwd, rwkv6_wkv_backward
+    fns = {"rwkv6_wkv_backward": (rwkv6_wkv_backward, rwkv6_ref_bwd),
+           "mamba2_ssd_backward": (mamba2_ssd_backward, mamba2_ref_bwd)}
+    cases = []
+    for arch, shape in SCAN_GRAD_SHAPES.items():
+        kernel = ("rwkv6_wkv_backward" if arch == "rwkv6-3b"
+                  else "mamba2_ssd_backward")
+        for dtype in (torch.bfloat16, torch.float32):
+            if arch == "zamba2-1.2b" and dtype == torch.float32:
+                continue
+            cases.append(dict(kernel=kernel, arch=arch, shape=shape,
+                              dtype=dtype, timed=dtype == torch.bfloat16))
+    for kernel, odd in SCAN_GRAD_ODD.items():
+        cases += [dict(kernel=kernel, arch=None, dtype=torch.bfloat16,
+                       timed=False, **c) for c in odd]
+    rows = []
+    for c in cases:
+        kern, plain = fns[c["kernel"]]
+        decay = c.get("decay", "mid")
+        args = scan_grad_inputs(torch, gen, dev, c["kernel"], c["shape"],
+                                c["dtype"], decay)
+        got = kern(*args)
+        again = kern(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        rel = [float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+               for g, r in zip(got, ref)]
+        abs_err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        row = dict(kernel=c["kernel"], arch=c["arch"], shape=c["shape"],
+                   dtype=str(c["dtype"]).replace("torch.", ""), decay=decay,
+                   rel_err=rel, max_abs_err=abs_err, bit_stable=stable,
+                   ok=stable and max(rel) <= SCAN_GRAD_RTOL)
+        if c["timed"]:
+            row["ms"] = cuda_ms(torch, lambda i: kern(*args), 5)
+            row["plain_ms"] = cuda_ms(torch, lambda i: plain(*args), 1,
+                                      warmup=0)
+            row.update(scan_grad_bound(c["kernel"], c["shape"],
+                                       c["dtype"].itemsize))
+        del got, again, ref, args
+        rows.append(row)
+        print(f"    9e-a {row['kernel']} {row['shape']} {row['dtype']} "
+              f"{decay}: rel err {max(rel):.2e} (bound {SCAN_GRAD_RTOL:g}), "
+              f"abs {abs_err:.2e}, "
+              f"{'bit-stable' if stable else 'NOT bit-stable'}"
+              + (f"; {row['ms']:.4f} ms (plain {row['plain_ms']:.1f}, bound "
+                 f"{row['bound_ms']:.4f} by {row['bound_by']})"
+                 if c["timed"] else "")
+              + ("" if row["ok"] else "  FAILED"), flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+class PlainBwdCounter:
+    """Counts the plain backwards (``rwkv6_ref_bwd``, ``mamba2_ref_bwd``)
+    the Functions call on CUDA tensors, by wrapping them where the
+    Functions look them up (their ``ops`` modules), while the ``with``
+    block runs."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        from repro_torch.kernels.mamba2 import ops as mops
+        from repro_torch.kernels.rwkv6 import ops as rops
+        self._saved = [(rops, "rwkv6_ref_bwd", rops.rwkv6_ref_bwd),
+                       (mops, "mamba2_ref_bwd", mops.mamba2_ref_bwd)]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def run(*args):
+            self.calls += args[0].is_cuda
+            return fn(*args)
+        return run
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def scan_counts() -> dict:
+    """The recurrence kernels' launch counts, forward and backward."""
+    from repro_torch.kernels.mamba2 import mamba2_ssd, mamba2_ssd_backward
+    from repro_torch.kernels.rwkv6 import rwkv6_wkv, rwkv6_wkv_backward
+    return {"rwkv6_wkv": rwkv6_wkv.launches,
+            "rwkv6_wkv_backward": rwkv6_wkv_backward.launches,
+            "mamba2_ssd": mamba2_ssd.launches,
+            "mamba2_ssd_backward": mamba2_ssd_backward.launches}
+
+
+def zero_scan_counts() -> None:
+    from repro_torch.kernels.mamba2 import mamba2_ssd, mamba2_ssd_backward
+    from repro_torch.kernels.rwkv6 import rwkv6_wkv, rwkv6_wkv_backward
+    for fn in (rwkv6_wkv, rwkv6_wkv_backward, mamba2_ssd,
+               mamba2_ssd_backward):
+        fn.launches = 0
+
+
+def cpu_split_steps(torch, cfg, params_cpu, hyper, batches) -> list:
+    """The same steps on the CPU through the kernels' path (the models'
+    ``use_scan_kernel`` seam forced on: the Functions over the plain
+    per-step forwards and backwards), per step loss and grad norm."""
+    from repro_torch.models import build_model, rwkv, ssm
+    from repro_torch.train import init_optimizer, make_train_step
+    seams = [(rwkv, rwkv.use_scan_kernel), (ssm, ssm.use_scan_kernel)]
+    for mod, _ in seams:
+        mod.use_scan_kernel = lambda x: True
+    try:
+        params = dict(params_cpu)
+        opt = init_optimizer(cfg, params)
+        step_fn = make_train_step(build_model(cfg, device="cpu"), hyper)
+        out = []
+        for s, batch in enumerate(batches):
+            params, opt, m = step_fn(params, opt, batch, s)
+            out.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    finally:
+        for mod, fn in seams:
+            mod.use_scan_kernel = fn
+    return out
+
+
+def train_recurrent_smoke_parity(torch, dev) -> dict:
+    """Phase 9e-b: the rwkv6-3b, mamba2-2.7b, zamba2-1.2b and
+    whisper-large-v3 smoke configs on the card and on the CPU (the chunked
+    formulas' autograd, as the JAX package) from the same params (seed 0)
+    and batches.  fp32 params, step 0: the loss, the grad norm and every
+    grad leaf (against its max) within :data:`TRAIN_F32_RTOL`.  bf16 params,
+    3 AdamW steps: each step's loss and grad norm within the larger of
+    phase 9b's bounds and :data:`SPLIT_FACTOR` x the CPU's own split
+    (:func:`cpu_split_steps` against the chunked run).  The card's backward
+    launches are counted, and the plain backwards must not run there."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm_sq
+    from repro_torch.train import TrainHyper, loss_and_grads
+    t, b = TRAIN_SMOKE_SHAPE
+    hyper = TrainHyper(**TRAIN_SMOKE_HYPER)
+    base = {"loss": TRAIN_BF16_LOSS_RTOL, "grad_norm": TRAIN_BF16_GNORM_RTOL}
+    out = {}
+    zero_scan_counts()
+    with PlainBwdCounter() as plain:
+        for arch in TRAIN_RECURRENT:
+            cfg = get_config(arch, smoke=True)
+            params = build_model(cfg, device="cpu").init_params()
+            src = SyntheticLMSource(cfg, ShapeSpec("9e", t, b, "train"))
+            batches = [src.batch_at(s) for s in range(3)]
+            before = plain.calls
+            # fp32 params, step 0
+            res = {}
+            for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                loss, grads = loss_and_grads(
+                    build_model(cfg, device=device),
+                    {k: v.float().to(device) for k, v in params.items()},
+                    batches[0])
+                res[where] = (float(loss), float(torch.sqrt(global_norm_sq(
+                    [grads[k] for k in sorted(grads)]))),
+                              {k: g.cpu() for k, g in grads.items()})
+            (lc, gc, gr_c), (lp, gp, gr_p) = res["card"], res["cpu"]
+            f32 = dict(loss=abs(lc - lp) / abs(lp), grad_norm=abs(gc - gp) / gp,
+                       grads=max(float((gr_c[k] - gr_p[k]).abs().max()
+                                       / gr_p[k].abs().max().clamp_min(1e-30))
+                                 for k in gr_p))
+            # bf16 params, 3 steps, against the CPU's own split
+            steps = _train_pair(torch, cfg, dev, params, hyper, batches)
+            split = cpu_split_steps(torch, cfg, params, hyper, batches)
+            bounds = [{k: max(base[k], SPLIT_FACTOR * abs(sp[k] - st[k][1])
+                              / abs(st[k][1])) for k in base}
+                      for st, sp in zip(steps, split)]
+            errs = [{k: abs(st[k][0] - st[k][1]) / abs(st[k][1])
+                     for k in base} for st in steps]
+            ok = (max(f32.values()) <= TRAIN_F32_RTOL
+                  and all(e[k] <= bd[k] for e, bd in zip(errs, bounds)
+                          for k in base)
+                  and all(math.isfinite(c) for st in steps
+                          for c, _ in st.values()))
+            out[arch] = dict(steps=steps, cpu_split=split, rel_err=errs,
+                             bounds=bounds, fp32_step0=dict(
+                                 loss=(lc, lp), grad_norm=(gc, gp),
+                                 rel_err=f32), ok=ok,
+                             plain_bwd_calls=plain.calls - before)
+            def by_step(rows, key):
+                return "/".join(f"{r[key]:.1e}" for r in rows)
+            print(f"    9e-b {arch} smoke: fp32 step 0 rel err loss "
+                  f"{f32['loss']:.2e}, grad norm {f32['grad_norm']:.2e}, "
+                  f"grads (of each leaf's max) {f32['grads']:.2e} (bound "
+                  f"{TRAIN_F32_RTOL:g}); bf16 losses card "
+                  f"{[round(x['loss'][0], 5) for x in steps]} CPU "
+                  f"{[round(x['loss'][1], 5) for x in steps]}; rel err by "
+                  f"step: loss {by_step(errs, 'loss')} (bounds "
+                  f"{by_step(bounds, 'loss')}), grad norm "
+                  f"{by_step(errs, 'grad_norm')} (bounds "
+                  f"{by_step(bounds, 'grad_norm')}) "
+                  f"({'ok' if ok else 'FAILED'})", flush=True)
+    out["launches"] = scan_counts()
+    print(f"    9e-b card launches: {out['launches']}", flush=True)
+    return out
+
+
+def b1_per_step(cfg) -> dict:
+    """B1's launches a training step of ``cfg``: the forward's products
+    (each projection, the head), the remat recompute's (every product
+    inside a checkpointed block) and the backward's (dX and dW of each)."""
+    fam = cfg.family
+    if fam == "ssm":                 # time mix 7 (r k v g o, the decay's
+        blocks = fwd = 10 * cfg.num_layers     # two), channel mix 3
+    elif fam == "mamba":
+        blocks = fwd = 2 * cfg.num_layers      # w_in, w_out
+    elif fam == "hybrid":            # a super-block: 2 a mamba layer, the
+        ae = cfg.attn_every          # shared attention's q k v o; the tail
+        n_sb = cfg.num_layers // ae  # is not recomputed
+        blocks = n_sb * (2 * ae + 4)
+        fwd = blocks + 2 * (cfg.num_layers - n_sb * ae)
+    elif fam == "audio":             # encoder 6 a layer, decoder 10
+        blocks = fwd = 6 * cfg.encoder_layers + 10 * cfg.num_layers
+    else:
+        raise ValueError(fam)
+    return dict(forward=fwd + 1, recompute=blocks if cfg.remat else 0,
+                backward=2 * (fwd + 1))
+
+
+def scan_per_step(cfg) -> dict:
+    """The recurrence kernel's launches a training step: one a recurrent
+    layer in the forward, again in the remat recompute (a hybrid's tail
+    layers are not recomputed), and its backward once."""
+    kernel = {"ssm": "rwkv6_wkv", "mamba": "mamba2_ssd",
+              "hybrid": "mamba2_ssd"}.get(cfg.family)
+    if kernel is None:
+        return {}
+    n = recomputed = cfg.num_layers
+    if cfg.family == "hybrid":
+        recomputed = n // cfg.attn_every * cfg.attn_every
+    return {kernel: n + (recomputed if cfg.remat else 0),
+            f"{kernel}_backward": n}
+
+
+def train_recurrent_full(torch, seed: int, dev) -> dict:
+    """Phase 9e-c: each arch of :data:`TRAIN_RECURRENT` at its published
+    widths with its depth cut, random bf16 params from ``seed``, AdamW
+    (``donate=True``), B x T = :data:`TRAIN_B` x :data:`TRAIN_T` tokens
+    from ``SyntheticLMSource`` (whisper also its 1500 stub frames):
+    :data:`TRAIN_RECURRENT_STEPS` steps through ``make_train_step``, each
+    timed by CUDA events and on the host clock, B1's and B9/B10's launches
+    counted for the caller to gate (:func:`b1_per_step`,
+    :func:`scan_per_step`), the plain backwards' calls counted; then one
+    step split by CUDA events into forward + backward and the AdamW
+    update."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainHyper, init_optimizer, make_train_step
+    hyper = TrainHyper(peak_lr=3e-4, warmup=2, total_steps=100)
+    out = {}
+    for arch, cut in TRAIN_RECURRENT.items():
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        bundle = build_model(cfg, device=dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = bundle.init_params(
+            torch.Generator(device=dev).manual_seed(seed))
+        opt = init_optimizer(cfg, params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.values())
+        src = SyntheticLMSource(cfg, ShapeSpec("9e", TRAIN_T, TRAIN_B,
+                                               "train"), seed=seed)
+        step_fn = make_train_step(bundle, hyper, donate=True)
+        with PlainBwdCounter() as plain, ForwardLaunchCounter() as fwd:
+            torch.cuda.synchronize()
+            apr_matmul.launches = 0
+            zero_scan_counts()
+            steps = []
+            for s in range(TRAIN_RECURRENT_STEPS):
+                batch = src.batch_at(s)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                e0.record()
+                params, opt, m = step_fn(params, opt, batch, s)
+                e1.record()
+                torch.cuda.synchronize()
+                steps.append(dict(
+                    event_ms=e0.elapsed_time(e1),
+                    host_ms=(time.perf_counter() - h0) * 1e3,
+                    **{k: float(v) for k, v in m.items()}))
+            launches = dict(apr_matmul=apr_matmul.launches,
+                            apr_matmul_forward=fwd.launches,
+                            **scan_counts())
+            plain_calls = plain.calls
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steady = sorted(x["event_ms"] for x in steps[1:])
+        step_ms = steady[len(steady) // 2]
+        b1 = b1_per_step(cfg)
+        n = TRAIN_RECURRENT_STEPS
+        expected = dict(apr_matmul=n * sum(b1.values()),
+                        apr_matmul_forward=n * (b1["forward"]
+                                                + b1["recompute"]),
+                        **{k: n * v for k, v in scan_per_step(cfg).items()})
+        s = TRAIN_RECURRENT_STEPS
+        params, opt, split = split_step(torch, bundle, params, opt,
+                                        src.batch_at(s), s, hyper, dev)
+        del params, opt
+        torch.cuda.empty_cache()
+        r = dict(params=n_params, init_s=init_s, steps=steps,
+                 step_ms=step_ms,
+                 tokens_per_s=TRAIN_B * TRAIN_T / (step_ms / 1e3),
+                 peak_gb=peak_gb, launches=launches, expected=expected,
+                 plain_bwd_calls=plain_calls, split=split,
+                 layers={k: v for k, v in cut.items()})
+        r["launches_ok"] = (all(launches[k] == v for k, v in expected.items())
+                            and all(launches[k] == 0 for k in scan_counts()
+                                    if k not in expected))
+        r["finite"] = all(math.isfinite(x[k]) for x in steps
+                          for k in ("loss", "grad_norm"))
+        out[arch] = r
+        print(f"    9e-c {arch} full width {cut} ({n_params / 1e9:.3f} B "
+              f"params), B x T = {TRAIN_B} x {TRAIN_T}: losses "
+              f"{[round(x['loss'], 4) for x in steps]}, grad norms "
+              f"{[round(x['grad_norm'], 3) for x in steps]}; {step_ms:.2f} "
+              f"ms a step (CUDA events; host "
+              f"{[round(x['host_ms'], 1) for x in steps]}), "
+              f"{r['tokens_per_s']:.0f} tokens/s, peak {peak_gb:.2f} GB; "
+              f"split: forward + backward "
+              f"{split['forward_backward_ms']:.2f} ms, AdamW "
+              f"{split['optimizer_ms']:.2f} ms "
+              f"({split['optimizer_share']:.1%}); launches {launches} "
+              f"(expected {expected}; plain backwards {plain_calls})",
+              flush=True)
     return out
 
 
@@ -7182,7 +7658,9 @@ def main() -> int:
                       conv_ops.LIBRARY: conv_ops.SIGNATURES,
                       qmm_ops.LIBRARY: qmm_ops.SIGNATURES,
                       rwkv6_ops.LIBRARY: rwkv6_ops.SIGNATURES,
-                      mamba2_ops.LIBRARY: mamba2_ops.SIGNATURES})
+                      mamba2_ops.LIBRARY: mamba2_ops.SIGNATURES,
+                      rwkv6_ops.BWD_LIBRARY: rwkv6_ops.BWD_SIGNATURES,
+                      mamba2_ops.BWD_LIBRARY: mamba2_ops.BWD_SIGNATURES})
     build_s = time.perf_counter() - t0
     print(f"[1] built {sorted(_build.BUILD_SECONDS) or 'nothing (cached)'} "
           f"in {build_s:.2f} s (nvcc, sm_90a, one process per source)")
@@ -9029,6 +9507,41 @@ def main() -> int:
                            smoke=train_smoke, launcher=train_cli, full=train)
     phase_done("phase 9")
 
+    # ------------- 9e the recurrent and audio families' training path
+    print("[9e] training rwkv6-3b, mamba2-2.7b, zamba2-1.2b and "
+          "whisper-large-v3: B9/B10's backward kernels, the smoke configs "
+          "card against CPU, full width with the depth cut", flush=True)
+    torch.cuda.empty_cache()
+    scan_grad_rows = scan_grad_checks(torch, gen, dev)
+    bad = [f"{r['kernel']} {r['shape']} {r['dtype']} {r['decay']}"
+           for r in scan_grad_rows if not r["ok"]]
+    if bad:
+        fail(f"phase 9e-a: backward kernels outside {SCAN_GRAD_RTOL:g} of "
+             f"their plain versions, or not bit-stable, at {bad}")
+    rec_smoke = train_recurrent_smoke_parity(torch, dev)
+    bad = [a for a in TRAIN_RECURRENT if not rec_smoke[a]["ok"]
+           or rec_smoke[a]["plain_bwd_calls"]]
+    want = {}       # the fp32 step 0 and 3 bf16 steps of each arch
+    for arch in TRAIN_RECURRENT:
+        for k, v in scan_per_step(get_config(arch, smoke=True)).items():
+            want[k] = want.get(k, 0) + 4 * v
+    if bad or any(rec_smoke["launches"][k] != want.get(k, 0)
+                  for k in rec_smoke["launches"]):
+        fail(f"phase 9e-b: card and CPU training part beyond the bounds, or "
+             f"a plain backward ran on the card, in {bad}; launches "
+             f"{rec_smoke['launches']} (expected {want})")
+    torch.cuda.empty_cache()
+    rec_full = train_recurrent_full(torch, args.seed, dev)
+    bad = [a for a, r in rec_full.items() if not (
+        r["finite"] and r["launches_ok"] and r["plain_bwd_calls"] == 0)]
+    if bad:
+        fail(f"phase 9e-c: non-finite losses, launches other than "
+             f"expected, or a plain backward on the card in {bad}: "
+             f"{ {a: (rec_full[a]['launches'], rec_full[a]['expected'], rec_full[a]['plain_bwd_calls']) for a in bad} }")
+    report["train_recurrent"] = dict(kernels=scan_grad_rows,
+                                     smoke=rec_smoke, full=rec_full)
+    phase_done("phase 9e")
+
     # ------------------------------------------------------------ 10 report
     def by_path(**paths) -> dict:
         """``launches`` (their sum) and ``launches_by_path``: each path's
@@ -9087,6 +9600,15 @@ def main() -> int:
         return {f"phase 6g {net} {label}": r["launches"][name]
                 for net, res in graph_cnn.items()
                 for label, r in res["runs"].items() if r["launches"][name]}
+
+    def train_scan_paths(name) -> dict:
+        """``name``'s launches on phase 9e-b's smoke training and on each
+        of phase 9e-c's full-width runs that launched it."""
+        paths = ({"phase 9e-b": rec_smoke["launches"][name]}
+                 if rec_smoke["launches"][name] else {})
+        paths.update({f"phase 9e-c {a}": r["launches"][name]
+                      for a, r in rec_full.items() if r["launches"][name]})
+        return paths
 
     mm_src = "src/repro_torch/csrc/apr_matmul.cu"
     fd_src = "src/repro_torch/csrc/flash_decode.cu"
@@ -9281,9 +9803,31 @@ def main() -> int:
             **by_path(**{f"phase 7 {a} {e}": r[e]["launches"][name]
                          for a, r in recurrent.items()
                          for e in ("paged", "slot", "spec", "spec_oracle")
-                         if r.get(e) and r[e]["launches"][name]}),
+                         if r.get(e) and r[e]["launches"][name]},
+                      **train_scan_paths(name)),
             max_abs_err=errs[name], ms=n_layers * row["ms"],
             plain_ms=n_layers * row["plain_ms"],
+            bound_ms=n_layers * row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None))
+    # B9's and B10's backward kernels per full-width phase-9e-c step of
+    # rwkv6-3b / mamba2-2.7b (a launch a layer at phase 9e-a's bf16
+    # training shape); launches are phase 9e-b's and 9e-c's
+    for name, arch, source, replaces in (
+            ("rwkv6_wkv_backward", "rwkv6-3b",
+             "src/repro_torch/csrc/rwkv6_bwd.cu",
+             "src/repro/kernels/rwkv6/kernel.py:61"),
+            ("mamba2_ssd_backward", "mamba2-2.7b",
+             "src/repro_torch/csrc/mamba2_bwd.cu",
+             "src/repro/kernels/mamba2/kernel.py:59")):
+        row = next(r for r in scan_grad_rows if r["kernel"] == name
+                   and r["arch"] == arch and r["dtype"] == "bfloat16")
+        n_layers = TRAIN_RECURRENT[arch]["num_layers"]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            **by_path(**train_scan_paths(name)),
+            max_abs_err=max(r["max_abs_err"] for r in scan_grad_rows
+                            if r["kernel"] == name),
+            ms=n_layers * row["ms"], plain_ms=n_layers * row["plain_ms"],
             bound_ms=n_layers * row["bound_ms"], bound_by=row["bound_by"],
             library_ms=None))
     # B4m, B7m, B6 and B8 per full-width decode tick (M = slots), as if
@@ -9425,7 +9969,19 @@ def main() -> int:
         f"{TRAIN_STEPS} steps (split by a wrapper of "
         "AprMatmulFunction.forward that counts the forward's and the "
         "recompute's launches); apr_matmul and apr_matmul_f32 also count "
-        "phase 9b's smoke training on the card")
+        "phase 9b's smoke training on the card. "
+        "rwkv6_wkv_backward and mamba2_ssd_backward: the gradients of B9 "
+        "and B10 (Rwkv6Function, Mamba2Function; no TPU kernel has one, so "
+        "replaces names the forward's TPU kernel), per full-width phase-9e-c "
+        "step of rwkv6-3b / mamba2-2.7b (4 launches at B = 2, T = 512; "
+        "phase 9e-a's bf16 rows), plain: rwkv6_ref_bwd / mamba2_ref_bwd, no "
+        "PyTorch call computes either (library_ms null), bound: the "
+        "function's bytes or fp32 operations; max_abs_err over phase 9e-a's "
+        "cases; a launch is one call (its checkpointing and reverse sweep, "
+        "then one fixed-order reduce); launches are those of phase 9e-b "
+        "(the smoke configs on the card) and 9e-c (full width), whose "
+        "forward and remat-recompute launches rwkv6_wkv and mamba2_ssd "
+        "also count")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

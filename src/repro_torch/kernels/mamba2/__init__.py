@@ -1,4 +1,6 @@
-from .ops import mamba2_ssd
-from .ref import mamba2_ref
+from .ops import (Mamba2Function, mamba2_ssd, mamba2_ssd_backward,
+                  mamba2_ssd_grad)
+from .ref import mamba2_ref, mamba2_ref_bwd
 
-__all__ = ["mamba2_ssd", "mamba2_ref"]
+__all__ = ["Mamba2Function", "mamba2_ssd", "mamba2_ssd_backward",
+           "mamba2_ssd_grad", "mamba2_ref", "mamba2_ref_bwd"]

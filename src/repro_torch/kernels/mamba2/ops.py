@@ -1,6 +1,9 @@
 """``mamba2_ssd`` wrapper: the hand-written CUDA kernel of
 ``csrc/mamba2.cu`` for CUDA tensors, the plain PyTorch version
-(:func:`.ref.mamba2_ref`) for CPU tensors.
+(:func:`.ref.mamba2_ref`) for CPU tensors; its gradient
+(:class:`Mamba2Function`) is the kernel of ``csrc/mamba2_bwd.cu``
+(:func:`mamba2_ssd_backward`), or :func:`.ref.mamba2_ref_bwd` for CPU
+tensors.
 
 A launch's configuration has three keys: ``chunk``, the time steps staged
 a round (the JAX wrapper's ``chunk``, which ``mamba2_ssd(chunk=)`` pins as
@@ -23,7 +26,7 @@ from ...bench.config import (BlockConfig, dtype_name, pin_config,
                              resolve_among, shape_key_from_dims)
 from ...roofline.hw import get_profile
 from .. import _build
-from .ref import mamba2_ref
+from .ref import mamba2_ref, mamba2_ref_bwd
 
 LIBRARY = "mamba2"
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -219,3 +222,117 @@ def mamba2_ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
 
 
 mamba2_ssd.launches = 0
+
+
+# ------------------------------------------------------------- the gradient
+BWD_LIBRARY = "mamba2_bwd"
+_BWD_ARGS = [_P] * 18 + [_I] * 6 + [_P]
+BWD_SIGNATURES = {"mamba2_ssd_bwd_bf16": (ctypes.c_int, _BWD_ARGS),
+                  "mamba2_ssd_bwd_f32": (ctypes.c_int, _BWD_ARGS)}
+#: the most steps a backward chunk recomputes into shared memory
+BWD_MAX_CHUNK = 16
+
+
+def state_cols(n: int) -> int:
+    """N rounded up to a power of two, at least 16: the state columns the
+    backward kernel's lanes cover (those past N are zeros)."""
+    np_ = 16
+    while np_ < n:
+        np_ *= 2
+    return np_
+
+
+def bwd_chunk(t: int, p: int, n: int) -> int:
+    """Steps of a backward chunk (``smem_floats`` in the source): as many
+    states of a head as the block's shared memory holds beside the staged
+    inputs, at most :data:`BWD_MAX_CHUNK` and T (6 at P = 64, N = 128)."""
+    np_, warps = state_cols(n), p // 8
+    per_step = (p * np_ + warps * np_ + 2 * np_ + 2 * p + 2 * warps + 3)
+    return max(1, min(BWD_MAX_CHUNK, t, MAX_SMEM // 4 // per_step))
+
+
+def mamba2_ssd_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                        dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                        dy: torch.Tensor):
+    """The gradient of :func:`mamba2_ssd` (no state in or out) given ``dy``
+    in x's dtype and shape: (dx, db, dc, ddt, da, dd) in fp32, from one
+    call of ``csrc/mamba2_bwd.cu`` (its checkpointing sweep and reverse
+    sweep, then the fixed-order sums over heads and batch rows).  CUDA
+    tensors only, x, b, c and dy contiguous: the plain version is
+    :func:`.ref.mamba2_ref_bwd`.  Each call adds one to
+    ``mamba2_ssd_backward.launches``."""
+    bsz, t, h, p, n = check_kernel_args(x, b, c, dt, a, d)
+    tensors = (x, b, c, dt, a, d, dy)
+    if dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"mamba2_ssd_backward: dy {dy.dtype} "
+                         f"{tuple(dy.shape)} must be x's dtype and shape")
+    if not all(v.is_contiguous() for v in tensors):
+        raise ValueError("mamba2_ssd_backward takes contiguous tensors")
+    if not all(v.is_cuda and v.device == x.device for v in tensors):
+        raise ValueError(f"mamba2_ssd_backward: tensors on "
+                         f"{[str(v.device) for v in tensors]}")
+    if t == 0:
+        raise ValueError("mamba2_ssd_backward: T = 0")
+    ch = bwd_chunk(t, p, n)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ckpt = torch.empty((bsz * h, -(-t // ch), p * state_cols(n)), **f32)
+    dx = torch.empty((bsz, t, h, p), **f32)
+    db_part, dc_part = (torch.empty((bsz, t, h, n), **f32) for _ in range(2))
+    ddt = torch.empty((bsz, t, h), **f32)
+    da_part, dd_part = (torch.empty((bsz, h), **f32) for _ in range(2))
+    db, dc = (torch.empty((bsz, t, n), **f32) for _ in range(2))
+    da, dd = (torch.empty((h,), **f32) for _ in range(2))
+    lib = _build.load(BWD_LIBRARY, BWD_SIGNATURES)
+    fn = lib.mamba2_ssd_bwd_bf16 if x.dtype == torch.bfloat16 else \
+        lib.mamba2_ssd_bwd_f32
+    err = fn(*(v.data_ptr() for v in (x, b, c, dt, a, d, dy, ckpt, dx,
+                                      db_part, dc_part, ddt, da_part,
+                                      dd_part, db, dc, da, dd)),
+             bsz, t, h, p, n, ch,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, "mamba2_ssd_backward")
+    mamba2_ssd_backward.launches += 1
+    return dx, db, dc, ddt, da, dd
+
+
+mamba2_ssd_backward.launches = 0
+
+
+class Mamba2Function(torch.autograd.Function):
+    """B10 under autograd: the forward is :func:`mamba2_ssd` (from zeros,
+    no state out; strided x, b, c as it takes them), the backward
+    :func:`mamba2_ssd_backward` on contiguous copies on CUDA tensors and
+    :func:`.ref.mamba2_ref_bwd` on CPU tensors, each gradient cast to its
+    input's dtype and given only where ``needs_input_grad`` asks."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, a, d):
+        ctx.save_for_backward(x, b, c, dt, a, d)
+        return mamba2_ssd(x, b, c, dt, a, d)
+
+    @staticmethod
+    def backward(ctx, dy):
+        want = ctx.needs_input_grad
+        if not any(want):
+            return (None,) * 6
+        inputs = ctx.saved_tensors
+        dy = dy.to(inputs[0].dtype).contiguous()
+        if all(v.device.type == "cpu" for v in inputs):
+            grads = mamba2_ref_bwd(*inputs, dy)
+        else:
+            grads = mamba2_ssd_backward(*(v.contiguous() for v in inputs),
+                                        dy)
+        return tuple(g.to(v.dtype) if need else None
+                     for g, v, need in zip(grads, inputs, want))
+
+
+def mamba2_ssd_grad(x, b, c, dt, a, d, *, h_init=None, return_state=False):
+    """:func:`mamba2_ssd` through :class:`Mamba2Function`, for a call under
+    a gradient.  A state in (``h_init``) or out (``return_state``) is
+    refused by name: training runs every sequence from zeros, as the JAX
+    training forward does, and the backward kernel takes no state."""
+    if h_init is not None or return_state:
+        raise NotImplementedError(
+            "mamba2_ssd under a gradient takes no h_init and returns no "
+            "state (return_state): the backward kernel runs from zeros")
+    return Mamba2Function.apply(x, b, c, dt, a, d)

@@ -1,4 +1,6 @@
-from .ops import rwkv6_wkv
-from .ref import rwkv6_ref
+from .ops import (Rwkv6Function, rwkv6_wkv, rwkv6_wkv_backward,
+                  rwkv6_wkv_grad)
+from .ref import rwkv6_ref, rwkv6_ref_bwd
 
-__all__ = ["rwkv6_wkv", "rwkv6_ref"]
+__all__ = ["Rwkv6Function", "rwkv6_wkv", "rwkv6_wkv_backward",
+           "rwkv6_wkv_grad", "rwkv6_ref", "rwkv6_ref_bwd"]

@@ -1,6 +1,9 @@
 """``rwkv6_wkv`` wrapper: the hand-written CUDA kernel of
 ``csrc/rwkv6.cu`` for CUDA tensors, the plain PyTorch version
-(:func:`.ref.rwkv6_ref`) for CPU tensors.
+(:func:`.ref.rwkv6_ref`) for CPU tensors; its gradient
+(:class:`Rwkv6Function`) is the kernel of ``csrc/rwkv6_bwd.cu``
+(:func:`rwkv6_wkv_backward`), or :func:`.ref.rwkv6_ref_bwd` for CPU
+tensors.
 
 A launch's configuration has three keys: ``chunk``, the time steps staged
 a round (the JAX wrapper's ``chunk``, which ``rwkv6_wkv(chunk=)`` pins as
@@ -24,7 +27,7 @@ from ...bench.config import (BlockConfig, dtype_name, pin_config,
                              resolve_among, shape_key_from_dims)
 from ...roofline.hw import get_profile
 from .. import _build
-from .ref import rwkv6_ref
+from .ref import rwkv6_ref, rwkv6_ref_bwd
 
 LIBRARY = "rwkv6"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -203,3 +206,100 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_wkv.launches = 0
+
+
+# ------------------------------------------------------------- the gradient
+BWD_LIBRARY = "rwkv6_bwd"
+_BWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+BWD_SIGNATURES = {"rwkv6_wkv_bwd_bf16": (ctypes.c_int, _BWD_ARGS),
+                  "rwkv6_wkv_bwd_f32": (ctypes.c_int, _BWD_ARGS)}
+#: the most steps a backward chunk recomputes into shared memory
+BWD_MAX_CHUNK = 16
+
+
+def bwd_chunk(t: int, d: int) -> int:
+    """Steps of a backward chunk (``smem_floats`` in the source): as many
+    states of a head as the block's shared memory holds beside the staged
+    inputs, at most :data:`BWD_MAX_CHUNK` and T (11 at D = 64)."""
+    dp = head_rows(d)
+    per_step = dp * dp + dp // 8 * dp + 5 * dp + 2
+    return max(1, min(BWD_MAX_CHUNK, t, (MAX_SMEM // 4 - dp) // per_step))
+
+
+def rwkv6_wkv_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
+    """The gradient of :func:`rwkv6_wkv` (no state in or out) given ``dy``
+    in r's dtype and shape: (dr, dk, dv, dw, du) in fp32, from one call of
+    ``csrc/rwkv6_bwd.cu`` (its checkpointing sweep and reverse sweep, then
+    du's fixed-order sum over batch rows).  CUDA tensors only: the plain
+    version is :func:`.ref.rwkv6_ref_bwd`.  Each call adds one to
+    ``rwkv6_wkv_backward.launches``."""
+    b, t, h, d = check_kernel_args(r, k, v, w, u)
+    tensors = (r, k, v, w, u, dy)
+    if dy.dtype != r.dtype or dy.shape != r.shape or not dy.is_contiguous():
+        raise ValueError(f"rwkv6_wkv_backward: dy {dy.dtype} "
+                         f"{tuple(dy.shape)} must be contiguous, r's dtype "
+                         f"and shape")
+    if not all(x.is_cuda and x.device == r.device for x in tensors):
+        raise ValueError(f"rwkv6_wkv_backward: tensors on "
+                         f"{[str(x.device) for x in tensors]}")
+    if t == 0:
+        raise ValueError("rwkv6_wkv_backward: T = 0")
+    dp, ch = head_rows(d), bwd_chunk(t, d)
+    f32 = dict(dtype=torch.float32, device=r.device)
+    ckpt = torch.empty((b * h, -(-t // ch), dp * dp), **f32)
+    dr, dk, dv, dw = (torch.empty((b, t, h, d), **f32) for _ in range(4))
+    du_part = torch.empty((b, h, d), **f32)
+    du = torch.empty((h, d), **f32)
+    lib = _build.load(BWD_LIBRARY, BWD_SIGNATURES)
+    fn = lib.rwkv6_wkv_bwd_bf16 if r.dtype == torch.bfloat16 else \
+        lib.rwkv6_wkv_bwd_f32
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+             u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(), dr.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
+             du.data_ptr(), b, t, h, d, ch,
+             torch.cuda.current_stream(r.device).cuda_stream)
+    _build.check(lib, err, "rwkv6_wkv_backward")
+    rwkv6_wkv_backward.launches += 1
+    return dr, dk, dv, dw, du
+
+
+rwkv6_wkv_backward.launches = 0
+
+
+class Rwkv6Function(torch.autograd.Function):
+    """B9 under autograd: the forward is :func:`rwkv6_wkv` (from zeros, no
+    state out), the backward :func:`rwkv6_wkv_backward` on CUDA tensors and
+    :func:`.ref.rwkv6_ref_bwd` on CPU tensors, each gradient cast to its
+    input's dtype and given only where ``needs_input_grad`` asks."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return rwkv6_wkv(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        want = ctx.needs_input_grad
+        if not any(want):
+            return (None,) * 5
+        inputs = ctx.saved_tensors
+        dy = dy.to(inputs[0].dtype).contiguous()
+        if all(x.device.type == "cpu" for x in inputs):
+            grads = rwkv6_ref_bwd(*inputs, dy)
+        else:
+            grads = rwkv6_wkv_backward(*inputs, dy)
+        return tuple(g.to(x.dtype) if need else None
+                     for g, x, need in zip(grads, inputs, want))
+
+
+def rwkv6_wkv_grad(r, k, v, w, u, *, s_init=None, return_state=False):
+    """:func:`rwkv6_wkv` through :class:`Rwkv6Function`, for a call under a
+    gradient.  A state in (``s_init``) or out (``return_state``) is refused
+    by name: training runs every sequence from zeros, as the JAX training
+    forward does, and the backward kernel takes no state."""
+    if s_init is not None or return_state:
+        raise NotImplementedError(
+            "rwkv6_wkv under a gradient takes no s_init and returns no "
+            "state (return_state): the backward kernel runs from zeros")
+    return Rwkv6Function.apply(r, k, v, w, u)

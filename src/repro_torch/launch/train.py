@@ -6,6 +6,8 @@ package's layout, on the GPU unless ``--device cpu``.
         --steps 50 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --resume --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
+        --device cpu --steps 4
 
 It trains the arch's smoke config (``--full``: the published one) from
 random weights (seed 0) on ``SyntheticLMSource`` batches, AdamW or the
@@ -13,7 +15,10 @@ config's optimizer, warmup 10 steps and a cosine over ``--total-steps``
 (default ``--steps``, as the JAX launcher's schedule; a run split by
 ``--resume`` passes the whole run's length to every part so that its
 schedule, and its losses, are those of one uninterrupted run).  The
-families it trains are ``train.step.TRAIN_FAMILIES``.  The JAX launcher's
+families it trains are ``train.step.TRAIN_FAMILIES``: the dense and vlm
+archs, rwkv6-3b (``ssm``), mamba2-2.7b (``mamba``), zamba2-1.2b
+(``hybrid``) and whisper-large-v3 (``audio``, on stub frames); the moe
+archs are refused by name.  The JAX launcher's
 ``--host-devices`` (a mesh of host devices) needs the port's
 ``parallel/`` and is refused.
 """
@@ -28,7 +33,10 @@ def main(argv=None):
     """Run the launcher on ``argv`` (the command line by default) and
     return the controller's ``RunReport``."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3-8b")
+    ap.add_argument("--arch", default="llama3-8b",
+                    help="a registry arch of a family the port trains: "
+                         "dense, vlm, rwkv6-3b, mamba2-2.7b, zamba2-1.2b, "
+                         "whisper-large-v3 (moe archs are refused)")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda",

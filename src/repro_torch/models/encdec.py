@@ -29,7 +29,7 @@ from ..configs.base import ModelConfig
 from .layers import (ParamSpecs, Params, attention, attention_decode,
                      attn_params, causal_mask, fan_in_scale, gelu,
                      gqa_scores_attend, linear, mask_vocab_logits,
-                     project_qkv, rms_norm)
+                     project_qkv, rematerialised, remat_wanted, rms_norm)
 
 #: rows of the decoder's learned position table, as the JAX model builds it
 DEC_POSITIONS = 32768
@@ -83,18 +83,26 @@ def _layers(params: Params, prefix: str, n: int):
         yield i, {k: w[i] for k, w in group.items()}
 
 
+def _enc_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params
+               ) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
+    x = x + attention(lp, "attn", cfg, h, causal=False, apply_rope=False)
+    h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
+    return x + gelu_mlp(lp, "mlp", h)
+
+
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
            ) -> torch.Tensor:
     """frames: (B, F, d) stub embeddings -> encoder output (B, F, d):
     non-causal self-attention without rotary, then the GELU MLP, each
-    after an RMS norm, and a final norm."""
+    after an RMS norm, and a final norm.  Under a gradient each layer is
+    recomputed in the backward when ``cfg.remat``
+    (:func:`.layers.remat_wanted`), as in JAX."""
+    remat = remat_wanted(cfg, params)
     f = frames.shape[1]
     x = frames.to(torch.bfloat16) + params["pos_enc"][:f][None]
     for _, lp in _layers(params, "enc.", cfg.encoder_layers):
-        h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
-        x = x + attention(lp, "attn", cfg, h, causal=False, apply_rope=False)
-        h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
-        x = x + gelu_mlp(lp, "mlp", h)
+        x = rematerialised(remat, _enc_layer, cfg, x, lp)
     return rms_norm(x, params["enc_final"] + 1.0, cfg.norm_eps)
 
 
@@ -133,15 +141,24 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 def encdec_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    frames: torch.Tensor) -> torch.Tensor:
     """Teacher-forced forward: logits (B, T, V) over the decoder positions
-    of ``tokens`` (B, T), attending to the encoded ``frames``."""
+    of ``tokens`` (B, T), attending to the encoded ``frames``.  Under a
+    gradient each decoder layer (its cross K/V of the encoder output
+    included) is recomputed in the backward when ``cfg.remat``, as in
+    JAX."""
     enc_out = encode(params, cfg, frames)
+    remat = remat_wanted(cfg, params)
     x = _embed(params, tokens)
     for _, lp in _layers(params, "dec.", cfg.num_layers):
-        h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
-        x = x + attention(lp, "self", cfg, h, causal=True, apply_rope=False)
-        h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
-        x = _cross(lp, cfg, x, h, *_cross_kv(lp, cfg, enc_out))
+        x = rematerialised(remat, _dec_layer, cfg, x, lp, enc_out)
     return _head(params, cfg, x)
+
+
+def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+               enc_out: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
+    x = x + attention(lp, "self", cfg, h, causal=True, apply_rope=False)
+    h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
+    return _cross(lp, cfg, x, h, *_cross_kv(lp, cfg, enc_out))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cpu"

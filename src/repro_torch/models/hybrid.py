@@ -25,9 +25,9 @@ import torch
 from ..configs.base import ModelConfig
 from .layers import ParamSpecs, Params, attention, attention_decode, \
     attention_decode_paged, attn_params, fan_in_scale, linear, \
-    mask_vocab_logits, rms_norm
+    mask_vocab_logits, rematerialised, remat_wanted, rms_norm
 from .paged_state import gather_state, scatter_state, split_state_tables
-from .ssm import CONV_K, init_paged_state, mamba2_decode, mamba2_mixer, \
+from .ssm import CONV_K, init_paged_state, mamba2_decode, mamba_layer, \
     ssm_params
 
 State = Dict[str, torch.Tensor]
@@ -84,12 +84,6 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return mask_vocab_logits(linear(x, params["lm_head"]), cfg.vocab_size)
 
 
-def _mamba_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-                 chunk: int) -> torch.Tensor:
-    h = rms_norm(x, lp["ln"] + 1.0, cfg.norm_eps)
-    return x + mamba2_mixer(lp, "ssm", cfg, h, chunk=chunk)
-
-
 def adaptive_chunk(t: int) -> int:
     """SSD chunk size of the CPU formula, as the JAX package picks it: at
     most 32 chunks, and chunks of at least 256."""
@@ -100,20 +94,28 @@ def hybrid_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                    *, chunk: int = 0) -> torch.Tensor:
     """Logits (B, T, V) of the whole sequence ``tokens`` (B, T): every
     super-block's mamba layers, then the shared attention (causal over the
-    sequence), then the tail (the JAX ``hybrid_forward`` unrolled)."""
+    sequence), then the tail (the JAX ``hybrid_forward`` unrolled).  Under
+    a gradient each super-block is recomputed in the backward when
+    ``cfg.remat`` (:func:`.layers.remat_wanted`), the tail not, as in
+    JAX."""
+    remat = remat_wanted(cfg, params)
     x = params["embed"][tokens.long()]
     b, s = tokens.shape
     chunk = chunk or adaptive_chunk(s)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     shared = _sub(params, "shared.")
     *blocks, tail = _mamba_layers(params, cfg)
-    for block in blocks:
+
+    def super_block(x, block, shared):
         for lp in block:
-            x = _mamba_layer(cfg, x, lp, chunk)
+            x = mamba_layer(cfg, x, lp, chunk)
         h = rms_norm(x, shared["ln"] + 1.0, cfg.norm_eps)
-        x = x + attention(shared, "attn", cfg, h, positions)
+        return x + attention(shared, "attn", cfg, h, positions)
+
+    for block in blocks:
+        x = rematerialised(remat, super_block, x, block, shared)
     for lp in tail:
-        x = _mamba_layer(cfg, x, lp, chunk)
+        x = mamba_layer(cfg, x, lp, chunk)
     return _head(params, cfg, x)
 
 

@@ -20,6 +20,7 @@ import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.apr_matmul import apr_matmul, apr_matmul_grad, matmul_ref, \
@@ -62,6 +63,45 @@ def init_from_specs(specs: ParamSpecs, generator: torch.Generator,
                           * scale)
         out[name] = t
     return out
+
+
+def requires_grad(params: Params) -> bool:
+    """Whether a gradient flows to ``params``: grad mode on and some
+    parameter tensor that requires grad (serving holds none)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(w, torch.Tensor) and w.requires_grad
+        for w in params.values())
+
+
+def grad_wanted(*tensors: torch.Tensor) -> bool:
+    """Whether a gradient flows through ``tensors``: grad mode on and one
+    of them requires grad (``apr_matmul``'s ``needs_grad`` rule).  A
+    recurrence takes its autograd Function only then, so serving calls
+    its kernel as before."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def remat_wanted(cfg: ModelConfig, params: Params) -> bool:
+    """Whether a model's blocks run under ``torch.utils.checkpoint``: under
+    ``cfg.remat`` with a gradient to compute (:func:`requires_grad`), the
+    port of ``jax.checkpoint`` with the ``nothing_saveable`` policy
+    (``cfg.remat_policy == "nothing"``; the others are refused by
+    name)."""
+    remat = cfg.remat and requires_grad(params)
+    if remat and cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r} is not ported; the port "
+            "recomputes with the 'nothing' policy (jax.checkpoint's "
+            "nothing_saveable)")
+    return remat
+
+
+def rematerialised(remat: bool, fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant) when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def use_scan_kernel(x: torch.Tensor) -> bool:

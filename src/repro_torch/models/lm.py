@@ -19,13 +19,12 @@ from __future__ import annotations
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from .layers import ParamSpecs, Params, attention, attention_decode, \
     attention_decode_paged, attn_params, causal_mask, fan_in_scale, \
-    gqa_scores_attend, linear, mask_vocab_logits, project_qkv, rms_norm, \
-    swiglu, tp_einsum
+    gqa_scores_attend, linear, mask_vocab_logits, project_qkv, \
+    rematerialised, remat_wanted, rms_norm, swiglu, tp_einsum
 from .moe import moe_block, moe_params
 
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -162,14 +161,6 @@ def _super_block(cfg: ModelConfig, attend, sb: int,
     return x
 
 
-def requires_grad(params: Params) -> bool:
-    """Whether a gradient flows to ``params``: grad mode on and some
-    parameter tensor that requires grad (serving holds none)."""
-    return torch.is_grad_enabled() and any(
-        isinstance(w, torch.Tensor) and w.requires_grad
-        for w in params.values())
-
-
 def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              attend: Callable[[Tuple[int, int], Params, torch.Tensor],
                               torch.Tensor],
@@ -179,27 +170,18 @@ def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Embed (after ``prefix_embeds``, when given), run every super-block
     (:func:`_super_block`), final norm and head (on the last position
     alone with ``last_only``).  With ``remat`` and a gradient to compute
-    (:func:`requires_grad`) each super-block runs under
+    (:func:`.layers.remat_wanted`) each super-block runs under
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
     recomputed in the backward, the port of ``jax.checkpoint`` with the
-    ``nothing_saveable`` policy (``cfg.remat_policy == "nothing"``; the
-    others are refused by name)."""
+    ``nothing_saveable`` policy."""
     _check_family(cfg)
-    remat = remat and requires_grad(params)
-    if remat and cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported; the port "
-            "recomputes with the 'nothing' policy (jax.checkpoint's "
-            "nothing_saveable)")
+    remat = remat and remat_wanted(cfg, params)
     x = params["embed"][tokens.long()]
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     for sb, layers in _super_blocks(params, cfg):
-        if remat:
-            x = checkpoint(_super_block, cfg, attend, sb, layers, x,
-                           use_reentrant=False)
-        else:
-            x = _super_block(cfg, attend, sb, layers, x)
+        x = rematerialised(remat, _super_block, cfg, attend, sb, layers,
+                           x)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)

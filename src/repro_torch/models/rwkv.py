@@ -3,7 +3,8 @@ data-dependent decay, and channel mixing.
 
 Port of the JAX package's ``repro.models.rwkv``.  The WKV recurrence
 (:func:`wkv_chunked`) launches the hand-written ``rwkv6_wkv`` kernel once
-over all T steps on CUDA tensors; on CPU tensors it computes the JAX
+over all T steps on CUDA tensors (and, under a gradient, its backward
+kernel once in the backward); on CPU tensors it computes the JAX
 package's chunked matmul formula op for op, so the CPU tests compare like
 with like.  The JAX layer's TP head padding (``rwkv_pad_heads_to``, a
 layout knob for a sharded mesh) is not ported: a config that sets it is
@@ -17,9 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels.rwkv6 import rwkv6_wkv
-from .layers import ParamSpecs, Params, fan_in_scale, linear, rms_norm, \
-    sigmoid, silu, use_scan_kernel
+from ..kernels.rwkv6 import rwkv6_wkv, rwkv6_wkv_grad
+from .layers import ParamSpecs, Params, fan_in_scale, grad_wanted, linear, \
+    rms_norm, sigmoid, silu, use_scan_kernel
 
 W_LORA = 32
 
@@ -108,11 +109,17 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     or zeros; returns y and, with ``return_state``, the final state.
 
     CUDA tensors: one ``rwkv6_wkv`` launch over all T with ``w =
-    exp(logw)`` in fp32 (y in r's dtype, which the caller rounds to anyway).
-    CPU tensors: the JAX chunked formula
-    in fp32, chunk by chunk."""
+    exp(logw)`` in fp32 (y in r's dtype, which the caller rounds to anyway);
+    under a gradient (:func:`.layers.grad_wanted`) through
+    ``Rwkv6Function``, whose backward is the ``rwkv6_wkv_backward`` kernel
+    (no state in or out), exp's own backward chaining dw to log w.
+    CPU tensors: the JAX chunked formula in fp32, chunk by chunk."""
     if use_scan_kernel(r):
-        return rwkv6_wkv(r, k, v, torch.exp(logw.float()), u, s_init=s_init,
+        w = torch.exp(logw.float())
+        if grad_wanted(r, k, v, w, u):
+            return rwkv6_wkv_grad(r, k, v, w, u, s_init=s_init,
+                                  return_state=return_state)
+        return rwkv6_wkv(r, k, v, w, u, s_init=s_init,
                          return_state=return_state)
     bsz, t, h, d = r.shape
     nchunks = -(-t // chunk)

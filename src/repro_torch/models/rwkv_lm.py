@@ -17,7 +17,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from .layers import ParamSpecs, Params, fan_in_scale, linear, \
-    mask_vocab_logits, rms_norm
+    mask_vocab_logits, rematerialised, remat_wanted, rms_norm
 from .paged_state import gather_state, scatter_state, split_state_tables
 from .rwkv import rwkv6_channel_mix, rwkv6_time_mix, rwkv_params
 
@@ -51,15 +51,24 @@ def _head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return mask_vocab_logits(linear(x, params["lm_head"]), cfg.vocab_size)
 
 
+def _layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+           chunk: int) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
+    x = x + rwkv6_time_mix(lp, "", cfg, h, chunk=chunk)
+    h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
+    return x + rwkv6_channel_mix(lp, "", cfg, h)
+
+
 def rwkv_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                  chunk: int = 64) -> torch.Tensor:
-    """Logits (B, T, V) of the whole sequence ``tokens`` (B, T)."""
+    """Logits (B, T, V) of the whole sequence ``tokens`` (B, T); under a
+    gradient each layer recomputed in the backward when ``cfg.remat``
+    (:func:`.layers.remat_wanted`), as the JAX forward wraps it in
+    ``jax.checkpoint``."""
+    remat = remat_wanted(cfg, params)
     x = params["embed"][tokens.long()]
     for lp in _layers(params, cfg):
-        h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
-        x = x + rwkv6_time_mix(lp, "", cfg, h, chunk=chunk)
-        h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
-        x = x + rwkv6_channel_mix(lp, "", cfg, h)
+        x = rematerialised(remat, _layer, cfg, x, lp, chunk)
     return _head(params, cfg, x)
 
 

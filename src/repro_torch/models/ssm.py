@@ -3,7 +3,8 @@ PyTorch.
 
 Port of the JAX package's ``repro.models.ssm``.  The SSD recurrence
 launches the hand-written ``mamba2_ssd`` kernel on CUDA tensors: once over
-all T steps in :func:`ssd_chunked` (forward, prefill), and at T = 1 with the
+all T steps in :func:`ssd_chunked` (forward, prefill; under a gradient its
+backward kernel once in the backward), and at T = 1 with the
 state in and out for the state step of :func:`mamba2_decode`.  On CPU
 tensors both keep the JAX package's formulas op for op: the chunked matmul
 formula in :func:`ssd_chunked`, the inline step in :func:`mamba2_decode`.
@@ -18,9 +19,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels.mamba2 import mamba2_ssd
-from .layers import ParamSpecs, Params, fan_in_scale, linear, \
-    mask_vocab_logits, rms_norm, silu, softplus, use_scan_kernel
+from ..kernels.mamba2 import mamba2_ssd, mamba2_ssd_grad
+from .layers import ParamSpecs, Params, fan_in_scale, grad_wanted, linear, \
+    mask_vocab_logits, rematerialised, remat_wanted, rms_norm, silu, \
+    softplus, use_scan_kernel
 from .paged_state import gather_state, scatter_state, split_state_tables
 
 CONV_K = 4
@@ -97,9 +99,14 @@ def ssd_chunked(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     final state.
 
     CUDA tensors: one ``mamba2_ssd`` launch over all T (y in x's dtype,
-    which the caller rounds to anyway).  CPU tensors: the JAX chunked
-    formula in fp32."""
+    which the caller rounds to anyway); under a gradient
+    (:func:`.layers.grad_wanted`) through ``Mamba2Function``, whose
+    backward is the ``mamba2_ssd_backward`` kernel (no state in or out).
+    CPU tensors: the JAX chunked formula in fp32."""
     if use_scan_kernel(x):
+        if grad_wanted(x, b, c, dt, a, d_skip):
+            return mamba2_ssd_grad(x, b, c, dt, a, d_skip, h_init=h_init,
+                                   return_state=return_state)
         return mamba2_ssd(x, b, c, dt, a, d_skip, h_init=h_init,
                           return_state=return_state)
     bsz, t, h, p = x.shape
@@ -251,13 +258,24 @@ def _lm_head(params: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return mask_vocab_logits(linear(x, params["lm_head"]), cfg.vocab_size)
 
 
+def mamba_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+                chunk: int) -> torch.Tensor:
+    """One pre-norm mixer block with its residual (``lp``: its ``ln`` and
+    ``ssm.*`` parameters), the layer of the mamba and hybrid families."""
+    h = rms_norm(x, lp["ln"] + 1.0, cfg.norm_eps)
+    return x + mamba2_mixer(lp, "ssm", cfg, h, chunk=chunk)
+
+
 def mamba_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                   chunk: int = 256) -> torch.Tensor:
-    """Logits (B, T, V) of the whole sequence ``tokens`` (B, T)."""
+    """Logits (B, T, V) of the whole sequence ``tokens`` (B, T); under a
+    gradient each layer recomputed in the backward when ``cfg.remat``
+    (:func:`.layers.remat_wanted`), as the JAX forward wraps it in
+    ``jax.checkpoint``."""
+    remat = remat_wanted(cfg, params)
     x = params["embed"][tokens.long()]
     for lp in _layers(params, cfg):
-        h = rms_norm(x, lp["ln"] + 1.0, cfg.norm_eps)
-        x = x + mamba2_mixer(lp, "ssm", cfg, h, chunk=chunk)
+        x = rematerialised(remat, mamba_layer, cfg, x, lp, chunk)
     return _lm_head(params, cfg, x)
 
 

@@ -4,9 +4,12 @@ microbatches, then the optimizer update (AdamW or Adafactor).
 
 The gradient is ``torch.autograd.grad`` of the loss over the parameter
 dict.  On the card every projection's forward and both products of its
-backward run on ``apr_matmul`` (``AprMatmulFunction``), and each
-super-block is recomputed in the backward under ``cfg.remat``
-(``models/lm.py``).  Families: ``dense`` and ``vlm``.  The sharded pieces
+backward run on ``apr_matmul`` (``AprMatmulFunction``), the recurrences'
+forwards and backwards on ``rwkv6_wkv`` / ``rwkv6_wkv_backward``
+(``Rwkv6Function``) and ``mamba2_ssd`` / ``mamba2_ssd_backward``
+(``Mamba2Function``), and each block the JAX forward checkpoints is
+recomputed in the backward under ``cfg.remat``.  Families: ``dense``,
+``vlm``, ``ssm``, ``mamba``, ``hybrid`` and ``audio``.  The sharded pieces
 of the JAX module (``assemble_shardings``, ``cache_spec``, ZeRO-1 specs,
 cross-pod gradient compression) need the port's ``parallel/`` and are not
 here.
@@ -25,10 +28,11 @@ from ..models.registry import ModelBundle
 from ..optim import (adafactor_init, adafactor_update, adamw_init,
                      adamw_update, global_norm_sq, warmup_cosine)
 
-#: the families the port trains: the ones whose forward on the card runs
-#: B1 alone.  moe's forward reads the expert counts on the host, audio,
-#: ssm, mamba and hybrid run kernels (B9, B10) with no backward yet
-TRAIN_FAMILIES = ("dense", "vlm")
+#: the families the port trains.  moe is refused: one full-width arctic-480b
+#: layer holds 13.4 B expert parameters (~54 GB of bf16 params and grads
+#: before the optimizer's state), so its training needs the expert-parallel
+#: branch over several cards (ROADMAP A.12)
+TRAIN_FAMILIES = ("dense", "vlm", "ssm", "mamba", "hybrid", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +63,15 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
 def _loss_fn(bundle: ModelBundle, params, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
     """The JAX ``_loss_fn`` over the port's forward: the batch dict's
-    ``tokens`` (and a vlm's ``vision_embeds`` as ``prefix_embeds``), the
-    vision prefix's positions masked out of the loss."""
+    ``tokens`` (and a vlm's ``vision_embeds`` as ``prefix_embeds``, an
+    audio model's ``frames``), the vision prefix's positions masked out of
+    the loss."""
     cfg = bundle.cfg
     vlm = cfg.family == "vlm"
-    logits = bundle.forward(params, batch["tokens"], prefix_embeds=(
-        batch["vision_embeds"] if vlm else None))
+    logits = bundle.forward(
+        params, batch["tokens"],
+        prefix_embeds=batch["vision_embeds"] if vlm else None,
+        frames=batch["frames"] if cfg.family == "audio" else None)
     mask = None
     if vlm:   # vision prefix positions carry no labels
         s = logits.shape[1]
@@ -96,8 +103,10 @@ def check_trainable(cfg: ModelConfig) -> None:
     not train."""
     if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported; "
-            f"the port trains {', '.join(TRAIN_FAMILIES)}")
+            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
+            f"(an expert layer at full width outgrows one card: ROADMAP "
+            f"A.12, expert parallelism); the port trains "
+            f"{', '.join(TRAIN_FAMILIES)}")
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:

@@ -245,6 +245,45 @@ def test_training_works_without_jax(tmp_path):
     assert res.stdout.split()[-1] == "ok"
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "mamba2-2.7b", "zamba2-1.2b",
+                                  "whisper-large-v3"])
+def test_train_launcher_new_families_default_to_cuda(no_cuda, arch,
+                                                     tmp_path):
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--arch", arch, "--steps", "1", "--ckpt-dir",
+                           str(tmp_path)])
+
+
+def test_recurrent_training_works_without_jax(tmp_path):
+    """The recurrences' gradients (``Rwkv6Function``, ``Mamba2Function``,
+    their backward kernels' sources beside the forwards') and a train step
+    of the rwkv6 and zamba2 smoke models in a process where jax and the
+    JAX package cannot be imported."""
+    for name in ("rwkv6_bwd", "mamba2_bwd"):
+        assert (PORT / "csrc" / f"{name}.cu").is_file()
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "from repro_torch.kernels.mamba2 import Mamba2Function, "
+        "mamba2_ssd_backward\n"
+        "from repro_torch.kernels.rwkv6 import Rwkv6Function, "
+        "rwkv6_wkv_backward\n"
+        "from repro_torch.launch import train\n"
+        "for arch in ('rwkv6-3b', 'zamba2-1.2b'):\n"
+        "    r = train.main(['--arch', arch, '--device', 'cpu', '--steps', "
+        "'1', '--batch', '2', '--seq', '8', '--ckpt-dir', "
+        f"{str(tmp_path)!r} + arch])\n"
+        "    assert r.steps_completed == 1\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "ok"
+
+
 def test_autotune_defaults_to_cuda_and_raises_without_it(no_cuda):
     from repro_torch.bench import warm_cache
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -143,5 +143,5 @@ def test_launcher_refuses_host_devices(tmp_path):
 
 
 def test_launcher_refuses_untrained_families(tmp_path):
-    with pytest.raises(NotImplementedError, match="'ssm'"):
-        launch_train.main(_args(tmp_path, 1, "--arch", "rwkv6-3b"))
+    with pytest.raises(NotImplementedError, match="'moe'.*A.12"):
+        launch_train.main(_args(tmp_path, 1, "--arch", "arctic-480b"))

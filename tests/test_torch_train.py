@@ -396,8 +396,7 @@ def test_microbatches_for_matches_jax(shape):
 
 
 # -------------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", ["arctic-480b", "whisper-large-v3",
-                                  "rwkv6-3b", "mamba2-2.7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["arctic-480b"])
 def test_untrained_families_are_refused_by_name(arch):
     cfg = get_config(arch, smoke=True)
     bundle = build_model(cfg, device="cpu")
