@@ -39,6 +39,12 @@
                                      # only apr_matmul.cu of this tree
                                      # beside an older tree's: every older
                                      # kernel's ptxas counts equal
+    python3 chip_smoke.py --scan-bwd-ab scratch_tree --out scan_bwd_ab.json
+                                     # only phase 9e-a's timed backward
+                                     # cases (B9 / B10 at the bf16
+                                     # training shapes) on this tree and
+                                     # an older one, each in its own
+                                     # process: ms, error and the ratio
 
 Phases (any failure exits non-zero before the final line):
   1. build the CUDA kernels of ``src/repro_torch/csrc`` with nvcc (sm_90a);
@@ -275,7 +281,9 @@ Phases (any failure exits non-zero before the final line):
      (``csrc/rwkv6_bwd.cu``, ``csrc/mamba2_bwd.cu``) against their plain
      versions at rwkv6-3b's, mamba2-2.7b's and zamba2-1.2b's training
      shapes (bf16, fp32), at T = 1, 37 and 1024, B = 1 and decays near
-     1e-24 and near 1, twice bit-equal, timed against their bounds; 9e-b
+     1e-24 and near 1, twice bit-equal, timed against their bounds, each
+     timed case with its launch geometry (blocks, blocks an SM, shared
+     memory a block, steps a chunk) and its fixed-order reduce's ms; 9e-b
      the rwkv6-3b, mamba2-2.7b, zamba2-1.2b and whisper-large-v3 smoke
      configs train 3 steps on the card and on the CPU, losses and grad
      norms within the stated bounds; 9e-c the same archs at full width with
@@ -7013,6 +7021,9 @@ def scan_grad_checks(torch, gen, dev) -> list:
                                       warmup=0)
             row.update(scan_grad_bound(c["kernel"], c["shape"],
                                        c["dtype"].itemsize))
+            row.update(scan_grad_geometry(torch, c["kernel"], c["shape"],
+                                          c["dtype"].itemsize,
+                                          lambda: kern(*args)))
         del got, again, ref, args
         rows.append(row)
         print(f"    9e-a {row['kernel']} {row['shape']} {row['dtype']} "
@@ -7023,8 +7034,188 @@ def scan_grad_checks(torch, gen, dev) -> list:
                  f"{row['bound_ms']:.4f} by {row['bound_by']})"
                  if c["timed"] else "")
               + ("" if row["ok"] else "  FAILED"), flush=True)
+        if c["timed"]:
+            print(f"      {scan_grad_geometry_line(row)}", flush=True)
     torch.cuda.empty_cache()
     return rows
+
+
+def bwd_launch(kernel, shape, itemsize):
+    """A backward call's launch, the wrapper's ``bwd_geometry`` (blocks,
+    blocks an SM by shared memory and threads, waves, shared bytes a
+    block, the steps a chunk stashes) with the SM count; None on a tree
+    without it."""
+    from repro_torch.kernels.mamba2 import ops as mops
+    from repro_torch.kernels.rwkv6 import ops as rops
+    mod = rops if kernel == "rwkv6_wkv_backward" else mops
+    geom = getattr(mod, "bwd_geometry", None)
+    return dict(geom(*shape, itemsize), sms=mod.SMS) if geom else None
+
+
+def scan_grad_geometry(torch, kernel, shape, itemsize, call) -> dict:
+    """A backward call's launch (:func:`bwd_launch`) and, by
+    :func:`profile_device` over 3 calls, each kernel's device ms a call
+    and the fixed-order reduce's (the kernels after the sweeps)."""
+    geom = bwd_launch(kernel, shape, itemsize)
+    for _ in range(3):      # late in a long run the profiler may drop records
+        prof = profile_device(torch, call, 3)
+        if prof and any("reduce" in k for k in prof):
+            break
+    reduce_ms = (sum(t for k, t in prof.items()
+                     if "reduce" in k or "heads" in k) if prof else None)
+    return dict(geometry=geom, kernels_ms=prof, reduce_ms=reduce_ms)
+
+
+def scan_grad_geometry_line(row) -> str:
+    g = row.get("geometry")
+    red = row.get("reduce_ms")
+    text = ("geometry: " + (
+        f"{g['blocks']} blocks of {g['threads']} threads, {g['blocks_per_sm']}"
+        f" an SM ({g['blocks_per_sm'] * g['sms']} a wave, {g['waves']} "
+        f"wave{'s' if g['waves'] > 1 else ''}), {g['smem']} B of shared "
+        f"memory a block, {g['chunk']} steps a chunk ({g['chunks']} chunks)"
+        if g else "not reported by this tree"))
+    return text + (f"; reduce {red:.4f} ms" if red is not None
+                   else "; reduce not measured")
+
+
+#: the arch whose phase-9e-c step ``--scan-bwd-ab`` times on both trees
+SCAN_BWD_AB_STEP = "mamba2-2.7b"
+
+
+def scan_bwd_one(torch, src: Path, seed: int, out: Path) -> None:
+    """``--scan-bwd-one SRC``: phase 9e-a's timed cases (each backward
+    kernel at its bf16 training shapes, :data:`SCAN_GRAD_SHAPES`) through
+    the wrappers of the ``repro_torch`` found at ``SRC`` (already first on
+    ``sys.path``), on inputs drawn from ``seed`` in one fixed order, so
+    that every tree gets the same: each case's ms (CUDA events, 10 calls),
+    its kernels' device ms by :func:`profile_device` (the reduce's among
+    them), each gradient's |kernel - plain| / max |plain|, two calls
+    bit-equal, and the tree's launch geometry where it reports one; then
+    phase 9e-c's step of :data:`SCAN_BWD_AB_STEP` on the same tree
+    (:func:`train_recurrent_full`); writes ``out``."""
+    from repro_torch.kernels.mamba2 import mamba2_ref_bwd, mamba2_ssd_backward
+    from repro_torch.kernels.rwkv6 import rwkv6_ref_bwd, rwkv6_wkv_backward
+    fns = {"rwkv6_wkv_backward": (rwkv6_wkv_backward, rwkv6_ref_bwd),
+           "mamba2_ssd_backward": (mamba2_ssd_backward, mamba2_ref_bwd)}
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain versions
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for arch, shape in SCAN_GRAD_SHAPES.items():
+        kernel = ("rwkv6_wkv_backward" if arch == "rwkv6-3b"
+                  else "mamba2_ssd_backward")
+        kern, plain = fns[kernel]
+        args = scan_grad_inputs(torch, gen, dev, kernel, shape,
+                                torch.bfloat16)
+        got, again, ref = kern(*args), kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        rel = [float((g - r).abs().max() / r.abs().max().clamp_min(1e-30))
+               for g, r in zip(got, ref)]
+        row = dict(kernel=kernel, arch=arch, shape=shape, rel_err=rel,
+                   max_rel=max(rel),
+                   bit_stable=all(torch.equal(a, b)
+                                  for a, b in zip(got, again)),
+                   ms=cuda_ms(torch, lambda i: kern(*args), 10))
+        row["geometry"] = bwd_launch(kernel, shape, 2)
+        row["kernels_ms"] = profile_device(torch, lambda: kern(*args), 3)
+        row["reduce_ms"] = (sum(t for k, t in row["kernels_ms"].items()
+                                if "reduce" in k or "heads" in k)
+                            if row["kernels_ms"] else None)
+        cases.append(row)
+        print(f"    {src}: {kernel} {shape} {row['ms']:.4f} ms, rel err "
+              f"{row['max_rel']:.2e}, "
+              f"{'bit-stable' if row['bit_stable'] else 'NOT bit-stable'}",
+              flush=True)
+        del args, got, again, ref
+        torch.cuda.empty_cache()
+    from repro_torch.bench import ConfigCache, set_default_cache
+    tmp = tempfile.TemporaryDirectory(prefix="scan_bwd_one_")
+    set_default_cache(ConfigCache(Path(tmp.name) / "untuned.json",
+                                  autosave=False))
+    global TRAIN_RECURRENT
+    saved = TRAIN_RECURRENT
+    TRAIN_RECURRENT = {SCAN_BWD_AB_STEP: saved[SCAN_BWD_AB_STEP]}
+    try:
+        full = train_recurrent_full(torch, seed, dev)[SCAN_BWD_AB_STEP]
+    finally:
+        TRAIN_RECURRENT = saved
+    step = dict(arch=SCAN_BWD_AB_STEP, step_ms=full["step_ms"],
+                forward_backward_ms=full["split"]["forward_backward_ms"],
+                launches=full["launches"])
+    print(f"    {src}: {SCAN_BWD_AB_STEP} 9e-c step {step['step_ms']:.2f} ms "
+          f"(forward + backward {step['forward_backward_ms']:.2f})",
+          flush=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(src=str(src), cases=cases, step=step),
+                              indent=1))
+
+
+def scan_bwd_ab(torch, older: Path, seed: int, out: Path) -> None:
+    """``--scan-bwd-ab DIR``: :func:`scan_bwd_one` on the tree unpacked at
+    ``DIR`` and on this one, each in its own process, in the order older,
+    this, this, older; per case both trees' ms (the mean of their two
+    runs), each tree's largest error against the plain version and the
+    older tree's ms over this one's.  Writes ``out``; fails when either
+    tree's kernels leave :data:`SCAN_GRAD_RTOL` or give other bits on a
+    second call."""
+    runs = []
+    for i, tree in enumerate((older, ROOT, ROOT, older)):
+        part = out.with_name(f"{out.stem}_run{i}.json")
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--scan-bwd-one",
+             str(tree / "src"), "--seed", str(seed), "--out", str(part)],
+            capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode:
+            fail(f"scan-bwd-ab: the run on {tree} failed:\n"
+                 f"{proc.stderr[-3000:]}")
+        runs.append(json.loads(part.read_text()))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    rows, bad = [], []
+    for k, case in enumerate(runs[0]["cases"]):
+        old = [runs[i]["cases"][k] for i in (0, 3)]
+        new = [runs[i]["cases"][k] for i in (1, 2)]
+        row = dict(kernel=case["kernel"], arch=case["arch"],
+                   shape=case["shape"],
+                   older_ms=[c["ms"] for c in old],
+                   this_ms=[c["ms"] for c in new],
+                   older_rel=max(c["max_rel"] for c in old),
+                   this_rel=max(c["max_rel"] for c in new),
+                   older_reduce_ms=[c["reduce_ms"] for c in old],
+                   this_reduce_ms=[c["reduce_ms"] for c in new],
+                   geometry=new[0]["geometry"])
+        row["ratio"] = (sum(row["older_ms"]) / sum(row["this_ms"]))
+        rows.append(row)
+        bad += [f"{tree} {c['kernel']} {c['shape']}" for tree, cs in
+                (("older", old), ("this", new)) for c in cs
+                if c["max_rel"] > SCAN_GRAD_RTOL or not c["bit_stable"]]
+        print(f"[scan-bwd-ab] {row['kernel']} {row['arch']} "
+              f"{tuple(row['shape'])}: older "
+              f"{sum(row['older_ms']) / 2:.4f} ms (rel err "
+              f"{row['older_rel']:.2e}), this "
+              f"{sum(row['this_ms']) / 2:.4f} ms (rel err "
+              f"{row['this_rel']:.2e}): {row['ratio']:.2f}x; reduce "
+              f"{row['older_reduce_ms']} / {row['this_reduce_ms']} ms",
+              flush=True)
+    steps = dict(older=[runs[i]["step"] for i in (0, 3)],
+                 this=[runs[i]["step"] for i in (1, 2)])
+    print(f"[scan-bwd-ab] {SCAN_BWD_AB_STEP} 9e-c step (ms; forward + "
+          f"backward): older "
+          f"{[(s_['step_ms'], s_['forward_backward_ms']) for s_ in steps['older']]}"
+          f", this "
+          f"{[(s_['step_ms'], s_['forward_backward_ms']) for s_ in steps['this']]}",
+          flush=True)
+    print(f"[scan-bwd-ab] {smi}")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(card=smi, older=str(older),
+                                   rtol=SCAN_GRAD_RTOL, cases=rows,
+                                   steps=steps), indent=1))
+    if bad:
+        fail(f"scan-bwd-ab: outside {SCAN_GRAD_RTOL:g} of the plain version "
+             f"or not bit-stable: {bad}")
 
 
 class PlainBwdCounter:
@@ -7535,6 +7726,14 @@ def main() -> int:
                          "to the older tree's ptxas counts and output bits "
                          "and the G = 12 and 16 cases to the plain version "
                          "(decode_ab); writes --out")
+    ap.add_argument("--scan-bwd-ab", metavar="DIR",
+                    help="only run phase 9e-a's timed cases (B9's and B10's "
+                         "backward kernels at the bf16 training shapes) on "
+                         "the tree unpacked at DIR and on this one, each in "
+                         "its own process, older, this, this, older, and "
+                         "print both trees' ms, error against the plain "
+                         "version and the ratio (scan_bwd_ab); writes --out")
+    ap.add_argument("--scan-bwd-one", metavar="SRC", help=argparse.SUPPRESS)
     ap.add_argument("--matmul-ptxas-ab", metavar="DIR",
                     help="only build apr_matmul.cu of this tree and of the "
                          "tree unpacked at DIR and hold every kernel of the "
@@ -7555,7 +7754,16 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU host",
               file=sys.stderr)
         return 2
+    if args.scan_bwd_one:       # one tree of --scan-bwd-ab, on its sources
+        sys.path.insert(0, str(Path(args.scan_bwd_one).resolve()))
+        scan_bwd_one(torch, Path(args.scan_bwd_one), args.seed,
+                     Path(args.out))
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
+    if args.scan_bwd_ab:
+        scan_bwd_ab(torch, Path(args.scan_bwd_ab).resolve(), args.seed,
+                    Path(args.out))
+        return 0
     from repro_torch.bench import ConfigCache, set_default_cache
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build

@@ -197,14 +197,17 @@ def default_cache() -> ConfigCache:
         return _default_cache
 
 
-def set_default_cache(cache: Optional[ConfigCache]) -> None:
+def set_default_cache(cache: Optional[ConfigCache]
+                      ) -> Optional[ConfigCache]:
     """Swap the process-wide *fallback* cache (tests; ``None`` restores
-    the env-derived default).  Engine-owned caches are scoped with
+    the env-derived default) and return the one it replaced, so a caller
+    can put it back.  Engine-owned caches are scoped with
     :func:`scoped_cache` instead, so two engines with different
     ``tune_cache`` paths coexist."""
     global _default_cache
     with _default_lock:
-        _default_cache = cache
+        prev, _default_cache = _default_cache, cache
+    return prev
 
 
 class scoped_cache:

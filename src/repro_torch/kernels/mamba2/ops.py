@@ -226,29 +226,92 @@ mamba2_ssd.launches = 0
 
 # ------------------------------------------------------------- the gradient
 BWD_LIBRARY = "mamba2_bwd"
-_BWD_ARGS = [_P] * 18 + [_I] * 6 + [_P]
+_BWD_ARGS = [_P] * 21 + [_I] * 9 + [_P]
 BWD_SIGNATURES = {"mamba2_ssd_bwd_bf16": (ctypes.c_int, _BWD_ARGS),
                   "mamba2_ssd_bwd_f32": (ctypes.c_int, _BWD_ARGS)}
-#: the most steps a backward chunk recomputes into shared memory
-BWD_MAX_CHUNK = 16
+#: the most steps a backward chunk stashes
+BWD_MAX_CHUNK = 32
+#: an H100 SM's shared memory, and the part the system keeps a block
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+#: the blocks an SM a wave needs from which the backward runs its
+#: register-capped body (``WAVE`` in the source)
+BWD_WAVE_BLOCKS = 3
 
 
-def state_cols(n: int) -> int:
-    """N rounded up to a power of two, at least 16: the state columns the
-    backward kernel's lanes cover (those past N are zeros)."""
-    np_ = 16
-    while np_ < n:
-        np_ *= 2
-    return np_
+def bwd_smem_bytes(ch, p, nc, warps, itemsize) -> int:
+    """Dynamic shared memory of a backward launch (``smem_floats`` in the
+    source): the stash of a chunk's states, the warps' column partials,
+    the tile's row sums, fp32 copies of bf16 rows, two raw buffers and
+    the per-step scalars."""
+    es = itemsize
+    return 4 * (ch * p * nc + ch * warps * nc + ch * p
+                + (4 - es) // 2 * 2 * ch * (p + nc)
+                + 2 * ((ch * (2 * p + 2 * nc) * es + 4 * ch + 15) // 16 * 4)
+                + ch + 4 * ch * warps)
 
 
-def bwd_chunk(t: int, p: int, n: int) -> int:
-    """Steps of a backward chunk (``smem_floats`` in the source): as many
-    states of a head as the block's shared memory holds beside the staged
-    inputs, at most :data:`BWD_MAX_CHUNK` and T (6 at P = 64, N = 128)."""
-    np_, warps = state_cols(n), p // 8
-    per_step = (p * np_ + warps * np_ + 2 * np_ + 2 * p + 2 * warps + 3)
-    return max(1, min(BWD_MAX_CHUNK, t, MAX_SMEM // 4 // per_step))
+def blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks an SM holds by shared memory and threads (2048 an SM)."""
+    return min(SM_SMEM // (smem + BLOCK_RESERVED), 2048 // threads)
+
+
+def stash_chunk(t: int, blocks: int, threads: int, smem_of) -> int:
+    """The steps a backward chunk stashes (``smem_of(ch)`` bytes a block):
+    the most, up to :data:`BWD_MAX_CHUNK` and T, at which the blocks an SM
+    that one wave of ``blocks`` needs (at least 2) fit; where none does,
+    the most at which 2 fit."""
+    steps = range(1, max(1, min(t, BWD_MAX_CHUNK)) + 1)
+    for want in (max(2, -(-blocks // SMS)), 2):
+        fits = [c for c in steps if blocks_per_sm(smem_of(c), threads)
+                >= want]
+        if fits:
+            return fits[-1]
+    return 1
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_geometry(b, t, h, p, n, itemsize: int = 2) -> dict:
+    """The backward launch at (B, T, H, P, N), from the shape alone: each
+    (b, h) state cut into ``tiles`` column tiles of ``cols`` = 4 ·
+    ``lanes`` columns (32, or 16 where 32 does not divide N), a block a
+    tile holding all P rows, ``rows_per_lane`` rows a thread (4, or 2
+    where 4 leaves a partial warp); ``chunk``, the steps a chunk's states
+    stash (:func:`stash_chunk`); ``wave``: one wave needs
+    :data:`BWD_WAVE_BLOCKS` or more blocks an SM (at 4 rows a thread),
+    and the call runs the register-capped body."""
+    lanes = 8 if n % 32 == 0 else 4
+    cols = 4 * lanes
+    tiles = n // cols
+    blocks = b * h * tiles
+    rt = 4 if p // 4 * lanes >= 32 else 2
+    threads = p // rt * lanes
+    warps = threads // 32
+    want = max(2, -(-blocks // SMS))
+
+    def smem(ch):
+        return bwd_smem_bytes(ch, p, cols, warps, itemsize)
+
+    chunk = stash_chunk(t, blocks, threads, smem)
+    per_sm = blocks_per_sm(smem(chunk), threads)
+    return dict(lanes=lanes, rows_per_lane=rt, cols=cols, tiles=tiles,
+                threads=threads, warps=warps, blocks=blocks, chunk=chunk,
+                chunks=-(-t // chunk), smem=smem(chunk),
+                wave=want >= BWD_WAVE_BLOCKS and rt == 4,
+                blocks_per_sm=per_sm,
+                waves=-(-blocks // (per_sm * SMS)))
+
+
+def bwd_buffers(b, t, h, p, n, geom: dict) -> dict:
+    """The backward call's fp32 scratch, by name and shape, in the order
+    the source takes it: the checkpoints (a chunk's start state of each
+    tile), dx's per-tile partials, db's and dc's per-head partials, the
+    per-tile q and s partials, and x·dy and dt·q of each (b, t, h)."""
+    tiles = geom["tiles"]
+    return {"ckpt": (geom["blocks"], geom["chunks"], p * geom["cols"]),
+            "dx_part": (tiles, b, t, h, p), "db_part": (b, t, h, n),
+            "dc_part": (b, t, h, n), "q_part": (tiles, b, t, h),
+            "s_part": (tiles, b, t, h), "xdy": (b, t, h),
+            "dterm": (b, t, h)}
 
 
 def mamba2_ssd_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
@@ -256,11 +319,13 @@ def mamba2_ssd_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                         dy: torch.Tensor):
     """The gradient of :func:`mamba2_ssd` (no state in or out) given ``dy``
     in x's dtype and shape: (dx, db, dc, ddt, da, dd) in fp32, from one
-    call of ``csrc/mamba2_bwd.cu`` (its checkpointing sweep and reverse
-    sweep, then the fixed-order sums over heads and batch rows).  CUDA
-    tensors only, x, b, c and dy contiguous: the plain version is
+    call of ``csrc/mamba2_bwd.cu`` (the checkpointing and reverse sweeps
+    over the column tiles of :func:`bwd_geometry`, then the fixed-order
+    sums over tiles, heads, batch rows and steps).  CUDA tensors only, x,
+    b, c and dy contiguous: the plain version is
     :func:`.ref.mamba2_ref_bwd`.  Each call adds one to
-    ``mamba2_ssd_backward.launches``."""
+    ``mamba2_ssd_backward.launches``, whatever number of kernels it
+    runs."""
     bsz, t, h, p, n = check_kernel_args(x, b, c, dt, a, d)
     tensors = (x, b, c, dt, a, d, dy)
     if dy.dtype != x.dtype or dy.shape != x.shape:
@@ -273,22 +338,21 @@ def mamba2_ssd_backward(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                          f"{[str(v.device) for v in tensors]}")
     if t == 0:
         raise ValueError("mamba2_ssd_backward: T = 0")
-    ch = bwd_chunk(t, p, n)
+    geom = bwd_geometry(bsz, t, h, p, n, x.element_size())
     f32 = dict(dtype=torch.float32, device=x.device)
-    ckpt = torch.empty((bsz * h, -(-t // ch), p * state_cols(n)), **f32)
+    scratch = [torch.empty(shape, **f32) for shape in
+               bwd_buffers(bsz, t, h, p, n, geom).values()]
     dx = torch.empty((bsz, t, h, p), **f32)
-    db_part, dc_part = (torch.empty((bsz, t, h, n), **f32) for _ in range(2))
-    ddt = torch.empty((bsz, t, h), **f32)
-    da_part, dd_part = (torch.empty((bsz, h), **f32) for _ in range(2))
     db, dc = (torch.empty((bsz, t, n), **f32) for _ in range(2))
+    ddt = torch.empty((bsz, t, h), **f32)
     da, dd = (torch.empty((h,), **f32) for _ in range(2))
     lib = _build.load(BWD_LIBRARY, BWD_SIGNATURES)
     fn = lib.mamba2_ssd_bwd_bf16 if x.dtype == torch.bfloat16 else \
         lib.mamba2_ssd_bwd_f32
-    err = fn(*(v.data_ptr() for v in (x, b, c, dt, a, d, dy, ckpt, dx,
-                                      db_part, dc_part, ddt, da_part,
-                                      dd_part, db, dc, da, dd)),
-             bsz, t, h, p, n, ch,
+    err = fn(*(v.data_ptr() for v in (x, b, c, dt, a, d, dy, *scratch, dx,
+                                      db, dc, ddt, da, dd)),
+             bsz, t, h, p, n, geom["lanes"], geom["rows_per_lane"],
+             int(geom["wave"]), geom["chunk"],
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, err, "mamba2_ssd_backward")
     mamba2_ssd_backward.launches += 1

@@ -27,6 +27,7 @@ from ...bench.config import (BlockConfig, dtype_name, pin_config,
                              resolve_among, shape_key_from_dims)
 from ...roofline.hw import get_profile
 from .. import _build
+from ..mamba2.ops import blocks_per_sm, stash_chunk
 from .ref import rwkv6_ref, rwkv6_ref_bwd
 
 LIBRARY = "rwkv6"
@@ -210,30 +211,74 @@ rwkv6_wkv.launches = 0
 
 # ------------------------------------------------------------- the gradient
 BWD_LIBRARY = "rwkv6_bwd"
-_BWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+_BWD_ARGS = [_P] * 15 + [_I] * 5 + [_P]
 BWD_SIGNATURES = {"rwkv6_wkv_bwd_bf16": (ctypes.c_int, _BWD_ARGS),
                   "rwkv6_wkv_bwd_f32": (ctypes.c_int, _BWD_ARGS)}
-#: the most steps a backward chunk recomputes into shared memory
-BWD_MAX_CHUNK = 16
+#: the state rows a backward block owns (``ROWS`` in the source)
+BWD_ROWS = 16
 
 
-def bwd_chunk(t: int, d: int) -> int:
-    """Steps of a backward chunk (``smem_floats`` in the source): as many
-    states of a head as the block's shared memory holds beside the staged
-    inputs, at most :data:`BWD_MAX_CHUNK` and T (11 at D = 64)."""
+def bwd_smem_bytes(ch, d, dp, warps, itemsize) -> int:
+    """Dynamic shared memory of a backward launch (``smem_floats`` in the
+    source): the stash of a chunk's states, the warps' dv partials, the
+    tile's row sums, fp32 rows, two raw buffers, the per-step scalars and
+    the tile's u."""
+    es = itemsize
+    return 4 * (ch * 16 * dp + ch * warps * dp + 3 * ch * 16
+                + ch * (2 * dp + 3 * 16)
+                + 2 * ((ch * (2 * d * es + 2 * 16 * es + 16 * 4) + 15)
+                       // 16 * 4)
+                + ch + ch * warps + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_geometry(b, t, h, d, itemsize: int = 2) -> dict:
+    """The backward launch at (B, T, H, D), from the shape alone: each
+    (b, h) state cut into ``tiles`` = D / 16 row tiles, a block a tile
+    holding all :func:`head_rows` columns, ``lanes`` = that / 4 lanes a
+    row and ``rows_per_lane`` rows a thread (4, or 2 at 16 columns, a
+    whole warp); ``chunk``, the steps a chunk's states stash, as B10's
+    (``mamba2.ops.stash_chunk``)."""
     dp = head_rows(d)
-    per_step = dp * dp + dp // 8 * dp + 5 * dp + 2
-    return max(1, min(BWD_MAX_CHUNK, t, (MAX_SMEM // 4 - dp) // per_step))
+    lanes, tiles = dp // 4, d // BWD_ROWS
+    blocks = b * h * tiles
+    rt = 4 if dp >= 32 else 2
+    threads = BWD_ROWS // rt * lanes
+    warps = threads // 32
+
+    def smem(ch):
+        return bwd_smem_bytes(ch, d, dp, warps, itemsize)
+
+    chunk = stash_chunk(t, blocks, threads, smem)
+    per_sm = blocks_per_sm(smem(chunk), threads)
+    return dict(lanes=lanes, rows_per_lane=rt, cols=dp, tiles=tiles,
+                threads=threads, warps=warps, blocks=blocks, chunk=chunk,
+                chunks=-(-t // chunk), smem=smem(chunk),
+                blocks_per_sm=per_sm, waves=-(-blocks // (per_sm * SMS)))
+
+
+def bwd_buffers(b, t, h, d, geom: dict) -> dict:
+    """The backward call's fp32 scratch, by name and shape, in the order
+    the source takes it: the checkpoints (a chunk's start state of each
+    tile), dv's per-tile partials, the bonus's per-tile partials and du's
+    per-batch-row partials."""
+    tiles = geom["tiles"]
+    return {"ckpt": (geom["blocks"], geom["chunks"],
+                     BWD_ROWS * geom["cols"]),
+            "dv_part": (tiles, b, t, h, d), "beta_part": (tiles, b, t, h),
+            "du_part": (b, h, d)}
 
 
 def rwkv6_wkv_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor):
     """The gradient of :func:`rwkv6_wkv` (no state in or out) given ``dy``
     in r's dtype and shape: (dr, dk, dv, dw, du) in fp32, from one call of
-    ``csrc/rwkv6_bwd.cu`` (its checkpointing sweep and reverse sweep, then
-    du's fixed-order sum over batch rows).  CUDA tensors only: the plain
+    ``csrc/rwkv6_bwd.cu`` (the checkpointing and reverse sweeps over the
+    row tiles of :func:`bwd_geometry`, then dv's fixed-order sum over
+    tiles and du's over batch rows).  CUDA tensors only: the plain
     version is :func:`.ref.rwkv6_ref_bwd`.  Each call adds one to
-    ``rwkv6_wkv_backward.launches``."""
+    ``rwkv6_wkv_backward.launches``, whatever number of kernels it
+    runs."""
     b, t, h, d = check_kernel_args(r, k, v, w, u)
     tensors = (r, k, v, w, u, dy)
     if dy.dtype != r.dtype or dy.shape != r.shape or not dy.is_contiguous():
@@ -245,19 +290,18 @@ def rwkv6_wkv_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{[str(x.device) for x in tensors]}")
     if t == 0:
         raise ValueError("rwkv6_wkv_backward: T = 0")
-    dp, ch = head_rows(d), bwd_chunk(t, d)
+    geom = bwd_geometry(b, t, h, d, r.element_size())
     f32 = dict(dtype=torch.float32, device=r.device)
-    ckpt = torch.empty((b * h, -(-t // ch), dp * dp), **f32)
+    scratch = [torch.empty(shape, **f32)
+               for shape in bwd_buffers(b, t, h, d, geom).values()]
     dr, dk, dv, dw = (torch.empty((b, t, h, d), **f32) for _ in range(4))
-    du_part = torch.empty((b, h, d), **f32)
     du = torch.empty((h, d), **f32)
     lib = _build.load(BWD_LIBRARY, BWD_SIGNATURES)
     fn = lib.rwkv6_wkv_bwd_bf16 if r.dtype == torch.bfloat16 else \
         lib.rwkv6_wkv_bwd_f32
-    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-             u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(), dr.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du_part.data_ptr(),
-             du.data_ptr(), b, t, h, d, ch,
+    err = fn(*(x.data_ptr() for x in (r, k, v, w, u, dy, *scratch, dr, dk,
+                                      dv, dw, du)),
+             b, t, h, d, geom["chunk"],
              torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, err, "rwkv6_wkv_backward")
     rwkv6_wkv_backward.launches += 1

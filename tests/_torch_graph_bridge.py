@@ -16,7 +16,10 @@
   very graph the JAX passes run on.
 * :func:`summarize` / :func:`plan_summary` / :func:`decision_summary`
   reduce either compiler's results to plain tuples to compare.
+* :func:`own_tune_caches` gives a test tune caches of its own for its
+  whole extent.
 """
+import contextlib
 import dataclasses
 import sys
 import types
@@ -27,6 +30,25 @@ import pytest
 #: the JAX engine geometry of the traffic figures compared (un-quantized
 #: bf16 smoke params, the JAX engine's page size and chunk, 2 slots)
 LLM_GEO = dict(slots=2, page_size=16, prefill_chunk=16)
+
+
+@contextlib.contextmanager
+def own_tune_caches(tmp_path, monkeypatch):
+    """Both packages' tune caches under ``tmp_path`` while the block runs.
+    The env variables steer only a cache built later: the port's
+    process-wide default, which an earlier test in the same process may
+    have built from the package's own ``_tune/tune_cache.json``, is
+    replaced outright by a fresh one and put back after.  Without it a
+    schedule stored by an earlier run is replayed (no per-pass audit), and
+    this test's schedules land in the package's file."""
+    from repro_torch.bench import ConfigCache, set_default_cache
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "jax.json"))
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "torch.json"))
+    prev = set_default_cache(ConfigCache(tmp_path / "torch.json"))
+    try:
+        yield
+    finally:
+        set_default_cache(prev)
 
 
 def jax_graph_shim(mp) -> None:

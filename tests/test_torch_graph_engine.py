@@ -12,8 +12,8 @@ import contextlib
 import io
 
 import pytest
-from _torch_graph_bridge import (drain, jax_engines, jax_shim, port_engine,
-                                 torch_params)
+from _torch_graph_bridge import (drain, jax_engines, jax_shim,
+                                 own_tune_caches, port_engine, torch_params)
 
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
@@ -25,8 +25,9 @@ assert jax_shim  # the module-scoped fixture the tests below request
 
 @pytest.fixture(autouse=True)
 def _tune_cache(tmp_path, monkeypatch):
-    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "jax.json"))
-    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "torch.json"))
+    """Schedules and tiles go to caches of this test's own."""
+    with own_tune_caches(tmp_path, monkeypatch):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,8 @@ stay those of the JAX golden, the JAX graph engine and the port's plain
 int8-weight engine, with prefix sharing off and on.
 """
 import pytest
-from _torch_graph_bridge import (drain, jax_engines, jax_shim, port_engine,
-                                 torch_params)
+from _torch_graph_bridge import (drain, jax_engines, jax_shim,
+                                 own_tune_caches, port_engine, torch_params)
 
 from repro_torch.serve import Request
 
@@ -19,8 +19,9 @@ assert jax_shim  # the module-scoped fixture the tests below request
 
 @pytest.fixture(autouse=True)
 def _tune_cache(tmp_path, monkeypatch):
-    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "jax.json"))
-    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "torch.json"))
+    """Schedules and tiles go to caches of this test's own."""
+    with own_tune_caches(tmp_path, monkeypatch):
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,8 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_graph_bridge import LLM_GEO, jax_llama, torch_params
+from _torch_graph_bridge import (LLM_GEO, jax_llama, own_tune_caches,
+                                 torch_params)
 
 from repro_torch.bridge import params_from_numpy, tensor_from_numpy
 from repro_torch.configs import get_config
@@ -38,8 +39,9 @@ VARIANTS = {
 
 @pytest.fixture(autouse=True)
 def _tune_cache(tmp_path, monkeypatch):
-    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "jax.json"))
-    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "torch.json"))
+    """Schedules and tiles go to caches of this test's own."""
+    with own_tune_caches(tmp_path, monkeypatch):
+        yield
 
 
 @pytest.fixture(scope="module", params=["lenet", "resnet20", "mobilenet_v1"])

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_graph_bridge import (LLM_GEO, jax_kernel_clusters, jax_llama,
-                                 jax_llm_graphs, jax_shim, torch_params)
+                                 jax_llm_graphs, jax_shim, own_tune_caches,
+                                 torch_params)
 
 from repro_torch.configs import get_config
 from repro_torch.cost import graph_signature
@@ -39,9 +40,9 @@ def _counts(g):
 
 @pytest.fixture(autouse=True)
 def _tune_cache(tmp_path, monkeypatch):
-    """Schedules and tiles go to temp caches."""
-    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "jax.json"))
-    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "torch.json"))
+    """Schedules and tiles go to caches of this test's own."""
+    with own_tune_caches(tmp_path, monkeypatch):
+        yield
 
 
 @pytest.fixture(scope="module", params=["lenet", "resnet20"])

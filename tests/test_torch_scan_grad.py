@@ -9,6 +9,16 @@ by name, and the CUDA backward wrappers refuse CPU tensors.
 Tolerance of the plain backwards against JAX: fp32, each gradient within
 1e-5 of its largest magnitude (the same step-by-step sums in another order
 and association), at T = 1, 37, 64 and decays near 1e-24 and near 1.
+
+The backward kernels split each (b, h) state over blocks (B10 in column
+tiles, B9 in row tiles; ``bwd_geometry``): their shared memory and chunk
+against the sources' ``smem_floats``, the geometry at every shape of
+``chip_smoke.py``'s phase 9e-a (enough blocks or one wave, two blocks an
+SM, scratch buffers of the sizes the sources index), and the split's
+algebra -- the plain backward run tile by tile, its per-tile partials
+summed in the kernels' order, equals the whole plain backward within
+1e-6 of each gradient's largest magnitude in fp32 (the same sums,
+regrouped).
 """
 import re
 from pathlib import Path
@@ -196,26 +206,222 @@ def _smem_floats(name: str) -> str:
     return "(" + body.replace("/", "//") + ")"
 
 
-@pytest.mark.parametrize("t,d,chunk", [(512, 64, 11), (1, 16, 1),
-                                       (37, 16, 16), (9, 128, 3)])
-def test_rwkv6_backward_chunk_fits_the_source_layout(t, d, chunk):
-    dp = rwkv6_ops.head_rows(d)
-    assert rwkv6_ops.bwd_chunk(t, d) == chunk
-    floats = eval(_smem_floats("rwkv6_bwd"), {"ch": chunk, "dp": dp})
-    assert floats * 4 <= rwkv6_ops.MAX_SMEM
-    if chunk < min(t, rwkv6_ops.BWD_MAX_CHUNK):
-        assert eval(_smem_floats("rwkv6_bwd"),
-                    {"ch": chunk + 1, "dp": dp}) * 4 > rwkv6_ops.MAX_SMEM
+#: B9 backward cases: (B, T, H, D) and the chunk the geometry gives
+RWKV_CHUNKS = [((2, 512, 40, 64), 12), ((2, 1, 4, 16), 1),
+               ((2, 37, 4, 16), 32), ((2, 9, 4, 128), 8),
+               ((1, 1024, 40, 64), 18)]
+#: B10 backward cases: (B, T, H, P, N) and the chunk
+MAMBA_CHUNKS = [((2, 512, 80, 64, 128), 4), ((2, 512, 64, 64, 64), 10),
+                ((2, 1, 4, 16, 16), 1), ((2, 37, 4, 16, 16), 32),
+                ((1, 1024, 80, 64, 128), 7)]
 
 
-@pytest.mark.parametrize("t,p,n,chunk", [(512, 64, 128, 6), (512, 64, 64, 11),
-                                         (1, 16, 16, 1), (37, 16, 16, 16)])
-def test_mamba2_backward_chunk_fits_the_source_layout(t, p, n, chunk):
-    np_ = mamba2_ops.state_cols(n)
-    assert mamba2_ops.bwd_chunk(t, p, n) == chunk
-    floats = eval(_smem_floats("mamba2_bwd"), {"ch": chunk, "p": p,
-                                               "np": np_})
-    assert floats * 4 <= mamba2_ops.MAX_SMEM
+def _fits(ops, floats, geom, blocks_wanted):
+    """The source's floats are the wrapper's bytes; they fit a block, and
+    ``blocks_wanted`` such blocks an SM."""
+    assert floats * 4 == geom["smem"] <= ops.MAX_SMEM
+    return mamba2_ops.blocks_per_sm(floats * 4,
+                                    geom["threads"]) >= blocks_wanted
+
+
+@pytest.mark.parametrize("shape,chunk", RWKV_CHUNKS)
+def test_rwkv6_backward_chunk_fits_the_source_layout(shape, chunk):
+    """The chunk is the longest (up to BWD_MAX_CHUNK and T) at which the
+    blocks an SM one wave needs (at least 2) fit, by the source's
+    ``smem_floats``."""
+    b, t, h, d = shape
+    g = rwkv6_ops.bwd_geometry(*shape, 2)
+    assert g["chunk"] == chunk and g["chunks"] == -(-t // chunk)
+    want = max(2, -(-g["blocks"] // rwkv6_ops.SMS))
+    env = dict(d=d, dp=rwkv6_ops.head_rows(d), w=g["warps"], es=2)
+    assert _fits(rwkv6_ops, eval(_smem_floats("rwkv6_bwd"),
+                                 dict(env, ch=chunk)), g, want)
     if chunk < min(t, mamba2_ops.BWD_MAX_CHUNK):
-        assert eval(_smem_floats("mamba2_bwd"), {
-            "ch": chunk + 1, "p": p, "np": np_}) * 4 > mamba2_ops.MAX_SMEM
+        more = eval(_smem_floats("rwkv6_bwd"), dict(env, ch=chunk + 1))
+        assert mamba2_ops.blocks_per_sm(more * 4, g["threads"]) < want
+
+
+@pytest.mark.parametrize("shape,chunk", MAMBA_CHUNKS)
+def test_mamba2_backward_chunk_fits_the_source_layout(shape, chunk):
+    b, t, h, p, n = shape
+    g = mamba2_ops.bwd_geometry(*shape, 2)
+    assert g["chunk"] == chunk and g["chunks"] == -(-t // chunk)
+    want = max(2, -(-g["blocks"] // mamba2_ops.SMS))
+    assert g["wave"] == (want >= mamba2_ops.BWD_WAVE_BLOCKS
+                         and g["rows_per_lane"] == 4)
+    env = dict(p=p, nc=g["cols"], w=g["warps"], es=2)
+    assert _fits(mamba2_ops, eval(_smem_floats("mamba2_bwd"),
+                                  dict(env, ch=chunk)), g, want)
+    if chunk < min(t, mamba2_ops.BWD_MAX_CHUNK):
+        more = eval(_smem_floats("mamba2_bwd"), dict(env, ch=chunk + 1))
+        assert mamba2_ops.blocks_per_sm(more * 4, g["threads"]) < want
+
+
+#: every shape of chip_smoke.py's phase 9e-a (SCAN_GRAD_SHAPES, the
+#: training shapes, and SCAN_GRAD_ODD), and the smoke configs' (P = N = D
+#: = 16)
+GRAD_SHAPES = {
+    "rwkv6": [(2, 512, 40, 64), (2, 1, 4, 64), (2, 37, 4, 64),
+              (1, 96, 4, 64), (1, 1024, 40, 64), (2, 96, 4, 64),
+              (2, 9, 3, 16)],
+    "mamba2": [(2, 512, 80, 64, 128), (2, 512, 64, 64, 64),
+               (2, 1, 4, 64, 128), (2, 37, 4, 64, 128), (1, 96, 4, 64, 64),
+               (1, 1024, 80, 64, 128), (2, 96, 4, 64, 128),
+               (2, 9, 3, 16, 16)]}
+
+
+def _source_extents(kind, shape, g):
+    """One past the largest element each scratch buffer's index takes in
+    the source (``csrc/{rwkv6,mamba2}_bwd.cu``), at the largest value of
+    every variable of the index (each index grows with each variable)."""
+    blocks, chunks, thr = g["blocks"], g["chunks"], g["threads"]
+    rt = g["rows_per_lane"]
+    # my_ckpt[(c * RT + m) * threads], my_ckpt = ckpt + blockIdx.x *
+    # chunks * RT * threads + tid, in float4
+    ckpt = 4 * ((blocks - 1) * chunks * rt * thr + thr - 1
+                + ((chunks - 1) * rt + rt - 1) * thr + 1)
+    if kind == "rwkv6":
+        b, t, h, d = shape
+        rows, tiles = b * t * h, g["tiles"]
+        return {"ckpt": ckpt,
+                # tile * rows * d + ((b * T + t) * step + h * d + j)
+                "dv_part": (tiles - 1) * rows * d + rows * d,
+                # tile * rows + (b * T + t) * H + h
+                "beta_part": (tiles - 1) * rows + rows,
+                # (b * H + h) * d + r0 + i
+                "du_part": (b * h - 1) * d + (tiles - 1) * 16 + 16}
+    b, t, h, p, n = shape
+    rows, tiles = b * t * h, g["tiles"]
+    return {"ckpt": ckpt,
+            "dx_part": ((tiles - 1) * rows + rows - 1) * p + p,   # ct*rows+row
+            "db_part": (rows - 1) * n + (tiles - 1) * g["cols"] + g["cols"],
+            "dc_part": (rows - 1) * n + (tiles - 1) * g["cols"] + g["cols"],
+            "q_part": (tiles - 1) * rows + rows,
+            "s_part": (tiles - 1) * rows + rows,
+            "xdy": rows, "dterm": rows}
+
+
+@pytest.mark.parametrize("kind,shape", [(k, s_) for k, shapes in
+                                        GRAD_SHAPES.items()
+                                        for s_ in shapes])
+def test_backward_geometry_fills_the_card(kind, shape):
+    """At least one block an SM (or every block in one wave), two blocks
+    an SM by shared memory, whole warps, and scratch buffers of the sizes
+    the source indexes."""
+    ops = rwkv6_ops if kind == "rwkv6" else mamba2_ops
+    g = ops.bwd_geometry(*shape, 2)
+    sms = ops.SMS
+    assert g["blocks"] >= sms or g["blocks"] <= g["blocks_per_sm"] * sms
+    assert g["waves"] == 1
+    assert mamba2_ops.SM_SMEM // (g["smem"] + mamba2_ops.BLOCK_RESERVED) >= 2
+    assert g["threads"] % 32 == 0 and 32 <= g["threads"] <= 256
+    buffers = ops.bwd_buffers(*shape, g)
+    extents = _source_extents(kind, shape, g)
+    assert list(buffers) == list(extents)
+    for name, dims in buffers.items():
+        assert int(np.prod(dims)) == extents[name], name
+
+
+@pytest.mark.parametrize("p", [16, 32, 48, 64])
+def test_mamba2_backward_geometry_has_a_compiled_body(p):
+    """Every (lanes, rows a lane, wave) the wrapper asks for is one of the
+    bodies ``csrc/mamba2_bwd.cu`` dispatches to."""
+    src = (CSRC / "mamba2_bwd.cu").read_text()
+    bodies = {(int(ln), int(rt), w == "true") for ln, rt, w in re.findall(
+        r"REPRO_SSD_BWD_TILE\((\d+), (\d+), (true|false)\)", src)}
+    assert bodies
+    for n in (16, 32, 48, 64, 128):
+        for b, h in ((2, 4), (2, 80), (16, 128)):
+            g = mamba2_ops.bwd_geometry(b, 64, h, p, n, 2)
+            assert (g["lanes"], g["rows_per_lane"], g["wave"]) in bodies
+
+
+def _tiled_mamba2_bwd(x, b, c, dt, a, d, dy, cols):
+    """The plain backward of mamba2_ref run on column tiles of ``cols`` of
+    the state, fp32: each tile's recurrences alone, its partials of dx's
+    G b, of q and of s = x (G b); the partials summed tile by tile in
+    order, as ssd_bwd_reduce does (and dd, da over steps)."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    dec = torch.exp(a[None, None, :] * dt)
+    gb_t, q_t, s_t, db, dc = [], [], [], torch.zeros_like(b), \
+        torch.zeros_like(c)
+    for j0 in range(0, n, cols):
+        bc, cc = b[..., j0:j0 + cols], c[..., j0:j0 + cols]
+        hs = [torch.zeros((bsz, h, p, cols))]
+        for i in range(t):
+            hs.append(dec[:, i, :, None, None] * hs[-1]
+                      + dt[:, i, :, None, None] * (x[:, i, :, :, None]
+                                                   * bc[:, i, None, None, :]))
+        carry = torch.zeros_like(hs[0])
+        gb, q = torch.zeros((bsz, t, h, p)), torch.zeros((bsz, t, h))
+        for i in reversed(range(t)):
+            g = carry + dy[:, i, :, :, None] * cc[:, i, None, None, :]
+            gb[:, i] = torch.einsum("bhpn,bn->bhp", g, bc[:, i])
+            q[:, i] = (g * hs[i]).sum((-1, -2))
+            db[:, i, j0:j0 + cols] = torch.einsum(
+                "bhpn,bhp,bh->bn", g, x[:, i], dt[:, i])
+            dc[:, i, j0:j0 + cols] = torch.einsum(
+                "bhpn,bhp->bn", hs[i + 1], dy[:, i])
+            carry = dec[:, i, :, None, None] * g
+        gb_t.append(gb)
+        q_t.append(q)
+        s_t.append((x * gb).sum(-1))
+    gb, q, s_ = (sum(v[1:], v[0]) for v in (gb_t, q_t, s_t))
+    dx = dt[..., None] * gb + d[None, None, :, None] * dy
+    q = dec * q
+    ddt = a[None, None, :] * q + s_
+    return dx, db, dc, ddt, (dt * q).sum((0, 1)), (dy * x).sum((0, 1, 3))
+
+
+def _tiled_rwkv6_bwd(r, k, v, w, u, dy, rows=16):
+    """The plain backward of rwkv6_ref run on row tiles of ``rows`` of the
+    state, fp32: each tile's recurrences alone give its rows' dr, dk, dw
+    whole and its partials of dv and of the bonus u r k, summed tile by
+    tile in order, as wkv_bwd_reduce does."""
+    bsz, t, h, d = r.shape
+    vdy = (v * dy).sum(-1)
+    dr, dk, dw = (torch.zeros_like(r) for _ in range(3))
+    dv_t, beta_t = [], []
+    for i0 in range(0, d, rows):
+        sl = slice(i0, i0 + rows)
+        rs, ks, ws, us = r[..., sl], k[..., sl], w[..., sl], u[:, sl]
+        st = [torch.zeros((bsz, h, rows, d))]
+        for i in range(t):
+            st.append(ws[:, i, :, :, None] * st[-1]
+                      + ks[:, i, :, :, None] * v[:, i, :, None, :])
+        g = torch.zeros_like(st[0])
+        dvp = torch.zeros_like(v)
+        for i in reversed(range(t)):
+            dr[:, i, :, sl] = (torch.einsum("bhij,bhj->bhi", st[i], dy[:, i])
+                               + us * ks[:, i] * vdy[:, i, :, None])
+            dk[:, i, :, sl] = (torch.einsum("bhij,bhj->bhi", g, v[:, i])
+                               + us * rs[:, i] * vdy[:, i, :, None])
+            dw[:, i, :, sl] = (g * st[i]).sum(-1)
+            dvp[:, i] = torch.einsum("bhij,bhi->bhj", g, ks[:, i])
+            g = ws[:, i, :, :, None] * g + rs[:, i, :, :, None] * \
+                dy[:, i, :, None, :]
+        dv_t.append(dvp)
+        beta_t.append((rs * us * ks).sum(-1))
+    beta = sum(beta_t[1:], beta_t[0])
+    dv = sum(dv_t[1:], dv_t[0]) + beta[..., None] * dy
+    return dr, dk, dv, dw, (r * k * vdy[..., None]).sum((0, 1))
+
+
+def _within(got, ref, names, tol=1e-6):
+    for name, g, r in zip(names, got, ref):
+        assert float((g - r).abs().max()) <= tol * float(r.abs().max()), name
+
+
+@pytest.mark.parametrize("n,cols", [(64, 32), (48, 16), (128, 32)])
+def test_mamba2_column_tiles_sum_to_the_whole_backward(n, cols):
+    args = [torch.from_numpy(a) for a in mamba_inputs(37, n=n)]
+    _within(_tiled_mamba2_bwd(*args, cols), mamba2_ref_bwd(*args),
+            ("dx", "db", "dc", "ddt", "da", "dd"))
+
+
+@pytest.mark.parametrize("d", [48, 64])
+def test_rwkv6_row_tiles_sum_to_the_whole_backward(d):
+    args = [torch.from_numpy(a) for a in rwkv_inputs(37, d=d)]
+    _within(_tiled_rwkv6_bwd(*args), rwkv6_ref_bwd(*args),
+            ("dr", "dk", "dv", "dw", "du"))
