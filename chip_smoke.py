@@ -291,7 +291,20 @@ Phases (any failure exits non-zero before the final line):
      1500 frames), AdamW, B = 2, T = 512, 3 steps: finite losses, B1's and
      B9/B10's forward, recompute and backward launches a step gated, no
      plain backward on the card, ms a step, tokens/s, peak memory and the
-     optimizer's share;
+     optimizer's share; 9f the moe family's training
+     (:func:`moe_grad_checks`, :func:`train_moe_smoke_parity`,
+     :func:`train_moe_full`): 9f-a B1 at the expert backward's shapes
+     (queues of 1, 5, 13, 20 rows at arctic's and llama4's widths, dW
+     written into a slice) within phase 2's bound, timed; 9f-b the
+     arctic-480b and llama4-maverick smoke configs (Adafactor) on the card
+     and on the CPU, the CPU routing as the card did: an fp32 step 0 within
+     1e-3 of each leaf's max and 3 bf16 steps within 9b's bounds, swaps
+     from equal params near-ties; 9f-c both at published widths with the
+     depth cut (arctic one layer, B = 2; llama4 one super-block, B = 1; T =
+     512), 3 Adafactor steps with donate: finite losses, B1 launches a step
+     as the host-read expert counts imply, peak memory over params + grads
+     below the largest expert leaf, ms a step, the update's share, and a
+     fifth step timing the expert backward;
   10. print the kernels' line, the card's name and power limit, and as the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -305,12 +318,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -6741,9 +6756,11 @@ class ForwardLaunchCounter:
 
 
 def split_step(torch, bundle, params, opt, batch, step: int, hyper, dev):
-    """One AdamW step (``donate=True``) split by CUDA events into forward +
-    backward (``loss_and_grads``) and the update: (params, opt, split)."""
-    from repro_torch.optim import adamw_update, warmup_cosine
+    """One step of the config's optimizer (AdamW or Adafactor, each with
+    ``donate=True``) split by CUDA events into forward + backward
+    (``loss_and_grads``) and the update: (params, opt, split)."""
+    from repro_torch.optim import (adafactor_update, adamw_update,
+                                   warmup_cosine)
     from repro_torch.train import loss_and_grads
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     step_t = torch.as_tensor(step, dtype=torch.int32).to(dev)
@@ -6752,7 +6769,10 @@ def split_step(torch, bundle, params, opt, batch, step: int, hyper, dev):
     ev[1].record()
     lr = warmup_cosine(step_t, peak_lr=hyper.peak_lr, warmup=hyper.warmup,
                        total=hyper.total_steps)
-    params, opt = adamw_update(grads, opt, lr, donate=True)
+    if bundle.cfg.optimizer == "adafactor":
+        params, opt = adafactor_update(grads, opt, params, lr, donate=True)
+    else:
+        params, opt = adamw_update(grads, opt, lr, donate=True)
     ev[2].record()
     torch.cuda.synchronize()
     split = dict(forward_backward_ms=ev[0].elapsed_time(ev[1]),
@@ -7497,6 +7517,562 @@ def train_recurrent_full(torch, seed: int, dev) -> dict:
               f"({split['optimizer_share']:.1%}); launches {launches} "
               f"(expected {expected}; plain backwards {plain_calls})",
               flush=True)
+    return out
+
+
+# ------------------------------------------ the moe family's training path
+#: phase 9f: the moe archs, each at its published widths with its depth
+#: cut (arctic one layer; llama4 one super-block, a dense and an MoE
+#: layer), B rows of T tokens, trained under Adafactor with donate
+TRAIN_MOE = {"arctic-480b": (1, 2, 512),
+             "llama4-maverick-400b-a17b": (2, 1, 512)}
+TRAIN_MOE_STEPS = 3
+#: phase 9f-a: the rows of an expert's queue (1 to 20: arctic's capacity
+#: at B x T = 2 x 512) at which the expert backward's products are held to
+#: the plain version and timed
+MOE_GRAD_ROWS = (1, 5, 13, 20)
+#: the top-1 router's gradient is zero in exact arithmetic (the gate
+#: normalised over one expert is 1): both sides' rounding noise is held
+#: below this share of the step's largest gradient magnitude instead of
+#: against the leaf's own largest
+ZERO_GRAD_RTOL = 1e-6
+
+
+def moe_grad_shapes(d: int, ff: int, rows: int) -> dict:
+    """The B1 products of an expert's backward for a queue of ``rows``
+    rows, (M, K, N) by kind: ``w_gate`` and ``w_up`` (d, ff) give ``dX =
+    dY·Wᵀ`` ("up dX") and ``dW = Xᵀ·dY`` ("up dW"), ``w_down`` (ff, d) the
+    same ("down dX", "down dW")."""
+    return {"up dX": (rows, ff, d), "up dW": (d, rows, ff),
+            "down dX": (rows, d, ff), "down dW": (ff, rows, d)}
+
+
+
+def moe_grad_operands(torch, gen, dev, m, k, n):
+    """bf16 operands of an (M, K, N) product at the training path's
+    scales: x of unit variance, y at a weight's init scale (K^-0.5)."""
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    y = (torch.randn((k, n), generator=gen, device=dev)
+         * k ** -0.5).to(torch.bfloat16)
+    return x, y
+
+
+def moe_grad_checks(torch, gen, dev) -> list:
+    """Phase 9f-a: B1 at the expert backward's shapes of arctic-480b and
+    llama4-maverick (:func:`moe_grad_shapes` at every queue length of
+    :data:`MOE_GRAD_ROWS`), bf16: each product written, as
+    ``ExpertMatmulFunction`` writes ``dW[e]``, into a slice of a stacked
+    tensor (``out=``) and held to the plain version within phase 2's bound
+    (:func:`max_err`); then timed by CUDA events beside ``matmul_ref`` and
+    ``torch.matmul`` on the same operands, and the transposed copy of the
+    weight a dX takes (``W[e]ᵀ``, contiguous) apart."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
+    rows = []
+    for arch in TRAIN_MOE:
+        cfg = get_config(arch)
+        for r in MOE_GRAD_ROWS:
+            for kind, (m, k, n) in moe_grad_shapes(cfg.d_model, cfg.d_ff,
+                                                    r).items():
+                x, y = moe_grad_operands(torch, gen, dev, m, k, n)
+                stack = torch.zeros((2, m, n), dtype=torch.bfloat16,
+                                    device=dev)
+                got = apr_matmul(x, y, out_dtype=torch.bfloat16, out=stack[1])
+                ref = matmul_ref(x, y, torch.bfloat16)
+                torch.cuda.synchronize()
+                err, ok = max_err(stack[1], ref)
+                ok = ok and got.data_ptr() == stack[1].data_ptr() \
+                    and not stack[0].any()
+                row = dict(arch=arch, kind=kind, rows=r, M=m, K=k, N=n,
+                           err=err, ok=ok,
+                           **bound_ms((m * k + k * n + m * n) * 2,
+                                      2.0 * m * k * n))
+                row["ms"] = cuda_ms(torch, lambda i: apr_matmul(
+                    x, y, out_dtype=torch.bfloat16, out=stack[1]), 5)
+                row["plain_ms"] = cuda_ms(torch, lambda i: matmul_ref(
+                    x, y, torch.bfloat16), 3, warmup=1)
+                row["library_ms"] = cuda_ms(torch, lambda i: torch.matmul(
+                    x, y), 5)
+                if kind.endswith("dX"):
+                    w = y.t().contiguous()
+                    row["transpose_ms"] = cuda_ms(
+                        torch, lambda i: w.t().contiguous(), 5)
+                    del w
+                rows.append(row)
+                del x, y, stack, got, ref
+        done = [x for x in rows if x["arch"] == arch]
+        for r in MOE_GRAD_ROWS:
+            line = ", ".join(
+                f"{x['kind']} {x['ms']:.4f} ms (lib {x['library_ms']:.4f}, "
+                f"bound {x['bound_ms']:.4f}, err {x['err']:.3g})"
+                for x in done if x["rows"] == r)
+            print(f"    9f-a {arch} queue of {r:2d} rows: {line}", flush=True)
+    return rows
+
+
+def event_ms(torch, fn) -> float:
+    """Device milliseconds of one call of ``fn()``, between two CUDA
+    events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def expert_bwd_parts(torch, x, w, queues, dy) -> dict:
+    """The products of one ``ExpertMatmulFunction`` backward run again on
+    that backward's own inputs (the rows ``x``, the leaf ``w``, its
+    queues, ``dy``), each set timed once by CUDA events: the dX products
+    with their ``W[e]ᵀ`` copies as the backward makes them, the copies
+    alone, and every dX and dW product as ``matmul_ref`` (plain) and
+    ``torch.matmul`` (library) compute it; with the products' bound (each
+    product's bytes or bf16 operations, summed)."""
+    from repro_torch.kernels.apr_matmul import apr_matmul, matmul_ref
+    dy = dy.contiguous()
+    dx = torch.empty_like(x)
+    k, n = w.shape[1:]
+
+    def dx_kernels():
+        for e, s, r in queues:
+            apr_matmul(dy[s:s + r], w[e].t().contiguous(), out_dtype=x.dtype,
+                       out=dx[s:s + r])
+
+    def transposes():
+        for e, _, _ in queues:
+            w[e].t().contiguous()
+
+    def plain():
+        for e, s, r in queues:
+            matmul_ref(dy[s:s + r], w[e].t(), x.dtype)
+            matmul_ref(x[s:s + r].t(), dy[s:s + r], w.dtype)
+
+    def library():
+        for e, s, r in queues:
+            torch.matmul(dy[s:s + r], w[e].t())
+            torch.matmul(x[s:s + r].t(), dy[s:s + r])
+
+    out = dict(products=2 * len(queues), queues=len(queues),
+               bound_ms=0.0, t_mem_ms=0.0, t_ops_ms=0.0)
+    for _, _, r in queues:
+        for m_, k_, n_ in ((r, n, k), (k, r, n)):     # dX, dW
+            bd = bound_ms((m_ * k_ + k_ * n_ + m_ * n_) * 2,
+                          2.0 * m_ * k_ * n_)
+            for part in ("bound_ms", "t_mem_ms", "t_ops_ms"):
+                out[part] += bd[part]
+    for key, fn in (("dx_ms", dx_kernels), ("transpose_ms", transposes),
+                    ("plain_ms", plain), ("library_ms", library)):
+        out[key] = event_ms(torch, fn)
+    return out
+
+
+#: B1's launch counters that a launch of the bf16 or fp32 body moves
+B1_COUNTERS = ("launches", "wide_launches", "f32_launches")
+B1_COUNTS_BY = ("tile_launches", "split_launches")
+
+
+class ExpertCounts:
+    """Every ``moe.expert_counts`` read (forward and remat recompute) and
+    the B1 launches made inside ``ExpertMatmulFunction.backward`` while
+    the ``with`` block runs.  With ``timing`` set to a list, each such
+    backward is also timed by CUDA events and its products run again on
+    its inputs (:func:`expert_bwd_parts`, their launches not counted): one
+    dict a backward appended."""
+
+    def __enter__(self):
+        from repro_torch.kernels.apr_matmul import apr_matmul
+        from repro_torch.models import moe
+        self.reads, self.bwd_launches, self.bwd_f32_launches = [], 0, 0
+        self.timing = None
+        self._moe, self._read = moe, moe.expert_counts
+        self._bwd = bwd = moe.ExpertMatmulFunction.backward
+
+        def read(r):
+            counts = self._read(r)
+            self.reads.append(([min(c, r.capacity) for c in counts],
+                               sum(max(c - r.capacity, 0) for c in counts)))
+            return counts
+
+        def counted(ctx, dy):
+            before = apr_matmul.launches, apr_matmul.f32_launches
+            if self.timing is not None:
+                # saved tensors unpack once under remat: the backward and
+                # the timed parts share this unpacking
+                import torch
+                x, w = ctx.saved_tensors
+                ctx = types.SimpleNamespace(
+                    saved_tensors=(x, w), queues=ctx.queues,
+                    needs_input_grad=ctx.needs_input_grad)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            grads = bwd(ctx, dy)
+            self.bwd_launches += apr_matmul.launches - before[0]
+            self.bwd_f32_launches += apr_matmul.f32_launches - before[1]
+            if self.timing is not None:
+                end.record()
+                torch.cuda.synchronize()
+                counts = {k: getattr(apr_matmul, k) for k in B1_COUNTERS}
+                tiles = {k: dict(getattr(apr_matmul, k))
+                         for k in B1_COUNTS_BY}
+                self.timing.append(dict(
+                    expert_bwd_parts(torch, x, w, ctx.queues, dy),
+                    ms=start.elapsed_time(end)))
+                for k, v in counts.items():
+                    setattr(apr_matmul, k, v)
+                for k, v in tiles.items():
+                    getattr(apr_matmul, k).clear()
+                    getattr(apr_matmul, k).update(v)
+            return grads
+        moe.expert_counts = read
+        moe.ExpertMatmulFunction.backward = staticmethod(counted)
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.expert_counts = self._read
+        self._moe.ExpertMatmulFunction.backward = staticmethod(self._bwd)
+
+
+def moe_b1_per_step(cfg, reads) -> dict:
+    """B1's launches a training step of ``cfg`` (remat on) whose MoE
+    layers' counts were ``reads`` (the forward's, then the recompute's in
+    reverse order): per forward each layer's attention 4, each dense
+    layer's 3, each MoE layer's router (and arctic's dense residual 3) and
+    3 a non-empty expert, and the head; the recompute the same but the
+    head; the backward dX and dW of each forward product."""
+    n_moe = cfg.num_layers // cfg.moe_every
+    dense = (4 * cfg.num_layers + 3 * (cfg.num_layers - n_moe)
+             + (1 + (3 if cfg.dense_residual_ff else 0)) * n_moe)
+    nonempty = [sum(n > 0 for n in q) for q, _ in reads]
+    fwd = dense + 1 + 3 * sum(nonempty[:n_moe])
+    return dict(forward=fwd, recompute=dense + 3 * sum(nonempty[n_moe:]),
+                backward=2 * fwd, expert_backward=6 * sum(nonempty[:n_moe]))
+
+
+def train_moe_smoke_parity(torch, dev) -> dict:
+    """Phase 9f-b: the arctic-480b and llama4-maverick smoke configs
+    (Adafactor) on the card and on the CPU from the same params (seed 0)
+    and batches.  Each step runs on the card first, its expert selections
+    recorded, then on the CPU, which routes every token to the experts the
+    card chose: both sides run the same queues.  The CPU's own top-k is
+    computed beside, and each token it would have routed otherwise is
+    recorded with the gap of the card's extra expert below the CPU's k-th
+    router logit (:func:`route_flips`).  fp32 params, step 0: the loss, the
+    grad norm and every grad leaf against its largest magnitude within
+    :data:`TRAIN_F32_RTOL` (the top-1 router, whose gradient is zero in
+    exact arithmetic, below :data:`ZERO_GRAD_RTOL` of the step's largest
+    gradient on both sides), every swap a near-tie.  bf16 params, 3 steps:
+    every step's loss and grad norm within phase 9b's bounds; a step that
+    starts from params equal on both sides bit for bit may swap only at a
+    near-tie, and a later step's swaps are counted (the params part: under
+    top-1 routing the router's gradient is rounding noise, which Adafactor
+    normalises into a step of its own direction on each side).  The card's
+    B1 launches are counted (the expert backward's apart)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.optim import global_norm_sq
+    from repro_torch.train import (TrainHyper, init_optimizer,
+                                   loss_and_grads, make_train_step)
+    t, b = TRAIN_SMOKE_SHAPE
+    hyper = TrainHyper(**TRAIN_SMOKE_HYPER)
+    top_k_of, softmax_of = moe_mod.top_k, moe_mod.softmax
+    card_sel, cpu_chosen, swaps, logits = [], {}, [], [None]
+    side = ["card"]
+
+    def softmax(x):
+        logits[0] = x.detach()
+        return softmax_of(x)
+
+    def top_k(x, k):
+        if side[0] == "card":
+            values, idx = top_k_of(x, k)
+            card_sel.append(idx.detach().cpu())
+            return values, idx
+        key = x.detach().numpy().tobytes()
+        if key not in cpu_chosen:
+            call = len(cpu_chosen)
+            sel = card_sel[call]
+            swaps.extend(route_flips(top_k_of(x.detach(), k)[1], logits[0],
+                                     sel, call=call))
+            cpu_chosen[key] = sel
+        sel = cpu_chosen[key]
+        return torch.gather(x, -1, sel), sel
+
+    def on(where):
+        side[0] = where
+        if where == "card":
+            card_sel.clear()
+            cpu_chosen.clear()
+            swaps.clear()
+        return dev if where == "card" else torch.device("cpu")
+
+    def routed(cfg) -> list:
+        """This step's swaps, and a failing entry unless the CPU replayed
+        one card selection a MoE layer."""
+        n_moe = cfg.num_layers // cfg.moe_every
+        out = list(swaps)
+        if len(cpu_chosen) != n_moe or len(card_sel) < n_moe:
+            out.append(dict(calls=(len(card_sel), len(cpu_chosen)),
+                            near_tie=False))
+        return out
+
+    out = {}
+    apr_matmul.launches = apr_matmul.f32_launches = 0
+    moe_mod.top_k, moe_mod.softmax = top_k, softmax
+    try:
+        with ExpertCounts() as seen:
+            for arch in TRAIN_MOE:
+                cfg = get_config(arch, smoke=True)
+                params = build_model(cfg, device="cpu").init_params()
+                src = SyntheticLMSource(cfg, ShapeSpec("9f", t, b, "train"))
+                batches = [src.batch_at(s) for s in range(3)]
+                res = {}
+                for where in ("card", "cpu"):
+                    device = on(where)
+                    loss, grads = loss_and_grads(
+                        build_model(cfg, device=device),
+                        {k: v.float().to(device) for k, v in params.items()},
+                        batches[0])
+                    res[where] = (float(loss), float(torch.sqrt(
+                        global_norm_sq([grads[k] for k in sorted(grads)]))),
+                        {k: g.cpu() for k, g in grads.items()})
+                f32_flips = routed(cfg)
+                (lc, gc, gr_c), (lp, gp, gr_p) = res["card"], res["cpu"]
+                top = max(float(g.abs().max()) for g in gr_p.values())
+                f32 = dict(loss=abs(lc - lp) / abs(lp),
+                           grad_norm=abs(gc - gp) / gp, grads=0.0,
+                           zero_grads=0.0)
+                for k in gr_p:
+                    if cfg.experts_per_token == 1 and k.endswith(".router"):
+                        f32["zero_grads"] = max(
+                            f32["zero_grads"],
+                            max(float(gr_c[k].abs().max()),
+                                float(gr_p[k].abs().max())) / top)
+                        continue
+                    f32["grads"] = max(f32["grads"], float(
+                        (gr_c[k] - gr_p[k]).abs().max()
+                        / gr_p[k].abs().max().clamp_min(1e-30)))
+                side_params = {"cpu": dict(params), "card": {
+                    k: v.to(dev) for k, v in params.items()}}
+                opts = {w: init_optimizer(cfg, p)
+                        for w, p in side_params.items()}
+                fns = {w: make_train_step(build_model(cfg, device=on(w)),
+                                          hyper) for w in side_params}
+                steps = []
+                for s, batch in enumerate(batches):
+                    same = all(torch.equal(side_params["card"][k].cpu(), v)
+                               for k, v in side_params["cpu"].items())
+                    m = {}
+                    for w in ("card", "cpu"):
+                        on(w)
+                        side_params[w], opts[w], mw = fns[w](
+                            side_params[w], opts[w], batch, s)
+                        m[w] = {k: float(mw[k]) for k in ("loss",
+                                                          "grad_norm")}
+                    steps.append(dict(
+                        same_params=same, swaps=routed(cfg),
+                        **{k: (m["card"][k], m["cpu"][k]) for k in m["cpu"]},
+                        rel_err={k: abs(m["card"][k] - m["cpu"][k])
+                                 / abs(m["cpu"][k]) for k in m["cpu"]}))
+                bounds = {"loss": TRAIN_BF16_LOSS_RTOL,
+                          "grad_norm": TRAIN_BF16_GNORM_RTOL}
+                errs = [st["rel_err"] for st in steps]
+                ok = (max(f32["loss"], f32["grad_norm"], f32["grads"])
+                      <= TRAIN_F32_RTOL
+                      and f32["zero_grads"] <= ZERO_GRAD_RTOL
+                      and all(f["near_tie"] for f in f32_flips)
+                      and all(e[k] <= bounds[k] for e in errs for k in bounds)
+                      and all(f["near_tie"] for st in steps
+                              if st["same_params"] for f in st["swaps"])
+                      and not any("calls" in f for st in steps
+                                  for f in st["swaps"])
+                      and all(math.isfinite(st[k][0]) for st in steps
+                              for k in bounds))
+                out[arch] = dict(fp32_step0=dict(loss=(lc, lp),
+                                                 grad_norm=(gc, gp),
+                                                 rel_err=f32, swaps=f32_flips),
+                                 steps=steps, ok=ok)
+
+                def by_step(key):
+                    return "/".join(f"{e[key]:.1e}" for e in errs)
+                print(f"    9f-b {arch} smoke (Adafactor), the CPU routing as "
+                      f"the card: fp32 step 0 rel err loss {f32['loss']:.2e}"
+                      f", grad norm {f32['grad_norm']:.2e}, grads (of each "
+                      f"leaf's max) {f32['grads']:.2e} (bound "
+                      f"{TRAIN_F32_RTOL:g}), top-1 router grads "
+                      f"{f32['zero_grads']:.1e} of the step's max (bound "
+                      f"{ZERO_GRAD_RTOL:g}); bf16 losses card "
+                      f"{[round(x['loss'][0], 5) for x in steps]} CPU "
+                      f"{[round(x['loss'][1], 5) for x in steps]}; rel err "
+                      f"by step: loss {by_step('loss')}, grad norm "
+                      f"{by_step('grad_norm')} (bounds "
+                      f"{TRAIN_BF16_LOSS_RTOL:g} / {TRAIN_BF16_GNORM_RTOL:g}"
+                      f" on every step); tokens the CPU would have routed "
+                      f"otherwise: fp32 {len(f32_flips)}, bf16 by step "
+                      f"{[len(st['swaps']) for st in steps]} (near-ties "
+                      f"{[sum(f['near_tie'] for f in st['swaps']) for st in steps]}"
+                      f"; from equal params on steps "
+                      f"{[s for s, st in enumerate(steps) if st['same_params']]})"
+                      f" ({'ok' if ok else 'FAILED'})", flush=True)
+        out["launches"] = dict(apr_matmul=apr_matmul.launches,
+                               apr_matmul_f32=apr_matmul.f32_launches,
+                               expert_backward=seen.bwd_launches,
+                               expert_backward_f32=seen.bwd_f32_launches)
+    finally:
+        moe_mod.top_k, moe_mod.softmax = top_k_of, softmax_of
+    print(f"    9f-b card launches: {out['launches']}", flush=True)
+    return out
+
+
+def train_moe_full(torch, seed: int, dev) -> dict:
+    """Phase 9f-c: each arch of :data:`TRAIN_MOE` at its published widths
+    with its depth cut, random bf16 params from ``seed``, Adafactor through
+    ``make_train_step(..., donate=True)`` (each new param written into the
+    old one's storage), ``cfg.remat`` on as the registry has it, B x T
+    tokens from ``SyntheticLMSource``: :data:`TRAIN_MOE_STEPS` steps, each
+    timed by CUDA events and on the host clock, with every host read of the
+    expert counts (the forward's and the recompute's), the dropped
+    dispatches and B1's launches recorded (for the caller to gate against
+    :func:`moe_b1_per_step`); then one step split by CUDA events into
+    forward + backward and the update.  Peak allocated memory is read from
+    the first step on and set against the params' and grads' bytes and the
+    largest expert leaf's."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data import SyntheticLMSource
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainHyper, init_optimizer, make_train_step
+    hyper = TrainHyper(peak_lr=3e-4, warmup=2, total_steps=100)
+    out = {}
+    for arch, (layers, b, t) in TRAIN_MOE.items():
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        bundle = build_model(cfg, device=dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = bundle.init_params(
+            torch.Generator(device=dev).manual_seed(seed))
+        opt = init_optimizer(cfg, params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in params.values())
+        param_bytes = sum(p.numel() * p.element_size()
+                          for p in params.values())
+        leaf_bytes = max(p.numel() * p.element_size()
+                         for k, p in params.items()
+                         if k.rsplit(".", 1)[-1] in ("w_gate", "w_up",
+                                                     "w_down")
+                         and ".moe." in k)
+        torch.cuda.reset_peak_memory_stats()
+        src = SyntheticLMSource(cfg, ShapeSpec("9f", t, b, "train"),
+                                seed=seed)
+        step_fn = make_train_step(bundle, hyper, donate=True)
+        steps = []
+        with ExpertCounts() as seen:
+            for s in range(TRAIN_MOE_STEPS):
+                batch = src.batch_at(s)
+                torch.cuda.synchronize()
+                apr_matmul.launches = 0
+                seen.reads.clear()
+                seen.bwd_launches = 0
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                h0 = time.perf_counter()
+                e0.record()
+                params, opt, m = step_fn(params, opt, batch, s)
+                e1.record()
+                torch.cuda.synchronize()
+                reads = list(seen.reads)
+                n_moe = len(reads) // 2
+                steps.append(dict(
+                    event_ms=e0.elapsed_time(e1),
+                    host_ms=(time.perf_counter() - h0) * 1e3,
+                    **{k: float(v) for k, v in m.items()},
+                    launches=apr_matmul.launches,
+                    expert_backward=seen.bwd_launches,
+                    expected=moe_b1_per_step(cfg, reads),
+                    same_queues=[q for q, _ in reads[n_moe:]]
+                    == [q for q, _ in reads[:n_moe]][::-1],
+                    dropped=sum(d for _, d in reads[:n_moe]),
+                    queues=[q for q, _ in reads[:n_moe]]))
+        peak = torch.cuda.max_memory_allocated()
+        s = TRAIN_MOE_STEPS
+        params, opt, split = split_step(torch, bundle, params, opt,
+                                        src.batch_at(s), s, hyper, dev)
+        split_peak = torch.cuda.max_memory_allocated()
+        with ExpertCounts() as seen:
+            seen.timing = []
+            params, opt, _ = step_fn(params, opt, src.batch_at(s + 1), s + 1)
+        bwd = {key: sum(x[key] for x in seen.timing) for key in (
+            "ms", "dx_ms", "transpose_ms", "plain_ms", "library_ms",
+            "bound_ms", "t_mem_ms", "t_ops_ms", "products", "queues")}
+        bwd["dw_ms"] = bwd["ms"] - bwd["dx_ms"]
+        bwd["bound_by"] = ("bytes" if bwd["t_mem_ms"] >= bwd["t_ops_ms"]
+                           else "operations")
+        bwd["backwards"] = len(seen.timing)
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        steady = sorted(x["event_ms"] for x in steps[1:])
+        step_ms = steady[len(steady) // 2]
+        r = dict(layers=layers, batch=b, seq=t, params=n_params,
+                 param_bytes=param_bytes, grad_bytes=param_bytes,
+                 largest_expert_leaf_bytes=leaf_bytes, init_s=init_s,
+                 steps=steps, step_ms=step_ms,
+                 tokens_per_s=b * t / (step_ms / 1e3), peak_bytes=peak,
+                 split_peak_bytes=split_peak, split=split,
+                 expert_backward_step=bwd)
+        r["over_params_and_grads"] = max(peak, split_peak) - 2 * param_bytes
+        r["finite"] = all(math.isfinite(x[k]) for x in steps
+                          for k in ("loss", "grad_norm"))
+        r["launches_ok"] = all(
+            x["launches"] == sum(x["expected"][k] for k in (
+                "forward", "recompute", "backward"))
+            and x["expert_backward"] == x["expected"]["expert_backward"]
+            and x["same_queues"] for x in steps)
+        r["memory_ok"] = r["over_params_and_grads"] < leaf_bytes
+        out[arch] = r
+        ex = steps[-1]["expected"]
+        print(f"    9f-c {arch} full width, {layers} layer(s) "
+              f"({n_params / 1e9:.3f} B params, {param_bytes / 1e9:.2f} GB "
+              f"bf16 params + as much in grads), B x T = {b} x {t}, "
+              f"Adafactor, donate: losses "
+              f"{[round(x['loss'], 4) for x in steps]}, grad norms "
+              f"{[round(x['grad_norm'], 3) for x in steps]}; {step_ms:.2f} "
+              f"ms a step (CUDA events, median of steps 2-{TRAIN_MOE_STEPS};"
+              f" host {[round(x['host_ms'], 1) for x in steps]}), "
+              f"{r['tokens_per_s']:.0f} tokens/s; split: forward + backward "
+              f"{split['forward_backward_ms']:.2f} ms, Adafactor "
+              f"{split['optimizer_ms']:.2f} ms "
+              f"({split['optimizer_share']:.1%}); peak allocated "
+              f"{peak / 1e9:.2f} GB (split step {split_peak / 1e9:.2f}): "
+              f"{r['over_params_and_grads'] / 1e9:.2f} GB over params + "
+              f"grads (bound: the largest expert leaf, {leaf_bytes / 1e9:.2f}"
+              f" GB); dropped dispatches a step "
+              f"{[x['dropped'] for x in steps]}; non-empty experts a step "
+              f"{[sum(n > 0 for q in x['queues'] for n in q) for x in steps]}"
+              f"; B1 launches a step {[x['launches'] for x in steps]} "
+              f"(expected {[sum(x['expected'][k] for k in ('forward', 'recompute', 'backward')) for x in steps]}; "
+              f"last step forward {ex['forward']} + recompute "
+              f"{ex['recompute']} + backward {ex['backward']}, of which the "
+              f"experts' {ex['expert_backward']}); recompute's queues equal "
+              f"the forward's {all(x['same_queues'] for x in steps)}",
+              flush=True)
+        print(f"    9f-c {arch} expert backward of step {s + 1} "
+              f"({bwd['backwards']} ExpertMatmulFunction backwards over "
+              f"{bwd['queues']} non-empty queues in all, {bwd['products']} "
+              f"B1 products): {bwd['ms']:.3f} ms by CUDA events around the "
+              f"backwards (dX with its W[e]t copies {bwd['dx_ms']:.3f}, the "
+              f"rest {bwd['dw_ms']:.3f}; run again on the same inputs: "
+              f"torch.matmul {bwd['library_ms']:.3f}, plain "
+              f"{bwd['plain_ms']:.3f}, the W[e]t copies alone "
+              f"{bwd['transpose_ms']:.3f}; bound {bwd['bound_ms']:.3f} by "
+              f"{bwd['bound_by']})", flush=True)
     return out
 
 
@@ -9750,6 +10326,43 @@ def main() -> int:
                                      smoke=rec_smoke, full=rec_full)
     phase_done("phase 9e")
 
+    # ------------------------ 9f the moe family's training path
+    print("[9f] training arctic-480b and llama4-maverick: B1 at the expert "
+          "backward's shapes, the smoke configs card against CPU, full "
+          "width with the depth cut (Adafactor, donate)", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    allocated before 9f (phase 7b's weights freed): "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    moe_grad_rows = moe_grad_checks(torch, gen, dev)
+    bad = [f"{r['arch']} {r['kind']} rows={r['rows']}" for r in moe_grad_rows
+           if not r["ok"]]
+    if bad:
+        fail(f"phase 9f-a: B1 at the expert backward's shapes outside phase "
+             f"2's bound, or not written into its slice, at {bad}")
+    moe_smoke = train_moe_smoke_parity(torch, dev)
+    bad = [a for a in TRAIN_MOE if not moe_smoke[a]["ok"]]
+    if bad or not (moe_smoke["launches"]["expert_backward"]
+                   and moe_smoke["launches"]["expert_backward_f32"]):
+        fail(f"phase 9f-b: card and CPU training part beyond the bounds, a "
+             f"routing swap not a near-tie, or no expert backward launched, "
+             f"in {bad}; launches {moe_smoke['launches']}")
+    torch.cuda.empty_cache()
+    moe_full = train_moe_full(torch, args.seed, dev)
+    bad = {a: dict(finite=r["finite"], launches_ok=r["launches_ok"],
+                   memory_ok=r["memory_ok"])
+           for a, r in moe_full.items()
+           if not (r["finite"] and r["launches_ok"] and r["memory_ok"])}
+    if bad:
+        fail(f"phase 9f-c: non-finite losses, B1 launches other than the "
+             f"expert counts imply (or a recompute that routed otherwise), or "
+             f"peak memory over params + grads not below the largest expert "
+             f"leaf, in {bad}")
+    moe_step = moe_full["arctic-480b"]["expert_backward_step"]
+    report["train_moe"] = dict(kernels=moe_grad_rows, smoke=moe_smoke,
+                               full=moe_full)
+    phase_done("phase 9f")
+
     # ------------------------------------------------------------ 10 report
     def by_path(**paths) -> dict:
         """``launches`` (their sum) and ``launches_by_path``: each path's
@@ -9833,7 +10446,12 @@ def main() -> int:
                         "launches"]["apr_matmul"],
                     **family_paths("apr_matmul"),
                     **wide_paths("apr_matmul"),
-                    "phase 9b": train_smoke["launches"]["apr_matmul"]},
+                    "phase 9b": train_smoke["launches"]["apr_matmul"],
+                    "phase 9f-b": moe_smoke["launches"]["apr_matmul"]
+                    - moe_smoke["launches"]["expert_backward"],
+                    **{f"phase 9f-c {a}": sum(
+                        x["launches"] - x["expert_backward"]
+                        for x in r["steps"]) for a, r in moe_full.items()}},
                    kernel="apr_matmul"),
         tick_entry("apr_matmul_int8w", mm_src,
                    "src/repro/kernels/apr_matmul/kernel.py:139",
@@ -9851,6 +10469,8 @@ def main() -> int:
                        "launches"]["apr_matmul_f32"],
                     **graph_cnn_paths("apr_matmul_f32"),
                     "phase 9b fp32": train_smoke["launches"][
+                        "apr_matmul_f32"],
+                    "phase 9f-b fp32": moe_smoke["launches"][
                         "apr_matmul_f32"]},
                    kernel="apr_matmul_f32"),
         tick_entry("apr_matmul_f32_int8w", mm_src,
@@ -9972,6 +10592,22 @@ def main() -> int:
             entry.update(dx_ms=totals["dx"]["ms"], dw_ms=totals["dw"]["ms"],
                          transpose_ms=totals["transpose_ms"])
         kernels.append(entry)
+    # B1 on the moe training path's expert backward (ExpertMatmulFunction:
+    # dX and dW of each non-empty expert's three stacked leaves), per
+    # full-width arctic-480b step (phase 9f-c's last step's queues);
+    # launches are phase 9f-b's (bf16) and 9f-c's
+    kernels.append(dict(
+        name="apr_matmul_moe_backward", route="cuda", source=mm_src,
+        replaces="src/repro/kernels/apr_matmul/kernel.py:139",
+        **by_path(**{"phase 9f-b": moe_smoke["launches"]["expert_backward"]},
+                  **{f"phase 9f-c {a}": sum(x["expert_backward"]
+                                            for x in r["steps"])
+                     for a, r in moe_full.items()}),
+        max_abs_err=max(r["err"] for r in moe_grad_rows), ms=moe_step["ms"],
+        plain_ms=moe_step["plain_ms"], bound_ms=moe_step["bound_ms"],
+        bound_by=moe_step["bound_by"], library_ms=moe_step["library_ms"],
+        dx_ms=moe_step["dx_ms"], dw_ms=moe_step["dw_ms"],
+        transpose_ms=moe_step["transpose_ms"]))
     # the conv kernels per ResNet-20 forward (LeNet-5's and ResNet-20's
     # launches) and per MobileNet-V1 forward (its launches), at CNN_BATCH
     for suffix, total, apr_paths, hbm_paths in (
@@ -10189,7 +10825,23 @@ def main() -> int:
         "then one fixed-order reduce); launches are those of phase 9e-b "
         "(the smoke configs on the card) and 9e-c (full width), whose "
         "forward and remat-recompute launches rwkv6_wkv and mamba2_ssd "
-        "also count")
+        "also count. "
+        "apr_matmul_moe_backward: B1 in the moe training path's expert "
+        "backward (ExpertMatmulFunction: dX = dY W[e]t and dW[e] = Xt dY of "
+        "each non-empty queue's w_gate, w_up and w_down, dW written into "
+        "the leaf's one gradient tensor), per full-width arctic-480b step "
+        "(one layer, B x T = 2 x 512; phase 9f-c's fifth step): ms by CUDA "
+        "events around the real backwards (products, the W[e]t and Xt "
+        "copies, the empty experts' zero fill); dx_ms the dX products with "
+        "their W[e]t copies, dw_ms the rest, transpose_ms the W[e]t copies "
+        "alone, plain matmul_ref and library torch.matmul of every product, "
+        "each run again on the backwards' own inputs; bound the products' "
+        "bytes or bf16 operations summed; max_abs_err "
+        "over phase 9f-a's products at queues of 1, 5, 13 and 20 rows; "
+        "launches are phase 9f-b's bf16 smoke steps on the card and phase "
+        "9f-c's full-width steps, whose other B1 launches (forward, remat "
+        "recompute, the dense projections' backward) apr_matmul counts, "
+        "with phase 9f-b's, and apr_matmul_f32 9f-b's fp32 step")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)

@@ -358,20 +358,23 @@ def _launch_f32(x: torch.Tensor, w: torch.Tensor,
                 bias: Optional[torch.Tensor], activation: str,
                 out_dtype: torch.dtype, kernel: str,
                 config: Optional[BlockConfig],
-                residency: str = "apr") -> torch.Tensor:
+                residency: str = "apr",
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``activation(x @ w + bias)`` on an fp32 ``x`` by the fp32 body for
     family ``kernel``: ``apr_matmul_f32`` over an fp32 weight,
     ``apr_matmul_f32_int8w`` over int8 codes with their fp32 (1, N)
     ``scale`` (no bias, no activation), or with ``residency="hbm"``
     ``apr_matmul_hbm_f32`` (fp32 weight, no bias, no activation); the
-    configuration from :func:`resolve_f32`; ``bias`` fp32 (N,) or None."""
+    configuration from :func:`resolve_f32`; ``bias`` fp32 (N,) or None;
+    written into ``out`` when given (checked by :func:`_out`)."""
     (m, k), n = x.shape, w.shape[1]
     cfg = resolve_f32(kernel, m, k, n, config, scale is not None, residency)
     splits = cfg["splits"]
     if residency == "hbm" and splits != 1:
         raise ValueError(f"apr_matmul: the memory-resident baseline runs one "
                          f"split, not {splits}")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     lib = _build.load(LIBRARY, SIGNATURES)
@@ -424,9 +427,24 @@ def _check(x: torch.Tensor, w: torch.Tensor, out_dtype: torch.dtype,
         raise ValueError(f"{what} kernel takes contiguous row-major operands")
 
 
-def _aligned(x: torch.Tensor, w: torch.Tensor) -> bool:
-    """Both bases 16-byte aligned, as TMA needs them (a wide tile)."""
-    return x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+def _out(out: Optional[torch.Tensor], x: torch.Tensor, n: int,
+         out_dtype: torch.dtype) -> None:
+    """Raise ``ValueError`` unless ``out`` (when given) is a contiguous
+    ``(M, N)`` tensor of ``out_dtype`` on ``x``'s device."""
+    if out is not None and not (
+            out.shape == (x.shape[0], n) and out.dtype == out_dtype
+            and out.device == x.device and out.is_contiguous()):
+        raise ValueError(
+            f"apr_matmul: out {out.dtype} {tuple(out.shape)} on {out.device}"
+            f" for a contiguous {out_dtype} ({x.shape[0]}, {n}) on "
+            f"{x.device}")
+
+
+def _aligned(x: torch.Tensor, w: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> bool:
+    """Both bases 16-byte aligned, as TMA needs them (a wide tile), and a
+    caller's ``out`` too (the wide flush stores 4 outputs at once)."""
+    return all(t.data_ptr() % 16 == 0 for t in (x, w, out) if t is not None)
 
 
 def _count(counts: dict, key) -> None:
@@ -447,9 +465,12 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                block_k: Optional[int] = None, splits: Optional[int] = None,
                out_dtype: torch.dtype = torch.float32,
                residency: str = "apr",
-               config: Optional[BlockConfig] = None) -> torch.Tensor:
+               config: Optional[BlockConfig] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x (M, K) @ y (K, N)`` with an fp32 accumulator, rounded once to
-    ``out_dtype``.
+    ``out_dtype``, into ``out`` when given (a contiguous ``(M, N)`` tensor
+    of ``out_dtype``, a slice of a larger one, say; bf16 or fp32 weights
+    on the APR bodies only) and else into a new tensor.
 
     ``residency="apr"`` keeps the accumulators in registers across each
     split's K range and combines the splits on chip (one launch); ``"hbm"``
@@ -486,9 +507,15 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                         block_k=block_k, splits=splits)
     quantized = isinstance(y, QuantizedTensor)
     w = y.q if quantized else y
+    _out(out, x, w.shape[-1], out_dtype)
+    if out is not None and (quantized or residency == "hbm"):
+        raise ValueError("apr_matmul: out= is taken by the APR bodies on "
+                         "bf16 or fp32 weights only")
     if x.device.type == "cpu" and w.device.type == "cpu":
         if quantized:
             w = y.dequantize(x.dtype)
+        if out is not None:
+            return out.copy_(matmul_ref(x, w, out_dtype))
         return matmul_ref(x, w, out_dtype)
     _check(x, w, out_dtype, KERNEL_NAME)
     if residency == "hbm" and quantized:
@@ -505,7 +532,7 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
                          f"got {y.scale.dtype} {tuple(y.scale.shape)}")
     if x.dtype == torch.float32:
         out = _launch_f32(x, w, y.scale if quantized else None, None, "none",
-                          out_dtype, KERNEL_NAME, config, residency)
+                          out_dtype, KERNEL_NAME, config, residency, out)
         if residency == "hbm":
             apr_matmul.hbm_f32_launches += 1
         elif quantized:
@@ -515,12 +542,13 @@ def apr_matmul(x: torch.Tensor, y: Union[torch.Tensor, QuantizedTensor], *,
         return out
     tile, n_splits = resolve_launch(KERNEL_NAME, m, k, n,
                                     dtype_name(x.dtype), "cuda", residency,
-                                    config, quantized, _aligned(x, w))
+                                    config, quantized, _aligned(x, w, out))
     if residency == "hbm" and n_splits != 1:
         raise ValueError(f"apr_matmul: the memory-resident baseline runs one "
                          f"split, not {n_splits}")
     bm, bn, bk = tile
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
     lib = _build.load(LIBRARY, SIGNATURES)

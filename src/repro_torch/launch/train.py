@@ -8,19 +8,23 @@ package's layout, on the GPU unless ``--device cpu``.
     PYTHONPATH=src python -m repro_torch.launch.train --resume --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \\
         --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b \\
+        --device cpu --steps 4
 
 It trains the arch's smoke config (``--full``: the published one) from
-random weights (seed 0) on ``SyntheticLMSource`` batches, AdamW or the
-config's optimizer, warmup 10 steps and a cosine over ``--total-steps``
-(default ``--steps``, as the JAX launcher's schedule; a run split by
-``--resume`` passes the whole run's length to every part so that its
-schedule, and its losses, are those of one uninterrupted run).  The
-families it trains are ``train.step.TRAIN_FAMILIES``: the dense and vlm
-archs, rwkv6-3b (``ssm``), mamba2-2.7b (``mamba``), zamba2-1.2b
-(``hybrid``) and whisper-large-v3 (``audio``, on stub frames); the moe
-archs are refused by name.  The JAX launcher's
-``--host-devices`` (a mesh of host devices) needs the port's
-``parallel/`` and is refused.
+random weights (seed 0) on ``SyntheticLMSource`` batches, with the
+config's optimizer (AdamW, or Adafactor for the moe archs), warmup 10
+steps and a cosine over ``--total-steps`` (default ``--steps``, as the JAX
+launcher's schedule; a run split by ``--resume`` passes the whole run's
+length to every part so that its schedule, and its losses, are those of
+one uninterrupted run).  The families it trains are
+``train.step.TRAIN_FAMILIES``: the dense and vlm archs, arctic-480b and
+llama4-maverick-400b-a17b (``moe``), rwkv6-3b (``ssm``), mamba2-2.7b
+(``mamba``), zamba2-1.2b (``hybrid``) and whisper-large-v3 (``audio``, on
+stub frames).  ``--full`` on a moe arch is refused by name: its 35 or 48
+published layers need expert parallelism over several cards (ROADMAP
+A.12).  The JAX launcher's ``--host-devices`` (a mesh of host devices)
+needs the port's ``parallel/`` and is refused.
 """
 from __future__ import annotations
 
@@ -34,9 +38,10 @@ def main(argv=None):
     return the controller's ``RunReport``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3-8b",
-                    help="a registry arch of a family the port trains: "
-                         "dense, vlm, rwkv6-3b, mamba2-2.7b, zamba2-1.2b, "
-                         "whisper-large-v3 (moe archs are refused)")
+                    help="a registry arch: dense, vlm, the moe archs "
+                         "(arctic-480b, llama4-maverick-400b-a17b; smoke "
+                         "config only), rwkv6-3b, mamba2-2.7b, zamba2-1.2b, "
+                         "whisper-large-v3")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--device", default="cuda",
@@ -71,8 +76,14 @@ def main(argv=None):
     from ..runtime import TrainController
     from ..train.step import TrainHyper, init_optimizer, make_train_step
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family == "moe" and not args.smoke:
+        raise NotImplementedError(
+            f"--full on {args.arch}: its {cfg.num_layers} published layers "
+            f"of {cfg.num_experts} experts outgrow one card; training the "
+            f"whole model needs expert parallelism over several cards "
+            f"(ROADMAP A.12), which is not ported")
+    device = resolve_device(args.device)
     bundle = build_model(cfg, device=device)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     params = bundle.init_params()

@@ -131,15 +131,19 @@ def _super_blocks(params: Params, cfg: ModelConfig
     """``(sb, layer params)`` for every super-block in order: for each
     layer ``j``, super-block ``sb``'s slice of ``blk.{j}.*``, named as the
     JAX ``_super_block`` names them (``attn.wq``, ``ln1``, ``mlp.w_gate``
-    / ``moe.router``)."""
+    / ``moe.router``).  With one super-block a tensor's slice is
+    ``squeeze(0)``, a view whose backward is a view of the slice's
+    gradient: ``w[0]``'s would copy it into fresh zeros of the whole leaf
+    (a second full-size tensor of an MoE expert leaf)."""
     n_sb, me = super_block(cfg)
     for sb in range(n_sb):
         layers = []
         for j in range(me):
             pre = f"blk.{j}."
-            layers.append({name[len(pre):]: w[sb]
-                           for name, w in params.items()
-                           if name.startswith(pre)})
+            layers.append({name[len(pre):]: (
+                w.squeeze(0) if n_sb == 1 and isinstance(w, torch.Tensor)
+                else w[sb])
+                for name, w in params.items() if name.startswith(pre)})
         yield sb, tuple(layers)
 
 

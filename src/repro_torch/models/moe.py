@@ -19,8 +19,9 @@ all ``B·T`` rows of ``moe_block``.
 The JAX layer runs every expert over a dense ``(E, C, d)`` buffer.  The
 port's path (:func:`moe_ffn_local`) runs only the experts whose queue is
 not empty, each on the rows of its queue: one device-to-host read of the
-experts' dispatch counts per MoE layer (:func:`expert_counts`), then, per
-non-empty expert, ``w_gate`` and ``w_up`` through ``linear`` and ``w_down`` through
+experts' dispatch counts per MoE layer (:func:`expert_counts`), the rows of
+every non-empty queue gathered back to back, then, queue by queue,
+``w_gate`` and ``w_up`` through ``linear`` and ``w_down`` through
 ``tp_einsum`` (the ``apr_matmul`` kernel on the card).  A row's result
 does not depend on the rows beside it, and an empty queue's rows are never
 gathered, so this equals the dense form (:func:`_route_and_dispatch`,
@@ -29,17 +30,32 @@ combine is an ordered sum from zero over the ``k`` dispatches of a token
 in top-k order, rounding to the activations' dtype at every product and
 add, as the JAX scatter-add computes it (no ``index_add_`` with repeated
 indices, whose order the card does not fix).
+
+Under a gradient (training) each stacked expert leaf's products run
+through :class:`ExpertMatmulFunction`: the same calls forward, and a
+backward that writes the leaf's gradient as one tensor of the leaf's
+shape -- expert ``e``'s ``dW = Xₑᵀ·dYₑ`` on ``apr_matmul`` straight into
+slice ``e``, zeros only on the experts whose queue is empty -- so no
+select of an expert's weight leaves a whole-leaf gradient per expert
+behind it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import (ParamSpecs, Params, fan_in_scale, linear, silu, swiglu,
-                     tp_einsum)
+from ..kernels.apr_matmul import ops as mm_ops
+from ..quant import QuantizedTensor
+from .layers import (ParamSpecs, Params, fan_in_scale, grad_wanted, linear,
+                     silu, swiglu, tp_einsum)
+
+#: the stacked expert leaves of an MoE layer
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+#: a queue of the training path: (expert, its first row, its rows)
+Queue = Tuple[int, int, int]
 
 
 def moe_params(prefix: str, cfg: ModelConfig,
@@ -187,25 +203,118 @@ def _expert_ffn_dense(p: Params, prefix: str,
                         for e in range(xs.shape[0])])
 
 
+def expert_products(x: torch.Tensor, w, queues: Sequence[Queue],
+                    product: Callable) -> torch.Tensor:
+    """``product(x[queue], w[e])`` queue by queue (``product`` is ``linear``
+    or ``tp_einsum``, ``w`` a stacked expert leaf, int8 ones included), the
+    results back to back in the rows of ``x``."""
+    y = torch.empty((x.shape[0], w.shape[-1]), dtype=x.dtype,
+                    device=x.device)
+    for e, s, n in queues:
+        y[s:s + n] = product(x[s:s + n], w[e])
+    return y
+
+
+class ExpertMatmulFunction(torch.autograd.Function):
+    """The products of one stacked expert leaf ``w`` (E, K, N) under
+    autograd.  ``x`` (rows, K) holds the queues' rows back to back;
+    ``queues`` lists ``(e, first row, rows)`` of each non-empty queue.  The
+    forward is :func:`expert_products`, as serving runs it.  The
+    backward, as :class:`~repro_torch.kernels.apr_matmul.AprMatmulFunction`
+    computes a product's, on ``apr_matmul`` (the kernel on the card, the
+    plain version on the CPU), each only when asked for::
+
+        dXₑ = apr_matmul(dYₑ, W[e]ᵀ, out_dtype=x.dtype)
+        dW[e] = apr_matmul(Xₑᵀ, dYₑ, out_dtype=w.dtype)
+
+    with ``dW`` made once, the leaf's shape, each ``dW[e]`` written into its
+    slice (``out=``) and the slices of experts with an empty queue set to
+    zero: the one tensor of that shape the backward makes."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor,
+                queues: Sequence[Queue],
+                product: Callable) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        ctx.queues = queues
+        return expert_products(x, w, queues, product)
+
+    @staticmethod
+    def backward(ctx, dy: torch.Tensor):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.empty_like(x)
+            for e, s, n in ctx.queues:
+                mm_ops.apr_matmul(dy[s:s + n], w[e].t().contiguous(),
+                                  out_dtype=x.dtype, out=dx[s:s + n])
+        if ctx.needs_input_grad[1]:
+            dw = torch.empty_like(w)
+            ran = {e for e, _, _ in ctx.queues}
+            empty = [e for e in range(w.shape[0]) if e not in ran]
+            if empty:
+                dw.index_fill_(0, torch.tensor(empty, device=w.device), 0)
+            for e, s, n in ctx.queues:
+                mm_ops.apr_matmul(x[s:s + n].t().contiguous(), dy[s:s + n],
+                                  out_dtype=w.dtype, out=dw[e])
+        return dx, dw, None, None
+
+
+def _queues(r: Routing) -> List[Tuple[int, torch.Tensor]]:
+    """``(e, dispatches)`` of every expert with a non-empty queue: the
+    first ``capacity`` of its dispatches in rank order, after the one host
+    read of the counts (:func:`expert_counts`)."""
+    out, start = [], 0
+    for e, count in enumerate(expert_counts(r)):
+        n = min(count, r.capacity)
+        if n:
+            out.append((e, r.order[start:start + n]))
+        start += count
+    return out
+
+
+def _experts(p: Params, prefix: str, r: Routing,
+             queues: List[Tuple[int, torch.Tensor]],
+             x: torch.Tensor) -> torch.Tensor:
+    """Every non-empty queue's rows gathered back to back, the SwiGLU by
+    :func:`expert_products` a stacked leaf (through
+    :class:`ExpertMatmulFunction` under a gradient), and each dispatch's
+    value at its place (zeros where dropped)."""
+    w_gate, w_up, w_down = (p[f"{prefix}.{name}"] for name in EXPERT_LEAVES)
+    products = expert_products
+    if grad_wanted(x, *(w for w in (w_gate, w_up, w_down)
+                        if isinstance(w, torch.Tensor))):
+        if any(isinstance(w, QuantizedTensor)
+               for w in (w_gate, w_up, w_down)):
+            raise TypeError("moe: an int8 QuantizedTensor expert weight has "
+                            "no gradient; train bf16 or fp32 parameters")
+        products = ExpertMatmulFunction.apply
+    spans, first = [], 0
+    for e, idx in queues:
+        spans.append((e, first, idx.shape[0]))
+        first += idx.shape[0]
+    idx = torch.cat([idx for _, idx in queues])
+    xs = x[r.token_id[idx]]
+    g = products(xs, w_gate, spans, linear)
+    u = products(xs, w_up, spans, linear)
+    y = products(silu(g) * u, w_down, spans, tp_einsum)
+    vals = torch.zeros((r.expert.shape[0], x.shape[1]), dtype=x.dtype,
+                       device=x.device)
+    return vals.index_copy(0, idx, y)
+
+
 def moe_ffn_local(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
                   ep_axis: Optional[str] = None) -> torch.Tensor:
     """The MoE FFN over the rows of ``x`` (t, d): route, run each expert
-    with a non-empty queue on its queue's rows, combine."""
+    with a non-empty queue on its queue's rows (:func:`_experts`),
+    combine."""
     if ep_axis is not None:
         raise NotImplementedError(
             "expert parallelism over a mesh (ep_axis) is not ported")
-    t, d = x.shape
+    t = x.shape[0]
     r = route(x, p[f"{prefix}.router"], cfg, _capacity(t, cfg))
-    vals = torch.zeros((r.expert.shape[0], d), dtype=x.dtype, device=x.device)
-    start = 0
-    for e, count in enumerate(expert_counts(r)):
-        n = min(count, r.capacity)      # the queue: its first n in rank order
-        if n:
-            idx = r.order[start:start + n]
-            vals.index_copy_(0, idx,
-                             _expert(p, prefix, e, x[r.token_id[idx]]))
-        start += count
-    return _ordered_sum(vals, r.weight, t)
+    return _ordered_sum(_experts(p, prefix, r, _queues(r), x), r.weight, t)
 
 
 def moe_block(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,

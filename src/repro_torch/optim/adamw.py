@@ -13,7 +13,8 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from .tree import clear_tree, tree_leaves, tree_map, tree_unflatten
+from .tree import (SLICE_ELEMENTS, clear_tree, tree_leaves, tree_map,
+                   tree_unflatten)
 
 
 class AdamWState(NamedTuple):
@@ -37,10 +38,14 @@ def adamw_init(params) -> AdamWState:
 
 def global_norm_sq(leaves) -> torch.Tensor:
     """``sum(sum(square(g.float())) for g in leaves)``: one fp32 sum of
-    squares a leaf, added in leaf order, as the JAX expression does."""
+    squares a leaf, added in leaf order, as the JAX expression does.  A
+    leaf of more than :data:`~.tree.SLICE_ELEMENTS` elements is summed
+    in runs of that many (their fp32 sums added in order), so that no fp32
+    copy of a whole leaf is made."""
     total = 0
     for g in leaves:
-        total = total + torch.sum(torch.square(g.float()))
+        total = total + sum(torch.sum(torch.square(run.float()))
+                            for run in g.reshape(-1).split(SLICE_ELEMENTS))
     return total
 
 

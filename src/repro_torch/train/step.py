@@ -9,10 +9,14 @@ forwards and backwards on ``rwkv6_wkv`` / ``rwkv6_wkv_backward``
 (``Rwkv6Function``) and ``mamba2_ssd`` / ``mamba2_ssd_backward``
 (``Mamba2Function``), and each block the JAX forward checkpoints is
 recomputed in the backward under ``cfg.remat``.  Families: ``dense``,
-``vlm``, ``ssm``, ``mamba``, ``hybrid`` and ``audio``.  The sharded pieces
-of the JAX module (``assemble_shardings``, ``cache_spec``, ZeRO-1 specs,
-cross-pod gradient compression) need the port's ``parallel/`` and are not
-here.
+``moe``, ``vlm``, ``ssm``, ``mamba``, ``hybrid`` and ``audio``; an MoE
+layer's stacked expert leaves each get their gradient as one tensor
+(``models.moe.ExpertMatmulFunction``), so that arctic-480b's single layer
+and llama4-maverick's single super-block train at published widths on one
+80 GB card under Adafactor with ``donate``.  The sharded pieces of the JAX
+module (``assemble_shardings``, ``cache_spec``, ZeRO-1 specs, cross-pod
+gradient compression) and the MoE layer's expert parallelism need the
+port's ``parallel/`` and are not here.
 """
 from __future__ import annotations
 
@@ -28,11 +32,9 @@ from ..models.registry import ModelBundle
 from ..optim import (adafactor_init, adafactor_update, adamw_init,
                      adamw_update, global_norm_sq, warmup_cosine)
 
-#: the families the port trains.  moe is refused: one full-width arctic-480b
-#: layer holds 13.4 B expert parameters (~54 GB of bf16 params and grads
-#: before the optimizer's state), so its training needs the expert-parallel
-#: branch over several cards (ROADMAP A.12)
-TRAIN_FAMILIES = ("dense", "vlm", "ssm", "mamba", "hybrid", "audio")
+#: the families the port trains (on one device; the whole of a published
+#: moe model needs expert parallelism over several cards, ROADMAP A.12)
+TRAIN_FAMILIES = ("dense", "moe", "vlm", "ssm", "mamba", "hybrid", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,10 +105,8 @@ def check_trainable(cfg: ModelConfig) -> None:
     not train."""
     if cfg.family not in TRAIN_FAMILIES:
         raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
-            f"(an expert layer at full width outgrows one card: ROADMAP "
-            f"A.12, expert parallelism); the port trains "
-            f"{', '.join(TRAIN_FAMILIES)}")
+            f"training the {cfg.family!r} family ({cfg.name}) is not ported; "
+            f"the port trains {', '.join(TRAIN_FAMILIES)}")
 
 
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -155,9 +155,11 @@ def make_train_step(bundle: ModelBundle, hyper: TrainHyper, *,
     opt_state, metrics)``; ``metrics`` holds 0-d device tensors ``loss``,
     ``lr`` and ``grad_norm`` (over the leaves in JAX's tree order).
     ``batch`` is a dict of numpy arrays or tensors, moved to the bundle's
-    device in the step.  ``donate`` (AdamW) gives ``opt_state`` up to the
-    update, which then frees each old state leaf as it makes the new one
-    (JAX's ``donate_argnums``): the caller must not use it again."""
+    device in the step.  ``donate`` gives the update what JAX's
+    ``donate_argnums`` would: AdamW ``opt_state`` (it frees each old state
+    leaf as it makes the new one), Adafactor ``params`` (each new param is
+    written into the old one's storage); either frees each gradient leaf
+    once it is applied.  The caller must not use what it gave again."""
     cfg = bundle.cfg
     check_trainable(cfg)
     if hyper.compress_cross_pod:
@@ -174,7 +176,7 @@ def make_train_step(bundle: ModelBundle, hyper: TrainHyper, *,
         gnorm = torch.sqrt(global_norm_sq([grads[k] for k in sorted(grads)]))
         if cfg.optimizer == "adafactor":
             new_params, new_opt = adafactor_update(grads, opt_state, params,
-                                                   lr)
+                                                   lr, donate=donate)
         else:
             new_params, new_opt = adamw_update(grads, opt_state, lr,
                                                donate=donate)

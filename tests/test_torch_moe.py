@@ -254,10 +254,10 @@ def test_combine_equals_jax(layer, dtype):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_non_empty_experts_equal_the_dense_form(layer, dtype):
-    """On the CPU the loop over non-empty experts gives the bits of the
+    """On the CPU the pass over non-empty experts gives the bits of the
     dense ``(E, C, d)`` form (every expert over its whole queue, empty
     slots included), the JAX layer's shape; only the non-empty experts
-    run."""
+    run, in each of the three stacked leaves' products."""
     arch, jp = layer
     cfg, _, (_, tx) = _block_inputs(arch, dtype, PUBLISHED_FACTOR)
     _, tparams = _layer_params(jp, dtype)
@@ -267,21 +267,21 @@ def test_non_empty_experts_equal_the_dense_form(layer, dtype):
     buf, meta = moe._route_and_dispatch(x, tparams["moe.router"], cfg, cap)
     dense = moe._combine(moe._expert_ffn_dense(tparams, "moe", buf), meta, t)
     ran = []
-    expert = moe._expert
+    products = moe.expert_products
 
-    def counting(p, prefix, e, xs):
-        ran.append((e, xs.shape[0]))
-        return expert(p, prefix, e, xs)
+    def counting(xs, w, queues, product):
+        ran.append([(e, n) for e, _, n in queues])
+        return products(xs, w, queues, product)
 
-    moe._expert = counting
+    moe.expert_products = counting
     try:
         got = moe.moe_ffn_local(tparams, "moe", cfg, x)
     finally:
-        moe._expert = expert
+        moe.expert_products = products
     assert torch.equal(got, dense)
     r = moe.route(x, tparams["moe.router"], cfg, cap)
     lengths = torch.clamp_max(r.counts, cap).tolist()
-    assert ran == [(e, n) for e, n in enumerate(lengths) if n]
+    assert ran == [[(e, n) for e, n in enumerate(lengths) if n]] * 3
 
 
 def test_expert_parallelism_is_refused_by_name():

@@ -29,6 +29,7 @@ from repro_torch.bridge import (opt_state_from_numpy, opt_state_to_numpy,
 from repro_torch.optim import (AdafactorState, AdamWState, adafactor_init,
                                adafactor_update, adamw_init, adamw_update,
                                warmup_cosine)
+from repro_torch.optim import adafactor as adafactor_mod
 from repro_torch.optim.tree import tree_leaves
 
 #: fp32 results: the same ops, reductions and transcendentals may round
@@ -164,6 +165,76 @@ def test_adafactor_matches_jax(dtype, weight_decay):
             _close(tp, jp)
         else:
             _bf16_close(tp, jp)
+
+
+@pytest.mark.parametrize("slice_elements", [24, 80])
+def test_adafactor_in_slices_matches_jax(slice_elements, monkeypatch):
+    """The update cut into slices of at most ``slice_elements`` elements
+    (24: every matrix cut by rows, the vectors in runs; 80: runs of two of
+    the stacked leaf's matrices) against JAX's whole-leaf update, over
+    ``STEPS`` steps on fp32 leaves, at this file's tolerance."""
+    monkeypatch.setattr(adafactor_mod, "SLICE_ELEMENTS", slice_elements)
+    rng = np.random.default_rng(5)
+    params = _tree(SHAPES, rng, "float32")
+    jp, tp = _to_jax(params), _to_torch(params)
+    js, ts = j_adafactor_init(jp), adafactor_init(tp)
+    update = jax.jit(functools.partial(j_adafactor_update,
+                                       weight_decay=0.1))
+    for i in range(STEPS):
+        g = _grads(rng, SHAPES)
+        jp, js = update(_to_jax(g), js, jp, jnp.float32(0.01))
+        tp, ts = adafactor_update(_to_torch(g), ts, tp, torch.tensor(0.01),
+                                  weight_decay=0.1)
+        _close(ts.vr, js.vr)
+        _close(ts.vc, js.vc)
+        _close(tp, jp)
+
+
+def _whole_leaf_update(g, vr, vc, p, lr, decay=0.99, eps=1e-30):
+    """The JAX ``upd`` of one leaf, whole-leaf ops in the JAX order."""
+    g = g.float()
+    g2 = g * g + eps
+    if len(g.shape) >= 2 and g.shape[-1] > 1 and g.shape[-2] > 1:
+        vr = decay * vr + (1 - decay) * torch.mean(g2, dim=-1)
+        vc = decay * vc + (1 - decay) * torch.mean(g2, dim=-2)
+        r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=eps)
+        u = g / torch.sqrt(torch.clamp(r[..., None] * vc[..., None, :],
+                                       min=eps))
+    else:
+        vr = decay * vr + (1 - decay) * g2
+        u = g / torch.sqrt(torch.clamp(vr, min=eps))
+    rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
+    u = u / torch.clamp(rms / 1.0, min=1.0)
+    pf = p.float()
+    return vr, vc, (pf - lr * u - lr * 0.0 * pf).to(p.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adafactor_donate_writes_the_params_in_place(dtype):
+    """``donate=True``: each new param lands in the old one's storage
+    (``data_ptr`` equal), bit for bit the non-donating update's params and
+    state, and the grads' container is emptied; a leaf within one slice
+    gets the whole-leaf formula's bits."""
+    rng = np.random.default_rng(6)
+    params = _to_torch(_tree(SHAPES, rng, dtype))
+    state = adafactor_init(params)
+    for i in range(2):
+        g = _to_torch(_grads(rng, SHAPES))
+        ref_p, ref_s = adafactor_update(g, state, params, 0.01)
+        for gl, r, c, pl, want in zip(
+                tree_leaves(g), tree_leaves(state.vr), tree_leaves(state.vc),
+                tree_leaves(params), tree_leaves(ref_p)):
+            assert torch.equal(_whole_leaf_update(gl, r, c, pl, 0.01)[2],
+                               want)
+        ptrs = [p.data_ptr() for p in tree_leaves(params)]
+        got_p, got_s = adafactor_update(g, state, params, 0.01, donate=True)
+        assert g == {}
+        assert [p.data_ptr() for p in tree_leaves(got_p)] == ptrs
+        assert list(got_p) == sorted(SHAPES)
+        for a, b in zip(tree_leaves((ref_p, ref_s)),
+                        tree_leaves((got_p, got_s))):
+            assert torch.equal(a, b)
+        params, state = got_p, got_s
 
 
 # ---------------- the JAX convergence tests (tests/test_infra_misc.py)

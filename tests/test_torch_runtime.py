@@ -143,5 +143,11 @@ def test_launcher_refuses_host_devices(tmp_path):
 
 
 def test_launcher_refuses_untrained_families(tmp_path):
-    with pytest.raises(NotImplementedError, match="'moe'.*A.12"):
-        launch_train.main(_args(tmp_path, 1, "--arch", "arctic-480b"))
+    """The moe archs train their smoke configs (``tests/
+    test_torch_train_moe.py``); ``--full`` on one is refused by name
+    before any weight is made: the whole published model needs expert
+    parallelism (ROADMAP A.12)."""
+    for arch in ("arctic-480b", "llama4-maverick-400b-a17b"):
+        with pytest.raises(NotImplementedError, match="--full.*A.12"):
+            launch_train.main(_args(tmp_path, 1, "--arch", arch, "--full"))
+    assert not (tmp_path / "heartbeat.json").exists()

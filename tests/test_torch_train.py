@@ -398,10 +398,24 @@ def test_microbatches_for_matches_jax(shape):
 # -------------------------------------------------------------- refusals
 @pytest.mark.parametrize("arch", ["arctic-480b"])
 def test_untrained_families_are_refused_by_name(arch):
+    """The moe family trains on one device (``make_train_step`` takes it);
+    what stays refused by name is its expert-parallel mesh (``moe_block``
+    with a mesh, ROADMAP A.12) and a family outside ``TRAIN_FAMILIES``."""
     cfg = get_config(arch, smoke=True)
+    assert cfg.family == "moe" and cfg.family in tstep.TRAIN_FAMILIES
     bundle = build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=repr(cfg.family)):
-        tstep.make_train_step(bundle, tstep.TrainHyper())
+    tstep.make_train_step(bundle, tstep.TrainHyper())
+    from repro_torch.models import moe
+    params = bundle.init_params()
+    layer = {k[len("blk.0."):]: v[0] for k, v in params.items()
+             if k.startswith("blk.0.moe.")}
+    mesh = dataclasses.make_dataclass("Ctx", ["mesh"])(mesh=object())
+    with pytest.raises(NotImplementedError, match="expert parallelism"):
+        moe.moe_block(layer, "moe", cfg, torch.zeros(1, 2, cfg.d_model),
+                      pctx=mesh)
+    other = dataclasses.replace(cfg, family="cnn")
+    with pytest.raises(NotImplementedError, match="'cnn'"):
+        tstep.check_trainable(other)
 
 
 def test_compress_cross_pod_is_refused(llama):

@@ -5,7 +5,8 @@ JAX package's ``jax.value_and_grad(_loss_fn)`` from the same weights (JAX-
 initialised and bridged; the all-zero offsets filled from a numpy seed so
 they carry signal) and the same ``SyntheticLMSource`` batch; remat on and
 off; the recurrences' autograd Functions on the model's path through the
-``use_scan_kernel`` seam; the launcher on the CPU; moe refused by name.
+``use_scan_kernel`` seam; the launcher on the CPU; the remat policies the
+port does not have refused by name on an moe config.
 
 Tolerances, fp32 params: the loss within 1e-5 relative and each gradient
 leaf within 1e-4 of its largest magnitude (two frameworks, sums in another
@@ -170,7 +171,10 @@ def test_model_path_through_the_functions_matches_the_chunked_autograd(
 
 def test_train_step_runs_the_smoke_configs_and_refuses_moe():
     """Three AdamW steps of each smoke config (bf16) with finite losses
-    that fall; an moe config is refused, naming ROADMAP A.12."""
+    that fall; an moe config's train step is made (the family trains:
+    ``tests/test_torch_train_moe.py``), and under the ``"dots"`` or
+    ``"save_coll"`` remat policy it is refused by name at its first step
+    (ROADMAP A.13-1b, A.12)."""
     hyper = tstep.TrainHyper(peak_lr=1e-2, warmup=1, total_steps=10)
     for name in ARCHS:
         cfg = get_config(name, smoke=True)
@@ -186,9 +190,17 @@ def test_train_step_runs_the_smoke_configs_and_refuses_moe():
             losses.append(float(m["loss"]))
         assert all(np.isfinite(losses)), (name, losses)
         assert losses[-1] < losses[0], (name, losses)
-    bundle = build_model(get_config("arctic-480b", smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.12"):
-        tstep.make_train_step(bundle, hyper)
+    cfg = get_config("arctic-480b", smoke=True)
+    batch = JSyntheticLMSource(jax_get_config("arctic-480b", smoke=True),
+                               JShapeSpec("t", *SHAPE, "train")).batch_at(0)
+    params = build_model(cfg, device="cpu").init_params()
+    tstep.make_train_step(build_model(cfg, device="cpu"), hyper)
+    for policy in ("dots", "save_coll"):
+        bundle = build_model(dataclasses.replace(cfg, remat_policy=policy),
+                             device="cpu")
+        step = tstep.make_train_step(bundle, hyper)
+        with pytest.raises(NotImplementedError, match=repr(policy)):
+            step(params, tstep.init_optimizer(cfg, params), batch, 0)
 
 
 def test_launcher_trains_a_recurrent_arch_on_the_cpu(tmp_path):
