@@ -6731,28 +6731,38 @@ def train_launcher_resume(torch, tmpdir) -> dict:
 
 
 class ForwardLaunchCounter:
-    """Counts B1's launches made inside ``AprMatmulFunction.forward`` (the
-    forward's and the remat recompute's, which runs inside the backward)
-    while the ``with`` block runs; B1's other launches on a training step
-    are the backward's products."""
+    """Counts B1's launches made inside ``AprMatmulFunction.forward`` and
+    ``ExpertMatmulFunction.forward`` (the forward's and the remat
+    recompute's) while the ``with`` block runs: ``launches`` all of them,
+    ``recompute`` those made while a backward runs (the recompute's); B1's
+    other launches on a training step are the backward's products."""
 
     def __enter__(self):
+        import torch
         from repro_torch.kernels.apr_matmul import (AprMatmulFunction,
                                                     apr_matmul)
-        self.launches = 0
-        self._fn = AprMatmulFunction
-        self._inner = inner = AprMatmulFunction.forward
+        from repro_torch.models.moe import ExpertMatmulFunction
+        self.launches = self.recompute = 0
+        self._inner = {fn: fn.forward for fn in (AprMatmulFunction,
+                                                  ExpertMatmulFunction)}
 
-        def counted(ctx, x, w, out_dtype):
-            before = apr_matmul.launches
-            y = inner(ctx, x, w, out_dtype)
-            self.launches += apr_matmul.launches - before
-            return y
-        AprMatmulFunction.forward = staticmethod(counted)
+        def counting(inner):
+            def counted(ctx, *args):
+                before = apr_matmul.launches
+                y = inner(ctx, *args)
+                n = apr_matmul.launches - before
+                self.launches += n
+                if torch._C._current_graph_task_id() != -1:
+                    self.recompute += n
+                return y
+            return staticmethod(counted)
+        for fn, inner in self._inner.items():
+            fn.forward = counting(inner)
         return self
 
     def __exit__(self, *exc):
-        self._fn.forward = staticmethod(self._inner)
+        for fn, inner in self._inner.items():
+            fn.forward = staticmethod(inner)
 
 
 def split_step(torch, bundle, params, opt, batch, step: int, hyper, dev):
@@ -6870,8 +6880,34 @@ def train_full(torch, seed: int, dev, reset_counts) -> dict:
     s += 1
     params, opt, out["split"] = split_step(torch, bundle, params, opt,
                                            src.batch_at(s), s, hyper, dev)
+    # the remat policies on the same params and batch, then whole steps of
+    # each in turn ("nothing", "dots", "nothing", "dots"): ms and peak
+    # allocated memory a step
+    out["remat"] = remat = remat_policy_runs(torch, cfg, params,
+                                             src.batch_at(0), dev)
+    fns = {p: make_train_step(build_model(dataclasses.replace(
+        cfg, remat_policy=p), device=dev), hyper, donate=True)
+        for p in REMAT_POLICIES}
+    remat["steps"] = {p: [] for p in REMAT_POLICIES}
+    for i in range(2 * len(REMAT_POLICIES)):
+        p = REMAT_POLICIES[i % len(REMAT_POLICIES)]
+        s += 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, _ = fns[p](params, opt, src.batch_at(s), s)
+        e1.record()
+        torch.cuda.synchronize()
+        remat["steps"][p].append(dict(
+            event_ms=e0.elapsed_time(e1),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9))
     del params, opt
     torch.cuda.empty_cache()
+    out["roofline"] = {p: step_roofline(
+        cfg, TRAIN_B, TRAIN_T, sum(x["event_ms"] for x in xs) / len(xs))
+        for p, xs in remat["steps"].items()}
     prof = out.get("profile")
     print(f"    9d llama3-8b full width, {TRAIN_LAYERS} layers "
           f"({n_params / 1e9:.3f} B params, {state_gb:.1f} GB params + "
@@ -6892,7 +6928,130 @@ def train_full(torch, seed: int, dev, reset_counts) -> dict:
     if prof:
         for k, t in prof["top_kernels_ms"].items():
             print(f"       {t:9.3f} ms  {k[:110]}")
+    card = card_name_and_limit()
+    for line in policy_lines("9d", remat):
+        print(line)
+    for p, xs in remat["steps"].items():
+        print(f"    9d whole steps under {p!r} (taken in turn): "
+              f"{[round(x['event_ms'], 2) for x in xs]} ms (CUDA events), "
+              f"peak {[round(x['peak_gb'], 3) for x in xs]} GB allocated; "
+              f"card {card}", flush=True)
+    for p, r in out["roofline"].items():
+        print(roofline_line(f"9d {p!r}", r, card), flush=True)
     return out
+
+
+#: the remat policies phases 9d and 9f-c hold against each other on the
+#: same params and batch: "nothing" (the reference) first, then "dots"
+REMAT_POLICIES = ("nothing", "dots")
+
+
+def card_name_and_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit``'s first line, or why
+    there is none."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if smi.returncode == 0 and lines else "not read"
+
+
+def remat_policy_runs(torch, cfg, params, batch, dev,
+                      host_ref: bool = False) -> dict:
+    """Phases 9d and 9f-c: ``loss_and_grads`` of ``cfg`` on the same
+    ``params`` and ``batch`` under each of :data:`REMAT_POLICIES`: its B1
+    launches (:class:`ForwardLaunchCounter`: ``forward``, ``recompute``
+    inside the backward, the rest ``backward``), the expert counts it read
+    (:class:`ExpertCounts`: the forward's, then the recompute's), ms by
+    CUDA events and peak allocated bytes over those allocated when it
+    began; ``bit_equal``: the loss and every grad leaf of each later policy
+    equal the first's bit for bit.  ``host_ref`` keeps the first policy's
+    grads on the host meanwhile (two sets of arctic-480b's grads do not fit
+    on one card)."""
+    from repro_torch.kernels.apr_matmul import apr_matmul
+    from repro_torch.models import build_model
+    from repro_torch.train import loss_and_grads
+    out, ref, equal = {}, None, True
+    for policy in REMAT_POLICIES:
+        bundle = build_model(dataclasses.replace(cfg, remat_policy=policy),
+                             device=dev)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with ForwardLaunchCounter() as fwd, ExpertCounts() as seen:
+            before = apr_matmul.launches
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            loss, grads = loss_and_grads(bundle, params, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            total = apr_matmul.launches - before
+        out[policy] = dict(
+            ms=e0.elapsed_time(e1), loss=float(loss),
+            peak_over_start_bytes=torch.cuda.max_memory_allocated() - base,
+            launches=dict(forward=fwd.launches - fwd.recompute,
+                          recompute=fwd.recompute,
+                          backward=total - fwd.launches),
+            reads=list(seen.reads))
+        if ref is None:
+            ref = (loss, {k: g.cpu() for k, g in grads.items()}
+                   if host_ref else grads)
+        else:
+            equal = equal and torch.equal(loss, ref[0]) and all(
+                torch.equal(g, ref[1][k].to(dev) if host_ref else ref[1][k])
+                for k, g in grads.items())
+        del loss, grads
+    out["bit_equal"] = equal
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def step_roofline(cfg, batch: int, seq: int, step_ms: float) -> dict:
+    """One training step of ``cfg`` over ``batch`` x ``seq`` tokens on one
+    card by ``repro_torch.roofline``: ``model_flops`` (6 N_active D), the
+    share of ``h100_sxm``'s peak that a step of ``step_ms`` reaches, and
+    ``RooflineTerms``' bound (those FLOPs and ``analytic_hbm_bytes`` over
+    the profile's rates) against the step."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.roofline import (RooflineTerms, analytic_hbm_bytes,
+                                      get_profile, model_flops)
+    prof = get_profile("h100_sxm")
+    shape = ShapeSpec("step", seq, batch, "train")
+    flops = model_flops(cfg, shape, True)
+    terms = RooflineTerms(flops, analytic_hbm_bytes(
+        cfg, shape, 1, param_count=cfg.param_count()), 0.0, 1, profile=prof)
+    return dict(model_flops=flops, step_ms=step_ms,
+                peak_share=flops / (step_ms / 1e3 * prof.peak_flops),
+                bound_ms=terms.bound_time * 1e3, dominant=terms.dominant,
+                bound_share=terms.bound_time * 1e3 / step_ms,
+                terms=terms.as_dict())
+
+
+def roofline_line(label: str, r: dict, card: str) -> str:
+    return (f"    {label} roofline (repro_torch.roofline, h100_sxm): "
+            f"model_flops {r['model_flops']:.4e} a step; at "
+            f"{r['step_ms']:.2f} ms a step {r['peak_share']:.2%} of "
+            f"h100_sxm's peak; RooflineTerms bound {r['bound_ms']:.3f} ms "
+            f"({r['dominant']}), {r['bound_share']:.2%} of the step; card "
+            f"{card}")
+
+
+def policy_lines(label: str, runs: dict) -> list:
+    return [f"    {label} remat_policy {p!r}: loss_and_grads "
+            f"{r['ms']:.2f} ms (CUDA events), peak "
+            f"{r['peak_over_start_bytes'] / 1e9:.3f} GB over the allocated "
+            f"at its start; B1 launches "
+            f"forward {r['launches']['forward']} + recompute "
+            f"{r['launches']['recompute']} + backward "
+            f"{r['launches']['backward']}" for p, r in runs.items()
+            if p in REMAT_POLICIES] + [
+        f"    {label} every grad leaf and the loss of "
+        f"{REMAT_POLICIES[1:]} bit-equal to {REMAT_POLICIES[0]!r}'s: "
+        f"{runs['bit_equal']}"]
 
 
 # ------------------------- the recurrent and audio families' training path
@@ -7527,6 +7686,9 @@ def train_recurrent_full(torch, seed: int, dev) -> dict:
 TRAIN_MOE = {"arctic-480b": (1, 2, 512),
              "llama4-maverick-400b-a17b": (2, 1, 512)}
 TRAIN_MOE_STEPS = 3
+#: phase 9f-c: the archs whose loss_and_grads also runs under each remat
+#: policy on the same params and batch
+TRAIN_MOE_REMAT = ("arctic-480b",)
 #: phase 9f-a: the rows of an expert's queue (1 to 20: arctic's capacity
 #: at B x T = 2 x 512) at which the expert backward's products are held to
 #: the plain version and timed
@@ -8015,6 +8177,9 @@ def train_moe_full(torch, seed: int, dev) -> dict:
         bwd["bound_by"] = ("bytes" if bwd["t_mem_ms"] >= bwd["t_ops_ms"]
                            else "operations")
         bwd["backwards"] = len(seen.timing)
+        remat = (remat_policy_runs(torch, cfg, params, src.batch_at(0), dev,
+                                   host_ref=True)
+                 if arch in TRAIN_MOE_REMAT else None)
         del params, opt
         gc.collect()
         torch.cuda.empty_cache()
@@ -8036,6 +8201,21 @@ def train_moe_full(torch, seed: int, dev) -> dict:
             and x["expert_backward"] == x["expected"]["expert_backward"]
             and x["same_queues"] for x in steps)
         r["memory_ok"] = r["over_params_and_grads"] < leaf_bytes
+        r["roofline"] = step_roofline(cfg, b, t, step_ms)
+        if remat is not None:
+            for p in REMAT_POLICIES:
+                ex = moe_b1_per_step(cfg, remat[p]["reads"])
+                if p == "dots":   # the products kept: the experts recompute
+                    n_moe = len(remat[p]["reads"]) // 2
+                    ex["recompute"] = 3 * sum(
+                        sum(n > 0 for n in q)
+                        for q, _ in remat[p]["reads"][n_moe:])
+                remat[p]["expected"] = {k: ex[k] for k in (
+                    "forward", "recompute", "backward")}
+            remat["launches_ok"] = all(
+                remat[p]["launches"] == remat[p]["expected"]
+                for p in REMAT_POLICIES)
+            r["remat"] = remat
         out[arch] = r
         ex = steps[-1]["expected"]
         print(f"    9f-c {arch} full width, {layers} layer(s) "
@@ -8073,6 +8253,15 @@ def train_moe_full(torch, seed: int, dev) -> dict:
               f"{bwd['plain_ms']:.3f}, the W[e]t copies alone "
               f"{bwd['transpose_ms']:.3f}; bound {bwd['bound_ms']:.3f} by "
               f"{bwd['bound_by']})", flush=True)
+        card = card_name_and_limit()
+        if remat is not None:
+            for line in policy_lines(f"9f-c {arch}", remat):
+                print(line)
+            print(f"    9f-c {arch} B1 launches expected "
+                  f"{ {p: remat[p]['expected'] for p in REMAT_POLICIES} }"
+                  f" (the recompute's non-empty experts x 3 under 'dots'): "
+                  f"{remat['launches_ok']}", flush=True)
+        print(roofline_line(f"9f-c {arch}", r["roofline"], card), flush=True)
     return out
 
 
@@ -10287,6 +10476,18 @@ def main() -> int:
              f"expected {want} ({TRAIN_FWD_LAUNCHES} forward + "
              f"{TRAIN_RECOMPUTE_LAUNCHES} recompute + {TRAIN_BWD_LAUNCHES} "
              f"backward a step), no other matmul kernel")
+    remat = train["remat"]
+    want = {"nothing": dict(forward=TRAIN_FWD_LAUNCHES,
+                            recompute=TRAIN_RECOMPUTE_LAUNCHES,
+                            backward=TRAIN_BWD_LAUNCHES),
+            "dots": dict(forward=TRAIN_FWD_LAUNCHES, recompute=0,
+                         backward=TRAIN_BWD_LAUNCHES)}
+    if not remat["bit_equal"] or any(remat[p]["launches"] != want[p]
+                                     for p in REMAT_POLICIES):
+        fail(f"phase 9d: under remat_policy 'dots' a grad leaf differs from "
+             f"'nothing' (bit-equal: {remat['bit_equal']}) or B1's launches "
+             f"{ {p: remat[p]['launches'] for p in REMAT_POLICIES} } are "
+             f"not {want}")
     report["train"] = dict(matmul=train_rows, totals=totals,
                            smoke=train_smoke, launcher=train_cli, full=train)
     phase_done("phase 9")
@@ -10358,6 +10559,15 @@ def main() -> int:
              f"expert counts imply (or a recompute that routed otherwise), or "
              f"peak memory over params + grads not below the largest expert "
              f"leaf, in {bad}")
+    bad = {a: dict(bit_equal=moe_full[a]["remat"]["bit_equal"],
+                   launches_ok=moe_full[a]["remat"]["launches_ok"])
+           for a in TRAIN_MOE_REMAT
+           if not (moe_full[a]["remat"]["bit_equal"]
+                   and moe_full[a]["remat"]["launches_ok"])}
+    if bad:
+        fail(f"phase 9f-c: under remat_policy 'dots' a grad leaf differs from "
+             f"'nothing', or B1's recompute launches are not 3 a non-empty "
+             f"expert of the recompute's counts, in {bad}")
     moe_step = moe_full["arctic-480b"]["expert_backward_step"]
     report["train_moe"] = dict(kernels=moe_grad_rows, smoke=moe_smoke,
                                full=moe_full)
@@ -10574,16 +10784,19 @@ def main() -> int:
     # B1 on the training path, per full-width phase-9d step (phase 9a's
     # rows): the forward and its remat recompute, and the backward (dX +
     # dW; the transposes' copies apart); launches are phase 9d's
-    for name, part, launches in (
+    dots = remat["dots"]["launches"]
+    for name, part, launches, dots_launches in (
             ("apr_matmul_train", "fwd",
-             train_launches["apr_matmul"] - train_launches["backward"]),
+             train_launches["apr_matmul"] - train_launches["backward"],
+             dots["forward"] + dots["recompute"]),
             ("apr_matmul_train_backward", "bwd",
-             train_launches["backward"])):
+             train_launches["backward"], dots["backward"])):
         t = totals[part]
         entry = dict(
             name=name, route="cuda", source=mm_src,
             replaces="src/repro/kernels/apr_matmul/kernel.py:139",
-            **by_path(**{"phase 9d": launches}),
+            **by_path(**{"phase 9d": launches,
+                         "phase 9d remat_policy 'dots'": dots_launches}),
             max_abs_err=(errs["apr_matmul_wide"] if part == "fwd"
                          else totals["max_abs_err"]), ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],

@@ -28,8 +28,9 @@ operands resolve under the JAX package's keys at dtype ``float32``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -594,6 +595,85 @@ apr_matmul.split_launches = {}
 apr_matmul.int8_tile_launches = {}
 
 
+class ProductTape:
+    """The outputs of one checkpointed block's training products (each
+    :class:`AprMatmulFunction`), for the ``"dots"`` remat policy, the port
+    of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: every
+    product without a batch dimension is kept, the rest of the block is
+    recomputed in the backward.
+
+    :meth:`contexts` is ``torch.utils.checkpoint``'s ``context_fn``.  The
+    block's forward runs under the first context: each product launches and
+    its output is kept (``None`` for a product under :func:`not_residual`).
+    The backward's recompute runs under the second: each product returns
+    its kept output, in call order, and launches nothing.  The kernel's
+    bits depend on the shape alone, so a kept output equals its recompute.
+    The MoE experts' products run inside ``ExpertMatmulFunction`` (grad
+    mode off, no ``AprMatmulFunction``) and never reach the tape: they are
+    recomputed, as JAX recomputes its batched ``"ecd,edf->ecf"``."""
+
+    def __init__(self):
+        self.outputs: List[Optional[torch.Tensor]] = []
+        self._replay: Optional[int] = None   # next output, while replaying
+        self._residual = True
+
+    def contexts(self):
+        return _Taping(self, False), _Taping(self, True)
+
+    def product(self, x: torch.Tensor, w: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+        if self._replay is None:
+            y = apr_matmul(x, w, out_dtype=out_dtype)
+            self.outputs.append(y.detach() if self._residual else None)
+            return y
+        y = self.outputs[self._replay]
+        self._replay += 1
+        if y is None:   # the backward never reads it
+            return torch.empty((x.shape[0], w.shape[1]), dtype=out_dtype,
+                               device=x.device)
+        return y.detach()
+
+
+#: the tape of the block being run under the "dots" policy, if any
+_TAPE: Optional[ProductTape] = None
+
+
+class _Taping:
+    """``tape`` made the active one, recording or replaying from its first
+    output: a context that can be entered again (a second backward through
+    a retained graph recomputes again)."""
+
+    def __init__(self, tape: ProductTape, replay: bool):
+        self.tape, self.replay = tape, replay
+
+    def __enter__(self):
+        global _TAPE
+        self._outer, _TAPE = _TAPE, self.tape
+        self.tape._replay = 0 if self.replay else None
+
+    def __exit__(self, *exc):
+        global _TAPE
+        _TAPE, self.tape._replay = self._outer, None
+
+
+@contextlib.contextmanager
+def not_residual(on: bool = True):
+    """With ``on``, the products run inside are no residuals of the block
+    being taped: the backward never reads their outputs (a block's closing
+    projection, only added into the block's output), so the tape neither
+    keeps them nor recomputes them, as JAX's remat drops them.  Without a
+    tape it does nothing."""
+    tape = _TAPE
+    if not on or tape is None:
+        yield
+        return
+    outer, tape._residual = tape._residual, False
+    try:
+        yield
+    finally:
+        tape._residual = outer
+
+
 class AprMatmulFunction(torch.autograd.Function):
     """:func:`apr_matmul` under autograd, for training: the forward is
     ``apr_matmul(x, w, out_dtype=out_dtype)``, and both products of the
@@ -608,13 +688,16 @@ class AprMatmulFunction(torch.autograd.Function):
     bodies, as the forward's dtypes pick them) or raise; CPU tensors run
     the same three products through :func:`matmul_ref`.  Only plain
     tensors: an int8 weight has no gradient (:func:`apr_matmul_grad`
-    refuses one)."""
+    refuses one).  Inside a block taped for the ``"dots"`` remat policy
+    the forward goes through :meth:`ProductTape.product`."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, w: torch.Tensor,
                 out_dtype: torch.dtype) -> torch.Tensor:
         ctx.save_for_backward(x, w)
-        return apr_matmul(x, w, out_dtype=out_dtype)
+        if _TAPE is None:
+            return apr_matmul(x, w, out_dtype=out_dtype)
+        return _TAPE.product(x, w, out_dtype)
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):

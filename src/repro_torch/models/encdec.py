@@ -97,7 +97,8 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor
     non-causal self-attention without rotary, then the GELU MLP, each
     after an RMS norm, and a final norm.  Under a gradient each layer is
     recomputed in the backward when ``cfg.remat``
-    (:func:`.layers.remat_wanted`), as in JAX."""
+    (:func:`.layers.remat_wanted`; all of it, whatever
+    ``cfg.remat_policy`` says), as in JAX."""
     remat = remat_wanted(cfg, params)
     f = frames.shape[1]
     x = frames.to(torch.bfloat16) + params["pos_enc"][:f][None]
@@ -143,8 +144,8 @@ def encdec_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Teacher-forced forward: logits (B, T, V) over the decoder positions
     of ``tokens`` (B, T), attending to the encoded ``frames``.  Under a
     gradient each decoder layer (its cross K/V of the encoder output
-    included) is recomputed in the backward when ``cfg.remat``, as in
-    JAX."""
+    included) is recomputed in the backward when ``cfg.remat`` (all of
+    it, whatever ``cfg.remat_policy`` says), as in JAX."""
     enc_out = encode(params, cfg, frames)
     remat = remat_wanted(cfg, params)
     x = _embed(params, tokens)

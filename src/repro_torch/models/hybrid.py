@@ -96,8 +96,8 @@ def hybrid_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     super-block's mamba layers, then the shared attention (causal over the
     sequence), then the tail (the JAX ``hybrid_forward`` unrolled).  Under
     a gradient each super-block is recomputed in the backward when
-    ``cfg.remat`` (:func:`.layers.remat_wanted`), the tail not, as in
-    JAX."""
+    ``cfg.remat`` (:func:`.layers.remat_wanted`; all of it, whatever
+    ``cfg.remat_policy`` says), the tail not, as in JAX."""
     remat = remat_wanted(cfg, params)
     x = params["embed"][tokens.long()]
     b, s = tokens.shape

@@ -23,8 +23,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..kernels.apr_matmul import apr_matmul, apr_matmul_grad, matmul_ref, \
-    needs_grad
+from ..kernels.apr_matmul import ProductTape, apr_matmul, apr_matmul_grad, \
+    matmul_ref, needs_grad, not_residual
 from ..kernels.flash_decode import flash_decode, flash_decode_paged
 from ..quant import QuantizedTensor, quantize_channelwise
 
@@ -83,25 +83,25 @@ def grad_wanted(*tensors: torch.Tensor) -> bool:
 
 def remat_wanted(cfg: ModelConfig, params: Params) -> bool:
     """Whether a model's blocks run under ``torch.utils.checkpoint``: under
-    ``cfg.remat`` with a gradient to compute (:func:`requires_grad`), the
-    port of ``jax.checkpoint`` with the ``nothing_saveable`` policy
-    (``cfg.remat_policy == "nothing"``; the others are refused by
-    name)."""
-    remat = cfg.remat and requires_grad(params)
-    if remat and cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported; the port "
-            "recomputes with the 'nothing' policy (jax.checkpoint's "
-            "nothing_saveable)")
-    return remat
+    ``cfg.remat`` with a gradient to compute (:func:`requires_grad`).  What
+    a block keeps is the caller's: only the dense, moe and vlm super-blocks
+    read ``cfg.remat_policy`` (``lm.remat_policy``), as in JAX, where every
+    other family checkpoints with ``nothing_saveable`` whatever it says."""
+    return cfg.remat and requires_grad(params)
 
 
-def rematerialised(remat: bool, fn, *args):
+def rematerialised(remat: bool, fn, *args, dots: bool = False):
     """``fn(*args)``, its activations recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant) when ``remat``."""
-    if remat:
-        return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    (``torch.utils.checkpoint``, non-reentrant) when ``remat``: all of them
+    (``jax.checkpoint``'s ``nothing_saveable``), or with ``dots`` all but
+    the outputs of its products, which a :class:`ProductTape` keeps
+    (``dots_with_no_batch_dims_saveable``)."""
+    if not remat:
+        return fn(*args)
+    if dots:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=ProductTape().contexts)
+    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def use_scan_kernel(x: torch.Tensor) -> bool:
@@ -279,10 +279,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def swiglu(x: torch.Tensor, w_gate: Weight, w_up: Weight,
-           w_down: Weight) -> torch.Tensor:
+           w_down: Weight, *, closing: bool = False) -> torch.Tensor:
+    """``tp_einsum(silu(x @ w_gate) * (x @ w_up), w_down)``.  ``closing``
+    marks a block's last FFN, whose output is only added into the block's
+    output: under the ``"dots"`` policy its ``w_down`` product is then
+    neither kept nor recomputed (:func:`not_residual`)."""
     g = linear(x, w_gate)
     u = linear(x, w_up)
-    return tp_einsum(silu(g) * u, w_down)
+    with not_residual(closing):
+        return tp_einsum(silu(g) * u, w_down)
 
 
 def attn_params(prefix: str, cfg: ModelConfig,

@@ -12,7 +12,8 @@ and super-block ``sb`` uses the (K, N) slice ``[sb]`` as it lies in memory;
 any matmul weight may be an int8 ``QuantizedTensor`` (the MoE router stays
 full precision).  The layers run unrolled, super-block by super-block, in
 the JAX ``_super_block``'s order; ``lm_forward`` is differentiable (the
-training path), with each super-block rematerialised under ``cfg.remat``.
+training path), with each super-block rematerialised under ``cfg.remat``
+as ``cfg.remat_policy`` says (:func:`remat_policy`).
 """
 from __future__ import annotations
 
@@ -147,21 +148,43 @@ def _super_blocks(params: Params, cfg: ModelConfig
         yield sb, tuple(layers)
 
 
+def remat_policy(cfg: ModelConfig, pctx=None) -> str:
+    """What a checkpointed super-block keeps on this device, as the JAX
+    ``_remat_policy`` maps ``cfg.remat_policy``: ``"dots"`` keeps the
+    outputs of its products without batch dimensions
+    (``dots_with_no_batch_dims_saveable``); ``"save_coll"`` keeps the
+    values named ``moe_a2a``, the expert-parallel all-to-alls, which only
+    a mesh has, so on one device it keeps nothing, as ``"nothing"`` does
+    and as every other name does.  ``"save_coll"`` over a parallel context
+    with a mesh is refused by name."""
+    if cfg.remat_policy == "dots":
+        return "dots"
+    if cfg.remat_policy == "save_coll" and \
+            getattr(pctx, "mesh", None) is not None:
+        raise NotImplementedError(
+            "remat_policy 'save_coll' over a mesh keeps the expert-parallel "
+            "all-to-alls (moe_a2a), which need expert parallelism over "
+            "several cards (ROADMAP A.12); not ported")
+    return "nothing"
+
+
 def _super_block(cfg: ModelConfig, attend, sb: int,
                  layers: Tuple[Params, ...], x: torch.Tensor) -> torch.Tensor:
     """Super-block ``sb``'s ``moe_every`` layers on ``x``, the JAX
     ``_super_block``: ``attend((sb, j), layer_params, h)`` is layer ``(sb,
     j)``'s attention on the normed input; the MoE layer's FFN is
-    ``moe_block``."""
+    ``moe_block``.  The last layer's FFN is the block's closing one
+    (``swiglu``'s ``closing``)."""
     for j, lp in enumerate(layers):
+        closing = j == len(layers) - 1
         h = rms_norm(x, lp["ln1"] + 1.0, cfg.norm_eps)
         x = x + attend((sb, j), lp, h)
         h = rms_norm(x, lp["ln2"] + 1.0, cfg.norm_eps)
         if _is_moe(cfg, j):
-            x = x + moe_block(lp, "moe", cfg, h)
+            x = x + moe_block(lp, "moe", cfg, h, closing=closing)
         else:
             x = x + swiglu(h, lp["mlp.w_gate"], lp["mlp.w_up"],
-                           lp["mlp.w_down"])
+                           lp["mlp.w_down"], closing=closing)
     return x
 
 
@@ -170,22 +193,24 @@ def _decoder(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                               torch.Tensor],
              last_only: bool = False,
              prefix_embeds: Optional[torch.Tensor] = None,
-             remat: bool = False) -> torch.Tensor:
+             remat: bool = False, pctx=None) -> torch.Tensor:
     """Embed (after ``prefix_embeds``, when given), run every super-block
     (:func:`_super_block`), final norm and head (on the last position
     alone with ``last_only``).  With ``remat`` and a gradient to compute
     (:func:`.layers.remat_wanted`) each super-block runs under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in the backward, the port of ``jax.checkpoint`` with the
-    ``nothing_saveable`` policy."""
+    ``torch.utils.checkpoint`` (non-reentrant), the port of
+    ``jax.checkpoint`` under :func:`remat_policy`: its activations are
+    recomputed in the backward, all of them or, under ``"dots"``, all but
+    its products' outputs."""
     _check_family(cfg)
     remat = remat and remat_wanted(cfg, params)
+    dots = remat and remat_policy(cfg, pctx) == "dots"
     x = params["embed"][tokens.long()]
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     for sb, layers in _super_blocks(params, cfg):
         x = rematerialised(remat, _super_block, cfg, attend, sb, layers,
-                           x)
+                           x, dots=dots)
     if last_only:
         x = x[:, -1:]
     x = rms_norm(x, params["final_norm"] + 1.0, cfg.norm_eps)
@@ -202,19 +227,22 @@ def _length(tokens: torch.Tensor, prefix_embeds) -> int:
 
 
 def lm_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-               prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+               prefix_embeds: Optional[torch.Tensor] = None,
+               pctx=None) -> torch.Tensor:
     """Logits (B, S, V) of the whole sequence: ``prefix_embeds`` (B, Nv, d)
     (the vlm's vision embeddings, any LM family's stub prefix) then the
     embedded ``tokens`` (B, T), S = Nv + T, positions over the whole
     sequence, every layer's attention causal over it (the JAX
     ``lm_forward`` with its layers unrolled; under a gradient, each
     super-block recomputed in the backward when ``cfg.remat``, as the JAX
-    forward wraps it in ``jax.checkpoint``)."""
+    forward wraps it in ``jax.checkpoint`` under ``cfg.remat_policy``).
+    ``pctx`` is the JAX function's parallel context; over one with a mesh
+    ``"save_coll"`` is refused (:func:`remat_policy`)."""
     positions = _positions(tokens.shape[0], _length(tokens, prefix_embeds),
                            tokens.device)
     return _decoder(params, cfg, tokens, lambda sj, lp, h: attention(
         lp, "attn", cfg, h, positions), prefix_embeds=prefix_embeds,
-        remat=cfg.remat)
+        remat=cfg.remat, pctx=pctx)
 
 
 def lm_prefill(params: Params, cfg: ModelConfig, tokens: torch.Tensor,

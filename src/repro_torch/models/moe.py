@@ -318,11 +318,12 @@ def moe_ffn_local(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
 
 
 def moe_block(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
-              pctx=None) -> torch.Tensor:
+              pctx=None, *, closing: bool = False) -> torch.Tensor:
     """x: (B, T, d).  Every row routes (padded ones too); arctic's dense
     residual (``res_*``) is added after the experts' combine, as
-    ``moe_out + swiglu(x)``.  A parallel context with a mesh is refused:
-    the expert-parallel path is not ported."""
+    ``moe_out + swiglu(x)`` (``closing`` passed on to it: the block's last
+    FFN).  A parallel context with a mesh is refused: the expert-parallel
+    path is not ported."""
     if pctx is not None and getattr(pctx, "mesh", None) is not None:
         raise NotImplementedError(
             "expert parallelism over a mesh (moe_block with a mesh) is not "
@@ -331,5 +332,5 @@ def moe_block(p: Params, prefix: str, cfg: ModelConfig, x: torch.Tensor,
     out = moe_ffn_local(p, prefix, cfg, x.reshape(b * t, d)).reshape(b, t, d)
     if cfg.dense_residual_ff:
         out = out + swiglu(x, p[f"{prefix}.res_gate"], p[f"{prefix}.res_up"],
-                           p[f"{prefix}.res_down"])
+                           p[f"{prefix}.res_down"], closing=closing)
     return out

@@ -63,8 +63,9 @@ def rwkv_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                  chunk: int = 64) -> torch.Tensor:
     """Logits (B, T, V) of the whole sequence ``tokens`` (B, T); under a
     gradient each layer recomputed in the backward when ``cfg.remat``
-    (:func:`.layers.remat_wanted`), as the JAX forward wraps it in
-    ``jax.checkpoint``."""
+    (:func:`.layers.remat_wanted`), all of it whatever
+    ``cfg.remat_policy`` says, as the JAX forward wraps it in
+    ``jax.checkpoint`` with ``nothing_saveable``."""
     remat = remat_wanted(cfg, params)
     x = params["embed"][tokens.long()]
     for lp in _layers(params, cfg):

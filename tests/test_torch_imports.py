@@ -106,6 +106,8 @@ def test_package_imports_without_jax():
             "repro_torch.checkpoint", "repro_torch.checkpoint.manager",
             "repro_torch.runtime", "repro_torch.runtime.fault_tolerance",
             "repro_torch.launch.train"} <= set(lines)
+    # the one-device roofline
+    assert "repro_torch.roofline.analysis" in lines
 
 
 def test_graph_compiler_works_without_jax():

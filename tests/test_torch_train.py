@@ -217,9 +217,10 @@ def test_serving_makes_the_calls_it_made_before(monkeypatch):
 
 
 def test_remat_recomputes_the_same_gradients(llama):
-    """``cfg.remat`` (each super-block under ``torch.utils.checkpoint``)
-    and no remat give the same loss and gradients bit for bit; serving
-    (no gradient) never enters the checkpoint."""
+    """``cfg.remat`` (each super-block under ``torch.utils.checkpoint``),
+    the same under ``remat_policy="dots"`` (the products kept) and no remat
+    give the same loss and gradients bit for bit; serving (no gradient)
+    never enters the checkpoint."""
     _, tp = _both(llama["base"], "float32")
     batch = llama["batches"][0]
     cfg = get_config(ARCH, smoke=True)
@@ -234,8 +235,10 @@ def test_remat_recomputes_the_same_gradients(llama):
         assert torch.equal(g1[k], g2[k]), k
     bundle = build_model(dataclasses.replace(cfg, remat_policy="dots"),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="remat_policy 'dots'"):
-        tstep.loss_and_grads(bundle, tp, batch)
+    l3, g3 = tstep.loss_and_grads(bundle, tp, batch)
+    assert torch.equal(l3, l1)
+    for k in g1:
+        assert torch.equal(g3[k], g1[k]), k
     bundle.forward(tp, torch.from_numpy(batch["tokens"]))   # serving: fine
 
 

@@ -173,8 +173,9 @@ def test_train_step_runs_the_smoke_configs_and_refuses_moe():
     """Three AdamW steps of each smoke config (bf16) with finite losses
     that fall; an moe config's train step is made (the family trains:
     ``tests/test_torch_train_moe.py``), and under the ``"dots"`` or
-    ``"save_coll"`` remat policy it is refused by name at its first step
-    (ROADMAP A.13-1b, A.12)."""
+    ``"save_coll"`` remat policy its first step equals the ``"nothing"``
+    policy's bit for bit (on one device ``"save_coll"`` keeps nothing;
+    ``"dots"`` keeps the products, which equal their recompute)."""
     hyper = tstep.TrainHyper(peak_lr=1e-2, warmup=1, total_steps=10)
     for name in ARCHS:
         cfg = get_config(name, smoke=True)
@@ -194,13 +195,17 @@ def test_train_step_runs_the_smoke_configs_and_refuses_moe():
     batch = JSyntheticLMSource(jax_get_config("arctic-480b", smoke=True),
                                JShapeSpec("t", *SHAPE, "train")).batch_at(0)
     params = build_model(cfg, device="cpu").init_params()
-    tstep.make_train_step(build_model(cfg, device="cpu"), hyper)
-    for policy in ("dots", "save_coll"):
+    stepped = []
+    for policy in ("nothing", "dots", "save_coll"):
         bundle = build_model(dataclasses.replace(cfg, remat_policy=policy),
                              device="cpu")
         step = tstep.make_train_step(bundle, hyper)
-        with pytest.raises(NotImplementedError, match=repr(policy)):
-            step(params, tstep.init_optimizer(cfg, params), batch, 0)
+        stepped.append(step(params, tstep.init_optimizer(cfg, params),
+                            batch, 0))
+    (p0, _, m0), *others = stepped
+    for p1, _, m1 in others:
+        assert all(torch.equal(m0[k], m1[k]) for k in m0)
+        assert all(torch.equal(p0[k], p1[k]) for k in p0)
 
 
 def test_launcher_trains_a_recurrent_arch_on_the_cpu(tmp_path):
